@@ -1,0 +1,68 @@
+"""Carry weights and state across from the JAX reference, as numpy.
+
+Both packages then compute on the same numbers: torch and JAX draw
+different values from one seed, so parity tests make their inputs once
+(the reference's ``init_params``, numpy events) and convert them here.
+Floating leaves become float32 at this boundary (numpy defaults to
+float64), integer counters int32, masks bool.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .core.engine import LayerState
+from .core.snn import SNNConfig, StreamState
+
+
+def _f32(a, device) -> torch.Tensor:
+    # torch.tensor copies: the result never aliases (possibly read-only)
+    # numpy memory, since lane surgery writes state in place
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.int32), device=device)
+
+
+def params_from_numpy(np_params: Mapping[str, Any], cfg: SNNConfig,
+                      device="cuda") -> dict:
+    """The reference's stacked ``init_params`` output (``hidden/{w,mask}``,
+    ``readout``) as torch tensors on ``device``."""
+    w = _f32(np_params["hidden"]["w"], device)
+    mask = torch.tensor(np.asarray(np_params["hidden"]["mask"], bool),
+                        device=device)
+    readout = _f32(np_params["readout"], device)
+    if w.shape[0] != cfg.n_layers or readout.shape != (
+            cfg.n_layers, cfg.n_hidden, cfg.n_out):
+        raise ValueError(f"params do not fit {cfg}: w {tuple(w.shape)}, "
+                         f"readout {tuple(readout.shape)}")
+    return {"hidden": {"w": w, "mask": mask}, "readout": readout}
+
+
+def serving_params_from_numpy(np_params: Mapping[str, Any],
+                              device="cuda") -> dict:
+    """The reference's mask-free serving rep ``{"wc", "idx", "readout"}``."""
+    return {"wc": _f32(np_params["wc"], device),
+            "idx": _i32(np_params["idx"], device),
+            "readout": _f32(np_params["readout"], device)}
+
+
+def stream_state_from_numpy(np_state: Any, device="cuda") -> StreamState:
+    """The reference's ``StreamState`` (leaves as numpy, slot-leading)."""
+    layers = LayerState(*(_f32(getattr(np_state.layers, f), device)
+                          for f in LayerState._fields))
+    return StreamState(layers=layers, x_tr=_f32(np_state.x_tr, device),
+                       ss_mean=_f32(np_state.ss_mean, device),
+                       t_in_window=_i32(np_state.t_in_window, device),
+                       sample_idx=_i32(np_state.sample_idx, device))
+
+
+def deltas_from_numpy(np_deltas: Any, device="cuda") -> torch.Tensor:
+    """Compact per-stream deltas ``[S, L, J, T, bk, bo]``."""
+    d = _f32(np_deltas, device)
+    if d.dim() != 6:
+        raise ValueError(f"compact deltas are rank 6, got {tuple(d.shape)}")
+    return d

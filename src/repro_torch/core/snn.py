@@ -1,0 +1,228 @@
+"""ElfCore's spiking network: config, parameters and the serving chunk step
+(``repro.core.snn``).
+
+Parameter layout (stacked; one leaf per role, leading layer axis)::
+
+    params = {
+      "hidden": {"w":    f32[L, Kmax, n_hidden],   # masked base weights
+                 "mask": bool[L, KBmax, J]},       # N:M unit masks
+      "readout": f32[L, n_hidden, n_out],          # bypass readouts
+    }
+
+:func:`serving_params` turns it into the mask-free serving rep
+``{"wc" [L,J,T,bk,bo], "idx" [L,J,T], "readout"}`` that :func:`run_chunk`
+consumes. Stream state and deltas are slot-leading (``[S, L, ...]``) so
+lane surgery slices the leading axis; the engine works layer-leading.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from . import engine
+from . import gating as gating_lib
+from .dsst import DSSTConfig
+from .engine import LayerState
+from .sparsity import NMSpec, apply_mask, paper_spec_4groups, random_unit_mask
+
+
+@dataclasses.dataclass(frozen=True)
+class SNNConfig:
+    n_in: int = 512
+    n_hidden: int = 512
+    n_layers: int = 2          # hidden layers (bypass keeps output wired)
+    n_out: int = 16
+    t_steps: int = 50          # timesteps per sample
+    # neuron dynamics
+    alpha: float = 0.9         # membrane decay
+    beta: float = 0.85         # trace decay
+    theta: float = 1.0         # firing threshold (soft reset)
+    surrogate_width: float = 1.0
+    # learning
+    lr: float = 0.02           # hidden OSSL rate
+    lr_out: float = 0.1        # SL readout rate
+    cc_weight: float = 1.0     # contrastive term weight
+    pc_snapshot_frac: float = 0.5   # TS (fraction of T) at which tr_pc is latched
+    wu_start_frac: float = 0.6      # WU runs on late TSs (traces must be formed)
+    # sparsity
+    sparsity: float = 0.8
+    dense: bool = False        # dense baseline (Fig. 5/7 comparisons)
+    dsst: DSSTConfig = dataclasses.field(default_factory=lambda: DSSTConfig(period=40, prune_frac=0.25))
+    dsst_enabled: bool = True  # False = static sparse training baseline
+    # gating
+    gating: gating_lib.GatingConfig = dataclasses.field(default_factory=gating_lib.GatingConfig)
+    # compute backend of the timestep engine (core/engine.py): "ref" (plain
+    # torch LIF) or "kernels" (the fused LIF kernel on CUDA tensors)
+    backend: str = "ref"
+
+    def spec(self, fan_in: int) -> NMSpec:
+        if self.dense:
+            return NMSpec(n=4, m=4)  # degenerate: keep everything, 4 "groups"
+        return paper_spec_4groups(fan_in, self.sparsity)
+
+    @property
+    def layer_fanins(self):
+        return [self.n_in] + [self.n_hidden] * (self.n_layers - 1)
+
+
+# ---------------------------------------------------------------------------
+# parameters and state
+# ---------------------------------------------------------------------------
+
+def init_params(seed: Union[int, torch.Generator], cfg: SNNConfig,
+                device="cuda") -> Dict[str, Any]:
+    """Random weights at target sparsity from step 0 (sparse-to-sparse).
+
+    Drawn on the CPU from ``seed`` (an int or a ``torch.Generator``), then
+    moved to ``device``, so a seed gives the same weights on every device.
+    Torch and JAX draw different numbers from one seed: to compute on the
+    reference's weights, convert them with ``convert.params_from_numpy``.
+    """
+    gen = seed if isinstance(seed, torch.Generator) else \
+        torch.Generator().manual_seed(int(seed))
+    geo = engine.geometry(cfg)
+    ws, masks = [], []
+    for fan_in in cfg.layer_fanins:
+        spec = cfg.spec(fan_in)
+        w = torch.randn((fan_in, cfg.n_hidden), generator=gen) \
+            * (1.5 / math.sqrt(fan_in * spec.density))
+        mask = random_unit_mask(gen, spec, fan_in, cfg.n_hidden)
+        ws.append(engine._pad_rows(apply_mask(w, mask, spec), geo.k_max))
+        masks.append(engine._pad_rows(mask, geo.k_max))
+    readout = torch.stack([
+        torch.randn((cfg.n_hidden, cfg.n_out), generator=gen) * 0.05
+        for _ in range(cfg.n_layers)])
+    return {"hidden": {"w": torch.stack(ws).to(device),
+                       "mask": torch.stack(masks).to(device)},
+            "readout": readout.to(device)}
+
+
+class StreamState(NamedTuple):
+    layers: LayerState               # leaves [S, L, N] (slot axis leads)
+    x_tr: torch.Tensor               # [S, n_in]
+    ss_mean: torch.Tensor            # [S, L] per-stream adaptive SS threshold
+    t_in_window: torch.Tensor        # [S] int32, position inside the T-window
+    sample_idx: torch.Tensor         # [S] int32, windows completed
+
+
+def init_stream_state(cfg: SNNConfig, n_slots: int,
+                      device="cuda") -> StreamState:
+    layers = LayerState(*(torch.zeros((n_slots, cfg.n_layers, cfg.n_hidden),
+                                      device=device) for _ in range(4)))
+    return StreamState(
+        layers=layers,
+        x_tr=torch.zeros((n_slots, cfg.n_in), device=device),
+        ss_mean=torch.full((n_slots, cfg.n_layers), cfg.gating.ss_init,
+                           dtype=torch.float32, device=device),
+        t_in_window=torch.zeros((n_slots,), dtype=torch.int32, device=device),
+        sample_idx=torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    )
+
+
+def init_stream_deltas(cfg: SNNConfig, n_slots: int,
+                       device="cuda") -> torch.Tensor:
+    """Per-stream compact deltas ``[S, L, J, T, bk, bo]`` over the frozen
+    shared base: storage scales with density, not ``K·N``. The dense
+    ``[S, L, Kmax, N]`` fallback for non-uniform fan-ins is not ported yet."""
+    geo = engine.geometry(cfg)
+    if not geo.uniform:
+        raise NotImplementedError(
+            "compact stream deltas require uniform layer fan-in "
+            f"(got {geo.fanins}); the dense delta layout is not ported yet")
+    spec = cfg.spec(geo.fanins[0])
+    return torch.zeros((n_slots, cfg.n_layers, cfg.n_hidden // spec.out_tile,
+                        engine.compact_kept(cfg), spec.block, spec.out_tile),
+                       device=device)
+
+
+def serving_params(params: Dict[str, Any], cfg: SNNConfig) -> Dict[str, Any]:
+    """Dense training params -> the mask-free serving rep
+    ``{"wc" [L,J,T,bk,bo], "idx" [L,J,T] int32, "readout" [L,N,n_out]}``."""
+    wrep = engine.compact_weights(params["hidden"]["w"],
+                                  params["hidden"]["mask"], cfg)
+    return {**wrep, "readout": params["readout"]}
+
+
+class ChunkMetrics(NamedTuple):
+    """Per-chunk serving metrics; every per-stream leaf keeps its slot axis.
+    The DSST factor fields are None when the chunk ran without factors."""
+    logits: torch.Tensor          # [C, S, n_out] per-timestep readout
+    window_end: torch.Tensor      # [C, S] bool: logits here close a T-window
+    sop_forward: torch.Tensor     # [S]
+    sop_wu: torch.Tensor          # [S]
+    sop_wu_offered: torch.Tensor  # [S]
+    gate_opened: torch.Tensor     # [S, L]
+    gate_offered: torch.Tensor    # [S, L]
+    local_loss: torch.Tensor      # [S] summed OSSL loss over late TSs
+    steps: torch.Tensor           # [S] valid timesteps processed
+    pre_mag: Optional[torch.Tensor]   # [S, L, Kmax] summed |pre trace|
+    post_mag: Optional[torch.Tensor]  # [S, L, N] summed |OSSL modulator|
+
+
+def _swap(t: torch.Tensor) -> torch.Tensor:
+    """Slot-leading public layout <-> layer-leading engine layout."""
+    return t.transpose(0, 1)
+
+
+def run_chunk(params: Dict[str, Any], deltas: torch.Tensor,
+              state: StreamState, events: torch.Tensor, valid: torch.Tensor,
+              cfg: SNNConfig, *, learn: bool = True,
+              want_factors: bool = True
+              ) -> Tuple[torch.Tensor, StreamState, ChunkMetrics]:
+    """Advance S independent streams by up to C timesteps each.
+
+    Args:
+      params:  the mask-free serving rep from :func:`serving_params`, or the
+        dense training layout (compacted here, on every call).
+      deltas:  compact per-stream adaptation ``[S, L, J, T, bk, bo]``.
+      state:   carried :class:`StreamState` (slot-leading leaves).
+      events:  ``[C, S, n_in]`` f32 binary spikes.
+      valid:   ``[C, S]`` bool — ragged chunks / idle slots are exact no-ops.
+      learn:   gate the per-stream OSSL delta updates on/off.
+      want_factors: accumulate the DSST ``pre_mag``/``post_mag`` factors;
+        False leaves them out of the loop and returns them as None.
+
+    Returns fresh ``(deltas', state', metrics)`` of the input shapes and
+    dtypes; nothing passed in is written.
+    """
+    backend = engine.make_backend(cfg)
+    if deltas.dim() != 6:
+        raise NotImplementedError(
+            "only compact [S, L, J, T, bk, bo] deltas are ported; the dense "
+            "[S, L, Kmax, N] layout is not")
+    if events.dtype != torch.float32:
+        raise TypeError(f"events must be float32, got {events.dtype}")
+    wrep = ({"wc": params["wc"], "idx": params["idx"]} if "wc" in params
+            else engine.compact_weights(params["hidden"]["w"],
+                                        params["hidden"]["mask"], cfg))
+
+    (layers, x_tr, ss_mean, t_win, samp, dls, *accs), outs = engine.scan_chunk(
+        wrep, params["readout"], _swap(deltas),
+        LayerState(*(_swap(t) for t in state.layers)), state.x_tr,
+        _swap(state.ss_mean), state.t_in_window, state.sample_idx, events,
+        valid, cfg, backend, learn, want_factors)
+
+    new_state = StreamState(layers=LayerState(*(_swap(t) for t in layers)),
+                            x_tr=x_tr, ss_mean=_swap(ss_mean),
+                            t_in_window=t_win, sample_idx=samp)
+    metrics = ChunkMetrics(
+        logits=outs["logits"],
+        window_end=outs["at_end"],
+        sop_forward=outs["sop_fwd"].sum(0),
+        sop_wu=outs["sop_wu"].sum(0),
+        sop_wu_offered=outs["sop_wu_off"].sum(0),
+        gate_opened=outs["opened"].sum(0),
+        gate_offered=outs["offered"].sum(0),
+        local_loss=outs["loss"].sum(0),
+        steps=outs["steps"].sum(0),
+        pre_mag=_swap(accs[0]) if accs else None,
+        post_mag=_swap(accs[1]) if accs else None,
+    )
+    S = events.shape[1]
+    if metrics.logits.shape[1] != S or metrics.gate_opened.shape != (
+            S, cfg.n_layers):
+        raise AssertionError("chunk metrics lost their slot axis")
+    return _swap(dls), new_state, metrics

@@ -1,0 +1,1 @@
+"""Host-side launch helpers of the port (``SlotGrid``)."""

@@ -1,0 +1,84 @@
+"""Per-stream online OSSL adaptation under serving load (``repro.serving.adapt``).
+
+A frozen shared base plus ONE stacked per-stream compact delta tensor
+``[n_slots, n_layers, J, T, bk, bo]``; each slot's effective weights are
+``w_base + delta[slot]``, and the per-stream gates inside ``run_chunk``
+decide when a stream's delta absorbs an update. This module owns the step
+around ``run_chunk``: per-stream adapt on/off (a frozen lane keeps its delta
+across the step), delta hygiene (decay and clip on live lanes only), and the
+order-fixed slot reduction of the DSST factors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from ..core import engine
+from ..core.snn import ChunkMetrics, SNNConfig, StreamState, run_chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptConfig:
+    enabled: bool = True
+    delta_decay: float = 1.0     # per-chunk multiplicative decay (1.0 = off)
+    delta_clip: float = 0.5      # hard |delta| bound (0 = off)
+    lr_scale: float = 1.0        # scales cfg.lr for the serving path
+
+
+def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
+                  want_factors: bool = True):
+    """Build the slot-grid step.
+
+    Returns ``fn(params, deltas, state, events, valid, adapt_mask)`` ->
+    ``(deltas, state, metrics)``: ``events [C, S, n_in]`` f32, ``valid
+    [C, S]`` bool and ``adapt_mask [S]`` bool, on the params' device. The
+    step returns fresh tensors and writes none of its inputs.
+
+    ``want_factors`` (fixed at build time) controls the DSST activity
+    factors: when True, the engine accumulates per-slot ``pre_mag``/
+    ``post_mag`` and this step slot-reduces them on the device with the
+    order-fixed ``engine.ordered_slot_sum``, so metrics carry ``[L, Kmax]``
+    / ``[L, N]``; when False they are never computed.
+    """
+    adapt = adapt or AdaptConfig()
+    scfg = cfg if adapt.lr_scale == 1.0 else dataclasses.replace(
+        cfg, lr=cfg.lr * adapt.lr_scale)
+
+    @torch.no_grad()
+    def chunk_fn(params, deltas, state: StreamState, events, valid, adapt_mask
+                 ) -> Tuple[torch.Tensor, StreamState, ChunkMetrics]:
+        new_deltas, new_state, metrics = run_chunk(
+            params, deltas, state, events, valid, scfg, learn=adapt.enabled,
+            want_factors=want_factors)
+        d = new_deltas
+        if adapt.delta_decay < 1.0:
+            d = d * adapt.delta_decay
+        if adapt.delta_clip > 0.0:
+            d = torch.clamp(d, -adapt.delta_clip, adapt.delta_clip)
+        # decay/clip only touch lanes that processed valid timesteps this
+        # chunk; frozen AND idle lanes keep their old delta bit-exactly
+        live = adapt_mask & valid.any(0)                          # [S]
+        out = torch.where(live.reshape((-1,) + (1,) * (d.dim() - 1)), d,
+                          deltas)
+        # a frozen lane is neither billed nor offered weight updates
+        metrics = metrics._replace(
+            sop_wu=metrics.sop_wu * adapt_mask,
+            sop_wu_offered=metrics.sop_wu_offered * adapt_mask,
+            gate_opened=metrics.gate_opened * adapt_mask[:, None],
+            gate_offered=metrics.gate_offered * adapt_mask[:, None])
+        if want_factors:
+            metrics = metrics._replace(
+                pre_mag=engine.ordered_slot_sum(metrics.pre_mag),
+                post_mag=engine.ordered_slot_sum(metrics.post_mag))
+        return out, new_state, metrics
+
+    chunk_fn.want_factors = want_factors
+    return chunk_fn
+
+
+def delta_norms(deltas: torch.Tensor) -> torch.Tensor:
+    """Per-slot L2 norm of the adaptation, summed over layers. ``[S]``."""
+    sq = (deltas * deltas).sum(dim=tuple(range(2, deltas.dim())))
+    return torch.sqrt(sq).sum(1)

@@ -1,0 +1,101 @@
+"""The PyTorch port's configs and package boundary.
+
+No numeric tolerance here: config field names and defaults must equal the
+JAX reference's exactly, and the port must import neither ``jax`` nor
+anything of ``repro``.
+"""
+import ast
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro.core.dsst import DSSTConfig as JDSSTConfig
+from repro.core.gating import GatingConfig as JGatingConfig
+from repro.core.snn import SNNConfig as JSNNConfig
+from repro_torch.core import engine
+from repro_torch.core.dsst import DSSTConfig
+from repro_torch.core.gating import GatingConfig
+from repro_torch.core.snn import SNNConfig
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _plain(v):
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
+def _fields(cls):
+    out = []
+    for f in dataclasses.fields(cls):
+        default = (f.default_factory() if f.default is dataclasses.MISSING
+                   else f.default)
+        out.append((f.name, _plain(default)))
+    return out
+
+
+@pytest.mark.parametrize("ref,port", [(JSNNConfig, SNNConfig),
+                                      (JDSSTConfig, DSSTConfig),
+                                      (JGatingConfig, GatingConfig)],
+                         ids=["SNNConfig", "DSSTConfig", "GatingConfig"])
+def test_config_fields_and_defaults_match_reference(ref, port):
+    assert _fields(port) == _fields(ref)
+
+
+@pytest.mark.parametrize("fan_in,sparsity,dense", [(512, 0.8, False),
+                                                   (16, 0.8, False),
+                                                   (64, 0.5, True)])
+def test_spec_matches_reference(fan_in, sparsity, dense):
+    kw = dict(n_in=fan_in, n_hidden=fan_in, sparsity=sparsity, dense=dense)
+    assert dataclasses.asdict(SNNConfig(**kw).spec(fan_in)) == \
+        dataclasses.asdict(JSNNConfig(**kw).spec(fan_in))
+
+
+def test_backend_names():
+    assert engine.make_backend(SNNConfig()).name == "ref"
+    assert engine.make_backend(SNNConfig(backend="kernels")).use_kernels
+    with pytest.raises(ValueError):
+        engine.make_backend(SNNConfig(backend="pallas"))
+
+
+def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'repro' or k.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25      # every module was imported
+
+
+def test_no_source_file_imports_repro_or_jax():
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                if n.split(".")[0] in ("repro", "jax", "jaxlib"):
+                    offenders.append(f"{path.relative_to(ROOT)}:{node.lineno} {n}")
+    assert not offenders, offenders

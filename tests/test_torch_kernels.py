@@ -1,0 +1,239 @@
+"""The port's kernel packages against the JAX reference, on the same numpy
+inputs.
+
+Tolerances: f32 products ``atol = rtol = 1e-5`` — the two packages sum the
+same terms in different orders, so only the last bits may differ. bf16
+``5e-2``, the reference's own kernel-test tolerance: both round the f32 sum
+to an 8-bit mantissa. ``make_compact`` ids and ``wu_outer_slots`` must be
+bitwise equal: a stable argsort and elementwise products in one fixed
+association leave nothing to round differently. The LIF step in f32:
+``1e-4``, the reference's kernel-sweep tolerance (only an FMA contraction
+may differ); in bf16 ``5e-2``: XLA keeps the fused intermediates in f32
+while torch rounds every operation to bf16, one bf16 ulp apart at
+``|v| <= 4``.
+
+Tests marked ``cuda`` run the hand-written kernels against their plain
+versions on the card and skip where there is none.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import sparsity as jsp
+from repro.kernels.lif import ops as jlif_ops
+from repro.kernels.nm_spmm import ops as jnm_ops, ref as jnm_ref
+from repro.kernels.nm_spmm.kernel import nm_spmm_pallas
+from repro.kernels.wu_outer import ref as jwu_ref
+from repro_torch.kernels.lif import ops as lif_ops, ref as lif_ref
+from repro_torch.kernels.nm_spmm import kernel as nm_kernel
+from repro_torch.kernels.nm_spmm import ops as nm_ops, ref as nm_ref
+from repro_torch.kernels.wu_outer import ops as wu_ops, ref as wu_ref
+from test_kernels import NM_CASES
+
+torch.set_num_threads(1)
+
+TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _t(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a, np.float32)).to(dtype)
+
+
+def _sparse_case(seed, k, o, bk, bo, n, m, b=16, spikes=False):
+    """Mask from the reference's sampler, weights and x from numpy; both
+    packages compact the same dense weights."""
+    spec = jsp.NMSpec(n=n, m=m, block=bk, out_tile=bo)
+    mask = np.asarray(jsp.random_unit_mask(jax.random.PRNGKey(seed), spec,
+                                           k, o))
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((k, o)).astype(np.float32)
+    x = ((rng.random((b, k)) < 0.2) if spikes
+         else rng.standard_normal((b, k))).astype(np.float32)
+    return x, w, mask
+
+
+@pytest.mark.parametrize("k,o,bk,bo,n,m,bm", NM_CASES)
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_nm_spmm_matches_pallas_interpret(k, o, bk, bo, n, m, bm, dtype):
+    x, w, mask = _sparse_case(0, k, o, bk, bo, n, m)
+    wc_j, idx_j = jnm_ops.make_compact(jnp.asarray(w), jnp.asarray(mask), bk, bo)
+    wc_t, idx_t = nm_ops.make_compact(_t(w), torch.tensor(mask), bk, bo)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(wc_t.numpy(), np.asarray(wc_j))
+    y_j = nm_spmm_pallas(jnp.asarray(x, dtype), wc_j.astype(dtype), idx_j,
+                         bm=bm, interpret=True)
+    tdt = TORCH_DT[dtype]
+    y_t = nm_ops.nm_spmm_batched(_t(x, tdt), wc_t.to(tdt), idx_t)
+    tol = 1e-5 if dtype == jnp.float32 else 5e-2
+    np.testing.assert_allclose(y_t.float().numpy(),
+                               np.asarray(y_j, np.float32), atol=tol, rtol=tol)
+    np.testing.assert_array_equal(
+        nm_ref.densify(wc_t, idx_t, k).numpy(),
+        np.asarray(jnm_ref.densify(wc_j, idx_j, k)))
+
+
+def test_nm_spmm_paper_shape_matches_jnp_ref():
+    """K = J = 512, T = 104, bk = bo = 1 (the serving path's shape), B=16
+    spike rows, against the jnp oracle (interpret mode would walk 53k grid
+    steps per row tile here)."""
+    spec_t = jsp.paper_spec_4groups(512, 0.8)
+    x, w, mask = _sparse_case(3, 512, 512, 1, 1, spec_t.n, spec_t.m,
+                              spikes=True)
+    wc_j, idx_j = jnm_ops.make_compact(jnp.asarray(w), jnp.asarray(mask), 1, 1)
+    wc_t, idx_t = nm_ops.make_compact(_t(w), torch.tensor(mask), 1, 1,
+                                      n_kept=104)
+    assert tuple(idx_t.shape) == (512, 104) and idx_t.dtype == torch.int32
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    y_j = jnm_ref.nm_spmm(jnp.asarray(x), wc_j, idx_j)
+    y_t = nm_ops.nm_spmm_batched(_t(x), wc_t, idx_t)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_nm_spmm_autograd_matches_reference_custom_vjp():
+    x, w, mask = _sparse_case(1, 64, 32, 8, 16, 1, 2)
+    dy = np.random.default_rng(7).standard_normal((16, 32)).astype(np.float32)
+    wc_j, idx_j = jnm_ops.make_compact(jnp.asarray(w), jnp.asarray(mask), 8, 16)
+    gx_j, gw_j = jax.grad(lambda a, b: (jnm_ops.nm_spmm(a, b, idx_j) * dy).sum(),
+                          argnums=(0, 1))(jnp.asarray(x), wc_j)
+    wc_t, idx_t = nm_ops.make_compact(_t(w), torch.tensor(mask), 8, 16)
+    xt = _t(x).requires_grad_()
+    wt = wc_t.clone().requires_grad_()
+    (nm_ops.nm_spmm(xt, wt, idx_t) * _t(dy)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx_j), atol=1e-5)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gw_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (16, 256), (8, 250), (5, 64)])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_lif_matches_pallas_interpret(shape, dtype):
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal(shape)
+    tr = rng.random(shape)
+    cur = rng.standard_normal(shape)
+    kw = dict(alpha=0.9, beta=0.85, theta=1.0)
+    want = jlif_ops.lif_step(*(jnp.asarray(a, dtype) for a in (v, tr, cur)),
+                             force_pallas=True, interpret=True, **kw)
+    ins = [_t(a, TORCH_DT[dtype]) for a in (v, tr, cur)]
+    got = lif_ops.lif_step(*ins, **kw)
+    # a spike may flip only where the pre-reset membrane sits within
+    # rounding of the threshold (one bf16 ulp is 2**-7 at 1.0)
+    v_pre = kw["alpha"] * ins[0].float() + ins[2].float()
+    near = (v_pre - kw["theta"]).abs().numpy() < 1e-2
+    flips = got[2].float().numpy() != np.asarray(want[2], np.float32)
+    assert not (flips & ~near).any()
+    for g, w_ in zip(got, want):
+        assert g.shape == tuple(shape) and g.dtype == TORCH_DT[dtype]
+        np.testing.assert_allclose(g.float().numpy()[~flips],
+                                   np.asarray(w_, np.float32)[~flips],
+                                   atol=1e-4 if dtype == jnp.float32 else 5e-2)
+
+
+def _wu_case(seed, s, k, o, bk, bo):
+    spec = jsp.NMSpec(n=1, m=2, block=bk, out_tile=bo)
+    mask = jsp.random_unit_mask(jax.random.PRNGKey(seed), spec, k, o)
+    _, idx = jnm_ops.make_compact(jnp.zeros((k, o)), mask, bk, bo)
+    rng = np.random.default_rng(seed)
+    pre = rng.standard_normal((s, k)).astype(np.float32)
+    mod = rng.standard_normal((s, o)).astype(np.float32)
+    scale = np.where(rng.random(s) < 0.5, 0.02, 0.0).astype(np.float32)
+    return pre, mod, np.asarray(idx), scale
+
+
+@pytest.mark.parametrize("s,k,o,bk,bo", [(4, 16, 16, 1, 1), (8, 32, 16, 4, 8),
+                                         (3, 64, 32, 8, 16)])
+def test_wu_outer_slots_bitwise_equal_to_reference(s, k, o, bk, bo):
+    pre, mod, idx, scale = _wu_case(2, s, k, o, bk, bo)
+    want = jwu_ref.wu_outer_slots(jnp.asarray(pre), jnp.asarray(mod),
+                                  jnp.asarray(idx), jnp.asarray(scale), bk, bo)
+    got = wu_ops.wu_outer_slots(_t(pre), _t(mod), torch.tensor(idx),
+                                _t(scale), bk=bk, bo=bo)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_wu_outer_batch_summed_matches_reference():
+    pre, mod, idx, _ = _wu_case(4, 8, 32, 16, 4, 8)
+    want = jwu_ref.wu_outer(jnp.asarray(pre), jnp.asarray(mod),
+                            jnp.asarray(idx), jnp.float32(0.05), 4, 8)
+    got = wu_ref.wu_outer(_t(pre), _t(mod), torch.tensor(idx),
+                          torch.tensor(0.05), 4, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("k,j,t,bk,bo,esize", [
+    (512, 512, 104, 1, 1, 4),      # the serving path (paper spec)
+    (512, 16, 8, 16, 32, 2),       # tiled regime, bf16
+    (48, 6, 6, 4, 8, 4),           # NM_CASES: bo below the column target
+    (512, 4, 8, 16, 96, 4),        # bo above the target, not a multiple
+    (2048, 8, 1024, 1, 128, 4),    # must shrink the column group to fit
+])
+def test_launch_config_covers_every_column_within_shared_memory(
+        k, j, t, bk, bo, esize):
+    cfg = nm_kernel.launch_config(k, j, t, bk, bo, esize)
+    assert cfg.bn == cfg.jg * cfg.bnc <= nm_kernel.COLUMN_TARGET
+    assert cfg.jg == 1 or cfg.bnc == bo       # whole tiles, or a tile slice
+    assert bo % cfg.bnc == 0
+    assert cfg.ngroups * cfg.bn >= j * bo > (cfg.ngroups - 1) * cfg.bn
+    assert cfg.smem_bytes <= nm_kernel.SMEM_LIMIT
+
+
+def test_launch_config_rejects_shapes_that_cannot_fit():
+    with pytest.raises(ValueError):
+        nm_kernel.launch_config(1 << 16, 4, 4, 1, 1, 4)
+
+
+# ----------------------------------------------------------------- on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,o,bk,bo,n,m,bm", NM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_spmm_kernel_matches_plain_on_card(cuda, k, o, bk, bo, n, m, bm,
+                                              dtype):
+    x, w, mask = _sparse_case(0, k, o, bk, bo, n, m, b=37)   # ragged rows
+    wc, idx = nm_ops.make_compact(_t(w), torch.tensor(mask), bk, bo)
+    x, wc, idx = _t(x, dtype).to(cuda), wc.to(cuda, dtype), idx.to(cuda)
+    before = nm_kernel.nm_spmm_cuda.launches
+    got = nm_ops.nm_spmm_batched(x, wc, idx)
+    assert nm_kernel.nm_spmm_cuda.launches == before + 1
+    want = nm_ref.nm_spmm(x, wc, idx)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 512), (1000, 500), (3, 7)])
+def test_lif_kernel_matches_plain_on_card(cuda, shape):
+    g = torch.Generator().manual_seed(0)
+    v, tr, cur = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    got = lif_ops.lif_step(v, tr, cur, alpha=0.9, beta=0.85, theta=1.0)
+    want = lif_ref.lif_step(v, tr, cur, alpha=0.9, beta=0.85, theta=1.0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_counters_count_only_real_launches(cuda):
+    """An empty problem returns an empty result and launches nothing, so the
+    counters that the smoke run checks count launches, not calls."""
+    from repro_torch.kernels.lif.kernel import lif_cuda
+    before = (nm_kernel.nm_spmm_cuda.launches, lif_cuda.launches)
+    wc = torch.zeros((4, 2, 1, 1), device=cuda)
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    y = nm_ops.nm_spmm_batched(torch.zeros((0, 8), device=cuda), wc, idx)
+    assert tuple(y.shape) == (0, 4)
+    v = torch.zeros((0, 16), device=cuda)
+    outs = lif_ops.lif_step(v, v, v, alpha=0.9, beta=0.85, theta=1.0)
+    assert all(tuple(o.shape) == (0, 16) for o in outs)
+    assert (nm_kernel.nm_spmm_cuda.launches, lif_cuda.launches) == before
+    lif_ops.lif_step(*(torch.zeros((2, 3), device=cuda),) * 3,
+                     alpha=0.9, beta=0.85, theta=1.0)
+    assert lif_cuda.launches == before[1] + 1
