@@ -9,27 +9,41 @@ Phases, each raising on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: compile the hand-written kernels from the sources in the
-   checkout (``nm_spmm``: CUDA C++ with ``nvcc``; ``lif``: Triton).
+   checkout (``nm_spmm`` and ``wu_outer``: CUDA C++, one ``nvcc`` each,
+   started together; ``lif``: Triton).
 3. kernel parity: each kernel against its plain torch version on the card,
-   at the serving path's shapes and at a tiled / ragged shape, with its
+   at its path's shapes and at a tiled / ragged shape, with its
    device time (summed kernel durations in a ``torch.profiler`` trace, L2
    flushed before each call; ``wall_ms`` is back-to-back calls by CUDA
    events, L2 warm, host launch gaps included), the plain version's, the
    least time the card could take
    (bytes over 3.35 TB/s or flops over the dtype's peak, whichever is
    larger) and, where one PyTorch call computes the same function, that
-   call's time (timed only; the port never calls it).
+   call's time (timed only; the port never calls it). ``wu_outer`` also
+   writes exact zeros for a closed gate (``scale = 0``).
 4. serving at full width: the paper network (512-512-512-16, T=50, 80 %
    N:M sparsity, gating on, backend "kernels") serves 1024 gesture streams
    of 4 windows each through ``StreamScheduler`` (1024 slots, chunk 8,
    pipeline depth 1) until drained. Every stream must get 4 predictions,
-   each kernel must have launched grid steps x 8 x 2 times in that run,
-   and the deltas must be finite. Then, for the record, one full-grid chunk
+   ``nm_spmm`` and ``lif`` must have launched grid steps x 8 x 2 times in
+   that run and ``wu_outer`` never, and the deltas must be finite. Then, for the record, one full-grid chunk
    step under ``torch.profiler``: host wall, enqueue time, device busy time.
 5. path parity: one 8-step chunk of 64 slots through backend "kernels"
    and backend "ref" (plain LIF): logits close; spikes equal up to a first
    flip within rounding of the threshold, and >= 99.9 % equal over the
    neuron-steps where either side spiked.
+6. training at full width: the paper network (backend "kernels") learns
+   80 gesture samples of batch 16 through ``make_train_fn`` (OSSL, gated
+   WU, DSST epochs after samples 39 and 79), then one ``make_eval_fn``
+   call on 64 samples. Every kernel must have launched (80 + 1) x T x L
+   times; after each epoch ``topology.check`` holds, L x G x J x k units
+   were recycled (k from ``k_per_group``), and the weights are finite and
+   exactly zero off the mask. Records samples/s, peak memory, the eval
+   accuracy and one training sample under ``torch.profiler``.
+7. training path parity: one 8-row training sample, the last of a DSST
+   period, through backend "kernels" (compact rep) and "ref" (dense rep):
+   logits and updated dense weights close, the masks after the epoch
+   equal, spikes under the rule of phase 5.
 
 Prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``; the full record goes to
@@ -48,6 +62,7 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA-core f32, dense bf16
 N_STREAMS, N_WINDOWS, CHUNK_LEN = 1024, 4, 8
+TRAIN_BATCH, TRAIN_SAMPLES, EVAL_BATCH = 16, 80, 64
 
 
 def log(msg):
@@ -61,22 +76,29 @@ def bound(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_kernels(torch, fn, iters=1):
+def device_kernels(torch, fn, iters=1, keep=None):
     """The device-side events (kernels, copies) of ``iters`` calls of ``fn``
     in a ``torch.profiler`` trace, after one warm-up call, and the host wall
     time in ms of those same traced calls up to the end of their device
-    work."""
+    work. ``keep`` filters the events by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA], wall
+    # now and then a trace comes back without the call's device events (seen
+    # once in a few dozen traces on the H100): trace again, at most twice more
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and (keep is None or keep(e.name))]
+        if events:
+            return events, wall
+    raise RuntimeError("the profiler recorded no device time for the call")
 
 
 def device_ms(torch, fn, iters=20):
@@ -91,10 +113,8 @@ def device_ms(torch, fn, iters=20):
     def flushed():
         scratch.zero_()
         fn()
-    kernels = [e for e in device_kernels(torch, flushed, iters)[0]
-               if e.name not in flush_names]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device time")
+    kernels, _ = device_kernels(torch, flushed, iters,
+                                keep=lambda name: name not in flush_names)
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
 
 
@@ -184,6 +204,52 @@ def lif_case(torch, shape):
     return rec
 
 
+def wu_case(torch, name, dtype, b, spec):
+    from repro_torch.core.sparsity import random_unit_mask
+    from repro_torch.kernels.nm_spmm import ops as nm_ops
+    from repro_torch.kernels.wu_outer import ref
+    from repro_torch.kernels.wu_outer.kernel import wu_outer_cuda
+    k = o = 512
+    gen = torch.Generator().manual_seed(2)
+    mask = random_unit_mask(gen, spec, k, o)
+    _, idx = nm_ops.make_compact(torch.zeros((k, o)), mask, spec.block,
+                                 spec.out_tile)
+    pre = torch.rand((b, k), generator=gen).to("cuda", dtype)   # traces
+    mod = (0.1 * torch.randn((b, o), generator=gen)).to("cuda", dtype)
+    idx = idx.cuda()
+    scale = torch.tensor(0.02 / b, device="cuda", dtype=dtype)  # lr / B
+    bk, bo = spec.block, spec.out_tile
+    got = wu_outer_cuda(pre, mod, idx, scale, bk=bk, bo=bo)
+    want = ref.wu_outer(pre, mod, idx, scale, bk, bo)
+    closed = wu_outer_cuda(pre, mod, idx, torch.zeros_like(scale), bk=bk,
+                           bo=bo)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    # f32: only the order of the batch sum differs; bf16: the plain version
+    # rounds the product and the scaled result to bf16, the kernel once
+    tol = (1e-5 if dtype == torch.float32 else 2e-2) \
+        * float(want.float().abs().max())
+    if not err <= tol:
+        raise AssertionError(f"wu_outer {name}: max |kernel - plain| {err} > {tol}")
+    if not bool((closed == 0).all()):
+        raise AssertionError(f"wu_outer {name}: a closed gate wrote non-zeros")
+    j, t = idx.shape
+    es = pre.element_size()
+    nbytes = (pre.numel() + mod.numel() + got.numel()) * es + idx.numel() * 4
+    dname = str(dtype).split(".")[-1]
+    bound_ms, bound_by = bound(nbytes, 2 * b * j * t * bk * bo, dname)
+    rec = {"case": name, "dtype": dname, "shape": [b, k, j, t, bk, bo],
+           "max_abs_err": err, "tol": tol, "closed_gate_zero": True,
+           **timings(torch, "", lambda: wu_outer_cuda(pre, mod, idx, scale,
+                                                      bk=bk, bo=bo)),
+           **timings(torch, "plain_", lambda: ref.wu_outer(pre, mod, idx,
+                                                            scale, bk, bo)),
+           **timings(torch, "library_", lambda: torch.matmul(pre.T, mod)),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"parity wu_outer {json.dumps(rec)}")
+    return rec
+
+
 def paper_config(backend):
     from repro_torch.core.dsst import DSSTConfig
     from repro_torch.core.gating import GatingConfig
@@ -194,9 +260,14 @@ def paper_config(backend):
                      gating=GatingConfig(enabled=True), backend=backend)
 
 
-def serve(torch, params, task):
+def kernel_counters():
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm_cuda
+    from repro_torch.kernels.wu_outer.kernel import wu_outer_cuda
+    return {"nm_spmm": nm_spmm_cuda, "lif": lif_cuda, "wu_outer": wu_outer_cuda}
+
+
+def serve(torch, params, task):
     from repro_torch.serving import (StreamScheduler, StreamSession,
                                      TaskStreamSource)
     cfg = paper_config("kernels")
@@ -211,24 +282,27 @@ def serve(torch, params, task):
     setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nm_spmm_cuda.launches = 0
-    lif_cuda.launches = 0
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     done = sched.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"nm_spmm": nm_spmm_cuda.launches, "lif": lif_cuda.launches}
+    launches = {name: c.launches for name, c in counters.items()}
     steps = sched.grid.stats["steps"]
-    want = steps * CHUNK_LEN * cfg.n_layers
+    per_step = steps * CHUNK_LEN * cfg.n_layers
+    # serving keeps its weights frozen: no weight update may launch
+    want = {"nm_spmm": per_step, "lif": per_step, "wu_outer": 0}
     if len(done) != N_STREAMS:
         raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
     short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
     if short:
         raise AssertionError(f"streams without {N_WINDOWS} predictions: {short[:8]}")
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{name} launched {n} times, want {want} "
-                                 f"(= {steps} steps x {CHUNK_LEN} x {cfg.n_layers})")
+    if launches != want:
+        raise AssertionError(f"serving launched {launches}, want {want} "
+                             f"({steps} steps x {CHUNK_LEN} x {cfg.n_layers} "
+                             f"for nm_spmm and lif)")
     if not bool(torch.isfinite(sched.deltas).all()):
         raise AssertionError("non-finite serving deltas")
     if not all(bool(torch.isfinite(torch.from_numpy(s.final_deltas)).all())
@@ -298,21 +372,56 @@ def step_breakdown(torch, params):
     return rec
 
 
+def record_lif(cfg, run):
+    """Run ``run()`` with every LIF call through the engine's seam recorded:
+    returns ``(result, spikes, pre-reset membranes)``, stacked per call."""
+    import torch
+    from repro_torch.core import engine
+    spikes, pre = [], []
+    orig = engine.lif
+
+    def recording_lif(*args, **kw):
+        res = orig(*args, **kw)
+        v, _, s = res
+        spikes.append(s)
+        pre.append(v + s * cfg.theta)      # membrane before the reset
+        return res
+    engine.lif = recording_lif
+    try:
+        out = run()
+    finally:
+        engine.lif = orig
+    return out, torch.stack(spikes), torch.stack(pre)
+
+
+def spike_rule(torch, sk, sr, pr, theta):
+    """The LIF calls must agree on every spike until a first call where
+    they differ, and there every flipped neuron's membrane must lie within
+    1e-5 of θ; a flip there may change what follows, so from then on
+    agreement is counted over the neuron-steps where either side spiked
+    (not over all of them, where silent neurons would hide flips)."""
+    calls_equal = [bool(torch.equal(a, b)) for a, b in zip(sk, sr)]
+    first = calls_equal.index(False) if False in calls_equal else None
+    near_theta = True
+    if first is not None:
+        flips = sk[first] != sr[first]
+        near_theta = bool(((pr[first] - theta).abs()[flips] < 1e-5).all())
+    fired = (sk > 0) | (sr > 0)
+    agree = (float((sk == sr)[fired].float().mean()) if bool(fired.any())
+             else 1.0)
+    return {"lif_calls": len(sk), "spike_agreement_where_fired": agree,
+            "first_differing_call": first, "first_flips_near_theta": near_theta,
+            "spikes": float(sk.sum()), "fired_either": int(fired.sum())}
+
+
 def path_parity(torch, params, task):
-    """One chunk through backend "kernels" and backend "ref", recording the
-    spikes and pre-reset membranes of every LIF call through the engine's
-    seam.
+    """One chunk through backend "kernels" and backend "ref", under the
+    spike rule of :func:`spike_rule` (agreement >= 99.9 %).
 
     Both backends take the same ``nm_spmm`` kernel for the current, so they
     differ only in how ``αv + I`` is rounded (the Triton kernel may fuse it
-    into one FMA). So: the LIF calls must agree on every spike until a first
-    call where they differ, and there every flipped neuron's membrane must
-    lie within 1e-5 of θ; a flip there may change what follows, so from then
-    on agreement is counted over the neuron-steps where either side spiked
-    (not over all of them, where silent neurons would hide flips) and must
-    be at least 99.9 %."""
+    into one FMA)."""
     import numpy as np
-    from repro_torch.core import engine
     from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
                                       run_chunk, serving_params)
     n_slots = 64
@@ -322,46 +431,166 @@ def path_parity(torch, params, task):
     events = torch.from_numpy(ev).cuda()
     valid = torch.ones((CHUNK_LEN, n_slots), dtype=torch.bool, device="cuda")
     out = {}
-    orig = engine.lif
     for backend in ("kernels", "ref"):
         cfg = paper_config(backend)
-        spikes, pre = [], []
-
-        def recording_lif(*args, **kw):
-            res = orig(*args, **kw)
-            v, _, s = res
-            spikes.append(s)
-            pre.append(v + s * cfg.theta)      # membrane before the reset
-            return res
-        engine.lif = recording_lif
-        try:
-            _, _, m = run_chunk(serving_params(params, cfg),
-                                init_stream_deltas(cfg, n_slots, "cuda"),
-                                init_stream_state(cfg, n_slots, "cuda"),
-                                events, valid, cfg)
-        finally:
-            engine.lif = orig
-        out[backend] = (m.logits, torch.stack(spikes), torch.stack(pre))
-    (lk, sk, _), (lr, sr, pr) = out["kernels"], out["ref"]
-    calls_equal = [bool(torch.equal(a, b)) for a, b in zip(sk, sr)]
-    first = calls_equal.index(False) if False in calls_equal else None
-    near_theta = True
-    if first is not None:
-        flips = sk[first] != sr[first]
-        near_theta = bool(((pr[first] - cfg.theta).abs()[flips] < 1e-5).all())
-    fired = (sk > 0) | (sr > 0)
-    agree = (float((sk == sr)[fired].float().mean()) if bool(fired.any())
-             else 1.0)
-    err = max_err(lk, lr)
-    ok = torch.allclose(lk, lr, atol=1e-4, rtol=1e-4)
-    rec = {"slots": n_slots, "chunk_len": CHUNK_LEN, "lif_calls": len(sk),
-           "logits_max_abs_err": err,
-           "spike_agreement_where_fired": agree,
-           "first_differing_call": first, "first_flips_near_theta": near_theta,
-           "spikes": float(sk.sum()), "fired_either": int(fired.sum())}
+        out[backend] = record_lif(cfg, lambda: run_chunk(
+            serving_params(params, cfg),
+            init_stream_deltas(cfg, n_slots, "cuda"),
+            init_stream_state(cfg, n_slots, "cuda"), events, valid, cfg))
+    ((_, _, mk), sk, _), ((_, _, mr), sr, pr) = out["kernels"], out["ref"]
+    err = max_err(mk.logits, mr.logits)
+    ok = torch.allclose(mk.logits, mr.logits, atol=1e-4, rtol=1e-4)
+    rec = {"slots": n_slots, "chunk_len": CHUNK_LEN,
+           "logits_max_abs_err": err, **spike_rule(torch, sk, sr, pr, cfg.theta)}
     log(f"path_parity {json.dumps(rec)}")
-    if not ok or not near_theta or agree < 0.999:
+    if not ok or not rec["first_flips_near_theta"] \
+            or rec["spike_agreement_where_fired"] < 0.999:
         raise AssertionError(f"kernels vs ref path: {rec}")
+    return rec
+
+
+def train(torch, task):
+    """The paper network learns TRAIN_SAMPLES gesture samples through
+    ``make_train_fn`` (two DSST epochs), then one ``make_eval_fn`` call;
+    raises unless every kernel launched once per layer-timestep, each epoch
+    kept the N:M invariant and recycled L x G x J x k units, and the
+    weights are finite and exactly zero off the mask."""
+    import numpy as np
+    from repro_torch.core import engine, topology
+    from repro_torch.core.snn import (accuracy, init_params, init_state,
+                                      make_eval_fn, make_train_fn)
+    cfg = paper_config("kernels")
+    spec = cfg.spec(cfg.n_in)
+    kb, jj = spec.unit_counts(cfg.n_in, cfg.n_hidden)
+    params = init_params(1, cfg, device="cuda")
+    state = init_state(cfg, TRAIN_BATCH, "cuda")
+    step, eval_fn = make_train_fn(cfg), make_eval_fn(cfg)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    data = [tuple(torch.from_numpy(a).cuda() for a in task.sample(rng, TRAIN_BATCH))
+            for _ in range(TRAIN_SAMPLES)]
+    ev_e, lab_e = (torch.from_numpy(a).cuda()
+                   for a in task.sample(np.random.default_rng(7), EVAL_BATCH))
+    setup_s = time.perf_counter() - t0
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    epochs = []
+    t0 = time.perf_counter()
+    for i, (ev, lab) in enumerate(data):
+        before = params["hidden"]["mask"]
+        params, state, m = step(params, state, ev, lab)
+        if cfg.dsst.is_update_step(i):          # host int: no device read
+            epochs.append((i, before, params["hidden"]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, me = eval_fn(params, init_state(cfg, EVAL_BATCH, "cuda"), ev_e)
+    acc = float(accuracy(me.logits, lab_e))
+    eval_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    want = (TRAIN_SAMPLES + 1) * cfg.t_steps * cfg.n_layers
+    for name, n in launches.items():
+        if n != want:
+            raise AssertionError(f"{name} launched {n} times in training, want "
+                                 f"{want} (= {TRAIN_SAMPLES} + 1 samples x "
+                                 f"{cfg.t_steps} x {cfg.n_layers})")
+    if [i for i, _, _ in epochs] != [39, 79]:
+        raise AssertionError(f"DSST epochs after samples {[e[0] for e in epochs]}")
+    epoch_recs = []
+    for i, before, hidden in epochs + [(None, None, params["hidden"])]:
+        mask, w = hidden["mask"], hidden["w"]
+        if not topology.check(mask, cfg):
+            raise AssertionError(f"N:M invariant broken after sample {i}")
+        off = engine.dense_masks(mask, cfg) == 0
+        if not bool(torch.isfinite(w).all()) or float(w[off].abs().max()) != 0.0:
+            raise AssertionError(f"weights non-finite or non-zero off the mask "
+                                 f"after sample {i}")
+        if before is None:
+            continue
+        k = cfg.dsst.k_per_group(spec, i)
+        pruned = int((before & ~mask).sum())
+        regrown = int((~before & mask).sum())
+        expect = cfg.n_layers * (kb // spec.m) * jj * k
+        if pruned != expect or regrown != expect:
+            raise AssertionError(f"epoch after sample {i}: pruned {pruned}, "
+                                 f"regrown {regrown}, want {expect}")
+        epoch_recs.append({"after_sample": i, "k_per_group": k,
+                           "recycled": pruned})
+
+    # one training sample under the profiler, for where the time goes
+    ev, lab = data[0]
+    kernels, traced_ms = device_kernels(torch, lambda: step(params, state, ev, lab))
+    by_name = {}
+    for e in kernels:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    span_ms = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    rec = {"batch": TRAIN_BATCH, "samples": TRAIN_SAMPLES,
+           "t_steps": cfg.t_steps, "n_layers": cfg.n_layers,
+           "setup_s": setup_s, "train_s": train_s,
+           "samples_per_s": TRAIN_SAMPLES / train_s,
+           "ms_per_sample": train_s / TRAIN_SAMPLES * 1e3,
+           "eval_batch": EVAL_BATCH, "eval_s": eval_s, "eval_accuracy": acc,
+           "max_memory_allocated": peak, "launches": launches,
+           "epochs": epoch_recs,
+           "profiled_sample": {
+               "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
+               "device_span_ms": span_ms,
+               "device_idle_share": 1.0 - busy_ms / traced_ms,
+               "device_launches": len(kernels),
+               "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
+                       for k, (us, n) in top]}}
+    log(f"training {json.dumps(rec)}")
+    return rec, launches
+
+
+def train_parity(torch, task):
+    """One 8-row training sample through backend "kernels" (compact rep:
+    ``nm_spmm``, ``lif``, ``wu_outer``) and "ref" (dense rep: ``pre @ w``,
+    plain LIF, masked dense WU), taken as the last sample of a DSST period
+    so that one topology epoch runs under both: logits within 1e-4, the
+    updated dense weights within 1e-5, the masks after the epoch equal, and
+    spikes under the rule of :func:`spike_rule`."""
+    import numpy as np
+    from repro_torch.core.snn import init_params, init_state, run_sample
+    rows = 8
+    ev, lab = (torch.from_numpy(a).cuda()
+               for a in task.sample(np.random.default_rng(3), rows))
+    params = init_params(2, paper_config("ref"), device="cuda")
+    out = {}
+    for backend in ("kernels", "ref"):
+        cfg = paper_config(backend)
+        state = init_state(cfg, rows, "cuda")._replace(
+            sample_idx=cfg.dsst.period - 1)
+        out[backend] = record_lif(cfg, lambda: run_sample(
+            params, state, ev, lab, cfg))
+    ((pk, _, mk), sk, _), ((pr_, _, mr), sr, pr) = out["kernels"], out["ref"]
+    wk, wr = pk["hidden"]["w"], pr_["hidden"]["w"]
+    mask0, mask_k, mask_r = (p["hidden"]["mask"] for p in (params, pk, pr_))
+    rec = {"rows": rows, "sample_idx": cfg.dsst.period - 1,
+           "logits_max_abs_err": max_err(mk.logits, mr.logits),
+           "weights_max_abs_err": max_err(wk, wr),
+           "weights_max_abs_update": max_err(wr, params["hidden"]["w"]),
+           "mask_units_differing": int((mask_k != mask_r).sum()),
+           "mask_units_recycled": int((mask0 & ~mask_r).sum()),
+           **spike_rule(torch, sk, sr, pr, cfg.theta)}
+    log(f"train_parity {json.dumps(rec)}")
+    ok = (torch.allclose(mk.logits, mr.logits, atol=1e-4, rtol=1e-4)
+          and torch.allclose(wk, wr, atol=1e-5, rtol=1e-5)
+          and rec["mask_units_differing"] == 0
+          and rec["mask_units_recycled"] > 0)
+    if not ok or not rec["first_flips_near_theta"] \
+            or rec["spike_agreement_where_fired"] < 0.999:
+        raise AssertionError(f"training kernels vs ref path: {rec}")
     return rec
 
 
@@ -375,12 +604,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.core.snn import init_params
     from repro_torch.core.sparsity import NMSpec, paper_spec_4groups
     from repro_torch.data.events import make_task
     from repro_torch.kernels import _build
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.kernels.nm_spmm import kernel as nm_kernel
+    from repro_torch.kernels.wu_outer import kernel as wu_kernel
 
     # 1. device
     card = subprocess.run(
@@ -394,19 +625,27 @@ def main() -> int:
               "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
 
-    # 2. build
-    t0 = time.perf_counter()
-    nm_kernel.build()
-    nm_s = time.perf_counter() - t0
-    for line in _build.load_library.ptxas_log.get("nm_spmm", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
-    t0 = time.perf_counter()
-    z = torch.zeros((1024, 512), device="cuda")
-    lif_cuda(z, z, z, alpha=0.9, beta=0.85, theta=1.0)
-    torch.cuda.synchronize()
-    lif_s = time.perf_counter() - t0
-    record["build_s"] = {"nm_spmm": nm_s, "lif": lif_s}
+    # 2. build: one nvcc per CUDA source, started together, and Triton's
+    # compile of the LIF kernel meanwhile
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    def build_lif():
+        z = torch.zeros((1024, 512), device="cuda")
+        lif_cuda(z, z, z, alpha=0.9, beta=0.85, theta=1.0)
+        torch.cuda.synchronize()
+
+    with ThreadPoolExecutor(2) as pool:
+        builds = {"nm_spmm": pool.submit(timed, nm_kernel.build),
+                  "wu_outer": pool.submit(timed, wu_kernel.build)}
+        record["build_s"] = {"lif": timed(build_lif)}
+        record["build_s"].update({k: f.result() for k, f in builds.items()})
+    for name in ("nm_spmm", "wu_outer"):
+        for line in _build.load_library.ptxas_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
     log(f"build {json.dumps(record['build_s'])}")
 
     # 3. kernel parity on the card
@@ -417,21 +656,40 @@ def main() -> int:
                                           ("tiled", tiled, False))
                for dt in (torch.float32, torch.bfloat16)]
     lif_recs = [lif_case(torch, shape) for shape in ((1024, 512), (1000, 500))]
-    record["parity"] = {"nm_spmm": nm_recs, "lif": lif_recs}
+    wu_recs = [wu_case(torch, name, dt, b, spec)
+               for name, dt, b, spec in (
+                   ("paper", torch.float32, TRAIN_BATCH, paper),
+                   ("paper", torch.bfloat16, TRAIN_BATCH, paper),
+                   ("tiled", torch.float32, 128, tiled),
+                   ("ragged", torch.float32, 13, paper))]
+    record["parity"] = {"nm_spmm": nm_recs, "lif": lif_recs,
+                        "wu_outer": wu_recs}
 
     # 4. serving at full width
     cfg = paper_config("kernels")
     params = init_params(0, cfg, device="cuda")
     task = make_task("gesture", n_in=cfg.n_in, t_steps=cfg.t_steps)
-    record["serving"], launches = serve(torch, params, task)
+    record["serving"], serve_launches = serve(torch, params, task)
     record["step_breakdown"] = step_breakdown(torch, params)
 
     # 5. path parity
     record["path_parity"] = path_parity(torch, params, task)
 
+    # 6. training at full width
+    record["training"], train_launches = train(torch, task)
+
+    # 7. training path parity
+    record["train_parity"] = train_parity(torch, task)
+
+    by_path = {name: {"serving": serve_launches[name],
+                      "training": train_launches[name]}
+               for name in kernel_counters()}
+
     def row(name, route, source, replaces, rec):
         return {"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": sum(by_path[name].values()),
+                "launches_by_path": by_path[name],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
@@ -439,7 +697,9 @@ def main() -> int:
         row("nm_spmm", "cuda", "src/repro_torch/kernels/nm_spmm/nm_spmm.cu",
             "src/repro/kernels/nm_spmm/kernel.py:47", nm_recs[0]),
         row("lif", "triton", "src/repro_torch/kernels/lif/kernel.py",
-            "src/repro/kernels/lif/kernel.py:27", lif_recs[0])]}
+            "src/repro/kernels/lif/kernel.py:27", lif_recs[0]),
+        row("wu_outer", "cuda", "src/repro_torch/kernels/wu_outer/wu_outer.cu",
+            "src/repro/kernels/wu_outer/kernel.py:42", wu_recs[0])]}
     record.update(kernels)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

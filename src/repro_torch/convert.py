@@ -13,8 +13,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .core.dsst import DSSTAccumulator
 from .core.engine import LayerState
-from .core.snn import SNNConfig, StreamState
+from .core.gating import GatingState
+from .core.snn import NetState, SNNConfig, StreamState
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -66,3 +68,17 @@ def deltas_from_numpy(np_deltas: Any, device="cuda") -> torch.Tensor:
     if d.dim() != 6:
         raise ValueError(f"compact deltas are rank 6, got {tuple(d.shape)}")
     return d
+
+
+def net_state_from_numpy(np_state: Any, device="cuda") -> NetState:
+    """The reference's training ``NetState`` (leaves as numpy): layers,
+    ``x_tr``, the ``GatingState``, one ``DSSTAccumulator`` per layer and
+    ``sample_idx``, which becomes a host int."""
+    layers = LayerState(*(_f32(getattr(np_state.layers, f), device)
+                          for f in LayerState._fields))
+    gate = GatingState(*(_f32(getattr(np_state.gate, f), device)
+                         for f in GatingState._fields))
+    acc = tuple(DSSTAccumulator(_f32(a.pre, device), _f32(a.post, device))
+                for a in np_state.acc)
+    return NetState(layers=layers, x_tr=_f32(np_state.x_tr, device),
+                    gate=gate, acc=acc, sample_idx=int(np_state.sample_idx))

@@ -1,23 +1,25 @@
-"""The per-timestep layer engine, serving half (``repro.core.engine``).
+"""The per-timestep layer engine shared by training and serving
+(``repro.core.engine``).
 
 :func:`_layer_timestep` is the one layer body: forward current, fused LIF
-step, OSSL modulator, per-slot IA/SS gate, per-slot compact weight update
-and telemetry, for ONE layer at ONE timestep. :func:`scan_chunk` drives it
-over a chunk of timesteps and the layer stack; JAX's two ``lax.scan``\\ s
-become Python loops over C and L. The training half (aligned batch, shared
-gate, update into the base through ``wu_outer``) comes with the training
-path.
+step, OSSL modulator, IA/SS gate, gated weight update and telemetry, for
+ONE layer at ONE timestep. :func:`scan_chunk` (serving: per-slot gates,
+updates into per-slot compact deltas, valid masking) and
+:func:`scan_sample` (training: aligned batch, one gate decision per layer
+shared across the batch, updates into the base weights) drive it over the
+timesteps and the layer stack; JAX's two ``lax.scan``\\ s become Python
+loops over time and layers.
 
-Backend seam: ``SNNConfig.backend`` is ``"ref"`` (plain torch LIF) or
-``"kernels"`` (the fused LIF kernel on CUDA tensors; its plain version on
-CPU tensors). The compact forward current goes through ``nm_spmm`` under
-either backend, so a CUDA tensor always reaches the hand-written kernel,
-as the reference always reaches Pallas on a TPU.
-
-The weight rep is the mask-free compact N:M layout only: values
-``wc [L, J, T, bk, bo]`` plus kept block ids ``idx [L, J, T]``, with
-compact per-slot deltas ``[S, J, T, bk, bo]`` per layer. Every step returns
-fresh tensors and never writes into its inputs.
+Backend seam: ``SNNConfig.backend`` is ``"ref"`` or ``"kernels"`` (the
+counterpart of the reference's ``"pallas"``). Serving always runs on the
+mask-free compact N:M layout (values ``wc [L, J, T, bk, bo]`` plus kept
+block ids ``idx [L, J, T]``), whose forward current goes through
+``nm_spmm`` under either backend; ``"kernels"`` adds the fused LIF kernel.
+Training carries the weight rep :func:`prepare_weights` picks: ``"ref"``
+the dense ``{"w", "mask_f"}`` (a plain ``pre @ w`` and a masked dense WU),
+``"kernels"`` the compact rep (``nm_spmm``, ``lif`` and ``wu_outer``
+kernels on CUDA tensors, their plain versions on CPU tensors). Every step
+returns fresh tensors and never writes into its inputs.
 """
 from __future__ import annotations
 
@@ -29,8 +31,10 @@ import torch
 from ..kernels.lif import ops as lif_ops
 from ..kernels.lif.ref import lif_step
 from ..kernels.nm_spmm import ops as nm_ops
+from ..kernels.nm_spmm import ref as nm_ref
 from ..kernels.wu_outer import ops as wu_ops
 from . import gating as gating_lib
+from . import topology as topology_lib
 
 BACKENDS = ("ref", "kernels")
 
@@ -110,7 +114,7 @@ def _pad_cols(x: torch.Tensor, k: int) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Backend:
     name: str
-    use_kernels: bool     # route the LIF step through kernels/lif
+    use_kernels: bool     # LIF through kernels/lif; training on the compact rep
 
 
 def make_backend(cfg) -> Backend:
@@ -145,10 +149,79 @@ def compact_weights(w_stacked: torch.Tensor, mask_stacked: torch.Tensor,
             "idx": torch.stack([p[1] for p in pairs])}
 
 
+def dense_masks(mask_stacked: torch.Tensor, cfg) -> torch.Tensor:
+    """Stacked unit masks ``[L, KBmax, J]`` -> dense float ``[L, Kmax, N]``
+    (zero rows where a layer's fan-in is below the stack width)."""
+    return topology_lib.dense_masks(mask_stacked, cfg, dtype=torch.float32)
+
+
+def hidden_slice(params, l: int, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``l``'s (w ``[fan_in, N]``, unit_mask ``[KB, J]``) view of the
+    stacked params."""
+    fan_in = cfg.layer_fanins[l]
+    kb, jj = cfg.spec(fan_in).unit_counts(fan_in, cfg.n_hidden)
+    return (params["hidden"]["w"][l, :fan_in, :],
+            params["hidden"]["mask"][l, :kb, :jj])
+
+
+def prepare_weights(w_stacked: torch.Tensor, mask_stacked: torch.Tensor, cfg,
+                    backend: Backend) -> Dict[str, torch.Tensor]:
+    """Weight rep carried through the training time loop; its *keys* drive
+    dispatch downstream (``"wc" in w_l`` → compact). ``"ref"``: the dense
+    stacked weights plus the dense float mask ``{"w", "mask_f"}``;
+    ``"kernels"``: the compact N:M rep ``{"wc", "idx"}``."""
+    if not backend.use_kernels:
+        return {"w": w_stacked, "mask_f": dense_masks(mask_stacked, cfg)}
+    return compact_weights(w_stacked, mask_stacked, cfg)
+
+
+def finalize_weights(wrep, cfg, backend: Backend) -> torch.Tensor:
+    """Back to dense stacked ``[L, Kmax, N]`` after the time loop."""
+    if not backend.use_kernels:
+        return wrep["w"]
+    k_max = geometry(cfg).k_max
+    return torch.stack([nm_ref.densify(wrep["wc"][l], wrep["idx"][l], k_max)
+                        for l in range(cfg.n_layers)])
+
+
+def compact_deltas(deltas: torch.Tensor, idx: torch.Tensor,
+                   cfg) -> torch.Tensor:
+    """Dense slot-leading deltas ``[S, L, Kmax, N]`` -> compact
+    ``[S, L, J, T, bk, bo]`` by gathering the kept blocks of ``idx``
+    (``[L, J, T]``). A pure gather: bitwise at every kept coordinate."""
+    spec = cfg.spec(cfg.layer_fanins[0])
+    bk, bo = spec.block, spec.out_tile
+    s, l_, k, n = deltas.shape
+    db = deltas.reshape(s, l_, k // bk, bk, n // bo, bo)
+    db = db.permute(0, 1, 4, 2, 3, 5)               # [S, L, J, KB, bk, bo]
+    return torch.take_along_dim(db, idx.long()[None, :, :, :, None, None],
+                                dim=3)
+
+
+def densify_deltas(deltas_c: torch.Tensor, idx: torch.Tensor,
+                   cfg) -> torch.Tensor:
+    """Compact slot-leading deltas ``[S, L, J, T, bk, bo]`` -> dense
+    ``[S, L, Kmax, N]`` (zeros at pruned coordinates). A pure scatter into
+    disjoint block rows: bitwise at every kept coordinate."""
+    k_max = geometry(cfg).k_max
+    s, l_, j, t, bk, bo = deltas_c.shape
+    dev = deltas_c.device
+    db = torch.zeros((s, l_, j, k_max // bk, bk, bo), dtype=deltas_c.dtype,
+                     device=dev)
+    li = torch.arange(l_, device=dev)[:, None, None]
+    ji = torch.arange(j, device=dev)[None, :, None]
+    db[:, li, ji, idx.long()] = deltas_c            # disjoint ids: exact set
+    return db.permute(0, 1, 3, 4, 2, 5).reshape(s, l_, k_max, j * bo)
+
+
 def fwd_current(pre, w_l, delta_l):
-    """Forward synaptic current for one layer: ``pre @ w`` on the compact
-    rep through ``nm_spmm``, plus the per-slot compact deltas through
-    ``nm_spmm_deltas`` on the same kept-block ids."""
+    """Forward synaptic current for one layer, dispatched on the weight
+    rep's keys: the compact rep goes through ``nm_spmm`` (plus the per-slot
+    compact deltas through ``nm_spmm_deltas`` on the same kept-block ids);
+    the dense training rep (which carries no deltas) is a plain
+    ``pre @ w``."""
+    if "wc" not in w_l:
+        return pre @ w_l["w"]
     cur = nm_ops.nm_spmm_batched(pre, w_l["wc"], w_l["idx"])
     if delta_l is not None:
         cur = cur + nm_ops.nm_spmm_deltas(pre, delta_l, w_l["idx"])
@@ -164,81 +237,125 @@ def lif(backend: Backend, cfg, v, tr, current):
                     theta=cfg.theta)
 
 
+def train_wu(cfg, w_l, pre_trace, mod, scale):
+    """Gated three-factor WU into the base weights (training path). The
+    sparsity pattern comes from the weight rep: kept block ids for the
+    compact rep (through ``wu_outer``), the dense float mask for ``ref``."""
+    if "wc" in w_l:
+        spec = cfg.spec(cfg.layer_fanins[0])
+        dwc = wu_ops.wu_outer(pre_trace, mod, w_l["idx"], scale,
+                              bk=spec.block, bo=spec.out_tile)
+        return {**w_l, "wc": w_l["wc"] + dwc}
+    dw = scale * (pre_trace.T @ mod)
+    return {**w_l, "w": w_l["w"] + dw * w_l["mask_f"]}
+
+
 # ---------------------------------------------------------------------------
-# THE per-timestep layer body, serving mode
+# THE per-timestep layer body (training and serving)
 # ---------------------------------------------------------------------------
 
 class LayerSlice(NamedTuple):
-    """One layer's inputs to the layer body."""
-    w: Any                                # {"wc" [J,T,bk,bo], "idx" [J,T]}
+    """One layer's inputs to the layer body. The sparsity pattern lives in
+    the weight rep ``w`` (kept block ids, or ``mask_f`` for dense)."""
+    w: Any                                # weight rep (see prepare_weights)
     readout: torch.Tensor                 # [N, n_out] bypass readout
-    st: LayerState                        # leaves [S, N]
-    ss_mean: torch.Tensor                 # [S]
-    delta: torch.Tensor                   # [S, J, T, bk, bo] compact
+    st: LayerState                        # leaves [R, N]
+    ss_mean: torch.Tensor                 # [] (train) or [S] (serve)
+    delta: Optional[torch.Tensor]         # serving [S, J, T, bk, bo]; training None
     fanin: torch.Tensor                   # [] f32 — true fan-in
     density: torch.Tensor                 # [] f32 — spec density
+    gate_opened: Optional[torch.Tensor] = None    # [] training telemetry
+    gate_offered: Optional[torch.Tensor] = None
 
 
 class LayerCarry(NamedTuple):
     """Flows down the layer stack within one timestep."""
-    pre_spikes: torch.Tensor              # [S, Kmax]
-    pre_trace: torch.Tensor               # [S, Kmax]
-    logits: torch.Tensor                  # [S, n_out] bypass accumulator
-    sop_fwd: torch.Tensor                 # [S]
-    sop_wu: torch.Tensor                  # [S]
-    sop_wu_off: torch.Tensor              # [S]
-    loss: torch.Tensor                    # [S]
+    pre_spikes: torch.Tensor              # [R, Kmax]
+    pre_trace: torch.Tensor               # [R, Kmax]
+    logits: torch.Tensor                  # [R, n_out] bypass accumulator
+    sop_fwd: torch.Tensor                 # [R]
+    sop_wu: torch.Tensor                  # [R]
+    sop_wu_off: torch.Tensor              # [R]
+    loss: torch.Tensor                    # [R]
 
 
 class LayerOut(NamedTuple):
     st: LayerState
-    delta: torch.Tensor
+    w: Any                                # updated weight rep (training)
+    delta: Optional[torch.Tensor]         # updated per-slot deltas (serving)
     ss_mean: torch.Tensor
-    open_: torch.Tensor                   # [S] gate decision
+    gate_opened: Optional[torch.Tensor]   # training telemetry; None serving
+    gate_offered: Optional[torch.Tensor]
+    open_: torch.Tensor                   # gate decision ([] or [S])
     pre_mag: Optional[torch.Tensor]       # [S, Kmax] |pre trace|, valid-masked
     post_mag: Optional[torch.Tensor]      # [S, N] |OSSL modulator|, valid-masked
 
 
 def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
-                    factors: bool, t_pc: int, t_wu: int, t_row: torch.Tensor,
-                    valid: torch.Tensor, carry: LayerCarry, xs: LayerSlice
-                    ) -> Tuple[LayerCarry, LayerOut]:
-    """SI + gated WU for ONE layer at ONE timestep, per slot.
+                    factors: bool, t_pc: int, t_wu: int, t_row,
+                    valid: Optional[torch.Tensor], carry: LayerCarry,
+                    xs: LayerSlice) -> Tuple[LayerCarry, LayerOut]:
+    """SI + gated WU for ONE layer at ONE timestep — training and serving.
 
-    Every quantity is per slot; invalid slots (``valid`` False) are exact
-    no-ops on state and telemetry. ``factors`` selects whether the per-slot
-    DSST activity magnitudes are computed at all.
+    Serving (``valid [S]`` bool, ``t_row [S]``): every quantity is per
+    slot, the update goes into the per-slot compact deltas, and invalid
+    slots are exact no-ops on state and telemetry; ``factors`` selects
+    whether the per-slot DSST activity magnitudes are computed at all.
+    Training is the ``valid=None`` case: ``t_row`` is the host timestep
+    shared by every row, the gate decision is shared across the batch (IA/SS
+    reduced over rows), and the update lands in the base weights with the
+    batch-mean scale ``lr/R``. The gate and the scale stay on the device.
     """
     g = cfg.gating
+    serving = valid is not None
     st, pre, pre_tr = xs.st, carry.pre_spikes, carry.pre_trace
 
     current = fwd_current(pre, xs.w, xs.delta)
     v, tr, s = lif(backend, cfg, st.v, st.tr, current)
-    tr_pc = torch.where((t_row == t_pc)[:, None], tr, st.tr_pc)
+    if serving:
+        tr_pc = torch.where((t_row == t_pc)[:, None], tr, st.tr_pc)
+    else:
+        tr_pc = tr if t_row == t_pc else st.tr_pc
 
     # ---- OSSL three-factor WU, gated, concurrent with SI ----
     mod = ossl_modulator(tr, tr_pc, st.tr_cc, v, cfg)
-    ia = pre.mean(-1) if geo.uniform else pre.sum(-1) / xs.fanin
-    ss = _cos(tr, st.tr_cc)
-    open_, new_mean = gating_lib.gate_decide(xs.ss_mean, ia, ss, g)
-    open_ = open_ & valid
-    new_mean = torch.where(valid, new_mean, xs.ss_mean)
-    wu_on = open_ & (t_row >= t_wu) & learn
-
-    # compact per-slot WU: the outer product lands only in kept blocks
-    spec = cfg.spec(geo.fanins[0])
-    scale = torch.where(wu_on, cfg.lr, 0.0)
-    delta_new = xs.delta + wu_ops.wu_outer_slots(
-        pre_tr, mod, xs.w["idx"], scale, bk=spec.block, bo=spec.out_tile)
-    if factors:
-        valf = valid.to(tr.dtype)[:, None]
-        pre_mag = pre_tr.abs() * valf
-        post_mag = mod.abs() * valf
+    if serving:
+        ia = pre.mean(-1) if geo.uniform else pre.sum(-1) / xs.fanin
+        ss = _cos(tr, st.tr_cc)
     else:
-        pre_mag = post_mag = None
+        ia = pre.mean() if geo.uniform \
+            else pre.sum() / (pre.shape[0] * xs.fanin)
+        ss = _cos(tr, st.tr_cc).mean()
+    open_, new_mean = gating_lib.gate_decide(xs.ss_mean, ia, ss, g)
 
-    # ---- telemetry (energy model inputs), per slot ----
-    late = (t_row >= t_wu) & valid
+    if serving:
+        open_ = open_ & valid
+        new_mean = torch.where(valid, new_mean, xs.ss_mean)
+        wu_on = open_ & (t_row >= t_wu) & learn
+        # compact per-slot WU: the outer product lands only in kept blocks
+        spec = cfg.spec(geo.fanins[0])
+        scale = torch.where(wu_on, cfg.lr, 0.0)
+        delta_new = xs.delta + wu_ops.wu_outer_slots(
+            pre_tr, mod, xs.w["idx"], scale, bk=spec.block, bo=spec.out_tile)
+        w_new, opened_new, offered_new = xs.w, None, None
+        if factors:
+            valf = valid.to(tr.dtype)[:, None]
+            pre_mag = pre_tr.abs() * valf
+            post_mag = mod.abs() * valf
+        else:
+            pre_mag = post_mag = None
+        late = (t_row >= t_wu) & valid
+    else:
+        late = t_row >= t_wu                          # host bool
+        wu_on = open_ if late and learn else torch.zeros_like(open_)
+        scale = torch.where(wu_on, cfg.lr / pre.shape[0], 0.0)
+        w_new = train_wu(cfg, xs.w, pre_tr, mod, scale)
+        delta_new = None
+        opened_new = xs.gate_opened + open_.to(torch.float32)
+        offered_new = xs.gate_offered + 1.0
+        pre_mag = post_mag = None   # training accumulates its own factors
+
+    # ---- telemetry (energy model inputs), per row ----
     offered = xs.fanin * cfg.n_hidden * xs.density
     sop_fwd = carry.sop_fwd + pre.sum(-1) * cfg.n_hidden * xs.density
     sop_wu_off = carry.sop_wu_off + offered * late
@@ -247,11 +364,12 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
         (-_cos(tr, tr_pc) + cfg.cc_weight * _cos(tr, st.tr_cc)) * late
 
     # invalid slots keep their exact previous state
-    vv = valid[:, None]
-    v = torch.where(vv, v, st.v)
-    tr = torch.where(vv, tr, st.tr)
-    tr_pc = torch.where(vv, tr_pc, st.tr_pc)
-    s = s * valid.to(s.dtype)[:, None]
+    if serving:
+        vv = valid[:, None]
+        v = torch.where(vv, v, st.v)
+        tr = torch.where(vv, tr, st.tr)
+        tr_pc = torch.where(vv, tr_pc, st.tr_pc)
+        s = s * valid.to(s.dtype)[:, None]
 
     logits = carry.logits + tr @ xs.readout
     new_carry = LayerCarry(
@@ -259,9 +377,10 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
         pre_trace=_pad_cols(tr, geo.k_max),
         logits=logits, sop_fwd=sop_fwd, sop_wu=sop_wu,
         sop_wu_off=sop_wu_off, loss=loss)
-    out = LayerOut(st=LayerState(v, tr, tr_pc, st.tr_cc), delta=delta_new,
-                   ss_mean=new_mean, open_=open_, pre_mag=pre_mag,
-                   post_mag=post_mag)
+    out = LayerOut(st=LayerState(v, tr, tr_pc, st.tr_cc), w=w_new,
+                   delta=delta_new, ss_mean=new_mean,
+                   gate_opened=opened_new, gate_offered=offered_new,
+                   open_=open_, pre_mag=pre_mag, post_mag=post_mag)
     return new_carry, out
 
 
@@ -287,8 +406,68 @@ def _stack_layers(per_layer: List[torch.Tensor]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# time loop: serving (chunked streams)
+# time loops: training (aligned sample) and serving (chunked streams)
 # ---------------------------------------------------------------------------
+
+def scan_sample(wrep, readout, layers: LayerState, x_tr, gate, events, cfg,
+                backend: Backend, learn: bool):
+    """T aligned timesteps over the layer stack (training datapath).
+
+    ``wrep``: the stacked weight rep of :func:`prepare_weights`; ``layers``
+    leaves ``[L, B, N]``; ``gate`` a ``GatingState`` of ``[L]`` leaves;
+    ``events [T, B, n_in]``. Returns ``(wrep', layers', x_tr', gate',
+    outs)`` with per-timestep ``outs`` stacked ``[T, ...]``. The timestep
+    is a host int, so nothing here reads the device.
+    """
+    geo = geometry(cfg)
+    t_pc, t_wu = _windows(cfg)
+    fan, dens = _layer_arrays(cfg, events.device)
+    n_layers = cfg.n_layers
+    B, dev = events.shape[1], events.device
+    events = events.contiguous()     # each [B, n_in] step feeds the kernels
+    st = [LayerState(*(leaf[l] for leaf in layers)) for l in range(n_layers)]
+    wl = [{k: v[l] for k, v in wrep.items()} for l in range(n_layers)]
+    ssm, opened, offered = ([leaf[l] for l in range(n_layers)] for leaf in gate)
+    keys = ("logits", "sop_fwd", "sop_wu", "sop_wu_off", "gate", "loss")
+    outs: Dict[str, list] = {k: [] for k in keys}
+
+    for t in range(events.shape[0]):
+        x = events[t]
+        x_tr = cfg.beta * x_tr + x
+        zeros = torch.zeros(B, device=dev)
+        carry = LayerCarry(
+            pre_spikes=_pad_cols(x, geo.k_max),
+            pre_trace=_pad_cols(x_tr, geo.k_max),
+            logits=torch.zeros((B, readout.shape[-1]), device=dev),
+            sop_fwd=zeros, sop_wu=zeros, sop_wu_off=zeros, loss=zeros)
+        opens = []
+        for l in range(n_layers):
+            xs = LayerSlice(w=wl[l], readout=readout[l], st=st[l],
+                            ss_mean=ssm[l], delta=None, fanin=fan[l],
+                            density=dens[l], gate_opened=opened[l],
+                            gate_offered=offered[l])
+            carry, out = _layer_timestep(cfg, backend, geo, learn, False,
+                                         t_pc, t_wu, t, None, carry, xs)
+            st[l], wl[l], ssm[l] = out.st, out.w, out.ss_mean
+            opened[l], offered[l] = out.gate_opened, out.gate_offered
+            opens.append(out.open_)
+        outs["logits"].append(carry.logits)
+        outs["sop_fwd"].append(carry.sop_fwd.sum())
+        outs["sop_wu"].append(carry.sop_wu.sum())
+        outs["sop_wu_off"].append(carry.sop_wu_off.sum())
+        outs["gate"].append(torch.stack(opens).to(torch.float32).sum()
+                            / n_layers)
+        outs["loss"].append(carry.loss.mean() / n_layers)
+
+    layers_out = LayerState(*(torch.stack([s[i] for s in st])
+                              for i in range(4)))
+    wrep_out = {k: torch.stack([w[k] for w in wl]) for k in wrep}
+    gate_out = gating_lib.GatingState(torch.stack(ssm), torch.stack(opened),
+                                      torch.stack(offered))
+    return (wrep_out, layers_out, x_tr, gate_out,
+            {k: torch.stack(v) for k, v in outs.items()})
+
+
 
 def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
                t_win, samp, events, valid, cfg, backend: Backend,

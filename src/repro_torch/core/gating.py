@@ -8,6 +8,7 @@ serving) threshold that rides the running mean of SS.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -19,6 +20,22 @@ class GatingConfig:
     ss_rho: float = 0.05       # adaptation rate of the per-layer SS threshold
     ss_scale: float = 1.0      # threshold = ss_scale * running-mean SS
     ss_init: float = 1.0       # running-mean starts pessimistic: gate open early
+
+
+class GatingState(NamedTuple):
+    ss_mean: torch.Tensor   # [L] running mean of SS per layer
+    opened: torch.Tensor    # [L] count of fired gates   (telemetry)
+    offered: torch.Tensor   # [L] count of gate decisions (telemetry)
+
+
+def init_state(n_layers: int, cfg: GatingConfig | None = None,
+               device="cuda") -> GatingState:
+    init = (cfg or GatingConfig()).ss_init
+    return GatingState(
+        ss_mean=torch.full((n_layers,), init, dtype=torch.float32,
+                           device=device),
+        opened=torch.zeros((n_layers,), device=device),
+        offered=torch.zeros((n_layers,), device=device))
 
 
 def gate_decide(ss_mean: torch.Tensor, ia: torch.Tensor, ss: torch.Tensor,
@@ -33,3 +50,8 @@ def gate_decide(ss_mean: torch.Tensor, ia: torch.Tensor, ss: torch.Tensor,
         open_ = torch.ones_like(open_, dtype=torch.bool)
     new_mean = (1 - cfg.ss_rho) * ss_mean + cfg.ss_rho * ss.abs()
     return open_, new_mean
+
+
+def skip_rate(state: GatingState) -> torch.Tensor:
+    """Fraction of offered WUs that were skipped (→ power saved)."""
+    return 1.0 - state.opened.sum() / torch.clamp_min(state.offered.sum(), 1.0)

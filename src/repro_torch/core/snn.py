@@ -1,5 +1,12 @@
-"""ElfCore's spiking network: config, parameters and the serving chunk step
-(``repro.core.snn``).
+"""ElfCore's spiking network: config, parameters, the training sample step
+and the serving chunk step (``repro.core.snn``).
+
+:func:`run_sample` is the paper's learning loop for one aligned batch: the
+engine's T timesteps with OSSL and activity-gated WU into the base weights,
+the SL readout delta rule (the only place labels enter), the DSST factor
+write-back and, every ``period`` samples, one prune/regrow epoch
+(``topology.topology_epoch``), then the CC-slot roll. The sample counter is
+a host int, so the epoch is decided on the host without reading the device.
 
 Parameter layout (stacked; one leaf per role, leading layer axis)::
 
@@ -24,8 +31,9 @@ import torch
 
 from . import engine
 from . import gating as gating_lib
-from .dsst import DSSTConfig
-from .engine import LayerState
+from . import topology as topology_lib
+from .dsst import DSSTAccumulator, DSSTConfig
+from .engine import LayerState, ossl_modulator
 from .sparsity import NMSpec, apply_mask, paper_spec_4groups, random_unit_mask
 
 
@@ -98,6 +106,106 @@ def init_params(seed: Union[int, torch.Generator], cfg: SNNConfig,
     return {"hidden": {"w": torch.stack(ws).to(device),
                        "mask": torch.stack(masks).to(device)},
             "readout": readout.to(device)}
+
+
+class NetState(NamedTuple):
+    layers: LayerState                    # leaves [L, B, N]
+    x_tr: torch.Tensor                    # [B, n_in] input (pre-synaptic) trace
+    gate: gating_lib.GatingState
+    acc: Tuple[DSSTAccumulator, ...]      # one per layer
+    sample_idx: int                       # samples seen (host int)
+
+
+def init_state(cfg: SNNConfig, batch: int, device="cuda") -> NetState:
+    layers = LayerState(*(torch.zeros((cfg.n_layers, batch, cfg.n_hidden),
+                                      device=device) for _ in range(4)))
+    accs = []
+    for fan_in in cfg.layer_fanins:
+        kb, j = cfg.spec(fan_in).unit_counts(fan_in, cfg.n_hidden)
+        accs.append(DSSTAccumulator.init(kb, j, device=device))
+    return NetState(layers=layers,
+                    x_tr=torch.zeros((batch, cfg.n_in), device=device),
+                    gate=gating_lib.init_state(cfg.n_layers, cfg.gating,
+                                               device=device),
+                    acc=tuple(accs), sample_idx=0)
+
+
+class SampleMetrics(NamedTuple):
+    logits: torch.Tensor          # [B, n_out] (final-TS readout)
+    sop_forward: torch.Tensor     # synaptic ops on the forward path
+    sop_wu: torch.Tensor          # weight-update MACs actually performed
+    sop_wu_offered: torch.Tensor  # WU MACs before gating (for skip-rate)
+    gate_open_frac: torch.Tensor  # fraction of (layer, TS) gates that fired
+    local_loss: torch.Tensor      # mean OSSL loss over late TSs
+
+
+def run_sample(params: Dict[str, Any], state: NetState, events: torch.Tensor,
+               label: Optional[torch.Tensor], cfg: SNNConfig, *,
+               learn: bool = True
+               ) -> Tuple[Dict[str, Any], NetState, SampleMetrics]:
+    """One sample (``events [T, B, n_in]`` f32 spikes, ``label [B]`` int or
+    None) through the network. Returns fresh ``(params', state',
+    metrics)``; nothing passed in is written."""
+    T, B, _ = events.shape
+    backend = engine.make_backend(cfg)
+    t_wu = int(cfg.t_steps * cfg.wu_start_frac)
+    masks = params["hidden"]["mask"]
+    wrep = engine.prepare_weights(params["hidden"]["w"], masks, cfg, backend)
+
+    wrep, layers, x_tr, gate_st, outs = engine.scan_sample(
+        wrep, params["readout"], state.layers, state.x_tr, state.gate,
+        events, cfg, backend, learn)
+    w_stacked = engine.finalize_weights(wrep, cfg, backend)
+    logits = outs["logits"][-1]
+
+    # ---- SL delta rule on the output layer (labels only used here) ----
+    pr = params["readout"]
+    if label is not None and learn:
+        err = (torch.nn.functional.one_hot(label.long(), cfg.n_out)
+               .to(logits.dtype) - torch.softmax(logits, -1))     # [B, n_out]
+        pr = pr + (cfg.lr_out / B) * torch.einsum("lbn,bo->lno", layers.tr,
+                                                  err)
+
+    # ---- DSST statistics write-back + (maybe) stacked connectivity epoch ----
+    pre_traces = [x_tr] + [layers.tr[l] for l in range(cfg.n_layers - 1)]
+    new_acc = []
+    for l, fan_in in enumerate(cfg.layer_fanins):
+        kb, _ = cfg.spec(fan_in).unit_counts(fan_in, cfg.n_hidden)
+        pre_mag = pre_traces[l].abs().mean(0)                         # [K]
+        mod = ossl_modulator(layers.tr[l], layers.tr_pc[l], layers.tr_cc[l],
+                             layers.v[l], cfg)
+        post_mag = mod.abs().mean(0)                                  # [N]
+        pre_units = pre_mag.reshape(kb, -1).sum(-1)
+        new_acc.append(state.acc[l].update(pre_units, post_mag))
+
+    new_params = {"hidden": {"w": w_stacked, "mask": masks}, "readout": pr}
+    new_acc = tuple(new_acc)
+    if (cfg.dsst_enabled and not cfg.dense and learn
+            and cfg.dsst.is_update_step(state.sample_idx)):
+        pre_stacked = torch.stack([engine._pad_rows(a.pre, masks.shape[1])
+                                   for a in new_acc])                 # [L, KBmax]
+        post_stacked = torch.stack([a.post for a in new_acc])         # [L, J]
+        new_params, _ = topology_lib.topology_epoch(
+            new_params, pre_stacked, post_stacked, cfg, step=state.sample_idx)
+        new_acc = tuple(DSSTAccumulator.init(a.pre.shape[0], a.post.shape[0],
+                                             device=a.pre.device)
+                        for a in new_acc)
+
+    # ---- roll the CC slot: final trace of this sample becomes the negative ----
+    final_layers = LayerState(
+        v=torch.zeros_like(layers.v), tr=torch.zeros_like(layers.tr),
+        tr_pc=torch.zeros_like(layers.tr_pc), tr_cc=layers.tr)
+    new_state = NetState(layers=final_layers, x_tr=torch.zeros_like(x_tr),
+                         gate=gate_st, acc=new_acc,
+                         sample_idx=state.sample_idx + 1)
+    metrics = SampleMetrics(
+        logits=logits,
+        sop_forward=outs["sop_fwd"].sum(),
+        sop_wu=outs["sop_wu"].sum(),
+        sop_wu_offered=outs["sop_wu_off"].sum(),
+        gate_open_frac=outs["gate"].mean(),
+        local_loss=outs["loss"].sum() / max(1, T - t_wu))
+    return new_params, new_state, metrics
 
 
 class StreamState(NamedTuple):
@@ -226,3 +334,31 @@ def run_chunk(params: Dict[str, Any], deltas: torch.Tensor,
             S, cfg.n_layers):
         raise AssertionError("chunk metrics lost their slot axis")
     return _swap(dls), new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def make_train_fn(cfg: SNNConfig):
+    """``step(params, state, events, label) -> (params', state', metrics)``:
+    one learning sample, no autograd."""
+    @torch.no_grad()
+    def step(params, state, events, label):
+        return run_sample(params, state, events, label, cfg, learn=True)
+    return step
+
+
+def make_eval_fn(cfg: SNNConfig):
+    """``step(params, state, events) -> (state', metrics)``: inference only,
+    the weights and the readout stay as they are."""
+    @torch.no_grad()
+    def step(params, state, events):
+        _, state, m = run_sample(params, state, events, None, cfg,
+                                 learn=False)
+        return state, m
+    return step
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(-1) == labels).to(torch.float32).mean()

@@ -9,6 +9,7 @@ wide output tile. Unit masks are bool ``[KB, J]`` (``KB = K / block``,
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
@@ -84,6 +85,55 @@ def expand_unit_mask(unit_mask: torch.Tensor, spec: NMSpec, k: int,
         spec.out_tile, 1)
 
 
+def check_unit_mask(unit_mask: torch.Tensor, spec: NMSpec) -> torch.Tensor:
+    """True (0-dim bool tensor) iff every (group, out-tile) keeps exactly n
+    units. Accepts leading batch dims (``[..., KB, J]``) sharing one spec."""
+    *lead, kb, j = unit_mask.shape
+    counts = unit_mask.reshape(*lead, kb // spec.m, spec.m, j).sum(dim=-2)
+    return (counts == spec.n).all()
+
+
+def compact_indices(unit_mask: torch.Tensor, spec: NMSpec) -> torch.Tensor:
+    """Per (group, out-tile): the ``n`` kept unit indices (local in
+    ``[0, m)``), int32 ``[G, n, J]`` ascending per group — the chip's index
+    SRAM. A stable argsort of ``~mask`` (cast to int: torch sorts no bool)
+    puts kept units first in ascending order, as the reference does."""
+    kb, j = unit_mask.shape
+    grouped = unit_mask.reshape(kb // spec.m, spec.m, j)
+    order = torch.argsort((~grouped).to(torch.int8), dim=1, stable=True)
+    return order[:, :spec.n, :].to(torch.int32)
+
+
+def memory_bits(k: int, o: int, spec: NMSpec, weight_bits: int = 8) -> dict:
+    """Weight-memory cost of dense vs compact N:M storage, in bits:
+    ``weight_bits`` per kept value plus a ``ceil(log2 m)``-bit index per
+    kept unit per out-tile column group (the paper's on-chip memory cut)."""
+    g, m, j = spec.group_shape(k, o)
+    idx_bits = max(1, math.ceil(math.log2(spec.m)))
+    dense = k * o * weight_bits
+    kept_values = g * spec.n * spec.block * o * weight_bits
+    kept_index = g * spec.n * j * idx_bits
+    comp = kept_values + kept_index
+    return {"dense_bits": dense, "compact_bits": comp,
+            "reduction": 1.0 - comp / dense,
+            "index_overhead": kept_index / comp}
+
+
 def apply_mask(w: torch.Tensor, unit_mask: torch.Tensor,
                spec: NMSpec) -> torch.Tensor:
     return w * expand_unit_mask(unit_mask, spec, *w.shape).to(w.dtype)
+
+
+def unit_scores(x: torch.Tensor, spec: NMSpec, k: int, o: int,
+                reduce: str = "abs_sum") -> torch.Tensor:
+    """Summarise a dense ``[K, O]`` tensor to unit granularity ``[KB, J]``
+    (``abs_sum``: the "k smallest weights" prune key at block resolution)."""
+    kb, j = spec.unit_counts(k, o)
+    xg = x.reshape(kb, spec.block, j, spec.out_tile)
+    if reduce == "abs_sum":
+        return xg.abs().sum(dim=(1, 3))
+    if reduce == "sum":
+        return xg.sum(dim=(1, 3))
+    if reduce == "max":
+        return xg.abs().amax(dim=(1, 3))
+    raise ValueError(reduce)

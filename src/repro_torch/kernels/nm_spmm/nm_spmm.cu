@@ -24,6 +24,9 @@
 //   one kept block, so the x reads broadcast.
 // * Ragged rows (B % BM) and ragged tiles (J % JG) are masked in the kernel;
 //   nothing is padded on the host. No atomics: each output is written once.
+// * A kept-block id outside [0, K/bk) traps (the launch's stream then fails
+//   with an error): a corrupt topology is a fault, never a silently dropped
+//   contribution.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -98,7 +101,7 @@ __global__ void nm_spmm_kernel(const T* __restrict__ x, const T* __restrict__ wc
   const T* xr = x_s + threadIdx.y * ROWS * K;
   for (int t = 0; t < Tk; ++t) {
     const int kb = i_s[t * JG + jl] * bk;
-    if (kb < 0 || kb > K - bk) continue;   // never read outside the staged rows
+    if (kb < 0 || kb > K - bk) __trap();   // corrupt topology: a fault
     const T* wt = w_s + t * bk * BN + col;
     for (int kk = 0; kk < bk; ++kk) {
       const float w = to_f(wt[kk * BN]);

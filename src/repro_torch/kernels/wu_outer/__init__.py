@@ -1,1 +1,2 @@
-"""Gated three-factor sparse weight update (plain torch in this slice)."""
+"""Gated three-factor sparse weight update: the batch-summed ``wu_outer``
+(CUDA kernel for the training path) and the per-slot ``wu_outer_slots``."""

@@ -1,5 +1,6 @@
 """Event-stream serving runtime of the port (``repro.serving``, one tier)."""
-from .adapt import AdaptConfig, delta_norms, make_chunk_fn
+from .adapt import (AdaptConfig, delta_norms, make_chunk_fn,
+                    merge_lane_into_base)
 from .scheduler import StreamScheduler
 from .session import (SessionStatus, StreamSession, WindowPrediction,
                       read_lane, reset_lane, write_lane)
@@ -10,5 +11,5 @@ __all__ = [
     "AdaptConfig", "ArrivalConfig", "FleetTelemetry", "ReplaySource",
     "SessionStatus", "StreamCounters", "StreamScheduler", "StreamSession",
     "TaskStreamSource", "WindowPrediction", "delta_norms", "make_chunk_fn",
-    "read_lane", "reset_lane", "write_lane",
+    "merge_lane_into_base", "read_lane", "reset_lane", "write_lane",
 ]

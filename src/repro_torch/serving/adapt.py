@@ -6,16 +6,18 @@ A frozen shared base plus ONE stacked per-stream compact delta tensor
 decide when a stream's delta absorbs an update. This module owns the step
 around ``run_chunk``: per-stream adapt on/off (a frozen lane keeps its delta
 across the step), delta hygiene (decay and clip on live lanes only), and the
-order-fixed slot reduction of the DSST factors.
+order-fixed slot reduction of the DSST factors, and folding a lane's
+delta into the shared base (:func:`merge_lane_into_base`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
 from ..core import engine
+from ..core import topology as topology_lib
 from ..core.snn import ChunkMetrics, SNNConfig, StreamState, run_chunk
 
 
@@ -82,3 +84,21 @@ def delta_norms(deltas: torch.Tensor) -> torch.Tensor:
     """Per-slot L2 norm of the adaptation, summed over layers. ``[S]``."""
     sq = (deltas * deltas).sum(dim=tuple(range(2, deltas.dim())))
     return torch.sqrt(sq).sum(1)
+
+
+def merge_lane_into_base(params: Dict[str, Any], deltas: torch.Tensor,
+                         slot: int, cfg: SNNConfig,
+                         weight: float = 1.0) -> Dict[str, Any]:
+    """Fold stream ``slot``'s compact delta into the dense training params'
+    base weights, mask-free: the lane's kept blocks scatter into the base
+    (``engine.densify_deltas`` over the mask's kept-block ids) and pruned
+    coordinates stay untouched, exactly zero by the topology invariant.
+    Only ``hidden/w`` is rebuilt; every other key rides through."""
+    lane = deltas[slot]
+    if lane.dim() != 5:
+        raise NotImplementedError(
+            "only compact [L, J, T, bk, bo] lanes are ported")
+    idx = topology_lib.stacked_kept_ids(params["hidden"]["mask"], cfg)
+    lane = engine.densify_deltas(lane[None], idx, cfg)[0]
+    w = params["hidden"]["w"] + weight * lane
+    return {**params, "hidden": {**params["hidden"], "w": w}}

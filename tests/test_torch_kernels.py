@@ -4,7 +4,8 @@ inputs.
 Tolerances: f32 products ``atol = rtol = 1e-5`` — the two packages sum the
 same terms in different orders, so only the last bits may differ. bf16
 ``5e-2``, the reference's own kernel-test tolerance: both round the f32 sum
-to an 8-bit mantissa. ``make_compact`` ids and ``wu_outer_slots`` must be
+to an 8-bit mantissa. ``wu_outer`` f32 ``1e-5`` (batch sums of up to 16
+terms in another order). ``make_compact`` ids and ``wu_outer_slots`` must be
 bitwise equal: a stable argsort and elementwise products in one fixed
 association leave nothing to round differently. The LIF step in f32:
 ``1e-4``, the reference's kernel-sweep tolerance (only an FMA contraction
@@ -26,9 +27,11 @@ from repro.kernels.lif import ops as jlif_ops
 from repro.kernels.nm_spmm import ops as jnm_ops, ref as jnm_ref
 from repro.kernels.nm_spmm.kernel import nm_spmm_pallas
 from repro.kernels.wu_outer import ref as jwu_ref
+from repro.kernels.wu_outer.kernel import wu_outer_pallas
 from repro_torch.kernels.lif import ops as lif_ops, ref as lif_ref
 from repro_torch.kernels.nm_spmm import kernel as nm_kernel
 from repro_torch.kernels.nm_spmm import ops as nm_ops, ref as nm_ref
+from repro_torch.kernels.wu_outer import kernel as wu_kernel
 from repro_torch.kernels.wu_outer import ops as wu_ops, ref as wu_ref
 from test_kernels import NM_CASES
 
@@ -169,6 +172,77 @@ def test_wu_outer_batch_summed_matches_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+# the reference's wu_outer kernel sweep (tests/test_kernels.py)
+WU_CASES = [(8, 32, 16, 4, 8, 4), (16, 64, 32, 8, 16, 8), (4, 16, 8, 4, 8, 4)]
+
+
+@pytest.mark.parametrize("b,k,o,bk,bo,bb", WU_CASES)
+def test_wu_outer_matches_pallas_interpret(b, k, o, bk, bo, bb):
+    pre, mod, idx, _ = _wu_case(5, b, k, o, bk, bo)
+    want = wu_outer_pallas(jnp.asarray(pre), jnp.asarray(mod), jnp.asarray(idx),
+                           jnp.float32(0.05), bk=bk, bo=bo, bb=bb,
+                           interpret=True)
+    got = wu_ops.wu_outer(_t(pre), _t(mod), torch.tensor(idx), 0.05, bk=bk,
+                          bo=bo)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_wu_outer_paper_shape_matches_jnp_ref():
+    """B = 16, K = N = 512, T = 104, bk = bo = 1: the training path's shape,
+    against the jnp oracle (interpret mode would walk 53k grid steps)."""
+    spec = jsp.paper_spec_4groups(512, 0.8)
+    x, _, mask = _sparse_case(6, 512, 512, 1, 1, spec.n, spec.m, spikes=True)
+    _, idx = jnm_ops.make_compact(jnp.zeros((512, 512)), jnp.asarray(mask), 1, 1)
+    mod = np.random.default_rng(6).standard_normal((16, 512)).astype(np.float32)
+    want = jwu_ref.wu_outer(jnp.asarray(x), jnp.asarray(mod), idx,
+                            jnp.float32(0.02 / 16), 1, 1)
+    got = wu_ops.wu_outer(_t(x), _t(mod), torch.tensor(np.asarray(idx)),
+                          torch.tensor(0.02 / 16), bk=1, bo=1)
+    assert tuple(got.shape) == (512, 104, 1, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wu_outer_closed_gate_is_exactly_zero(dtype):
+    pre, mod, idx, _ = _wu_case(7, 8, 32, 16, 4, 8)
+    got = wu_ops.wu_outer(_t(pre, dtype), _t(mod, dtype), torch.tensor(idx),
+                          torch.tensor(0.0), bk=4, bo=8)
+    assert got.dtype == dtype and bool((got == 0).all())
+
+
+@pytest.mark.parametrize("b,k,j,t,bk,bo,esize", [
+    (16, 512, 512, 104, 1, 1, 4),    # the training path (paper spec)
+    (16, 512, 512, 104, 1, 1, 2),    # same, bf16
+    (128, 512, 16, 8, 16, 32, 4),    # tiled spec
+    (13, 512, 512, 104, 1, 1, 4),    # ragged batch
+    (4, 16, 1, 2, 4, 8, 4),          # fewer elements than one block
+    (64, 4096, 4, 8, 64, 128, 4),    # a kept block spans several blocks
+    (1000, 30000, 8, 4, 1, 1, 4),    # must shrink the row chunk to fit
+])
+def test_wu_outer_launch_config_covers_every_output_within_shared_memory(
+        b, k, j, t, bk, bo, esize):
+    cfg = wu_kernel.launch_config(b, k, j, t, bk, bo, esize)
+    e = wu_kernel.ELEMS_PER_BLOCK
+    total = j * t * bk * bo
+    assert cfg.nblocks * e >= total > (cfg.nblocks - 1) * e
+    assert cfg.smem_bytes <= wu_kernel.SMEM_LIMIT
+    assert 1 <= cfg.bc <= min(b, wu_kernel.ROW_TARGET) or b == 0
+    # every block's out tiles fit the staged mod columns
+    per_tile = t * bk * bo
+    for blk in range(cfg.nblocks):
+        lo = blk * e // per_tile
+        hi = min(total, (blk + 1) * e) - 1
+        assert (hi // per_tile - lo + 1) * bo <= cfg.mw
+
+
+def test_wu_outer_launch_config_rejects_shapes_that_cannot_fit():
+    with pytest.raises(ValueError):
+        wu_kernel.launch_config(16, 1 << 17, 4, 4, 1, 1, 4)
+
+
 @pytest.mark.parametrize("k,j,t,bk,bo,esize", [
     (512, 512, 104, 1, 1, 4),      # the serving path (paper spec)
     (512, 16, 8, 16, 32, 2),       # tiled regime, bf16
@@ -237,3 +311,30 @@ def test_kernel_counters_count_only_real_launches(cuda):
     lif_ops.lif_step(*(torch.zeros((2, 3), device=cuda),) * 3,
                      alpha=0.9, beta=0.85, theta=1.0)
     assert lif_cuda.launches == before[1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o,bk,bo,n,m", [
+    (16, 512, 512, 1, 1, 26, 128),       # the training path (paper spec)
+    (13, 512, 512, 1, 1, 26, 128),       # ragged batch
+    (128, 512, 512, 16, 32, 2, 8),       # tiled spec
+    (37, 64, 48, 4, 8, 1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wu_outer_kernel_matches_plain_on_card(cuda, b, k, o, bk, bo, n, m,
+                                               dtype):
+    _, w, mask = _sparse_case(8, k, o, bk, bo, n, m, b=b)
+    _, idx = nm_ops.make_compact(_t(w), torch.tensor(mask), bk, bo)
+    g = torch.Generator().manual_seed(8)
+    pre = torch.rand((b, k), generator=g).to(cuda, dtype)
+    mod = torch.randn((b, o), generator=g).to(cuda, dtype)
+    idx = idx.to(cuda)
+    before = wu_kernel.wu_outer_cuda.launches
+    got = wu_ops.wu_outer(pre, mod, idx, 0.02, bk=bk, bo=bo)
+    assert wu_kernel.wu_outer_cuda.launches == before + 1
+    scale = torch.tensor(0.02, dtype=dtype).float()
+    want = wu_ref.wu_outer(pre.float(), mod.float(), idx, scale, bk, bo)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    zero = wu_ops.wu_outer(pre, mod, idx, torch.zeros((), device=cuda),
+                           bk=bk, bo=bo)
+    assert bool((zero == 0).all())
