@@ -9,8 +9,8 @@ Phases, each raising on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: compile the hand-written kernels from the sources in the
-   checkout (``nm_spmm`` and ``wu_outer``: CUDA C++, one ``nvcc`` each,
-   started together; ``lif``: Triton).
+   checkout (``nm_spmm``, ``wu_outer`` and ``flash_attn``: CUDA C++, one
+   ``nvcc`` each, started together; ``lif``: Triton).
 3. kernel parity: each kernel against its plain torch version on the card,
    at its path's shapes and at a tiled / ragged shape, with its
    device time (summed kernel durations in a ``torch.profiler`` trace, L2
@@ -20,7 +20,14 @@ Phases, each raising on failure:
    (bytes over 3.35 TB/s or flops over the dtype's peak, whichever is
    larger) and, where one PyTorch call computes the same function, that
    call's time (timed only; the port never calls it). ``wu_outer`` also
-   writes exact zeros for a closed gate (``scale = 0``).
+   writes exact zeros for a closed gate (``scale = 0``). ``flash_fwd`` at
+   the LM prefill shape (bf16), a small f32 shape, a 512 window (whole KV
+   tiles skipped, rows whose first visited tile is all masked), a ragged
+   S = 1000, MQA, windows of 500 and 65 (off the 64-key tile edge), head
+   widths 160 (StableLM) and 64, and f32 at dh 160 with a window of 37,
+   against the plain ``ref.flash_fwd`` (bf16 out per element within
+   ``ref.bf16_out_tolerance``) and, as the library yardstick,
+   ``scaled_dot_product_attention``.
 4. serving at full width: the paper network (512-512-512-16, T=50, 80 %
    N:M sparsity, gating on, backend "kernels") serves 1024 gesture streams
    of 4 windows each through ``StreamScheduler`` (1024 slots, chunk 8,
@@ -45,12 +52,27 @@ Phases, each raising on failure:
    logits and updated dense weights close, the masks after the epoch
    equal, spikes under the rule of phase 5.
 
+8. LM serving at full width: Phi-3-medium-14B at its published config
+   (40 layers, bf16, random weights from seed 0) generates 32 greedy tokens
+   for 4 random prompts of 2048 tokens through ``launch.serve.generate``.
+   ``flash_fwd`` must launch exactly 40 times (one prefill, none in
+   decode), every token lie in the vocabulary and the last logits be
+   finite. Records prefill ms and prompt tokens/s, decode ms per token
+   (p50) and generated tokens/s, peak memory, and one prefill and one
+   decode step under ``torch.profiler``.
+9. LM path parity: the same model on 2 prompts of 512 tokens with
+   ``attn="flash"`` and ``attn="plain"``: the prefill's last logits within
+   a relative L2 error of 5 %, and the 8 greedy tokens equal up to a first
+   divergence, allowed only where the plain run's top two logits lie
+   within two bf16 ulps of its top logit.
+
 Prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``; the full record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are missing.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -63,6 +85,17 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA-core f32, dense bf16
 N_STREAMS, N_WINDOWS, CHUNK_LEN = 1024, 4, 8
 TRAIN_BATCH, TRAIN_SAMPLES, EVAL_BATCH = 16, 80, 64
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "phi3_medium_14b", 4, 2048, 32
+PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 512, 8
+# phase 9: the routes round at other places (plain: bf16 scores and probs;
+# flash: f32 scores, bf16 probs per tile) and the difference then passes
+# through 40 bf16 layers, each rounding activations to 8 bits; each route
+# lies a few percent from exact arithmetic there, so the two may differ by
+# as much. A wrong mask or head mapping moves the logits by O(100 %).
+PARITY_REL_L2 = 0.05
+# a greedy token may differ only where the plain run's top two logits lie
+# within two bf16 ulps of its top logit (the logits are bf16)
+PARITY_GAP_ULPS = 2
 
 
 def log(msg):
@@ -85,9 +118,12 @@ def device_kernels(torch, fn, iters=1, keep=None):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # now and then a trace comes back without the call's device events (seen
-    # once in a few dozen traces on the H100): trace again, at most twice more
-    for _ in range(3):
+    # now and then a trace comes back without the call's device events (once
+    # in a few dozen traces on the H100, and once three times running):
+    # trace again after a pause, at most four more times
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
@@ -101,14 +137,42 @@ def device_kernels(torch, fn, iters=1, keep=None):
     raise RuntimeError("the profiler recorded no device time for the call")
 
 
+def trace_summary(torch, fn):
+    """One call of ``fn`` under ``torch.profiler`` (after a warm-up call):
+    its traced wall, the device busy time (summed kernel durations), the
+    device span, the idle share of the wall, and the ten largest kernels."""
+    kernels, traced_ms = device_kernels(torch, fn)
+    by_name = {}
+    for e in kernels:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    span_ms = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
+            "device_span_ms": span_ms,
+            "device_idle_share": 1.0 - busy_ms / traced_ms,
+            "device_launches": len(kernels),
+            "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
+                    for k, (us, n) in top]}
+
+
+_FLUSH = {}
+
+
 def device_ms(torch, fn, iters=20):
     """Device time of one call of ``fn``: the summed durations of the
     kernels it launches, so the host's launch gaps between them do not
     count (they do in ``wall_ms``). The 50 MB L2 is flushed before every
     call, as the serving step's ~1 GB working set leaves it; the flush's
-    own kernels are left out of the sum."""
-    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    flush_names = {e.name for e in device_kernels(torch, scratch.zero_)[0]}
+    own kernels (named once per run) are left out of the sum."""
+    if not _FLUSH:
+        _FLUSH["scratch"] = torch.empty(64 << 20, dtype=torch.uint8,
+                                        device="cuda")
+        _FLUSH["names"] = {e.name for e in device_kernels(
+            torch, _FLUSH["scratch"].zero_, iters=4)[0]}
+    scratch, flush_names = _FLUSH["scratch"], _FLUSH["names"]
 
     def flushed():
         scratch.zero_()
@@ -250,6 +314,66 @@ def wu_case(torch, name, dtype, b, spec):
     return rec
 
 
+def causal_pairs(s, window):
+    """Visible (query, key) pairs of one head: sum over rows of min(i + 1, w)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_case(torch, name, dtype, b, s, h, kv, dh, window):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops, ref
+    from repro_torch.kernels.flash_attn.kernel import flash_fwd_cuda
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn((b, s, h, dh), generator=gen).to("cuda", dtype)
+    k, v = (torch.randn((b, s, kv, dh), generator=gen).to("cuda", dtype)
+            for _ in range(2))
+    out, lse = flash_fwd_cuda(q, k, v, window)
+    kl = ops._to_kernel_layout(q, k, v)
+    o_r, lse_r = ref.flash_fwd(*kl, window)
+    o_r = ops._from_kernel_layout(o_r, b, s, h, dh)
+    torch.cuda.synchronize()
+    err, lse_err = max_err(out, o_r), max_err(lse, lse_r)
+    # f32: sums in another order, 1e-5 per element; bf16: per element, one
+    # bf16 ulp of the element plus 2^-6 of its row's rms (the p terms are
+    # rounded at other running maxima), ref.bf16_out_tolerance. lse: f32
+    # sums of <= S terms, fast exp/log.
+    if dtype == torch.float32:
+        tol, tol_rule = 1e-5, "1e-5"
+    else:
+        tol, tol_rule = ref.bf16_out_tolerance(o_r), "2^-7|o_r| + 2^-6 rms_row(o_r)"
+    over = float(((out.float() - o_r.float()).abs() / tol).max())
+    if not (over <= 1.0 and lse_err <= 1e-4):
+        raise AssertionError(f"flash_fwd {name}: |kernel - plain| out up to "
+                             f"{over} x ({tol_rule}), max {err}; lse {lse_err} "
+                             f"(tol 1e-4)")
+    es = q.element_size()
+    nbytes = 2 * (q.numel() + k.numel()) * es + lse.numel() * 4
+    flops = 4 * dh * causal_pairs(s, window) * b * h
+    dname = str(dtype).split(".")[-1]
+    bound_ms, bound_by = bound(nbytes, flops, dname)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    rec = {"case": name, "dtype": dname, "shape": [b, s, h, kv, dh],
+           "window": window, "max_abs_err": err, "tol": tol_rule,
+           "err_over_tol": over, "lse_max_abs_err": lse_err,
+           **timings(torch, "", lambda: flash_fwd_cuda(q, k, v, window)),
+           **timings(torch, "plain_", lambda: ref.flash_fwd(*kl, window)),
+           **timings(torch, "library_", lib),
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes}
+    log(f"parity flash_fwd {json.dumps(rec)}")
+    return rec
+
+
 def paper_config(backend):
     from repro_torch.core.dsst import DSSTConfig
     from repro_torch.core.gating import GatingConfig
@@ -261,10 +385,12 @@ def paper_config(backend):
 
 
 def kernel_counters():
+    from repro_torch.kernels.flash_attn.kernel import flash_fwd_cuda
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm_cuda
     from repro_torch.kernels.wu_outer.kernel import wu_outer_cuda
-    return {"nm_spmm": nm_spmm_cuda, "lif": lif_cuda, "wu_outer": wu_outer_cuda}
+    return {"nm_spmm": nm_spmm_cuda, "lif": lif_cuda, "wu_outer": wu_outer_cuda,
+            "flash_fwd": flash_fwd_cuda}
 
 
 def serve(torch, params, task):
@@ -292,8 +418,10 @@ def serve(torch, params, task):
     launches = {name: c.launches for name, c in counters.items()}
     steps = sched.grid.stats["steps"]
     per_step = steps * CHUNK_LEN * cfg.n_layers
-    # serving keeps its weights frozen: no weight update may launch
-    want = {"nm_spmm": per_step, "lif": per_step, "wu_outer": 0}
+    # serving keeps its weights frozen: no weight update may launch, and
+    # the SNN has no attention
+    want = {"nm_spmm": per_step, "lif": per_step, "wu_outer": 0,
+            "flash_fwd": 0}
     if len(done) != N_STREAMS:
         raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
     short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
@@ -352,22 +480,9 @@ def step_breakdown(torch, params):
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    kernels, traced_ms = device_kernels(torch, lambda: fn(*args))
-    by_name = {}
-    for e in kernels:
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
-    span_ms = (max(e.time_range.end for e in kernels)
-               - min(e.time_range.start for e in kernels)) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     rec = {"slots": S, "chunk_len": CHUNK_LEN, "wall_ms": step_ms,
-           "enqueue_ms": enqueue_ms, "traced_wall_ms": traced_ms,
-           "device_busy_ms": busy_ms, "device_span_ms": span_ms,
-           "device_idle_share": 1.0 - busy_ms / traced_ms,
-           "device_launches": len(kernels),
-           "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
-                   for k, (us, n) in top]}
+           "enqueue_ms": enqueue_ms,
+           **trace_summary(torch, lambda: fn(*args))}
     log(f"step_breakdown {json.dumps(rec)}")
     return rec
 
@@ -496,10 +611,10 @@ def train(torch, task):
 
     want = (TRAIN_SAMPLES + 1) * cfg.t_steps * cfg.n_layers
     for name, n in launches.items():
-        if n != want:
+        if n != (0 if name == "flash_fwd" else want):
             raise AssertionError(f"{name} launched {n} times in training, want "
                                  f"{want} (= {TRAIN_SAMPLES} + 1 samples x "
-                                 f"{cfg.t_steps} x {cfg.n_layers})")
+                                 f"{cfg.t_steps} x {cfg.n_layers}; flash_fwd 0)")
     if [i for i, _, _ in epochs] != [39, 79]:
         raise AssertionError(f"DSST epochs after samples {[e[0] for e in epochs]}")
     epoch_recs = []
@@ -525,15 +640,7 @@ def train(torch, task):
 
     # one training sample under the profiler, for where the time goes
     ev, lab = data[0]
-    kernels, traced_ms = device_kernels(torch, lambda: step(params, state, ev, lab))
-    by_name = {}
-    for e in kernels:
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
-    span_ms = (max(e.time_range.end for e in kernels)
-               - min(e.time_range.start for e in kernels)) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    profiled = trace_summary(torch, lambda: step(params, state, ev, lab))
     rec = {"batch": TRAIN_BATCH, "samples": TRAIN_SAMPLES,
            "t_steps": cfg.t_steps, "n_layers": cfg.n_layers,
            "setup_s": setup_s, "train_s": train_s,
@@ -541,14 +648,7 @@ def train(torch, task):
            "ms_per_sample": train_s / TRAIN_SAMPLES * 1e3,
            "eval_batch": EVAL_BATCH, "eval_s": eval_s, "eval_accuracy": acc,
            "max_memory_allocated": peak, "launches": launches,
-           "epochs": epoch_recs,
-           "profiled_sample": {
-               "traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
-               "device_span_ms": span_ms,
-               "device_idle_share": 1.0 - busy_ms / traced_ms,
-               "device_launches": len(kernels),
-               "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
-                       for k, (us, n) in top]}}
+           "epochs": epoch_recs, "profiled_sample": profiled}
     log(f"training {json.dumps(rec)}")
     return rec, launches
 
@@ -594,6 +694,157 @@ def train_parity(torch, task):
     return rec
 
 
+def lm_model(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def lm_prompts(torch, cfg, b, s, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+
+
+def lm_serve(torch, cfg, params):
+    """``generate`` at full width: 4 prompts of 2048 tokens, 32 greedy
+    tokens; then, for the record, the same work step by step (prefill and
+    decode timed apart, synchronised) and one prefill and one decode step
+    under the profiler."""
+    from repro_torch.launch.serve import generate, make_serve_step
+    from repro_torch.models import transformer as T
+    prompt = lm_prompts(torch, cfg, LM_BATCH, LM_PROMPT, 1)
+    max_seq = LM_PROMPT + LM_NEW
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompt, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"nm_spmm": 0, "lif": 0, "wu_outer": 0, "flash_fwd": cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"LM serving launched {launches}, want {want} "
+                             f"(one prefill of {cfg.n_layers} layers, none in "
+                             f"decode)")
+    new = out[:, LM_PROMPT:]
+    if tuple(out.shape) != (LM_BATCH, LM_PROMPT + LM_NEW) \
+            or not torch.equal(out[:, :LM_PROMPT], prompt) \
+            or int(new.min()) < 0 or int(new.max()) >= cfg.vocab:
+        raise AssertionError(f"generate returned {tuple(out.shape)}, tokens "
+                             f"in [{int(new.min())}, {int(new.max())}]")
+
+    step = make_serve_step(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = T.prefill(params, cfg, prompt, max_seq)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError("non-finite last-position logits")
+        toks, step_ms = [last.argmax(-1)], []
+        for _ in range(1, LM_NEW):
+            t0 = time.perf_counter()
+            logits, cache = step(params, cache, toks[-1])
+            toks.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite decode logits")
+        p50 = sorted(step_ms)[len(step_ms) // 2]
+        prof_prefill = trace_summary(
+            torch, lambda: T.prefill(params, cfg, prompt, max_seq))
+        prof_decode = trace_summary(torch, lambda: step(params, cache, toks[-1]))
+    nparams = cfg.param_count()
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    rec = {"arch": LM_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "batch": LM_BATCH, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
+           "param_count": nparams, "weight_bytes": weight_bytes,
+           "kv_cache_bytes": cache_bytes, "launches": launches,
+           "generate_s": gen_s, "max_memory_allocated": peak,
+           "tokens_equal_step_by_step": bool(torch.equal(
+               torch.stack(toks, 1), new)),
+           "prefill_ms": prefill_ms,
+           "prompt_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
+           "decode_ms_p50": p50, "decode_ms": step_ms,
+           "generated_tokens_per_s": LM_BATCH / p50 * 1e3,
+           # decode reads every weight and the cache once per step
+           "decode_bound_ms": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+           "prefill_trace": prof_prefill, "decode_trace": prof_decode}
+    log(f"lm_serving {json.dumps({k: v for k, v in rec.items() if k != 'decode_ms'})}")
+    return rec, launches
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    return [tree]
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8)
+
+
+def greedy_trace(torch, cfg, params, prompt, n_new, attn):
+    """Greedy decoding as ``generate`` does it, keeping every step's logits."""
+    from repro_torch.launch.serve import make_serve_step
+    from repro_torch.models import transformer as T
+    step = make_serve_step(cfg)
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, prompt, prompt.shape[1] + n_new,
+                                  attn=attn)
+        out = [logits.float()]
+        for _ in range(1, n_new):
+            logits, cache = step(params, cache, out[-1].argmax(-1))
+            out.append(logits.float())
+    return torch.stack([lg.argmax(-1) for lg in out], 1), out
+
+
+def lm_parity(torch, cfg, params):
+    """Flash against plain attention on the full-width model, under the rule
+    in the module docstring (phase 9)."""
+    from repro_torch.launch.serve import generate
+    prompt = lm_prompts(torch, cfg, PARITY_BATCH, PARITY_PROMPT, 2)
+    tok_f, lg_f = greedy_trace(torch, cfg, params, prompt, PARITY_NEW, "flash")
+    tok_p, lg_p = greedy_trace(torch, cfg, params, prompt, PARITY_NEW, "plain")
+    via_generate = generate(params, cfg, prompt, PARITY_NEW)[:, PARITY_PROMPT:]
+    d = lg_f[0] - lg_p[0]
+    rel_l2 = float(d.norm() / lg_p[0].norm())
+    max_logit = float(lg_p[0].abs().max())
+    rec = {"batch": PARITY_BATCH, "prompt_len": PARITY_PROMPT,
+           "new_tokens": PARITY_NEW, "logits_rel_l2": rel_l2,
+           "logits_max_abs_err": float(d.abs().max()), "max_abs_logit": max_logit,
+           "generate_equals_trace": bool(torch.equal(via_generate, tok_f)),
+           "rows": []}
+    ok = rel_l2 <= PARITY_REL_L2 and rec["generate_equals_trace"]
+    for r in range(PARITY_BATCH):
+        differ = (tok_f[r] != tok_p[r]).nonzero()
+        first = int(differ[0]) if len(differ) else None
+        row = {"first_divergence": first}
+        if first is not None:
+            top2 = lg_p[first][r].topk(2).values
+            gap = float(top2[0] - top2[1])
+            band = PARITY_GAP_ULPS * bf16_ulp(float(top2[0]))
+            row.update(plain_top2_gap=gap, band=band)
+            ok &= gap <= band
+        rec["rows"].append(row)
+    log(f"lm_parity {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"flash vs plain LM path: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -609,6 +860,7 @@ def main() -> int:
     from repro_torch.core.sparsity import NMSpec, paper_spec_4groups
     from repro_torch.data.events import make_task
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.kernels.nm_spmm import kernel as nm_kernel
     from repro_torch.kernels.wu_outer import kernel as wu_kernel
@@ -637,12 +889,13 @@ def main() -> int:
         lif_cuda(z, z, z, alpha=0.9, beta=0.85, theta=1.0)
         torch.cuda.synchronize()
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = {"nm_spmm": pool.submit(timed, nm_kernel.build),
-                  "wu_outer": pool.submit(timed, wu_kernel.build)}
+                  "wu_outer": pool.submit(timed, wu_kernel.build),
+                  "flash_attn": pool.submit(timed, fa_kernel.build)}
         record["build_s"] = {"lif": timed(build_lif)}
         record["build_s"].update({k: f.result() for k, f in builds.items()})
-    for name in ("nm_spmm", "wu_outer"):
+    for name in ("nm_spmm", "wu_outer", "flash_attn"):
         for line in _build.load_library.ptxas_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
@@ -662,8 +915,20 @@ def main() -> int:
                    ("paper", torch.bfloat16, TRAIN_BATCH, paper),
                    ("tiled", torch.float32, 128, tiled),
                    ("ragged", torch.float32, 13, paper))]
+    bf16 = torch.bfloat16
+    fa_recs = [flash_case(torch, *case) for case in (
+        ("prefill", bf16, LM_BATCH, LM_PROMPT, 40, 10, 128, None),
+        ("small_f32", torch.float32, 2, 256, 8, 2, 64, None),
+        ("window512", bf16, 2, 2048, 40, 10, 128, 512),
+        ("ragged1000", bf16, 2, 1000, 40, 10, 128, None),
+        ("mqa", bf16, 2, 2048, 40, 1, 128, None),
+        # windows off the 64-key tile edge, StableLM's dh 160, dh 64
+        ("window500", bf16, 2, 2048, 40, 10, 128, 500),
+        ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
+        ("dh64_ragged_mqa", bf16, 2, 1000, 16, 1, 64, None),
+        ("f32_dh160_window37", torch.float32, 1, 300, 4, 4, 160, 37))]
     record["parity"] = {"nm_spmm": nm_recs, "lif": lif_recs,
-                        "wu_outer": wu_recs}
+                        "wu_outer": wu_recs, "flash_fwd": fa_recs}
 
     # 4. serving at full width
     cfg = paper_config("kernels")
@@ -681,8 +946,20 @@ def main() -> int:
     # 7. training path parity
     record["train_parity"] = train_parity(torch, task)
 
+    # 8. LM serving at full width, after freeing the SNN phases' tensors
+    del params, task
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_cfg, lm_params, record["lm_init_s"] = lm_model(torch)
+    record["lm_serving"], lm_launches = lm_serve(torch, lm_cfg, lm_params)
+
+    # 9. LM path parity
+    record["lm_parity"] = lm_parity(torch, lm_cfg, lm_params)
+
     by_path = {name: {"serving": serve_launches[name],
-                      "training": train_launches[name]}
+                      "training": train_launches[name],
+                      "lm_serving": lm_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):
@@ -699,7 +976,9 @@ def main() -> int:
         row("lif", "triton", "src/repro_torch/kernels/lif/kernel.py",
             "src/repro/kernels/lif/kernel.py:27", lif_recs[0]),
         row("wu_outer", "cuda", "src/repro_torch/kernels/wu_outer/wu_outer.cu",
-            "src/repro/kernels/wu_outer/kernel.py:42", wu_recs[0])]}
+            "src/repro/kernels/wu_outer/kernel.py:42", wu_recs[0]),
+        row("flash_fwd", "cuda", "src/repro_torch/kernels/flash_attn/flash_attn.cu",
+            "src/repro/kernels/flash_attn/kernel.py:73", fa_recs[0])]}
     record.update(kernels)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

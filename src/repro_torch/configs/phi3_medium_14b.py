@@ -1,0 +1,8 @@
+"""Phi-3-medium-14B — dense, RoPE + SwiGLU + GQA [arXiv:2404.14219]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=10, d_head=128,
+    d_ff=17920, vocab=100352, act="swiglu", rope_theta=1e4,
+)

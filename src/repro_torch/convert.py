@@ -3,8 +3,9 @@
 Both packages then compute on the same numbers: torch and JAX draw
 different values from one seed, so parity tests make their inputs once
 (the reference's ``init_params``, numpy events) and convert them here.
-Floating leaves become float32 at this boundary (numpy defaults to
-float64), integer counters int32, masks bool.
+SNN floating leaves become float32 at this boundary (numpy defaults to
+float64), integer counters int32, masks bool; LM leaves take the config's
+dtype, with compact row ids as int64 index tensors.
 """
 from __future__ import annotations
 
@@ -82,3 +83,36 @@ def net_state_from_numpy(np_state: Any, device="cuda") -> NetState:
                 for a in np_state.acc)
     return NetState(layers=layers, x_tr=_f32(np_state.x_tr, device),
                     gate=gate, acc=acc, sample_idx=int(np_state.sample_idx))
+
+
+def _tree_from_numpy(tree: Any, leaf) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_numpy(v, leaf) for k, v in tree.items()}
+    return leaf(np.asarray(tree))
+
+
+def lm_params_from_numpy(np_params: Mapping[str, Any], cfg: Any,
+                         device="cuda") -> dict:
+    """The reference's LM ``init_params`` tree (leaves as numpy, per-layer
+    leaves stacked ``[L, ...]``) on ``device``: floats in ``cfg.dtype``,
+    compact ``rows`` as an int64 index tensor, ``umask`` as bool."""
+    dtype = getattr(torch, cfg.dtype)
+
+    def leaf(a):
+        if a.dtype == bool:
+            return torch.tensor(a, device=device)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a.astype(np.int64), device=device)
+        return torch.tensor(a.astype(np.float32), device=device).to(dtype)
+    return _tree_from_numpy(np_params, leaf)
+
+
+def lm_cache_from_numpy(np_cache: Mapping[str, Any], cfg: Any,
+                        device="cuda") -> dict:
+    """The reference's KV cache ``{"pos", "k", "v"}``: K/V in
+    ``cfg.dtype``, ``pos`` a host int."""
+    dtype = getattr(torch, cfg.dtype)
+    out = {k: torch.tensor(np.asarray(v, np.float32), device=device).to(dtype)
+           for k, v in np_cache.items() if k != "pos"}
+    out["pos"] = int(np_cache["pos"])
+    return out

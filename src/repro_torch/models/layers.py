@@ -1,0 +1,320 @@
+"""Primitive layers (``repro.models.layers``): norms, rotary embeddings,
+GQA/SWA attention, MLPs, and the (optionally block-N:M sparse) linear
+projection.
+
+Sparse linear parameter forms (``configs.SparsityConfig.mode``):
+
+* dense    : {"w": [K, O]}
+* masked   : {"w": [K, O], "umask": bool [K/block, 1]} — dense storage,
+             pattern applied at use.
+* compact  : {"w": [Kc, O], "rows": int64 [Kc]} — only kept rows stored
+             (Kc = K·n/m); forward is gather + dense matmul.
+
+Random draws come from an explicit ``torch.Generator`` and land on its
+device; sparsity masks are drawn on the CPU from a seed taken from it, so
+a seed gives the same mask on every device. Layouts are the reference's:
+activations ``[B, S, D]``, heads ``[B, S, H, dh]``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig, SparsityConfig
+from ..core.sparsity import NMSpec, random_unit_mask
+
+
+def _randn(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+
+
+def _cpu_gen(gen: torch.Generator) -> torch.Generator:
+    """A CPU generator seeded from ``gen`` (for masks drawn on the CPU)."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=gen, device=gen.device))
+    return torch.Generator().manual_seed(seed)
+
+
+# ---------------------------------------------------------------------------
+# (sparse) linear
+# ---------------------------------------------------------------------------
+
+def linear_init(gen: torch.Generator, k: int, o: int, dtype,
+                sp: Optional[SparsityConfig] = None,
+                scale: Optional[float] = None, lead: Tuple[int, ...] = ()):
+    """One projection, or ``lead`` stacked ones (leaves ``[*lead, ...]``)."""
+    scale = (k ** -0.5) if scale is None else scale
+    if sp is not None and (k % sp.block or (k // sp.block) % sp.m):
+        # input dim doesn't tile into N:M groups — stay dense rather than mis-mask
+        sp = None
+    if sp is None:
+        return {"w": _randn(gen, (*lead, k, o), dtype) * scale}
+    spec = NMSpec(n=sp.n, m=sp.m, block=sp.block, out_tile=o)
+    mgen = _cpu_gen(gen)
+    n_stack = 1
+    for d in lead:
+        n_stack *= d
+    umask = torch.stack([random_unit_mask(mgen, spec, k, o)
+                         for _ in range(n_stack)]).reshape(*lead, k // sp.block, 1)
+    umask = umask.to(gen.device)
+    scale = scale / (sp.density ** 0.5)                           # variance-preserving
+    if sp.mode == "masked":
+        return {"w": _randn(gen, (*lead, k, o), dtype) * scale, "umask": umask}
+    kc = k * sp.n // sp.m
+    rows = torch.stack([_rows_from_umask(u[:, 0], sp.block, n=sp.n, m=sp.m)
+                        for u in umask.reshape(-1, k // sp.block, 1)])
+    return {"w": _randn(gen, (*lead, kc, o), dtype) * scale,
+            "rows": rows.reshape(*lead, kc)}
+
+
+def _rows_from_umask(block_mask: torch.Tensor, block: int, *, n: int,
+                     m: int) -> torch.Tensor:
+    """bool [KB] -> int64 [KB·n/m·block] kept dense-row indices (sorted).
+    Torch sorts no bool, so the mask is cast before the stable argsort."""
+    kb = block_mask.shape[0]
+    t = kb * n // m
+    order = torch.argsort((~block_mask).to(torch.int8), stable=True)
+    blocks = torch.sort(order[:t]).values                          # kept block ids
+    rows = blocks[:, None] * block + torch.arange(block, device=blocks.device)
+    return rows.reshape(-1)
+
+
+def linear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 sp: Optional[SparsityConfig] = None) -> torch.Tensor:
+    """x [..., K] @ W -> [..., O] for any storage form."""
+    if "rows" in p:
+        return x.index_select(-1, p["rows"]) @ p["w"]
+    if "umask" in p:
+        # straight-through: forward sees w·mask, the gradient stays dense
+        rows = p["w"].shape[-2] // p["umask"].shape[-2]
+        maskf = p["umask"].repeat_interleave(rows, dim=-2).to(p["w"].dtype)
+        w = p["w"]
+        return x @ (w - (w * (1.0 - maskf)).detach())
+    return x @ p["w"]
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device, lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    return torch.ones((*lead, d), dtype=dtype, device=device)
+
+
+def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    inv = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (x32 * inv).to(x.dtype) * g
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (RoPE and Qwen2-VL's M-RoPE)
+# ---------------------------------------------------------------------------
+
+def _inv_freq(d_half: int, theta: float, device=None) -> torch.Tensor:
+    return theta ** (-torch.arange(0, d_half, dtype=torch.float32,
+                                   device=device) / d_half)
+
+
+def rope_angles(pos: torch.Tensor, d_head: int, theta: float) -> torch.Tensor:
+    """pos [B, S] -> angles [B, S, d_head//2]."""
+    return pos[..., None].float() * _inv_freq(d_head // 2, theta, pos.device)
+
+
+def mrope_angles(pos3: torch.Tensor, d_head: int, theta: float,
+                 sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multi-axis RoPE: pos3 [3, B, S] (temporal, height, width); frequency
+    slot i takes its position from the section it falls in."""
+    d_half = d_head // 2
+    assert sum(sections) == d_half, (sections, d_half)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=pos3.device),
+                                     torch.tensor(sections, device=pos3.device))
+    pos_per_freq = pos3[sec_id].movedim(0, -1)                  # [B, S, d_half]
+    return pos_per_freq.float() * _inv_freq(d_half, theta, pos3.device)
+
+
+def apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, dh], angles [B, S, dh//2] — rotate-half convention."""
+    d_half = x.shape[-1] // 2
+    x1, x2 = x[..., :d_half], x[..., d_half:]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional sliding window, full + cached decode paths)
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+              sp: Optional[SparsityConfig] = None, lead: Tuple[int, ...] = ()):
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sp_attn = sp if (sp and "attn" in sp.targets) else None
+    return {
+        "wq": linear_init(gen, d, h * dh, dtype, sp_attn, lead=lead),
+        "wk": linear_init(gen, d, kv * dh, dtype, sp_attn, lead=lead),
+        "wv": linear_init(gen, d, kv * dh, dtype, sp_attn, lead=lead),
+        "wo": linear_init(gen, h * dh, d, dtype, sp_attn, lead=lead),
+    }
+
+
+def _gqa_scores(q, k):
+    """q [B,S,H,dh], k [B,T,KV,dh] -> [B, KV, H/KV, S, T]."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh)
+    return torch.einsum("bskgd,btkd->bkgst", qg, k) / (dh ** 0.5)
+
+
+def _gqa_out(probs, v):
+    """probs [B,KV,G,S,T], v [B,T,KV,dh] -> [B,S,H,dh]."""
+    b, kvh, g, s, t = probs.shape
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, kvh * g, -1)
+
+
+def causal_mask(s: int, window: Optional[int] = None, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    ok = j <= i
+    if window is not None:
+        ok &= (i - j) < window
+    return torch.where(ok, 0.0, float("-inf")).to(dtype)
+
+
+def _qkv(p, x, angles, cfg: ModelConfig, sp):
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear_apply(p["wq"], x, sp).reshape(b, s, h, dh)
+    k = linear_apply(p["wk"], x, sp).reshape(b, s, kv, dh)
+    v = linear_apply(p["wv"], x, sp).reshape(b, s, kv, dh)
+    if angles is not None:
+        q, k = apply_rotary(q, angles), apply_rotary(k, angles)
+    return q, k, v
+
+
+def attn_full(p, x, angles, cfg: ModelConfig, sp=None):
+    """Training / prefill attention over the whole sequence."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, angles, cfg, sp)
+    scores = _gqa_scores(q, k)
+    scores = scores + causal_mask(s, cfg.swa_window, scores.dtype, x.device)
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    out = _gqa_out(probs, v).reshape(b, s, -1)
+    return linear_apply(p["wo"], out, sp), (k, v)
+
+
+def attn_full_chunked(p, x, angles, cfg: ModelConfig, sp=None,
+                      q_chunk: int = 512):
+    """Query-chunked causal attention — O(q_chunk · S) live memory: a loop
+    over query chunks keeps a ``[qc, S]`` score slab live, not ``[S, S]``."""
+    b, s, _ = x.shape
+    qc = min(q_chunk, s)
+    assert s % qc == 0, (s, qc)
+    q, k, v = _qkv(p, x, angles, cfg, sp)
+    j_abs = torch.arange(s, device=x.device)
+    outs = []
+    for c0 in range(0, s, qc):
+        i_abs = c0 + torch.arange(qc, device=x.device)
+        ok = j_abs[None, :] <= i_abs[:, None]
+        if cfg.swa_window is not None:
+            ok &= (i_abs[:, None] - j_abs[None, :]) < cfg.swa_window
+        scores = _gqa_scores(q[:, c0:c0 + qc], k)               # [B,KV,G,qc,S]
+        scores = torch.where(ok, scores, float("-inf"))
+        probs = torch.softmax(scores.float(), -1).to(x.dtype)
+        outs.append(_gqa_out(probs, v))                         # [B,qc,H,dh]
+    out = torch.cat(outs, dim=1).reshape(b, s, -1)
+    return linear_apply(p["wo"], out, sp), (k, v)
+
+
+def attn_full_flash(p, x, angles, cfg: ModelConfig, sp=None):
+    """Training/prefill attention through the flash op
+    (``kernels/flash_attn``): the CUDA kernel on the card, the plain
+    version on the CPU."""
+    from ..kernels.flash_attn.ops import flash_attention
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, angles, cfg, sp)
+    out = flash_attention(q, k, v, cfg.swa_window).reshape(b, s, -1)
+    return linear_apply(p["wo"], out, sp), (k, v)
+
+
+def attn_decode(p, x, angles, cache_k, cache_v, pos: int, cfg: ModelConfig,
+                sp=None):
+    """One-token decode against a (possibly ring-buffered SWA) KV cache.
+
+    ``cache_k/v``: [B, C, KV, dh] with C = min(max_seq, swa_window or inf),
+    written IN PLACE at slot ``pos % C`` (the reference returns updated
+    copies; a copy of the cache per layer and token is what the port
+    avoids). ``pos``: host int — tokens already in the cache.
+    Returns (out [B,1,D], cache_k, cache_v).
+    """
+    b, s, _ = x.shape
+    assert s == 1
+    c = cache_k.shape[1]
+    q, k, v = _qkv(p, x, angles, cfg, sp)
+    slot = pos % c                                   # ring write (SWA) / linear (full)
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+
+    scores = _gqa_scores(q, cache_k)                 # [B,KV,G,1,C]
+    slot_ids = torch.arange(c, device=x.device)
+    # absolute position each slot currently holds
+    abs_pos = torch.where(slot_ids <= slot, pos - slot + slot_ids,
+                          pos - slot + slot_ids - c)
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if cfg.swa_window is not None:
+        valid &= (pos - abs_pos) < cfg.swa_window
+    scores = torch.where(valid, scores, float("-inf"))
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    out = _gqa_out(probs, cache_v).reshape(b, 1, -1)
+    return linear_apply(p["wo"], out, sp), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+             sp: Optional[SparsityConfig] = None, d_ff: Optional[int] = None,
+             lead: Tuple[int, ...] = ()):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    sp_mlp = sp if (sp and "mlp" in sp.targets) else None
+    p = {"w1": linear_init(gen, d, f, dtype, sp_mlp, lead=lead),
+         "w2": linear_init(gen, f, d, dtype, sp_mlp, lead=lead)}
+    if cfg.act == "swiglu":
+        p["w3"] = linear_init(gen, d, f, dtype, sp_mlp, lead=lead)
+    return p
+
+
+def mlp_apply(p, x, cfg: ModelConfig, sp: Optional[SparsityConfig] = None):
+    sp_mlp = sp if (sp and "mlp" in sp.targets) else None
+    h = linear_apply(p["w1"], x, sp_mlp)
+    if cfg.act == "swiglu":
+        h = F.silu(h) * linear_apply(p["w3"], x, sp_mlp)
+    elif cfg.act == "relu2":                       # Nemotron-4 squared ReLU
+        h = torch.square(F.relu(h))
+    elif cfg.act == "gelu":                        # jax.nn.gelu: tanh form
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(cfg.act)
+    return linear_apply(p["w2"], h, sp_mlp)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / head
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, cfg: ModelConfig, dtype):
+    p = {"tok": _randn(gen, (cfg.vocab, cfg.d_model), dtype) * 0.02}
+    if cfg.frontend:
+        p["frontend_proj"] = _randn(gen, (cfg.frontend_dim, cfg.d_model),
+                                    dtype) * (cfg.frontend_dim ** -0.5)
+    return p
+
+
+def embed_apply(p, tokens=None, embeds=None):
+    if embeds is not None:
+        return embeds @ p["frontend_proj"]
+    return p["tok"][tokens]

@@ -14,9 +14,11 @@ import sys
 import pytest
 import torch
 
+from repro.configs import base as jbase
 from repro.core.dsst import DSSTConfig as JDSSTConfig
 from repro.core.gating import GatingConfig as JGatingConfig
 from repro.core.snn import SNNConfig as JSNNConfig
+from repro_torch.configs import base
 from repro_torch.core import engine
 from repro_torch.core.dsst import DSSTConfig
 from repro_torch.core.gating import GatingConfig
@@ -35,18 +37,33 @@ def _plain(v):
 def _fields(cls):
     out = []
     for f in dataclasses.fields(cls):
-        default = (f.default_factory() if f.default is dataclasses.MISSING
-                   else f.default)
+        if f.default is not dataclasses.MISSING:
+            default = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            default = f.default_factory()
+        else:
+            default = "<required>"
         out.append((f.name, _plain(default)))
     return out
 
 
 @pytest.mark.parametrize("ref,port", [(JSNNConfig, SNNConfig),
                                       (JDSSTConfig, DSSTConfig),
-                                      (JGatingConfig, GatingConfig)],
-                         ids=["SNNConfig", "DSSTConfig", "GatingConfig"])
+                                      (JGatingConfig, GatingConfig),
+                                      (jbase.ModelConfig, base.ModelConfig),
+                                      (jbase.SparsityConfig, base.SparsityConfig),
+                                      (jbase.ShapeConfig, base.ShapeConfig)],
+                         ids=["SNNConfig", "DSSTConfig", "GatingConfig",
+                              "ModelConfig", "SparsityConfig", "ShapeConfig"])
 def test_config_fields_and_defaults_match_reference(ref, port):
     assert _fields(port) == _fields(ref)
+
+
+def test_shapes_match_reference():
+    assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
+    assert base.SHAPES["train_4k"].tokens == jbase.SHAPES["train_4k"].tokens
+    assert base.SparsityConfig().density == jbase.SparsityConfig().density
 
 
 @pytest.mark.parametrize("fan_in,sparsity,dense", [(512, 0.8, False),
@@ -81,7 +98,7 @@ def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25      # every module was imported
+    assert int(out.stdout.strip()) >= 44      # every module was imported
 
 
 def test_no_source_file_imports_repro_or_jax():
