@@ -9,8 +9,8 @@ Phases, each raising on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: compile the hand-written kernels from the sources in the
-   checkout (``nm_spmm``, ``wu_outer`` and ``flash_attn``: CUDA C++, one
-   ``nvcc`` each, started together; ``lif``: Triton).
+   checkout (``nm_spmm``, ``wu_outer``, ``flash_attn`` and ``flash_bwd``:
+   CUDA C++, one ``nvcc`` each, started together; ``lif``: Triton).
 3. kernel parity: each kernel against its plain torch version on the card,
    at its path's shapes and at a tiled / ragged shape, with its
    device time (summed kernel durations in a ``torch.profiler`` trace, L2
@@ -66,6 +66,32 @@ Phases, each raising on failure:
    divergence, allowed only where the plain run's top two logits lie
    within two bf16 ulps of its top logit.
 
+   Phase 3 also holds the two flash backward kernels (``flash_bwd_dkv``,
+   ``flash_bwd_dq``) against the plain f32 ``ref.flash_bwd`` (GQA groups
+   summed in f32) on the forward kernel's ``out`` and ``lse``: at the LM
+   training shape (B 2, S 4096, H 12, KV 2, dh 128, bf16), f32, a window of
+   500, a ragged S = 1000, MQA, dh 160 with a window of 65 and dh 64; bf16
+   per element within ``ref.bf16_grad_tolerance``, f32 within ``1e-5`` of
+   the tensor's largest element; timed beside the plain version, the bound
+   and the backward of ``scaled_dot_product_attention`` (its backend named).
+10. LM training at full width: Qwen2-VL-2B at its published config (28
+   layers, d_model 1536, 12 query and 2 KV heads of 128, d_ff 8960, vocab
+   151936, bf16, remat) from ``init_train_state`` on a CUDA generator
+   seeded 0, 8 steps of ``make_train_step`` (AdamW lr 1e-3, 2 warm-up steps
+   of 100, IA/SS gating on) on the port's ``TokenPipeline`` (batch 2 x 4096
+   tokens). Every step: loss, grad norm and params finite, and exactly
+   2 x 28 ``flash_fwd`` launches (forward and remat recompute), 28
+   ``flash_bwd_dkv`` and 28 ``flash_bwd_dq``; the last loss below the
+   first. Records ms per step (median of steps 2-8), tokens/s, MFU against
+   989.4 TFLOP/s, peak memory, losses, gate fractions and one profiled step.
+11. LM training parity: the same model cut to 2 layers, B 2 x S 1024, one
+   step through ``attn="flash"`` and ``attn="plain"`` from the same params
+   and batch: loss within 1 % and every gradient leaf within a relative L2
+   error of ``TRAIN_GRAD_REL_L2``, updated params finite; one ``mode="local"``
+   step (block 0's CE gradient exactly zero, the readout's not); one masked
+   N:M step (n 2 of m 8, block 32, MLP) with ``dsst_every=1``: every mask
+   group keeps exactly 2 units after the event, and some moved.
+
 Prints the kernels line (JSON), the card line, and last
 ``{"ok": true, "device": {...}}``; the full record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero, printing no result, when
@@ -96,6 +122,15 @@ PARITY_REL_L2 = 0.05
 # a greedy token may differ only where the plain run's top two logits lie
 # within two bf16 ulps of its top logit (the logits are bf16)
 PARITY_GAP_ULPS = 2
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen2_vl_2b", 2, 4096, 8
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_S = 2, 1024
+PEAK_BF16 = 989.4e12                        # H100 SXM dense bf16, for MFU
+# phase 11: the plain route rounds scores and probabilities to bf16 and
+# differentiates through them in bf16, the flash route keeps scores in f32
+# and rounds only p and ds for its products; both then pass through bf16
+# activations in two layers. Rounding moves a gradient leaf by ~1 % (relative
+# L2); a lost GQA head or query tile in dK/dV moves it by tens of percent.
+TRAIN_GRAD_REL_L2 = 0.05
 
 
 def log(msg):
@@ -137,15 +172,26 @@ def device_kernels(torch, fn, iters=1, keep=None):
     raise RuntimeError("the profiler recorded no device time for the call")
 
 
+def kernel_class(name):
+    """``gemm`` (cuBLAS), ``flash`` (the port's attention kernels) or
+    ``other`` (elementwise, reductions, copies and the rest)."""
+    if name.startswith("nvjet") or "gemm" in name or "cutlass" in name:
+        return "gemm"
+    return "flash" if "flash_" in name else "other"
+
+
 def trace_summary(torch, fn):
     """One call of ``fn`` under ``torch.profiler`` (after a warm-up call):
-    its traced wall, the device busy time (summed kernel durations), the
-    device span, the idle share of the wall, and the ten largest kernels."""
+    its traced wall, the device busy time (summed kernel durations) and its
+    split by ``kernel_class``, the device span, the idle share of the wall,
+    and the ten largest kernels."""
     kernels, traced_ms = device_kernels(torch, fn)
-    by_name = {}
+    by_name, by_class = {}, {}
     for e in kernels:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        c = kernel_class(e.name)
+        by_class[c] = by_class.get(c, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
     span_ms = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) / 1e3
@@ -153,6 +199,7 @@ def trace_summary(torch, fn):
     return {"traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
             "device_span_ms": span_ms,
             "device_idle_share": 1.0 - busy_ms / traced_ms,
+            "device_ms_by_class": by_class,
             "device_launches": len(kernels),
             "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
                     for k, (us, n) in top]}
@@ -374,6 +421,113 @@ def flash_case(torch, name, dtype, b, s, h, kv, dh, window):
     return rec
 
 
+def sdpa_backend(names):
+    """Which SDPA backend ran, from its kernels' names."""
+    joined = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in joined:
+            return backend
+    return "math"
+
+
+def flash_bwd_case(torch, name, dtype, b, s, h, kv, dh, window):
+    """Both backward kernels against the plain f32 ``ref.flash_bwd`` on the
+    forward kernel's ``out`` and ``lse``; one record per kernel."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops, ref
+    from repro_torch.kernels.flash_attn.kernel import (flash_bwd_dkv_cuda,
+                                                       flash_bwd_dq_cuda,
+                                                       flash_fwd_cuda)
+    gen = torch.Generator().manual_seed(4)
+    q, dout = (torch.randn((b, s, h, dh), generator=gen).to("cuda", dtype)
+               for _ in range(2))
+    k, v = (torch.randn((b, s, kv, dh), generator=gen).to("cuda", dtype)
+            for _ in range(2))
+    out, lse = flash_fwd_cuda(q, k, v, window)
+    delta = ops.bwd_delta(out, dout)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, window)
+    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, window)
+    # the plain version in f32 on the same bf16 values, GQA groups summed
+    # in f32 (the kernel sums them in f32 and rounds once; the reference
+    # rounds each head's dk/dv and then sums)
+    kl = ops._to_kernel_layout(q, k, v)
+    ol = ops._to_kernel_layout(out, k, v)[0]
+    dol = dout.transpose(1, 2).reshape(b * h, s, dh)
+    f32 = [x.float() for x in (*kl, ol)]
+    grads = ref.flash_bwd(*f32, lse, dol.float(), window)
+    sigmas = ref.bwd_rounding_sigmas(*f32, lse, dol.float(), window)
+
+    def group(x):
+        return x.reshape(b, kv, h // kv, s, dh).sum(2).transpose(1, 2)
+    want = {"dq": (ops._from_kernel_layout(grads[0], b, s, h, dh),
+                   ops._from_kernel_layout(sigmas[0], b, s, h, dh)),
+            "dk": (group(grads[1]), group(sigmas[1] ** 2).sqrt()),
+            "dv": (group(grads[2]), group(sigmas[2] ** 2).sqrt())}
+    del grads, sigmas
+    torch.cuda.synchronize()
+    errs = {}
+    for key, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        r, sg = want[key]
+        if dtype == torch.float32:      # sums in another order
+            tol = 1e-5 * float(r.abs().max())
+        else:
+            tol = ref.bf16_grad_tolerance(r, sg)
+        d = (got.float() - r).abs()
+        errs[key] = (float(d.max()), float((d / tol).max()))
+    del want
+    bad = {k: e for k, e in errs.items() if not e[1] <= 1.0}
+    if bad:
+        raise AssertionError(f"flash_bwd {name}: |kernel - plain| over the "
+                             f"bound: {bad} (max abs, x bound)")
+    tol_rule = ("1e-5 max|g|" if dtype == torch.float32 else
+                "2^-7|g| + 2^-6 sigma + 2^-16 max|g| (ref.bf16_grad_tolerance)")
+    es = q.element_size()
+    pairs = causal_pairs(s, window) * b * h
+    dname = str(dtype).split(".")[-1]
+    io = {"dkv": (2 * q.numel() + 4 * k.numel()) * es + 2 * lse.numel() * 4,
+          "dq": (3 * q.numel() + 2 * k.numel()) * es + 2 * lse.numel() * 4}
+    flops = {"dkv": 4 * 2 * dh * pairs, "dq": 3 * 2 * dh * pairs}
+    plain = timings(torch, "plain_", lambda: ref.flash_bwd(
+        *kl, ol, lse, dol, window))
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    if window is None:
+        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    else:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        so = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                            enable_gqa=True)
+    dso = dout.transpose(1, 2)
+
+    def lib():
+        torch.autograd.grad(so, (qt, kt, vt), dso, retain_graph=True)
+    library = timings(torch, "library_", lib)
+    backend = sdpa_backend(e.name for e in device_kernels(torch, lib)[0])
+    recs = {}
+    for which, fn, keys in (
+            ("dkv", lambda: flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, window),
+             ("dk", "dv")),
+            ("dq", lambda: flash_bwd_dq_cuda(q, k, v, dout, lse, delta, window),
+             ("dq",))):
+        bound_ms, bound_by = bound(io[which], flops[which], dname)
+        rec = {"case": name, "dtype": dname, "shape": [b, s, h, kv, dh],
+               "window": window,
+               "max_abs_err": max(errs[k][0] for k in keys),
+               "err_over_tol": max(errs[k][1] for k in keys),
+               "errs": {k: errs[k] for k in keys}, "tol": tol_rule,
+               **timings(torch, "", fn), **plain, **library,
+               "library_call": f"scaled_dot_product_attention backward "
+                               f"(dq, dk and dv; backend {backend})",
+               "plain_call": "ref.flash_bwd (dq, dk and dv, f32 products)",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "flops": flops[which], "bytes": io[which]}
+        log(f"parity flash_bwd_{which} {json.dumps(rec)}")
+        recs[which] = rec
+    return recs
+
+
 def paper_config(backend):
     from repro_torch.core.dsst import DSSTConfig
     from repro_torch.core.gating import GatingConfig
@@ -385,12 +539,25 @@ def paper_config(backend):
 
 
 def kernel_counters():
-    from repro_torch.kernels.flash_attn.kernel import flash_fwd_cuda
+    from repro_torch.kernels.flash_attn.kernel import (flash_bwd_dkv_cuda,
+                                                       flash_bwd_dq_cuda,
+                                                       flash_fwd_cuda)
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm_cuda
     from repro_torch.kernels.wu_outer.kernel import wu_outer_cuda
     return {"nm_spmm": nm_spmm_cuda, "lif": lif_cuda, "wu_outer": wu_outer_cuda,
-            "flash_fwd": flash_fwd_cuda}
+            "flash_fwd": flash_fwd_cuda, "flash_bwd_dkv": flash_bwd_dkv_cuda,
+            "flash_bwd_dq": flash_bwd_dq_cuda}
+
+
+def reset_counters():
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+NO_ATTN = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
 def serve(torch, params, task):
@@ -408,9 +575,7 @@ def serve(torch, params, task):
     setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = kernel_counters()
-    for c in counters.values():
-        c.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     done = sched.run_until_drained()
     torch.cuda.synchronize()
@@ -420,8 +585,7 @@ def serve(torch, params, task):
     per_step = steps * CHUNK_LEN * cfg.n_layers
     # serving keeps its weights frozen: no weight update may launch, and
     # the SNN has no attention
-    want = {"nm_spmm": per_step, "lif": per_step, "wu_outer": 0,
-            "flash_fwd": 0}
+    want = {"nm_spmm": per_step, "lif": per_step, "wu_outer": 0, **NO_ATTN}
     if len(done) != N_STREAMS:
         raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
     short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
@@ -588,11 +752,9 @@ def train(torch, task):
                    for a in task.sample(np.random.default_rng(7), EVAL_BATCH))
     setup_s = time.perf_counter() - t0
 
-    counters = kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    counters = reset_counters()
     epochs = []
     t0 = time.perf_counter()
     for i, (ev, lab) in enumerate(data):
@@ -611,10 +773,10 @@ def train(torch, task):
 
     want = (TRAIN_SAMPLES + 1) * cfg.t_steps * cfg.n_layers
     for name, n in launches.items():
-        if n != (0 if name == "flash_fwd" else want):
+        if n != (0 if name in NO_ATTN else want):
             raise AssertionError(f"{name} launched {n} times in training, want "
                                  f"{want} (= {TRAIN_SAMPLES} + 1 samples x "
-                                 f"{cfg.t_steps} x {cfg.n_layers}; flash_fwd 0)")
+                                 f"{cfg.t_steps} x {cfg.n_layers}; flash 0)")
     if [i for i, _, _ in epochs] != [39, 79]:
         raise AssertionError(f"DSST epochs after samples {[e[0] for e in epochs]}")
     epoch_recs = []
@@ -719,18 +881,17 @@ def lm_serve(torch, cfg, params):
     from repro_torch.models import transformer as T
     prompt = lm_prompts(torch, cfg, LM_BATCH, LM_PROMPT, 1)
     max_seq = LM_PROMPT + LM_NEW
-    counters = kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    counters = reset_counters()
     t0 = time.perf_counter()
     out = generate(params, cfg, prompt, LM_NEW)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = {"nm_spmm": 0, "lif": 0, "wu_outer": 0, "flash_fwd": cfg.n_layers}
+    want = {"nm_spmm": 0, "lif": 0, "wu_outer": 0, **NO_ATTN,
+            "flash_fwd": cfg.n_layers}
     if launches != want:
         raise AssertionError(f"LM serving launched {launches}, want {want} "
                              f"(one prefill of {cfg.n_layers} layers, none in "
@@ -845,6 +1006,219 @@ def lm_parity(torch, cfg, params):
     return rec
 
 
+def param_leaves(tree):
+    return [x for x in leaves(tree) if x.is_floating_point()]
+
+
+def lm_train(torch):
+    """Phase 10: Qwen2-VL-2B at full width and depth trains TRAIN_STEPS
+    steps of ``make_train_step``; raises unless every step's loss, grad norm
+    and params are finite and launched exactly 2L ``flash_fwd``, L
+    ``flash_bwd_dkv`` and L ``flash_bwd_dq``, and the last loss is below the
+    first."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.train import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig, adamw_update
+    cfg = get_config(TRAIN_ARCH)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+    t0 = time.perf_counter()
+    params, opt_state, sparse_state = init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg, hp, "cuda")
+    step = make_train_step(cfg, hp)
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                        global_batch=TRAIN_B))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = sum(x.numel() * x.element_size() for x in
+                      param_leaves(params) + param_leaves(opt_state.m)
+                      + param_leaves(opt_state.v))
+    L = cfg.n_layers
+    want = {"nm_spmm": 0, "lif": 0, "wu_outer": 0, "flash_fwd": 2 * L,
+            "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    steps = []
+    total = {name: 0 for name in want}
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        _, batch = next(pipe)
+        batch = {k: torch.from_numpy(v).to("cuda", torch.long)
+                 for k, v in batch.items()}
+        counters = reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, sparse_state, m = step(params, opt_state,
+                                                  sparse_state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: c.launches for name, c in counters.items()}
+        rec = {"step": i, "ms": ms, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
+               "gate_frac": float(m["gate_frac"]), "launches": launches,
+               "params_finite": all(bool(torch.isfinite(x).all())
+                                    for x in param_leaves(params))}
+        steps.append(rec)
+        for name, n in launches.items():
+            total[name] += n
+        if launches != want or not rec["params_finite"] \
+                or not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
+            raise AssertionError(f"LM training step {i}: {rec}; launches want "
+                                 f"{want}")
+    peak = torch.cuda.max_memory_allocated()
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError(f"LM training loss did not fall: "
+                             f"{[r['loss'] for r in steps]}")
+    timed = sorted(r["ms"] for r in steps[1:])
+    ms = timed[len(timed) // 2]
+    tokens = TRAIN_B * TRAIN_S
+    n_mat = sum(x.numel() for x in leaves(params["layers"])) \
+        + params["lm_head"].numel()
+    score = 2 * cfg.head_dim * causal_pairs(TRAIN_S, cfg.swa_window) \
+        * TRAIN_B * cfg.n_heads
+    model_flops = 6 * n_mat * tokens + 6 * score * L
+    _, batch = next(pipe)
+    batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in batch.items()}
+    holder = {"state": (params, opt_state, sparse_state)}
+
+    def one_step():
+        p, o, sp = holder["state"]
+        p, o, sp, _ = step(p, o, sp, batch)
+        holder["state"] = (p, o, sp)
+    profiled = trace_summary(torch, one_step)
+    # the step's two halves timed apart: loss and gradients, then AdamW
+    p, o, _ = holder["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = step.loss_and_grads(p, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(grads, p, o, hp.opt)
+    torch.cuda.synchronize()
+    split = {"loss_and_grads_ms": (t1 - t0) * 1e3,
+             "adamw_ms": (time.perf_counter() - t1) * 1e3}
+    del grads, p, o, holder
+    rec = {"arch": TRAIN_ARCH, "n_layers": L, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_B,
+           "seq": TRAIN_S, "steps": TRAIN_STEPS, "init_s": init_s,
+           "param_count": cfg.param_count(), "matmul_params": n_mat,
+           "state_bytes": state_bytes, "ms_per_step": ms,
+           "tokens_per_s": tokens / ms * 1e3, "model_flops": model_flops,
+           "mfu": model_flops / (ms * 1e-3) / PEAK_BF16,
+           "bound_ms_at_peak": model_flops / PEAK_BF16 * 1e3,
+           "max_memory_allocated": peak, "losses": [r["loss"] for r in steps],
+           "gate_frac": [r["gate_frac"] for r in steps],
+           "grad_norms": [r["grad_norm"] for r in steps],
+           "step_ms": [r["ms"] for r in steps],
+           "launches_per_step": want, "launches": total, **split,
+           "profiled_step": profiled}
+    log(f"lm_training {json.dumps(rec)}")
+    return rec, total
+
+
+def rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def lm_train_parity(torch):
+    """Phase 11 (module docstring)."""
+    import dataclasses
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.launch.train import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_PARITY_LAYERS)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_PARITY_S),
+                              generator=g, device="cuda")
+             for k in ("tokens", "labels")}
+    params, opt_state, sparse_state = init_train_state(
+        torch.Generator(device="cuda").manual_seed(1), cfg, hp, "cuda")
+    out = {}
+    for attn in ("flash", "plain"):
+        step = make_train_step(cfg, hp, attn=attn)
+        loss, _, grads = step.loss_and_grads(params, batch)
+        out[attn] = (float(loss), {"/".join(k): v for k, v in flat(grads).items()
+                                   if v is not None})
+    (lf, gf), (lp, gp) = out["flash"], out["plain"]
+    grad_err = {k: rel_l2(gf[k], gp[k]) for k in gp}
+    rec = {"layers": cfg.n_layers, "batch": TRAIN_B, "seq": TRAIN_PARITY_S,
+           "loss_flash": lf, "loss_plain": lp,
+           "loss_rel_err": abs(lf - lp) / abs(lp), "grad_rel_l2": grad_err,
+           "grad_rel_l2_max": max(grad_err.values()),
+           "grad_rel_l2_bound": TRAIN_GRAD_REL_L2}
+    del out, gf, gp
+    # one full step on the flash route: updated params finite
+    params, *_ = make_train_step(cfg, hp)(params, opt_state, sparse_state, batch)
+    rec["updated_params_finite"] = all(bool(torch.isfinite(x).all())
+                                       for x in param_leaves(params))
+    del params, opt_state, sparse_state
+
+    # OSSL local mode: block 0's CE gradient is exactly zero
+    hp_l = dataclasses.replace(hp, mode="local")
+    p_l, o_l, s_l = init_train_state(torch.Generator(device="cuda").manual_seed(2),
+                                     cfg, hp_l, "cuda")
+    leaf = {"wq0": p_l["layers"]["attn"]["wq"]["w"], "lm_head": p_l["lm_head"]}
+    tracked = {k: v.detach().requires_grad_() for k, v in leaf.items()}
+    p_t = dict(p_l, lm_head=tracked["lm_head"])
+    p_t["layers"] = dict(p_l["layers"], attn=dict(p_l["layers"]["attn"],
+                                                  wq={"w": tracked["wq0"]}))
+    logits, aux = T.forward(p_t, cfg, tokens=batch["tokens"], local_mode=True)
+    g_wq, g_head = torch.autograd.grad(T.lm_loss(logits, batch["labels"]),
+                                       list(tracked.values()),
+                                       allow_unused=True, materialize_grads=True)
+    del logits
+    _, _, _, m_l = make_train_step(cfg, hp_l)(p_l, o_l, s_l, batch)
+    rec["local"] = {"block0_ce_grad_max": float(g_wq[0].abs().max()),
+                    "readout_ce_grad_max": float(g_head.abs().max()),
+                    "local_loss": float(aux["local_loss"].detach()),
+                    "step_loss": float(m_l["loss"])}
+    del p_l, o_l, s_l, p_t, tracked, g_wq, g_head
+
+    # masked N:M with a DSST event after the step
+    sp = SparsityConfig(n=2, m=8, block=32, targets=("mlp",), mode="masked")
+    cfg_s = cfg.with_sparsity(sp)
+    hp_s = dataclasses.replace(hp, dsst_every=1)
+    p_s, o_s, s_s = init_train_state(torch.Generator(device="cuda").manual_seed(3),
+                                     cfg_s, hp_s, "cuda")
+    before = {k: p_s["layers"]["mlp"][k]["umask"].clone() for k in ("w1", "w2", "w3")}
+    p_s, _, _, m_s = make_train_step(cfg_s, hp_s)(p_s, o_s, s_s, batch)
+    masks = {}
+    for k, um in before.items():
+        new = p_s["layers"]["mlp"][k]["umask"]
+        groups = new.reshape(new.shape[0], -1, sp.m).sum(-1)
+        masks[k] = {"shape": list(new.shape),
+                    "n_per_group_exact": bool((groups == sp.n).all()),
+                    "units_moved": int((new & ~um).sum())}
+    rec["masked"] = {"masks": masks, "dsst_mask_change": float(m_s["dsst_mask_change"]),
+                     "loss": float(m_s["loss"])}
+    log(f"lm_train_parity {json.dumps(rec)}")
+    ok = (rec["loss_rel_err"] <= 0.01 and rec["grad_rel_l2_max"] <= TRAIN_GRAD_REL_L2
+          and rec["updated_params_finite"]
+          and rec["local"]["block0_ce_grad_max"] == 0.0
+          and rec["local"]["readout_ce_grad_max"] > 0.0
+          and math.isfinite(rec["local"]["step_loss"])
+          and all(v["n_per_group_exact"] and v["units_moved"] > 0
+                  for v in masks.values()))
+    if not ok:
+        raise AssertionError(f"LM training parity: {rec}")
+    return rec
+
+
+def flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -889,13 +1263,14 @@ def main() -> int:
         lif_cuda(z, z, z, alpha=0.9, beta=0.85, theta=1.0)
         torch.cuda.synchronize()
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = {"nm_spmm": pool.submit(timed, nm_kernel.build),
                   "wu_outer": pool.submit(timed, wu_kernel.build),
-                  "flash_attn": pool.submit(timed, fa_kernel.build)}
+                  "flash_attn": pool.submit(timed, fa_kernel.build),
+                  "flash_bwd": pool.submit(timed, fa_kernel.build_bwd)}
         record["build_s"] = {"lif": timed(build_lif)}
         record["build_s"].update({k: f.result() for k, f in builds.items()})
-    for name in ("nm_spmm", "wu_outer", "flash_attn"):
+    for name in ("nm_spmm", "wu_outer", "flash_attn", "flash_bwd"):
         for line in _build.load_library.ptxas_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
@@ -927,8 +1302,18 @@ def main() -> int:
         ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
         ("dh64_ragged_mqa", bf16, 2, 1000, 16, 1, 64, None),
         ("f32_dh160_window37", torch.float32, 1, 300, 4, 4, 160, 37))]
+    bwd_recs = [flash_bwd_case(torch, *case) for case in (
+        ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
+        ("f32", torch.float32, 2, 256, 8, 2, 64, None),
+        ("window500", bf16, 2, 2048, 12, 2, 128, 500),
+        ("ragged1000", bf16, 2, 1000, 12, 2, 128, None),
+        ("mqa", bf16, 2, 2048, 12, 1, 128, None),
+        ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
+        ("dh64_ragged", bf16, 2, 1000, 16, 4, 64, None))]
     record["parity"] = {"nm_spmm": nm_recs, "lif": lif_recs,
-                        "wu_outer": wu_recs, "flash_fwd": fa_recs}
+                        "wu_outer": wu_recs, "flash_fwd": fa_recs,
+                        "flash_bwd_dkv": [r["dkv"] for r in bwd_recs],
+                        "flash_bwd_dq": [r["dq"] for r in bwd_recs]}
 
     # 4. serving at full width
     cfg = paper_config("kernels")
@@ -957,9 +1342,21 @@ def main() -> int:
     # 9. LM path parity
     record["lm_parity"] = lm_parity(torch, lm_cfg, lm_params)
 
+    # 10. LM training at full width, after freeing Phi-3's tensors
+    del lm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["lm_training"], lm_train_launches = lm_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11. LM training parity
+    record["lm_train_parity"] = lm_train_parity(torch)
+
     by_path = {name: {"serving": serve_launches[name],
                       "training": train_launches[name],
-                      "lm_serving": lm_launches[name]}
+                      "lm_serving": lm_launches[name],
+                      "lm_training": lm_train_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):
@@ -978,7 +1375,11 @@ def main() -> int:
         row("wu_outer", "cuda", "src/repro_torch/kernels/wu_outer/wu_outer.cu",
             "src/repro/kernels/wu_outer/kernel.py:42", wu_recs[0]),
         row("flash_fwd", "cuda", "src/repro_torch/kernels/flash_attn/flash_attn.cu",
-            "src/repro/kernels/flash_attn/kernel.py:73", fa_recs[0])]}
+            "src/repro/kernels/flash_attn/kernel.py:73", fa_recs[0]),
+        row("flash_bwd_dkv", "cuda", "src/repro_torch/kernels/flash_attn/flash_bwd.cu",
+            "src/repro/kernels/flash_attn/kernel.py:161", bwd_recs[0]["dkv"]),
+        row("flash_bwd_dq", "cuda", "src/repro_torch/kernels/flash_attn/flash_bwd.cu",
+            "src/repro/kernels/flash_attn/kernel.py:180", bwd_recs[0]["dq"])]}
     record.update(kernels)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

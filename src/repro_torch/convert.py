@@ -18,6 +18,8 @@ from .core.dsst import DSSTAccumulator
 from .core.engine import LayerState
 from .core.gating import GatingState
 from .core.snn import NetState, SNNConfig, StreamState
+from .optim.optimizer import AdamWState
+from .optim.sparse import SparseTrainState
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -94,8 +96,9 @@ def _tree_from_numpy(tree: Any, leaf) -> Any:
 def lm_params_from_numpy(np_params: Mapping[str, Any], cfg: Any,
                          device="cuda") -> dict:
     """The reference's LM ``init_params`` tree (leaves as numpy, per-layer
-    leaves stacked ``[L, ...]``) on ``device``: floats in ``cfg.dtype``,
-    compact ``rows`` as an int64 index tensor, ``umask`` as bool."""
+    leaves stacked ``[L, ...]``, ``local_heads`` included) on ``device``:
+    floats in ``cfg.dtype``, compact ``rows`` as an int64 index tensor,
+    masked ``umask`` as bool."""
     dtype = getattr(torch, cfg.dtype)
 
     def leaf(a):
@@ -116,3 +119,22 @@ def lm_cache_from_numpy(np_cache: Mapping[str, Any], cfg: Any,
            for k, v in np_cache.items() if k != "pos"}
     out["pos"] = int(np_cache["pos"])
     return out
+
+
+def train_state_from_numpy(np_opt: Any, np_sparse: Any, device="cuda"):
+    """The reference's ``AdamWState`` and ``SparseTrainState`` (leaves as
+    numpy) as the port's: ``step`` a host int, the moments f32 (an int8
+    scalar where the param is an integer or boolean leaf, as there), the
+    gate statistics and pooled EMA f32."""
+    def moment(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.floating):
+            return _f32(a, device)
+        return torch.tensor(a.astype(np.int8), device=device)
+    opt = AdamWState(step=int(np_opt.step),
+                     m=_tree_from_numpy(np_opt.m, moment),
+                     v=_tree_from_numpy(np_opt.v, moment))
+    gate = GatingState(*(_f32(getattr(np_sparse.gate, f), device)
+                         for f in GatingState._fields))
+    return opt, SparseTrainState(gate=gate,
+                                 pooled_ema=_f32(np_sparse.pooled_ema, device))

@@ -76,7 +76,8 @@ class DSSTStats(NamedTuple):
     mask_change: torch.Tensor  # f32: fraction of units whose state flipped
 
 
-_INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64}
+_INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64,
+             torch.bfloat16: torch.int16, torch.float16: torch.int16}
 
 
 def _total_order_key(x: torch.Tensor) -> torch.Tensor:

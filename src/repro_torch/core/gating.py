@@ -4,11 +4,15 @@ A layer's update fires only when the input activity (IA) exceeds a global
 threshold and the similarity score (SS) of the current trace to the stored
 previous-sample trace is below an adaptive per-layer (per-stream, in
 serving) threshold that rides the running mean of SS.
+
+The same formula gates per-layer optimizer updates for the LM families
+(``optim/sparse.py``): IA = mean |block input|, SS = cosine of the pooled
+block output against its EMA (``gate_batch``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -50,6 +54,39 @@ def gate_decide(ss_mean: torch.Tensor, ia: torch.Tensor, ss: torch.Tensor,
         open_ = torch.ones_like(open_, dtype=torch.bool)
     new_mean = (1 - cfg.ss_rho) * ss_mean + cfg.ss_rho * ss.abs()
     return open_, new_mean
+
+
+class LayerGate(NamedTuple):
+    ss_mean: torch.Tensor
+    opened: torch.Tensor
+    offered: torch.Tensor
+
+
+def gate_update(state: GatingState, layer: int, ia: torch.Tensor,
+                ss: torch.Tensor, cfg: GatingConfig):
+    """One gate decision for ``layer``. Returns (open?, per-layer new state)."""
+    open_, new_mean = gate_decide(state.ss_mean[layer], ia, ss, cfg)
+    return open_, LayerGate(new_mean, state.opened[layer] + open_.float(),
+                            state.offered[layer] + 1.0)
+
+
+def merge(state: GatingState, layer_gates: Sequence[LayerGate]) -> GatingState:
+    return GatingState(
+        ss_mean=torch.stack([g.ss_mean for g in layer_gates]),
+        opened=torch.stack([g.opened for g in layer_gates]),
+        offered=torch.stack([g.offered for g in layer_gates]))
+
+
+def gate_batch(state: GatingState, ia: torch.Tensor, ss: torch.Tensor,
+               cfg: GatingConfig):
+    """Vectorised per-layer gate decision (LM training path). ``ia``,
+    ``ss``: [L]. Returns (open [L] float 0/1, new state); nothing is read
+    back to the host."""
+    open_, new_mean = gate_decide(state.ss_mean, ia, ss, cfg)
+    new = GatingState(ss_mean=new_mean,
+                      opened=state.opened + open_.float(),
+                      offered=state.offered + 1.0)
+    return open_.float(), new
 
 
 def skip_rate(state: GatingState) -> torch.Tensor:

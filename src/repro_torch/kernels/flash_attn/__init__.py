@@ -1,2 +1,3 @@
-"""Causal GQA flash attention: the forward as a CUDA kernel (``flash_fwd``)
-for the LM prefill; the backward waits for LM training."""
+"""Causal GQA flash attention: the forward (``flash_fwd``) and the two
+backward kernels (``flash_bwd``: dK/dV and dQ) as CUDA kernels, for LM
+prefill and training."""

@@ -7,9 +7,13 @@ device: a CUDA tensor launches the hand-written kernel
 or raises; a CPU tensor runs the plain ``ref.attention``, as the
 reference falls back off the TPU. There is no fallback between them.
 
-Only the forward is ported. On the CPU gradients flow through the plain
-version (the reference's ``_vjp_bwd`` ref branch); on the card the
-backward raises until the ``flash_bwd`` kernels come with LM training.
+On the card the forward saves ``q, k, v, out, lse`` and the backward
+computes ``delta = rowsum(dout·out)`` in torch and launches the two
+backward kernels (``kernel.flash_bwd_dkv_cuda``, which sums each GQA
+group's dK/dV inside the kernel, and ``kernel.flash_bwd_dq_cuda``); ``dout``
+is copied only where its rows break the kernels' 16-byte rule. On the CPU
+gradients flow through the plain version (the reference's ``_vjp_bwd`` ref
+branch).
 
 ``_to_kernel_layout`` / ``_from_kernel_layout`` (the reference's
 ``[B·H, S, dh]`` layout with K/V broadcast per group) stay for the tests,
@@ -41,6 +45,15 @@ def _from_kernel_layout(o, b, s, h, dh):
     return o.reshape(b, h, s, dh).transpose(1, 2)
 
 
+def bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dout·out)`` of model-layout ``[B, S, H, dh]``
+    tensors, in f32 as the backward kernels read it: contiguous
+    ``[B·H, S]``."""
+    b, s, h, _ = out.shape
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .contiguous().view(b * h, s)
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
@@ -48,7 +61,8 @@ class _FlashAttention(torch.autograd.Function):
         ctx.window = window
         if q.is_cuda:
             from .kernel import flash_fwd_cuda
-            out, _ = flash_fwd_cuda(q, k, v, window)
+            out, lse = flash_fwd_cuda(q, k, v, window)
+            ctx.save_for_backward(q, k, v, out, lse)
             return out
         ctx.save_for_backward(q, k, v)
         return ref.attention(q, k, v, window)
@@ -56,10 +70,15 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         if dout.is_cuda:
-            raise NotImplementedError(
-                "flash_attention backward on the card needs the flash_bwd "
-                "kernels (_dkv_kernel, _dq_kernel), which come with the LM "
-                "training slice (ROADMAP Queue 1 item 11)")
+            from .kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+                                 row_aligned)
+            q, k, v, out, lse = ctx.saved_tensors
+            if not row_aligned(dout):
+                dout = dout.contiguous()
+            delta = bwd_delta(out, dout)     # outside the kernels, as there
+            dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, ctx.window)
+            dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, ctx.window)
+            return dq, dk, dv, None
         q, k, v = (a.detach().requires_grad_() for a in ctx.saved_tensors)
         with torch.enable_grad():
             out = ref.attention(q, k, v, ctx.window)

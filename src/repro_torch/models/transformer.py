@@ -1,26 +1,30 @@
 """Model assembly (``repro.models.transformer``) for the attention families
-the port serves: dense, vlm and audio.
+the port serves and trains: dense, vlm and audio.
 
 * ``init_params``   — stacked per-layer params (``[L, ...]`` leaves, the
-  reference's tree), drawn from a ``torch.Generator`` on its device.
-* ``forward``       — full-sequence forward: logits and ``aux`` (``ia``,
-  ``pooled``).
+  reference's tree), drawn from a ``torch.Generator`` on its device; with
+  ``local_heads`` the OSSL predictor heads ``[L, D, D]``.
+* ``forward``       — full-sequence forward: logits (or, ``want_hidden``,
+  the final normed hidden states) and ``aux`` (``local_loss``, ``moe_aux``,
+  ``moe_dropped``, ``ia``, ``pooled``). ``local_mode`` detaches every block
+  input and adds each block's OSSL loss; ``cfg.remat`` recomputes each
+  block in the backward (``torch.utils.checkpoint``).
+* ``lm_loss`` / ``lm_loss_chunked`` — mean next-token cross entropy, the
+  latter over sequence chunks so the ``[B, S, V]`` logits never exist.
 * ``init_cache`` / ``prefill`` / ``decode_step`` — serving: GQA KV caches
   (ring buffer under SWA), with the position a host int.
 
 The layer loop is a Python ``for`` over views of the stacked leaves (the
 reference scans). Attention takes an explicit route instead of the
 reference's mesh context: ``attn="flash"`` (default) goes through
-``layers.attn_full_flash`` → ``kernels/flash_attn`` (the CUDA kernel on the
-card, the plain version on the CPU); ``attn="plain"`` is the reference's
-path without the context, ``attn_full`` or, beyond
+``layers.attn_full_flash`` → ``kernels/flash_attn`` (the CUDA kernels on
+the card, the plain version on the CPU); ``attn="plain"`` is the
+reference's path without the context, ``attn_full`` or, beyond
 ``CHUNKED_ATTN_THRESHOLD``, ``attn_full_chunked``.
 
 Not here: the reference's ``probe`` mode (XLA cost accounting: it has no
-counterpart in eager torch), ``lm_loss`` / ``lm_loss_chunked``,
-``local_mode`` and ``local_heads`` (OSSL LM training), and the moe, ssm and
-hybrid families — each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.
+counterpart in eager torch) and the moe, ssm and hybrid families — each
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -28,16 +32,18 @@ import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core import ossl as ossl_lib
 from . import layers as L
 
 ATTN_FAMILIES = ("dense", "vlm", "audio")
 CHUNKED_ATTN_THRESHOLD = 2048
 _LATER = {
-    "moe": "models/moe.py (ROADMAP Queue 1 item 11, after LM training)",
-    "ssm": "models/mamba2.py (ROADMAP Queue 1 item 11, after MoE)",
-    "hybrid": "models/mamba2.py and the shared block (ROADMAP Queue 1 item 11, after MoE)",
+    "moe": "models/moe.py (ROADMAP Queue 1 item 11b)",
+    "ssm": "models/mamba2.py (ROADMAP Queue 1 item 11c)",
+    "hybrid": "models/mamba2.py and the shared block (ROADMAP Queue 1 item 11c)",
 }
 
 
@@ -52,13 +58,6 @@ def _check_family(cfg: ModelConfig) -> None:
             f"{_LATER[cfg.family]}")
     if cfg.family not in ATTN_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-
-
-def _no_local(local: bool, what: str) -> None:
-    if local:
-        raise NotImplementedError(
-            f"{what} belongs to OSSL LM training (core/ossl.py), which comes "
-            f"with the LM training slice (ROADMAP Queue 1 item 11)")
 
 
 def layer_view(tree, i: int):
@@ -82,9 +81,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda",
                 local_heads: bool = False) -> Dict[str, Any]:
     """Random params with the reference's tree and shapes, drawn from
     ``gen`` on its own device and placed on ``device`` (a CUDA generator
-    draws a model for the card where it will live)."""
+    draws a model for the card where it will live). ``local_heads`` adds
+    one OSSL predictor head per block, ``{"p": [L, D, D]}``, drawn last."""
     _check_family(cfg)
-    _no_local(local_heads, "local_heads")
     dtype, dev = _dtype(cfg), gen.device
     lead = (cfg.n_layers,)
     params: Dict[str, Any] = {
@@ -100,6 +99,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda",
     if not cfg.tie_embeddings:
         params["lm_head"] = L._randn(gen, (cfg.d_model, cfg.vocab), dtype) \
             * (cfg.d_model ** -0.5)
+    if local_heads:
+        params["local_heads"] = ossl_lib.local_head_init(gen, cfg.d_model,
+                                                         dtype, lead)
     return _to(params, device)
 
 
@@ -142,10 +144,13 @@ def _block(lp, h, angles, cfg: ModelConfig, attn_fn):
     return h, kv
 
 
+def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def _head(params, cfg: ModelConfig, h):
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    head = params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    return h @ _head_matrix(params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -153,25 +158,94 @@ def _head(params, cfg: ModelConfig, h):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
-            attn: str = "flash", local_mode: bool = False
+            attn: str = "flash", local_mode: bool = False,
+            want_hidden: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence forward. Returns (logits [B,S,V], aux) with
-    ``aux["ia"]`` [L] (mean |block input|) and ``aux["pooled"]`` [L, D]
-    (mean block output), both f32: the gating engine's statistics."""
+    """Full-sequence forward. Returns (logits [B,S,V], aux), or the final
+    normed hidden states [B,S,D] in place of the logits when
+    ``want_hidden`` (the chunked-loss path). ``aux``: ``local_loss`` (f32
+    sum of the blocks' OSSL losses in ``local_mode``, else 0), ``moe_aux``
+    and ``moe_dropped`` (0: no MoE here), ``ia`` [L] (mean |block input|)
+    and ``pooled`` [L, D] (mean block output), the gating engine's
+    statistics, f32 and detached.
+
+    ``local_mode`` detaches every block input, adds each block's
+    ``ossl.local_loss`` against its ``local_heads`` entry (when the params
+    have them) and detaches the final hidden states, so the readout learns
+    on frozen features. With ``cfg.remat`` each block (and its local loss)
+    runs under ``torch.utils.checkpoint`` when gradients are on: the
+    backward recomputes it, and the flash kernel launches again."""
     _check_family(cfg)
-    _no_local(local_mode, "local_mode")
     h = L.embed_apply(params["embed"], tokens, embeds)
     b, s, _ = h.shape
     angles = _angles_for(cfg, positions, b, s, h.device)
     attn_fn = _attn_fn(cfg, s, attn)
+    heads = params.get("local_heads") if local_mode else None
+    remat = cfg.remat and torch.is_grad_enabled()
+    lloss = torch.zeros((), dtype=torch.float32, device=h.device)
     ia, pooled = [], []
     for i in range(cfg.n_layers):
-        h_in = h
-        h, _ = _block(layer_view(params["layers"], i), h, angles, cfg, attn_fn)
-        ia.append(h_in.abs().mean().float())
-        pooled.append(h.mean(dim=(0, 1)).float())
-    aux = {"ia": torch.stack(ia), "pooled": torch.stack(pooled)}
-    return _head(params, cfg, h), aux
+        h_in = h.detach() if local_mode else h
+        head = layer_view(heads, i) if heads is not None else None
+        args = (layer_view(params["layers"], i), head, h_in, angles, cfg,
+                attn_fn)
+        h, ll = (checkpoint(_train_block, *args, use_reentrant=False)
+                 if remat else _train_block(*args))
+        if ll is not None:
+            lloss = lloss + ll
+        ia.append(h_in.detach().abs().mean().float())
+        pooled.append(h.detach().mean(dim=(0, 1)).float())
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if local_mode:
+        h = h.detach()          # readout learns on frozen features (SL layer)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = {"local_loss": lloss, "moe_aux": zero, "moe_dropped": zero,
+           "ia": torch.stack(ia), "pooled": torch.stack(pooled)}
+    if want_hidden:
+        return h, aux
+    return h @ _head_matrix(params, cfg), aux
+
+
+def _train_block(lp, head, h, angles, cfg: ModelConfig, attn_fn):
+    """One block and, given a local head, its OSSL loss: (h_out, loss)."""
+    h, _ = _block(lp, h, angles, cfg, attn_fn)
+    if head is None:
+        return h, None
+    return h, ossl_lib.local_loss(h, head, ossl_lib.OSSLConfig())
+
+
+def _token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token cross entropy in f32: ``logsumexp(logits) - logits[target]``."""
+    logits32 = logits.float()
+    gold = torch.gather(logits32, -1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(logits32, dim=-1) - gold
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy, in f32."""
+    return _token_ce(logits, targets).mean()
+
+
+def _chunk_ce(h, head, t):
+    return _token_ce(h @ head, t).sum()
+
+
+def lm_loss_chunked(h: torch.Tensor, head: torch.Tensor,
+                    targets: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Cross entropy over sequence chunks: each chunk's ``[B, chunk, V]``
+    logits are recomputed in the backward (``checkpoint``), so the full
+    ``[B, S, V]`` (and its f32 copies) never exists. ``S`` must be a
+    multiple of ``chunk`` (as the reference's reshape requires)."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        args = (h[:, c0:c0 + chunk], head, targets[:, c0:c0 + chunk])
+        total = total + (checkpoint(_chunk_ce, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else _chunk_ce(*args))
+    return total / (b * s)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,121 @@
+"""AdamW and its schedule (``repro.optim.optimizer``), over the dict trees of
+``models/transformer.py``.
+
+Integer and boolean leaves (sparsity masks ``umask``, kept-row tables
+``rows``) are structural, not trainable: they get no moments (an int8
+scalar stands in, as in the reference) and no update; their gradients are
+``None``.
+
+The step counter is a host int, so the learning-rate schedule is computed
+on the host (in float32, as the reference computes it on the device) and
+nothing is read back from the card. The reference returns new params and
+moments; ``adamw_update`` writes params, ``m`` and ``v`` in place (it saves
+a second copy of the f32 moments, 14 GB at Qwen2-VL-2B) and returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def trainable(leaf: torch.Tensor) -> bool:
+    return leaf.is_floating_point()
+
+
+class AdamWState(NamedTuple):
+    step: int          # host int
+    m: Any
+    v: Any
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (``rest``: trees of the same
+    structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def adamw_init(params) -> AdamWState:
+    def zeros(p):
+        if trainable(p):
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros((), dtype=torch.int8, device=p.device)
+    return AdamWState(step=0, m=tree_map(zeros, params),
+                      v=tree_map(zeros, params))
+
+
+def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
+    """Learning rate at host-int ``step``, in float32 as the reference."""
+    f = np.float32
+    s = f(step)
+    warm = min(f(1.0), (s + f(1)) / f(max(1, cfg.warmup_steps)))
+    prog = np.clip((s - f(cfg.warmup_steps))
+                   / f(max(1, cfg.total_steps - cfg.warmup_steps)), f(0), f(1))
+    cos = f(0.5) * (f(1) + np.cos(f(math.pi) * prog, dtype=np.float32))
+    return float(f(cfg.lr) * warm * (f(cfg.min_lr_frac)
+                                     + (f(1) - f(cfg.min_lr_frac)) * cos))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the summed squares of every float leaf (``None`` skipped)."""
+    sq = [l.float().square().sum() for l in tree_leaves(tree)
+          if l is not None and trainable(l)]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
+                 update_scale=None) -> Tuple[Any, AdamWState, Dict[str, Any]]:
+    """One AdamW step. ``update_scale``: optional tree of per-leaf scales
+    (the activity-dependent gate: 0 skips a layer's update, the chip's
+    gated WU applied to the optimizer; a masked weight's scale also carries
+    its mask). Updates ``params``, ``m`` and ``v`` in place."""
+    gnorm = global_norm(grads)
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = cosine_schedule(cfg, state.step)
+    t = np.float32(state.step + 1)
+    bc1 = float(np.float32(1) - np.float32(cfg.b1) ** t)
+    bc2 = float(np.float32(1) - np.float32(cfg.b2) ** t)
+
+    def upd(g, p, m, v, s):
+        if not trainable(p):
+            return
+        g = g.float() * clip
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        step_ = lr * (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        step_ = step_ + lr * cfg.weight_decay * p.float()
+        if s is not None:
+            step_ = step_ * s
+        p.copy_((p.float() - step_).to(p.dtype))
+
+    scale = update_scale if update_scale is not None \
+        else tree_map(lambda _: None, params)
+    with torch.no_grad():
+        tree_map(upd, grads, params, state.m, state.v, scale)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return params, AdamWState(state.step + 1, state.m, state.v), metrics

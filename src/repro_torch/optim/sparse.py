@@ -1,0 +1,148 @@
+"""ElfCore's training-time machinery at LM scale (``repro.optim.sparse``):
+
+* ``compute_gates`` — the activity-dependent per-layer gate (IA/SS: the
+  chip's gated WU applied to AdamW; a gated-off layer's update is skipped).
+* ``gated_scale_tree`` — per-leaf optimizer update scales: the gate, and
+  for N:M-masked weights their expanded mask (the straight-through forward
+  in ``models/layers`` gives dense grads for DSST scoring; updates stay on
+  active connections).
+* ``lm_dsst_event`` — one prune/regrow pass over every masked matrix of a
+  parameter tree (RigL oracle on the real dense grads), through the port's
+  ``core/dsst.prune_regrow``, which breaks top-k ties as ``jax.lax.top_k``.
+* ``SparseTrainState`` — gating statistics carried across steps.
+
+Everything stays on the device: no value is read back to decide anything.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..configs.base import SparsityConfig
+from ..core import gating as gating_lib
+from ..core.sparsity import NMSpec
+from ..core.topology import prune_regrow_stacked
+from ..core.dsst import prune_regrow
+from .optimizer import tree_leaves
+
+
+class SparseTrainState(NamedTuple):
+    gate: gating_lib.GatingState
+    pooled_ema: torch.Tensor       # [L, D] per-layer pooled-output EMA (SS ref)
+
+    @staticmethod
+    def init(n_layers: int, d_model: int, device="cuda") -> "SparseTrainState":
+        return SparseTrainState(
+            gate=gating_lib.init_state(n_layers, device=device),
+            pooled_ema=torch.zeros((n_layers, d_model), dtype=torch.float32,
+                                   device=device))
+
+
+def compute_gates(state: SparseTrainState, ia: torch.Tensor,
+                  pooled: torch.Tensor, cfg: gating_lib.GatingConfig,
+                  ema_rho: float = 0.05
+                  ) -> Tuple[torch.Tensor, SparseTrainState]:
+    """ia [L], pooled [L, D] from forward aux -> (gate [L] 0/1, new state)."""
+    def _n(x):
+        return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-6)
+    ss = (_n(pooled) * _n(state.pooled_ema)).sum(-1)             # [L]
+    open_, gate_st = gating_lib.gate_batch(state.gate, ia, ss, cfg)
+    ema = (1 - ema_rho) * state.pooled_ema + ema_rho * pooled
+    return open_, SparseTrainState(gate=gate_st, pooled_ema=ema)
+
+
+# ---------------------------------------------------------------------------
+# update-scale tree (gate × mask)
+# ---------------------------------------------------------------------------
+
+def _expand_mask(node) -> torch.Tensor:
+    m = node["umask"]                                            # [..., KB, 1]
+    block = node["w"].shape[-2] // m.shape[-2]
+    return m.repeat_interleave(block, dim=-2).float()            # [..., K, 1]
+
+
+def gated_scale_tree(params, gate_vec: Optional[torch.Tensor],
+                     sp: Optional[SparsityConfig]):
+    """Tree matching ``params``: scalar/broadcast scales for
+    ``adamw_update``. Leaves under the stacked ``layers`` (and
+    ``local_heads``) subtree get ``gate_vec[l]`` (their leading dim is L);
+    masked ``w`` leaves also get the expanded mask, so pruned entries get no
+    update."""
+    dev = tree_leaves(params)[0].device
+    one = torch.ones((), dtype=torch.float32, device=dev)
+
+    def lgate(ndim):
+        return gate_vec.reshape((-1,) + (1,) * (ndim - 1))
+
+    def rec(node, under_layers: bool):
+        if isinstance(node, dict):
+            has_mask = "umask" in node and "w" in node
+            out = {}
+            for k, v in node.items():
+                if k == "w" and has_mask:
+                    s = _expand_mask(node)
+                    if under_layers and gate_vec is not None:
+                        s = s * lgate(v.dim())
+                    out[k] = s
+                else:
+                    out[k] = rec(v, under_layers)
+            return out
+        if under_layers and gate_vec is not None:
+            return lgate(node.dim())
+        return one
+
+    return {key: rec(sub, under_layers=key in ("layers", "local_heads"))
+            for key, sub in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# DSST over a parameter tree
+# ---------------------------------------------------------------------------
+
+def _unit_score_shared(x: torch.Tensor, kb: int) -> torch.Tensor:
+    """|x| summarised per mask unit for shared-pattern masks: [.., K, O] ->
+    [.., KB, 1] (sum over block rows and all output columns)."""
+    *lead, k, o = x.shape
+    xg = x.abs().reshape(*lead, kb, k // kb, o)
+    return xg.sum(dim=(-1, -2))[..., None]
+
+
+def lm_dsst_event(params, grads, sp: SparsityConfig
+                  ) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """Prune/regrow every masked matrix; returns (new params, stats).
+    Survivors keep their weights, regrown units restart at 0."""
+    spec1 = NMSpec(n=sp.n, m=sp.m)      # unit-granular view ([KB, 1] masks)
+    k_re = max(0, min(sp.n - 1, int(round(sp.n * 0.3))))
+    flips = []
+
+    def one(w, umask, gw):
+        kb = umask.shape[-2]
+        wsc = _unit_score_shared(w, kb)
+        gsc = _unit_score_shared(gw, kb)
+        if w.dim() > 2:   # stacked [L, ...]: one topology-stacked event
+            shape = (-1,) + tuple(umask.shape[-2:])
+            nm2, st = prune_regrow_stacked(umask.reshape(shape),
+                                           wsc.reshape(shape),
+                                           gsc.reshape(shape), spec1, k_re)
+            new_umask = nm2.reshape(umask.shape)
+            flips.append(st.mask_change.float().mean())
+        else:
+            new_umask, st = prune_regrow(umask, wsc, gsc, spec1, k_re)
+            flips.append(st.mask_change.float())
+        surv = umask & new_umask
+        block = w.shape[-2] // kb
+        return w * surv.repeat_interleave(block, dim=-2).to(w.dtype), new_umask
+
+    def rec(node, gnode):
+        if isinstance(node, dict):
+            if "umask" in node and "w" in node:
+                w, um = one(node["w"], node["umask"], gnode["w"])
+                return {**node, "w": w, "umask": um}
+            return {k: rec(v, gnode[k]) for k, v in node.items()}
+        return node
+
+    new_params = rec(params, grads)
+    dev = tree_leaves(params)[0].device
+    total = torch.stack(flips).sum() if flips else torch.zeros((), device=dev)
+    return new_params, {"dsst_mask_change": total}

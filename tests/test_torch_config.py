@@ -17,12 +17,20 @@ import torch
 from repro.configs import base as jbase
 from repro.core.dsst import DSSTConfig as JDSSTConfig
 from repro.core.gating import GatingConfig as JGatingConfig
+from repro.core.ossl import OSSLConfig as JOSSLConfig
 from repro.core.snn import SNNConfig as JSNNConfig
+from repro.data.pipeline import PipelineConfig as JPipelineConfig
+from repro.launch.train import TrainHParams as JTrainHParams
+from repro.optim.optimizer import AdamWConfig as JAdamWConfig
 from repro_torch.configs import base
 from repro_torch.core import engine
 from repro_torch.core.dsst import DSSTConfig
 from repro_torch.core.gating import GatingConfig
+from repro_torch.core.ossl import OSSLConfig
 from repro_torch.core.snn import SNNConfig
+from repro_torch.data.pipeline import PipelineConfig
+from repro_torch.launch.train import TrainHParams
+from repro_torch.optim.optimizer import AdamWConfig
 
 torch.set_num_threads(1)
 
@@ -52,9 +60,15 @@ def _fields(cls):
                                       (JGatingConfig, GatingConfig),
                                       (jbase.ModelConfig, base.ModelConfig),
                                       (jbase.SparsityConfig, base.SparsityConfig),
-                                      (jbase.ShapeConfig, base.ShapeConfig)],
+                                      (jbase.ShapeConfig, base.ShapeConfig),
+                                      (JOSSLConfig, OSSLConfig),
+                                      (JAdamWConfig, AdamWConfig),
+                                      (JPipelineConfig, PipelineConfig),
+                                      (JTrainHParams, TrainHParams)],
                          ids=["SNNConfig", "DSSTConfig", "GatingConfig",
-                              "ModelConfig", "SparsityConfig", "ShapeConfig"])
+                              "ModelConfig", "SparsityConfig", "ShapeConfig",
+                              "OSSLConfig", "AdamWConfig", "PipelineConfig",
+                              "TrainHParams"])
 def test_config_fields_and_defaults_match_reference(ref, port):
     assert _fields(port) == _fields(ref)
 
@@ -98,7 +112,7 @@ def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 44      # every module was imported
+    assert int(out.stdout.strip()) >= 63      # every module was imported
 
 
 def test_no_source_file_imports_repro_or_jax():

@@ -4,10 +4,13 @@ same numpy inputs.
 Tolerances: the plain kernel-layout ``flash_fwd`` against the reference
 kernel in interpret mode ``atol = rtol = 2e-5``, the reference's own bound
 for its kernel against its oracle (f32: one pass vs online tiles, sums in
-another order). The op against the reference oracle ``2e-5`` (the same
-f32 einsums and softmax); gradients ``5e-5``, the reference's own
-flash-backward bound. Layouts, traffic models and launch geometry are
-exact.
+another order); the plain ``flash_bwd`` against the reference's backward
+kernels ``5e-5``, its own flash-backward bound. The op against the
+reference oracle ``2e-5`` (the same f32 einsums and softmax); gradients
+``5e-5``. Layouts, traffic models and launch geometry are exact. The bf16
+bounds the kernels are held to on the card (``ref.bf16_out_tolerance``,
+``ref.bf16_grad_tolerance``) are checked here against tile-by-tile plain
+emulations of the kernels' rounding, with and without a planted fault.
 
 Tests marked ``cuda`` hold the CUDA kernel against its plain version on
 the card and skip where there is none.
@@ -19,7 +22,8 @@ import pytest
 import torch
 
 from repro.kernels.flash_attn import ops as jops, ref as jref
-from repro.kernels.flash_attn.kernel import flash_fwd as jflash_fwd
+from repro.kernels.flash_attn.kernel import (flash_bwd as jflash_bwd,
+                                             flash_fwd as jflash_fwd)
 from repro_torch.kernels.flash_attn import kernel as fk
 from repro_torch.kernels.flash_attn import ops, ref
 
@@ -206,10 +210,230 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, b, s, h, kv, dh, window
     assert float((lse - lse_r).abs().max()) <= 1e-4
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,h,kv,dh,bq,bk", SWEEP)
+@pytest.mark.parametrize("window", [None, 8])
+def test_plain_flash_bwd_matches_reference_kernels(b, s, h, kv, dh, bq, bk,
+                                                   window):
+    q, k, v = _qkv(8, b, s, h, kv, dh)
+    dout = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    jq, jk, jv = jops._to_kernel_layout(*map(jnp.asarray, (q, k, v)))
+    jo, jlse = jflash_fwd(jq, jk, jv, bq=bq, bk=bk, window=window,
+                          interpret=True)
+    jdo = jnp.asarray(dout).transpose(0, 2, 1, 3).reshape(b * h, s, dh)
+    want = jflash_bwd(jq, jk, jv, jo, jlse, jdo, bq=bq, bk=bk, window=window,
+                      interpret=True)
+    tq, tk, tv = ops._to_kernel_layout(*map(torch.tensor, (q, k, v)))
+    got = ref.flash_bwd(tq, tk, tv, torch.tensor(np.asarray(jo)),
+                        torch.tensor(np.asarray(jlse)),
+                        torch.tensor(np.asarray(jdo)), window)
+    for a, c in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), atol=5e-5,
+                                   rtol=5e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,window", [
+    (1, 24, 6, 1, 16, None),     # MQA
+    (2, 20, 6, 2, 8, 5),         # GQA, sliding window
+])
+def test_flash_attention_gqa_grads_match_reference(b, s, h, kv, dh, window):
+    q, k, v = _qkv(10, b, s, h, kv, dh)
+    dout = np.random.default_rng(11).standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(lambda *a: (jref.attention(*a, window) * dout).sum(),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    (ops.flash_attention(tq, tk, tv, window) * torch.tensor(dout)).sum().backward()
+    for a, c in zip(want, (tq.grad, tk.grad, tv.grad)):
+        np.testing.assert_allclose(c.numpy(), np.asarray(a), atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("dh", [64, 128, 160])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,window", [(200, None), (200, 37), (64, 1),
+                                      (200, 65), (200, 66), (200, 33),
+                                      (4096, 500)])
+def test_bwd_launch_covers_every_visible_pair_once(dh, dtype, s, window):
+    """The dK/dV blocks and the query tiles each visits (``q_tile_range``)
+    cover every visible (query, key) pair exactly once and visit only tiles
+    holding one; the dQ blocks cover every row once and visit only open KV
+    tiles."""
+    h, kvh = 12, 2
+    dkv = fk.bwd_launch_config("dkv", 2, s, s, h, kvh, dh, dtype)
+    dq = fk.bwd_launch_config("dq", 2, s, s, h, kvh, dh, dtype)
+    assert max(dkv.smem_bytes, dq.smem_bytes) <= fk.SMEM_LIMIT
+    assert dkv.grid == (2 * kvh, -(-s // dkv.block_rows))
+    assert dq.grid == (-(-s // dq.block_rows), 2 * h)
+    ok = ref.causal_ok(s, s, window, "cpu")
+    seen = torch.zeros(s, s, dtype=torch.int32)
+    for kt in range(dkv.grid[1]):
+        k0, k1 = kt * dkv.block_rows, min(s, (kt + 1) * dkv.block_rows)
+        lo, hi = fk.q_tile_range(k0, k1, s, window, dkv.tile)
+        for qt in range(lo, hi):
+            q0, q1 = qt * dkv.tile, min(s, (qt + 1) * dkv.tile)
+            assert bool(ok[q0:q1, k0:k1].any())          # an open tile
+            seen[q0:q1, k0:k1] += 1
+    assert bool((seen[ok] == 1).all())
+    rows = torch.zeros(s, dtype=torch.int32)
+    for i in range(dq.grid[0]):
+        q0, q1 = i * dq.block_rows, min(s, (i + 1) * dq.block_rows)
+        rows[q0:q1] += 1
+        lo, hi = fk.kv_tile_range(q0, q1, s, window, dq.tile)
+        open_tiles = {kt for kt in range(-(-s // dq.tile))
+                      if bool(ok[q0:q1, kt * dq.tile:(kt + 1) * dq.tile].any())}
+        assert set(range(lo, hi)) == open_tiles
+    assert bool((rows == 1).all())
+
+
+def test_bwd_launch_config_rejects_what_has_no_kernel():
+    with pytest.raises(ValueError):
+        fk.bwd_launch_config("dkv", 1, 8, 8, 1, 1, 96, torch.bfloat16)
+    with pytest.raises(TypeError):
+        fk.bwd_launch_config("dq", 1, 8, 8, 1, 1, 64, torch.float16)
+
+
+def _tiled_bwd_bf16(q, k, v, dout, window, drop=None):
+    """The CUDA kernels' bf16 arithmetic, tile by tile in plain torch, in the
+    model layout: dK/dV per 64-key tile over its GQA group's heads and the
+    32-query tiles ``q_tile_range`` gives, p and ds rounded to bf16 for the
+    products, f32 sums, one rounding at the end; dQ per 64-query tile over
+    32-key tiles. ``drop`` plants a kernel fault: ``("q_tile", kt, qt)``
+    leaves a query tile out of key tile kt's sum, ``("head", g)`` a GQA
+    head out of every dK/dV sum, ``("kv_tile", kt)`` a KV tile out of the
+    last query tile's dQ sum."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    sc = dh ** -0.5
+    ok = ref.causal_ok(s, s, window, "cpu")
+    qk, kk, vk = ops._to_kernel_layout(q, k, v)
+    dok = dout.transpose(1, 2).reshape(b * h, s, dh)
+    o, lse = ref.flash_fwd(qk, kk, vk, window)
+    delta = (dok.float() * o.float()).sum(-1)
+    qk, kk, vk, dok = (x.float() for x in (qk, kk, vk, dok))
+
+    def tile(n, q0, q1, k0, k1):
+        st = qk[n, q0:q1] @ kk[n, k0:k1].T * sc
+        p = torch.where(ok[q0:q1, k0:k1],
+                        torch.exp(st - lse[n, q0:q1, None]), 0.0)
+        dp = dok[n, q0:q1] @ vk[n, k0:k1].T
+        return p, p * (dp - delta[n, q0:q1, None]) * sc
+
+    dk = torch.zeros(b, s, kvh, dh)
+    dv = torch.zeros(b, s, kvh, dh)
+    for bi in range(b):
+        for kh in range(kvh):
+            for k0 in range(0, s, 64):
+                k1 = min(s, k0 + 64)
+                lo, hi = fk.q_tile_range(k0, k1, s, window, 32)
+                for gi in range(g):
+                    if drop == ("head", gi):
+                        continue
+                    n = bi * h + kh * g + gi
+                    for qt in range(lo, hi):
+                        if drop == ("q_tile", k0 // 64, qt):
+                            continue
+                        q0, q1 = qt * 32, min(s, qt * 32 + 32)
+                        p, ds = tile(n, q0, q1, k0, k1)
+                        dv[bi, k0:k1, kh] += p.bfloat16().float().T @ dok[n, q0:q1]
+                        dk[bi, k0:k1, kh] += ds.bfloat16().float().T @ qk[n, q0:q1]
+    dq = torch.zeros(b * h, s, dh)
+    for n in range(b * h):
+        for q0 in range(0, s, 64):
+            q1 = min(s, q0 + 64)
+            lo, hi = fk.kv_tile_range(q0, q1, s, window, 32)
+            for kt in range(lo, hi):
+                if q1 == s and drop == ("kv_tile", kt):
+                    continue
+                k0, k1 = kt * 32, min(s, kt * 32 + 32)
+                _, ds = tile(n, q0, q1, k0, k1)
+                dq[n, q0:q1] += ds.bfloat16().float() @ kk[n, k0:k1]
+    dq = ops._from_kernel_layout(dq, b, s, h, dh)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
+    """The f32 plain gradients in the model layout (GQA groups summed in
+    f32), from the forward's ``out`` and ``lse`` in the inputs' dtype (what
+    the op saves for its backward; by default ``ref.flash_fwd``'s), and
+    their ``ref.bf16_grad_tolerance``."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    kl = ops._to_kernel_layout(q, k, v)
+    if out is None:
+        o, lse = ref.flash_fwd(*kl, window)
+    else:
+        o = ops._to_kernel_layout(out, k, v)[0]
+    kl = [x.float() for x in kl]
+    dok = dout.transpose(1, 2).reshape(b * h, s, dh).float()
+    grads = ref.flash_bwd(*kl, o, lse, dok, window)
+    sigmas = ref.bwd_rounding_sigmas(*kl, o, lse, dok, window)
+
+    def group(x):                          # [B·H, T, dh] -> [B, T, KV, dh]
+        return x.reshape(b, kvh, h // kvh, s, dh).sum(2).transpose(1, 2)
+    dq = ops._from_kernel_layout(grads[0], b, s, h, dh)
+    sq = ops._from_kernel_layout(sigmas[0], b, s, h, dh)
+    out = [(dq, ref.bf16_grad_tolerance(dq, sq))]
+    for gr, sg in zip(grads[1:], sigmas[1:]):
+        gr = group(gr)
+        out.append((gr, ref.bf16_grad_tolerance(gr, group(sg * sg).sqrt())))
+    return out
+
+
+@pytest.mark.parametrize("s,window,drop", [
+    (256, None, None), (250, 70, None),           # the kernels' own rounding
+    (256, None, ("q_tile", 1, 5)),                # a query tile out of dK/dV
+    (256, None, ("head", 2)),                     # a GQA head out of dK/dV
+    (250, 70, ("kv_tile", 6)),                    # a KV tile out of dQ
+])
+def test_bf16_grad_tolerance_admits_rounding_and_catches_a_lost_term(
+        s, window, drop):
+    q, k, v = (torch.tensor(a).to(torch.bfloat16)
+               for a in _qkv(12, 1, s, 6, 2, 128))
+    dout = torch.tensor(np.random.default_rng(13).standard_normal(
+        q.shape).astype(np.float32)).to(torch.bfloat16)
+    got = _tiled_bwd_bf16(q, k, v, dout, window, drop)
+    want = _f32_grads_and_tolerances(q, k, v, dout, window)
+    over = [(x.float() - r).abs() > tol for x, (r, tol) in zip(got, want)]
+    if drop is None:
+        assert not any(bool(o.any()) for o in over)
+    elif drop[0] == "q_tile":          # keys 64..127 lose queries 160..191
+        assert not bool(over[0].any())
+        for o in over[1:]:
+            assert float(o[:, 64:128].float().mean()) > 0.5
+            assert not bool(o[:, :64].any()) and not bool(o[:, 128:].any())
+    elif drop[0] == "head":
+        assert not bool(over[0].any())
+        assert all(float(o.float().mean()) > 0.5 for o in over[1:])
+    else:                              # the last query tile of dQ
+        assert float(over[0][:, 192:].float().mean()) > 0.5
+        assert not bool(over[0][:, :192].any())
+        assert not bool(over[1].any()) and not bool(over[2].any())
+
+
 @pytest.mark.cuda
-def test_flash_backward_raises_on_card(cuda):
-    q, k, v = (torch.tensor(a).to(cuda).requires_grad_()
-               for a in _qkv(6, 1, 16, 2, 1, 64))
-    out = ops.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+@pytest.mark.parametrize("dtype,b,s,h,kv,dh,window", [
+    (torch.bfloat16, 2, 256, 12, 2, 128, None),
+    (torch.float32, 2, 256, 8, 2, 64, None),
+    (torch.bfloat16, 1, 300, 4, 4, 160, 37),
+    (torch.bfloat16, 2, 1000, 4, 1, 64, None),     # ragged, MQA
+])
+def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, b, s, h, kv, dh,
+                                               window):
+    q, k, v = (torch.tensor(a).to(cuda, dtype) for a in _qkv(14, b, s, h, kv, dh))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(15)
+                       ).to(cuda, dtype)
+    before = (fk.flash_bwd_dkv_cuda.launches, fk.flash_bwd_dq_cuda.launches)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    (ops.flash_attention(qr, kr, vr, window).float() * dout.float()).sum().backward()
+    assert (fk.flash_bwd_dkv_cuda.launches, fk.flash_bwd_dq_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    out, lse = fk.flash_fwd_cuda(q, k, v, window)
+    want = _f32_grads_and_tolerances(q.cpu(), k.cpu(), v.cpu(), dout.cpu(),
+                                     window, out.cpu(), lse.cpu())
+    for x, (r, tol) in zip((qr.grad, kr.grad, vr.grad), want):
+        if dtype == torch.float32:   # sums in another order
+            tol = 1e-4 * (1 + r.abs().max())
+        assert bool(((x.cpu().float() - r).abs() <= tol).all())

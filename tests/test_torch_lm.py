@@ -266,21 +266,26 @@ def test_unported_families_raise(arch):
 
 
 def test_init_params_tree_matches_reference_and_local_modes_raise():
+    """The params tree, with and without the OSSL ``local_heads``, has the
+    reference's paths and shapes (local modes no longer raise: LM training
+    brought them)."""
     cfg = C.get_reduced("qwen2_vl_2b")
-    tp = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    jp = jax.eval_shape(lambda r: JT.init_params(r, JC.get_reduced("qwen2_vl_2b")),
-                        jax.random.PRNGKey(0))
-    flat_t = {"/".join(map(str, k)): tuple(v.shape) for k, v in
-              _flatten(tp).items()}
-    flat_j = {"/".join(str(getattr(p, "key", p)) for p in k): tuple(v.shape)
-              for k, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
-    assert flat_t == flat_j
-    with pytest.raises(NotImplementedError):
-        T.forward(tp, cfg, tokens=torch.zeros((1, 4), dtype=torch.long),
-                  local_mode=True)
-    with pytest.raises(NotImplementedError):
-        T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu",
-                      local_heads=True)
+    for local in (False, True):
+        tp = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu",
+                           local_heads=local)
+        jp = jax.eval_shape(lambda r: JT.init_params(
+            r, JC.get_reduced("qwen2_vl_2b"), local_heads=local),
+            jax.random.PRNGKey(0))
+        flat_t = {"/".join(map(str, k)): tuple(v.shape) for k, v in
+                  _flatten(tp).items()}
+        flat_j = {"/".join(str(getattr(p, "key", p)) for p in k): tuple(v.shape)
+                  for k, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
+        assert flat_t == flat_j
+        assert ("local_heads/p" in flat_t) == local
+    assert flat_t["local_heads/p"] == (cfg.n_layers, cfg.d_model, cfg.d_model)
+    logits, aux = T.forward(tp, cfg, tokens=torch.zeros((1, 12), dtype=torch.long),
+                            local_mode=True)
+    assert logits.shape == (1, 12, cfg.vocab) and float(aux["local_loss"]) != 0.0
 
 
 def _flatten(tree, prefix=()):
