@@ -10,7 +10,10 @@ Phases, each raising on failure:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: compile the hand-written kernels from the sources in the
    checkout (``nm_spmm``, ``wu_outer``, ``flash_attn`` and ``flash_bwd``:
-   CUDA C++, one ``nvcc`` each, started together; ``lif``: Triton).
+   CUDA C++, one ``nvcc`` each, started together; ``lif``: Triton). Prints
+   each kernel instance's registers and spills from ``ptxas -v`` (with the
+   dynamic shared memory of the bf16 ``wgmma`` instances, which must not
+   spill).
 3. kernel parity: each kernel against its plain torch version on the card,
    at its path's shapes and at a tiled / ragged shape, with its
    device time (summed kernel durations in a ``torch.profiler`` trace, L2
@@ -21,9 +24,10 @@ Phases, each raising on failure:
    larger) and, where one PyTorch call computes the same function, that
    call's time (timed only; the port never calls it). ``wu_outer`` also
    writes exact zeros for a closed gate (``scale = 0``). ``flash_fwd`` at
-   the LM prefill shape (bf16), a small f32 shape, a 512 window (whole KV
+   the LM prefill shape (bf16), the LM training shape (B 2, S 4096, H 12,
+   KV 2, dh 128), a small f32 shape, a 512 window (whole KV
    tiles skipped, rows whose first visited tile is all masked), a ragged
-   S = 1000, MQA, windows of 500 and 65 (off the 64-key tile edge), head
+   S = 1000, MQA, windows of 500 and 65 (off the key-tile edges), head
    widths 160 (StableLM) and 64, and f32 at dh 160 with a window of 37,
    against the plain ``ref.flash_fwd`` (bf16 out per element within
    ``ref.bf16_out_tolerance``) and, as the library yardstick,
@@ -170,6 +174,37 @@ def device_kernels(torch, fn, iters=1, keep=None):
         if events:
             return events, wall
     raise RuntimeError("the profiler recorded no device time for the call")
+
+
+def ptxas_instances(text):
+    """Each kernel instance in a ``ptxas -v`` log: its name (template head
+    width as ``dh``), registers, and spill stores and loads in bytes."""
+    import re
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            # the last <length><name> part of the mangled (nested) name
+            i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+            while i < len(mangled) and mangled[i].isdigit():
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                n = int(mangled[i:j])
+                name, i = mangled[j:j + n], j + n
+            dh = re.search(r"ILi(\d+)E", mangled)
+            cur = {"kernel": name,
+                   "dh": int(dh.group(1)) if dh else None,
+                   "registers": None, "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            for n, kind in nums:
+                cur[f"spill_{kind}"] = int(n)
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 def kernel_class(name):
@@ -1270,10 +1305,27 @@ def main() -> int:
                   "flash_bwd": pool.submit(timed, fa_kernel.build_bwd)}
         record["build_s"] = {"lif": timed(build_lif)}
         record["build_s"].update({k: f.result() for k, f in builds.items()})
+    record["ptxas"] = {}
     for name in ("nm_spmm", "wu_outer", "flash_attn", "flash_bwd"):
-        for line in _build.load_library.ptxas_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+        text = _build.load_library.ptxas_log.get(name, "")
+        record["ptxas"][name] = ptxas_instances(text)
+        for line in text.splitlines():
+            if "warning" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    wgmma = []
+    for name, inst in record["ptxas"].items():
+        for k in inst:
+            if "wgmma" in k["kernel"]:
+                cfg = (fa_kernel.launch_config(1, 1, 1, k["dh"], torch.bfloat16)
+                       if "fwd" in k["kernel"] else fa_kernel.bwd_launch_config(
+                           "dkv", 1, 1, 1, 1, 1, k["dh"], torch.bfloat16))
+                k["dynamic_smem_bytes"] = cfg.smem_bytes
+                wgmma.append(k)
+            log(f"ptxas {name} {json.dumps(k)}")
+    spilled = [k for k in wgmma if k["spill_stores"] or k["spill_loads"]]
+    if len(wgmma) != 6 or spilled:
+        raise AssertionError(f"ptxas: want 6 wgmma instances without spills, "
+                             f"got {wgmma}")
     log(f"build {json.dumps(record['build_s'])}")
 
     # 3. kernel parity on the card
@@ -1293,11 +1345,12 @@ def main() -> int:
     bf16 = torch.bfloat16
     fa_recs = [flash_case(torch, *case) for case in (
         ("prefill", bf16, LM_BATCH, LM_PROMPT, 40, 10, 128, None),
+        ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
         ("small_f32", torch.float32, 2, 256, 8, 2, 64, None),
         ("window512", bf16, 2, 2048, 40, 10, 128, 512),
         ("ragged1000", bf16, 2, 1000, 40, 10, 128, None),
         ("mqa", bf16, 2, 2048, 40, 1, 128, None),
-        # windows off the 64-key tile edge, StableLM's dh 160, dh 64
+        # windows off the key-tile edges, StableLM's dh 160, dh 64
         ("window500", bf16, 2, 2048, 40, 10, 128, 500),
         ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
         ("dh64_ragged_mqa", bf16, 2, 1000, 16, 1, 64, None),

@@ -3,7 +3,8 @@
 The sources have a plain C interface (no PyTorch headers), so one ``nvcc``
 call per library takes seconds; the shared object lands in
 ``build/torch_kernels/`` inside the checkout and is rebuilt whenever a
-source is newer than it. Libraries are built once per process.
+source, or a header it includes by ``#include "..."``, is newer than it.
+Libraries are built once per process.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import ctypes
 import functools
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -30,25 +32,54 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(path: str) -> list:
+    """The headers ``path`` includes by ``#include "..."``, found beside the
+    including file, and theirs in turn."""
+    seen, todo = [], [path]
+    while todo:
+        cur = todo.pop()
+        with open(cur) as f:
+            text = f.read()
+        for name in _LOCAL_INCLUDE.findall(text):
+            hdr = os.path.join(os.path.dirname(cur), name)
+            if os.path.exists(hdr) and hdr not in seen:
+                seen.append(hdr)
+                todo.append(hdr)
+    return seen
+
+
+def stale(out: pathlib.Path, sources) -> bool:
+    """Whether ``out`` is missing or older than a source or a header one
+    includes."""
+    watched = [*sources, *(h for src in sources for h in local_headers(src))]
+    return not out.exists() or os.path.getmtime(out) < max(
+        os.path.getmtime(w) for w in watched)
+
+
 @functools.cache
 def load_library(name: str, *sources: str) -> ctypes.CDLL:
     """Compile ``sources`` (paths) into ``lib<name>.so`` and load it.
 
     ``load_library.ptxas_log[name]`` keeps what ``ptxas -v`` said
-    (registers, shared memory and spills of each kernel).
+    (registers, shared memory and spills of each kernel), also kept beside
+    the library for a build made earlier.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}.so"
-    newest = max(os.path.getmtime(s) for s in sources)
-    if not out.exists() or os.path.getmtime(out) < newest:
+    log = BUILD_DIR / f"lib{name}.ptxas.txt"
+    if stale(out, sources):
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas=-v",
                "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), *sources]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-        load_library.ptxas_log[name] = proc.stderr
+        log.write_text(proc.stderr)
         os.replace(tmp, out)
+    load_library.ptxas_log[name] = log.read_text() if log.exists() else ""
     return ctypes.CDLL(str(out))
 
 

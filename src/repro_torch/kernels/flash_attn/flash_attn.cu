@@ -18,11 +18,41 @@
 // 0.17 ms at 989 TFLOP/s of bf16 tensor cores; q, k, v, out and lse once are
 // 0.21 GB, 0.06 ms at 3.35 TB/s. So the bound is the operations.
 //
-// Design (right and simple first; wgmma/TMA tiles are later work):
-// * One block per (batch*head, query tile). The KV loop runs inside the block
-//   (Hopper blocks run in no order and carry nothing from one to the next);
-//   the m, l and acc of a row stay in registers across it. Query tiles are
-//   issued last-first, so the long causal rows start early.
+// Design, for bf16: the copies of K and V overlap the products, only wgmma
+// reaches the tensor cores' full rate, and the softmax between the two
+// products has to run under other products:
+// * One block per (batch*head, 128-row query tile), query tiles issued
+//   last-first, so the long causal rows start early; three warpgroups. The
+//   producer (setmaxnreg down to 24) has one thread issue TMA loads: the q
+//   tile once, on its own mbarrier, then the block's K and V tiles of BK
+//   keys (128; 64 at dh 160, for registers) into a ring of 3 stages, each
+//   guarded by a "full" mbarrier (TMA transaction bytes) and an "empty" one
+//   (the consumers' arrivals). TMA zero-fills rows past S or T. Copies of
+//   the next tiles overlap the products on this one.
+// * Two consumer warpgroups (setmaxnreg up to 240) own 64 query rows each.
+//   Per KV tile: s = q . k^T as wgmma m64n{BK}k16 (A = q, B = k, both
+//   K-major in shared memory, 64-byte swizzle: hopper.cuh), f32
+//   accumulators in registers; the mask only where the tile straddles the
+//   diagonal, the window edge or T (tile_needs_mask, mirrored by
+//   kernel.tile_needs_mask), in a loop of its own; the online max over raw
+//   scores and the sum with each row's values in 4 lanes (quad shuffles);
+//   p = exp2(s * scale * log2(e) - max) as one FFMA and one ex2 a score; p
+//   rounded to bf16 straight from the accumulators into wgmma register-A
+//   fragments; o += p . v as wgmma m64n{dh}k16 with v an MN-major operand
+//   (the transpose bit: v stays [keys, dh] in shared memory). The loop is
+//   pipelined inside each consumer: q . k^T of tile t is issued with p . v
+//   of tile t - 1, the softmax of tile t runs while p . v is on the tensor
+//   cores, and o is rescaled once it is done (skipped when no row's max
+//   moved); then the consumer arrives on the stage's empty barrier. The
+//   epilogue writes o / l in bf16 and lse in f32 from the registers, no row
+//   >= S.
+// * The two consumers take turns to issue their products (ping-pong on two
+//   named barriers), so one's softmax runs under the other's products. The
+//   softmax's instruction count, more than the products or the loads, sets
+//   the pace: hence the mask in a loop of its own, the folded scale and the
+//   skipped rescale.
+// * Shared memory at dh 128: q 32 KB + 3 stages x (K 32 + V 32 KB) = 224
+//   KB; dh 160: q 40 KB + 3 x (20 + 20 KB); one block per SM.
 // * Only the KV tiles that hold a visible key for some row of the query tile
 //   are visited: none above the diagonal, none wholly outside the window.
 //   kv_tile_range() below is mirrored by kernel.kv_tile_range in Python,
@@ -35,29 +65,25 @@
 //   them with alpha = 0 at its first open tile: the same result.
 // * The last query tile and the last KV tile may be ragged (S, T not
 //   multiples of the tile): out-of-range rows are computed but not written,
-//   out-of-range keys are zero-filled in shared memory and masked.
-// * bf16: 4 warps, 16 query rows each (64 per block), KV tiles of 64 keys
-//   staged in shared memory with 16-byte loads; q . k^T and p . v on the
-//   tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); the q
-//   fragments stay in registers for the whole KV loop, p goes from the
-//   score accumulators straight into the A fragments of p . v.
+//   out-of-range keys are zero-filled and masked.
 // * f32: CUDA-core FMA (the tensor cores have no full-f32 product): 4
 //   threads per query row, each holding every 4th feature of q and acc
 //   (neighbouring lanes read neighbouring words of a staged K or V row),
 //   the dot products summed across the 4 lanes with shuffles.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 128;           // threads per block, both paths
-constexpr int BQ_MMA = 64;        // query rows per block (bf16)
-constexpr int BK_MMA = 64;        // keys per KV tile (bf16)
-constexpr int PAD = 8;            // bf16 elements of row padding in shared memory
+constexpr int NT = 128;           // threads per block (f32)
 constexpr int BQ_FMA = 32;        // query rows per block (f32), 4 lanes each
 constexpr int BK_FMA = 32;        // keys per KV tile (f32)
+constexpr int WG = 128;           // threads per warpgroup (bf16)
+constexpr int NT_MMA = 3 * WG;    // producer + two consumer warpgroups (bf16)
+constexpr int BQ_MMA = 128;       // query rows per block (bf16), 64 per consumer
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Args {
   const void* q; const void* k; const void* v; void* o; float* lse;
@@ -81,185 +107,222 @@ __device__ __forceinline__ bool visible(int i, int j, int T, int window) {
   return j < T && j <= i && (window <= 0 || i - j < window);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage rows [r0, r0 + nrows) of one head of a [*, rows, heads, DH] tensor
-// into dst[nrows][DH + PAD] (bf16), zero-filling rows at or past `limit`.
 template <int DH>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                           long long row_stride, int r0, int nrows,
-                                           int limit) {
-  constexpr int CH = DH / 8;                       // 16-byte chunks per row
-  for (int i = threadIdx.x; i < nrows * CH; i += NT) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (DH + PAD) + c) = val;
-  }
-}
+struct FwdSmem {
+  static constexpr int BK = DH == 160 ? 64 : 128;    // keys per KV tile (registers at 160)
+  static constexpr int ST = 3;                       // K/V tiles in flight
+  static constexpr int Q = BQ_MMA * DH * 2;          // bytes of the q tile
+  static constexpr int KV = BK * DH * 2;             // bytes of one K or V tile
+  static constexpr int BARS = Q + ST * 2 * KV;       // the barriers' offset
+  static constexpr int BYTES = BARS + 64 + 1024;     // + barriers + alignment slack
+};
 
 template <int DH>
-__global__ void __launch_bounds__(NT)
-flash_fwd_mma(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = DH + PAD;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);   // [BQ][LD]
-  __nv_bfloat16* ks = qs + BQ_MMA * LD;                          // [BK][LD]
-  __nv_bfloat16* vs = ks + BK_MMA * LD;                          // [BK][LD]
+__global__ void __launch_bounds__(NT_MMA, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, Args a) {
+  using namespace hopper;
+  using L = FwdSmem<DH>;
+  constexpr int SLABS = DH / SLAB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;                        // [SLABS][BQ_MMA][32]
+  unsigned char* kvs = smem + L::Q;                // stage st: K at 2 st KV, V after it
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = qbar + 1;                       // [ST]: K and V landed
+  uint64_t* empty = full + L::ST;                  // [ST]: both consumers done
 
   const int n = blockIdx.y, b = n / a.H, h = n - b * a.H, kvh = h / a.G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ_MMA;
-  const int q1 = min(a.S, q0 + BQ_MMA);
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;          // mma group and thread in group
-  const int wr = warp * 16;                       // the warp's first row in the tile
-  const int row_a = q0 + wr + g, row_b = row_a + 8;
-
-  stage_bf16<DH>(qs, qg, a.q_ss, q0, BQ_MMA, a.S);
-  __syncthreads();
-  uint32_t qf[DH / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    const __nv_bfloat16* r0 = qs + (wr + g) * LD + kc * 16 + t4 * 2;
-    const __nv_bfloat16* r1 = r0 + 8 * LD;
-    qf[kc][0] = *reinterpret_cast<const uint32_t*>(r0);
-    qf[kc][1] = *reinterpret_cast<const uint32_t*>(r1);
-    qf[kc][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    qf[kc][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-  }
-
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;   // l: this lane's part
-
   int lo, hi;
-  kv_tile_range(q0, q1, a.T, a.window, BK_MMA, lo, hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BK_MMA;
-    __syncthreads();                              // the previous tile is read
-    stage_bf16<DH>(ks, kg, a.k_ss, k0, BK_MMA, a.T);
-    stage_bf16<DH>(vs, vg, a.v_ss, k0, BK_MMA, a.T);
-    __syncthreads();
+  kv_tile_range(q0, min(a.S, q0 + BQ_MMA), a.T, a.window, L::BK, lo, hi);
 
-    float s[BK_MMA / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK_MMA / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < BK_MMA / 8; ++nt) {
-        const __nv_bfloat16* kr = ks + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-        mma_bf16(s[nt], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < L::ST; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2 * WG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {
+    // producer: one thread keeps the ring of K/V stages full
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(qbar, L::Q);
+      for (int sl = 0; sl < SLABS; ++sl)
+        tma_load_4d(qs + sl * BQ_MMA * SLAB_ROW_BYTES, &tq, qbar, sl * SLAB, h, q0, b);
+      for (int kt = lo; kt < hi; ++kt) {
+        const int i = kt - lo, st = i % L::ST;
+        mbar_wait(&empty[st], ((i / L::ST) & 1) ^ 1);
+        unsigned char* ks = kvs + 2 * st * L::KV;
+        mbar_arrive_expect_tx(&full[st], 2 * L::KV);
+        for (int sl = 0; sl < SLABS; ++sl) {
+          tma_load_4d(ks + sl * L::BK * SLAB_ROW_BYTES, &tk, &full[st], sl * SLAB, kvh,
+                      kt * L::BK, b);
+          tma_load_4d(ks + L::KV + sl * L::BK * SLAB_ROW_BYTES, &tv, &full[st], sl * SLAB, kvh,
+                      kt * L::BK, b);
+        }
       }
     }
+  } else {
+    // consumers: warpgroup c owns query rows [r0, r0 + 64) of the tile
+    reg_alloc<240>();
+    const int c = wg - 1, tid = threadIdx.x - wg * WG;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int r0 = q0 + 64 * c;
+    const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+    const float sl2 = a.scale * LOG2E;              // scores in log2 units
+    const uint32_t q_addr = smem_addr(qs) + 64 * c * SLAB_ROW_BYTES;
 
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+    float o[DH / 2];
 #pragma unroll
-    for (int nt = 0; nt < BK_MMA / 8; ++nt) {
+    for (int e = 0; e < DH / 2; ++e) o[e] = 0.f;
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;   // l: this lane's part
+
+    // s = q . k^T of the tile in stage st: A = q, B = k, both K-major
+    auto issue_qk = [&](float* s, int st) {
+      const uint32_t k_addr = smem_addr(kvs + 2 * st * L::KV);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const int i = e < 2 ? row_a : row_b;
-        const float x = visible(i, j, a.T, a.window) ? s[nt][e] * a.scale : -INFINITY;
-        s[nt][e] = x;
-        if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
+      for (int kc = 0; kc < DH / 16; ++kc) {
+        const uint32_t off = (kc % 2) * 32;   // 16 features = 32 bytes
+        mma_ss<L::BK, 0>(
+            s, desc_k_major(q_addr + (kc / 2) * BQ_MMA * SLAB_ROW_BYTES + off),
+            desc_k_major(k_addr + (kc / 2) * L::BK * SLAB_ROW_BYTES + off), kc > 0);
       }
+      wgmma_commit();
+    };
+    // o += bf16(p) . v of stage st: A = p from registers, B = v MN-major
+    // (v stays [keys, dh])
+    auto issue_pv = [&](uint32_t (*pa)[4], int st) {
+      const uint32_t v_addr = smem_addr(kvs + 2 * st * L::KV) + L::KV;
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < L::BK / 16; ++kc)
+        mma_rs<DH, 1>(o, pa[kc],
+                      desc_mn_major(v_addr + kc * 16 * SLAB_ROW_BYTES,
+                                    L::BK * SLAB_ROW_BYTES), 1);
+      wgmma_commit();
+    };
+    // scores of KV tile kt -> p (in s), the running max and sum; returns
+    // each row's rescale factor of o in al_a, al_b
+    auto softmax = [&](float* s, int kt, float& al_a, float& al_b) {
+      const int k0 = kt * L::BK;
+      if (tile_needs_mask(r0, r0 + 64, k0, k0 + L::BK, a.T, a.window)) {
+#pragma unroll
+        for (int e = 0; e < L::BK / 2; ++e)
+          if (!visible((e & 2) ? row_b : row_a, k0 + 8 * (e / 4) + 2 * t4 + (e & 1), a.T,
+                       a.window))
+            s[e] = -INFINITY;
+      }
+      float mx_a = -INFINITY, mx_b = -INFINITY;            // raw scores
+#pragma unroll
+      for (int e = 0; e < L::BK / 2; ++e) {
+        if (e & 2) mx_b = fmaxf(mx_b, s[e]); else mx_a = fmaxf(mx_a, s[e]);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a * sl2), mn_b = fmaxf(m_b, mx_b * sl2);
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a;   // no key visible yet
+      const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+      al_a = ex2(m_a - base_a);
+      al_b = ex2(m_b - base_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      l_a *= al_a;
+      l_b *= al_b;
+      const float nb_a = -base_a, nb_b = -base_b;
+#pragma unroll
+      for (int e = 0; e < L::BK / 2; ++e) {
+        const float p = ex2(fmaf(s[e], sl2, (e & 2) ? nb_b : nb_a));
+        s[e] = p;
+        if (e & 2) l_b += p; else l_a += p;
+      }
+    };
+
+    // Pipelined over KV tiles: q . k^T of tile t is issued together with
+    // p . v of tile t - 1, and the softmax of tile t runs while p . v is
+    // on the tensor cores; o is rescaled only once that product is done.
+    // The two consumers take turns to issue (named barriers 1 and 2,
+    // consumer 0 first), so one's softmax runs under the other's products.
+    auto my_turn = [&] { bar_sync(1 + c, 2 * WG); };
+    auto your_turn = [&] { bar_arrive(2 - c, 2 * WG); };
+    if (c == 1) bar_arrive(1, 2 * WG);
+    float s[L::BK / 2], al_a, al_b;
+    uint32_t pa[L::BK / 16][4];
+    mbar_wait(qbar, 0);
+    mbar_wait(&full[0], 0);
+    my_turn();
+    issue_qk(s, 0);
+    your_turn();
+    wgmma_wait<0>();
+    fence_regs<L::BK / 2>(s);
+    softmax(s, lo, al_a, al_b);            // o is still 0: no rescale
+#pragma unroll
+    for (int kc = 0; kc < L::BK / 16; ++kc) acc_to_a(pa[kc], s, kc);
+    int prev = 0;
+    for (int kt = lo + 1; kt < hi; ++kt) {
+      const int i = kt - lo, st = i % L::ST;
+      mbar_wait(&full[st], (i / L::ST) & 1);
+      my_turn();
+      issue_qk(s, st);
+      issue_pv(pa, prev);
+      your_turn();
+      wgmma_wait<1>();                     // q . k^T done, p . v in flight
+      fence_regs<L::BK / 2>(s);
+      softmax(s, kt, al_a, al_b);
+      wgmma_wait<0>();
+      fence_regs<DH / 2>(o);
+      fence_regs<L::BK / 4>(&pa[0][0]);
+      mbar_arrive(&empty[prev]);
+      if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f)) {   // a row's max moved
+#pragma unroll
+        for (int e = 0; e < DH / 2; ++e) o[e] *= (e & 2) ? al_b : al_a;
+      }
+#pragma unroll
+      for (int kc = 0; kc < L::BK / 16; ++kc) acc_to_a(pa[kc], s, kc);
+      prev = st;
     }
+    my_turn();
+    issue_pv(pa, prev);
+    your_turn();
+    wgmma_wait<0>();
+    fence_regs<DH / 2>(o);
+    fence_regs<L::BK / 4>(&pa[0][0]);
+    mbar_arrive(&empty[prev]);
+
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
     }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;   // no row visible yet
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float al_a = __expf(m_a - base_a), al_b = __expf(m_b - base_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    l_a *= al_a;
-    l_b *= al_b;
+    l_a = fmaxf(l_a, 1e-30f);
+    l_b = fmaxf(l_b, 1e-30f);
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+    const float ia = 1.f / l_a, ib = 1.f / l_b;
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i) {
-      acc[i][0] *= al_a; acc[i][1] *= al_a;
-      acc[i][2] *= al_b; acc[i][3] *= al_b;
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      const int col = nt * 8 + t4 * 2;
+      if (row_a < a.S)
+        *reinterpret_cast<__nv_bfloat162*>(og + row_a * a.o_ss + col) =
+            __floats2bfloat162_rn(o[4 * nt] * ia, o[4 * nt + 1] * ia);
+      if (row_b < a.S)
+        *reinterpret_cast<__nv_bfloat162*>(og + row_b * a.o_ss + col) =
+            __floats2bfloat162_rn(o[4 * nt + 2] * ib, o[4 * nt + 3] * ib);
     }
-#pragma unroll
-    for (int nt = 0; nt < BK_MMA / 8; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - base_a);
-      s[nt][1] = __expf(s[nt][1] - base_a);
-      s[nt][2] = __expf(s[nt][2] - base_b);
-      s[nt][3] = __expf(s[nt][3] - base_b);
-      l_a += s[nt][0] + s[nt][1];
-      l_b += s[nt][2] + s[nt][3];
+    if (t4 == 0) {
+      float* lg = a.lse + (long long)n * a.S;
+      if (row_a < a.S) lg[row_a] = (m_a + __log2f(l_a)) * LN2;
+      if (row_b < a.S) lg[row_b] = (m_b + __log2f(l_b)) * LN2;
     }
-
-#pragma unroll
-    for (int kc = 0; kc < BK_MMA / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const __nv_bfloat16* v0 = vs + (kc * 16 + t4 * 2) * LD + g;
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        const __nv_bfloat16* vr = v0 + dt * 8;
-        mma_bf16(acc[dt], pa, pack_bf16(vr[0], vr[LD]),
-                 pack_bf16(vr[8 * LD], vr[9 * LD]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-  }
-  l_a = fmaxf(l_a, 1e-30f);
-  l_b = fmaxf(l_b, 1e-30f);
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const float ia = 1.f / l_a, ib = 1.f / l_b;
-#pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (row_a < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(og + row_a * a.o_ss + c) =
-          __floats2bfloat162_rn(acc[dt][0] * ia, acc[dt][1] * ia);
-    if (row_b < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(og + row_b * a.o_ss + c) =
-          __floats2bfloat162_rn(acc[dt][2] * ib, acc[dt][3] * ib);
-  }
-  if (t4 == 0) {
-    float* lg = a.lse + (long long)n * a.S;
-    if (row_a < a.S) lg[row_a] = m_a + __logf(l_a);
-    if (row_b < a.S) lg[row_b] = m_b + __logf(l_b);
   }
 }
 
@@ -343,14 +406,25 @@ flash_fwd_fma(Args a) {
 }
 
 template <int DH>
-int launch(const Args& a, int dtype, int nq, int nbh, int smem, cudaStream_t stream) {
+int launch(const Args& a, int B, int dtype, int nq, int nbh, int smem, cudaStream_t stream) {
   const dim3 grid(nq, nbh);
   cudaError_t err;
   if (dtype == 1) {
-    err = cudaFuncSetAttribute(flash_fwd_mma<DH>,
+    if (smem != FwdSmem<DH>::BYTES) return (int)cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    const int kv = a.H / a.G;
+    int bad = hopper::encode_bshd_map(&tq, a.q, B, a.S, a.H, DH, a.q_sb, a.q_ss, a.q_sh, BQ_MMA);
+    if (!bad)
+      bad = hopper::encode_bshd_map(&tk, a.k, B, a.T, kv, DH, a.k_sb, a.k_ss, a.k_sh,
+                                    FwdSmem<DH>::BK);
+    if (!bad)
+      bad = hopper::encode_bshd_map(&tv, a.v, B, a.T, kv, DH, a.v_sb, a.v_ss, a.v_sh,
+                                    FwdSmem<DH>::BK);
+    if (bad) return bad;
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    flash_fwd_mma<DH><<<grid, NT, smem, stream>>>(a);
+    flash_fwd_wgmma<DH><<<grid, NT_MMA, smem, stream>>>(tq, tk, tv, a);
   } else {
     err = cudaFuncSetAttribute(flash_fwd_fma<DH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -364,16 +438,21 @@ int launch(const Args& a, int dtype, int nq, int nbh, int smem, cudaStream_t str
 
 extern "C" {
 
-// Tile sizes, so that the Python wrapper can check it agrees: {NT, BQ_MMA,
-// BK_MMA, PAD, BQ_FMA, BK_FMA}.
+// Geometry, so that the Python wrapper can check it agrees: {NT_MMA,
+// BQ_MMA, NT, BQ_FMA, BK_FMA, then for dh 64, 128, 160 the bf16 keys per
+// tile, stages and shared-memory bytes}.
 void flash_fwd_tiles(int* out) {
-  out[0] = NT; out[1] = BQ_MMA; out[2] = BK_MMA; out[3] = PAD;
-  out[4] = BQ_FMA; out[5] = BK_FMA;
+  out[0] = NT_MMA; out[1] = BQ_MMA; out[2] = NT; out[3] = BQ_FMA; out[4] = BK_FMA;
+  out[5] = FwdSmem<64>::BK; out[6] = FwdSmem<64>::ST; out[7] = FwdSmem<64>::BYTES;
+  out[8] = FwdSmem<128>::BK; out[9] = FwdSmem<128>::ST; out[10] = FwdSmem<128>::BYTES;
+  out[11] = FwdSmem<160>::BK; out[12] = FwdSmem<160>::ST; out[13] = FwdSmem<160>::BYTES;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Strides in elements. window <= 0: none.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for a head
-// width without an instance).
+// width without an instance or a shared-memory size other than the
+// kernel's), or hopper::MAP_ERROR + the CUresult when a TMA tensor map
+// cannot be encoded.
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse,
                      long long q_sb, long long q_ss, long long q_sh,
                      long long k_sb, long long k_ss, long long k_sh,
@@ -388,9 +467,9 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nbh = B * H;
   switch (dh) {
-    case 64: return launch<64>(a, dtype, nq, nbh, smem, s);
-    case 128: return launch<128>(a, dtype, nq, nbh, smem, s);
-    case 160: return launch<160>(a, dtype, nq, nbh, smem, s);
+    case 64: return launch<64>(a, B, dtype, nq, nbh, smem, s);
+    case 128: return launch<128>(a, B, dtype, nq, nbh, smem, s);
+    case 160: return launch<160>(a, B, dtype, nq, nbh, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

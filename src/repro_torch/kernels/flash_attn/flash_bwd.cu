@@ -21,47 +21,71 @@
 // 51.6 GFLOP. The dK/dV kernel does four of them (s, dp, dv, dk: 206 GFLOP,
 // 0.21 ms at 989 TFLOP/s of bf16 tensor cores), the dQ kernel three (s, dp,
 // dq: 155 GFLOP, 0.16 ms). Their bytes (~67 MB for dK/dV) take ~0.02 ms at
-// 3.35 TB/s. So the bound is the operations.
+// 3.35 TB/s; the head split's f32 partials (2 x 3 x 8 MB at that shape)
+// add ~0.03 ms of writes and the wrapper's sum. So the bound is the
+// operations.
 //
-// Design (right and simple first; wgmma/TMA tiles are later work):
-// * dK/dV: one block per (batch, KV head, 64-key tile). The block loops over
-//   the G query heads of its group and, for each, over the 32-query tiles
-//   that can see its keys (q_tile_range below: rows i >= k0 and, with a
-//   window, i < k1 - 1 + window; the mirror of the forward's kv_tile_range).
-//   dk and dv of the block's keys stay in f32 registers across both loops,
-//   so the GQA sum happens inside the block, with no [B*H, T, dh] temporary
-//   and no atomics. Each warp owns 16 keys and computes the transposed score
-//   tile s^T = k . q^T directly (keys as the mma's rows), so p^T and ds^T
-//   come out of the mma accumulators already in the A-operand layout of
-//   dv += p^T . do and dk += ds^T . q: no transpose through shared memory.
-//   Key tiles are issued first-first: key tile 0 sees every query.
-// * dQ: one block per (batch*head, 64-query tile), looping over the 32-key
-//   tiles it can see (kv_tile_range, as the forward); dq in f32 registers.
-//   Query tiles are issued last-first, so the long causal rows start early.
-//   The two-kernel split stays: dq is not accumulated from the dK/dV pass.
+// dK/dV, bf16 (wgmma, TMA, mbarriers; hopper.cuh): copies overlap the
+// products, only wgmma reaches the tensor cores' full rate, and the grid
+// has to fill 132 SMs although a causal key tile's work falls with its
+// index and GQA leaves few (batch, KV head) pairs. The design:
+// * One block per (batch, KV head, head split, 128-key tile), three
+//   warpgroups. Each consumer warpgroup (setmaxnreg up to 240) owns 64 keys
+//   as the rows of every product (wgmma M = 64), so p^T and ds^T leave the
+//   accumulators already in the register-A layout: s^T = k . q^T and
+//   dp^T = v . dO^T as wgmma m64n{BQ}k16 with A = k / v and B = the q / dO
+//   tile, all K-major in shared memory; dv += bf16(p^T) . dO and dk +=
+//   bf16(ds^T) . q as wgmma m64n{dh}k16 with A from registers and B = dO / q
+//   MN-major (the transpose bit: they stay [queries, dh]). dk and dv stay in
+//   f32 registers for the whole loop; masks only where a tile straddles the
+//   diagonal, the window edge, S or T (tile_needs_mask), in a loop of its
+//   own; p = exp2(s * scale * log2(e) - lse * log2(e)) as one FFMA and one
+//   ex2. The two consumers take turns to issue their products (ping-pong on
+//   two named barriers), so one's elementwise work runs under the other's
+//   products.
+// * The producer warpgroup (setmaxnreg down to 24; its first warp works)
+//   loads K and V once by TMA, then keeps a ring of DKV_STAGES stages of
+//   (q, dO) tiles of BQ queries (64; 32 at dh 160, for registers) in
+//   flight by TMA, shared by both consumers, with their lse (times log2 e,
+//   for exp2) and delta rows copied by its lanes; each stage is guarded by
+//   a "full" mbarrier (32 lane arrivals and the TMA bytes) and an "empty"
+//   one (the consumers' 256 arrivals).
+// * Filling the card without atomics: the G query heads of a KV head's group
+//   are split over gsplit blocks, the smallest divisor of G that gives at
+//   least 4 blocks per SM (kernel.dkv_gsplit; 6 at the training shape: 768
+//   blocks; 12 for MQA at S 2048: 384). Split gs sums heads [h0, h0 + G/gsplit)
+//   (kernel.dkv_heads). With gsplit 1 the block writes bf16 dk, dv; else it
+//   writes f32 partials to ws [2, gsplit, B, T, KV, dh] and the wrapper sums
+//   them over gsplit in split order and rounds once. Key tiles are issued
+//   first-first: key tile 0 sees every query.
+// * dQ (bf16, mma.sync; a later redesign): one block per (batch*head,
+//   64-query tile), looping over the 32-key tiles it can see
+//   (kv_tile_range, as the forward); dq in f32 registers. Query tiles are
+//   issued last-first, so the long causal rows start early. 4 warps, tiles
+//   staged with 16-byte loads into rows padded by PAD; the q and do rows a
+//   warp keeps for the whole loop live in registers. The two-kernel split
+//   stays: dq is not accumulated from the dK/dV pass.
 // * Masked entries: p = 0 exactly (the reference's exp(-1e30 - lse)); lse is
 //   finite on every row, since a causal row sees at least key j = i.
 // * The last query and key tiles may be ragged: out-of-range rows are
-//   zero-filled in shared memory, masked, and not written.
-// * bf16: 4 warps, mma.sync m16n8k16 (bf16 in, f32 accumulate), tiles staged
-//   with 16-byte loads into rows padded by PAD. The operand a warp keeps for
-//   the whole loop (dQ: its q and do rows) lives in registers; dK/dV reads
-//   its k and v fragments from shared memory at each use, to leave the
-//   registers to the two f32 accumulators.
+//   zero-filled in shared memory (by TMA or the staging loads), masked, and
+//   not written.
 // * f32: CUDA-core FMA (the tensor cores have no full-f32 product): 4
 //   threads per key (dK/dV) or query (dQ) row, each holding every 4th
 //   feature, the dot products summed across the 4 lanes with shuffles.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 128;           // threads per block, every kernel
-constexpr int PAD = 8;            // bf16 elements of row padding in shared memory
-constexpr int BK_DKV = 64;        // keys per dK/dV block (bf16): 4 warps x 16
-constexpr int BQ_DKV = 32;        // queries per inner tile of dK/dV (bf16)
+constexpr int NT = 128;           // threads per block, all but the bf16 dK/dV kernel
+constexpr int PAD = 8;            // bf16 elements of row padding in shared memory (dQ)
+constexpr int WG = 128;           // threads per warpgroup
+constexpr int NT_DKV = 3 * WG;    // bf16 dK/dV: a producer + two consumer warpgroups
+constexpr int BK_DKV = 128;       // keys per dK/dV block (bf16), 64 per consumer
+constexpr int DKV_STAGES = 2;     // (q, dO) tiles in flight (bf16 dK/dV)
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BQ_DQ = 64;         // queries per dQ block (bf16): 4 warps x 16
 constexpr int BK_DQ = 32;         // keys per inner tile of dQ (bf16)
 constexpr int BF = 32;            // f32: rows per block and per inner tile
@@ -72,10 +96,12 @@ struct Args {
   const void* q; const void* k; const void* v; const void* dout;
   const float* lse; const float* delta;
   void* dq; void* dk; void* dv;
+  float* ws;                      // bf16 dK/dV with gsplit > 1: f32 partials
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long do_sb, do_ss, do_sh;
   long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh;   // dv shares dk's strides
-  int S, T, H, KV, G, window;     // window <= 0: none
+  int B, S, T, H, KV, G, window;  // window <= 0: none
+  int gsplit;                     // bf16 dK/dV: blocks sharing a GQA group's heads
   float scale;
 };
 
@@ -205,112 +231,224 @@ __device__ __forceinline__ void stage_rows(float* ls, float* dl, const float* ls
 // ---------------------------------------------------------------------------
 
 template <int DH>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_mma(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = DH + PAD;
-  bf16* ks = reinterpret_cast<bf16*>(smem);       // [BK_DKV][LD]
-  bf16* vs = ks + BK_DKV * LD;                     // [BK_DKV][LD]
-  bf16* qs = vs + BK_DKV * LD;                     // [BQ_DKV][LD]
-  bf16* dos = qs + BQ_DKV * LD;                    // [BQ_DKV][LD]
-  float* ls = reinterpret_cast<float*>(dos + BQ_DKV * LD);   // [BQ_DKV]
-  float* dl = ls + BQ_DKV;                                    // [BQ_DKV]
+struct Dkv {
+  static constexpr int BQ = DH == 160 ? 32 : 64;     // queries per inner tile
+  static constexpr int KV = BK_DKV * DH * 2;         // bytes of the K or the V tile
+  static constexpr int QT = BQ * DH * 2;             // bytes of one q or dO tile
+  static constexpr int ROWS = 2 * KV + DKV_STAGES * 2 * QT;   // lse, delta of each stage
+  static constexpr int BARS = ROWS + DKV_STAGES * 2 * BQ * 4;
+  static constexpr int BYTES = BARS + 64 + 1024;     // + barriers + alignment slack
+};
 
-  const int b = blockIdx.x / a.KV, kvh = blockIdx.x - b * a.KV;
+template <int DH>
+__global__ void __launch_bounds__(NT_DKV, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, Args a) {
+  using D = Dkv<DH>;
+  constexpr int BQ = D::BQ, SLABS = DH / hopper::SLAB, R = hopper::SLAB_ROW_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ks = smem;                        // [SLABS][BK_DKV][32], V after it
+  unsigned char* tiles = smem + 2 * D::KV;         // stage st: q at 2 st QT, dO after it
+  float* rows = reinterpret_cast<float*>(smem + D::ROWS);   // stage st: lse log2e, delta
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + D::BARS);
+  uint64_t* full = kvbar + 1;                      // [DKV_STAGES]: q, dO, lse, delta landed
+  uint64_t* empty = full + DKV_STAGES;             // [DKV_STAGES]: both consumers done
+
+  // block: (batch, KV head, head split gs) x key tile; split gs takes heads
+  // [h0, h0 + G / gsplit) of the KV head's group (kernel.dkv_heads)
+  const int gs = blockIdx.x % a.gsplit, bkv = blockIdx.x / a.gsplit;
+  const int b = bkv / a.KV, kvh = bkv - b * a.KV;
   const int k0 = blockIdx.y * BK_DKV, k1 = min(a.T, k0 + BK_DKV);
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  stage_bf16<DH>(ks, kg, a.k_ss, k0, BK_DKV, a.T);
-  stage_bf16<DH>(vs, vg, a.v_ss, k0, BK_DKV, a.T);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;          // mma group and thread in group
-  const int wr = warp * 16;                       // the warp's first key in the tile
-  const int key_a = k0 + wr + g, key_b = key_a + 8;
-
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
+  const int hps = a.G / a.gsplit, h0 = kvh * a.G + gs * hps;
   int lo, hi;
-  q_tile_range(k0, k1, a.S, a.window, BQ_DKV, lo, hi);
-  for (int gi = 0; gi < a.G; ++gi) {
-    const int h = kvh * a.G + gi;
-    const long long n = (long long)b * a.H + h;
-    const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const bf16* dog = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
-    for (int qt = lo; qt < hi; ++qt) {
-      const int q0 = qt * BQ_DKV;
-      __syncthreads();                            // the previous tile is read
-      stage_bf16<DH>(qs, qg, a.q_ss, q0, BQ_DKV, a.S);
-      stage_bf16<DH>(dos, dog, a.do_ss, q0, BQ_DKV, a.S);
-      stage_rows(ls, dl, a.lse + n * a.S, a.delta + n * a.S, q0, BQ_DKV, a.S);
-      __syncthreads();
+  q_tile_range(k0, k1, a.S, a.window, BQ, lo, hi);
+  const int nq = max(0, hi - lo), ntiles = hps * nq;
 
-      // s^T = k . q^T and dp^T = v . do^T: [16 keys x BQ_DKV queries] a warp
-      float s[BQ_DKV / 8][4], dp[BQ_DKV / 8][4];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kvbar, 1);
+    for (int st = 0; st < DKV_STAGES; ++st) {
+      hopper::mbar_init(&full[st], 32);
+      hopper::mbar_init(&empty[st], 2 * WG);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {
+    // producer, its first warp: K and V once, then a ring of (q, dO, lse,
+    // delta) tiles; lane 0 issues the TMA loads, every lane copies lse and
+    // delta rows
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kvbar, 2 * D::KV);
+      for (int sl = 0; sl < SLABS; ++sl) {
+        hopper::tma_load_4d(ks + sl * BK_DKV * R, &tk, kvbar, sl * hopper::SLAB, kvh, k0, b);
+        hopper::tma_load_4d(ks + D::KV + sl * BK_DKV * R, &tv, kvbar, sl * hopper::SLAB, kvh,
+                            k0, b);
+      }
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int h = h0 + it / nq, q0 = (lo + it % nq) * BQ, st = it % DKV_STAGES;
+      hopper::mbar_wait(&empty[st], ((it / DKV_STAGES) & 1) ^ 1);
+      const long long n = (long long)b * a.H + h;
+      float* ls = rows + 2 * st * BQ;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool in = q0 + r < a.S;
+        ls[r] = in ? a.lse[n * a.S + q0 + r] * LOG2E : 0.f;
+        ls[BQ + r] = in ? a.delta[n * a.S + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        unsigned char* qs = tiles + 2 * st * D::QT;
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * D::QT);
+        for (int sl = 0; sl < SLABS; ++sl) {
+          hopper::tma_load_4d(qs + sl * BQ * R, &tq, &full[st], sl * hopper::SLAB, h, q0, b);
+          hopper::tma_load_4d(qs + D::QT + sl * BQ * R, &tdo, &full[st], sl * hopper::SLAB, h,
+                              q0, b);
+        }
+      } else {
+        hopper::mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // consumer warpgroup c: keys [kc0, kc0 + 64) of the block are the rows
+    // of every product, so p^T and ds^T leave the accumulators in the
+    // register-A layout
+    hopper::reg_alloc<240>();
+    const int c = wg - 1, tid = threadIdx.x - wg * WG;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int kc0 = k0 + 64 * c;
+    const int key_a = kc0 + 16 * warp + g, key_b = key_a + 8;
+    const float sl2 = a.scale * LOG2E;
+    const uint32_t k_addr = hopper::smem_addr(ks) + 64 * c * R, v_addr = k_addr + D::KV;
+    float dk[DH / 2], dv[DH / 2];
 #pragma unroll
-      for (int nt = 0; nt < BQ_DKV / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int e = 0; e < DH / 2; ++e) dk[e] = dv[e] = 0.f;
+
+    // the two consumers take turns to issue (named barriers 1 and 2,
+    // consumer 0 first), so one's elementwise work runs under the other's
+    // products
+    auto my_turn = [&] { hopper::bar_sync(1 + c, 2 * WG); };
+    auto your_turn = [&] { hopper::bar_arrive(2 - c, 2 * WG); };
+    if (c == 1) hopper::bar_arrive(1, 2 * WG);
+    hopper::mbar_wait(kvbar, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int q0 = (lo + it % nq) * BQ, st = it % DKV_STAGES;
+      const uint32_t q_addr = hopper::smem_addr(tiles + 2 * st * D::QT), do_addr = q_addr + D::QT;
+      const float* ls = rows + 2 * st * BQ;
+      const float* dl = ls + BQ;
+      hopper::mbar_wait(&full[st], (it / DKV_STAGES) & 1);
+
+      // s^T = k . q^T and dp^T = v . dO^T: A = k / v, B = q / dO, all K-major
+      float s[BQ / 2], dp[BQ / 2];
+      my_turn();
+      hopper::wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < DH / 16; ++kc) {
-        uint32_t ka[4], va[4];
-        load_a(ka, ks, LD, wr, kc * 16, g, t4);
-        load_a(va, vs, LD, wr, kc * 16, g, t4);
-#pragma unroll
-        for (int nt = 0; nt < BQ_DKV / 8; ++nt) {
-          const bf16* qr = qs + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-          const bf16* dr = dos + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-          mma_bf16(s[nt], ka, ld32(qr), ld32(qr + 8));
-          mma_bf16(dp[nt], va, ld32(dr), ld32(dr + 8));
-        }
+        const uint32_t off = (kc % 2) * 32;        // 16 features = 32 bytes
+        hopper::mma_ss<BQ, 0>(s, hopper::desc_k_major(k_addr + (kc / 2) * BK_DKV * R + off),
+                              hopper::desc_k_major(q_addr + (kc / 2) * BQ * R + off), kc > 0);
       }
+#pragma unroll
+      for (int kc = 0; kc < DH / 16; ++kc) {
+        const uint32_t off = (kc % 2) * 32;
+        hopper::mma_ss<BQ, 0>(dp, hopper::desc_k_major(v_addr + (kc / 2) * BK_DKV * R + off),
+                              hopper::desc_k_major(do_addr + (kc / 2) * BQ * R + off), kc > 0);
+      }
+      hopper::wgmma_commit();
+      your_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<BQ / 2>(s);
+      hopper::fence_regs<BQ / 2>(dp);
 
       // p^T into s, ds^T into dp
+      if (hopper::tile_needs_mask(q0, q0 + BQ, kc0, kc0 + 64, a.T, a.window) ||
+          q0 + BQ > a.S) {
 #pragma unroll
-      for (int nt = 0; nt < BQ_DKV / 8; ++nt) {
+        for (int e = 0; e < BQ / 2; ++e)
+          if (!visible(q0 + 8 * (e / 4) + 2 * t4 + (e & 1), (e & 2) ? key_b : key_a, a.S, a.T,
+                       a.window))
+            s[e] = -INFINITY;                            // p = 0 exactly
+      }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = nt * 8 + t4 * 2 + (e & 1);
-          const int j = e < 2 ? key_a : key_b;
-          const float p = visible(q0 + c, j, a.S, a.T, a.window)
-                              ? __expf(s[nt][e] * a.scale - ls[c]) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - dl[c]) * a.scale;
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int c = 8 * (e / 4) + 2 * t4 + (e & 1);
+        const float p = hopper::ex2(fmaf(s[e], sl2, -ls[c]));
+        s[e] = p;
+        dp[e] = p * (dp[e] - dl[c]) * a.scale;
+      }
+
+      // dv += bf16(p^T) . dO and dk += bf16(ds^T) . q: A from registers,
+      // B = dO / q MN-major (they stay [queries, dh] in shared memory)
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        hopper::acc_to_a(pa[kc], s, kc);
+        hopper::acc_to_a(da[kc], dp, kc);
+      }
+      my_turn();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        hopper::mma_rs<DH, 1>(dv, pa[kc], hopper::desc_mn_major(do_addr + kc * 16 * R, BQ * R), 1);
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        hopper::mma_rs<DH, 1>(dk, da[kc], hopper::desc_mn_major(q_addr + kc * 16 * R, BQ * R), 1);
+      hopper::wgmma_commit();
+      your_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<DH / 2>(dv);
+      hopper::fence_regs<DH / 2>(dk);
+      hopper::fence_regs<BQ / 4>(&pa[0][0]);
+      hopper::fence_regs<BQ / 4>(&da[0][0]);
+      hopper::mbar_arrive(&empty[st]);
+    }
+
+    if (a.gsplit == 1) {       // the whole group's sum: bf16, once
+      bf16* dkg = static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh;
+      bf16* dvg = static_cast<bf16*>(a.dv) + b * a.dk_sb + kvh * a.dk_sh;
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt) {
+        const int c = nt * 8 + t4 * 2;
+        if (key_a < a.T) {
+          *reinterpret_cast<__nv_bfloat162*>(dkg + key_a * a.dk_ss + c) =
+              __floats2bfloat162_rn(dk[4 * nt], dk[4 * nt + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dvg + key_a * a.dk_ss + c) =
+              __floats2bfloat162_rn(dv[4 * nt], dv[4 * nt + 1]);
+        }
+        if (key_b < a.T) {
+          *reinterpret_cast<__nv_bfloat162*>(dkg + key_b * a.dk_ss + c) =
+              __floats2bfloat162_rn(dk[4 * nt + 2], dk[4 * nt + 3]);
+          *reinterpret_cast<__nv_bfloat162*>(dvg + key_b * a.dk_ss + c) =
+              __floats2bfloat162_rn(dv[4 * nt + 2], dv[4 * nt + 3]);
         }
       }
-
-      // dv += p^T . do and dk += ds^T . q (k = the tile's queries)
+    } else {                   // this split's f32 partial: ws[0 or 1, gs, b, key, kvh, :]
+      const long long part = (long long)a.gsplit * a.B * a.T * a.KV * DH;
+      float* wk = a.ws + (((long long)gs * a.B + b) * a.T * a.KV + kvh) * DH;
+      const long long row = (long long)a.KV * DH;
 #pragma unroll
-      for (int kc = 0; kc < BQ_DKV / 16; ++kc) {
-        uint32_t pa[4], da[4];
-        acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
-        acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
-        mma_rows<DH>(dv, pa, dos, LD, kc * 16, g, t4);
-        mma_rows<DH>(dk, da, qs, LD, kc * 16, g, t4);
+      for (int nt = 0; nt < DH / 8; ++nt) {
+        const int c = nt * 8 + t4 * 2;
+        if (key_a < a.T) {
+          *reinterpret_cast<float2*>(wk + key_a * row + c) =
+              make_float2(dk[4 * nt], dk[4 * nt + 1]);
+          *reinterpret_cast<float2*>(wk + part + key_a * row + c) =
+              make_float2(dv[4 * nt], dv[4 * nt + 1]);
+        }
+        if (key_b < a.T) {
+          *reinterpret_cast<float2*>(wk + key_b * row + c) =
+              make_float2(dk[4 * nt + 2], dk[4 * nt + 3]);
+          *reinterpret_cast<float2*>(wk + part + key_b * row + c) =
+              make_float2(dv[4 * nt + 2], dv[4 * nt + 3]);
+        }
       }
-    }
-  }
-
-  bf16* dkg = static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh;
-  bf16* dvg = static_cast<bf16*>(a.dv) + b * a.dk_sb + kvh * a.dk_sh;
-#pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (key_a < a.T) {
-      *reinterpret_cast<__nv_bfloat162*>(dkg + key_a * a.dk_ss + c) =
-          __floats2bfloat162_rn(dk[dt][0], dk[dt][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvg + key_a * a.dk_ss + c) =
-          __floats2bfloat162_rn(dv[dt][0], dv[dt][1]);
-    }
-    if (key_b < a.T) {
-      *reinterpret_cast<__nv_bfloat162*>(dkg + key_b * a.dk_ss + c) =
-          __floats2bfloat162_rn(dk[dt][2], dk[dt][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dvg + key_b * a.dk_ss + c) =
-          __floats2bfloat162_rn(dv[dt][2], dv[dt][3]);
     }
   }
 }
@@ -563,9 +701,32 @@ int launch_kernel(K kernel, dim3 grid, int smem, cudaStream_t stream, const Args
 }
 
 template <int DH>
+int launch_dkv_wgmma(const Args& a, dim3 grid, int smem, cudaStream_t s) {
+  using D = Dkv<DH>;
+  if (smem != D::BYTES || a.gsplit < 1 || a.G % a.gsplit ||
+      (int)grid.x != a.B * a.KV * a.gsplit || (a.gsplit > 1 && a.ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv;
+  int bad = hopper::encode_bshd_map(&tq, a.q, a.B, a.S, a.H, DH, a.q_sb, a.q_ss, a.q_sh, D::BQ);
+  if (!bad)
+    bad = hopper::encode_bshd_map(&tdo, a.dout, a.B, a.S, a.H, DH, a.do_sb, a.do_ss, a.do_sh,
+                                  D::BQ);
+  if (!bad)
+    bad = hopper::encode_bshd_map(&tk, a.k, a.B, a.T, a.KV, DH, a.k_sb, a.k_ss, a.k_sh, BK_DKV);
+  if (!bad)
+    bad = hopper::encode_bshd_map(&tv, a.v, a.B, a.T, a.KV, DH, a.v_sb, a.v_ss, a.v_sh, BK_DKV);
+  if (bad) return bad;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkv_wgmma<DH><<<grid, NT_DKV, smem, s>>>(tq, tdo, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
 int launch(const Args& a, int which, int dtype, dim3 grid, int smem, cudaStream_t s) {
   if (which == 0)
-    return dtype == 1 ? launch_kernel(flash_bwd_dkv_mma<DH>, grid, smem, s, a)
+    return dtype == 1 ? launch_dkv_wgmma<DH>(a, grid, smem, s)
                       : launch_kernel(flash_bwd_dkv_fma<DH>, grid, smem, s, a);
   return dtype == 1 ? launch_kernel(flash_bwd_dq_mma<DH>, grid, smem, s, a)
                     : launch_kernel(flash_bwd_dq_fma<DH>, grid, smem, s, a);
@@ -575,35 +736,43 @@ int launch(const Args& a, int which, int dtype, dim3 grid, int smem, cudaStream_
 
 extern "C" {
 
-// Tile sizes, so that the Python wrapper can check it agrees: {NT, PAD,
-// BK_DKV, BQ_DKV, BQ_DQ, BK_DQ, BF}.
+// Geometry, so that the Python wrapper can check it agrees: {NT, PAD,
+// BQ_DQ, BK_DQ, BF, NT_DKV, BK_DKV, DKV_STAGES, then for dh 64, 128, 160 the
+// bf16 dK/dV query tile and shared-memory bytes}.
 void flash_bwd_tiles(int* out) {
-  out[0] = NT; out[1] = PAD; out[2] = BK_DKV; out[3] = BQ_DKV;
-  out[4] = BQ_DQ; out[5] = BK_DQ; out[6] = BF;
+  out[0] = NT; out[1] = PAD; out[2] = BQ_DQ; out[3] = BK_DQ; out[4] = BF;
+  out[5] = NT_DKV; out[6] = BK_DKV; out[7] = DKV_STAGES;
+  out[8] = Dkv<64>::BQ; out[9] = Dkv<64>::BYTES;
+  out[10] = Dkv<128>::BQ; out[11] = Dkv<128>::BYTES;
+  out[12] = Dkv<160>::BQ; out[13] = Dkv<160>::BYTES;
 }
 
-// which: 0 = dK/dV (writes dk, dv; grid (B*KV, key tiles)), 1 = dQ (writes
-// dq; grid (query tiles, B*H)). dtype: 0 = float32, 1 = bfloat16. Strides in
-// elements; dv has dk's strides. window <= 0: none. Returns the cudaError_t
-// of the launch (cudaErrorInvalidValue for a head width without an instance).
+// which: 0 = dK/dV (grid (B*KV*gsplit, key tiles); bf16 writes dk, dv when
+// gsplit is 1, else each split's f32 partials into ws [2, gsplit, B, T, KV,
+// dh]; f32 takes gsplit 1), 1 = dQ (writes dq; grid (query tiles, B*H)).
+// dtype: 0 = float32, 1 = bfloat16. Strides in elements; dv has dk's
+// strides. window <= 0: none. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a head width without an instance or a geometry
+// other than the kernel's), or hopper::MAP_ERROR + the CUresult when a TMA
+// tensor map cannot be encoded.
 int flash_bwd_launch(int which, const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     void* dq, void* dk, void* dv,
+                     void* dq, void* dk, void* dv, void* ws,
                      long long q_sb, long long q_ss, long long q_sh,
                      long long k_sb, long long k_ss, long long k_sh,
                      long long v_sb, long long v_ss, long long v_sh,
                      long long do_sb, long long do_ss, long long do_sh,
                      long long dq_sb, long long dq_ss, long long dq_sh,
                      long long dk_sb, long long dk_ss, long long dk_sh,
-                     int S, int T, int H, int KV, int dh, int window, float scale,
-                     int grid_x, int grid_y, int smem, int dtype, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (which != 0 && which != 1))
+                     int B, int S, int T, int H, int KV, int dh, int window, float scale,
+                     int gsplit, int grid_x, int grid_y, int smem, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (which != 0 && which != 1) || (dtype == 0 && gsplit != 1))
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-         dq, dk, dv,
+         dq, dk, dv, static_cast<float*>(ws),
          q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh,
          dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh,
-         S, T, H, KV, H / KV, window, scale};
+         B, S, T, H, KV, H / KV, window, gsplit, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(grid_x, grid_y);
   switch (dh) {

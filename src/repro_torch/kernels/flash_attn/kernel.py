@@ -5,11 +5,14 @@ source its own library, so the two build in parallel.
 Replaces ``src/repro/kernels/flash_attn/kernel.py``: ``flash_fwd`` (body
 ``_fwd_kernel``) and ``flash_bwd`` (``_dkv_kernel``, ``_dq_kernel``). The
 design notes (what bounds each kernel, how a block walks its tiles) head
-the CUDA sources. This module holds what surrounds the kernels and the CPU
-tests can reach: grids, tile sizes and shared memory (:func:`launch_config`,
-:func:`bwd_launch_config`), the tiles a block visits (:func:`kv_tile_range`,
-:func:`q_tile_range`, mirrored from the sources), argument checks, and one
-launch counter per kernel.
+the CUDA sources; the bf16 forward and dK/dV kernels share the Hopper
+building blocks of ``hopper.cuh`` (wgmma, TMA, mbarriers). This module holds
+what surrounds the kernels and the CPU tests can reach: grids, tile sizes,
+threads and shared memory (:func:`launch_config`, :func:`bwd_launch_config`),
+the dK/dV head split (:func:`dkv_gsplit`, :func:`dkv_heads`), the tiles a
+block visits (:func:`kv_tile_range`, :func:`q_tile_range`) and the tiles it
+masks (:func:`tile_needs_mask`), all mirrored from the sources, argument
+checks, and one launch counter per kernel.
 """
 from __future__ import annotations
 
@@ -22,9 +25,12 @@ from typing import Optional, Tuple
 import torch
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "flash_attn.cu")
-THREADS = 128
-TILES = {torch.bfloat16: (64, 64), torch.float32: (32, 32)}   # (query rows, keys)
-PAD = 8                          # bf16 elements of row padding (bf16 path)
+THREADS = {torch.bfloat16: 384, torch.float32: 128}   # bf16: producer + 2 consumers
+TILES = {torch.bfloat16: (128, None), torch.float32: (32, 32)}   # (query rows, keys)
+FWD_BK = {64: 128, 128: 128, 160: 64}   # bf16: keys per KV tile by head width
+FWD_STAGES = 3                   # bf16: K/V tiles in flight (TMA ring)
+SMEM_EXTRA = 64 + 1024           # bf16: mbarriers + room to align tiles to 1 KB
+PAD = 8                          # bf16 elements of row padding (dQ kernel)
 HEAD_DIMS = (64, 128, 160)       # head widths with a kernel instance
 SMEM_LIMIT = 232448              # opt-in shared memory per block on sm_90
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,14 +42,16 @@ class LaunchConfig:
     bk: int          # keys per KV tile
     nq: int          # query tiles (grid x); grid y is B*H
     nbh: int         # batch * query heads
+    threads: int
     smem_bytes: int
 
 
 def launch_config(b: int, s: int, h: int, dh: int,
                   dtype: torch.dtype) -> LaunchConfig:
     """Grid and shared memory of one launch: one block per (batch*head,
-    query tile). bf16 stages the q tile and one K and one V tile, rows
-    padded by ``PAD``; f32 stages one K and one V tile."""
+    query tile). bf16 keeps the q tile and a ring of ``FWD_STAGES`` K and V
+    tiles of ``FWD_BK[dh]`` keys (TMA, 64-byte swizzle, no padding) plus its
+    mbarriers; f32 stages one K and one V tile."""
     if dtype not in TILES:
         raise TypeError(f"flash_fwd: no kernel for {dtype}")
     if dh not in HEAD_DIMS:
@@ -51,14 +59,26 @@ def launch_config(b: int, s: int, h: int, dh: int,
                          f"(have {HEAD_DIMS})")
     bq, bk = TILES[dtype]
     if dtype == torch.bfloat16:
-        smem = 2 * (bq + 2 * bk) * (dh + PAD)
+        bk = FWD_BK[dh]
+        smem = 2 * dh * (bq + 2 * FWD_STAGES * bk) + SMEM_EXTRA
     else:
         smem = 4 * 2 * bk * dh
     if smem > SMEM_LIMIT:
         raise ValueError(f"flash_fwd: head width {dh} needs {smem} bytes of "
                          f"shared memory (> {SMEM_LIMIT})")
     return LaunchConfig(bq=bq, bk=bk, nq=-(-s // bq), nbh=b * h,
-                        smem_bytes=smem)
+                        threads=THREADS[dtype], smem_bytes=smem)
+
+
+def tile_needs_mask(q0: int, q1: int, k0: int, k1: int, t: int,
+                    window: Optional[int]) -> bool:
+    """Whether query rows ``[q0, q1)`` by keys ``[k0, k1)`` (``k1`` not
+    clipped to ``t``) hold a pair that is not visible: a key at or past
+    ``t``, a key above the diagonal, or a pair at or past the window. The
+    bf16 kernels mask only such tiles (``tile_needs_mask`` in both CUDA
+    sources); every other tile is wholly visible."""
+    return (k1 > t or k1 - 1 > q0
+            or (window is not None and q1 - 1 - k0 >= window))
 
 
 def kv_tile_range(q0: int, q1: int, t: int, window: Optional[int],
@@ -81,9 +101,12 @@ def _lib():
         + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.flash_fwd_tiles.restype = None
     lib.flash_fwd_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    tiles = (ctypes.c_int * 6)()
+    tiles = (ctypes.c_int * 14)()
     lib.flash_fwd_tiles(tiles)
-    want = (THREADS, *TILES[torch.bfloat16], PAD, *TILES[torch.float32])
+    bf, f32 = torch.bfloat16, torch.float32
+    want = (THREADS[bf], TILES[bf][0], THREADS[f32], *TILES[f32],
+            *(x for dh in HEAD_DIMS for x in (
+                FWD_BK[dh], FWD_STAGES, launch_config(1, 1, 1, dh, bf).smem_bytes)))
     if tuple(tiles) != want:
         raise RuntimeError(f"flash_attn.cu tiles {tuple(tiles)} disagree with "
                            f"kernel.py {want}")
@@ -133,6 +156,17 @@ def _check_qkv(what: str, q, k, v, window, **more) -> Tuple[int, int, int, int]:
     return b, s, h, dh
 
 
+MAP_ERROR = 10000                # hopper.cuh: MAP_ERROR + CUresult
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err >= MAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{err - MAP_ERROR}")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -156,8 +190,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *v.stride()[:3], *out.stride()[:3], b, s, t, h, kvh, dh,
             window or 0, dh ** -0.5, cfg.nq, cfg.smem_bytes,
             _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    _raise_on(err, "flash_fwd")
     flash_fwd_cuda.launches += 1
     return out, lse
 
@@ -171,10 +204,16 @@ flash_fwd_cuda.launches = 0
 
 BWD_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "flash_bwd.cu")
-# bf16 (mma.sync): dK/dV blocks of 64 keys over 32-query tiles, dQ blocks of
-# 64 queries over 32-key tiles; f32 (FMA): 32 rows and 32-row tiles for both
-BWD_TILES = {torch.bfloat16: {"dkv": (64, 32), "dq": (64, 32)},
+# (rows a block owns, rows of each inner tile). bf16 dK/dV (wgmma): 128-key
+# blocks over query tiles of DKV_QTILE[dh]; bf16 dQ (mma.sync): 64-query
+# blocks over 32-key tiles; f32 (FMA): 32 and 32 for both.
+BWD_TILES = {torch.bfloat16: {"dkv": (128, None), "dq": (64, 32)},
              torch.float32: {"dkv": (32, 32), "dq": (32, 32)}}
+DKV_QTILE = {64: 64, 128: 64, 160: 32}   # bf16 dK/dV query tile by head width
+DKV_THREADS = 384                # bf16 dK/dV: a producer + two consumer warpgroups
+DKV_STAGES = 2                   # bf16 dK/dV: (q, dO) tiles in flight
+NUM_SMS = 132                    # H100 SXM
+DKV_MIN_BLOCKS = 4 * NUM_SMS     # the head split's target: 4 blocks per SM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,33 +222,60 @@ class BwdLaunchConfig:
     tile: int        # queries (dK/dV) or keys (dQ) per inner tile
     grid: Tuple[int, int]
     smem_bytes: int
+    gsplit: int = 1  # dK/dV: blocks sharing one GQA group's heads
+
+
+def dkv_gsplit(b: int, kvh: int, g: int, t: int) -> int:
+    """The bf16 dK/dV head split: the smallest divisor of the group size
+    ``g`` that gives at least ``DKV_MIN_BLOCKS`` blocks of 128 keys, else
+    ``g`` (one head per block)."""
+    nk = -(-t // BWD_TILES[torch.bfloat16]["dkv"][0])
+    for d in range(1, g + 1):
+        if g % d == 0 and b * kvh * d * nk >= DKV_MIN_BLOCKS:
+            return d
+    return g
+
+
+def dkv_heads(kvh: int, gs: int, g: int, gsplit: int) -> range:
+    """Query heads that split ``gs`` of KV head ``kvh`` sums over
+    (``h0`` in ``flash_bwd_dkv_wgmma``)."""
+    per = g // gsplit
+    return range(kvh * g + gs * per, kvh * g + (gs + 1) * per)
 
 
 def bwd_launch_config(which: str, b: int, s: int, t: int, h: int, kvh: int,
                       dh: int, dtype: torch.dtype) -> BwdLaunchConfig:
     """Grid and shared memory of one backward launch. ``which="dkv"``: one
-    block per (batch·KV head, key tile), grid ``(B·KV, key tiles)``; bf16
-    stages its K and V tiles and one q and one do tile (rows padded by
-    ``PAD``) plus the tile's lse and delta, f32 the q, do, lse and delta
-    tiles. ``which="dq"``: one block per (query tile, batch·head), grid
-    ``(query tiles, B·H)``; bf16 stages its q and do tiles and one K and one
-    V tile, f32 one K and one V tile."""
+    block per (batch·KV head·head split, key tile), grid ``(B·KV·gsplit,
+    key tiles)``; bf16 keeps its K and V tiles and a ring of ``DKV_STAGES``
+    (q, dO) tiles (TMA, 64-byte swizzle) with their lse and delta rows, f32
+    stages the q, do, lse and delta tiles (``gsplit`` 1). ``which="dq"``:
+    one block per (query tile, batch·head), grid ``(query tiles, B·H)``;
+    bf16 stages its q and do tiles and one K and one V tile, rows padded by
+    ``PAD``, f32 one K and one V tile."""
     if dtype not in BWD_TILES:
         raise TypeError(f"flash_bwd: no kernel for {dtype}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_bwd: no kernel instance for head width {dh} "
                          f"(have {HEAD_DIMS})")
     rows, tile = BWD_TILES[dtype][which]
-    if dtype == torch.bfloat16:
-        smem = 2 * 2 * (rows + tile) * (dh + PAD) + (8 * tile if which == "dkv" else 0)
+    gsplit = 1
+    if dtype == torch.bfloat16 and which == "dkv":
+        tile = DKV_QTILE[dh]
+        smem = (2 * 2 * rows * dh + DKV_STAGES * (2 * 2 * tile * dh + 2 * 4 * tile)
+                + SMEM_EXTRA)
+        gsplit = dkv_gsplit(b, kvh, h // kvh, t)
+    elif dtype == torch.bfloat16:
+        smem = 2 * 2 * (rows + tile) * (dh + PAD)
     else:
         smem = 4 * 2 * tile * dh + (8 * tile if which == "dkv" else 0)
     if smem > SMEM_LIMIT:
         raise ValueError(f"flash_bwd: head width {dh} needs {smem} bytes of "
                          f"shared memory (> {SMEM_LIMIT})")
-    grid = ((b * kvh, -(-t // rows)) if which == "dkv"
+    grid = ((b * kvh * gsplit, -(-t // rows)) if which == "dkv"
             else (-(-s // rows), b * h))
-    return BwdLaunchConfig(block_rows=rows, tile=tile, grid=grid, smem_bytes=smem)
+    return BwdLaunchConfig(block_rows=rows, tile=tile, grid=grid,
+                           smem_bytes=smem, gsplit=gsplit)
 
 
 def q_tile_range(k0: int, k1: int, s: int, window: Optional[int],
@@ -227,15 +293,18 @@ def _bwd_lib():
     lib = load_library("flash_bwd", BWD_SOURCE)
     lib.flash_bwd_launch.restype = ctypes.c_int
     lib.flash_bwd_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 18
-        + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4
+        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 18
+        + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5
         + [ctypes.c_void_p])
     lib.flash_bwd_tiles.restype = None
     lib.flash_bwd_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    tiles = (ctypes.c_int * 7)()
+    tiles = (ctypes.c_int * 14)()
     lib.flash_bwd_tiles(tiles)
     bf, f32 = BWD_TILES[torch.bfloat16], BWD_TILES[torch.float32]
-    want = (THREADS, PAD, *bf["dkv"], *bf["dq"], f32["dkv"][0])
+    dkv = [(DKV_QTILE[dh], bwd_launch_config(
+        "dkv", 1, 1, 1, 1, 1, dh, torch.bfloat16).smem_bytes) for dh in HEAD_DIMS]
+    want = (THREADS[torch.float32], PAD, *bf["dq"], f32["dkv"][0], DKV_THREADS,
+            bf["dkv"][0], DKV_STAGES, *(x for pair in dkv for x in pair))
     if tuple(tiles) != want or f32["dkv"] != f32["dq"] \
             or f32["dkv"][0] != f32["dkv"][1]:
         raise RuntimeError(f"flash_bwd.cu tiles {tuple(tiles)} disagree with "
@@ -259,27 +328,34 @@ def _check_rows(what: str, q, lse, delta) -> None:
 
 
 def _bwd_launch(which: str, q, k, v, dout, lse, delta, window, dq, dk, dv):
+    """One launch. bf16 dK/dV with a head split > 1 writes each split's f32
+    partials to a workspace; they are summed here in split order and
+    rounded once into ``dk``, ``dv``."""
     b, s, h, dh = q.shape
     t, kvh = k.shape[1], k.shape[2]
     cfg = bwd_launch_config(which, b, s, t, h, kvh, dh, q.dtype)
+    ws = None
+    if cfg.gsplit > 1:
+        ws = torch.empty((2, cfg.gsplit, b, t, kvh, dh), dtype=torch.float32,
+                         device=q.device)
     zero = (0, 0, 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_lib().flash_bwd_launch(
             0 if which == "dkv" else 1, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr() if dq is not None else None,
-            dk.data_ptr() if dk is not None else None,
-            dv.data_ptr() if dv is not None else None,
+            *(None if a is None else a.data_ptr() for a in (dq, dk, dv, ws)),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *dout.stride()[:3],
             *(dq.stride()[:3] if dq is not None else zero),
             *(dk.stride()[:3] if dk is not None else zero),
-            s, t, h, kvh, dh, window or 0, dh ** -0.5, *cfg.grid,
-            cfg.smem_bytes, _DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_{which} kernel launch failed: "
-                           f"cudaError {err}")
+            b, s, t, h, kvh, dh, window or 0, dh ** -0.5, cfg.gsplit,
+            *cfg.grid, cfg.smem_bytes, _DTYPES[q.dtype], stream)
+        _raise_on(err, f"flash_bwd_{which}")
+        if ws is not None:
+            summed = ws.sum(1)
+            dk.copy_(summed[0])
+            dv.copy_(summed[1])
 
 
 def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -290,8 +366,9 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k, v [B, T, KV, dh]`` of one dtype (f32 or bf16; strides as for
     :func:`flash_fwd_cuda`), the forward's ``lse`` and ``delta =
     rowsum(dout·out)`` as contiguous f32 ``[B*H, S]``. Returns ``(dk, dv)``
-    ``[B, T, KV, dh]`` in k's dtype, each summed over the G query heads of
-    its KV head inside the kernel. Raises on anything else."""
+    ``[B, T, KV, dh]`` in k's dtype, each summed in f32 over the G query
+    heads of its KV head (inside the kernel, or over the head split's
+    partials after it) and rounded once. Raises on anything else."""
     _check_qkv("flash_bwd_dkv", q, k, v, window, dout=dout)
     _check_rows("flash_bwd_dkv", q, lse, delta)
     dk, dv = torch.empty_like(k, memory_format=torch.contiguous_format), \

@@ -10,7 +10,8 @@ reference falls back off the TPU. There is no fallback between them.
 On the card the forward saves ``q, k, v, out, lse`` and the backward
 computes ``delta = rowsum(dout·out)`` in torch and launches the two
 backward kernels (``kernel.flash_bwd_dkv_cuda``, which sums each GQA
-group's dK/dV inside the kernel, and ``kernel.flash_bwd_dq_cuda``); ``dout``
+group's dK/dV in f32, inside the kernel or over its head split's partials,
+and ``kernel.flash_bwd_dq_cuda``); ``dout``
 is copied only where its rows break the kernels' 16-byte rule. On the CPU
 gradients flow through the plain version (the reference's ``_vjp_bwd`` ref
 branch).

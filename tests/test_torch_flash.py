@@ -119,9 +119,18 @@ def test_traffic_models_match_reference(b, s, h, dh, bq, bk, backward):
                                       (2048, 512)])
 def test_launch_covers_every_row_once_and_visits_only_open_tiles(dh, dtype, s,
                                                                  window):
-    cfg = fk.launch_config(4, s, 40, dh, dtype)
+    """Blocks cover every (batch, query head, row) once, each reading its
+    own KV head, and visit exactly the KV tiles that hold a visible key."""
+    b, h, kvh = 4, 40, 10
+    cfg = fk.launch_config(b, s, h, dh, dtype)
     assert cfg.smem_bytes <= fk.SMEM_LIMIT
-    assert cfg.nbh == 4 * 40
+    assert cfg.nbh == b * h
+    assert cfg.threads == (384 if dtype == torch.bfloat16 else 128)
+    # grid y: n = batch * H + head, read from KV head head // G
+    heads = [(n // h, n % h, (n % h) // (h // kvh)) for n in range(cfg.nbh)]
+    assert sorted((bi, hi) for bi, hi, _ in heads) == \
+        [(bi, hi) for bi in range(b) for hi in range(h)]
+    assert all(kv == hi * kvh // h for _, hi, kv in heads)
     rows = [list(range(i * cfg.bq, min(s, (i + 1) * cfg.bq)))
             for i in range(cfg.nq)]
     assert sorted(r for blk in rows for r in blk) == list(range(s))
@@ -134,6 +143,47 @@ def test_launch_covers_every_row_once_and_visits_only_open_tiles(dh, dtype, s,
         assert set(range(lo, hi)) == open_tiles
 
 
+@pytest.mark.parametrize("s", [64, 200, 300, 1000])
+@pytest.mark.parametrize("window", [None, 1, 37, 65])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+def test_tile_needs_mask_never_skips_an_invisible_pair(s, window, kernel):
+    """Every tile the bf16 kernels visit and call mask-free holds only
+    visible pairs: the forward's 64-row consumer halves by its KV tiles, the
+    dK/dV query tiles by the 64-key consumer halves of its key blocks (which
+    also mask a query tile past
+    S; the forward computes rows past S but writes none). Windows 1, 37 and
+    65 fall off the tile edges, s 200, 300 and 1000 leave ragged last tiles.
+    Wholly visible tiles exist wherever the causal band is wider than a
+    tile."""
+    ok = ref.causal_ok(s, s, window, "cpu")
+    free = 0
+    if kernel == "fwd":
+        cfg = fk.launch_config(1, s, 1, 128, torch.bfloat16)
+        tiles = []
+        for q0 in range(0, s, cfg.bq):
+            lo, hi = fk.kv_tile_range(q0, min(s, q0 + cfg.bq), s, window, cfg.bk)
+            tiles += [(r0, r0 + 64, kt * cfg.bk, kt * cfg.bk + cfg.bk, False)
+                      for r0 in range(q0, q0 + cfg.bq, 64) for kt in range(lo, hi)]
+    else:
+        cfg = fk.bwd_launch_config("dkv", 1, s, s, 2, 1, 128, torch.bfloat16)
+        tiles = []
+        for k0 in range(0, s, cfg.block_rows):
+            lo, hi = fk.q_tile_range(k0, min(s, k0 + cfg.block_rows), s, window,
+                                     cfg.tile)
+            tiles += [(qt * cfg.tile, qt * cfg.tile + cfg.tile, kc0, kc0 + 64, True)
+                      for kc0 in range(k0, k0 + cfg.block_rows, 64)
+                      for qt in range(lo, hi)]
+    for q0, q1, k0, k1, past_s in tiles:
+        needs = fk.tile_needs_mask(q0, q1, k0, k1, s, window) \
+            or (past_s and q1 > s)
+        if not needs:              # rows past S are not written
+            free += 1
+            assert k1 <= s
+            assert bool(ok[q0:q1, k0:k1].all()), (q0, q1, k0, k1)
+    if s >= 300 and window is None:
+        assert free > 0
+
+
 def test_launch_config_rejects_what_has_no_kernel():
     with pytest.raises(ValueError):
         fk.launch_config(1, 8, 1, 96, torch.bfloat16)
@@ -141,12 +191,16 @@ def test_launch_config_rejects_what_has_no_kernel():
         fk.launch_config(1, 8, 1, 64, torch.float16)
 
 
-def _tiled_fwd_bf16(q, k, v, window, drop_tile=None, bq=64, bk=64):
+def _tiled_fwd_bf16(q, k, v, window, drop_tile=None):
     """The CUDA kernel's bf16 arithmetic, tile by tile in plain torch
-    (kernel layout): online max and sum over the KV tiles a query tile
-    visits, p rounded to bf16 against the running max. ``drop_tile`` leaves
-    that KV tile out of the last query tile (a planted kernel fault)."""
+    (kernel layout), at the kernel's tiles (``launch_config``): online max
+    and sum over the KV tiles a query tile visits, p rounded to bf16 against
+    the running max, scores masked only in the 64-row consumer halves that
+    ``tile_needs_mask`` names. ``drop_tile`` leaves that KV tile out of the
+    last query tile (a planted kernel fault)."""
     n, s, dh = q.shape
+    cfg = fk.launch_config(1, s, 1, dh, torch.bfloat16)
+    bq, bk = cfg.bq, cfg.bk
     ok = ref.causal_ok(s, s, window, "cpu")
     out = torch.empty_like(q)
     for q0 in range(0, s, bq):
@@ -159,8 +213,12 @@ def _tiled_fwd_bf16(q, k, v, window, drop_tile=None, bq=64, bk=64):
             if q1 == s and kt == drop_tile:
                 continue
             k0, k1 = kt * bk, min(s, kt * bk + bk)
+            keep = ok[q0:q1, k0:k1].clone()
+            for r0 in range(q0, q1, 64):
+                if not fk.tile_needs_mask(r0, r0 + 64, k0, k0 + bk, s, window):
+                    keep[r0 - q0:r0 - q0 + 64] = True
             sc = q[:, q0:q1].float() @ k[:, k0:k1].float().transpose(1, 2)
-            sc = torch.where(ok[q0:q1, k0:k1], sc * dh ** -0.5, float("-inf"))
+            sc = torch.where(keep, sc * dh ** -0.5, float("-inf"))
             mn = torch.maximum(m, sc.amax(-1))
             base = torch.where(mn == float("-inf"), 0.0, mn)
             alpha, m = torch.exp(m - base), mn
@@ -174,7 +232,7 @@ def _tiled_fwd_bf16(q, k, v, window, drop_tile=None, bq=64, bk=64):
 
 @pytest.mark.parametrize("s,window,drop_tile", [
     (512, None, None), (500, 100, None),      # the kernel's own rounding
-    (512, None, 3), (500, 100, 6),            # one KV tile left out
+    (512, None, 1), (500, 100, 2),            # one KV tile left out
 ])
 def test_bf16_out_tolerance_admits_rounding_and_catches_a_lost_tile(
         s, window, drop_tile):
@@ -184,10 +242,11 @@ def test_bf16_out_tolerance_admits_rounding_and_catches_a_lost_tile(
     o_r, _ = ref.flash_fwd(q, k, v, window)
     o = _tiled_fwd_bf16(q, k, v, window, drop_tile)
     over = (o.float() - o_r.float()).abs() > ref.bf16_out_tolerance(o_r)
+    bq = fk.launch_config(1, s, 1, 128, torch.bfloat16).bq
     if drop_tile is None:
         assert not bool(over.any())
-    else:
-        assert float(over[:, -(s % 64 or 64):].float().mean()) > 0.5
+    else:                              # the last query tile's rows
+        assert float(over[:, -(s % bq or bq):].float().mean()) > 0.5
 
 
 @pytest.mark.cuda
@@ -258,14 +317,32 @@ def test_flash_attention_gqa_grads_match_reference(b, s, h, kv, dh, window):
 def test_bwd_launch_covers_every_visible_pair_once(dh, dtype, s, window):
     """The dK/dV blocks and the query tiles each visits (``q_tile_range``)
     cover every visible (query, key) pair exactly once and visit only tiles
-    holding one; the dQ blocks cover every row once and visit only open KV
-    tiles."""
-    h, kvh = 12, 2
-    dkv = fk.bwd_launch_config("dkv", 2, s, s, h, kvh, dh, dtype)
-    dq = fk.bwd_launch_config("dq", 2, s, s, h, kvh, dh, dtype)
+    holding one, and the head split (``dkv_heads``) gives every query head
+    of a KV head's group to exactly one block of each key tile; the dQ
+    blocks cover every row once and visit only open KV tiles."""
+    b, h, kvh = 2, 12, 2
+    g = h // kvh
+    dkv = fk.bwd_launch_config("dkv", b, s, s, h, kvh, dh, dtype)
+    dq = fk.bwd_launch_config("dq", b, s, s, h, kvh, dh, dtype)
     assert max(dkv.smem_bytes, dq.smem_bytes) <= fk.SMEM_LIMIT
-    assert dkv.grid == (2 * kvh, -(-s // dkv.block_rows))
-    assert dq.grid == (-(-s // dq.block_rows), 2 * h)
+    assert dkv.grid == (b * kvh * dkv.gsplit, -(-s // dkv.block_rows))
+    assert dq.grid == (-(-s // dq.block_rows), b * h)
+    assert g % dkv.gsplit == 0
+    if dtype == torch.bfloat16:     # the smallest split that fills the card
+        assert dkv.grid[0] * dkv.grid[1] >= fk.DKV_MIN_BLOCKS \
+            or dkv.gsplit == g
+        assert all(b * kvh * d * dkv.grid[1] < fk.DKV_MIN_BLOCKS
+                   for d in range(1, dkv.gsplit) if g % d == 0)
+    else:
+        assert dkv.gsplit == 1
+    # block x = (batch * KV + kv head) * gsplit + split
+    heads = torch.zeros(b, h, dtype=torch.int32)
+    for x in range(dkv.grid[0]):
+        gs, bkv = x % dkv.gsplit, x // dkv.gsplit
+        for hh in fk.dkv_heads(bkv % kvh, gs, g, dkv.gsplit):
+            assert hh // g == bkv % kvh
+            heads[bkv // kvh, hh] += 1
+    assert bool((heads == 1).all())
     ok = ref.causal_ok(s, s, window, "cpu")
     seen = torch.zeros(s, s, dtype=torch.int32)
     for kt in range(dkv.grid[1]):
@@ -296,13 +373,16 @@ def test_bwd_launch_config_rejects_what_has_no_kernel():
 
 def _tiled_bwd_bf16(q, k, v, dout, window, drop=None):
     """The CUDA kernels' bf16 arithmetic, tile by tile in plain torch, in the
-    model layout: dK/dV per 64-key tile over its GQA group's heads and the
-    32-query tiles ``q_tile_range`` gives, p and ds rounded to bf16 for the
-    products, f32 sums, one rounding at the end; dQ per 64-query tile over
-    32-key tiles. ``drop`` plants a kernel fault: ``("q_tile", kt, qt)``
-    leaves a query tile out of key tile kt's sum, ``("head", g)`` a GQA
-    head out of every dK/dV sum, ``("kv_tile", kt)`` a KV tile out of the
-    last query tile's dQ sum."""
+    model layout, at the kernels' tiles (``bwd_launch_config``): dK/dV per
+    key block and head split over the split's heads (``dkv_heads``) and the
+    query tiles ``q_tile_range`` gives, masked only in the 64-key consumer
+    halves ``tile_needs_mask`` names, p and ds rounded to bf16 for the products, f32
+    sums; the splits' f32 partials summed in split order and rounded once.
+    dQ per 64-query tile over 32-key tiles. ``drop`` plants a kernel fault:
+    ``("q_tile", kt, qt)`` leaves a query tile out of key tile kt's sum,
+    ``("head", g)`` a GQA head out of every dK/dV sum, ``("split", gs)``
+    head split gs's partial out of the final sum, ``("kv_tile", kt)`` a KV
+    tile out of the last query tile's dQ sum."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -314,40 +394,57 @@ def _tiled_bwd_bf16(q, k, v, dout, window, drop=None):
     delta = (dok.float() * o.float()).sum(-1)
     qk, kk, vk, dok = (x.float() for x in (qk, kk, vk, dok))
 
-    def tile(n, q0, q1, k0, k1):
+    def tile(n, q0, q1, k0, k1, masked=True):
         st = qk[n, q0:q1] @ kk[n, k0:k1].T * sc
-        p = torch.where(ok[q0:q1, k0:k1],
-                        torch.exp(st - lse[n, q0:q1, None]), 0.0)
+        p = torch.exp(st - lse[n, q0:q1, None])
+        if masked:
+            p = torch.where(ok[q0:q1, k0:k1], p, 0.0)
         dp = dok[n, q0:q1] @ vk[n, k0:k1].T
         return p, p * (dp - delta[n, q0:q1, None]) * sc
 
-    dk = torch.zeros(b, s, kvh, dh)
-    dv = torch.zeros(b, s, kvh, dh)
+    cfg = fk.bwd_launch_config("dkv", b, s, s, h, kvh, dh, torch.bfloat16)
+    bk, bq = cfg.block_rows, cfg.tile
+    part = torch.zeros(2, cfg.gsplit, b, s, kvh, dh)
     for bi in range(b):
         for kh in range(kvh):
-            for k0 in range(0, s, 64):
-                k1 = min(s, k0 + 64)
-                lo, hi = fk.q_tile_range(k0, k1, s, window, 32)
-                for gi in range(g):
-                    if drop == ("head", gi):
-                        continue
-                    n = bi * h + kh * g + gi
-                    for qt in range(lo, hi):
-                        if drop == ("q_tile", k0 // 64, qt):
+            for gs in range(cfg.gsplit):
+                for k0 in range(0, s, bk):
+                    k1 = min(s, k0 + bk)
+                    lo, hi = fk.q_tile_range(k0, k1, s, window, bq)
+                    for hh in fk.dkv_heads(kh, gs, g, cfg.gsplit):
+                        if drop == ("head", hh % g):
                             continue
-                        q0, q1 = qt * 32, min(s, qt * 32 + 32)
-                        p, ds = tile(n, q0, q1, k0, k1)
-                        dv[bi, k0:k1, kh] += p.bfloat16().float().T @ dok[n, q0:q1]
-                        dk[bi, k0:k1, kh] += ds.bfloat16().float().T @ qk[n, q0:q1]
+                        n = bi * h + hh
+                        for qt in range(lo, hi):
+                            if drop == ("q_tile", k0 // bk, qt):
+                                continue
+                            q0, q1 = qt * bq, min(s, qt * bq + bq)
+                            for c0 in range(k0, k1, 64):      # consumer halves
+                                c1 = min(s, c0 + 64)
+                                masked = fk.tile_needs_mask(
+                                    q0, q0 + bq, c0, c0 + 64, s, window) \
+                                    or q0 + bq > s
+                                p, ds = tile(n, q0, q1, c0, c1, masked)
+                                part[1, gs, bi, c0:c1, kh] += \
+                                    p.bfloat16().float().T @ dok[n, q0:q1]
+                                part[0, gs, bi, c0:c1, kh] += \
+                                    ds.bfloat16().float().T @ qk[n, q0:q1]
+    dk = torch.zeros(b, s, kvh, dh)
+    dv = torch.zeros(b, s, kvh, dh)
+    for gs in range(cfg.gsplit):
+        if drop != ("split", gs):
+            dk += part[0, gs]
+            dv += part[1, gs]
+    cq = fk.bwd_launch_config("dq", b, s, s, h, kvh, dh, torch.bfloat16)
     dq = torch.zeros(b * h, s, dh)
     for n in range(b * h):
-        for q0 in range(0, s, 64):
-            q1 = min(s, q0 + 64)
-            lo, hi = fk.kv_tile_range(q0, q1, s, window, 32)
+        for q0 in range(0, s, cq.block_rows):
+            q1 = min(s, q0 + cq.block_rows)
+            lo, hi = fk.kv_tile_range(q0, q1, s, window, cq.tile)
             for kt in range(lo, hi):
                 if q1 == s and drop == ("kv_tile", kt):
                     continue
-                k0, k1 = kt * 32, min(s, kt * 32 + 32)
+                k0, k1 = kt * cq.tile, min(s, kt * cq.tile + cq.tile)
                 _, ds = tile(n, q0, q1, k0, k1)
                 dq[n, q0:q1] += ds.bfloat16().float() @ kk[n, k0:k1]
     dq = ops._from_kernel_layout(dq, b, s, h, dh)
@@ -384,8 +481,9 @@ def _f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
 
 @pytest.mark.parametrize("s,window,drop", [
     (256, None, None), (250, 70, None),           # the kernels' own rounding
-    (256, None, ("q_tile", 1, 5)),                # a query tile out of dK/dV
+    (256, None, ("q_tile", 0, 2)),                # a query tile out of dK/dV
     (256, None, ("head", 2)),                     # a GQA head out of dK/dV
+    (256, None, ("split", 1)),                    # a head split's partial left out
     (250, 70, ("kv_tile", 6)),                    # a KV tile out of dQ
 ])
 def test_bf16_grad_tolerance_admits_rounding_and_catches_a_lost_term(
@@ -399,12 +497,12 @@ def test_bf16_grad_tolerance_admits_rounding_and_catches_a_lost_term(
     over = [(x.float() - r).abs() > tol for x, (r, tol) in zip(got, want)]
     if drop is None:
         assert not any(bool(o.any()) for o in over)
-    elif drop[0] == "q_tile":          # keys 64..127 lose queries 160..191
+    elif drop[0] == "q_tile":          # keys 0..127 lose queries 128..191
         assert not bool(over[0].any())
         for o in over[1:]:
-            assert float(o[:, 64:128].float().mean()) > 0.5
-            assert not bool(o[:, :64].any()) and not bool(o[:, 128:].any())
-    elif drop[0] == "head":
+            assert float(o[:, :128].float().mean()) > 0.5
+            assert not bool(o[:, 128:].any())
+    elif drop[0] in ("head", "split"):
         assert not bool(over[0].any())
         assert all(float(o.float().mean()) > 0.5 for o in over[1:])
     else:                              # the last query tile of dQ
