@@ -12,8 +12,8 @@ Phases, each raising on failure:
    checkout (``nm_spmm``, ``wu_outer``, ``flash_attn`` and ``flash_bwd``:
    CUDA C++, one ``nvcc`` each, started together; ``lif``: Triton). Prints
    each kernel instance's registers and spills from ``ptxas -v`` (with the
-   dynamic shared memory of the bf16 ``wgmma`` instances, which must not
-   spill).
+   dynamic shared memory of the nine bf16 ``wgmma`` instances, which must
+   not spill).
 3. kernel parity: each kernel against its plain torch version on the card,
    at its path's shapes and at a tiled / ragged shape, with its
    device time (summed kernel durations in a ``torch.profiler`` trace, L2
@@ -22,22 +22,28 @@ Phases, each raising on failure:
    least time the card could take
    (bytes over 3.35 TB/s or flops over the dtype's peak, whichever is
    larger) and, where one PyTorch call computes the same function, that
-   call's time (timed only; the port never calls it). ``wu_outer`` also
-   writes exact zeros for a closed gate (``scale = 0``). ``flash_fwd`` at
-   the LM prefill shape (bf16), the LM training shape (B 2, S 4096, H 12,
-   KV 2, dh 128), a small f32 shape, a 512 window (whole KV
+   call's time (timed only; the port never calls it). ``nm_spmm`` also runs
+   fused with the per-slot delta at the serving shape (1024 slots, 512 ->
+   512, T 104, f32; and 1000 slots), against ``ref.nm_spmm_fused``, with
+   rows computed alone equal bit for bit to the same rows of the batch.
+   ``wu_outer`` also writes exact zeros for a closed gate (``scale = 0``).
+   ``flash_fwd`` at the LM prefill shape (bf16), the LM training shape (B 2,
+   S 4096, H 12, KV 2, dh 128), a small f32 shape, a 512 window (whole KV
    tiles skipped, rows whose first visited tile is all masked), a ragged
    S = 1000, MQA, windows of 500 and 65 (off the key-tile edges), head
    widths 160 (StableLM) and 64, and f32 at dh 160 with a window of 37,
    against the plain ``ref.flash_fwd`` (bf16 out per element within
    ``ref.bf16_out_tolerance``) and, as the library yardstick,
    ``scaled_dot_product_attention``.
+   Then ``python -m pytest --noconftest -q tests/test_torch_cuda.py``, the
+   card-side tests (jax-free), in a process of its own; it must pass.
 4. serving at full width: the paper network (512-512-512-16, T=50, 80 %
    N:M sparsity, gating on, backend "kernels") serves 1024 gesture streams
    of 4 windows each through ``StreamScheduler`` (1024 slots, chunk 8,
    pipeline depth 1) until drained. Every stream must get 4 predictions,
-   ``nm_spmm`` and ``lif`` must have launched grid steps x 8 x 2 times in
-   that run and ``wu_outer`` never, and the deltas must be finite. Then, for the record, one full-grid chunk
+   ``nm_spmm`` (every launch fused with the slots' deltas) and ``lif`` must
+   have launched grid steps x 8 x 2 times in that run and ``wu_outer``
+   never, and the deltas must be finite. Then, for the record, one full-grid chunk
    step under ``torch.profiler``: host wall, enqueue time, device busy time.
 5. path parity: one 8-step chunk of 64 slots through backend "kernels"
    and backend "ref" (plain LIF): logits close; spikes equal up to a first
@@ -47,7 +53,8 @@ Phases, each raising on failure:
    80 gesture samples of batch 16 through ``make_train_fn`` (OSSL, gated
    WU, DSST epochs after samples 39 and 79), then one ``make_eval_fn``
    call on 64 samples. Every kernel must have launched (80 + 1) x T x L
-   times; after each epoch ``topology.check`` holds, L x G x J x k units
+   times (``nm_spmm`` never fused: training has no deltas); after each
+   epoch ``topology.check`` holds, L x G x J x k units
    were recycled (k from ``k_per_group``), and the weights are finite and
    exactly zero off the mask. Records samples/s, peak memory, the eval
    accuracy and one training sample under ``torch.profiler``.
@@ -325,6 +332,68 @@ def nm_case(torch, name, dtype, b, k, o, spec, sparse_x):
     return rec
 
 
+def nm_fused_case(torch, name, b):
+    """The gather kernel with the per-slot delta fused in, at the serving
+    shape (x ``[b, 512]`` spikes, T 104, f32), against ``ref.nm_spmm_fused``
+    (the base product plus ``nm_spmm_deltas``); rows computed alone must
+    equal the same rows of the batch bit for bit."""
+    from repro_torch.core.sparsity import paper_spec_4groups, random_unit_mask
+    from repro_torch.kernels.nm_spmm import ops, ref
+    from repro_torch.kernels.nm_spmm.kernel import nm_spmm_fused_cuda
+    k = o = 512
+    gen = torch.Generator().manual_seed(6)
+    spec = paper_spec_4groups(k, 0.8)
+    wc, idx = ops.make_compact(torch.randn((k, o), generator=gen),
+                               random_unit_mask(gen, spec, k, o), 1, 1)
+    x = (torch.rand((b, k), generator=gen) < 0.05).float().cuda()
+    delta = (0.02 * torch.randn((b, *wc.shape), generator=gen)).cuda()
+    wc, idx = wc.cuda(), idx.cuda()
+    y_k = nm_spmm_fused_cuda(x, wc, idx, delta)
+    y_r = ref.nm_spmm_fused(x, wc, idx, delta)
+    solo = {r: nm_spmm_fused_cuda(x[r:r + 1].contiguous(), wc, idx,
+                                  delta[r:r + 1].contiguous())
+            for r in (0, b // 2, b - 1)}
+    torch.cuda.synchronize()
+    err = max_err(y_k, y_r)
+    tol = 1e-4                  # f32: only the summation order differs
+    if not err <= tol:
+        raise AssertionError(f"nm_spmm fused {name}: max |kernel - plain| {err} > {tol}")
+    if not all(torch.equal(y, y_k[r:r + 1]) for r, y in solo.items()):
+        raise AssertionError(f"nm_spmm fused {name}: a row alone differs from "
+                             f"the same row in the batch")
+    j, t = idx.shape
+    nbytes = (x.numel() + wc.numel() + delta.numel() + y_k.numel()) * 4 \
+        + idx.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4 * b * j * t, "float32")
+    rec = {"case": name, "dtype": "float32", "shape": [b, k, j, t, 1, 1],
+           "max_abs_err": err, "tol": tol, "solo_rows_bitwise": True,
+           **timings(torch, "", lambda: nm_spmm_fused_cuda(x, wc, idx, delta)),
+           **timings(torch, "plain_", lambda: ref.nm_spmm_fused(x, wc, idx, delta)),
+           "library_ms": None, "plain_call": "ref.nm_spmm + nm_spmm_deltas",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    log(f"parity nm_spmm_fused {json.dumps(rec)}")
+    return rec
+
+
+def card_tests():
+    """``tests/test_torch_cuda.py`` in a process of its own (``--noconftest``:
+    the repository's conftest imports jax, which the port never needs)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
+         "no:cacheprovider", os.path.join("tests", "test_torch_cuda.py")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    rec = {"rc": proc.returncode, "summary": tail[0],
+           "seconds": time.perf_counter() - t0}
+    log(f"card_tests {json.dumps(rec)}")
+    if proc.returncode != 0:
+        raise AssertionError(f"tests/test_torch_cuda.py failed:\n"
+                             f"{proc.stdout[-6000:]}\n{proc.stderr[-2000:]}")
+    return rec
+
+
 def lif_case(torch, shape):
     from repro_torch.kernels.lif import ref
     from repro_torch.kernels.lif.kernel import lif_cuda
@@ -578,9 +647,11 @@ def kernel_counters():
                                                        flash_bwd_dq_cuda,
                                                        flash_fwd_cuda)
     from repro_torch.kernels.lif.kernel import lif_cuda
-    from repro_torch.kernels.nm_spmm.kernel import nm_spmm_cuda
+    from repro_torch.kernels.nm_spmm.kernel import (nm_spmm_cuda,
+                                                    nm_spmm_fused_cuda)
     from repro_torch.kernels.wu_outer.kernel import wu_outer_cuda
-    return {"nm_spmm": nm_spmm_cuda, "lif": lif_cuda, "wu_outer": wu_outer_cuda,
+    return {"nm_spmm": nm_spmm_cuda, "nm_spmm_fused": nm_spmm_fused_cuda,
+            "lif": lif_cuda, "wu_outer": wu_outer_cuda,
             "flash_fwd": flash_fwd_cuda, "flash_bwd_dkv": flash_bwd_dkv_cuda,
             "flash_bwd_dq": flash_bwd_dq_cuda}
 
@@ -618,9 +689,10 @@ def serve(torch, params, task):
     launches = {name: c.launches for name, c in counters.items()}
     steps = sched.grid.stats["steps"]
     per_step = steps * CHUNK_LEN * cfg.n_layers
-    # serving keeps its weights frozen: no weight update may launch, and
-    # the SNN has no attention
-    want = {"nm_spmm": per_step, "lif": per_step, "wu_outer": 0, **NO_ATTN}
+    # serving keeps its weights frozen: no weight update may launch, every
+    # nm_spmm launch carries the slots' deltas, and the SNN has no attention
+    want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
+            "wu_outer": 0, **NO_ATTN}
     if len(done) != N_STREAMS:
         raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
     short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
@@ -808,10 +880,11 @@ def train(torch, task):
 
     want = (TRAIN_SAMPLES + 1) * cfg.t_steps * cfg.n_layers
     for name, n in launches.items():
-        if n != (0 if name in NO_ATTN else want):
+        if n != (0 if name in NO_ATTN or name == "nm_spmm_fused" else want):
             raise AssertionError(f"{name} launched {n} times in training, want "
                                  f"{want} (= {TRAIN_SAMPLES} + 1 samples x "
-                                 f"{cfg.t_steps} x {cfg.n_layers}; flash 0)")
+                                 f"{cfg.t_steps} x {cfg.n_layers}; flash and "
+                                 f"the fused delta 0)")
     if [i for i, _, _ in epochs] != [39, 79]:
         raise AssertionError(f"DSST epochs after samples {[e[0] for e in epochs]}")
     epoch_recs = []
@@ -925,8 +998,8 @@ def lm_serve(torch, cfg, params):
     gen_s = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = {"nm_spmm": 0, "lif": 0, "wu_outer": 0, **NO_ATTN,
-            "flash_fwd": cfg.n_layers}
+    want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
+            **NO_ATTN, "flash_fwd": cfg.n_layers}
     if launches != want:
         raise AssertionError(f"LM serving launched {launches}, want {want} "
                              f"(one prefill of {cfg.n_layers} layers, none in "
@@ -1072,8 +1145,8 @@ def lm_train(torch):
                       param_leaves(params) + param_leaves(opt_state.m)
                       + param_leaves(opt_state.v))
     L = cfg.n_layers
-    want = {"nm_spmm": 0, "lif": 0, "wu_outer": 0, "flash_fwd": 2 * L,
-            "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
+            "flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L}
     steps = []
     total = {name: 0 for name in want}
     torch.cuda.reset_peak_memory_stats()
@@ -1318,13 +1391,14 @@ def main() -> int:
             if "wgmma" in k["kernel"]:
                 cfg = (fa_kernel.launch_config(1, 1, 1, k["dh"], torch.bfloat16)
                        if "fwd" in k["kernel"] else fa_kernel.bwd_launch_config(
-                           "dkv", 1, 1, 1, 1, 1, k["dh"], torch.bfloat16))
+                           "dq" if "dq" in k["kernel"] else "dkv", 1, 1, 1, 1,
+                           1, k["dh"], torch.bfloat16))
                 k["dynamic_smem_bytes"] = cfg.smem_bytes
                 wgmma.append(k)
             log(f"ptxas {name} {json.dumps(k)}")
     spilled = [k for k in wgmma if k["spill_stores"] or k["spill_loads"]]
-    if len(wgmma) != 6 or spilled:
-        raise AssertionError(f"ptxas: want 6 wgmma instances without spills, "
+    if len(wgmma) != 9 or spilled:
+        raise AssertionError(f"ptxas: want 9 wgmma instances without spills, "
                              f"got {wgmma}")
     log(f"build {json.dumps(record['build_s'])}")
 
@@ -1335,6 +1409,8 @@ def main() -> int:
                for name, spec, sparse in (("paper", paper, True),
                                           ("tiled", tiled, False))
                for dt in (torch.float32, torch.bfloat16)]
+    fused_recs = [nm_fused_case(torch, name, b)
+                  for name, b in (("serving", N_STREAMS), ("ragged1000", 1000))]
     lif_recs = [lif_case(torch, shape) for shape in ((1024, 512), (1000, 500))]
     wu_recs = [wu_case(torch, name, dt, b, spec)
                for name, dt, b, spec in (
@@ -1363,10 +1439,12 @@ def main() -> int:
         ("mqa", bf16, 2, 2048, 12, 1, 128, None),
         ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
         ("dh64_ragged", bf16, 2, 1000, 16, 4, 64, None))]
-    record["parity"] = {"nm_spmm": nm_recs, "lif": lif_recs,
+    record["parity"] = {"nm_spmm": nm_recs, "nm_spmm_fused": fused_recs,
+                        "lif": lif_recs,
                         "wu_outer": wu_recs, "flash_fwd": fa_recs,
                         "flash_bwd_dkv": [r["dkv"] for r in bwd_recs],
                         "flash_bwd_dq": [r["dq"] for r in bwd_recs]}
+    record["card_tests"] = card_tests()
 
     # 4. serving at full width
     cfg = paper_config("kernels")
@@ -1423,6 +1501,8 @@ def main() -> int:
     kernels = {"kernels": [
         row("nm_spmm", "cuda", "src/repro_torch/kernels/nm_spmm/nm_spmm.cu",
             "src/repro/kernels/nm_spmm/kernel.py:47", nm_recs[0]),
+        row("nm_spmm_fused", "cuda", "src/repro_torch/kernels/nm_spmm/nm_spmm.cu",
+            "src/repro/kernels/nm_spmm/kernel.py:47", fused_recs[0]),
         row("lif", "triton", "src/repro_torch/kernels/lif/kernel.py",
             "src/repro/kernels/lif/kernel.py:27", lif_recs[0]),
         row("wu_outer", "cuda", "src/repro_torch/kernels/wu_outer/wu_outer.cu",

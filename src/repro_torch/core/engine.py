@@ -216,16 +216,15 @@ def densify_deltas(deltas_c: torch.Tensor, idx: torch.Tensor,
 
 def fwd_current(pre, w_l, delta_l):
     """Forward synaptic current for one layer, dispatched on the weight
-    rep's keys: the compact rep goes through ``nm_spmm`` (plus the per-slot
-    compact deltas through ``nm_spmm_deltas`` on the same kept-block ids);
-    the dense training rep (which carries no deltas) is a plain
-    ``pre @ w``."""
+    rep's keys: the compact rep goes through ``nm_spmm``, with the per-slot
+    compact deltas on the same kept-block ids fused into the same pass
+    (``nm_spmm_fused``); the dense training rep (which carries no deltas) is
+    a plain ``pre @ w``."""
     if "wc" not in w_l:
         return pre @ w_l["w"]
-    cur = nm_ops.nm_spmm_batched(pre, w_l["wc"], w_l["idx"])
     if delta_l is not None:
-        cur = cur + nm_ops.nm_spmm_deltas(pre, delta_l, w_l["idx"])
-    return cur
+        return nm_ops.nm_spmm_fused(pre, w_l["wc"], w_l["idx"], delta_l)
+    return nm_ops.nm_spmm_batched(pre, w_l["wc"], w_l["idx"])
 
 
 def lif(backend: Backend, cfg, v, tr, current):

@@ -58,13 +58,27 @@
 //   writes f32 partials to ws [2, gsplit, B, T, KV, dh] and the wrapper sums
 //   them over gsplit in split order and rounds once. Key tiles are issued
 //   first-first: key tile 0 sees every query.
-// * dQ (bf16, mma.sync; a later redesign): one block per (batch*head,
-//   64-query tile), looping over the 32-key tiles it can see
-//   (kv_tile_range, as the forward); dq in f32 registers. Query tiles are
-//   issued last-first, so the long causal rows start early. 4 warps, tiles
-//   staged with 16-byte loads into rows padded by PAD; the q and do rows a
-//   warp keeps for the whole loop live in registers. The two-kernel split
-//   stays: dq is not accumulated from the dK/dV pass.
+// dQ, bf16, on the same building blocks: one block per (batch*head, 128-query
+// tile), query tiles issued last-first (the long causal rows start early),
+// three warpgroups:
+// * The producer warpgroup (setmaxnreg down to 24; one thread works) loads
+//   the q and dO tiles once by TMA on their own mbarrier, then keeps a ring
+//   of DQ_STAGES stages of (K, V) tiles of BK keys (128; 64 at dh 160, for
+//   registers) in flight, each guarded by a "full" mbarrier (the TMA bytes)
+//   and an "empty" one (the consumers' 256 arrivals).
+// * Each consumer warpgroup (setmaxnreg up to 240) owns 64 query rows as the
+//   rows of every product: s = q . k^T and dp = dO . v^T as wgmma m64n{BK}k16
+//   with both operands K-major in shared memory; its rows' lse (times log2 e)
+//   and delta sit in registers, loaded once; p = exp2(s * scale * log2(e) -
+//   lse * log2(e)) as one FFMA and one ex2, masks only on tiles where
+//   tile_needs_mask is true, in a loop of their own; ds = p (dp - delta)
+//   scale goes from the accumulators straight into register-A fragments
+//   (bf16), and dq += ds . k is wgmma m64n{dh}k16 with k read MN-major (the
+//   transpose bit: k stays [keys, dh]). dq stays in f32 registers for the
+//   whole loop and is written once in bf16. The two consumers take turns to
+//   issue (ping-pong on two named barriers), as in dK/dV.
+// * The two-kernel split stays: dq is not accumulated from the dK/dV pass,
+//   so neither kernel needs atomics.
 // * Masked entries: p = 0 exactly (the reference's exp(-1e30 - lse)); lse is
 //   finite on every row, since a causal row sees at least key j = i.
 // * The last query and key tiles may be ragged: out-of-range rows are
@@ -79,15 +93,14 @@
 
 namespace {
 
-constexpr int NT = 128;           // threads per block, all but the bf16 dK/dV kernel
-constexpr int PAD = 8;            // bf16 elements of row padding in shared memory (dQ)
+constexpr int NT = 128;           // threads per block of the f32 kernels
 constexpr int WG = 128;           // threads per warpgroup
-constexpr int NT_DKV = 3 * WG;    // bf16 dK/dV: a producer + two consumer warpgroups
+constexpr int NT_WG = 3 * WG;     // bf16: a producer + two consumer warpgroups
 constexpr int BK_DKV = 128;       // keys per dK/dV block (bf16), 64 per consumer
 constexpr int DKV_STAGES = 2;     // (q, dO) tiles in flight (bf16 dK/dV)
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQ_DQ = 64;         // queries per dQ block (bf16): 4 warps x 16
-constexpr int BK_DQ = 32;         // keys per inner tile of dQ (bf16)
+constexpr int BQ_DQ = 128;        // queries per dQ block (bf16), 64 per consumer
+constexpr int DQ_STAGES = 2;      // (K, V) tiles in flight (bf16 dQ)
 constexpr int BF = 32;            // f32: rows per block and per inner tile
 
 typedef __nv_bfloat16 bf16;
@@ -128,81 +141,8 @@ __device__ __forceinline__ bool visible(int i, int j, int S, int T, int window) 
   return i < S && j < T && j <= i && (window <= 0 || i - j < window);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment (16 rows x 16 columns) at rows [r0, r0 + 16) and columns
-// [c0, c0 + 16) of a row-major bf16 tile with leading dimension ld.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile, int ld, int r0,
-                                       int c0, int g, int t4) {
-  const bf16* p = tile + (r0 + g) * ld + c0 + t4 * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// The A fragment of a 16x16 chunk made of two 16x8 f32 accumulator tiles
-// (c0 | c1), rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// d[dt] += a . tile[rows r0 .. r0 + 16, all DH columns] for a row-major bf16
-// tile (k = the tile's rows, n = its columns).
-template <int DH>
-__device__ __forceinline__ void mma_rows(float (*d)[4], const uint32_t* a, const bf16* tile,
-                                         int ld, int r0, int g, int t4) {
-  const bf16* p0 = tile + (r0 + t4 * 2) * ld + g;
-#pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) {
-    const bf16* p = p0 + dt * 8;
-    mma_bf16(d[dt], a, pack_bf16(p[0], p[ld]), pack_bf16(p[8 * ld], p[9 * ld]));
-  }
-}
-
-// Stage rows [r0, r0 + nrows) of one head of a [*, rows, heads, DH] tensor
-// into dst[nrows][DH + PAD] (bf16), zero-filling rows at or past `limit`.
-template <int DH>
-__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* base, long long row_stride,
-                                           int r0, int nrows, int limit) {
-  constexpr int CH = DH / 8;                       // 16-byte chunks per row
-  for (int i = threadIdx.x; i < nrows * CH; i += NT) {
-    const int r = i / CH, c = (i - r * CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(base + (long long)(r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (DH + PAD) + c) = val;
-  }
-}
-
-// The same for f32 into dst[nrows][DH].
+// Rows [r0, r0 + nrows) of one head of a [*, rows, heads, DH] f32 tensor
+// into dst[nrows][DH], zero-filling rows at or past `limit`.
 template <int DH>
 __device__ __forceinline__ void stage_f32(float* dst, const float* base, long long row_stride,
                                           int r0, int nrows, int limit) {
@@ -241,7 +181,7 @@ struct Dkv {
 };
 
 template <int DH>
-__global__ void __launch_bounds__(NT_DKV, 1)
+__global__ void __launch_bounds__(NT_WG, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk,
@@ -454,100 +394,166 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_mma(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = DH + PAD;
-  bf16* qs = reinterpret_cast<bf16*>(smem);       // [BQ_DQ][LD] (staging only)
-  bf16* dos = qs + BQ_DQ * LD;                     // [BQ_DQ][LD] (staging only)
-  bf16* ks = dos + BQ_DQ * LD;                     // [BK_DQ][LD]
-  bf16* vs = ks + BK_DQ * LD;                      // [BK_DQ][LD]
+struct Dq {
+  static constexpr int BK = DH == 160 ? 64 : 128;    // keys per KV tile (registers at 160)
+  static constexpr int Q = BQ_DQ * DH * 2;           // bytes of the q or the dO tile
+  static constexpr int KV = BK * DH * 2;             // bytes of one K or V tile
+  static constexpr int BARS = 2 * Q + DQ_STAGES * 2 * KV;
+  static constexpr int BYTES = BARS + 64 + 1024;     // + barriers + alignment slack
+};
+
+template <int DH>
+__global__ void __launch_bounds__(NT_WG, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, Args a) {
+  using namespace hopper;
+  using L = Dq<DH>;
+  constexpr int BK = L::BK, SLABS = DH / SLAB, R = SLAB_ROW_BYTES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;                        // [SLABS][BQ_DQ][32], dO after it
+  unsigned char* kvs = smem + 2 * L::Q;            // stage st: K at 2 st KV, V after it
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = qbar + 1;                       // [DQ_STAGES]: K and V landed
+  uint64_t* empty = full + DQ_STAGES;              // [DQ_STAGES]: both consumers done
 
   const int n = blockIdx.y, b = n / a.H, h = n - b * a.H, kvh = h / a.G;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ_DQ;
-  const int q1 = min(a.S, q0 + BQ_DQ);
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* dog = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int wr = warp * 16;
-  const int row_a = q0 + wr + g, row_b = row_a + 8;
-
-  stage_bf16<DH>(qs, qg, a.q_ss, q0, BQ_DQ, a.S);
-  stage_bf16<DH>(dos, dog, a.do_ss, q0, BQ_DQ, a.S);
-  __syncthreads();
-  uint32_t qf[DH / 16][4], df[DH / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < DH / 16; ++kc) {
-    load_a(qf[kc], qs, LD, wr, kc * 16, g, t4);
-    load_a(df[kc], dos, LD, wr, kc * 16, g, t4);
-  }
-  const float* lg = a.lse + (long long)n * a.S;
-  const float* dg = a.delta + (long long)n * a.S;
-  const float lse_a = row_a < a.S ? lg[row_a] : 0.f, lse_b = row_b < a.S ? lg[row_b] : 0.f;
-  const float dl_a = row_a < a.S ? dg[row_a] : 0.f, dl_b = row_b < a.S ? dg[row_b] : 0.f;
-
-  float dq[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
   int lo, hi;
-  kv_tile_range(q0, q1, a.T, a.window, BK_DQ, lo, hi);
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BK_DQ;
-    __syncthreads();                              // the previous tile is read
-    stage_bf16<DH>(ks, kg, a.k_ss, k0, BK_DQ, a.T);
-    stage_bf16<DH>(vs, vg, a.v_ss, k0, BK_DQ, a.T);
-    __syncthreads();
+  kv_tile_range(q0, min(a.S, q0 + BQ_DQ), a.T, a.window, BK, lo, hi);
 
-    float s[BK_DQ / 8][4], dp[BK_DQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK_DQ / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < DH / 16; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < BK_DQ / 8; ++nt) {
-        const bf16* kr = ks + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-        const bf16* vr = vs + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-        mma_bf16(s[nt], qf[kc], ld32(kr), ld32(kr + 8));
-        mma_bf16(dp[nt], df[kc], ld32(vr), ld32(vr + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < DQ_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 2 * WG);
     }
-#pragma unroll
-    for (int nt = 0; nt < BK_DQ / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const bool top = e < 2;
-        const float p = visible(top ? row_a : row_b, j, a.S, a.T, a.window)
-                            ? __expf(s[nt][e] * a.scale - (top ? lse_a : lse_b)) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - (top ? dl_a : dl_b)) * a.scale;   // ds
-      }
-    }
-    // dq += ds . k (k = the tile's keys)
-#pragma unroll
-    for (int kc = 0; kc < BK_DQ / 16; ++kc) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kc], s[2 * kc + 1]);
-      mma_rows<DH>(dq, da, ks, LD, kc * 16, g, t4);
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  bf16* qo = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {
+    // producer: one thread loads q and dO once, then keeps the K/V ring full
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(qbar, 2 * L::Q);
+      for (int sl = 0; sl < SLABS; ++sl) {
+        tma_load_4d(qs + sl * BQ_DQ * R, &tq, qbar, sl * SLAB, h, q0, b);
+        tma_load_4d(qs + L::Q + sl * BQ_DQ * R, &tdo, qbar, sl * SLAB, h, q0, b);
+      }
+      for (int kt = lo; kt < hi; ++kt) {
+        const int i = kt - lo, st = i % DQ_STAGES;
+        mbar_wait(&empty[st], ((i / DQ_STAGES) & 1) ^ 1);
+        unsigned char* ks = kvs + 2 * st * L::KV;
+        mbar_arrive_expect_tx(&full[st], 2 * L::KV);
+        for (int sl = 0; sl < SLABS; ++sl) {
+          tma_load_4d(ks + sl * BK * R, &tk, &full[st], sl * SLAB, kvh, kt * BK, b);
+          tma_load_4d(ks + L::KV + sl * BK * R, &tv, &full[st], sl * SLAB, kvh, kt * BK, b);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup c: query rows [r0, r0 + 64) of the tile are the
+    // rows of every product, so ds leaves the accumulators in the
+    // register-A layout
+    reg_alloc<240>();
+    const int c = wg - 1, tid = threadIdx.x - wg * WG;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+    const int r0 = q0 + 64 * c;
+    const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+    const float sl2 = a.scale * LOG2E;
+    const long long rows = (long long)n * a.S;
+    // rows past S: q and dO arrive as zeros, so ds = 0; they are not written
+    const float ls_a = row_a < a.S ? a.lse[rows + row_a] * LOG2E : 0.f;
+    const float ls_b = row_b < a.S ? a.lse[rows + row_b] * LOG2E : 0.f;
+    const float dl_a = row_a < a.S ? a.delta[rows + row_a] : 0.f;
+    const float dl_b = row_b < a.S ? a.delta[rows + row_b] : 0.f;
+    const uint32_t q_addr = smem_addr(qs) + 64 * c * R, do_addr = q_addr + L::Q;
+    float dq[DH / 2];
 #pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) {
-    const int c = dt * 8 + t4 * 2;
-    if (row_a < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(qo + row_a * a.dq_ss + c) =
-          __floats2bfloat162_rn(dq[dt][0], dq[dt][1]);
-    if (row_b < a.S)
-      *reinterpret_cast<__nv_bfloat162*>(qo + row_b * a.dq_ss + c) =
-          __floats2bfloat162_rn(dq[dt][2], dq[dt][3]);
+    for (int e = 0; e < DH / 2; ++e) dq[e] = 0.f;
+
+    // the two consumers take turns to issue (named barriers 1 and 2,
+    // consumer 0 first), so one's elementwise work runs under the other's
+    // products
+    auto my_turn = [&] { bar_sync(1 + c, 2 * WG); };
+    auto your_turn = [&] { bar_arrive(2 - c, 2 * WG); };
+    if (c == 1) bar_arrive(1, 2 * WG);
+    mbar_wait(qbar, 0);
+    for (int kt = lo; kt < hi; ++kt) {
+      const int i = kt - lo, st = i % DQ_STAGES, k0 = kt * BK;
+      const uint32_t k_addr = smem_addr(kvs + 2 * st * L::KV), v_addr = k_addr + L::KV;
+      mbar_wait(&full[st], (i / DQ_STAGES) & 1);
+
+      // s = q . k^T and dp = dO . v^T: A = q / dO, B = k / v, all K-major
+      float s[BK / 2], dp[BK / 2];
+      my_turn();
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DH / 16; ++kc) {
+        const uint32_t off = (kc % 2) * 32;          // 16 features = 32 bytes
+        mma_ss<BK, 0>(s, desc_k_major(q_addr + (kc / 2) * BQ_DQ * R + off),
+                      desc_k_major(k_addr + (kc / 2) * BK * R + off), kc > 0);
+      }
+#pragma unroll
+      for (int kc = 0; kc < DH / 16; ++kc) {
+        const uint32_t off = (kc % 2) * 32;
+        mma_ss<BK, 0>(dp, desc_k_major(do_addr + (kc / 2) * BQ_DQ * R + off),
+                      desc_k_major(v_addr + (kc / 2) * BK * R + off), kc > 0);
+      }
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(s);
+      fence_regs<BK / 2>(dp);
+
+      // ds into dp: p = 0 exactly where masked
+      if (tile_needs_mask(r0, r0 + 64, k0, k0 + BK, a.T, a.window)) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          if (!visible((e & 2) ? row_b : row_a, k0 + 8 * (e / 4) + 2 * t4 + (e & 1), a.S, a.T,
+                       a.window))
+            s[e] = -INFINITY;
+      }
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const float p = ex2(fmaf(s[e], sl2, (e & 2) ? -ls_b : -ls_a));
+        dp[e] = p * (dp[e] - ((e & 2) ? dl_b : dl_a)) * a.scale;
+      }
+
+      // dq += bf16(ds) . k: A from registers, B = k MN-major (k stays
+      // [keys, dh] in shared memory)
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc) acc_to_a(da[kc], dp, kc);
+      my_turn();
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BK / 16; ++kc)
+        mma_rs<DH, 1>(dq, da[kc], desc_mn_major(k_addr + kc * 16 * R, BK * R), 1);
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs<DH / 2>(dq);
+      fence_regs<BK / 4>(&da[0][0]);
+      mbar_arrive(&empty[st]);
+    }
+
+    bf16* qo = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      const int col = nt * 8 + t4 * 2;
+      if (row_a < a.S)
+        *reinterpret_cast<__nv_bfloat162*>(qo + row_a * a.dq_ss + col) =
+            __floats2bfloat162_rn(dq[4 * nt], dq[4 * nt + 1]);
+      if (row_b < a.S)
+        *reinterpret_cast<__nv_bfloat162*>(qo + row_b * a.dq_ss + col) =
+            __floats2bfloat162_rn(dq[4 * nt + 2], dq[4 * nt + 3]);
+    }
   }
 }
 
@@ -719,7 +725,30 @@ int launch_dkv_wgmma(const Args& a, dim3 grid, int smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_wgmma<DH><<<grid, NT_DKV, smem, s>>>(tq, tdo, tk, tv, a);
+  flash_bwd_dkv_wgmma<DH><<<grid, NT_WG, smem, s>>>(tq, tdo, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_dq_wgmma(const Args& a, dim3 grid, int smem, cudaStream_t s) {
+  using L = Dq<DH>;
+  if (smem != L::BYTES || (int)grid.x != (a.S + BQ_DQ - 1) / BQ_DQ ||
+      (int)grid.y != a.B * a.H)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tdo, tk, tv;
+  int bad = hopper::encode_bshd_map(&tq, a.q, a.B, a.S, a.H, DH, a.q_sb, a.q_ss, a.q_sh, BQ_DQ);
+  if (!bad)
+    bad = hopper::encode_bshd_map(&tdo, a.dout, a.B, a.S, a.H, DH, a.do_sb, a.do_ss, a.do_sh,
+                                  BQ_DQ);
+  if (!bad)
+    bad = hopper::encode_bshd_map(&tk, a.k, a.B, a.T, a.KV, DH, a.k_sb, a.k_ss, a.k_sh, L::BK);
+  if (!bad)
+    bad = hopper::encode_bshd_map(&tv, a.v, a.B, a.T, a.KV, DH, a.v_sb, a.v_ss, a.v_sh, L::BK);
+  if (bad) return bad;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_wgmma<DH><<<grid, NT_WG, smem, s>>>(tq, tdo, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
@@ -728,7 +757,7 @@ int launch(const Args& a, int which, int dtype, dim3 grid, int smem, cudaStream_
   if (which == 0)
     return dtype == 1 ? launch_dkv_wgmma<DH>(a, grid, smem, s)
                       : launch_kernel(flash_bwd_dkv_fma<DH>, grid, smem, s, a);
-  return dtype == 1 ? launch_kernel(flash_bwd_dq_mma<DH>, grid, smem, s, a)
+  return dtype == 1 ? launch_dq_wgmma<DH>(a, grid, smem, s)
                     : launch_kernel(flash_bwd_dq_fma<DH>, grid, smem, s, a);
 }
 
@@ -736,15 +765,18 @@ int launch(const Args& a, int which, int dtype, dim3 grid, int smem, cudaStream_
 
 extern "C" {
 
-// Geometry, so that the Python wrapper can check it agrees: {NT, PAD,
-// BQ_DQ, BK_DQ, BF, NT_DKV, BK_DKV, DKV_STAGES, then for dh 64, 128, 160 the
-// bf16 dK/dV query tile and shared-memory bytes}.
+// Geometry, so that the Python wrapper can check it agrees: {NT, BF, NT_WG,
+// BK_DKV, DKV_STAGES, BQ_DQ, DQ_STAGES, then for dh 64, 128, 160 the bf16
+// dK/dV query tile and shared-memory bytes and the bf16 dQ key tile and
+// shared-memory bytes}.
 void flash_bwd_tiles(int* out) {
-  out[0] = NT; out[1] = PAD; out[2] = BQ_DQ; out[3] = BK_DQ; out[4] = BF;
-  out[5] = NT_DKV; out[6] = BK_DKV; out[7] = DKV_STAGES;
-  out[8] = Dkv<64>::BQ; out[9] = Dkv<64>::BYTES;
-  out[10] = Dkv<128>::BQ; out[11] = Dkv<128>::BYTES;
-  out[12] = Dkv<160>::BQ; out[13] = Dkv<160>::BYTES;
+  out[0] = NT; out[1] = BF; out[2] = NT_WG; out[3] = BK_DKV; out[4] = DKV_STAGES;
+  out[5] = BQ_DQ; out[6] = DQ_STAGES;
+  out[7] = Dkv<64>::BQ; out[8] = Dkv<64>::BYTES; out[9] = Dq<64>::BK; out[10] = Dq<64>::BYTES;
+  out[11] = Dkv<128>::BQ; out[12] = Dkv<128>::BYTES;
+  out[13] = Dq<128>::BK; out[14] = Dq<128>::BYTES;
+  out[15] = Dkv<160>::BQ; out[16] = Dkv<160>::BYTES;
+  out[17] = Dq<160>::BK; out[18] = Dq<160>::BYTES;
 }
 
 // which: 0 = dK/dV (grid (B*KV*gsplit, key tiles); bf16 writes dk, dv when

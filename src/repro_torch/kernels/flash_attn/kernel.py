@@ -5,8 +5,8 @@ source its own library, so the two build in parallel.
 Replaces ``src/repro/kernels/flash_attn/kernel.py``: ``flash_fwd`` (body
 ``_fwd_kernel``) and ``flash_bwd`` (``_dkv_kernel``, ``_dq_kernel``). The
 design notes (what bounds each kernel, how a block walks its tiles) head
-the CUDA sources; the bf16 forward and dK/dV kernels share the Hopper
-building blocks of ``hopper.cuh`` (wgmma, TMA, mbarriers). This module holds
+the CUDA sources; the three bf16 kernels share the Hopper building blocks
+of ``hopper.cuh`` (wgmma, TMA, mbarriers). This module holds
 what surrounds the kernels and the CPU tests can reach: grids, tile sizes,
 threads and shared memory (:func:`launch_config`, :func:`bwd_launch_config`),
 the dK/dV head split (:func:`dkv_gsplit`, :func:`dkv_heads`), the tiles a
@@ -30,7 +30,6 @@ TILES = {torch.bfloat16: (128, None), torch.float32: (32, 32)}   # (query rows, 
 FWD_BK = {64: 128, 128: 128, 160: 64}   # bf16: keys per KV tile by head width
 FWD_STAGES = 3                   # bf16: K/V tiles in flight (TMA ring)
 SMEM_EXTRA = 64 + 1024           # bf16: mbarriers + room to align tiles to 1 KB
-PAD = 8                          # bf16 elements of row padding (dQ kernel)
 HEAD_DIMS = (64, 128, 160)       # head widths with a kernel instance
 SMEM_LIMIT = 232448              # opt-in shared memory per block on sm_90
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -204,14 +203,16 @@ flash_fwd_cuda.launches = 0
 
 BWD_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "flash_bwd.cu")
-# (rows a block owns, rows of each inner tile). bf16 dK/dV (wgmma): 128-key
-# blocks over query tiles of DKV_QTILE[dh]; bf16 dQ (mma.sync): 64-query
-# blocks over 32-key tiles; f32 (FMA): 32 and 32 for both.
-BWD_TILES = {torch.bfloat16: {"dkv": (128, None), "dq": (64, 32)},
+# (rows a block owns, rows of each inner tile). bf16 (wgmma): dK/dV 128-key
+# blocks over query tiles of DKV_QTILE[dh], dQ 128-query blocks over key
+# tiles of DQ_KTILE[dh]; f32 (FMA): 32 and 32 for both.
+BWD_TILES = {torch.bfloat16: {"dkv": (128, None), "dq": (128, None)},
              torch.float32: {"dkv": (32, 32), "dq": (32, 32)}}
 DKV_QTILE = {64: 64, 128: 64, 160: 32}   # bf16 dK/dV query tile by head width
-DKV_THREADS = 384                # bf16 dK/dV: a producer + two consumer warpgroups
+DQ_KTILE = {64: 128, 128: 128, 160: 64}  # bf16 dQ key tile by head width
+BWD_THREADS = 384                # bf16: a producer + two consumer warpgroups
 DKV_STAGES = 2                   # bf16 dK/dV: (q, dO) tiles in flight
+DQ_STAGES = 2                    # bf16 dQ: (K, V) tiles in flight
 NUM_SMS = 132                    # H100 SXM
 DKV_MIN_BLOCKS = 4 * NUM_SMS     # the head split's target: 4 blocks per SM
 
@@ -251,8 +252,9 @@ def bwd_launch_config(which: str, b: int, s: int, t: int, h: int, kvh: int,
     (q, dO) tiles (TMA, 64-byte swizzle) with their lse and delta rows, f32
     stages the q, do, lse and delta tiles (``gsplit`` 1). ``which="dq"``:
     one block per (query tile, batch·head), grid ``(query tiles, B·H)``;
-    bf16 stages its q and do tiles and one K and one V tile, rows padded by
-    ``PAD``, f32 one K and one V tile."""
+    bf16 keeps its q and dO tiles and a ring of ``DQ_STAGES`` K and V tiles
+    of ``DQ_KTILE[dh]`` keys (TMA, 64-byte swizzle), f32 stages one K and
+    one V tile."""
     if dtype not in BWD_TILES:
         raise TypeError(f"flash_bwd: no kernel for {dtype}")
     if dh not in HEAD_DIMS:
@@ -266,7 +268,8 @@ def bwd_launch_config(which: str, b: int, s: int, t: int, h: int, kvh: int,
                 + SMEM_EXTRA)
         gsplit = dkv_gsplit(b, kvh, h // kvh, t)
     elif dtype == torch.bfloat16:
-        smem = 2 * 2 * (rows + tile) * (dh + PAD)
+        tile = DQ_KTILE[dh]
+        smem = 2 * 2 * rows * dh + DQ_STAGES * 2 * 2 * tile * dh + SMEM_EXTRA
     else:
         smem = 4 * 2 * tile * dh + (8 * tile if which == "dkv" else 0)
     if smem > SMEM_LIMIT:
@@ -298,13 +301,16 @@ def _bwd_lib():
         + [ctypes.c_void_p])
     lib.flash_bwd_tiles.restype = None
     lib.flash_bwd_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    tiles = (ctypes.c_int * 14)()
+    tiles = (ctypes.c_int * 19)()
     lib.flash_bwd_tiles(tiles)
     bf, f32 = BWD_TILES[torch.bfloat16], BWD_TILES[torch.float32]
-    dkv = [(DKV_QTILE[dh], bwd_launch_config(
-        "dkv", 1, 1, 1, 1, 1, dh, torch.bfloat16).smem_bytes) for dh in HEAD_DIMS]
-    want = (THREADS[torch.float32], PAD, *bf["dq"], f32["dkv"][0], DKV_THREADS,
-            bf["dkv"][0], DKV_STAGES, *(x for pair in dkv for x in pair))
+    per_dh = [(DKV_QTILE[dh], bwd_launch_config(
+        "dkv", 1, 1, 1, 1, 1, dh, torch.bfloat16).smem_bytes,
+        DQ_KTILE[dh], bwd_launch_config(
+        "dq", 1, 1, 1, 1, 1, dh, torch.bfloat16).smem_bytes) for dh in HEAD_DIMS]
+    want = (THREADS[torch.float32], f32["dkv"][0], BWD_THREADS, bf["dkv"][0],
+            DKV_STAGES, bf["dq"][0], DQ_STAGES,
+            *(x for four in per_dh for x in four))
     if tuple(tiles) != want or f32["dkv"] != f32["dq"] \
             or f32["dkv"][0] != f32["dkv"][1]:
         raise RuntimeError(f"flash_bwd.cu tiles {tuple(tiles)} disagree with "

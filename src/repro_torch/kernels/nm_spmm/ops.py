@@ -2,9 +2,11 @@
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain torch
 version in ``ref.py``; a CUDA tensor launches the hand-written kernel
-(``kernel.nm_spmm_cuda``) or raises. There is no fallback between them.
-The per-slot ``nm_spmm_deltas`` has no kernel in the reference either, so
-it is plain torch on every device.
+(``kernel.nm_spmm_cuda``, ``kernel.nm_spmm_fused_cuda``) or raises. There is
+no fallback between them. The per-slot ``ref.nm_spmm_deltas`` has no
+kernel of its own (none in the reference either): on the card it runs fused
+into the base product (:func:`nm_spmm_fused`); alone it is the plain
+version and the tests' oracle.
 """
 from __future__ import annotations
 
@@ -78,16 +80,13 @@ def make_compact(w_dense: torch.Tensor, unit_mask: torch.Tensor, bk: int,
     return w_compact.contiguous(), idx
 
 
-def nm_spmm_deltas(x: torch.Tensor, delta_compact: torch.Tensor,
-                   idx: torch.Tensor) -> torch.Tensor:
-    """Per-slot compact delta product: ``y[s] = x[s] @ densify(delta[s])``.
-
-    ``x [S, K]`` with per-slot compact deltas ``[S, J, T, bk, bo]`` sharing
-    one ``idx [J, T]``; the per-stream current never passes through a dense
-    ``[K, N]`` tensor.
-    """
-    s, k = x.shape
-    _, j, t, bk, bo = delta_compact.shape
-    xg = x.reshape(s, k // bk, bk)[:, idx, :]                      # [S, J, T, bk]
-    y = torch.einsum("sjtk,sjtko->sjo", xg, delta_compact)
-    return y.reshape(s, j * bo)
+def nm_spmm_fused(x: torch.Tensor, w_compact: torch.Tensor,
+                  idx: torch.Tensor, delta_compact: torch.Tensor) -> torch.Tensor:
+    """The serving forward current in one pass: the shared base product plus
+    each row's compact delta ``[S, J, T, bk, bo]`` on the same ``idx``
+    (``ref.nm_spmm_fused``). On the card: one launch of the gather kernel,
+    which takes bk = bo = 1."""
+    if x.is_cuda:
+        from .kernel import nm_spmm_fused_cuda
+        return nm_spmm_fused_cuda(x, w_compact, idx, delta_compact)
+    return ref.nm_spmm_fused(x, w_compact, idx, delta_compact)

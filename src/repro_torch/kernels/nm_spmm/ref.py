@@ -8,6 +8,10 @@ Layouts (shared with kernel.py / ops.py):
 * ``idx``       : [J, T] int32 — global K-block index of each kept block.
 
 ``y[:, j·bo:(j+1)·bo] = Σ_t x[:, idx[j,t]·bk : +bk] @ w_compact[j, t]``.
+
+The serving path adds each row's own compact delta ``[S, J, T, bk, bo]`` on
+the same ``idx`` (:func:`nm_spmm_deltas`); :func:`nm_spmm_fused` is the
+base and that delta product, summed as the kernel sums them.
 """
 from __future__ import annotations
 
@@ -32,3 +36,25 @@ def nm_spmm(x: torch.Tensor, w_compact: torch.Tensor,
     xg = x.reshape(b, k // bk, bk)[:, idx, :]               # [B, J, T, bk]
     y = torch.einsum("bjtk,jtko->bjo", xg, w_compact)
     return y.reshape(b, j * bo)
+
+
+def nm_spmm_deltas(x: torch.Tensor, delta_compact: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+    """Per-slot compact delta product: ``y[s] = x[s] @ densify(delta[s])``.
+
+    ``x [S, K]`` with per-slot compact deltas ``[S, J, T, bk, bo]`` sharing
+    one ``idx [J, T]``; the per-stream current never passes through a dense
+    ``[K, N]`` tensor.
+    """
+    s, k = x.shape
+    _, j, t, bk, bo = delta_compact.shape
+    xg = x.reshape(s, k // bk, bk)[:, idx, :]                      # [S, J, T, bk]
+    y = torch.einsum("sjtk,sjtko->sjo", xg, delta_compact)
+    return y.reshape(s, j * bo)
+
+
+def nm_spmm_fused(x: torch.Tensor, w_compact: torch.Tensor, idx: torch.Tensor,
+                  delta_compact: torch.Tensor) -> torch.Tensor:
+    """The shared base and each row's compact delta: ``nm_spmm(x, w_compact,
+    idx) + nm_spmm_deltas(x, delta_compact, idx)``, in that association."""
+    return nm_spmm(x, w_compact, idx) + nm_spmm_deltas(x, delta_compact, idx)

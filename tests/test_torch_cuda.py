@@ -1,0 +1,336 @@
+"""The port's hand-written kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips where there is none. The file
+imports neither ``jax`` nor ``repro``, so the machine with the card runs it
+as it is::
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports jax). ``chip_smoke.py``
+runs it so, as a phase whose failure fails the run.
+
+Tolerances: f32 ``1e-5`` on small shapes and ``1e-4`` at the paper shape
+(104-term sums in another order than the plain einsum); bf16 ``5e-2`` for
+``nm_spmm`` (both round the f32 sum to an 8-bit mantissa) and ``2e-2`` for
+``wu_outer`` (the plain version rounds twice, the kernel once); the LIF step
+``1e-5`` (the kernel may fuse ``αv + I`` into one FMA); flash attention per
+element within ``ref.bf16_out_tolerance`` / ``ref.bf16_grad_tolerance``
+(bf16) or ``1e-5`` / ``1e-4`` of the largest element (f32). A row of
+``nm_spmm`` computed alone and in a batch must agree bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.sparsity import NMSpec, paper_spec_4groups, random_unit_mask
+from repro_torch.kernels.flash_attn import kernel as fk
+from repro_torch.kernels.flash_attn import ops as fops, ref as fref
+from repro_torch.kernels.lif import ops as lif_ops, ref as lif_ref
+from repro_torch.kernels.nm_spmm import kernel as nm_kernel
+from repro_torch.kernels.nm_spmm import ops as nm_ops, ref as nm_ref
+from repro_torch.kernels.wu_outer import kernel as wu_kernel
+from repro_torch.kernels.wu_outer import ops as wu_ops, ref as wu_ref
+
+# the reference's kernel sweep (tests/test_kernels.py): (k, o, bk, bo, n, m, bm)
+NM_CASES = [(32, 16, 4, 8, 2, 4, 8),
+            (64, 32, 8, 16, 1, 2, 16),
+            (128, 128, 16, 32, 2, 8, 8),
+            (48, 24, 4, 8, 3, 4, 4)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _sparse_case(seed, k, o, spec, b, spikes=False):
+    """A compact weight rep from the port's mask sampler and numpy x."""
+    mask = random_unit_mask(torch.Generator().manual_seed(seed), spec, k, o)
+    rng = np.random.default_rng(seed)
+    w = torch.tensor(rng.standard_normal((k, o)).astype(np.float32))
+    x = ((rng.random((b, k)) < 0.2) if spikes
+         else rng.standard_normal((b, k))).astype(np.float32)
+    wc, idx = nm_ops.make_compact(w, mask, spec.block, spec.out_tile)
+    return torch.tensor(x), wc, idx
+
+
+# ----------------------------------------------------------------- nm_spmm
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,o,bk,bo,n,m,bm", NM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_spmm_kernel_matches_plain_on_card(cuda, k, o, bk, bo, n, m, bm,
+                                              dtype):
+    x, wc, idx = _sparse_case(0, k, o, NMSpec(n=n, m=m, block=bk, out_tile=bo),
+                              b=37)                            # ragged rows
+    x, wc, idx = x.to(cuda, dtype), wc.to(cuda, dtype), idx.to(cuda)
+    before = nm_kernel.nm_spmm_cuda.launches
+    got = nm_ops.nm_spmm_batched(x, wc, idx)
+    assert nm_kernel.nm_spmm_cuda.launches == before + 1
+    want = nm_ref.nm_spmm(x, wc, idx)
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _paper_case(b, dtype, cuda, delta_scale=0.05):
+    spec = paper_spec_4groups(512, 0.8)
+    x, wc, idx = _sparse_case(3, 512, 512, spec, b, spikes=True)
+    g = torch.Generator().manual_seed(4)
+    delta = delta_scale * torch.randn((b, *wc.shape), generator=g)
+    return (x.to(cuda, dtype), wc.to(cuda, dtype), idx.to(cuda),
+            delta.to(cuda, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 16, 65, 1000, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_spmm_gather_kernel_matches_plain_at_paper_shape(cuda, b, dtype):
+    """bk = bo = 1, K = J = 512, T = 104 (the SNN paths): base and fused,
+    every row count the launch config tells apart, ragged ones too."""
+    x, wc, idx, delta = _paper_case(b, dtype, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    before = (nm_kernel.nm_spmm_cuda.launches,
+              nm_kernel.nm_spmm_fused_cuda.launches)
+    got = nm_ops.nm_spmm_batched(x, wc, idx)
+    fused = nm_ops.nm_spmm_fused(x, wc, idx, delta)
+    assert (nm_kernel.nm_spmm_cuda.launches,
+            nm_kernel.nm_spmm_fused_cuda.launches) == (before[0] + 2,
+                                                       before[1] + 1)
+    torch.testing.assert_close(got.float(), nm_ref.nm_spmm(x, wc, idx).float(),
+                               atol=tol, rtol=tol)
+    want = nm_ref.nm_spmm_fused(x.float(), wc.float(), idx, delta.float())
+    torch.testing.assert_close(fused.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_nm_spmm_row_alone_equals_row_in_a_batch_bitwise(cuda, fused):
+    """A row's association depends on T alone, whatever the batch: rows
+    computed alone (and in a batch of 16) equal the same rows of a batch of
+    1024."""
+    x, wc, idx, delta = _paper_case(1024, torch.float32, cuda)
+
+    def run(rows):
+        if fused:
+            return nm_ops.nm_spmm_fused(x[rows].contiguous(), wc, idx,
+                                        delta[rows].contiguous())
+        return nm_ops.nm_spmm_batched(x[rows].contiguous(), wc, idx)
+    full = run(slice(None))
+    for r in (0, 1, 517, 1023):
+        assert torch.equal(run(slice(r, r + 1)), full[r:r + 1]), r
+    assert torch.equal(run(slice(500, 516)), full[500:516])
+
+
+@pytest.mark.cuda
+def test_nm_spmm_fused_takes_one_layer_of_slot_leading_deltas(cuda):
+    """The engine hands the kernel ``deltas[:, l]`` of ``[S, L, J, T, 1, 1]``:
+    rows apart, each row contiguous; the result equals the contiguous copy's
+    bit for bit."""
+    x, wc, idx, _ = _paper_case(40, torch.float32, cuda)
+    g = torch.Generator().manual_seed(9)
+    deltas = (0.05 * torch.randn((40, 2, *wc.shape), generator=g)).to(cuda)
+    for layer in range(2):
+        view = deltas[:, layer]
+        assert not view.is_contiguous()
+        got = nm_ops.nm_spmm_fused(x, wc, idx, view)
+        assert torch.equal(got, nm_ops.nm_spmm_fused(x, wc, idx,
+                                                     view.contiguous()))
+        torch.testing.assert_close(got, nm_ref.nm_spmm_fused(x, wc, idx, view),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_nm_spmm_fused_raises_for_tiled_specs(cuda):
+    x, wc, idx = _sparse_case(1, 32, 16, NMSpec(n=2, m=4, block=4, out_tile=8), 5)
+    delta = torch.zeros((5, *wc.shape))
+    with pytest.raises(ValueError):
+        nm_ops.nm_spmm_fused(x.to(cuda), wc.to(cuda), idx.to(cuda), delta.to(cuda))
+
+
+# -------------------------------------------------------------- lif, wu_outer
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1024, 512), (1000, 500), (3, 7)])
+def test_lif_kernel_matches_plain_on_card(cuda, shape):
+    g = torch.Generator().manual_seed(0)
+    v, tr, cur = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    got = lif_ops.lif_step(v, tr, cur, alpha=0.9, beta=0.85, theta=1.0)
+    want = lif_ref.lif_step(v, tr, cur, alpha=0.9, beta=0.85, theta=1.0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_counters_count_only_real_launches(cuda):
+    """An empty problem returns an empty result and launches nothing, so the
+    counters that the smoke run checks count launches, not calls."""
+    from repro_torch.kernels.lif.kernel import lif_cuda
+    before = (nm_kernel.nm_spmm_cuda.launches,
+              nm_kernel.nm_spmm_fused_cuda.launches, lif_cuda.launches)
+    wc = torch.zeros((4, 4, 1, 1), device=cuda)
+    idx = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
+    y = nm_ops.nm_spmm_batched(torch.zeros((0, 8), device=cuda), wc, idx)
+    assert tuple(y.shape) == (0, 4)
+    y = nm_ops.nm_spmm_fused(torch.zeros((0, 8), device=cuda), wc, idx,
+                             torch.zeros((0, 4, 4, 1, 1), device=cuda))
+    assert tuple(y.shape) == (0, 4)
+    v = torch.zeros((0, 16), device=cuda)
+    outs = lif_ops.lif_step(v, v, v, alpha=0.9, beta=0.85, theta=1.0)
+    assert all(tuple(o.shape) == (0, 16) for o in outs)
+    assert (nm_kernel.nm_spmm_cuda.launches,
+            nm_kernel.nm_spmm_fused_cuda.launches, lif_cuda.launches) == before
+    lif_ops.lif_step(*(torch.zeros((2, 3), device=cuda),) * 3,
+                     alpha=0.9, beta=0.85, theta=1.0)
+    assert lif_cuda.launches == before[2] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o,bk,bo,n,m", [
+    (16, 512, 512, 1, 1, 26, 128),       # the training path (paper spec)
+    (13, 512, 512, 1, 1, 26, 128),       # ragged batch
+    (128, 512, 512, 16, 32, 2, 8),       # tiled spec
+    (37, 64, 48, 4, 8, 1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wu_outer_kernel_matches_plain_on_card(cuda, b, k, o, bk, bo, n, m,
+                                               dtype):
+    _, _, idx = _sparse_case(8, k, o, NMSpec(n=n, m=m, block=bk, out_tile=bo), b)
+    g = torch.Generator().manual_seed(8)
+    pre = torch.rand((b, k), generator=g).to(cuda, dtype)
+    mod = torch.randn((b, o), generator=g).to(cuda, dtype)
+    idx = idx.to(cuda)
+    before = wu_kernel.wu_outer_cuda.launches
+    got = wu_ops.wu_outer(pre, mod, idx, 0.02, bk=bk, bo=bo)
+    assert wu_kernel.wu_outer_cuda.launches == before + 1
+    scale = torch.tensor(0.02, dtype=dtype).float()
+    want = wu_ref.wu_outer(pre.float(), mod.float(), idx, scale, bk, bo)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    zero = wu_ops.wu_outer(pre, mod, idx, torch.zeros((), device=cuda),
+                           bk=bk, bo=bo)
+    assert bool((zero == 0).all())
+
+
+# ------------------------------------------------------------ flash attention
+
+def qkv(seed, b, s, h, kv, dh):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+
+
+def f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
+    """The f32 plain gradients in the model layout (GQA groups summed in
+    f32), from the forward's ``out`` and ``lse`` in the inputs' dtype (what
+    the op saves for its backward; by default ``ref.flash_fwd``'s), and
+    their ``ref.bf16_grad_tolerance``."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    kl = fops._to_kernel_layout(q, k, v)
+    if out is None:
+        o, lse = fref.flash_fwd(*kl, window)
+    else:
+        o = fops._to_kernel_layout(out, k, v)[0]
+    kl = [x.float() for x in kl]
+    dok = dout.transpose(1, 2).reshape(b * h, s, dh).float()
+    grads = fref.flash_bwd(*kl, o, lse, dok, window)
+    sigmas = fref.bwd_rounding_sigmas(*kl, o, lse, dok, window)
+
+    def group(x):                          # [B·H, T, dh] -> [B, T, KV, dh]
+        return x.reshape(b, kvh, h // kvh, s, dh).sum(2).transpose(1, 2)
+    dq = fops._from_kernel_layout(grads[0], b, s, h, dh)
+    sq = fops._from_kernel_layout(sigmas[0], b, s, h, dh)
+    out = [(dq, fref.bf16_grad_tolerance(dq, sq))]
+    for gr, sg in zip(grads[1:], sigmas[1:]):
+        gr = group(gr)
+        out.append((gr, fref.bf16_grad_tolerance(gr, group(sg * sg).sqrt())))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,kv,dh,window", [
+    (torch.bfloat16, 2, 256, 8, 2, 128, None),
+    (torch.float32, 2, 256, 8, 2, 64, None),
+    (torch.bfloat16, 1, 300, 4, 4, 160, 37),
+    (torch.bfloat16, 2, 1000, 4, 1, 64, None),     # ragged, MQA
+])
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, b, s, h, kv, dh, window):
+    q, k, v = (torch.tensor(a).to(cuda, dtype) for a in qkv(5, b, s, h, kv, dh))
+    before = fk.flash_fwd_cuda.launches
+    o, lse = fk.flash_fwd_cuda(q, k, v, window)
+    assert fk.flash_fwd_cuda.launches == before + 1
+    o_r, lse_r = fref.flash_fwd(*fops._to_kernel_layout(q, k, v), window)
+    o_r = fops._from_kernel_layout(o_r, b, s, h, dh)
+    # f32: sums in another order; bf16: ref.bf16_out_tolerance per element
+    tol = 1e-5 if dtype == torch.float32 else fref.bf16_out_tolerance(o_r)
+    assert bool(((o.float() - o_r.float()).abs() <= tol).all())
+    assert float((lse - lse_r).abs().max()) <= 1e-4
+
+
+def _op_grads(cuda, dtype, b, s, h, kv, dh, window, seed=14):
+    q, k, v = (torch.tensor(a).to(cuda, dtype) for a in qkv(seed, b, s, h, kv, dh))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed + 1)
+                       ).to(cuda, dtype)
+    before = (fk.flash_bwd_dkv_cuda.launches, fk.flash_bwd_dq_cuda.launches)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    (fops.flash_attention(qr, kr, vr, window).float() * dout.float()).sum().backward()
+    assert (fk.flash_bwd_dkv_cuda.launches, fk.flash_bwd_dq_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    return q, k, v, dout, (qr.grad, kr.grad, vr.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,kv,dh,window", [
+    (torch.bfloat16, 2, 256, 12, 2, 128, None),
+    (torch.float32, 2, 256, 8, 2, 64, None),
+    (torch.bfloat16, 1, 300, 4, 4, 160, 37),
+    (torch.bfloat16, 2, 1000, 4, 1, 64, None),     # ragged, MQA
+    # dQ's 128-query blocks: windows off its key-tile edges, ragged S
+    (torch.bfloat16, 1, 520, 6, 2, 128, 130),
+    (torch.bfloat16, 2, 333, 4, 2, 128, None),
+    (torch.bfloat16, 1, 260, 4, 1, 160, 65),
+])
+def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, b, s, h, kv, dh,
+                                               window):
+    q, k, v, dout, got = _op_grads(cuda, dtype, b, s, h, kv, dh, window)
+    out, lse = fk.flash_fwd_cuda(q, k, v, window)
+    want = f32_grads_and_tolerances(q.cpu(), k.cpu(), v.cpu(), dout.cpu(),
+                                    window, out.cpu(), lse.cpu())
+    for x, (r, tol) in zip(got, want):
+        if dtype == torch.float32:   # sums in another order
+            tol = 1e-4 * (1 + r.abs().max())
+        assert bool(((x.cpu().float() - r).abs() <= tol).all())
+
+
+# The absolute bound at window 1: each row sees only its own key, so p = 1
+# and dp - delta cancels to the rounding of two f32 sums of the same dh
+# products (at most dh * 2^-24 of the sum of their magnitudes, in any order);
+# 2^-14 leaves 8x room at dh 128. A lost or wrong term moves dq or dk by O(1).
+WINDOW1_REL = 2.0 ** -14
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 160])
+def test_flash_bwd_window1_within_absolute_bound(cuda, dh):
+    """At window 1 the exact dq and dk are zero and dv = dO: the kernels'
+    dq and dk stay within the absolute bound above, per row, and dv within
+    ``ref.bf16_grad_tolerance``."""
+    b, s, h, kv = 1, 300, 4, 2
+    q, k, v, dout, (dq, dk, dv) = _op_grads(cuda, torch.bfloat16, b, s, h, kv,
+                                            dh, 1, seed=21)
+    scale = dh ** -0.5
+    g = h // kv
+    kf, vf, qf, df = (x.float() for x in (k, v, q, dout))
+    vh = vf.repeat_interleave(g, dim=2)                     # [B, S, H, dh]
+    mag = (df * vh).abs().sum(-1, keepdim=True)             # sum |dO_i v_i|
+    bound_q = WINDOW1_REL * scale * mag * kf.abs().amax(-1, keepdim=True) \
+        .repeat_interleave(g, dim=2)
+    assert bool((dq.float().abs() <= bound_q).all())
+    # dk_i sums the G heads' ds_i q_i
+    bound_k = (WINDOW1_REL * scale * mag * qf.abs().amax(-1, keepdim=True)) \
+        .reshape(b, s, kv, g, 1).sum(3)
+    assert bool((dk.float().abs() <= bound_k).all())
+    _, _, (r, tol) = f32_grads_and_tolerances(q.cpu(), k.cpu(), v.cpu(),
+                                              dout.cpu(), 1)
+    assert bool(((dv.cpu().float() - r).abs() <= tol).all())

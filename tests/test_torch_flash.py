@@ -12,8 +12,8 @@ bounds the kernels are held to on the card (``ref.bf16_out_tolerance``,
 ``ref.bf16_grad_tolerance``) are checked here against tile-by-tile plain
 emulations of the kernels' rounding, with and without a planted fault.
 
-Tests marked ``cuda`` hold the CUDA kernel against its plain version on
-the card and skip where there is none.
+The CUDA kernels meet their plain versions on the card in
+``tests/test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -26,15 +26,9 @@ from repro.kernels.flash_attn.kernel import (flash_bwd as jflash_bwd,
                                              flash_fwd as jflash_fwd)
 from repro_torch.kernels.flash_attn import kernel as fk
 from repro_torch.kernels.flash_attn import ops, ref
+from test_torch_cuda import f32_grads_and_tolerances as _f32_grads_and_tolerances
 
 torch.set_num_threads(1)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _qkv(seed, b, s, h, kv, dh):
@@ -145,25 +139,30 @@ def test_launch_covers_every_row_once_and_visits_only_open_tiles(dh, dtype, s,
 
 @pytest.mark.parametrize("s", [64, 200, 300, 1000])
 @pytest.mark.parametrize("window", [None, 1, 37, 65])
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkv", "dq"])
 def test_tile_needs_mask_never_skips_an_invisible_pair(s, window, kernel):
     """Every tile the bf16 kernels visit and call mask-free holds only
-    visible pairs: the forward's 64-row consumer halves by its KV tiles, the
-    dK/dV query tiles by the 64-key consumer halves of its key blocks (which
-    also mask a query tile past
-    S; the forward computes rows past S but writes none). Windows 1, 37 and
+    visible pairs: the forward's and dQ's 64-row consumer halves by their KV
+    tiles, the dK/dV query tiles by the 64-key consumer halves of its key
+    blocks (which also mask a query tile past S; the forward and dQ compute
+    rows past S but write none). Windows 1, 37 and
     65 fall off the tile edges, s 200, 300 and 1000 leave ragged last tiles.
     Wholly visible tiles exist wherever the causal band is wider than a
     tile."""
     ok = ref.causal_ok(s, s, window, "cpu")
     free = 0
-    if kernel == "fwd":
-        cfg = fk.launch_config(1, s, 1, 128, torch.bfloat16)
+    if kernel in ("fwd", "dq"):
+        if kernel == "fwd":
+            cfg = fk.launch_config(1, s, 1, 128, torch.bfloat16)
+            bq, bk = cfg.bq, cfg.bk
+        else:
+            cfg = fk.bwd_launch_config("dq", 1, s, s, 2, 1, 128, torch.bfloat16)
+            bq, bk = cfg.block_rows, cfg.tile
         tiles = []
-        for q0 in range(0, s, cfg.bq):
-            lo, hi = fk.kv_tile_range(q0, min(s, q0 + cfg.bq), s, window, cfg.bk)
-            tiles += [(r0, r0 + 64, kt * cfg.bk, kt * cfg.bk + cfg.bk, False)
-                      for r0 in range(q0, q0 + cfg.bq, 64) for kt in range(lo, hi)]
+        for q0 in range(0, s, bq):
+            lo, hi = fk.kv_tile_range(q0, min(s, q0 + bq), s, window, bk)
+            tiles += [(r0, r0 + 64, kt * bk, kt * bk + bk, False)
+                      for r0 in range(q0, q0 + bq, 64) for kt in range(lo, hi)]
     else:
         cfg = fk.bwd_launch_config("dkv", 1, s, s, 2, 1, 128, torch.bfloat16)
         tiles = []
@@ -249,26 +248,6 @@ def test_bf16_out_tolerance_admits_rounding_and_catches_a_lost_tile(
         assert float(over[:, -(s % bq or bq):].float().mean()) > 0.5
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,s,h,kv,dh,window", [
-    (torch.bfloat16, 2, 256, 8, 2, 128, None),
-    (torch.float32, 2, 256, 8, 2, 64, None),
-    (torch.bfloat16, 1, 300, 4, 4, 160, 37),
-    (torch.bfloat16, 2, 1000, 4, 1, 64, None),     # ragged, MQA
-])
-def test_flash_kernel_matches_plain_on_card(cuda, dtype, b, s, h, kv, dh, window):
-    q, k, v = (torch.tensor(a).to(cuda, dtype) for a in _qkv(5, b, s, h, kv, dh))
-    before = fk.flash_fwd_cuda.launches
-    o, lse = fk.flash_fwd_cuda(q, k, v, window)
-    assert fk.flash_fwd_cuda.launches == before + 1
-    o_r, lse_r = ref.flash_fwd(*ops._to_kernel_layout(q, k, v), window)
-    o_r = ops._from_kernel_layout(o_r, b, s, h, dh)
-    # f32: sums in another order; bf16: ref.bf16_out_tolerance per element
-    tol = 1e-5 if dtype == torch.float32 else ref.bf16_out_tolerance(o_r)
-    assert bool(((o.float() - o_r.float()).abs() <= tol).all())
-    assert float((lse - lse_r).abs().max()) <= 1e-4
-
-
 # ---------------------------------------------------------------------------
 # backward
 # ---------------------------------------------------------------------------
@@ -319,12 +298,17 @@ def test_bwd_launch_covers_every_visible_pair_once(dh, dtype, s, window):
     cover every visible (query, key) pair exactly once and visit only tiles
     holding one, and the head split (``dkv_heads``) gives every query head
     of a KV head's group to exactly one block of each key tile; the dQ
-    blocks cover every row once and visit only open KV tiles."""
+    blocks cover every row once, visit only open KV tiles, and so every
+    visible pair once."""
     b, h, kvh = 2, 12, 2
     g = h // kvh
     dkv = fk.bwd_launch_config("dkv", b, s, s, h, kvh, dh, dtype)
     dq = fk.bwd_launch_config("dq", b, s, s, h, kvh, dh, dtype)
     assert max(dkv.smem_bytes, dq.smem_bytes) <= fk.SMEM_LIMIT
+    if dtype == torch.bfloat16:      # 128 query rows, two 64-row consumers
+        assert dq.block_rows == 128 and dq.tile == fk.DQ_KTILE[dh]
+        assert dq.smem_bytes == (2 * 2 * 128 * dh + fk.DQ_STAGES * 2 * 2
+                                 * dq.tile * dh + fk.SMEM_EXTRA)
     assert dkv.grid == (b * kvh * dkv.gsplit, -(-s // dkv.block_rows))
     assert dq.grid == (-(-s // dq.block_rows), b * h)
     assert g % dkv.gsplit == 0
@@ -354,6 +338,7 @@ def test_bwd_launch_covers_every_visible_pair_once(dh, dtype, s, window):
             seen[q0:q1, k0:k1] += 1
     assert bool((seen[ok] == 1).all())
     rows = torch.zeros(s, dtype=torch.int32)
+    seen_q = torch.zeros(s, s, dtype=torch.int32)
     for i in range(dq.grid[0]):
         q0, q1 = i * dq.block_rows, min(s, (i + 1) * dq.block_rows)
         rows[q0:q1] += 1
@@ -361,7 +346,10 @@ def test_bwd_launch_covers_every_visible_pair_once(dh, dtype, s, window):
         open_tiles = {kt for kt in range(-(-s // dq.tile))
                       if bool(ok[q0:q1, kt * dq.tile:(kt + 1) * dq.tile].any())}
         assert set(range(lo, hi)) == open_tiles
+        for kt in range(lo, hi):
+            seen_q[q0:q1, kt * dq.tile:(kt + 1) * dq.tile] += 1
     assert bool((rows == 1).all())
+    assert bool((seen_q[ok] == 1).all())
 
 
 def test_bwd_launch_config_rejects_what_has_no_kernel():
@@ -378,7 +366,9 @@ def _tiled_bwd_bf16(q, k, v, dout, window, drop=None):
     query tiles ``q_tile_range`` gives, masked only in the 64-key consumer
     halves ``tile_needs_mask`` names, p and ds rounded to bf16 for the products, f32
     sums; the splits' f32 partials summed in split order and rounded once.
-    dQ per 64-query tile over 32-key tiles. ``drop`` plants a kernel fault:
+    dQ per 128-query block over the key tiles ``kv_tile_range`` gives, masked
+    only in the 64-row consumer halves ``tile_needs_mask`` names, ds rounded
+    to bf16. ``drop`` plants a kernel fault:
     ``("q_tile", kt, qt)`` leaves a query tile out of key tile kt's sum,
     ``("head", g)`` a GQA head out of every dK/dV sum, ``("split", gs)``
     head split gs's partial out of the final sum, ``("kv_tile", kt)`` a KV
@@ -445,38 +435,14 @@ def _tiled_bwd_bf16(q, k, v, dout, window, drop=None):
                 if q1 == s and drop == ("kv_tile", kt):
                     continue
                 k0, k1 = kt * cq.tile, min(s, kt * cq.tile + cq.tile)
-                _, ds = tile(n, q0, q1, k0, k1)
-                dq[n, q0:q1] += ds.bfloat16().float() @ kk[n, k0:k1]
+                for r0 in range(q0, q1, 64):                  # consumer halves
+                    r1 = min(s, r0 + 64)
+                    masked = fk.tile_needs_mask(r0, r0 + 64, k0, kt * cq.tile
+                                                + cq.tile, s, window)
+                    _, ds = tile(n, r0, r1, k0, k1, masked)
+                    dq[n, r0:r1] += ds.bfloat16().float() @ kk[n, k0:k1]
     dq = ops._from_kernel_layout(dq, b, s, h, dh)
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
-
-
-def _f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
-    """The f32 plain gradients in the model layout (GQA groups summed in
-    f32), from the forward's ``out`` and ``lse`` in the inputs' dtype (what
-    the op saves for its backward; by default ``ref.flash_fwd``'s), and
-    their ``ref.bf16_grad_tolerance``."""
-    b, s, h, dh = q.shape
-    kvh = k.shape[2]
-    kl = ops._to_kernel_layout(q, k, v)
-    if out is None:
-        o, lse = ref.flash_fwd(*kl, window)
-    else:
-        o = ops._to_kernel_layout(out, k, v)[0]
-    kl = [x.float() for x in kl]
-    dok = dout.transpose(1, 2).reshape(b * h, s, dh).float()
-    grads = ref.flash_bwd(*kl, o, lse, dok, window)
-    sigmas = ref.bwd_rounding_sigmas(*kl, o, lse, dok, window)
-
-    def group(x):                          # [B·H, T, dh] -> [B, T, KV, dh]
-        return x.reshape(b, kvh, h // kvh, s, dh).sum(2).transpose(1, 2)
-    dq = ops._from_kernel_layout(grads[0], b, s, h, dh)
-    sq = ops._from_kernel_layout(sigmas[0], b, s, h, dh)
-    out = [(dq, ref.bf16_grad_tolerance(dq, sq))]
-    for gr, sg in zip(grads[1:], sigmas[1:]):
-        gr = group(gr)
-        out.append((gr, ref.bf16_grad_tolerance(gr, group(sg * sg).sqrt())))
-    return out
 
 
 @pytest.mark.parametrize("s,window,drop", [
@@ -484,7 +450,7 @@ def _f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
     (256, None, ("q_tile", 0, 2)),                # a query tile out of dK/dV
     (256, None, ("head", 2)),                     # a GQA head out of dK/dV
     (256, None, ("split", 1)),                    # a head split's partial left out
-    (250, 70, ("kv_tile", 6)),                    # a KV tile out of dQ
+    (250, 70, ("kv_tile", 1)),                    # a KV tile out of dQ
 ])
 def test_bf16_grad_tolerance_admits_rounding_and_catches_a_lost_term(
         s, window, drop):
@@ -505,33 +471,7 @@ def test_bf16_grad_tolerance_admits_rounding_and_catches_a_lost_term(
     elif drop[0] in ("head", "split"):
         assert not bool(over[0].any())
         assert all(float(o.float().mean()) > 0.5 for o in over[1:])
-    else:                              # the last query tile of dQ
-        assert float(over[0][:, 192:].float().mean()) > 0.5
-        assert not bool(over[0][:, :192].any())
+    else:                              # the last query tile of dQ: 128..249
+        assert float(over[0][:, 128:].float().mean()) > 0.5
+        assert not bool(over[0][:, :128].any())
         assert not bool(over[1].any()) and not bool(over[2].any())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,b,s,h,kv,dh,window", [
-    (torch.bfloat16, 2, 256, 12, 2, 128, None),
-    (torch.float32, 2, 256, 8, 2, 64, None),
-    (torch.bfloat16, 1, 300, 4, 4, 160, 37),
-    (torch.bfloat16, 2, 1000, 4, 1, 64, None),     # ragged, MQA
-])
-def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, b, s, h, kv, dh,
-                                               window):
-    q, k, v = (torch.tensor(a).to(cuda, dtype) for a in _qkv(14, b, s, h, kv, dh))
-    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(15)
-                       ).to(cuda, dtype)
-    before = (fk.flash_bwd_dkv_cuda.launches, fk.flash_bwd_dq_cuda.launches)
-    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    (ops.flash_attention(qr, kr, vr, window).float() * dout.float()).sum().backward()
-    assert (fk.flash_bwd_dkv_cuda.launches, fk.flash_bwd_dq_cuda.launches) == \
-        (before[0] + 1, before[1] + 1)
-    out, lse = fk.flash_fwd_cuda(q, k, v, window)
-    want = _f32_grads_and_tolerances(q.cpu(), k.cpu(), v.cpu(), dout.cpu(),
-                                     window, out.cpu(), lse.cpu())
-    for x, (r, tol) in zip((qr.grad, kr.grad, vr.grad), want):
-        if dtype == torch.float32:   # sums in another order
-            tol = 1e-4 * (1 + r.abs().max())
-        assert bool(((x.cpu().float() - r).abs() <= tol).all())

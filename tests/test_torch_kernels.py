@@ -13,8 +13,11 @@ may differ); in bf16 ``5e-2``: XLA keeps the fused intermediates in f32
 while torch rounds every operation to bf16, one bf16 ulp apart at
 ``|v| <= 4``.
 
-Tests marked ``cuda`` run the hand-written kernels against their plain
-versions on the card and skip where there is none.
+The fused base + per-row delta product (``ref.nm_spmm_fused``) against
+the reference's ``nm_spmm_batched + nm_spmm_deltas``: f32 ``rtol 1e-5, atol
+1e-6`` (sums of the same terms in another order). Launch geometry is exact.
+The hand-written kernels meet their plain versions on the card in
+``tests/test_torch_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -38,13 +41,6 @@ from test_kernels import NM_CASES
 torch.set_num_threads(1)
 
 TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _t(a, dtype=torch.float32):
@@ -243,98 +239,89 @@ def test_wu_outer_launch_config_rejects_shapes_that_cannot_fit():
         wu_kernel.launch_config(16, 1 << 17, 4, 4, 1, 1, 4)
 
 
-@pytest.mark.parametrize("k,j,t,bk,bo,esize", [
-    (512, 512, 104, 1, 1, 4),      # the serving path (paper spec)
-    (512, 16, 8, 16, 32, 2),       # tiled regime, bf16
-    (48, 6, 6, 4, 8, 4),           # NM_CASES: bo below the column target
-    (512, 4, 8, 16, 96, 4),        # bo above the target, not a multiple
-    (2048, 8, 1024, 1, 128, 4),    # must shrink the column group to fit
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("b,k,j,t,bk,bo,esize", [
+    (1024, 512, 512, 104, 1, 1, 4),  # the serving path (paper spec)
+    (16, 512, 512, 104, 1, 1, 4),    # the SNN training path
+    (1000, 512, 512, 104, 1, 1, 2),  # ragged slots, bf16
+    (1, 512, 512, 104, 1, 1, 4),     # one slot
+    (37, 48, 6, 8, 1, 1, 4),         # few columns
+    (37, 48, 6, 6, 1, 1, 4),         # T not a multiple of 4
+    (37, 50, 6, 6, 1, 1, 4),         # K not a multiple of 4: the tiled kernel
+    (1024, 4096, 8, 1024, 1, 1, 4),  # wide fan-in, must shrink rows to fit
+    (16, 512, 16, 8, 16, 32, 2),     # tiled regime, bf16
+    (16, 48, 6, 6, 4, 8, 4),         # NM_CASES: bo below the column target
+    (16, 512, 4, 8, 16, 96, 4),      # bo above the target, not a multiple
+    (16, 2048, 8, 1024, 1, 128, 4),  # must shrink the column group to fit
 ])
 def test_launch_config_covers_every_column_within_shared_memory(
-        k, j, t, bk, bo, esize):
-    cfg = nm_kernel.launch_config(k, j, t, bk, bo, esize)
-    assert cfg.bn == cfg.jg * cfg.bnc <= nm_kernel.COLUMN_TARGET
-    assert cfg.jg == 1 or cfg.bnc == bo       # whole tiles, or a tile slice
-    assert bo % cfg.bnc == 0
-    assert cfg.ngroups * cfg.bn >= j * bo > (cfg.ngroups - 1) * cfg.bn
+        b, k, j, t, bk, bo, esize, fused):
+    """The gather kernel (bk = bo = 1; base, or fused with the deltas)
+    covers every (row, column) once; the tiled kernel every column once,
+    with its rows masked in the kernel."""
+    cfg = nm_kernel.launch_config(b, k, j, t, bk, bo, esize, fused)
     assert cfg.smem_bytes <= nm_kernel.SMEM_LIMIT
+    if not nm_kernel.takes_gather_kernel(k, bk, bo):
+        assert isinstance(cfg, nm_kernel.TiledConfig)
+        assert cfg.bn == cfg.jg * cfg.bnc <= nm_kernel.COLUMN_TARGET
+        assert cfg.jg == 1 or cfg.bnc == bo   # whole tiles, or a tile slice
+        assert bo % cfg.bnc == 0
+        assert cfg.ngroups * cfg.bn >= j * bo > (cfg.ngroups - 1) * cfg.bn
+        return
+    bm, bn = cfg.block_rows, cfg.block_cols
+    assert 4 <= bm <= 32                      # 4 rows a lane, up to 8 lanes ...
+    assert cfg.lanes_per_col <= 32            # ... times 4 t-chunk lanes: one warp
+    assert bm & (bm - 1) == 0 and bn & (bn - 1) == 0     # shifts, no divides
+    assert cfg.threads in nm_kernel.ELL_THREADS
+    assert cfg.threads == nm_kernel.ELL_THREADS[0] or not fused
+    groups = cfg.threads // cfg.lanes_per_col
+    assert bn <= nm_kernel.ELL_MAX_PASSES * groups
+    assert cfg.smem_bytes == 4 * (k * bm + bm * (bn + 1))
+    seen = torch.zeros(b, j, dtype=torch.int32)
+    for gx in range(cfg.grid[0]):
+        for gy in range(cfg.grid[1]):
+            seen[gy * bm:(gy + 1) * bm, gx * bn:(gx + 1) * bn] += 1
+    assert bool((seen == 1).all())
+    assert cfg.grid[0] * bn < j + bn and cfg.grid[1] * bm < b + bm
+
+
+@pytest.mark.parametrize("b,fused", [(16, False), (1024, False), (1024, True)])
+def test_launch_config_fills_the_card_at_the_paper_shape(b, fused):
+    """At the SNN training batch (16) and the serving grid (1024 slots) the
+    gather kernel's grid gives all but a few of the card's 132 SMs a block
+    (the old kernel gave 8 blocks at B = 16), with the widest column groups
+    that do so: one step wider would leave a quarter of the card idle."""
+    cfg = nm_kernel.launch_config(b, 512, 512, 104, 1, 1, 4, fused)
+    blocks = cfg.grid[0] * cfg.grid[1]
+    assert nm_kernel.ELL_MIN_BLOCKS <= blocks <= nm_kernel.NUM_SMS
+    assert nm_kernel.NUM_SMS - blocks <= nm_kernel.NUM_SMS // 32
+    assert cfg.grid[1] * -(-512 // (2 * cfg.block_cols)) < nm_kernel.ELL_MIN_BLOCKS
 
 
 def test_launch_config_rejects_shapes_that_cannot_fit():
     with pytest.raises(ValueError):
-        nm_kernel.launch_config(1 << 16, 4, 4, 1, 1, 4)
+        nm_kernel.launch_config(16, 1 << 16, 4, 4, 1, 1, 4)
+    with pytest.raises(ValueError):
+        nm_kernel.launch_config(16, 1 << 16, 4, 4, 2, 1, 4)
 
 
-# ----------------------------------------------------------------- on the card
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,o,bk,bo,n,m,bm", NM_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_nm_spmm_kernel_matches_plain_on_card(cuda, k, o, bk, bo, n, m, bm,
-                                              dtype):
-    x, w, mask = _sparse_case(0, k, o, bk, bo, n, m, b=37)   # ragged rows
-    wc, idx = nm_ops.make_compact(_t(w), torch.tensor(mask), bk, bo)
-    x, wc, idx = _t(x, dtype).to(cuda), wc.to(cuda, dtype), idx.to(cuda)
-    before = nm_kernel.nm_spmm_cuda.launches
-    got = nm_ops.nm_spmm_batched(x, wc, idx)
-    assert nm_kernel.nm_spmm_cuda.launches == before + 1
-    want = nm_ref.nm_spmm(x, wc, idx)
-    tol = 1e-5 if dtype == torch.float32 else 5e-2
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1024, 512), (1000, 500), (3, 7)])
-def test_lif_kernel_matches_plain_on_card(cuda, shape):
-    g = torch.Generator().manual_seed(0)
-    v, tr, cur = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
-    got = lif_ops.lif_step(v, tr, cur, alpha=0.9, beta=0.85, theta=1.0)
-    want = lif_ref.lif_step(v, tr, cur, alpha=0.9, beta=0.85, theta=1.0)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-
-
-@pytest.mark.cuda
-def test_kernel_counters_count_only_real_launches(cuda):
-    """An empty problem returns an empty result and launches nothing, so the
-    counters that the smoke run checks count launches, not calls."""
-    from repro_torch.kernels.lif.kernel import lif_cuda
-    before = (nm_kernel.nm_spmm_cuda.launches, lif_cuda.launches)
-    wc = torch.zeros((4, 2, 1, 1), device=cuda)
-    idx = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
-    y = nm_ops.nm_spmm_batched(torch.zeros((0, 8), device=cuda), wc, idx)
-    assert tuple(y.shape) == (0, 4)
-    v = torch.zeros((0, 16), device=cuda)
-    outs = lif_ops.lif_step(v, v, v, alpha=0.9, beta=0.85, theta=1.0)
-    assert all(tuple(o.shape) == (0, 16) for o in outs)
-    assert (nm_kernel.nm_spmm_cuda.launches, lif_cuda.launches) == before
-    lif_ops.lif_step(*(torch.zeros((2, 3), device=cuda),) * 3,
-                     alpha=0.9, beta=0.85, theta=1.0)
-    assert lif_cuda.launches == before[1] + 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,k,o,bk,bo,n,m", [
-    (16, 512, 512, 1, 1, 26, 128),       # the training path (paper spec)
-    (13, 512, 512, 1, 1, 26, 128),       # ragged batch
-    (128, 512, 512, 16, 32, 2, 8),       # tiled spec
-    (37, 64, 48, 4, 8, 1, 2)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wu_outer_kernel_matches_plain_on_card(cuda, b, k, o, bk, bo, n, m,
-                                               dtype):
-    _, w, mask = _sparse_case(8, k, o, bk, bo, n, m, b=b)
-    _, idx = nm_ops.make_compact(_t(w), torch.tensor(mask), bk, bo)
-    g = torch.Generator().manual_seed(8)
-    pre = torch.rand((b, k), generator=g).to(cuda, dtype)
-    mod = torch.randn((b, o), generator=g).to(cuda, dtype)
-    idx = idx.to(cuda)
-    before = wu_kernel.wu_outer_cuda.launches
-    got = wu_ops.wu_outer(pre, mod, idx, 0.02, bk=bk, bo=bo)
-    assert wu_kernel.wu_outer_cuda.launches == before + 1
-    scale = torch.tensor(0.02, dtype=dtype).float()
-    want = wu_ref.wu_outer(pre.float(), mod.float(), idx, scale, bk, bo)
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
-    zero = wu_ops.wu_outer(pre, mod, idx, torch.zeros((), device=cuda),
-                           bk=bk, bo=bo)
-    assert bool((zero == 0).all())
+@pytest.mark.parametrize("s,k,o,bk,bo,n,m", [
+    (16, 512, 512, 1, 1, 26, 128),    # the serving path's layer (paper spec)
+    (13, 64, 32, 1, 1, 4, 16),        # ragged slot count
+    (5, 64, 32, 8, 16, 1, 2),         # tiled
+    (7, 48, 24, 4, 8, 3, 4),          # tiled, ragged
+])
+def test_nm_spmm_fused_matches_reference_base_plus_deltas(s, k, o, bk, bo, n, m):
+    x, w, mask = _sparse_case(5, k, o, bk, bo, n, m, b=s, spikes=True)
+    wc_j, idx_j = jnm_ops.make_compact(jnp.asarray(w), jnp.asarray(mask), bk, bo)
+    delta = 0.05 * np.random.default_rng(6).standard_normal(
+        (s, *wc_j.shape)).astype(np.float32)
+    want = (jnm_ops.nm_spmm_batched(jnp.asarray(x), wc_j, idx_j)
+            + jnm_ops.nm_spmm_deltas(jnp.asarray(x), jnp.asarray(delta), idx_j))
+    wc_t, idx_t = nm_ops.make_compact(_t(w), torch.tensor(mask), bk, bo)
+    got = nm_ops.nm_spmm_fused(_t(x), wc_t, idx_t, _t(delta))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    # the association the kernel keeps: base + delta product
+    assert torch.equal(got, nm_ref.nm_spmm(_t(x), wc_t, idx_t)
+                       + nm_ref.nm_spmm_deltas(_t(x), _t(delta), idx_t))

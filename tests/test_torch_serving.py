@@ -3,7 +3,10 @@
 Against the reference (same weights, same ``ReplaySource`` events): window
 predictions must agree in argmax and their logits within ``atol = 1e-4``,
 the trajectory tolerance of tests/test_torch_engine.py (rounding
-differences between two frameworks, accumulated over windows).
+differences between two frameworks, accumulated over windows); each
+stream's telemetry counters and energy report within ``rtol = 1e-5`` (f32
+sums of the same per-step counts; the local loss carries the trajectory's
+rounding).
 
 Within the port, with no tolerance at all (bit-exact): pipeline depth 0 and
 1 give identical predictions, final deltas and counters, and a stream
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from repro.core import snn as jsnn
+from repro.serving import AdaptConfig as JAdaptConfig
 from repro.serving import ReplaySource as JReplaySource
 from repro.serving import StreamScheduler as JStreamScheduler
 from repro.serving import StreamSession as JStreamSession
@@ -62,6 +66,48 @@ def test_scheduler_predictions_match_reference():
         np.testing.assert_allclose(got[sid].final_deltas,
                                    want[sid].final_deltas, atol=1e-4)
         assert tsched.telemetry.stream(sid).timesteps == ev.shape[0]
+
+
+COUNTERS = ("timesteps", "events_in", "sop_forward", "sop_wu",
+            "sop_wu_offered", "gate_opened", "gate_offered", "local_loss")
+
+
+def test_stream_counters_and_energy_match_reference():
+    """Per-stream telemetry and its energy report against the reference, on
+    a fleet with decay, clip and one frozen stream (it adapts nothing and is
+    billed no weight updates)."""
+    jcfg = jsnn.SNNConfig(**KW)
+    jparams = jax.device_get(jsnn.init_params(jax.random.PRNGKey(1), jcfg))
+    kw = dict(delta_decay=0.9, delta_clip=0.05)
+    jsched = JStreamScheduler(jparams, jcfg, n_slots=2, chunk_len=4,
+                              adapt=JAdaptConfig(**kw))
+    tsched = StreamScheduler(convert.params_from_numpy(jparams, CFG, "cpu"),
+                             CFG, n_slots=2, chunk_len=4, device="cpu",
+                             adapt=AdaptConfig(**kw))
+    for sid, ev, cl in STREAMS:
+        jsched.submit(JStreamSession(sid=sid, source=JReplaySource(ev, cl),
+                                     adapt=sid != 1))
+        tsched.submit(StreamSession(sid=sid, source=ReplaySource(ev, cl),
+                                    adapt=sid != 1))
+    want = {s.sid: s for s in jsched.run_until_drained()}
+    got = {s.sid: s for s in tsched.run_until_drained()}
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for sid, _, _ in STREAMS:
+        assert [p.label for p in got[sid].predictions] == \
+            [p.label for p in want[sid].predictions]
+        tc, jc = tsched.telemetry.stream(sid), jsched.telemetry.stream(sid)
+        for attr in COUNTERS:
+            np.testing.assert_allclose(getattr(tc, attr), getattr(jc, attr),
+                                       rtol=1e-5, err_msg=attr)
+        te, je = tc.energy(), jc.energy()
+        assert sorted(te) == sorted(je)
+        for key, val in je.items():
+            if isinstance(val, str):
+                assert te[key] == val, key
+            else:
+                np.testing.assert_allclose(te[key], val, rtol=1e-5, err_msg=key)
+    assert tsched.telemetry.stream(1).sop_wu_offered == 0.0
+    assert tsched.telemetry.stream(0).sop_wu > 0.0
 
 
 @pytest.fixture(scope="module")
