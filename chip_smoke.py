@@ -26,7 +26,14 @@ Phases, each raising on failure:
    fused with the per-slot delta at the serving shape (1024 slots, 512 ->
    512, T 104, f32; and 1000 slots), against ``ref.nm_spmm_fused``, with
    rows computed alone equal bit for bit to the same rows of the batch.
-   ``wu_outer`` also writes exact zeros for a closed gate (``scale = 0``).
+   ``wu_outer`` also writes exact zeros for a closed gate (``scale = 0``),
+   and runs with the add into the compact weights fused in (the training
+   path's launch; a closed gate returns ``wc`` bit for bit), timed fused and
+   unfused beside ``torch.matmul(pre.T, mod)``. ``wu_outer_slots`` updates
+   one layer of slot-leading deltas in place at the serving shape (1024
+   slots, T 104, f32), all slots open and 40 % open: bit for bit against
+   ``delta + ref.wu_outer_slots``, closed slots and the other layer not
+   written; its bytes and bound count the open slots only.
    ``flash_fwd`` at the LM prefill shape (bf16), the LM training shape (B 2,
    S 4096, H 12, KV 2, dh 128), a small f32 shape, a 512 window (whole KV
    tiles skipped, rows whose first visited tile is all masked), a ragged
@@ -41,14 +48,17 @@ Phases, each raising on failure:
    N:M sparsity, gating on, backend "kernels") serves 1024 gesture streams
    of 4 windows each through ``StreamScheduler`` (1024 slots, chunk 8,
    pipeline depth 1) until drained. Every stream must get 4 predictions,
-   ``nm_spmm`` (every launch fused with the slots' deltas) and ``lif`` must
-   have launched grid steps x 8 x 2 times in that run and ``wu_outer``
-   never, and the deltas must be finite. Then, for the record, one full-grid chunk
+   ``nm_spmm`` (every launch fused with the slots' deltas), ``lif`` and
+   ``wu_outer_slots`` (the per-slot update, in place) must have launched
+   grid steps x 8 x 2 times in that run and ``wu_outer`` never, and the
+   deltas must be finite. Then, for the record, one full-grid chunk
    step under ``torch.profiler``: host wall, enqueue time, device busy time.
 5. path parity: one 8-step chunk of 64 slots through backend "kernels"
-   and backend "ref" (plain LIF): logits close; spikes equal up to a first
-   flip within rounding of the threshold, and >= 99.9 % equal over the
-   neuron-steps where either side spiked.
+   and backend "ref" (plain LIF), the windows at t 24-31 of 50 so that the
+   per-slot weight update runs (t >= 30, after the t 25 snapshot): logits
+   and deltas close, the update moved the deltas; spikes equal up to a
+   first flip within rounding of the threshold, and >= 99.9 % equal over
+   the neuron-steps where either side spiked.
 6. training at full width: the paper network (backend "kernels") learns
    80 gesture samples of batch 16 through ``make_train_fn`` (OSSL, gated
    WU, DSST epochs after samples 39 and 79), then one ``make_eval_fn``
@@ -103,7 +113,9 @@ Phases, each raising on failure:
    N:M step (n 2 of m 8, block 32, MLP) with ``dsst_every=1``: every mask
    group keeps exactly 2 units after the event, and some moved.
 
-Prints the kernels line (JSON), the card line, and last
+Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
+``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
+launch, the training path's), the card line, and last
 ``{"ok": true, "device": {...}}``; the full record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are missing.
@@ -155,11 +167,13 @@ def bound(nbytes, flops, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_kernels(torch, fn, iters=1, keep=None):
+def device_kernels(torch, fn, iters=1, keep=None, expect=None):
     """The device-side events (kernels, copies) of ``iters`` calls of ``fn``
     in a ``torch.profiler`` trace, after one warm-up call, and the host wall
     time in ms of those same traced calls up to the end of their device
-    work. ``keep`` filters the events by name."""
+    work. ``keep`` filters the events by name; with ``expect`` a trace that
+    holds another number of events is taken again, and after the last try
+    the fullest trace is returned (and the shortfall logged)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -167,6 +181,7 @@ def device_kernels(torch, fn, iters=1, keep=None):
     # now and then a trace comes back without the call's device events (once
     # in a few dozen traces on the H100, and once three times running):
     # trace again after a pause, at most four more times
+    best = ([], 0.0)
     for attempt in range(5):
         if attempt:
             time.sleep(1.0)
@@ -178,9 +193,14 @@ def device_kernels(torch, fn, iters=1, keep=None):
             wall = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and (keep is None or keep(e.name))]
-        if events:
+        if events and (expect is None or len(events) == expect):
             return events, wall
-    raise RuntimeError("the profiler recorded no device time for the call")
+        if len(events) > len(best[0]):
+            best = (events, wall)
+    if not best[0]:
+        raise RuntimeError("the profiler recorded no device time for the call")
+    log(f"trace: {len(best[0])} device events, want {expect}")
+    return best
 
 
 def ptxas_instances(text):
@@ -255,7 +275,10 @@ def device_ms(torch, fn, iters=20):
     kernels it launches, so the host's launch gaps between them do not
     count (they do in ``wall_ms``). The 50 MB L2 is flushed before every
     call, as the serving step's ~1 GB working set leaves it; the flush's
-    own kernels (named once per run) are left out of the sum."""
+    own kernels (named once per run) are left out of the sum. A trace of the
+    ``iters`` calls must hold ``iters`` times the events of one traced call,
+    else it is taken again: a trace that lost events would pass for a
+    faster kernel."""
     if not _FLUSH:
         _FLUSH["scratch"] = torch.empty(64 << 20, dtype=torch.uint8,
                                         device="cuda")
@@ -266,8 +289,10 @@ def device_ms(torch, fn, iters=20):
     def flushed():
         scratch.zero_()
         fn()
-    kernels, _ = device_kernels(torch, flushed, iters,
-                                keep=lambda name: name not in flush_names)
+    keep = lambda name: name not in flush_names   # noqa: E731
+    per_call = len(device_kernels(torch, flushed, 1, keep=keep)[0])
+    kernels, _ = device_kernels(torch, flushed, iters, keep=keep,
+                                expect=per_call * iters)
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
 
 
@@ -434,34 +459,110 @@ def wu_case(torch, name, dtype, b, spec):
     idx = idx.cuda()
     scale = torch.tensor(0.02 / b, device="cuda", dtype=dtype)  # lr / B
     bk, bo = spec.block, spec.out_tile
+    j, t = idx.shape
+    wc = (0.05 * torch.randn((j, t, bk, bo), generator=gen)).to("cuda", dtype)
     got = wu_outer_cuda(pre, mod, idx, scale, bk=bk, bo=bo)
     want = ref.wu_outer(pre, mod, idx, scale, bk, bo)
     closed = wu_outer_cuda(pre, mod, idx, torch.zeros_like(scale), bk=bk,
                            bo=bo)
+    applied = wu_outer_cuda(pre, mod, idx, scale, bk=bk, bo=bo, wc=wc)
+    want_applied = wc + ref.wu_outer(pre, mod, idx, scale, bk, bo)
+    closed_applied = wu_outer_cuda(pre, mod, idx, torch.zeros_like(scale),
+                                   bk=bk, bo=bo, wc=wc)
     torch.cuda.synchronize()
-    err = max_err(got, want)
+    err, err_applied = max_err(got, want), max_err(applied, want_applied)
     # f32: only the order of the batch sum differs; bf16: the plain version
-    # rounds the product and the scaled result to bf16, the kernel once
-    tol = (1e-5 if dtype == torch.float32 else 2e-2) \
-        * float(want.float().abs().max())
-    if not err <= tol:
-        raise AssertionError(f"wu_outer {name}: max |kernel - plain| {err} > {tol}")
-    if not bool((closed == 0).all()):
-        raise AssertionError(f"wu_outer {name}: a closed gate wrote non-zeros")
-    j, t = idx.shape
+    # rounds the product and the scaled result to bf16, the kernel once.
+    # With the add (which both round alike) the same, of the larger result.
+    rel = 1e-5 if dtype == torch.float32 else 2e-2
+    tol = rel * float(want.float().abs().max())
+    tol_applied = rel * float(want_applied.float().abs().max())
+    if not (err <= tol and err_applied <= tol_applied):
+        raise AssertionError(f"wu_outer {name}: max |kernel - plain| {err} "
+                             f"(tol {tol}), with the add {err_applied} "
+                             f"(tol {tol_applied})")
+    if not bool((closed == 0).all()) or not torch.equal(closed_applied, wc):
+        raise AssertionError(f"wu_outer {name}: a closed gate changed the "
+                             f"update or the weights")
     es = pre.element_size()
     nbytes = (pre.numel() + mod.numel() + got.numel()) * es + idx.numel() * 4
+    flops = 2 * b * j * t * bk * bo
     dname = str(dtype).split(".")[-1]
-    bound_ms, bound_by = bound(nbytes, 2 * b * j * t * bk * bo, dname)
+    bound_ms, bound_by = bound(nbytes, flops, dname)
+    # the fused update also reads wc (and adds): the training path's launch
+    f_bound_ms, f_bound_by = bound(nbytes + wc.numel() * es,
+                                   flops + 2 * wc.numel(), dname)
+    library = timings(torch, "library_", lambda: torch.matmul(pre.T, mod))
+    fused = {"max_abs_err": err_applied, "tol": tol_applied,
+             **timings(torch, "", lambda: wu_outer_cuda(pre, mod, idx, scale,
+                                                        bk=bk, bo=bo, wc=wc)),
+             **timings(torch, "plain_", lambda: wc + ref.wu_outer(
+                 pre, mod, idx, scale, bk, bo)),
+             **library, "bound_ms": f_bound_ms, "bound_by": f_bound_by,
+             "plain_call": "wc + ref.wu_outer"}
     rec = {"case": name, "dtype": dname, "shape": [b, k, j, t, bk, bo],
            "max_abs_err": err, "tol": tol, "closed_gate_zero": True,
            **timings(torch, "", lambda: wu_outer_cuda(pre, mod, idx, scale,
                                                       bk=bk, bo=bo)),
            **timings(torch, "plain_", lambda: ref.wu_outer(pre, mod, idx,
                                                             scale, bk, bo)),
-           **timings(torch, "library_", lambda: torch.matmul(pre.T, mod)),
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           **library, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_call": "torch.matmul(pre.T, mod)", "fused": fused}
     log(f"parity wu_outer {json.dumps(rec)}")
+    return rec
+
+
+def wu_slots_case(torch, name, open_frac):
+    """The per-slot update in place at the serving shape (1024 slots, K = N
+    = 512, T 104, f32) on one layer of slot-leading deltas ``[S, 2, J, T,
+    1, 1]``, a share ``open_frac`` of the slots open: bit for bit against
+    the plain ``delta + ref.wu_outer_slots``, closed slots and the other
+    layer not written (compared as bits). Bytes and the bound count the open
+    slots only: the kernel never touches a closed one."""
+    from repro_torch.core.sparsity import paper_spec_4groups, random_unit_mask
+    from repro_torch.kernels.nm_spmm import ops as nm_ops
+    from repro_torch.kernels.wu_outer import ref
+    from repro_torch.kernels.wu_outer.kernel import wu_outer_slots_cuda
+    s = N_STREAMS
+    k = o = 512
+    gen = torch.Generator().manual_seed(5)
+    spec = paper_spec_4groups(k, 0.8)
+    _, idx = nm_ops.make_compact(torch.zeros((k, o)),
+                                 random_unit_mask(gen, spec, k, o), 1, 1)
+    j, t = idx.shape
+    pre = torch.rand((s, k), generator=gen).cuda()              # traces
+    mod = (0.1 * torch.randn((s, o), generator=gen)).cuda()
+    gate = (torch.rand(s, generator=gen) < open_frac).cuda()
+    scale = torch.where(gate, 0.02, 0.0)
+    deltas = (0.01 * torch.randn((s, 2, j, t, 1, 1), generator=gen)).cuda()
+    idx = idx.cuda()
+    view = deltas[:, 1]
+    before = deltas.clone()
+    want = view + ref.wu_outer_slots(pre, mod, idx, scale, 1, 1)
+    wu_outer_slots_cuda(view, pre, mod, idx, scale, bk=1, bo=1)
+    torch.cuda.synchronize()
+    err = max_err(view, want)
+    bits = lambda a: a.contiguous().view(torch.int32)   # noqa: E731
+    checks = {"bitwise": torch.equal(view, want),
+              "closed_untouched": torch.equal(bits(deltas[~gate, 1]),
+                                              bits(before[~gate, 1])),
+              "other_layer_untouched": torch.equal(bits(deltas[:, 0]),
+                                                   bits(before[:, 0]))}
+    if not all(checks.values()):
+        raise AssertionError(f"wu_outer_slots {name}: {checks}, max |kernel - "
+                             f"plain| {err}")
+    n_open = int(gate.sum())
+    nbytes = 4 * (n_open * (2 * j * t + k + o) + j * t + s)
+    bound_ms, bound_by = bound(nbytes, 3 * n_open * j * t, "float32")
+    rec = {"case": name, "dtype": "float32", "shape": [s, k, j, t, 1, 1],
+           "open_slots": n_open, "max_abs_err": err, "tol": 0.0, **checks,
+           **timings(torch, "", lambda: wu_outer_slots_cuda(
+               view, pre, mod, idx, scale, bk=1, bo=1)),
+           **timings(torch, "plain_", lambda: view + ref.wu_outer_slots(
+               pre, mod, idx, scale, 1, 1)),
+           "library_ms": None, "plain_call": "delta + ref.wu_outer_slots",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    log(f"parity wu_outer_slots {json.dumps(rec)}")
     return rec
 
 
@@ -649,9 +750,11 @@ def kernel_counters():
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.kernels.nm_spmm.kernel import (nm_spmm_cuda,
                                                     nm_spmm_fused_cuda)
-    from repro_torch.kernels.wu_outer.kernel import wu_outer_cuda
+    from repro_torch.kernels.wu_outer.kernel import (wu_outer_cuda,
+                                                     wu_outer_slots_cuda)
     return {"nm_spmm": nm_spmm_cuda, "nm_spmm_fused": nm_spmm_fused_cuda,
             "lif": lif_cuda, "wu_outer": wu_outer_cuda,
+            "wu_outer_slots": wu_outer_slots_cuda,
             "flash_fwd": flash_fwd_cuda, "flash_bwd_dkv": flash_bwd_dkv_cuda,
             "flash_bwd_dq": flash_bwd_dq_cuda}
 
@@ -689,10 +792,12 @@ def serve(torch, params, task):
     launches = {name: c.launches for name, c in counters.items()}
     steps = sched.grid.stats["steps"]
     per_step = steps * CHUNK_LEN * cfg.n_layers
-    # serving keeps its weights frozen: no weight update may launch, every
-    # nm_spmm launch carries the slots' deltas, and the SNN has no attention
+    # serving keeps its base weights frozen: the batch-summed update never
+    # launches, the per-slot one once per layer-timestep (in place, into the
+    # slots' deltas), every nm_spmm launch carries the slots' deltas, and the
+    # SNN has no attention
     want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
-            "wu_outer": 0, **NO_ATTN}
+            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN}
     if len(done) != N_STREAMS:
         raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
     short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
@@ -701,7 +806,7 @@ def serve(torch, params, task):
     if launches != want:
         raise AssertionError(f"serving launched {launches}, want {want} "
                              f"({steps} steps x {CHUNK_LEN} x {cfg.n_layers} "
-                             f"for nm_spmm and lif)")
+                             f"for nm_spmm, lif and wu_outer_slots)")
     if not bool(torch.isfinite(sched.deltas).all()):
         raise AssertionError("non-finite serving deltas")
     if not all(bool(torch.isfinite(torch.from_numpy(s.final_deltas)).all())
@@ -804,33 +909,51 @@ def path_parity(torch, params, task):
     """One chunk through backend "kernels" and backend "ref", under the
     spike rule of :func:`spike_rule` (agreement >= 99.9 %).
 
-    Both backends take the same ``nm_spmm`` kernel for the current, so they
-    differ only in how ``αv + I`` is rounded (the Triton kernel may fuse it
-    into one FMA)."""
+    The windows start one step before the ``tr_pc`` snapshot (t 24 of 50),
+    so the chunk (t 24-31) latches it and reaches the weight update (t >= 30)
+    with a non-zero modulator: the per-slot update must run (``sop_wu`` > 0,
+    deltas non-zero) and the deltas agree. Both backends take the same
+    ``nm_spmm`` and ``wu_outer_slots`` kernels, so they differ only in how
+    ``αv + I`` is rounded (the Triton kernel may fuse it into one FMA)."""
     import numpy as np
     from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
                                       run_chunk, serving_params)
     n_slots = 64
+    cfg = paper_config("kernels")
+    t0 = int(cfg.t_steps * cfg.pc_snapshot_frac) - 1
+    t_wu = int(cfg.t_steps * cfg.wu_start_frac)
+    if not t0 + CHUNK_LEN > t_wu:
+        raise AssertionError(f"the chunk from t {t0} never reaches t_wu {t_wu}")
     rng = np.random.default_rng(0)
-    ev = np.stack([task.sample(rng, 1)[0][:CHUNK_LEN, 0]
+    ev = np.stack([task.sample(rng, 1)[0][t0:t0 + CHUNK_LEN, 0]
                    for _ in range(n_slots)], axis=1)           # [C, S, n_in]
     events = torch.from_numpy(ev).cuda()
     valid = torch.ones((CHUNK_LEN, n_slots), dtype=torch.bool, device="cuda")
     out = {}
     for backend in ("kernels", "ref"):
         cfg = paper_config(backend)
+        state = init_stream_state(cfg, n_slots, "cuda")._replace(
+            t_in_window=torch.full((n_slots,), t0, dtype=torch.int32,
+                                   device="cuda"))
         out[backend] = record_lif(cfg, lambda: run_chunk(
             serving_params(params, cfg),
-            init_stream_deltas(cfg, n_slots, "cuda"),
-            init_stream_state(cfg, n_slots, "cuda"), events, valid, cfg))
-    ((_, _, mk), sk, _), ((_, _, mr), sr, pr) = out["kernels"], out["ref"]
+            init_stream_deltas(cfg, n_slots, "cuda"), state, events, valid,
+            cfg))
+    ((dk, _, mk), sk, _), ((dr, _, mr), sr, pr) = out["kernels"], out["ref"]
     err = max_err(mk.logits, mr.logits)
-    ok = torch.allclose(mk.logits, mr.logits, atol=1e-4, rtol=1e-4)
-    rec = {"slots": n_slots, "chunk_len": CHUNK_LEN,
-           "logits_max_abs_err": err, **spike_rule(torch, sk, sr, pr, cfg.theta)}
+    ok = (torch.allclose(mk.logits, mr.logits, atol=1e-4, rtol=1e-4)
+          and torch.allclose(dk, dr, atol=1e-6, rtol=1e-4))
+    rec = {"slots": n_slots, "chunk_len": CHUNK_LEN, "t_in_window": t0,
+           "t_wu": t_wu, "logits_max_abs_err": err,
+           "sop_wu": float(mk.sop_wu.sum()),
+           "deltas_nonzero": int((dk != 0).sum()),
+           "deltas_max_abs": float(dk.abs().max()),
+           "deltas_max_abs_err": max_err(dk, dr),
+           **spike_rule(torch, sk, sr, pr, cfg.theta)}
     log(f"path_parity {json.dumps(rec)}")
     if not ok or not rec["first_flips_near_theta"] \
-            or rec["spike_agreement_where_fired"] < 0.999:
+            or rec["spike_agreement_where_fired"] < 0.999 \
+            or not rec["sop_wu"] > 0 or not rec["deltas_nonzero"]:
         raise AssertionError(f"kernels vs ref path: {rec}")
     return rec
 
@@ -880,11 +1003,12 @@ def train(torch, task):
 
     want = (TRAIN_SAMPLES + 1) * cfg.t_steps * cfg.n_layers
     for name, n in launches.items():
-        if n != (0 if name in NO_ATTN or name == "nm_spmm_fused" else want):
+        if n != (0 if name in NO_ATTN or name in ("nm_spmm_fused",
+                                                   "wu_outer_slots") else want):
             raise AssertionError(f"{name} launched {n} times in training, want "
                                  f"{want} (= {TRAIN_SAMPLES} + 1 samples x "
                                  f"{cfg.t_steps} x {cfg.n_layers}; flash and "
-                                 f"the fused delta 0)")
+                                 f"the per-slot deltas 0)")
     if [i for i, _, _ in epochs] != [39, 79]:
         raise AssertionError(f"DSST epochs after samples {[e[0] for e in epochs]}")
     epoch_recs = []
@@ -999,7 +1123,7 @@ def lm_serve(torch, cfg, params):
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
-            **NO_ATTN, "flash_fwd": cfg.n_layers}
+            "wu_outer_slots": 0, **NO_ATTN, "flash_fwd": cfg.n_layers}
     if launches != want:
         raise AssertionError(f"LM serving launched {launches}, want {want} "
                              f"(one prefill of {cfg.n_layers} layers, none in "
@@ -1146,7 +1270,8 @@ def lm_train(torch):
                       + param_leaves(opt_state.v))
     L = cfg.n_layers
     want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
-            "flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L}
+            "wu_outer_slots": 0, "flash_fwd": 2 * L, "flash_bwd_dkv": L,
+            "flash_bwd_dq": L}
     steps = []
     total = {name: 0 for name in want}
     torch.cuda.reset_peak_memory_stats()
@@ -1418,6 +1543,8 @@ def main() -> int:
                    ("paper", torch.bfloat16, TRAIN_BATCH, paper),
                    ("tiled", torch.float32, 128, tiled),
                    ("ragged", torch.float32, 13, paper))]
+    slot_recs = [wu_slots_case(torch, name, frac)
+                 for name, frac in (("all_open", 1.0), ("open40", 0.4))]
     bf16 = torch.bfloat16
     fa_recs = [flash_case(torch, *case) for case in (
         ("prefill", bf16, LM_BATCH, LM_PROMPT, 40, 10, 128, None),
@@ -1441,7 +1568,8 @@ def main() -> int:
         ("dh64_ragged", bf16, 2, 1000, 16, 4, 64, None))]
     record["parity"] = {"nm_spmm": nm_recs, "nm_spmm_fused": fused_recs,
                         "lif": lif_recs,
-                        "wu_outer": wu_recs, "flash_fwd": fa_recs,
+                        "wu_outer": wu_recs, "wu_outer_slots": slot_recs,
+                        "flash_fwd": fa_recs,
                         "flash_bwd_dkv": [r["dkv"] for r in bwd_recs],
                         "flash_bwd_dq": [r["dq"] for r in bwd_recs]}
     record["card_tests"] = card_tests()
@@ -1506,7 +1634,12 @@ def main() -> int:
         row("lif", "triton", "src/repro_torch/kernels/lif/kernel.py",
             "src/repro/kernels/lif/kernel.py:27", lif_recs[0]),
         row("wu_outer", "cuda", "src/repro_torch/kernels/wu_outer/wu_outer.cu",
-            "src/repro/kernels/wu_outer/kernel.py:42", wu_recs[0]),
+            "src/repro/kernels/wu_outer/kernel.py:42", wu_recs[0]["fused"]),
+        # the per-slot update has no Pallas kernel: it serves the jnp
+        # wu_outer_slots (src/repro/kernels/wu_outer/ref.py:26) in place
+        row("wu_outer_slots", "cuda",
+            "src/repro_torch/kernels/wu_outer/wu_outer.cu",
+            "src/repro/kernels/wu_outer/kernel.py:42", slot_recs[0]),
         row("flash_fwd", "cuda", "src/repro_torch/kernels/flash_attn/flash_attn.cu",
             "src/repro/kernels/flash_attn/kernel.py:73", fa_recs[0]),
         row("flash_bwd_dkv", "cuda", "src/repro_torch/kernels/flash_attn/flash_bwd.cu",

@@ -18,8 +18,13 @@ block ids ``idx [L, J, T]``), whose forward current goes through
 Training carries the weight rep :func:`prepare_weights` picks: ``"ref"``
 the dense ``{"w", "mask_f"}`` (a plain ``pre @ w`` and a masked dense WU),
 ``"kernels"`` the compact rep (``nm_spmm``, ``lif`` and ``wu_outer``
-kernels on CUDA tensors, their plain versions on CPU tensors). Every step
-returns fresh tensors and never writes into its inputs.
+kernels on CUDA tensors, their plain versions on CPU tensors).
+
+Nothing here writes into a caller's tensors: every step returns fresh
+tensors. The one update in place is the serving WU: :func:`scan_chunk`
+copies the deltas once at the start of a chunk (the copy it returns, so a
+chunk makes one full-delta copy, as before) and each layer-timestep adds
+its per-slot update into that copy (``wu_outer_slots_update``).
 """
 from __future__ import annotations
 
@@ -239,12 +244,13 @@ def lif(backend: Backend, cfg, v, tr, current):
 def train_wu(cfg, w_l, pre_trace, mod, scale):
     """Gated three-factor WU into the base weights (training path). The
     sparsity pattern comes from the weight rep: kept block ids for the
-    compact rep (through ``wu_outer``), the dense float mask for ``ref``."""
+    compact rep (through ``wu_outer_apply``: the update and the add in one
+    launch, into fresh weights), the dense float mask for ``ref``."""
     if "wc" in w_l:
         spec = cfg.spec(cfg.layer_fanins[0])
-        dwc = wu_ops.wu_outer(pre_trace, mod, w_l["idx"], scale,
-                              bk=spec.block, bo=spec.out_tile)
-        return {**w_l, "wc": w_l["wc"] + dwc}
+        wc = wu_ops.wu_outer_apply(w_l["wc"], pre_trace, mod, w_l["idx"],
+                                   scale, bk=spec.block, bo=spec.out_tile)
+        return {**w_l, "wc": wc}
     dw = scale * (pre_trace.T @ mod)
     return {**w_l, "w": w_l["w"] + dw * w_l["mask_f"]}
 
@@ -297,7 +303,8 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
     """SI + gated WU for ONE layer at ONE timestep — training and serving.
 
     Serving (``valid [S]`` bool, ``t_row [S]``): every quantity is per
-    slot, the update goes into the per-slot compact deltas, and invalid
+    slot, the update goes into the per-slot compact deltas in place
+    (``xs.delta`` is a layer of :func:`scan_chunk`'s own copy), and invalid
     slots are exact no-ops on state and telemetry; ``factors`` selects
     whether the per-slot DSST activity magnitudes are computed at all.
     Training is the ``valid=None`` case: ``t_row`` is the host timestep
@@ -331,11 +338,13 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
         open_ = open_ & valid
         new_mean = torch.where(valid, new_mean, xs.ss_mean)
         wu_on = open_ & (t_row >= t_wu) & learn
-        # compact per-slot WU: the outer product lands only in kept blocks
+        # compact per-slot WU, in place: the outer product lands only in
+        # kept blocks
         spec = cfg.spec(geo.fanins[0])
         scale = torch.where(wu_on, cfg.lr, 0.0)
-        delta_new = xs.delta + wu_ops.wu_outer_slots(
-            pre_tr, mod, xs.w["idx"], scale, bk=spec.block, bo=spec.out_tile)
+        delta_new = wu_ops.wu_outer_slots_update(
+            xs.delta, pre_tr, mod, xs.w["idx"], scale, bk=spec.block,
+            bo=spec.out_tile)
         w_new, opened_new, offered_new = xs.w, None, None
         if factors:
             valf = valid.to(tr.dtype)[:, None]
@@ -479,7 +488,9 @@ def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
     deltas[, acc_pre, acc_post])`` and per-timestep ``outs`` stacked
     ``[C, ...]``. With ``want_factors`` the per-slot DSST activity factors
     (``acc_pre [L, S, Kmax]``, ``acc_post [L, S, N]``) accumulate over the
-    chunk; without, they are never computed.
+    chunk; without, they are never computed. ``deltas`` is not written: the
+    chunk copies it once, updates the copy in place every layer-timestep and
+    returns it.
     """
     geo = geometry(cfg)
     t_pc, t_wu = _windows(cfg)
@@ -490,7 +501,9 @@ def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
     # per-layer state, contiguous [S, N] (the LIF kernel takes dense rows)
     st = [LayerState(*(leaf[l].contiguous() for leaf in layers))
           for l in range(n_layers)]
-    dls = [deltas[l] for l in range(n_layers)]
+    # the chunk's own copy of the deltas, slot-leading like the public layout
+    own = deltas.transpose(0, 1).clone(
+        memory_format=torch.contiguous_format).transpose(0, 1)
     ssm = [ss_mean[l] for l in range(n_layers)]
     wl = [{"wc": wrep["wc"][l], "idx": wrep["idx"][l]}
           for l in range(n_layers)]
@@ -516,12 +529,12 @@ def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
         opens = []
         for l in range(n_layers):
             xs = LayerSlice(w=wl[l], readout=readout[l], st=st[l],
-                            ss_mean=ssm[l], delta=dls[l], fanin=fan[l],
+                            ss_mean=ssm[l], delta=own[l], fanin=fan[l],
                             density=dens[l])
             carry, out = _layer_timestep(cfg, backend, geo, learn,
                                          want_factors, t_pc, t_wu, t_w, val,
                                          carry, xs)
-            st[l], dls[l], ssm[l] = out.st, out.delta, out.ss_mean
+            st[l], ssm[l] = out.st, out.ss_mean
             opens.append(out.open_)
             if want_factors:
                 acc_pre[l] = acc_pre[l] + out.pre_mag
@@ -551,8 +564,7 @@ def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
 
     layers_out = LayerState(*(_stack_layers([s[i] for s in st])
                               for i in range(4)))
-    carry = (layers_out, x_tr, _stack_layers(ssm), t_w, samp,
-             _stack_layers(dls))
+    carry = (layers_out, x_tr, _stack_layers(ssm), t_w, samp, own)
     if want_factors:
         carry = carry + (_stack_layers(acc_pre), _stack_layers(acc_post))
     return carry, {k: torch.stack(v) for k, v in outs.items()}

@@ -12,7 +12,9 @@ runs it so, as a phase whose failure fails the run.
 Tolerances: f32 ``1e-5`` on small shapes and ``1e-4`` at the paper shape
 (104-term sums in another order than the plain einsum); bf16 ``5e-2`` for
 ``nm_spmm`` (both round the f32 sum to an 8-bit mantissa) and ``2e-2`` for
-``wu_outer`` (the plain version rounds twice, the kernel once); the LIF step
+``wu_outer`` (the plain version rounds twice, the kernel once), with or
+without the add into the weights; the per-slot ``wu_outer_slots`` update
+in place bit for bit (the kernel rounds as the plain version does); the LIF step
 ``1e-5`` (the kernel may fuse ``αv + I`` into one FMA); flash attention per
 element within ``ref.bf16_out_tolerance`` / ``ref.bf16_grad_tolerance``
 (bf16) or ``1e-5`` / ``1e-4`` of the largest element (f32). A row of
@@ -186,12 +188,14 @@ def test_kernel_counters_count_only_real_launches(cuda):
     assert lif_cuda.launches == before[2] + 1
 
 
+WU_CASES = [(16, 512, 512, 1, 1, 26, 128),     # the training path (paper spec)
+            (13, 512, 512, 1, 1, 26, 128),     # ragged batch
+            (128, 512, 512, 16, 32, 2, 8),     # tiled spec
+            (37, 64, 48, 4, 8, 1, 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k,o,bk,bo,n,m", [
-    (16, 512, 512, 1, 1, 26, 128),       # the training path (paper spec)
-    (13, 512, 512, 1, 1, 26, 128),       # ragged batch
-    (128, 512, 512, 16, 32, 2, 8),       # tiled spec
-    (37, 64, 48, 4, 8, 1, 2)])
+@pytest.mark.parametrize("b,k,o,bk,bo,n,m", WU_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wu_outer_kernel_matches_plain_on_card(cuda, b, k, o, bk, bo, n, m,
                                                dtype):
@@ -210,6 +214,152 @@ def test_wu_outer_kernel_matches_plain_on_card(cuda, b, k, o, bk, bo, n, m,
     zero = wu_ops.wu_outer(pre, mod, idx, torch.zeros((), device=cuda),
                            bk=bk, bo=bo)
     assert bool((zero == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,o,bk,bo,n,m", WU_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wu_outer_apply_matches_plain_on_card(cuda, b, k, o, bk, bo, n, m,
+                                              dtype):
+    """The training path's update with the add fused in: ``wc + dw`` in a
+    fresh tensor from one launch, against the plain ``wc + wu_outer`` in
+    f32; a closed gate gives ``wc`` bit for bit."""
+    _, wc, idx = _sparse_case(10, k, o, NMSpec(n=n, m=m, block=bk, out_tile=bo), b)
+    g = torch.Generator().manual_seed(10)
+    pre = torch.rand((b, k), generator=g).to(cuda, dtype)
+    mod = torch.randn((b, o), generator=g).to(cuda, dtype)
+    wc, idx = wc.to(cuda, dtype), idx.to(cuda)
+    before = wu_kernel.wu_outer_cuda.launches
+    got = wu_ops.wu_outer_apply(wc, pre, mod, idx, 0.02, bk=bk, bo=bo)
+    assert wu_kernel.wu_outer_cuda.launches == before + 1
+    assert got.dtype == dtype and got.data_ptr() != wc.data_ptr()
+    scale = torch.tensor(0.02, dtype=dtype).float()
+    want = wc.float() + wu_ref.wu_outer(pre.float(), mod.float(), idx, scale,
+                                        bk, bo)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    closed = wu_ops.wu_outer_apply(wc, pre, mod, idx,
+                                   torch.zeros((), device=cuda), bk=bk, bo=bo)
+    assert torch.equal(closed, wc) and closed.data_ptr() != wc.data_ptr()
+
+
+# (S, K, N, bk, bo, n, m): the serving path (T 104, 16-byte vectors), a
+# tiled spec (16-byte vectors over kept blocks), T = 6 (scalar vectors)
+WU_SLOT_CASES = [(1024, 512, 512, 1, 1, 26, 128),
+                 (37, 64, 48, 4, 8, 1, 2),
+                 (9, 12, 6, 1, 1, 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,k,o,bk,bo,n,m", WU_SLOT_CASES)
+def test_wu_outer_slots_kernel_bitwise_through_the_slot_stride(cuda, s, k, o,
+                                                               bk, bo, n, m):
+    """The in-place per-slot kernel on one layer of slot-leading deltas
+    ``[S, 2, J, T, bk, bo]`` equals ``delta + ref.wu_outer_slots`` bit for
+    bit, with mixed gates; closed slots and the other layer are not
+    written (a -0 stays -0); a slot updated alone equals the same slot
+    updated in the batch."""
+    _, wc, idx = _sparse_case(12, k, o, NMSpec(n=n, m=m, block=bk, out_tile=bo), 1)
+    g = torch.Generator().manual_seed(12)
+    pre = torch.rand((s, k), generator=g).to(cuda)
+    mod = torch.randn((s, o), generator=g).to(cuda)
+    gate = torch.rand(s, generator=g) < 0.4
+    gate[0], gate[-1] = False, True
+    scale = torch.where(gate, 0.02, 0.0).to(cuda)
+    deltas = 0.01 * torch.randn((s, 2, *wc.shape), generator=g)
+    deltas[0, 1].view(-1)[:3] = -0.0
+    deltas, idx = deltas.to(cuda), idx.to(cuda)
+    before = deltas.clone()
+    view = deltas[:, 1]
+    want = view + wu_ref.wu_outer_slots(pre, mod, idx, scale, bk, bo)
+    n0 = wu_kernel.wu_outer_slots_cuda.launches
+    got = wu_ops.wu_outer_slots_update(view, pre, mod, idx, scale, bk=bk, bo=bo)
+    assert wu_kernel.wu_outer_slots_cuda.launches == n0 + 1
+    assert got.data_ptr() == view.data_ptr()
+    assert torch.equal(deltas[:, 1], want)
+    closed = ~gate.to(cuda)
+    assert torch.equal(deltas[closed, 1].view(torch.int32),
+                       before[closed, 1].view(torch.int32))
+    assert torch.equal(deltas[:, 0].view(torch.int32),
+                       before[:, 0].view(torch.int32))
+    for r in (0, s // 2, s - 1):
+        alone = before[r:r + 1, 1].clone()
+        wu_ops.wu_outer_slots_update(alone, pre[r:r + 1], mod[r:r + 1], idx,
+                                     scale[r:r + 1], bk=bk, bo=bo)
+        assert torch.equal(alone.view(torch.int32),
+                           deltas[r:r + 1, 1].view(torch.int32)), r
+
+
+@pytest.mark.cuda
+def test_wu_outer_slots_kernel_raises_on_what_it_does_not_take(cuda):
+    _, wc, idx = _sparse_case(13, 512, 512, paper_spec_4groups(512, 0.8), 1)
+    s = 4
+    pre, mod = torch.rand((s, 512), device=cuda), torch.rand((s, 512), device=cuda)
+    scale, idx = torch.full((s,), 0.02, device=cuda), idx.to(cuda)
+    delta = torch.zeros((s, *wc.shape), device=cuda)
+    n0 = wu_kernel.wu_outer_slots_cuda.launches
+    with pytest.raises(TypeError):              # bf16 deltas: f32 only
+        wu_ops.wu_outer_slots_update(delta.bfloat16(), pre.bfloat16(),
+                                     mod.bfloat16(), idx, scale, bk=1, bo=1)
+    with pytest.raises(ValueError):             # slots overlap
+        wu_ops.wu_outer_slots_update(delta[:1].expand(s, *wc.shape), pre, mod,
+                                     idx, scale, bk=1, bo=1)
+    with pytest.raises(ValueError):             # a slot's block not contiguous
+        wu_ops.wu_outer_slots_update(
+            delta.transpose(1, 2).contiguous().transpose(1, 2), pre, mod, idx,
+            scale, bk=1, bo=1)
+    with pytest.raises(ValueError):             # idx out of shape
+        wu_ops.wu_outer_slots_update(delta, pre, mod, idx[:, :8], scale, bk=1,
+                                     bo=1)
+    assert wu_kernel.wu_outer_slots_cuda.launches == n0
+
+
+@pytest.mark.cuda
+def test_serving_chunk_through_the_wu_kernel_equals_the_plain_update(
+        cuda, monkeypatch):
+    """One full-width serving chunk (512-512-512-16, T 50, 1024 slots) with
+    every window past ``t_wu`` and random traces, so gates open and the WU
+    moves the deltas: through the in-place kernel and again through the
+    plain ``delta + ref.wu_outer_slots``, deltas and logits equal bit for
+    bit (the other kernels are deterministic, without atomics)."""
+    import dataclasses
+    from repro_torch.configs.elfcore_snn import CONFIG
+    from repro_torch.core import engine
+    from repro_torch.core.snn import (init_params, init_stream_deltas,
+                                      init_stream_state, run_chunk,
+                                      serving_params)
+    cfg = dataclasses.replace(CONFIG, backend="kernels")
+    s, c = 1024, 8
+    params = serving_params(init_params(0, cfg, device=cuda), cfg)
+    g = torch.Generator().manual_seed(11)
+    deltas = 0.01 * torch.randn(init_stream_deltas(cfg, s, "cpu").shape,
+                                generator=g)
+    st = init_stream_state(cfg, s, "cpu")
+    t_wu = int(cfg.t_steps * cfg.wu_start_frac)
+    st = st._replace(
+        layers=type(st.layers)(*(torch.rand(t.shape, generator=g)
+                                 for t in st.layers)),
+        t_in_window=torch.randint(t_wu, cfg.t_steps - c + 1, (s,), generator=g,
+                                  dtype=torch.int32))
+    st = type(st)(type(st.layers)(*(t.to(cuda) for t in st.layers)),
+                  *(t.to(cuda) for t in st[1:]))
+    events = (torch.rand((c, s, cfg.n_in), generator=g) < 0.05).float().to(cuda)
+    valid = (torch.rand((c, s), generator=g) < 0.9).to(cuda)
+    deltas = deltas.to(cuda)
+    before = deltas.clone()
+    n0 = wu_kernel.wu_outer_slots_cuda.launches
+    d_k, _, m_k = run_chunk(params, deltas, st, events, valid, cfg)
+    assert wu_kernel.wu_outer_slots_cuda.launches == n0 + c * cfg.n_layers
+
+    def plain(delta, pre, mod, idx, scale, *, bk, bo):
+        return delta.add_(wu_ref.wu_outer_slots(pre, mod, idx, scale, bk, bo))
+    monkeypatch.setattr(engine.wu_ops, "wu_outer_slots_update", plain)
+    d_p, _, m_p = run_chunk(params, deltas, st, events, valid, cfg)
+    assert wu_kernel.wu_outer_slots_cuda.launches == n0 + c * cfg.n_layers
+    assert torch.equal(deltas, before)           # the input is never written
+    assert float(m_k.sop_wu.sum()) > 0.0 and not torch.equal(d_k, before)
+    assert torch.equal(d_k, d_p)
+    assert torch.equal(m_k.logits, m_p.logits)
 
 
 # ------------------------------------------------------------ flash attention

@@ -5,8 +5,9 @@ Tolerances: f32 products ``atol = rtol = 1e-5`` — the two packages sum the
 same terms in different orders, so only the last bits may differ. bf16
 ``5e-2``, the reference's own kernel-test tolerance: both round the f32 sum
 to an 8-bit mantissa. ``wu_outer`` f32 ``1e-5`` (batch sums of up to 16
-terms in another order). ``make_compact`` ids and ``wu_outer_slots`` must be
-bitwise equal: a stable argsort and elementwise products in one fixed
+terms in another order), also with the add into the weights fused in
+(``wu_outer_apply``). ``make_compact`` ids, ``wu_outer_slots`` and the
+in-place ``wu_outer_slots_update`` must be bitwise equal: a stable argsort and elementwise products in one fixed
 association leave nothing to round differently. The LIF step in f32:
 ``1e-4``, the reference's kernel-sweep tolerance (only an FMA contraction
 may differ); in bf16 ``5e-2``: XLA keeps the fused intermediates in f32
@@ -159,6 +160,35 @@ def test_wu_outer_slots_bitwise_equal_to_reference(s, k, o, bk, bo):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("s,k,o,bk,bo", [(4, 16, 16, 1, 1), (8, 32, 16, 4, 8),
+                                         (3, 64, 32, 8, 16)])
+def test_wu_outer_slots_update_bitwise_through_a_slot_strided_view(s, k, o, bk,
+                                                                     bo):
+    """The in-place op on one layer of slot-leading ``[S, L, ...]`` deltas
+    (slots ``L·J·T·bk·bo`` elements apart) equals the reference's ``delta +
+    wu_outer_slots`` bit for bit, with some slots closed; the other layers
+    are untouched."""
+    pre, mod, idx, scale = _wu_case(3, s, k, o, bk, bo)
+    scale[0], scale[-1] = 0.0, 0.02          # at least one closed, one open
+    j, t = idx.shape
+    rng = np.random.default_rng(3)
+    big = (0.01 * rng.standard_normal((s, 3, j, t, bk, bo))).astype(np.float32)
+    want = big[:, 1] + np.asarray(jwu_ref.wu_outer_slots(
+        jnp.asarray(pre), jnp.asarray(mod), jnp.asarray(idx),
+        jnp.asarray(scale), bk, bo))
+    deltas = torch.tensor(big)
+    view = deltas[:, 1]
+    assert view.stride(0) == 3 * j * t * bk * bo
+    got = wu_ops.wu_outer_slots_update(view, _t(pre), _t(mod),
+                                       torch.tensor(idx), _t(scale), bk=bk,
+                                       bo=bo)
+    assert got.data_ptr() == view.data_ptr()
+    np.testing.assert_array_equal(deltas[:, 1].numpy(), want)
+    np.testing.assert_array_equal(deltas[:, 0].numpy(), big[:, 0])
+    np.testing.assert_array_equal(deltas[:, 2].numpy(), big[:, 2])
+    np.testing.assert_array_equal(deltas[0, 1].numpy(), big[0, 1])   # closed
+
+
 def test_wu_outer_batch_summed_matches_reference():
     pre, mod, idx, _ = _wu_case(4, 8, 32, 16, 4, 8)
     want = jwu_ref.wu_outer(jnp.asarray(pre), jnp.asarray(mod),
@@ -201,6 +231,32 @@ def test_wu_outer_paper_shape_matches_jnp_ref():
                                rtol=1e-5)
 
 
+def test_wu_outer_apply_paper_shape_matches_reference():
+    """The training path's update with the add into the compact weights
+    (``ops.wu_outer_apply``) against the reference's ``wc + wu_outer`` at B
+    = 16, K = N = 512, T = 104: ``atol = rtol = 1e-5`` (the batch sum of 16
+    terms in another order; the add rounds alike). A closed gate returns
+    ``wc`` itself, bit for bit, in a fresh tensor."""
+    spec = jsp.paper_spec_4groups(512, 0.8)
+    x, w, mask = _sparse_case(9, 512, 512, 1, 1, spec.n, spec.m, spikes=True)
+    wc, idx = jnm_ops.make_compact(jnp.asarray(w), jnp.asarray(mask), 1, 1)
+    mod = np.random.default_rng(9).standard_normal((16, 512)).astype(np.float32)
+    lr = jnp.float32(0.02 / 16)
+    want = wc + jwu_ref.wu_outer(jnp.asarray(x), jnp.asarray(mod), idx, lr, 1, 1)
+    wct = _t(wc)
+    got = wu_ops.wu_outer_apply(wct, _t(x), _t(mod),
+                                torch.tensor(np.asarray(idx)),
+                                torch.tensor(0.02 / 16), bk=1, bo=1)
+    assert tuple(got.shape) == (512, 104, 1, 1)
+    assert not bool((got == wct).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    closed = wu_ops.wu_outer_apply(wct, _t(x), _t(mod),
+                                   torch.tensor(np.asarray(idx)), 0.0, bk=1,
+                                   bo=1)
+    assert closed.data_ptr() != wct.data_ptr() and torch.equal(closed, wct)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wu_outer_closed_gate_is_exactly_zero(dtype):
     pre, mod, idx, _ = _wu_case(7, 8, 32, 16, 4, 8)
@@ -234,9 +290,67 @@ def test_wu_outer_launch_config_covers_every_output_within_shared_memory(
         assert (hi // per_tile - lo + 1) * bo <= cfg.mw
 
 
+@pytest.mark.parametrize("b,k,j,t", [
+    (16, 512, 512, 104),     # the training path (paper spec)
+    (13, 512, 512, 104),     # ragged batch
+    (1, 16, 1, 1),           # one output
+    (64, 48, 5, 128),        # two row chunks, a full pass of t
+    (16, 48, 7, 129),        # a second pass of t
+    (16, 512, 512, 1024),    # eight passes
+    (16, 30000, 4, 8),       # must shrink the row chunk to fit
+])
+def test_wu_outer_gather_launch_config_covers_every_output_once(b, k, j, t):
+    """A warp per output neuron, its lanes on t: every (j, t) is owned by
+    exactly one (block, warp, pass, lane, position); the staged rows of pre
+    fit one block's shared memory."""
+    assert wu_kernel.takes_gather_kernel(1, 1)
+    assert not wu_kernel.takes_gather_kernel(4, 8)
+    cfg = wu_kernel.gather_launch_config(b, k, j, t)
+    assert 1 <= cfg.bc <= min(b, wu_kernel.ROW_TARGET)
+    assert cfg.smem_bytes <= wu_kernel.SMEM_LIMIT
+    assert cfg.smem_bytes >= 4 * cfg.bc * (k + wu_kernel.GATHER_WARPS)
+    w, tpl = wu_kernel.GATHER_WARPS, wu_kernel.GATHER_T_PER_LANE
+    assert cfg.threads == 32 * w
+    assert cfg.nblocks * w >= j > (cfg.nblocks - 1) * w
+    assert cfg.passes * 32 * tpl >= t > (cfg.passes - 1) * 32 * tpl
+    seen = np.zeros(t, np.int64)
+    for p in range(cfg.passes):
+        for lane in range(32):
+            for i in range(tpl):
+                tt = p * 32 * tpl + lane + 32 * i
+                if tt < t:
+                    seen[tt] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("s,j,t,bk,bo,aligned,vec", [
+    (1024, 512, 104, 1, 1, True, 4),     # the serving path (paper spec)
+    (1024, 512, 104, 1, 1, False, 1),    # misaligned: scalar vectors
+    (9, 6, 6, 1, 1, True, 1),            # T not a multiple of 4
+    (37, 6, 8, 4, 8, True, 4),           # tiled spec
+    (3, 5, 3, 1, 3, True, 1),            # rows of 9 elements
+    (70000, 2, 4, 1, 1, True, 4),        # more slots than a grid column
+    (0, 512, 104, 1, 1, True, 4),        # no slots: an empty grid
+])
+def test_wu_outer_slots_launch_config_covers_every_element_once(
+        s, j, t, bk, bo, aligned, vec):
+    cfg = wu_kernel.slots_launch_config(s, j, t, bk, bo, aligned)
+    assert cfg.vec == vec
+    gx, gy = cfg.grid
+    per_block = wu_kernel.SLOT_THREADS * wu_kernel.SLOT_VECTORS
+    nvec = j * t * bk * bo // vec
+    assert gx * per_block >= nvec > (gx - 1) * per_block
+    assert gy == min(s, wu_kernel.MAX_GRID_Y)
+    # a column of blocks walks slots y, y + gy, ...: every slot once
+    walked = sorted(sl for y in range(gy) for sl in range(y, s, gy))
+    assert walked == list(range(s))
+
+
 def test_wu_outer_launch_config_rejects_shapes_that_cannot_fit():
     with pytest.raises(ValueError):
         wu_kernel.launch_config(16, 1 << 17, 4, 4, 1, 1, 4)
+    with pytest.raises(ValueError):
+        wu_kernel.gather_launch_config(16, 1 << 16, 4, 4)
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -190,6 +190,29 @@ def test_chunk_fn_freezes_idle_and_frozen_lanes(params):
     assert float(delta_norms(out)[2]) == float(delta_norms(deltas)[2])
 
 
+def test_run_chunk_never_writes_its_input_deltas(params):
+    """The chunk adds its weight updates in place into its own copy of the
+    deltas: across a chunk whose windows reach ``t >= t_wu`` (WU on), the
+    caller's deltas and state stay bit for bit as they were, and the
+    returned deltas are a fresh tensor that did learn."""
+    from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
+                                      run_chunk, serving_params)
+    g = torch.Generator().manual_seed(4)
+    sp = serving_params(params, CFG)
+    deltas = 0.01 * torch.randn(init_stream_deltas(CFG, 3, "cpu").shape,
+                                generator=g)
+    st = init_stream_state(CFG, 3, "cpu")
+    before = deltas.clone(), [t.clone() for t in st.layers]
+    ev = torch.tensor(np.stack([_events(s, 6, 0.5) for s in range(3)], 1))
+    assert int(CFG.t_steps * CFG.wu_start_frac) < 6         # WU in the chunk
+    out, _, m = run_chunk(sp, deltas, st, ev, torch.ones((6, 3), dtype=bool),
+                          CFG)
+    assert torch.equal(deltas, before[0])
+    assert all(torch.equal(a, b) for a, b in zip(st.layers, before[1]))
+    assert out.data_ptr() != deltas.data_ptr() and out.is_contiguous()
+    assert float(m.sop_wu.sum()) > 0.0 and not torch.equal(out, deltas)
+
+
 def test_lane_surgery_touches_one_lane_only(params):
     from repro_torch.core.snn import init_stream_deltas, init_stream_state
     from repro_torch.serving import read_lane, reset_lane, write_lane
