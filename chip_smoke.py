@@ -112,6 +112,42 @@ Phases, each raising on failure:
    step (block 0's CE gradient exactly zero, the readout's not); one masked
    N:M step (n 2 of m 8, block 32, MLP) with ``dsst_every=1``: every mask
    group keeps exactly 2 units after the event, and some moved.
+12. live topology under serving at full width: phase 4's fleet (the paper
+   network, 1024 slots, chunk 8, depth 1, 1024 gesture streams x 4
+   windows) with a ``TopologyService`` (``epoch_every`` 25 grid steps, the
+   hottest lane folded into the base each epoch) until drained. Every
+   stream must get 4 predictions, at least three epochs land under traffic,
+   one chunk fn is built (``n_compiles`` 1), ``nm_spmm`` (all fused),
+   ``lif`` and ``wu_outer_slots`` launch grid steps x 8 x 2 times and
+   ``wu_outer`` never; after each epoch (checked on the card right after
+   its swap) the N:M invariant holds, pruned = regrown = L x G x J x k with
+   k from ``DSSTConfig.k_for_event``, every lane but the merged one keeps
+   its surviving blocks' deltas bit for bit (old and new kept ids
+   compared) and regrown blocks are exactly 0; the deltas are finite.
+   Records events/s, step p50/p99, each epoch's host wall, peak memory and
+   the telemetry's topology rollup, then profiles one chunk step with the
+   DSST factors on (``factor_cost``: what they add to phase 4's step).
+13. serving parity across a swap: 64 slots, windows at t 24-31 then 32-39
+   (the update runs), one chunk, a forced epoch, one chunk, through backend
+   "kernels" and "ref": the masks after the epoch equal, logits within
+   1e-4, deltas within 1e-6 + 1e-4 relative, spikes under the rule of
+   phase 5. Then a dense-layout fleet (``compact=False``) and a compact one
+   serve the same 64 streams x 2 windows with epochs every 4 grid steps:
+   the same epochs and masks, logits and the deltas at kept coordinates
+   within 1e-5 (the layout tolerance of tests/test_compact_serving.py),
+   the dense deltas zero off the mask, ``nm_spmm`` unfused on the dense
+   fleet (``nm_spmm_fused`` and ``wu_outer_slots`` 0 there).
+14. checkpoints: phase 12's evolved fleet (1024 slots) through
+   ``save_fleet`` / ``restore_fleet``: params, mask, deltas and state bit
+   for bit, and one chunk from the restored fleet equal bit for bit to one
+   from the live fleet; the checkpoint restored into a dense fleet
+   (``compact=False``) and that saved and restored compact again, bitwise
+   at kept coordinates and zero elsewhere. Then LM training (phase 11's
+   Qwen2-VL-2B widths at 2 layers, 2 x 1024 tokens, deterministic
+   algorithms on): 6 steps straight through against 4 steps with a
+   single checkpoint after step 3 and a resume to 6 from a replayed
+   pipeline, the last loss and every param and AdamW moment bit for bit.
+   Records the bytes written and the save and restore walls.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -829,18 +865,19 @@ def serve(torch, params, task):
     return rec, launches
 
 
-def step_breakdown(torch, params):
+def step_breakdown(torch, params, want_factors=False):
     """Where one full-grid chunk step goes (1024 slots, all valid, 8
     timesteps). One untraced call gives the host's enqueue time and its wall
     to completion; one call under ``torch.profiler`` gives the device busy
     time (summed kernel durations), the device span (first kernel start to
     last kernel end) and that same call's wall, from which the idle share
-    is taken; with the largest kernels by name."""
+    is taken; with the largest kernels by name. ``want_factors``: the chunk
+    accumulates the DSST factors a live topology service reads."""
     from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
                                       serving_params)
     from repro_torch.serving import make_chunk_fn
     cfg = paper_config("kernels")
-    fn = make_chunk_fn(cfg, want_factors=False)
+    fn = make_chunk_fn(cfg, want_factors=want_factors)
     g = torch.Generator(device="cuda").manual_seed(0)
     S = N_STREAMS
     args = (serving_params(params, cfg), init_stream_deltas(cfg, S, "cuda"),
@@ -856,8 +893,8 @@ def step_breakdown(torch, params):
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    rec = {"slots": S, "chunk_len": CHUNK_LEN, "wall_ms": step_ms,
-           "enqueue_ms": enqueue_ms,
+    rec = {"slots": S, "chunk_len": CHUNK_LEN, "want_factors": want_factors,
+           "wall_ms": step_ms, "enqueue_ms": enqueue_ms,
            **trace_summary(torch, lambda: fn(*args))}
     log(f"step_breakdown {json.dumps(rec)}")
     return rec
@@ -1442,6 +1479,459 @@ def lm_train_parity(torch):
         raise AssertionError(f"LM training parity: {rec}")
     return rec
 
+# phases 12-14: the live topology service, the dense delta layout, checkpoints
+TOPO_EVERY, TOPO_MERGE_TOP = 25, 1
+PARITY_SLOTS = 64
+DENSE_WINDOWS, DENSE_EPOCH_EVERY = 2, 4
+DENSE_ATOL = 1e-5            # tests/test_compact_serving.py's layout tolerance
+RESUME_LAYERS, RESUME_S, RESUME_STEPS, RESUME_CKPT_AFTER = 2, 1024, 6, 3
+
+
+def watch_epochs(torch, sched):
+    """Wrap ``sched.maybe_evolve_topology`` so that every epoch that runs is
+    checked by :func:`check_epoch` right after its swap, against the mask
+    and deltas it read (an epoch writes neither). The check is only
+    enqueued on the card, behind the swap and ahead of the next chunk
+    (which updates the deltas in place), with no host wait, in slices of
+    slots (no full-size temporaries, so the run's peak memory is the
+    fleet's); :func:`read_epoch_check` reads its verdict after the serve.
+    The host time spent enqueuing is summed in ``checks["s"]``."""
+    checks = {"epochs": [], "s": 0.0}
+    orig = sched.maybe_evolve_topology
+
+    def watched(*args, **kw):
+        old_mask, old_deltas = sched.params["hidden"]["mask"], sched.deltas
+        event = orig(*args, **kw)
+        if event is not None:
+            t0 = time.perf_counter()
+            checks["epochs"].append(check_epoch(
+                torch, sched.cfg, event, old_mask, old_deltas,
+                sched.params["hidden"]["mask"], sched.deltas))
+            checks["s"] += time.perf_counter() - t0
+        return event
+    sched.maybe_evolve_topology = watched
+    return checks
+
+
+def check_epoch(torch, cfg, event, old_mask, old_deltas, new_mask, new_deltas,
+                slots_per_slice=128):
+    """One live epoch's gates, enqueued on the card without a host read:
+    the N:M invariant, pruned = regrown = L x G x J x k (k from
+    ``k_for_event`` at the epoch index), and compact deltas remapped by
+    kept ids: every lane outside the merged one keeps its surviving blocks'
+    bits (old and new ids compared), regrown blocks and the merged lane are
+    exactly zero. Returns the pending verdicts (0-d device tensors) for
+    :func:`read_epoch_check`."""
+    from repro_torch.core import topology
+    from repro_torch.core.sparsity import check_unit_mask
+    spec = cfg.spec(cfg.n_in)
+    kb, jj = spec.unit_counts(cfg.n_in, cfg.n_hidden)
+    k = cfg.dsst.k_for_event(spec, event.epoch)
+    old_ids = topology.stacked_kept_ids(old_mask, cfg)
+    new_ids = topology.stacked_kept_ids(new_mask, cfg)
+    eq = new_ids[..., :, None] == old_ids[..., None, :]          # [L, J, T, T]
+    hit, pos = eq.any(-1), eq.to(torch.uint8).argmax(-1)
+    lanes = torch.ones(new_deltas.shape[0], dtype=torch.bool,
+                       device=new_deltas.device)
+    for slot in event.merged_slots:
+        lanes[slot] = False
+    ok = torch.ones((), dtype=torch.bool, device=new_deltas.device)
+    survivors, regrown_zero, merged_zero = ok, ok, ok
+    for s0 in range(0, new_deltas.shape[0], slots_per_slice):
+        nd = new_deltas[s0:s0 + slots_per_slice]
+        od = torch.take_along_dim(old_deltas[s0:s0 + slots_per_slice],
+                                  pos[None, ..., None, None], dim=3)
+        lane = lanes[s0:s0 + slots_per_slice][:, None, None, None, None, None]
+        kept = hit[None, ..., None, None]
+        survivors = survivors & ((nd == od) | ~(lane & kept)).all()
+        regrown_zero = regrown_zero & ~torch.where(kept, 0.0, nd).any()
+        merged_zero = merged_zero & ~torch.where(lane, 0.0, nd).any()
+    return {"event": event, "k_per_group": k,
+            "expect": cfg.n_layers * (kb // spec.m) * jj * k,
+            "pruned": (old_mask & ~new_mask).sum(),
+            "regrown": (~old_mask & new_mask).sum(),
+            "nm": check_unit_mask(new_mask, spec),
+            "survivors": survivors, "regrown_zero": regrown_zero,
+            "merged_zero": merged_zero, "surviving_blocks": hit.sum(),
+            "regrown_blocks": (~hit).sum()}
+
+
+def read_epoch_check(pending):
+    """Read one :func:`check_epoch` verdict back and raise on a failed
+    gate; returns the epoch's record."""
+    event, expect = pending["event"], pending["expect"]
+    pruned, regrown = int(pending["pruned"]), int(pending["regrown"])
+    if not (event.pruned == event.regrown == pruned == regrown == expect):
+        raise AssertionError(f"epoch {event.epoch}: pruned {pruned} "
+                             f"({event.pruned}), regrown {regrown} "
+                             f"({event.regrown}), want {expect}")
+    if not bool(pending["nm"]):
+        raise AssertionError(f"epoch {event.epoch}: N:M invariant broken")
+    survivors, regrown_zero, merged_zero = (
+        bool(pending[key])
+        for key in ("survivors", "regrown_zero", "merged_zero"))
+    if not (survivors and regrown_zero and merged_zero):
+        raise AssertionError(f"epoch {event.epoch}: survivors bitwise "
+                             f"{survivors}, regrown zero {regrown_zero}, "
+                             f"merged lanes zero {merged_zero}")
+    return {"epoch": event.epoch, "grid_step": event.grid_step,
+            "k_per_group": pending["k_per_group"], "pruned": pruned,
+            "regrown": regrown, "mask_change": event.mask_change,
+            "merged_slots": list(event.merged_slots),
+            "surviving_blocks": int(pending["surviving_blocks"]),
+            "regrown_blocks": int(pending["regrown_blocks"])}
+
+
+def live_topology(torch, params, task):
+    """Phase 12 (module docstring): the paper network serves N_STREAMS
+    gesture streams with a live TopologyService."""
+    from repro_torch.serving import (StreamScheduler, StreamSession,
+                                     TaskStreamSource, TopologyService,
+                                     TopologyServiceConfig)
+    cfg = paper_config("kernels")
+    svc = TopologyService(cfg, TopologyServiceConfig(
+        epoch_every=TOPO_EVERY, merge_top=TOPO_MERGE_TOP))
+    t0 = time.perf_counter()
+    sched = StreamScheduler(params, cfg, n_slots=N_STREAMS,
+                            chunk_len=CHUNK_LEN, pipeline_depth=1,
+                            device="cuda", topology=svc)
+    for sid in range(N_STREAMS):
+        sched.submit(StreamSession(sid=sid, source=TaskStreamSource(
+            task, N_WINDOWS, seed=sid)))
+    setup_s = time.perf_counter() - t0
+    checks = watch_epochs(torch, sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    done = sched.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps = sched.grid.stats["steps"]
+    per_step = steps * CHUNK_LEN * cfg.n_layers
+    want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
+            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN}
+    if len(done) != N_STREAMS:
+        raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
+    short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
+    if short:
+        raise AssertionError(f"streams without {N_WINDOWS} predictions: "
+                             f"{short[:8]}")
+    if launches != want:
+        raise AssertionError(f"live topology serving launched {launches}, "
+                             f"want {want}")
+    if sched.n_compiles != 1:
+        raise AssertionError(f"{sched.n_compiles} chunk fns built, want 1")
+    epochs = [read_epoch_check(pending) for pending in checks["epochs"]]
+    if len(svc.events) < 3 or len(epochs) != len(svc.events):
+        raise AssertionError(f"{len(svc.events)} epochs under traffic "
+                             f"({len(epochs)} swaps checked), want >= 3")
+    for rec, tel in zip(epochs, sched.telemetry.topology_epochs):
+        rec["wall_s"] = tel["wall_s"]
+    if not bool(torch.isfinite(sched.deltas).all()):
+        raise AssertionError("non-finite deltas after live epochs")
+    roll = sched.telemetry.rollup()
+    rec = {"streams": N_STREAMS, "windows_per_stream": N_WINDOWS,
+           "grid_steps": steps, "chunk_len": CHUNK_LEN, "pipeline_depth": 1,
+           "epoch_every": TOPO_EVERY, "merge_top": TOPO_MERGE_TOP,
+           "n_compiles": sched.n_compiles, "launches": launches,
+           "wall_s": wall, "setup_s": setup_s,
+           "events_in": roll["events_in"],
+           "events_per_s": roll["events_per_s"],
+           "timesteps_per_s": roll["timesteps_per_s"],
+           "p50_step_ms": roll["p50_ms"], "p99_step_ms": roll["p99_ms"],
+           "overlap_ratio": roll["overlap_ratio"],
+           "phases": sched.telemetry.phase_percentiles(),
+           "epochs": epochs, "epoch_checks_s": checks["s"],
+           "topology": sched.telemetry.topology_rollup(),
+           "max_memory_allocated": peak,
+           "deltas_bytes": sched.deltas.numel() * 4}
+    log(f"live_topology {json.dumps(rec)}")
+    return rec, launches, sched
+
+
+def topology_parity(torch, params, task):
+    """Phase 13 (module docstring): a forced epoch between two chunks
+    through both backends; then the dense and compact fleets with epochs."""
+    import numpy as np
+    from repro_torch.core import engine, topology
+    from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
+                                      serving_params)
+    from repro_torch.serving import (StreamScheduler, StreamSession,
+                                     TaskStreamSource, TopologyService,
+                                     TopologyServiceConfig, make_chunk_fn)
+    S, C = PARITY_SLOTS, CHUNK_LEN
+    cfg = paper_config("kernels")
+    t0 = int(cfg.t_steps * cfg.pc_snapshot_frac) - 1
+    rng = np.random.default_rng(0)
+    ev = np.stack([task.sample(rng, 1)[0][t0:t0 + 2 * C, 0]
+                   for _ in range(S)], axis=1)                # [2C, S, n_in]
+    events = torch.from_numpy(ev).cuda()
+    valid = torch.ones((C, S), dtype=torch.bool, device="cuda")
+    amask = torch.ones(S, dtype=torch.bool, device="cuda")
+    out = {}
+    for backend in ("kernels", "ref"):
+        bcfg = paper_config(backend)
+        fn = make_chunk_fn(bcfg)
+        svc = TopologyService(bcfg, TopologyServiceConfig(epoch_every=1))
+        state = init_stream_state(bcfg, S, "cuda")._replace(
+            t_in_window=torch.full((S,), t0, dtype=torch.int32,
+                                   device="cuda"))
+
+        def run(fn=fn, svc=svc, bcfg=bcfg, state=state):
+            d1, st1, m1 = fn(serving_params(params, bcfg),
+                             init_stream_deltas(bcfg, S, "cuda"), state,
+                             events[:C], valid, amask)
+            svc.observe(m1)
+            p2, d2, event = svc.evolve(params, d1, grid_step=1)
+            d3, _, m2 = fn(serving_params(p2, bcfg), d2, st1, events[C:],
+                           valid, amask)
+            return p2, d2, d3, m1, m2, event
+        out[backend] = record_lif(bcfg, run)
+    ((pk, d2k, d3k, m1k, m2k, ek), sk, _) = out["kernels"]
+    ((pr_, d2r, d3r, m1r, m2r, er), sr, pr) = out["ref"]
+    swap = {"slots": S, "chunk_len": C, "t_in_window": t0,
+            "pruned": ek.pruned, "pruned_ref": er.pruned,
+            "mask_units_differing": int((pk["hidden"]["mask"]
+                                         != pr_["hidden"]["mask"]).sum()),
+            "logits_max_abs_err": max(max_err(m1k.logits, m1r.logits),
+                                      max_err(m2k.logits, m2r.logits)),
+            "deltas_max_abs_err": max_err(d3k, d3r),
+            "projected_max_abs_err": max_err(d2k, d2r),
+            "sop_wu": float(m2k.sop_wu.sum()),
+            "deltas_max_abs": float(d3k.abs().max()),
+            **spike_rule(torch, sk, sr, pr, cfg.theta)}
+    log(f"topology_parity {json.dumps(swap)}")
+    ok = (swap["mask_units_differing"] == 0 and ek.pruned == er.pruned > 0
+          and all(torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+                  for a, b in ((m1k.logits, m1r.logits),
+                               (m2k.logits, m2r.logits)))
+          and torch.allclose(d3k, d3r, atol=1e-6, rtol=1e-4)
+          and swap["sop_wu"] > 0 and swap["first_flips_near_theta"]
+          and swap["spike_agreement_where_fired"] >= 0.999)
+    if not ok:
+        raise AssertionError(f"kernels vs ref across a swap: {swap}")
+    del out
+
+    # the dense delta layout against the compact one, with live epochs
+    def drive(compact):
+        svc = TopologyService(cfg, TopologyServiceConfig(
+            epoch_every=DENSE_EPOCH_EVERY, merge_top=1))
+        sched = StreamScheduler(params, cfg, n_slots=S, chunk_len=C,
+                                pipeline_depth=1, device="cuda",
+                                topology=svc, compact=compact)
+        for sid in range(S):
+            sched.submit(StreamSession(sid=sid, source=TaskStreamSource(
+                task, DENSE_WINDOWS, seed=sid)))
+        counters = reset_counters()
+        done = {x.sid: x for x in sched.run_until_drained()}
+        torch.cuda.synchronize()
+        return sched, svc, done, {n: c.launches for n, c in counters.items()}
+    sc, vc, dc, lc = drive(True)
+    sd, vd, dd, ld = drive(False)
+    per_step = sd.grid.stats["steps"] * C * cfg.n_layers
+    want_dense = {"nm_spmm": per_step, "nm_spmm_fused": 0, "lif": per_step,
+                  "wu_outer": 0, "wu_outer_slots": 0, **NO_ATTN}
+    per_step_c = sc.grid.stats["steps"] * C * cfg.n_layers
+    want_compact = {"nm_spmm": per_step_c, "nm_spmm_fused": per_step_c,
+                    "lif": per_step_c, "wu_outer": 0,
+                    "wu_outer_slots": per_step_c, **NO_ATTN}
+    mask = sc.params["hidden"]["mask"]
+    idx = topology.stacked_kept_ids(mask, cfg)
+    logit_err = max(float(np.abs(a.logits - b.logits).max())
+                    for sid in dc for a, b in zip(dc[sid].predictions,
+                                                  dd[sid].predictions))
+    off = (engine.dense_masks(mask, cfg) == 0)[None].expand_as(sd.deltas)
+    layouts = {"slots": S, "windows_per_stream": DENSE_WINDOWS,
+               "epoch_every": DENSE_EPOCH_EVERY,
+               "grid_steps": sd.grid.stats["steps"],
+               "epochs": len(vc.events), "epochs_dense": len(vd.events),
+               "same_epochs": [(e.pruned, e.regrown, e.merged_slots)
+                               for e in vc.events]
+               == [(e.pruned, e.regrown, e.merged_slots) for e in vd.events],
+               "masks_equal": bool(torch.equal(mask,
+                                               sd.params["hidden"]["mask"])),
+               "logits_max_abs_err": logit_err,
+               "deltas_max_abs_err_at_kept": max_err(
+                   engine.densify_deltas(sc.deltas, idx, cfg), sd.deltas),
+               "dense_off_mask_nonzero": int((sd.deltas[off] != 0).sum()),
+               "predictions": sum(len(x.predictions) for x in dd.values()),
+               "launches_compact": lc, "launches_dense": ld,
+               "bytes_held_compact": sc.telemetry.bytes_held()["total"],
+               "bytes_held_dense": sd.telemetry.bytes_held()["total"],
+               "tolerance": DENSE_ATOL}
+    log(f"layout_parity {json.dumps(layouts)}")
+    ok = (layouts["epochs"] >= 2 and layouts["same_epochs"]
+          and layouts["masks_equal"] and logit_err <= DENSE_ATOL
+          and layouts["deltas_max_abs_err_at_kept"] <= DENSE_ATOL
+          and layouts["dense_off_mask_nonzero"] == 0
+          and layouts["predictions"] == S * DENSE_WINDOWS
+          and all(len(dc[sid].predictions) == len(dd[sid].predictions)
+                  for sid in dc)
+          and ld == want_dense and lc == want_compact
+          and sc.n_compiles == sd.n_compiles == 1)
+    if not ok:
+        raise AssertionError(f"dense vs compact fleets: {layouts}")
+    return {"swap": swap, "layouts": layouts}
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(path) for f in fs)
+
+
+def leaves_equal(torch, a, b):
+    from repro_torch.checkpoint.checkpoint import _flatten
+    fa, fb = _flatten(a), _flatten(b)
+    return [k for (k, x), (_, y) in zip(fa, fb)
+            if not (x.dtype == y.dtype and torch.equal(x, y))] \
+        if [k for k, _ in fa] == [k for k, _ in fb] else ["<structure>"]
+
+
+def fleet_checkpoint(torch, sched, workdir):
+    """Phase 14, the fleet: phase 12's evolved fleet saved and restored at
+    full width, one chunk from each compared, and the layout migrations."""
+    from repro_torch.core import engine, topology
+    from repro_torch.core.snn import serving_params
+    from repro_torch.serving import make_chunk_fn, restore_fleet, save_fleet
+    cfg = sched.cfg
+    params, deltas, state = sched.params, sched.deltas, sched.state
+    step = sched.grid.stats["steps"]
+    base = os.path.join(workdir, "fleet")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_fleet(base, step, params, deltas, state, keep=1)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rstep, p2, d2, s2, extra = restore_fleet(base, cfg, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    differ = leaves_equal(torch, (params, deltas, state), (p2, d2, s2))
+    # one chunk from the live fleet and from the restored one
+    g = torch.Generator(device="cuda").manual_seed(14)
+    S = deltas.shape[0]
+    events = (torch.rand((CHUNK_LEN, S, cfg.n_in), device="cuda",
+                         generator=g) < 0.05).float()
+    valid = torch.ones((CHUNK_LEN, S), dtype=torch.bool, device="cuda")
+    amask = torch.ones(S, dtype=torch.bool, device="cuda")
+    fn = make_chunk_fn(cfg)
+    live = fn(serving_params(params, cfg), deltas, state, events, valid, amask)
+    back = fn(serving_params(p2, cfg), d2, s2, events, valid, amask)
+    chunk_differ = leaves_equal(torch, live, back)
+    del live, back, p2, s2
+    # migration: the compact checkpoint into a dense fleet, and back
+    idx = topology.stacked_kept_ids(params["hidden"]["mask"], cfg)
+    t0 = time.perf_counter()
+    _, _, dd, _, _ = restore_fleet(base, cfg, compact=False, device="cuda")
+    torch.cuda.synchronize()
+    dense_restore_s = time.perf_counter() - t0
+    off = (engine.dense_masks(params["hidden"]["mask"], cfg) == 0)
+    dense_ok = (bool(torch.equal(engine.compact_deltas(dd, idx, cfg), deltas))
+                and not bool(dd[off[None].expand_as(dd)].any()))
+    dense_base = os.path.join(workdir, "fleet_dense")
+    t0 = time.perf_counter()
+    save_fleet(dense_base, step, params, dd, state, keep=1)
+    dense_save_s = time.perf_counter() - t0
+    dense_bytes = dir_bytes(dense_base)
+    del dd
+    _, _, dc, _, extra_d = restore_fleet(dense_base, cfg, compact=True,
+                                         device="cuda")
+    back_ok = bool(torch.equal(dc, deltas)) and extra_d["delta_layout"] == "dense"
+    rec = {"slots": S, "step": rstep, "extra": extra, "bytes": dir_bytes(path),
+           "deltas_bytes": deltas.numel() * deltas.element_size(),
+           "save_s": save_s, "restore_s": restore_s,
+           "leaves_differing": differ, "chunk_leaves_differing": chunk_differ,
+           "dense_restore_s": dense_restore_s, "dense_save_s": dense_save_s,
+           "dense_bytes": dense_bytes, "dense_migration_bitwise": dense_ok,
+           "compact_from_dense_bitwise": back_ok}
+    log(f"fleet_checkpoint {json.dumps(rec)}")
+    if differ or chunk_differ or not dense_ok or not back_ok \
+            or rstep != step or extra["delta_layout"] != "compact":
+        raise AssertionError(f"fleet checkpoint: {rec}")
+    return rec
+
+
+def lm_resume(torch, workdir):
+    """Phase 14, LM training: RESUME_STEPS steps straight through against a
+    run checkpointed once, after step RESUME_CKPT_AFTER, and resumed to
+    RESUME_STEPS from a replayed pipeline, deterministic algorithms on:
+    the last loss and every param and AdamW moment bit for bit."""
+    import dataclasses
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.train import TrainHParams, run_training
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+
+    def pipeline():
+        return TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=RESUME_S,
+                                            global_batch=TRAIN_B))
+    walls = {"save_s": [], "restore_s": []}
+    orig = {"save": ckpt.save, "restore": ckpt.restore}
+
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[name](*args, **kw)
+            torch.cuda.synchronize()
+            walls[f"{name}_s"].append(time.perf_counter() - t0)
+            return out
+        return call
+    base = os.path.join(workdir, "lm")
+    torch.use_deterministic_algorithms(True)
+    ckpt.save, ckpt.restore = timed("save"), timed("restore")
+    try:
+        counters = reset_counters()
+        straight, h_ref = run_training(cfg, hp, pipeline(), RESUME_STEPS,
+                                       log_every=1, device="cuda")
+        run_training(cfg, hp, pipeline(), RESUME_CKPT_AFTER + 1, ckpt_dir=base,
+                     ckpt_every=RESUME_CKPT_AFTER + 1,
+                     log_every=1, device="cuda")
+        written = dir_bytes(base)
+        replay = pipeline()
+        for _ in range(RESUME_CKPT_AFTER + 1):
+            next(replay)
+        resumed, h_res = run_training(cfg, hp, replay, RESUME_STEPS,
+                                      ckpt_dir=base,
+                                      ckpt_every=RESUME_CKPT_AFTER + 1,
+                                      log_every=1, device="cuda")
+        torch.cuda.synchronize()
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        ckpt.save, ckpt.restore = orig["save"], orig["restore"]
+        torch.use_deterministic_algorithms(False)
+    L = cfg.n_layers
+    steps = 2 * RESUME_STEPS        # straight, then interrupted + resumed
+    want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
+            "wu_outer_slots": 0, "flash_fwd": 2 * L * steps,
+            "flash_bwd_dkv": L * steps, "flash_bwd_dq": L * steps}
+    differ = leaves_equal(torch, (straight[0], straight[1].m, straight[1].v),
+                          (resumed[0], resumed[1].m, resumed[1].v))
+    rec = {"arch": TRAIN_ARCH, "layers": L, "batch": TRAIN_B, "seq": RESUME_S,
+           "steps": RESUME_STEPS, "checkpoint_after_step": RESUME_CKPT_AFTER,
+           "resumed_steps": h_res["step"], "loss_straight": h_ref["loss"][-1],
+           "loss_resumed": h_res["loss"][-1],
+           "adamw_step": [straight[1].step, resumed[1].step],
+           "leaves": len(ckpt.checkpoint._flatten(straight)),
+           "leaves_differing": differ, "bytes_written": written,
+           "save_s": walls["save_s"], "restore_s": walls["restore_s"],
+           "launches": launches}
+    log(f"lm_resume {json.dumps(rec)}")
+    if (differ or h_res["loss"][-1] != h_ref["loss"][-1]
+            or h_res["step"] != list(range(RESUME_CKPT_AFTER + 1,
+                                           RESUME_STEPS))
+            or straight[1].step != resumed[1].step or launches != want
+            or len(walls["save_s"]) != 1 or len(walls["restore_s"]) != 1):
+        raise AssertionError(f"LM resume: {rec}; launches want {want}")
+    return rec, launches
+
 
 def flat(tree, prefix=()):
     if isinstance(tree, dict):
@@ -1453,6 +1943,9 @@ def flat(tree, prefix=()):
 
 
 def main() -> int:
+    # phase 14 runs LM training with deterministic algorithms on, which
+    # needs cuBLAS's fixed workspace; it is read at cuBLAS's first use
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1611,11 +2104,48 @@ def main() -> int:
 
     # 11. LM training parity
     record["lm_train_parity"] = lm_train_parity(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 12. live topology under serving, at full width
+    cfg = paper_config("kernels")
+    params = init_params(0, cfg, device="cuda")
+    task = make_task("gesture", n_in=cfg.n_in, t_steps=cfg.t_steps)
+    record["live_topology"], topo_launches, fleet = live_topology(
+        torch, params, task)
+    record["step_breakdown_factors"] = step_breakdown(torch, params,
+                                                      want_factors=True)
+    base_bd, fac_bd = record["step_breakdown"], record["step_breakdown_factors"]
+    record["factor_cost"] = {
+        "device_busy_ms": [base_bd["device_busy_ms"], fac_bd["device_busy_ms"]],
+        "device_launches": [base_bd["device_launches"],
+                            fac_bd["device_launches"]],
+        "added_busy_ms": fac_bd["device_busy_ms"] - base_bd["device_busy_ms"],
+        "added_launches": fac_bd["device_launches"] - base_bd["device_launches"]}
+    log(f"factor_cost {json.dumps(record['factor_cost'])}")
+
+    # 13. serving parity across a swap; the dense layout against the compact
+    record["topology_parity"] = topology_parity(torch, params, task)
+
+    # 14. checkpoints: phase 12's fleet, then LM training resumed
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        record["fleet_checkpoint"] = fleet_checkpoint(torch, fleet, workdir)
+        del fleet, params, task
+        gc.collect()
+        torch.cuda.empty_cache()
+        record["lm_resume"], resume_launches = lm_resume(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     by_path = {name: {"serving": serve_launches[name],
                       "training": train_launches[name],
                       "lm_serving": lm_launches[name],
-                      "lm_training": lm_train_launches[name]}
+                      "lm_training": lm_train_launches[name],
+                      "live_topology": topo_launches[name],
+                      "lm_resume": resume_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

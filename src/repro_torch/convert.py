@@ -66,11 +66,26 @@ def stream_state_from_numpy(np_state: Any, device="cuda") -> StreamState:
 
 
 def deltas_from_numpy(np_deltas: Any, device="cuda") -> torch.Tensor:
-    """Compact per-stream deltas ``[S, L, J, T, bk, bo]``."""
+    """Per-stream deltas: compact ``[S, L, J, T, bk, bo]`` or dense
+    ``[S, L, Kmax, N]``."""
     d = _f32(np_deltas, device)
-    if d.dim() != 6:
-        raise ValueError(f"compact deltas are rank 6, got {tuple(d.shape)}")
+    if d.dim() not in (4, 6):
+        raise ValueError("deltas are compact (rank 6) or dense (rank 4), "
+                         f"got {tuple(d.shape)}")
     return d
+
+
+def seed_topology_service(service: Any, ref_service: Any) -> Any:
+    """Copy the reference ``TopologyService``'s accumulated state (the
+    ``pre``/``post`` factors, ``observed_steps``, ``epoch_idx`` and the
+    step of its last epoch) into the port's ``service``, so both continue
+    from one state. Returns ``service``."""
+    service.pre = np.array(ref_service.pre, np.float32)
+    service.post = np.array(ref_service.post, np.float32)
+    service.observed_steps = float(ref_service.observed_steps)
+    service.epoch_idx = int(ref_service.epoch_idx)
+    service._last_epoch_step = int(ref_service._last_epoch_step)
+    return service
 
 
 def net_state_from_numpy(np_state: Any, device="cuda") -> NetState:

@@ -24,7 +24,7 @@ from typing import Callable, NamedTuple, Tuple
 
 import torch
 
-from .sparsity import NMSpec, expand_unit_mask
+from .sparsity import NMSpec, expand_unit_mask, unit_scores
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +188,11 @@ class DSSTAccumulator(NamedTuple):
                                self.post * decay + post_mag)
 
 
+def dense_grad_unit_score(grad: torch.Tensor, spec: NMSpec) -> torch.Tensor:
+    """``|grad|`` summarised to unit granularity: the RigL oracle key."""
+    return unit_scores(grad, spec, *grad.shape, reduce="abs_sum")
+
+
 def apply_dsst_to_weights(w: torch.Tensor, old_mask: torch.Tensor,
                           new_mask: torch.Tensor, spec: NMSpec) -> torch.Tensor:
     """Zero regrown connections (they restart from 0, as on-chip) and keep
@@ -207,3 +212,23 @@ def scheduled_k_apply(step: int, cfg: DSSTConfig, spec: NMSpec,
     if isinstance(step, torch.Tensor):
         raise TypeError("step must be a host int, not a tensor")
     return fn(cfg.k_per_group(spec, operator.index(step)))
+
+
+def maybe_dsst(step: int, cfg: DSSTConfig, spec: NMSpec, w: torch.Tensor,
+               unit_mask: torch.Tensor, acc: DSSTAccumulator):
+    """One layer's DSST event when sample ``step`` (a host int) ends a
+    period, else the identity. Returns ``(w, unit_mask, acc, did_update)``:
+    after an event the weights are remapped, the mask evolved with the
+    factored regrow and the accumulator fresh; ``did_update`` is a host
+    bool."""
+    if not cfg.is_update_step(step):
+        return w, unit_mask, acc, False
+    wscore = unit_scores(w, spec, *w.shape, reduce="abs_sum")
+    new_mask, _ = scheduled_k_apply(
+        step, cfg, spec,
+        lambda k: prune_regrow_factored(unit_mask, wscore, acc.pre, acc.post,
+                                        spec, k))
+    new_w = apply_dsst_to_weights(w, unit_mask, new_mask, spec)
+    fresh = DSSTAccumulator.init(acc.pre.shape[0], acc.post.shape[0],
+                                 acc.pre.dtype, device=acc.pre.device)
+    return new_w, new_mask, fresh, True

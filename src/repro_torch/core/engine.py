@@ -4,17 +4,21 @@
 :func:`_layer_timestep` is the one layer body: forward current, fused LIF
 step, OSSL modulator, IA/SS gate, gated weight update and telemetry, for
 ONE layer at ONE timestep. :func:`scan_chunk` (serving: per-slot gates,
-updates into per-slot compact deltas, valid masking) and
+updates into per-slot deltas, valid masking) and
 :func:`scan_sample` (training: aligned batch, one gate decision per layer
 shared across the batch, updates into the base weights) drive it over the
 timesteps and the layer stack; JAX's two ``lax.scan``\\ s become Python
 loops over time and layers.
 
 Backend seam: ``SNNConfig.backend`` is ``"ref"`` or ``"kernels"`` (the
-counterpart of the reference's ``"pallas"``). Serving always runs on the
-mask-free compact N:M layout (values ``wc [L, J, T, bk, bo]`` plus kept
-block ids ``idx [L, J, T]``), whose forward current goes through
-``nm_spmm`` under either backend; ``"kernels"`` adds the fused LIF kernel.
+counterpart of the reference's ``"pallas"``). Serving runs by default on
+the mask-free compact N:M layout (values ``wc [L, J, T, bk, bo]`` plus kept
+block ids ``idx [L, J, T]``, per-slot compact deltas), whose forward
+current goes through ``nm_spmm`` under either backend; ``"kernels"`` adds
+the fused LIF kernel. The dense delta layout (``[S, L, Kmax, N]``, the
+A/B baseline) takes the rep of :func:`prepare_weights` with its dense
+mask: ``nm_spmm`` unfused (``"kernels"``) or ``pre @ w`` (``"ref"``) for
+the base, an ``einsum`` for the deltas, and a masked dense update.
 Training carries the weight rep :func:`prepare_weights` picks: ``"ref"``
 the dense ``{"w", "mask_f"}`` (a plain ``pre @ w`` and a masked dense WU),
 ``"kernels"`` the compact rep (``nm_spmm``, ``lif`` and ``wu_outer``
@@ -24,7 +28,8 @@ Nothing here writes into a caller's tensors: every step returns fresh
 tensors. The one update in place is the serving WU: :func:`scan_chunk`
 copies the deltas once at the start of a chunk (the copy it returns, so a
 chunk makes one full-delta copy, as before) and each layer-timestep adds
-its per-slot update into that copy (``wu_outer_slots_update``).
+its per-slot update into that copy (``wu_outer_slots_update``, or the
+masked outer product for dense deltas).
 """
 from __future__ import annotations
 
@@ -169,15 +174,43 @@ def hidden_slice(params, l: int, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
             params["hidden"]["mask"][l, :kb, :jj])
 
 
+def stack_params(legacy, cfg):
+    """Per-layer layout (lists of ``{"w", "mask"}`` dicts and readouts) ->
+    the stacked layout, rows padded to the stack width."""
+    k_max = geometry(cfg).k_max
+    return {"hidden": {
+                "w": torch.stack([_pad_rows(p["w"], k_max)
+                                  for p in legacy["hidden"]]),
+                "mask": torch.stack([_pad_rows(p["mask"], k_max)
+                                     for p in legacy["hidden"]])},
+            "readout": torch.stack(list(legacy["readout"]))}
+
+
+def unstack_params(params, cfg):
+    """Stacked layout -> per-layer layout (views of the stacked leaves)."""
+    hidden = []
+    for l in range(cfg.n_layers):
+        w, m = hidden_slice(params, l, cfg)
+        hidden.append({"w": w, "mask": m})
+    return {"hidden": hidden,
+            "readout": [params["readout"][l] for l in range(cfg.n_layers)]}
+
+
 def prepare_weights(w_stacked: torch.Tensor, mask_stacked: torch.Tensor, cfg,
-                    backend: Backend) -> Dict[str, torch.Tensor]:
-    """Weight rep carried through the training time loop; its *keys* drive
-    dispatch downstream (``"wc" in w_l`` → compact). ``"ref"``: the dense
-    stacked weights plus the dense float mask ``{"w", "mask_f"}``;
-    ``"kernels"``: the compact N:M rep ``{"wc", "idx"}``."""
+                    backend: Backend, *,
+                    include_mask: bool = False) -> Dict[str, torch.Tensor]:
+    """Weight rep carried through the time loop; its *keys* drive dispatch
+    downstream (``"wc" in w_l`` → compact). ``"ref"``: the dense stacked
+    weights plus the dense float mask ``{"w", "mask_f"}``; ``"kernels"``:
+    the compact N:M rep ``{"wc", "idx"}``, with ``mask_f [L, Kmax, N]``
+    added when ``include_mask`` (dense-delta serving masks its update with
+    it)."""
     if not backend.use_kernels:
         return {"w": w_stacked, "mask_f": dense_masks(mask_stacked, cfg)}
-    return compact_weights(w_stacked, mask_stacked, cfg)
+    wrep = compact_weights(w_stacked, mask_stacked, cfg)
+    if include_mask:
+        wrep["mask_f"] = dense_masks(mask_stacked, cfg)
+    return wrep
 
 
 def finalize_weights(wrep, cfg, backend: Backend) -> torch.Tensor:
@@ -221,15 +254,18 @@ def densify_deltas(deltas_c: torch.Tensor, idx: torch.Tensor,
 
 def fwd_current(pre, w_l, delta_l):
     """Forward synaptic current for one layer, dispatched on the weight
-    rep's keys: the compact rep goes through ``nm_spmm``, with the per-slot
-    compact deltas on the same kept-block ids fused into the same pass
-    (``nm_spmm_fused``); the dense training rep (which carries no deltas) is
-    a plain ``pre @ w``."""
-    if "wc" not in w_l:
-        return pre @ w_l["w"]
-    if delta_l is not None:
+    rep's keys and the deltas' rank: the compact rep goes through
+    ``nm_spmm``, with compact per-slot deltas (``[S, J, T, bk, bo]``) on the
+    same kept-block ids fused into the same pass (``nm_spmm_fused``); the
+    dense rep is a plain ``pre @ w``. Dense per-slot deltas
+    (``[S, Kmax, N]``) add ``einsum("sk,skn->sn")`` to either base."""
+    if delta_l is not None and delta_l.dim() == 5:
         return nm_ops.nm_spmm_fused(pre, w_l["wc"], w_l["idx"], delta_l)
-    return nm_ops.nm_spmm_batched(pre, w_l["wc"], w_l["idx"])
+    cur = (nm_ops.nm_spmm_batched(pre, w_l["wc"], w_l["idx"])
+           if "wc" in w_l else pre @ w_l["w"])
+    if delta_l is not None:
+        cur = cur + torch.einsum("sk,skn->sn", pre, delta_l)
+    return cur
 
 
 def lif(backend: Backend, cfg, v, tr, current):
@@ -266,7 +302,7 @@ class LayerSlice(NamedTuple):
     readout: torch.Tensor                 # [N, n_out] bypass readout
     st: LayerState                        # leaves [R, N]
     ss_mean: torch.Tensor                 # [] (train) or [S] (serve)
-    delta: Optional[torch.Tensor]         # serving [S, J, T, bk, bo]; training None
+    delta: Optional[torch.Tensor]         # serving [S, J, T, bk, bo] or [S, Kmax, N]
     fanin: torch.Tensor                   # [] f32 — true fan-in
     density: torch.Tensor                 # [] f32 — spec density
     gate_opened: Optional[torch.Tensor] = None    # [] training telemetry
@@ -303,7 +339,7 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
     """SI + gated WU for ONE layer at ONE timestep — training and serving.
 
     Serving (``valid [S]`` bool, ``t_row [S]``): every quantity is per
-    slot, the update goes into the per-slot compact deltas in place
+    slot, the update goes into the per-slot deltas in place
     (``xs.delta`` is a layer of :func:`scan_chunk`'s own copy), and invalid
     slots are exact no-ops on state and telemetry; ``factors`` selects
     whether the per-slot DSST activity magnitudes are computed at all.
@@ -338,13 +374,19 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
         open_ = open_ & valid
         new_mean = torch.where(valid, new_mean, xs.ss_mean)
         wu_on = open_ & (t_row >= t_wu) & learn
-        # compact per-slot WU, in place: the outer product lands only in
-        # kept blocks
-        spec = cfg.spec(geo.fanins[0])
         scale = torch.where(wu_on, cfg.lr, 0.0)
-        delta_new = wu_ops.wu_outer_slots_update(
-            xs.delta, pre_tr, mod, xs.w["idx"], scale, bk=spec.block,
-            bo=spec.out_tile)
+        if xs.delta.dim() == 5:
+            # compact per-slot WU, in place: the outer product lands only
+            # in kept blocks
+            spec = cfg.spec(geo.fanins[0])
+            delta_new = wu_ops.wu_outer_slots_update(
+                xs.delta, pre_tr, mod, xs.w["idx"], scale, bk=spec.block,
+                bo=spec.out_tile)
+        else:
+            # dense per-slot WU: the masked outer product, added in place
+            # through one [S, Kmax, N] temporary (same rounding order)
+            dw = scale[:, None, None] * pre_tr[:, :, None] * mod[:, None, :]
+            delta_new = xs.delta.add_(dw.mul_(xs.w["mask_f"][None]))
         w_new, opened_new, offered_new = xs.w, None, None
         if factors:
             valf = valid.to(tr.dtype)[:, None]
@@ -505,8 +547,7 @@ def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
     own = deltas.transpose(0, 1).clone(
         memory_format=torch.contiguous_format).transpose(0, 1)
     ssm = [ss_mean[l] for l in range(n_layers)]
-    wl = [{"wc": wrep["wc"][l], "idx": wrep["idx"][l]}
-          for l in range(n_layers)]
+    wl = [{k: v[l] for k, v in wrep.items()} for l in range(n_layers)]
     acc_pre = [torch.zeros((S, geo.k_max), device=dev)
                for _ in range(n_layers)] if want_factors else []
     acc_post = [torch.zeros((S, cfg.n_hidden), device=dev)

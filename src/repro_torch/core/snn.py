@@ -230,27 +230,43 @@ def init_stream_state(cfg: SNNConfig, n_slots: int,
     )
 
 
-def init_stream_deltas(cfg: SNNConfig, n_slots: int,
-                       device="cuda") -> torch.Tensor:
-    """Per-stream compact deltas ``[S, L, J, T, bk, bo]`` over the frozen
-    shared base: storage scales with density, not ``K·N``. The dense
-    ``[S, L, Kmax, N]`` fallback for non-uniform fan-ins is not ported yet."""
+def init_stream_deltas(cfg: SNNConfig, n_slots: int, device="cuda",
+                       compact: Optional[bool] = None) -> torch.Tensor:
+    """Per-stream weight deltas over the frozen shared base, slot axis
+    leading. ``compact=None`` picks the compact N:M tensor
+    ``[S, L, J, T, bk, bo]`` (storage scales with density, not ``K·N``)
+    whenever the layer geometry is uniform, else the dense
+    ``[S, L, Kmax, N]`` layout; ``compact=False`` forces the dense one (the
+    A/B baseline)."""
     geo = engine.geometry(cfg)
+    if compact is None:
+        compact = geo.uniform
+    if not compact:
+        return torch.zeros((n_slots, cfg.n_layers, geo.k_max, cfg.n_hidden),
+                           device=device)
     if not geo.uniform:
-        raise NotImplementedError(
+        raise ValueError(
             "compact stream deltas require uniform layer fan-in "
-            f"(got {geo.fanins}); the dense delta layout is not ported yet")
+            f"(got {geo.fanins}); pass compact=False")
     spec = cfg.spec(geo.fanins[0])
     return torch.zeros((n_slots, cfg.n_layers, cfg.n_hidden // spec.out_tile,
                         engine.compact_kept(cfg), spec.block, spec.out_tile),
                        device=device)
 
 
-def serving_params(params: Dict[str, Any], cfg: SNNConfig) -> Dict[str, Any]:
-    """Dense training params -> the mask-free serving rep
-    ``{"wc" [L,J,T,bk,bo], "idx" [L,J,T] int32, "readout" [L,N,n_out]}``."""
-    wrep = engine.compact_weights(params["hidden"]["w"],
-                                  params["hidden"]["mask"], cfg)
+def serving_params(params: Dict[str, Any], cfg: SNNConfig,
+                   compact: bool = True) -> Dict[str, Any]:
+    """Dense training params -> the rep :func:`run_chunk` consumes. Compact
+    (the default): the mask-free ``{"wc" [L,J,T,bk,bo], "idx" [L,J,T]
+    int32, "readout" [L,N,n_out]}``. ``compact=False`` (for dense deltas):
+    :func:`engine.prepare_weights` with its dense mask ``mask_f
+    [L, Kmax, N]``, plus the readout."""
+    w, mask = params["hidden"]["w"], params["hidden"]["mask"]
+    if compact:
+        wrep = engine.compact_weights(w, mask, cfg)
+    else:
+        wrep = engine.prepare_weights(w, mask, cfg, engine.make_backend(cfg),
+                                      include_mask=True)
     return {**wrep, "readout": params["readout"]}
 
 
@@ -283,9 +299,11 @@ def run_chunk(params: Dict[str, Any], deltas: torch.Tensor,
     """Advance S independent streams by up to C timesteps each.
 
     Args:
-      params:  the mask-free serving rep from :func:`serving_params`, or the
-        dense training layout (compacted here, on every call).
-      deltas:  compact per-stream adaptation ``[S, L, J, T, bk, bo]``.
+      params:  a rep from :func:`serving_params` or the dense training
+        layout (turned into the rep the deltas need here, on every call).
+      deltas:  per-stream adaptation, slot-leading: compact
+        ``[S, L, J, T, bk, bo]`` or dense ``[S, L, Kmax, N]`` (the layout
+        is read from the rank). Dense deltas need a rep with ``mask_f``.
       state:   carried :class:`StreamState` (slot-leading leaves).
       events:  ``[C, S, n_in]`` f32 binary spikes.
       valid:   ``[C, S]`` bool — ragged chunks / idle slots are exact no-ops.
@@ -297,15 +315,19 @@ def run_chunk(params: Dict[str, Any], deltas: torch.Tensor,
     dtypes; nothing passed in is written.
     """
     backend = engine.make_backend(cfg)
-    if deltas.dim() != 6:
-        raise NotImplementedError(
-            "only compact [S, L, J, T, bk, bo] deltas are ported; the dense "
-            "[S, L, Kmax, N] layout is not")
+    compact = deltas.dim() == 6
     if events.dtype != torch.float32:
         raise TypeError(f"events must be float32, got {events.dtype}")
-    wrep = ({"wc": params["wc"], "idx": params["idx"]} if "wc" in params
-            else engine.compact_weights(params["hidden"]["w"],
-                                        params["hidden"]["mask"], cfg))
+    if "hidden" in params:
+        wrep = serving_params(params, cfg, compact=compact)
+    else:
+        wrep = params
+        if not compact and "mask_f" not in wrep:
+            raise ValueError("the mask-free serving rep carries no dense "
+                             "mask, so dense [S, L, Kmax, N] deltas cannot "
+                             "be applied; use serving_params(..., "
+                             "compact=False) or compact deltas")
+    wrep = {k: v for k, v in wrep.items() if k != "readout"}
 
     (layers, x_tr, ss_mean, t_win, samp, dls, *accs), outs = engine.scan_chunk(
         wrep, params["readout"], _swap(deltas),

@@ -137,3 +137,39 @@ def unit_scores(x: torch.Tensor, spec: NMSpec, k: int, o: int,
     if reduce == "max":
         return xg.abs().amax(dim=(1, 3))
     raise ValueError(reduce)
+
+
+def indices_to_unit_mask(idx: torch.Tensor, spec: NMSpec) -> torch.Tensor:
+    """Inverse of :func:`compact_indices`: int32 ``[G, n, J]`` -> bool
+    ``[KB, J]``."""
+    g, _, j = idx.shape
+    grouped = torch.zeros((g, spec.m, j), dtype=torch.bool, device=idx.device)
+    return grouped.scatter_(1, idx.long(), True).reshape(g * spec.m, j)
+
+
+def _idx_cols(idx: torch.Tensor, spec: NMSpec, o: int) -> torch.Tensor:
+    """Local unit ids ``[G, n, J]`` repeated over each out tile's columns,
+    shaped ``[G, n, block, O]`` for a gather or scatter along dim 1."""
+    g, n, _ = idx.shape
+    cols = idx.long().repeat_interleave(spec.out_tile, dim=2)   # [G, n, O]
+    return cols[:, :, None, :].expand(g, n, spec.block, o)
+
+
+def compact_values(w: torch.Tensor, idx: torch.Tensor,
+                   spec: NMSpec) -> torch.Tensor:
+    """Gather the kept weights of dense ``w [K, O]`` into compact storage
+    ``[G, n, block, O]`` (``idx``: ``[G, n, J]`` local unit ids; the out
+    tile's pattern repeats over its columns)."""
+    k, o = w.shape
+    g = idx.shape[0]
+    wg = w.reshape(g, spec.m, spec.block, o)
+    return torch.gather(wg, 1, _idx_cols(idx, spec, o))
+
+
+def densify_values(values: torch.Tensor, idx: torch.Tensor, spec: NMSpec,
+                   k: int, o: int) -> torch.Tensor:
+    """Scatter compact ``[G, n, block, O]`` back to dense ``[K, O]`` (zeros
+    elsewhere)."""
+    g = idx.shape[0]
+    dense = values.new_zeros((g, spec.m, spec.block, o))
+    return dense.scatter_(1, _idx_cols(idx, spec, o), values).reshape(k, o)

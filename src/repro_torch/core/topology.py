@@ -36,6 +36,19 @@ class TopologyStats(NamedTuple):
     regrown: torch.Tensor
     mask_change: torch.Tensor
 
+    @property
+    def total_pruned(self) -> torch.Tensor:
+        return self.pruned.sum()
+
+    @property
+    def total_regrown(self) -> torch.Tensor:
+        return self.regrown.sum()
+
+
+def specs(cfg) -> Tuple[NMSpec, ...]:
+    """Per-layer N:M specs (one per hidden layer, in stack order)."""
+    return tuple(cfg.spec(f) for f in cfg.layer_fanins)
+
 
 def uniform_geometry(cfg) -> bool:
     return len(set(cfg.layer_fanins)) == 1
@@ -51,6 +64,13 @@ def _pad_rows(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((k - x.shape[0],) + tuple(x.shape[1:]))])
 
 
+def layer_mask(mask_stacked: torch.Tensor, l: int, cfg) -> torch.Tensor:
+    """Layer ``l``'s true ``[KB, J]`` unit mask out of the padded stack."""
+    kb, j = cfg.spec(cfg.layer_fanins[l]).unit_counts(cfg.layer_fanins[l],
+                                                      cfg.n_hidden)
+    return mask_stacked[l, :kb, :j]
+
+
 def from_mask(mask_stacked: torch.Tensor, cfg) -> Topology:
     """Wrap a stacked padded mask, with the compact index view when the
     layer geometry is uniform."""
@@ -59,6 +79,10 @@ def from_mask(mask_stacked: torch.Tensor, cfg) -> Topology:
         spec = cfg.spec(cfg.layer_fanins[0])
         idx = torch.stack([compact_indices(m, spec) for m in mask_stacked])
     return Topology(unit_mask=mask_stacked, idx=idx)
+
+
+def from_params(params: Dict[str, Any], cfg) -> Topology:
+    return from_mask(params["hidden"]["mask"], cfg)
 
 
 def install(topo: Topology, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -165,14 +189,18 @@ def project_deltas_compact(deltas_c: torch.Tensor, old_ids: torch.Tensor,
 
 def project_deltas(deltas: torch.Tensor, old_mask: torch.Tensor,
                    new_mask: torch.Tensor, cfg) -> torch.Tensor:
-    """Remap compact per-stream deltas across a mask change (survivors
-    bit-exact, pruned and regrown coordinates zero). The dense
-    ``[S, L, Kmax, N]`` layout is not ported."""
-    if deltas.dim() != 6:
-        raise NotImplementedError(
-            "only compact [S, L, J, T, bk, bo] deltas are ported")
-    return project_deltas_compact(deltas, stacked_kept_ids(old_mask, cfg),
-                                  stacked_kept_ids(new_mask, cfg))
+    """Remap the per-stream deltas across a mask change: survivors keep
+    their bits, pruned and regrown coordinates go to zero. Compact
+    ``[S, L, J, T, bk, bo]`` deltas remap by a kept-block-id gather (no
+    dense tensor is built); dense ``[S, L, Kmax, N]`` ones by a
+    ``torch.where`` against the dense survivor mask (not a multiply)."""
+    if deltas.dim() == 6:
+        return project_deltas_compact(deltas, stacked_kept_ids(old_mask, cfg),
+                                      stacked_kept_ids(new_mask, cfg))
+    surv = survivors_dense(old_mask, new_mask, cfg)           # [L, Kmax, N]
+    return torch.where(surv[None], deltas,
+                       torch.zeros((), dtype=deltas.dtype,
+                                   device=deltas.device))
 
 
 def remap_weights(w_stacked: torch.Tensor, old_mask: torch.Tensor,

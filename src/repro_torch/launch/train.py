@@ -19,9 +19,11 @@ the host; nothing is read back from the card inside a step. ``zero1``
 only picks a sharding of the moments in the reference; on one device it
 changes nothing, so the port accepts it and ignores it.
 
-``run_training`` is the single-host loop. Checkpoints are not ported yet
-(``checkpoint/checkpoint.py``, ROADMAP Queue 1 item 7): ``ckpt_dir``
-raises.
+``run_training`` is the single-host loop. With ``ckpt_dir`` it resumes
+from the newest valid checkpoint there (the caller replays the data
+pipeline to the step after it) and saves ``(params, opt_state,
+sparse_state)`` every ``ckpt_every`` steps, with ``pipeline.state()`` as
+the checkpoint's ``extra``.
 """
 from __future__ import annotations
 
@@ -204,17 +206,22 @@ def run_training(cfg: ModelConfig, hp: TrainHParams, pipeline, n_steps: int,
     ``step`` and ``step_time`` (seconds, host clock around one step that
     ends in a device synchronise) at every ``log_every``-th step and the
     last. ``pipeline``: an iterator of ``(step, batch)`` or a callable
-    ``step -> batch`` (numpy arrays)."""
-    if ckpt_dir:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (checkpoint/checkpoint.py, "
-            "ROADMAP Queue 1 item 7)")
+    ``step -> batch`` (numpy arrays). With ``ckpt_dir``, a run resumes
+    after the newest valid checkpoint there and saves after every step
+    ``s`` with ``s % ckpt_every == ckpt_every - 1``, keeping ``save``'s
+    default number of the newest."""
+    from .. import checkpoint as ckpt
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params, opt_state, sparse_state = init_train_state(gen, cfg, hp, dev)
     step_fn = make_train_step(cfg, hp, attn=attn, loss_chunk=loss_chunk)
+    start = 0
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        start, (params, opt_state, sparse_state), _ = ckpt.restore(
+            ckpt_dir, (params, opt_state, sparse_state))
+        start += 1
     history: Dict[str, list] = {"loss": [], "step": [], "step_time": []}
-    for step in range(n_steps):
+    for step in range(start, n_steps):
         _, batch = next(pipeline) if hasattr(pipeline, "__next__") \
             else (None, pipeline(step))
         batch = {k: torch.as_tensor(v).to(dev, torch.long) if k != "embeds"
@@ -231,4 +238,8 @@ def run_training(cfg: ModelConfig, hp: TrainHParams, pipeline, n_steps: int,
             history["step_time"].append(dt)
         if callback:
             callback(step, m)
+        if ckpt_dir and step % ckpt_every == ckpt_every - 1:
+            ckpt.save(ckpt_dir, step, (params, opt_state, sparse_state),
+                      extra=pipeline.state() if hasattr(pipeline, "state")
+                      else {})
     return (params, opt_state, sparse_state), history

@@ -1,7 +1,9 @@
 """Per-stream online OSSL adaptation under serving load (``repro.serving.adapt``).
 
-A frozen shared base plus ONE stacked per-stream compact delta tensor
-``[n_slots, n_layers, J, T, bk, bo]``; each slot's effective weights are
+A frozen shared base plus ONE stacked per-stream delta tensor, compact
+``[n_slots, n_layers, J, T, bk, bo]`` (the default) or dense
+``[n_slots, n_layers, Kmax, N]`` (the A/B baseline); each slot's effective
+weights are
 ``w_base + delta[slot]``, and the per-stream gates inside ``run_chunk``
 decide when a stream's delta absorbs an update. This module owns the step
 around ``run_chunk``: per-stream adapt on/off (a frozen lane keeps its delta
@@ -81,7 +83,9 @@ def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
 
 
 def delta_norms(deltas: torch.Tensor) -> torch.Tensor:
-    """Per-slot L2 norm of the adaptation, summed over layers. ``[S]``."""
+    """Per-slot L2 norm of the adaptation, summed over layers. ``[S]``.
+    Either layout: compact storage holds only kept coordinates and dense
+    deltas are zero off the mask, so both report the same norms."""
     sq = (deltas * deltas).sum(dim=tuple(range(2, deltas.dim())))
     return torch.sqrt(sq).sum(1)
 
@@ -89,16 +93,15 @@ def delta_norms(deltas: torch.Tensor) -> torch.Tensor:
 def merge_lane_into_base(params: Dict[str, Any], deltas: torch.Tensor,
                          slot: int, cfg: SNNConfig,
                          weight: float = 1.0) -> Dict[str, Any]:
-    """Fold stream ``slot``'s compact delta into the dense training params'
-    base weights, mask-free: the lane's kept blocks scatter into the base
-    (``engine.densify_deltas`` over the mask's kept-block ids) and pruned
-    coordinates stay untouched, exactly zero by the topology invariant.
-    Only ``hidden/w`` is rebuilt; every other key rides through."""
+    """Fold stream ``slot``'s delta into the dense training params' base
+    weights, mask-free: a compact lane scatters its kept blocks into the
+    base (``engine.densify_deltas`` over the mask's kept-block ids), a dense
+    ``[L, Kmax, N]`` lane is zero off the mask by the topology invariant, so
+    a plain add keeps the base's sparsity bit for bit. Only ``hidden/w`` is
+    rebuilt; every other key rides through."""
     lane = deltas[slot]
-    if lane.dim() != 5:
-        raise NotImplementedError(
-            "only compact [L, J, T, bk, bo] lanes are ported")
-    idx = topology_lib.stacked_kept_ids(params["hidden"]["mask"], cfg)
-    lane = engine.densify_deltas(lane[None], idx, cfg)[0]
+    if lane.dim() == 5:              # compact [L, J, T, bk, bo]
+        idx = topology_lib.stacked_kept_ids(params["hidden"]["mask"], cfg)
+        lane = engine.densify_deltas(lane[None], idx, cfg)[0]
     w = params["hidden"]["w"] + weight * lane
     return {**params, "hidden": {**params["hidden"], "w": w}}

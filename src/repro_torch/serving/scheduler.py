@@ -16,20 +16,36 @@ with one ``.cpu()``. ``pipeline_depth`` 0 retires each step inside
 ``step()``; 1 stages step ``t+1`` while the card computes step ``t``. Both
 give bit-identical trajectories.
 
+With a :class:`~.topology_service.TopologyService` attached, the chunk fn
+carries the DSST factors (``want_factors=True``): every retire feeds the
+service, and a due prune/regrow epoch runs between grid steps. The epoch
+of grid step ``t`` lands after ``t`` retires and before ``t+1`` dispatches,
+with ``t``'s snapshot of the merge-eligible lanes, so a pipelined fleet
+with epochs equals the serial one bit for bit. The evolved ``(params,
+deltas)`` keep their shapes, dtypes and device; the exec weight rep is
+re-derived from the new mask and the chunk fn is never rebuilt
+(``n_compiles`` counts the distinct chunk fns the grid steps ran: it
+stays 1).
+
+``compact`` picks the delta layout: compact ``[S, L, J, T, bk, bo]`` (the
+default for uniform layer geometry) or dense ``[S, L, Kmax, N]`` (the A/B
+baseline, whose exec rep carries the dense mask).
+
 Not ported yet: QoS tiers, async ingestion, the depth autopilot, the span
-tracer, the live topology service and slot sharding over a mesh. Passing
-any of them raises ``NotImplementedError``.
+tracer, slot sharding over a mesh and pipeline depths above 1. Passing any
+of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..core.snn import (SNNConfig, init_stream_deltas, init_stream_state,
-                        serving_params)
+from ..core import engine
+from ..core.snn import (ChunkMetrics, SNNConfig, init_stream_deltas,
+                        init_stream_state, serving_params)
 from ..launch.batching import SlotGrid
 from .adapt import AdaptConfig, make_chunk_fn
 from .session import SessionStatus, StreamSession, WindowPrediction, reset_lane
@@ -55,6 +71,12 @@ class StreamScheduler:
       telemetry: a :class:`FleetTelemetry` to fill (fresh one by default).
       pipeline_depth: 0 = serial phases, 1 = double-buffered staging.
       device:   where the fleet's tensors live (``"cuda"`` by default).
+      topology: optional :class:`TopologyService`, live DSST epochs; it
+        must be built for ``cfg``.
+      want_factors: the chunk fn's DSST-factor mode; None = True iff a
+        non-frozen topology service is attached (which requires it).
+      compact:  delta layout; None = compact iff the layer geometry is
+        uniform, False = the dense baseline.
     """
 
     def __init__(self, params, cfg: SNNConfig, n_slots: int,
@@ -62,10 +84,11 @@ class StreamScheduler:
                  clock_dt_s: float = 0.002,
                  telemetry: Optional[FleetTelemetry] = None,
                  pipeline_depth: int = 0, device="cuda", *, mesh=None,
-                 topology=None, tracer=None, tiers=None, ingest=None,
-                 autopilot=None):
-        unported = {"mesh": mesh, "topology": topology, "tracer": tracer,
-                    "tiers": tiers, "ingest": ingest, "autopilot": autopilot}
+                 topology=None, want_factors: Optional[bool] = None,
+                 compact: Optional[bool] = None, tracer=None, tiers=None,
+                 ingest=None, autopilot=None):
+        unported = {"mesh": mesh, "tracer": tracer, "tiers": tiers,
+                    "ingest": ingest, "autopilot": autopilot}
         for name, value in unported.items():
             if value is not None and value is not False:
                 raise NotImplementedError(
@@ -73,24 +96,57 @@ class StreamScheduler:
         if pipeline_depth not in (0, 1):
             raise NotImplementedError(
                 f"pipeline_depth {pipeline_depth}: only 0 and 1 are ported")
+        if topology is not None and topology.cfg != cfg:
+            raise ValueError("topology service was built for a different "
+                             "SNNConfig than this scheduler's")
+        live = topology is not None and not topology.frozen
+        if want_factors is None:
+            want_factors = live
+        if live and not want_factors:
+            raise ValueError("a live topology service consumes the chunk "
+                             "step's DSST factors; want_factors=False would "
+                             "starve it")
         self.device = torch.device(device)
         self.params, self.cfg = params, cfg
+        self.topology, self.want_factors = topology, want_factors
+        self.compact = engine.geometry(cfg).uniform if compact is None \
+            else compact
         self.n_slots, self.chunk_len = n_slots, chunk_len
         self.grid: SlotGrid = SlotGrid(n_slots)
         self.state = init_stream_state(cfg, n_slots, device=self.device)
-        self.deltas = init_stream_deltas(cfg, n_slots, device=self.device)
-        # no DSST factors: their consumer, the live topology service, is
-        # not ported yet
-        self.chunk_fn = make_chunk_fn(cfg, adapt, want_factors=False)
+        self.deltas = init_stream_deltas(cfg, n_slots, device=self.device,
+                                         compact=self.compact)
+        self.chunk_fn = make_chunk_fn(cfg, adapt, want_factors=want_factors)
+        self._fns_run: List[Callable] = []
         self.pipeline = StagingPipeline(depth=pipeline_depth)
         self.clock = 0.0
         self.clock_dt_s = clock_dt_s
         self.telemetry = telemetry or FleetTelemetry()
         self.retired: List[StreamSession] = []
         self._pin = self.device.type == "cuda"
-        self._exec_params = serving_params(self.params, self.cfg)
+        self._refresh_exec_params()
+
+    def _refresh_exec_params(self) -> None:
+        """(Re)derive the weight rep the chunk fn consumes from the dense
+        ``self.params`` (the compact rep; the dense layout's adds its
+        ``mask_f``) and re-measure the resident bytes. Runs at construction
+        and after every topology swap, the only times the base changes."""
+        self._exec_params = serving_params(self.params, self.cfg,
+                                           compact=self.compact)
         self._params_bytes = sum(_nbytes(t) for t in self._exec_params.values())
         self._delta_bytes = _nbytes(self.deltas)
+
+    def _replace_lanes(self, deltas: torch.Tensor) -> None:
+        """Install swapped deltas: a tensor of the live one's shape, dtype
+        and device, so the chunk fn takes it as it took the old one."""
+        old = self.deltas
+        if (deltas.shape, deltas.dtype, deltas.device) != (
+                old.shape, old.dtype, old.device):
+            raise ValueError(f"swapped deltas {tuple(deltas.shape)} "
+                             f"{deltas.dtype} {deltas.device} do not match "
+                             f"the fleet's {tuple(old.shape)} {old.dtype} "
+                             f"{old.device}")
+        self.deltas = deltas
 
     # -- lifecycle -----------------------------------------------------------
     def submit(self, session: StreamSession) -> None:
@@ -151,9 +207,14 @@ class StreamScheduler:
                                     events_in=float(chunk.sum())))
             if sess.exhausted:        # a host fact: source done, buffers empty
                 retiring.append((slot, sess))
+        gone = {slot for slot, _ in retiring}
+        merge_slots = tuple(
+            slot for slot, sess in enumerate(self.grid.occupant)
+            if sess is not None and sess.adapt and slot not in gone)
         self.telemetry.record_phase("stage", time.perf_counter() - t0)
         return StagedChunk(events=events_t, valid=valid_t, adapt_mask=amask_t,
-                           lanes=lanes, retiring=retiring, fed=fed)
+                           lanes=lanes, retiring=retiring,
+                           merge_slots=merge_slots, fed=fed)
 
     # -- phase 2: dispatch ---------------------------------------------------
     def _dispatch(self, staged: StagedChunk) -> InFlight:
@@ -165,6 +226,8 @@ class StreamScheduler:
         events = staged.events.to(dev, non_blocking=True)
         valid = staged.valid.to(dev, non_blocking=True)
         amask = staged.adapt_mask.to(dev, non_blocking=True)
+        if not any(fn is self.chunk_fn for fn in self._fns_run):
+            self._fns_run.append(self.chunk_fn)
         self.deltas, self.state, metrics = self.chunk_fn(
             self._exec_params, self.deltas, self.state, events, valid, amask)
         final = None
@@ -228,6 +291,12 @@ class StreamScheduler:
             sess.final_deltas = m["final_deltas"][i].copy()
             sess.status, sess.slot = SessionStatus.RETIRED, None
             self.retired.append(sess)
+        svc = self.topology
+        if svc is not None and not svc.frozen and "pre_mag" in m:
+            svc.observe(ChunkMetrics(**{f: m.get(f)
+                                        for f in ChunkMetrics._fields}))
+            self.maybe_evolve_topology(merge_slots=fl.staged.merge_slots,
+                                       grid_step=fl.grid_step)
         self.telemetry.record_phase("retire", time.perf_counter() - t0)
 
     # -- the one grid step ---------------------------------------------------
@@ -254,6 +323,36 @@ class StreamScheduler:
             self._retire(self.pipeline.pop())
             self.telemetry.record_flush(time.perf_counter() - t0)
 
+    # -- live topology evolution --------------------------------------------
+    def maybe_evolve_topology(self, force: bool = False, merge_slots=None,
+                              grid_step: Optional[int] = None):
+        """Run a due DSST prune/regrow epoch between grid steps and swap its
+        ``(params, deltas)`` in. The retire phase passes the staged step's
+        ``merge_slots`` snapshot and ``grid_step``; a manual call may omit
+        both (the current adaptive occupants, the current step). Returns the
+        ``TopologyEpochEvent`` when an epoch ran, else None."""
+        svc = self.topology
+        step = self.grid.stats["steps"] if grid_step is None else grid_step
+        if svc is None or not (force or svc.due(step)):
+            return None
+        if merge_slots is None:
+            merge_slots = tuple(
+                slot for slot, sess in enumerate(self.grid.occupant)
+                if sess is not None and sess.adapt)
+        t0 = time.perf_counter()
+        params, deltas, event = svc.evolve(self.params, self.deltas,
+                                           merge_slots=merge_slots,
+                                           grid_step=step)
+        self.params = params
+        self._replace_lanes(deltas)
+        self._refresh_exec_params()   # new mask -> new compact wc/idx
+        self.telemetry.record_topology_epoch(
+            grid_step=event.grid_step, pruned=event.pruned,
+            regrown=event.regrown, mask_change=event.mask_change,
+            merged_streams=len(event.merged_slots),
+            wall_s=time.perf_counter() - t0)
+        return event
+
     def run_until_drained(self, max_steps: int = 100_000) -> List[StreamSession]:
         """Step until every submitted session is served, then flush;
         returns the retired sessions (bookkeeping complete)."""
@@ -272,10 +371,11 @@ class StreamScheduler:
 
     @property
     def n_compiles(self) -> int:
-        """Chunk steps built for this fleet's one geometry: always 1, since
-        the one tier's step is built once in ``__init__``. The counterpart
-        of the reference's one-trace-per-geometry guarantee."""
-        return 1
+        """Distinct chunk fns this scheduler's grid steps have run, however
+        they were built: 0 before the first step, then 1 for the life of
+        the fleet, topology swaps included. The counterpart of the
+        reference's one-trace-per-geometry guarantee."""
+        return len(self._fns_run)
 
     @property
     def utilization(self) -> float:

@@ -19,7 +19,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from ..core.snn import SNNConfig, init_stream_state
+from ..core.snn import SNNConfig, init_stream_deltas, init_stream_state
 
 
 class SessionStatus(enum.Enum):
@@ -51,7 +51,8 @@ class StreamSession:
     timesteps_fed: int = 0
     predictions: List[WindowPrediction] = dataclasses.field(default_factory=list)
     _pending: List[np.ndarray] = dataclasses.field(default_factory=list)
-    # this stream's compact deltas [n_layers, J, T, bk, bo] at retirement
+    # this stream's deltas at retirement, in the fleet's layout: compact
+    # [n_layers, J, T, bk, bo] or dense [n_layers, Kmax, N]
     final_deltas: Optional[np.ndarray] = None
 
     def push_events(self, chunk: np.ndarray) -> None:
@@ -120,6 +121,14 @@ def read_lane(batched, slot: int):
     """A copy of lane ``slot`` of every leaf, keeping a leading axis of 1
     (the shape ``write_lane`` takes back)."""
     return _map(lambda b: b[slot:slot + 1].clone(), batched)
+
+
+def fresh_lane_state(cfg: SNNConfig, compact: Optional[bool] = None,
+                     device="cuda"):
+    """A 1-slot initial ``(StreamState, deltas)`` pair (``compact`` picks
+    the delta layout; None = the auto choice of ``init_stream_deltas``)."""
+    return (init_stream_state(cfg, 1, device=device),
+            init_stream_deltas(cfg, 1, device=device, compact=compact))
 
 
 def reset_lane(state, deltas: torch.Tensor, cfg: SNNConfig, slot: int):

@@ -38,13 +38,17 @@ class StagedChunk:
     ``events [C, S, n_in]`` f32, ``valid [C, S]`` bool and ``adapt_mask
     [S]`` bool are host tensors (pinned when the fleet lives on a CUDA
     device, so dispatch copies them asynchronously). ``retiring`` lists the
-    ``(slot, session)`` pairs that exhaust after this step.
+    ``(slot, session)`` pairs that exhaust after this step. ``merge_slots``
+    snapshots the adaptive occupants a topology epoch after this step may
+    fold into the base (taken here, so a pipelined retire sees the lanes
+    the serial scheduler would, not later admissions).
     """
     events: Any
     valid: Any
     adapt_mask: Any
     lanes: List[LaneRecord]
     retiring: List[Tuple[int, Any]]
+    merge_slots: Tuple[int, ...]
     fed: Dict[int, int]          # {slot: timesteps fed} (step() return value)
 
 
@@ -53,7 +57,7 @@ class InFlight:
     """A dispatched-but-unretired grid step: the staged host record, the
     chunk step's metrics (device tensors), and ``final_deltas``: a copy,
     taken at dispatch, of the post-step lanes of ``staged.retiring`` (in
-    that order, ``[R, L, J, T, bk, bo]``), or None when nobody retires."""
+    that order, in the fleet's delta layout), or None when nobody retires."""
     staged: StagedChunk
     final_deltas: Optional[Any]
     metrics: Any

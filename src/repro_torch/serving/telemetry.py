@@ -5,13 +5,16 @@ port's own copy of the metrics registry. Per-stream counters are monotone
 (a negative increment raises) and separable (a slot's counters only get
 that slot's lane of the chunk metrics); step and phase wall times land in
 bounded fixed-bucket histograms; the host/device overlap ratio is
-``hidden / (hidden + wait)`` per retired step. Tier, topology, ingest and
-pipeline-depth families come with those scheduler features.
+``hidden / (hidden + wait)`` per retired step; live topology epochs land
+in counters (totals) and a bounded ring of recent events, each with the
+epoch's host wall. Tier, ingest and pipeline-depth families come with those
+scheduler features.
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from collections import deque
+from typing import Deque, Dict, List, Optional
 
 from ..core.energy import OperatingPoint, report
 from ..obs.metrics import LATENCY_BUCKETS_S, RATIO_BUCKETS, MetricsRegistry
@@ -102,7 +105,8 @@ class FleetTelemetry:
     """Rollup across streams + host-side step/phase latency + overlap."""
 
     def __init__(self, op: Optional[OperatingPoint] = None,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 max_epoch_events: int = 256):
         self.op = op or OperatingPoint.low_power()
         self.registry = registry or MetricsRegistry()
         self.streams: Dict[int, StreamCounters] = {}
@@ -135,6 +139,25 @@ class FleetTelemetry:
             "resident bytes of serving weight state (params = the exec "
             "weight rep, deltas = the per-stream adaptation tensor)",
             labels=("kind",))
+        self._topo_epochs = self.registry.counter(
+            "serving_topology_epochs_total", "live DSST prune/regrow epochs")
+        self._topo_pruned = self.registry.counter(
+            "serving_topology_pruned_total", "connections pruned by epochs")
+        self._topo_regrown = self.registry.counter(
+            "serving_topology_regrown_total", "connections regrown by epochs")
+        self._topo_merged = self.registry.counter(
+            "serving_streams_merged_total", "hot streams folded into base")
+        self._topo_mask_change = self.registry.gauge(
+            "serving_topology_mask_change", "last epoch's mask-change frac")
+        self._topo_mask_change_sum = self.registry.counter(
+            "serving_topology_mask_change_sum",
+            "summed per-epoch mask-change fractions (mean = sum / epochs)")
+        self._topo_wall = self.registry.counter(
+            "serving_topology_epoch_seconds_total",
+            "host wall of the live epochs (fold, evolve, project, swap)")
+        # the per-epoch log is a bounded ring; the totals live in the
+        # counters above, which topology_rollup() reads
+        self.topology_epochs: Deque[dict] = deque(maxlen=max_epoch_events)
 
     @property
     def steps(self) -> int:
@@ -186,6 +209,40 @@ class FleetTelemetry:
             out[values[0]] = float(child.value)
         return out
 
+    def record_topology_epoch(self, *, grid_step: int, pruned: int,
+                              regrown: int, mask_change: float,
+                              merged_streams: int,
+                              wall_s: float = 0.0) -> None:
+        """Log one live DSST prune/regrow epoch and its host wall."""
+        self._topo_epochs.inc()
+        self._topo_pruned.inc(int(pruned))
+        self._topo_regrown.inc(int(regrown))
+        self._topo_merged.inc(int(merged_streams))
+        self._topo_mask_change.set(float(mask_change))
+        self._topo_mask_change_sum.inc(float(mask_change))
+        self._topo_wall.inc(float(wall_s))
+        with self._lock:
+            self.topology_epochs.append({
+                "grid_step": int(grid_step), "pruned": int(pruned),
+                "regrown": int(regrown), "mask_change": float(mask_change),
+                "merged_streams": int(merged_streams),
+                "wall_s": float(wall_s)})
+
+    def topology_rollup(self) -> dict:
+        """Aggregate topology-epoch stats from the registry counters (exact
+        past the event ring's horizon); all zeros for a frozen fleet."""
+        epochs = int(self._topo_epochs.value)
+        return {
+            "topology_epochs": epochs,
+            "topology_pruned": int(self._topo_pruned.value),
+            "topology_regrown": int(self._topo_regrown.value),
+            "topology_mask_change_mean":
+                (float(self._topo_mask_change_sum.value) / epochs
+                 if epochs else 0.0),
+            "streams_merged": int(self._topo_merged.value),
+            "topology_epoch_wall_s": float(self._topo_wall.value),
+        }
+
     # -- rollup --------------------------------------------------------------
     def latency_percentiles(self) -> dict:
         """p50/p99 of recorded grid-step wall times, in milliseconds."""
@@ -211,7 +268,8 @@ class FleetTelemetry:
 
     def rollup(self) -> dict:
         """Fleet-level summary: summed stream counters, throughput over the
-        recorded step + flush wall, latency percentiles, overlap, energy."""
+        recorded step + flush wall, latency percentiles, overlap, energy and
+        the topology rollup."""
         def fam_total(attr):
             fam = self.registry.get(STREAM_COUNTER_FAMILIES[attr][0])
             return fam.total() if fam is not None else 0.0
@@ -237,6 +295,7 @@ class FleetTelemetry:
             "overlap_ratio": self.overlap_ratio(),
             "bytes_held": self.bytes_held(),
             **self.latency_percentiles(),
+            **self.topology_rollup(),
         }
 
     def per_stream(self) -> List[dict]:

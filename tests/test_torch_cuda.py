@@ -362,6 +362,75 @@ def test_serving_chunk_through_the_wu_kernel_equals_the_plain_update(
     assert torch.equal(m_k.logits, m_p.logits)
 
 
+@pytest.mark.cuda
+def test_topology_epoch_on_the_card_and_the_kernels_on_its_ids(cuda):
+    """One live prune/regrow epoch at full width (512-512-512-16, 80 % N:M,
+    64 slots of compact deltas) on the card: the masks and projected deltas
+    equal the CPU's bit for bit, survivors keep their bits (compared by
+    old and new kept ids on the card) and regrown blocks are exactly 0;
+    the new ids ascend per out tile, and the fused ``nm_spmm`` and the
+    in-place ``wu_outer_slots`` launched on them equal their plain
+    versions (``1e-4``; bit for bit)."""
+    import dataclasses
+    from repro_torch.configs.elfcore_snn import CONFIG
+    from repro_torch.core import topology
+    from repro_torch.core.snn import init_params, init_stream_deltas, serving_params
+    cfg = dataclasses.replace(CONFIG, backend="kernels")
+    s = 64
+    params = init_params(0, cfg, device="cpu")
+    g = torch.Generator().manual_seed(21)
+    deltas = 0.01 * torch.randn(init_stream_deltas(cfg, s, "cpu").shape,
+                                generator=g)
+    pre, post = torch.rand((2, 512), generator=g), torch.rand((2, 512),
+                                                             generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {"hidden": {k: v.to(dev) for k, v in params["hidden"].items()},
+             "readout": params["readout"].to(dev)}
+        p2, stats = topology.topology_epoch(p, pre.to(dev), post.to(dev), cfg,
+                                            step=0)
+        d2 = topology.project_deltas(deltas.to(dev), p["hidden"]["mask"],
+                                     p2["hidden"]["mask"], cfg)
+        out[str(dev)] = (p2, d2, stats)
+    (pc, dc, _), (pg, dg, stats) = out["cpu"], out[str(cuda)]
+    assert torch.equal(pg["hidden"]["mask"].cpu(), pc["hidden"]["mask"])
+    assert torch.equal(pg["hidden"]["w"].cpu(), pc["hidden"]["w"])
+    assert torch.equal(dg.cpu(), dc)
+    spec = cfg.spec(512)
+    k = cfg.dsst.k_per_group(spec, 0)
+    assert int(stats.total_pruned) == int(stats.total_regrown) == \
+        2 * (512 // spec.m) * 512 * k
+    assert topology.check(pg["hidden"]["mask"], cfg)
+    old_ids = topology.stacked_kept_ids(params["hidden"]["mask"].to(cuda), cfg)
+    new_ids = topology.stacked_kept_ids(pg["hidden"]["mask"], cfg)
+    eq = new_ids[..., :, None] == old_ids[..., None, :]       # [L, J, T, T]
+    hit, pos = eq.any(-1), eq.to(torch.uint8).argmax(-1)
+    old = torch.take_along_dim(deltas.to(cuda), pos[None, ..., None, None],
+                               dim=3)
+    assert torch.equal(dg[:, hit], old[:, hit])
+    assert not dg[:, ~hit].any() and bool((~hit).any())
+    assert bool((new_ids[..., 1:] > new_ids[..., :-1]).all())
+    rep = serving_params(pg, cfg)
+    assert torch.equal(rep["idx"], new_ids)
+    x = (torch.rand((s, 512), generator=g) < 0.05).float().to(cuda)
+    for layer in range(2):
+        got = nm_ops.nm_spmm_fused(x, rep["wc"][layer], rep["idx"][layer],
+                                   dg[:, layer])
+        torch.testing.assert_close(
+            got, nm_ref.nm_spmm_fused(x, rep["wc"][layer], rep["idx"][layer],
+                                      dg[:, layer]), atol=1e-4, rtol=1e-4)
+    trace = torch.rand((s, 512), generator=g).to(cuda)
+    mod = torch.randn((s, 512), generator=g).to(cuda)
+    scale = torch.where(torch.rand(s, generator=g) < 0.5, 0.02, 0.0).to(cuda)
+    view = dg[:, 1]
+    want = view + wu_ref.wu_outer_slots(trace, mod, rep["idx"][1], scale, 1, 1)
+    n0 = wu_kernel.wu_outer_slots_cuda.launches
+    wu_ops.wu_outer_slots_update(view, trace, mod, rep["idx"][1], scale,
+                                 bk=1, bo=1)
+    assert wu_kernel.wu_outer_slots_cuda.launches == n0 + 1
+    assert torch.equal(dg[:, 1], want)
+
+
 # ------------------------------------------------------------ flash attention
 
 def qkv(seed, b, s, h, kv, dh):

@@ -234,6 +234,20 @@ def test_lane_surgery_touches_one_lane_only(params):
 @pytest.mark.parametrize("option", ["mesh", "topology", "tracer", "tiers",
                                     "ingest", "autopilot"])
 def test_unported_scheduler_options_raise(params, option):
+    """The options still to port raise ``NotImplementedError``; the live
+    topology service is ported, and the scheduler refuses only a service
+    built for another config (``ValueError``) and depths above 1."""
+    if option == "topology":
+        import dataclasses
+        from repro_torch.serving import TopologyService
+        other = TopologyService(dataclasses.replace(CFG, n_out=3))
+        with pytest.raises(ValueError, match="different SNNConfig"):
+            StreamScheduler(params, CFG, n_slots=2, device="cpu",
+                            topology=other)
+        with pytest.raises(NotImplementedError):
+            StreamScheduler(params, CFG, n_slots=2, device="cpu",
+                            topology=TopologyService(CFG), pipeline_depth=2)
+        return
     with pytest.raises(NotImplementedError):
         StreamScheduler(params, CFG, n_slots=2, device="cpu",
                         **{option: object()})

@@ -464,11 +464,37 @@ def test_local_mode_no_cross_block_grads():
     assert float(g[1].abs().max()) > 0             # readout does learn
 
 
-def test_run_training_checkpoints_raise():
+def test_resume_from_checkpoint_identical(tmp_path):
+    """An interrupted run (checkpoint after step 3, stopped after step 4)
+    resumed to step 6 from a replayed pipeline equals the uninterrupted
+    run bit for bit: the last loss and every param and AdamW leaf."""
     cfg = C.get_reduced("stablelm_12b")
-    with pytest.raises(NotImplementedError):
-        train.run_training(cfg, train.TrainHParams(), lambda s: None, 1,
-                           ckpt_dir="ck", device="cpu")
+    hp = train.TrainHParams(opt=opt.AdamWConfig(**OPT),
+                            gating=gating.GatingConfig())
+
+    def mk():
+        return pipe.TokenPipeline(pipe.PipelineConfig(vocab=cfg.vocab,
+                                                      seq_len=16,
+                                                      global_batch=4))
+    ref, h_ref = train.run_training(cfg, hp, mk(), 6, log_every=1,
+                                    device="cpu")
+    d = str(tmp_path / "ck")
+    train.run_training(cfg, hp, mk(), 5, ckpt_dir=d, ckpt_every=4,
+                       log_every=1, device="cpu")
+    p2 = mk()
+    for _ in range(4):            # a restart replays the pipeline position
+        next(p2)
+    got, h_res = train.run_training(cfg, hp, p2, 6, ckpt_dir=d, ckpt_every=4,
+                                    log_every=1, device="cpu")
+    assert h_res["step"] == [4, 5]
+    assert h_res["loss"][-1] == h_ref["loss"][-1]
+    assert got[1].step == ref[1].step == 6
+    for tree_got, tree_ref in ((got[0], ref[0]), (got[1].m, ref[1].m),
+                               (got[1].v, ref[1].v)):
+        fg, fr = _flat(tree_got), _flat(tree_ref)
+        assert fg.keys() == fr.keys()
+        for k in fr:
+            assert torch.equal(fg[k], fr[k]), k
 
 
 def test_train_state_from_numpy_matches_reference_init():
