@@ -37,7 +37,8 @@ Phases, each raising on failure:
    ``flash_fwd`` at the LM prefill shape (bf16), the LM training shape (B 2,
    S 4096, H 12, KV 2, dh 128), a small f32 shape, a 512 window (whole KV
    tiles skipped, rows whose first visited tile is all masked), a ragged
-   S = 1000, MQA, windows of 500 and 65 (off the key-tile edges), head
+   S = 1000, MQA, Moonlight's prefill (B 4, S 2048, 16 query and 16 KV
+   heads of 128: group 1), windows of 500 and 65 (off the key-tile edges), head
    widths 160 (StableLM) and 64, and f32 at dh 160 with a window of 37,
    against the plain ``ref.flash_fwd`` (bf16 out per element within
    ``ref.bf16_out_tolerance``) and, as the library yardstick,
@@ -148,6 +149,38 @@ Phases, each raising on failure:
    single checkpoint after step 3 and a resume to 6 from a replayed
    pipeline, the last loss and every param and AdamW moment bit for bit.
    Records the bytes written and the save and restore walls.
+15. MoE serving at full size, once phases 8-14 have freed their models (at
+   most MOE_HELD_BYTES still allocated): Moonlight-16B-A3B at its published
+   config (48 layers, d_model 2048, 16 query and 16 KV heads of 128, 64
+   experts of d_ff 1408, top 6, vocab 163840, bf16, random weights from a
+   CUDA generator seeded 0) generates 32 greedy tokens for 4 random prompts
+   of 2048 tokens through ``launch.serve.generate``, under phase 8's gates
+   and records (``flash_fwd`` exactly 48 launches, all in the prefill, no
+   other kernel; tokens in the vocabulary; finite logits). Then one more
+   prefill under a spy on the MoE layer: every layer's ``moe_dropped``
+   times N·K equals the host's count of its trash slots, and for 64 sampled tokens
+   of layer 0 the layer's output equals a per-token loop through their
+   top-k experts (renormalised gates, a dropped choice adds 0; per element
+   within ``ref.bf16_out_tolerance``), each kept choice in the expert the
+   loop picks.
+16. (a) MoE path parity: Moonlight's first 2 layers at full width, 2
+   prompts of 512 tokens, ``attn="flash"`` against ``attn="plain"``. The
+   router's logits are bf16, so the two routes may order two experts
+   otherwise at a near-tie: until a prompt row's first routing flip the
+   routes differ by rounding only, so every flip in that call must be a
+   near-tie of the plain run (the k-th expert within ROUTER_GAP_ULPS bf16
+   ulps of the best one the flash run took instead); later flips are
+   counted. The last logits within PARITY_REL_L2 on the rows whose last
+   prompt token kept its experts in both layers (at least one), and the 8
+   greedy tokens equal up to a first divergence, allowed at phase 9's
+   near-tie or at or after the row's first routing flip.
+   (b) the continuous batcher on the 48-layer model: 8 slots, 12 requests
+   with seeded prompts of 16-48 tokens and 8 new tokens each: every request
+   finishes with 8 tokens in the vocabulary, the 12 go through 8 slots
+   (reused), the grid drains, no kernel launches (decode only). Records
+   steps, tokens/s, step ms p50 and utilization. Then the two requests
+   admitted at step 0 (slots 0 and 1) against their lone 1-slot runs under
+   (a)'s routing and divergence rules.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -190,6 +223,19 @@ PEAK_BF16 = 989.4e12                        # H100 SXM dense bf16, for MFU
 # activations in two layers. Rounding moves a gradient leaf by ~1 % (relative
 # L2); a lost GQA head or query tile in dK/dV moves it by tens of percent.
 TRAIN_GRAD_REL_L2 = 0.05
+MOE_ARCH, MOE_LOOP_TOKENS, MOE_PARITY_LAYERS = "moonshot_v1_16b_a3b", 64, 2
+MOE_HELD_BYTES = 2 << 30       # what may stay allocated before Moonlight's draw
+BATCH_SLOTS, BATCH_REQUESTS, BATCH_NEW, BATCH_MAX_SEQ = 8, 12, 8, 256
+BATCH_PROMPT_MIN, BATCH_PROMPT_MAX = 16, 48
+# phases 16a and 16b: the router's logits are bf16, so two runs that differ
+# by rounding order two experts otherwise where their logits lie within a
+# few bf16 ulps (exact bf16 ties among 64 experts are common; those keep the
+# lower expert on both sides). The plain route's bf16 scores move the
+# router's input by ~3 % against the flash route's (the last logits' rel
+# L2), ~6 ulps of a logit near 1.5, the largest gap the first run read; a
+# wrong head or slot mapping moves the router's input by O(100 %) and its
+# flips' gaps by up to the logits' spread (hundreds of ulps).
+ROUTER_GAP_ULPS = 16
 
 
 def log(msg):
@@ -1125,10 +1171,10 @@ def train_parity(torch, task):
     return rec
 
 
-def lm_model(torch):
+def lm_model(torch, arch):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                            device="cuda")
@@ -1141,7 +1187,7 @@ def lm_prompts(torch, cfg, b, s, seed):
     return torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
 
 
-def lm_serve(torch, cfg, params):
+def lm_serve(torch, cfg, params, tag="lm_serving"):
     """``generate`` at full width: 4 prompts of 2048 tokens, 32 greedy
     tokens; then, for the record, the same work step by step (prefill and
     decode timed apart, synchronised) and one prefill and one decode step
@@ -1197,7 +1243,7 @@ def lm_serve(torch, cfg, params):
     nparams = cfg.param_count()
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
     cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
-    rec = {"arch": LM_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "batch": LM_BATCH, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
            "param_count": nparams, "weight_bytes": weight_bytes,
            "kv_cache_bytes": cache_bytes, "launches": launches,
@@ -1211,7 +1257,7 @@ def lm_serve(torch, cfg, params):
            # decode reads every weight and the cache once per step
            "decode_bound_ms": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
            "prefill_trace": prof_prefill, "decode_trace": prof_decode}
-    log(f"lm_serving {json.dumps({k: v for k, v in rec.items() if k != 'decode_ms'})}")
+    log(f"{tag} {json.dumps({k: v for k, v in rec.items() if k != 'decode_ms'})}")
     return rec, launches
 
 
@@ -1933,6 +1979,311 @@ def lm_resume(torch, workdir):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: the MoE family (Moonlight-16B-A3B) on the LM serving path
+# ---------------------------------------------------------------------------
+
+class RouterSpy:
+    """While open, records every MoE call in call order (the layers of one
+    step, then the next step): its router logits (bf16) and top-k expert
+    ids, slots, capacity and ``moe_dropped``, on the host, by wrapping
+    ``models.moe._dispatch``; the module's results pass through unchanged.
+    The logits are recomputed from the call's own inputs with the same
+    product shape, so they are the module's. ``keep_first`` also keeps the
+    first call's input and output (on the card); ``keep_logits`` every
+    ``transformer.decode_step``'s logits (f32, on the host)."""
+
+    def __init__(self, torch, keep_first=False, keep_logits=False):
+        from repro_torch.models import moe, transformer
+        self.torch, self.moe, self.T = torch, moe, transformer
+        self.keep_first, self.keep_logits = keep_first, keep_logits
+        self.calls, self.first, self.step_logits = [], None, []
+
+    def __enter__(self):
+        torch, moe = self.torch, self.moe
+        self.real = (moe._dispatch, moe.moe_apply, self.T.decode_step)
+        real_dispatch, real_apply, real_step = self.real
+
+        def dispatch(flat, router_w, cfg, c):
+            slot, gate, aux = real_dispatch(flat, router_w, cfg, c)
+            logits = flat @ router_w.to(flat.dtype)
+            ids = moe._top_k_ids(torch.softmax(logits.float(), -1),
+                                 cfg.moe_top_k)
+            self.calls.append({"logits": logits.cpu(), "ids": ids.cpu(),
+                               "slot": slot.cpu(), "c": c,
+                               "dropped": float(aux["moe_dropped"])})
+            return slot, gate, aux
+
+        def apply(p, x, cfg):
+            out, aux = real_apply(p, x, cfg)
+            if self.keep_first and self.first is None:
+                self.first = (x, out)
+            return out, aux
+
+        def step(params, cache, tokens, cfg):
+            logits, cache = real_step(params, cache, tokens, cfg)
+            if self.keep_logits:
+                self.step_logits.append(logits.float().cpu())
+            return logits, cache
+        moe._dispatch, moe.moe_apply, self.T.decode_step = dispatch, apply, step
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._dispatch, self.moe.moe_apply, self.T.decode_step = self.real
+        return False
+
+
+def moe_route_checks(torch, cfg, params):
+    """Phase 15's MoE gates, on one more prefill of phase 15's prompts under
+    a ``RouterSpy``: every layer's ``moe_dropped`` is the host's count of
+    its trash slots over N·K, and for MOE_LOOP_TOKENS sampled tokens of
+    layer 0 the layer's output equals a loop through each token's top-k
+    experts one at a time (gates renormalised over the top k, a dropped
+    choice adds 0). The loop rounds where the layer does, so the two differ
+    by the products' summation orders: per element within
+    ``ref.bf16_out_tolerance`` of the loop's f32 sum."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ref
+    from repro_torch.models import transformer as T
+    prompt = lm_prompts(torch, cfg, LM_BATCH, LM_PROMPT, 1)
+    with torch.no_grad(), RouterSpy(torch, keep_first=True) as spy:
+        T.prefill(params, cfg, prompt, LM_PROMPT + LM_NEW)
+    n, e, k = LM_BATCH * LM_PROMPT, cfg.moe_experts, cfg.moe_top_k
+    if len(spy.calls) != cfg.n_layers:
+        raise AssertionError(f"{len(spy.calls)} MoE calls in one prefill, "
+                             f"want {cfg.n_layers}")
+    drops = []
+    for i, call in enumerate(spy.calls):
+        # the share is an f32 quotient (the card divides by a reciprocal, so
+        # it may differ from the host's by an ulp); the counts must be equal
+        trash = int((call["slot"] == e * call["c"]).sum())
+        if round(call["dropped"] * n * k) != trash:
+            raise AssertionError(f"layer {i}: moe_dropped {call['dropped']} "
+                                 f"of {n * k} choices, but {trash} trash slots")
+        drops.append(call["dropped"])
+
+    x, out = spy.first
+    c = spy.calls[0]["c"]
+    flat, out = x.reshape(n, -1), out.reshape(n, -1)
+    w = {m: T.layer_view(params["layers"], 0)["moe"][m]["w"]
+         for m in ("w1", "w2", "w3")}
+    probs = torch.softmax(spy.calls[0]["logits"].float(), -1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    slot = spy.calls[0]["slot"].reshape(n, k)
+    sample = torch.randperm(n, generator=torch.Generator().manual_seed(4))
+    want, got, kept, wrong_expert = [], [], 0, 0
+    with torch.no_grad():
+        for t in sample[:MOE_LOOP_TOKENS].tolist():
+            g = top.values[t, :k] / top.values[t, :k].sum()
+            acc = torch.zeros(flat.shape[1], device="cuda")
+            for j in range(k):
+                sl, ex = int(slot[t, j]), int(top.indices[t, j])
+                if sl == e * c:
+                    continue                                  # dropped
+                kept += 1
+                wrong_expert += sl // c != ex
+                xt = flat[t:t + 1]
+                y = (F.silu(xt @ w["w1"][ex]) * (xt @ w["w3"][ex])) @ w["w2"][ex]
+                acc += (y * g[j].to("cuda", y.dtype))[0].float()
+            want.append(acc)
+            got.append(out[t])
+    want, got = torch.stack(want), torch.stack(got)
+    over = float(((got.float() - want).abs()
+                  / ref.bf16_out_tolerance(want)).max())
+    rec = {"layers": len(drops), "capacity": c,
+           "moe_dropped_mean": sum(drops) / len(drops),
+           "moe_dropped_min": min(drops), "moe_dropped_max": max(drops),
+           "loop_tokens": MOE_LOOP_TOKENS, "loop_kept_choices": kept,
+           "loop_dropped_choices": MOE_LOOP_TOKENS * k - kept,
+           "loop_wrong_expert": wrong_expert,
+           "loop_max_abs_err": max_err(got, want), "loop_err_over_tol": over}
+    log(f"moe_routing {json.dumps(rec)}")
+    if wrong_expert or not over <= 1.0:
+        raise AssertionError(f"MoE layer against the per-token loop: {rec}")
+    return rec
+
+
+def route_flips(a_calls, b_calls, n_layers, row_of):
+    """Tokens whose top-k expert sets differ between two runs' MoE calls,
+    run b the reference. ``a_calls``, ``b_calls``: per call, in call order,
+    the compared tokens' router logits ``[T, E]`` and top-k ids ``[T, k]``,
+    aligned token by token; ``row_of(step, tok)`` the compared row (a
+    prompt row, a request) a token belongs to. Until a row's first flip the
+    two runs differ by rounding only, so every flip in the call that holds
+    a row's first must be a near-tie of run b; later calls of that row carry
+    the flip on (the token's deeper layers, the cache its row's later tokens
+    read) and are counted only. Returns the counts with the largest
+    near-tie gap in bf16 ulps (the k-th expert's logit less the best logit
+    the other run chose instead), each row's first flip as (step, layer),
+    and the set of flipped (step, token)."""
+    first, tokens = {}, set()
+    near = later = 0
+    max_gap = 0.0
+    for i, ((la, ia), (lb, ib)) in enumerate(zip(a_calls, b_calls)):
+        step, layer = divmod(i, n_layers)
+        differ = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        for tok in differ.nonzero()[:, 0].tolist():
+            tokens.add((step, tok))
+            row = row_of(step, tok)
+            if first.setdefault(row, (step, layer)) != (step, layer):
+                later += 1
+                continue
+            near += 1
+            sa, sb = set(ia[tok].tolist()), set(ib[tok].tolist())
+            kth = float(lb[tok, list(sb)].float().min())
+            gap = kth - float(lb[tok, list(sa - sb)].float().max())
+            max_gap = max(max_gap, gap / bf16_ulp(abs(kth)))
+    return ({"tokens_flipped": len(tokens), "first_call_flips": near,
+             "later_flips": later, "rows_flipped": len(first),
+             "max_gap_ulps": max_gap}, first, tokens)
+
+
+def first_divergence(toks_a, toks_b, logits_b, flip_step):
+    """Where two greedy token rows first differ, and whether that is
+    allowed: at a near-tie of run b's logits (its top two within
+    PARITY_GAP_ULPS bf16 ulps of its top logit, phase 9's rule), or at or
+    after the row's first routing flip (``flip_step``, None if none).
+    ``logits_b(j)``: run b's logits that chose token j."""
+    differ = [j for j, (x, y) in enumerate(zip(toks_a, toks_b)) if x != y]
+    if not differ:
+        return {"first_divergence": None}, True
+    j = differ[0]
+    top2 = logits_b(j).topk(2).values
+    gap = float(top2[0] - top2[1])
+    band = PARITY_GAP_ULPS * bf16_ulp(float(top2[0]))
+    after_flip = flip_step is not None and flip_step <= j
+    return ({"first_divergence": j, "top2_gap": gap, "band": band,
+             "after_routing_flip": after_flip},
+            gap <= band or after_flip)
+
+
+def first_layers(tree, n):
+    if isinstance(tree, dict):
+        return {k: first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def moe_parity(torch, cfg, params):
+    """Phase 16a (module docstring): Moonlight's first MOE_PARITY_LAYERS
+    layers, flash against plain attention, under ``route_flips`` and
+    ``first_divergence``; the last logits within PARITY_REL_L2 on the rows
+    whose last prompt token kept its experts in every layer."""
+    import dataclasses
+    cut = dataclasses.replace(cfg, n_layers=MOE_PARITY_LAYERS)
+    cut_params = dict(params, layers=first_layers(params["layers"],
+                                                  MOE_PARITY_LAYERS))
+    prompt = lm_prompts(torch, cut, PARITY_BATCH, PARITY_PROMPT, 2)
+    runs = {}
+    for attn in ("flash", "plain"):
+        with RouterSpy(torch) as spy:
+            toks, lgs = greedy_trace(torch, cut, cut_params, prompt,
+                                     PARITY_NEW, attn)
+        runs[attn] = (toks, lgs, [(c["logits"], c["ids"]) for c in spy.calls])
+    (tok_f, lg_f, calls_f), (tok_p, lg_p, calls_p) = runs["flash"], runs["plain"]
+    s = PARITY_PROMPT
+
+    def row_of(step, tok):
+        return tok // s if step == 0 else tok
+    flips, first, flipped = route_flips(calls_f, calls_p, cut.n_layers, row_of)
+    gated = [r for r in range(PARITY_BATCH) if (0, r * s + s - 1) not in flipped]
+    rel = rel_l2(lg_f[0][gated], lg_p[0][gated]) if gated else None
+    rec = {"n_layers": cut.n_layers, "batch": PARITY_BATCH,
+           "prompt_len": PARITY_PROMPT, "new_tokens": PARITY_NEW,
+           "routing": flips, "logits_rows_gated": gated,
+           "logits_rel_l2": rel,
+           "logits_rel_l2_all_rows": rel_l2(lg_f[0], lg_p[0]), "rows": []}
+    ok = (flips["max_gap_ulps"] <= ROUTER_GAP_ULPS and bool(gated)
+          and rel <= PARITY_REL_L2)
+    for r in range(PARITY_BATCH):
+        row, fine = first_divergence(tok_f[r].tolist(), tok_p[r].tolist(),
+                                     lambda j: lg_p[j][r],
+                                     first.get(r, (None,))[0])
+        rec["rows"].append(row)
+        ok &= fine
+    log(f"moe_parity {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"flash vs plain MoE path: {rec}")
+    return rec
+
+
+def moe_batcher(torch, cfg, params):
+    """Phase 16b (module docstring). Returns the record and the timed run's
+    launches."""
+    from repro_torch.launch.batching import ContinuousBatcher, Request
+    gen = torch.Generator().manual_seed(5)
+    lens = torch.randint(BATCH_PROMPT_MIN, BATCH_PROMPT_MAX + 1,
+                         (BATCH_REQUESTS,), generator=gen).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in lens]
+
+    def run(n_slots, rids):
+        b = ContinuousBatcher(params, cfg, n_slots, BATCH_MAX_SEQ,
+                              device="cuda")
+        for i in rids:
+            b.submit(Request(rid=i, prompt=prompts[i], max_new=BATCH_NEW))
+        step_ms = []
+        while not b.grid.drained:
+            t0 = time.perf_counter()
+            b.step()               # ends in the step's read of its tokens
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(step_ms) > 10 * BATCH_MAX_SEQ:
+                raise AssertionError("the batcher did not drain")
+        return b, {r.rid: r.out for r in b.finished}, step_ms
+
+    torch.cuda.synchronize()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    b, outs, step_ms = run(BATCH_SLOTS, range(BATCH_REQUESTS))
+    wall_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the batcher launched {launches}, want none")
+    stats = dict(b.grid.stats)
+    toks = [t for out in outs.values() for t in out]
+    if (sorted(outs) != list(range(BATCH_REQUESTS))
+            or any(len(o) != BATCH_NEW for o in outs.values())
+            or not b.grid.drained
+            or not stats["admitted"] == stats["retired"] == BATCH_REQUESTS
+            or min(toks) < 0 or max(toks) >= cfg.vocab):
+        raise AssertionError(f"batcher: {stats}, outputs {outs}")
+
+    # the requests admitted at step 0 into slots 0 and 1 against their lone
+    # 1-slot runs, under route_flips and first_divergence
+    with RouterSpy(torch) as spy_b:
+        _, outs_b, _ = run(BATCH_SLOTS, range(BATCH_REQUESTS))
+    lone = []
+    for r in (0, 1):
+        with RouterSpy(torch, keep_logits=True) as spy_l:
+            _, outs_l, _ = run(1, [r])
+        n_calls = len(spy_l.calls)
+        flips, first, _ = route_flips(
+            [(c["logits"][r:r + 1], c["ids"][r:r + 1])
+             for c in spy_b.calls[:n_calls]],
+            [(c["logits"], c["ids"]) for c in spy_l.calls],
+            cfg.n_layers, lambda step, tok: r)
+        p = lens[r]
+        row, fine = first_divergence(
+            outs_b[r], outs_l[r],
+            lambda j: spy_l.step_logits[p - 1 + j][0],
+            None if r not in first else first[r][0] - (p - 1))
+        row.update(rid=r, prompt_len=p, routing=flips,
+                   equal=outs_b[r] == outs_l[r])
+        lone.append(row)
+        if not (fine and flips["max_gap_ulps"] <= ROUTER_GAP_ULPS):
+            raise AssertionError(f"batcher request {r} against its lone run: "
+                                 f"{row}")
+    rec = {"slots": BATCH_SLOTS, "requests": BATCH_REQUESTS,
+           "new_tokens": BATCH_NEW, "prompt_lens": lens,
+           "max_seq": BATCH_MAX_SEQ, "grid": stats,
+           "utilization": b.utilization, "tokens_out": b.stats["tokens_out"],
+           "wall_s": wall_s, "tokens_per_s": b.stats["tokens_out"] / wall_s,
+           "step_ms_p50": sorted(step_ms)[len(step_ms) // 2],
+           "step_ms_max": max(step_ms), "launches": launches,
+           "spied_run_equals_timed": outs_b == outs, "lone_runs": lone}
+    log(f"moe_batcher {json.dumps(rec)}")
+    return rec, launches
+
+
 def flat(tree, prefix=()):
     if isinstance(tree, dict):
         out = {}
@@ -2046,6 +2397,8 @@ def main() -> int:
         ("window512", bf16, 2, 2048, 40, 10, 128, 512),
         ("ragged1000", bf16, 2, 1000, 40, 10, 128, None),
         ("mqa", bf16, 2, 2048, 40, 1, 128, None),
+        # Moonlight's prefill: 16 query and 16 KV heads (group 1)
+        ("moonlight_prefill", bf16, LM_BATCH, LM_PROMPT, 16, 16, 128, None),
         # windows off the key-tile edges, StableLM's dh 160, dh 64
         ("window500", bf16, 2, 2048, 40, 10, 128, 500),
         ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
@@ -2088,7 +2441,7 @@ def main() -> int:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    lm_cfg, lm_params, record["lm_init_s"] = lm_model(torch)
+    lm_cfg, lm_params, record["lm_init_s"] = lm_model(torch, LM_ARCH)
     record["lm_serving"], lm_launches = lm_serve(torch, lm_cfg, lm_params)
 
     # 9. LM path parity
@@ -2140,12 +2493,33 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # 15. MoE serving at full size, once phases 8-14 have freed their models
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > MOE_HELD_BYTES:
+        raise AssertionError(f"{held} bytes still allocated before drawing "
+                             f"{MOE_ARCH}")
+    moe_cfg, moe_params, record["moe_init_s"] = lm_model(torch, MOE_ARCH)
+    record["moe_held_bytes_before_init"] = held
+    record["moe_serving"], moe_launches = lm_serve(torch, moe_cfg, moe_params,
+                                                   tag="moe_serving")
+    record["moe_routing"] = moe_route_checks(torch, moe_cfg, moe_params)
+
+    # 16. MoE parity (2 layers), then the continuous batcher (48 layers)
+    record["moe_parity"] = moe_parity(torch, moe_cfg, moe_params)
+    record["moe_batcher"], batcher_launches = moe_batcher(torch, moe_cfg,
+                                                          moe_params)
+    del moe_params
+
     by_path = {name: {"serving": serve_launches[name],
                       "training": train_launches[name],
                       "lm_serving": lm_launches[name],
                       "lm_training": lm_train_launches[name],
                       "live_topology": topo_launches[name],
-                      "lm_resume": resume_launches[name]}
+                      "lm_resume": resume_launches[name],
+                      "moe_serving": moe_launches[name],
+                      "moe_batcher": batcher_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

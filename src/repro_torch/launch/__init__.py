@@ -1,1 +1,1 @@
-"""Host-side launch helpers of the port (``SlotGrid``)."""
+"""Host-side launch helpers of the port (``SlotGrid``, ``ContinuousBatcher``)."""

@@ -1,5 +1,5 @@
 """Model assembly (``repro.models.transformer``) for the attention families
-the port serves and trains: dense, vlm and audio.
+the port serves (dense, moe, vlm and audio) and trains (all but moe).
 
 * ``init_params``   — stacked per-layer params (``[L, ...]`` leaves, the
   reference's tree), drawn from a ``torch.Generator`` on its device; with
@@ -22,9 +22,14 @@ the card, the plain version on the CPU); ``attn="plain"`` is the
 reference's path without the context, ``attn_full`` or, beyond
 ``CHUNKED_ATTN_THRESHOLD``, ``attn_full_chunked``.
 
+The moe family puts ``models/moe.py``'s layer (``lp["moe"]``) where the
+others have the MLP. Its capacity is that of each call's tokens, so a
+decode step is not the forward at the same position once the prefill
+drops a choice (as in the reference).
+
 Not here: the reference's ``probe`` mode (XLA cost accounting: it has no
-counterpart in eager torch) and the moe, ssm and hybrid families — each
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+counterpart in eager torch) and the ssm and hybrid families — each raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -37,11 +42,11 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core import ossl as ossl_lib
 from . import layers as L
+from . import moe as MOE
 
-ATTN_FAMILIES = ("dense", "vlm", "audio")
+ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 CHUNKED_ATTN_THRESHOLD = 2048
 _LATER = {
-    "moe": "models/moe.py (ROADMAP Queue 1 item 11b)",
     "ssm": "models/mamba2.py (ROADMAP Queue 1 item 11c)",
     "hybrid": "models/mamba2.py and the shared block (ROADMAP Queue 1 item 11c)",
 }
@@ -92,10 +97,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda",
             "norm1": L.rmsnorm_init(cfg.d_model, dtype, dev, lead),
             "attn": L.attn_init(gen, cfg, dtype, cfg.sparsity, lead),
             "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev, lead),
-            "mlp": L.mlp_init(gen, cfg, dtype, cfg.sparsity, lead=lead),
         },
         "final_norm": L.rmsnorm_init(cfg.d_model, dtype, dev),
     }
+    if cfg.family == "moe":
+        params["layers"]["moe"] = MOE.moe_init(gen, cfg, dtype, cfg.sparsity,
+                                               lead)
+    else:
+        params["layers"]["mlp"] = L.mlp_init(gen, cfg, dtype, cfg.sparsity,
+                                             lead=lead)
     if not cfg.tie_embeddings:
         params["lm_head"] = L._randn(gen, (cfg.d_model, cfg.vocab), dtype) \
             * (cfg.d_model ** -0.5)
@@ -134,14 +144,22 @@ def _attn_fn(cfg: ModelConfig, s: int, attn: str):
     return L.attn_full
 
 
+def _ffn(lp, h, cfg: ModelConfig):
+    """The block's second half, MLP or MoE, on the normed stream:
+    (out, moe aux or None)."""
+    hn = L.rmsnorm(lp["norm2"], h, cfg.norm_eps)
+    if cfg.family == "moe":
+        return MOE.moe_apply(lp["moe"], hn, cfg)
+    return L.mlp_apply(lp["mlp"], hn, cfg, cfg.sparsity), None
+
+
 def _block(lp, h, angles, cfg: ModelConfig, attn_fn):
-    """One attention + MLP block: (h_out, (k, v))."""
+    """One attention + MLP (or MoE) block: (h_out, (k, v), moe aux or None)."""
     a, kv = attn_fn(lp["attn"], L.rmsnorm(lp["norm1"], h, cfg.norm_eps),
                     angles, cfg, cfg.sparsity)
     h = h + a
-    h = h + L.mlp_apply(lp["mlp"], L.rmsnorm(lp["norm2"], h, cfg.norm_eps),
-                        cfg, cfg.sparsity)
-    return h, kv
+    f, aux = _ffn(lp, h, cfg)
+    return h + f, kv, aux
 
 
 def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -165,7 +183,8 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
     normed hidden states [B,S,D] in place of the logits when
     ``want_hidden`` (the chunked-loss path). ``aux``: ``local_loss`` (f32
     sum of the blocks' OSSL losses in ``local_mode``, else 0), ``moe_aux``
-    and ``moe_dropped`` (0: no MoE here), ``ia`` [L] (mean |block input|)
+    and ``moe_dropped`` (f32, the mean over the MoE layers; 0 for the other
+    families), ``ia`` [L] (mean |block input|)
     and ``pooled`` [L, D] (mean block output), the gating engine's
     statistics, f32 and detached.
 
@@ -183,23 +202,28 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
     heads = params.get("local_heads") if local_mode else None
     remat = cfg.remat and torch.is_grad_enabled()
     lloss = torch.zeros((), dtype=torch.float32, device=h.device)
-    ia, pooled = [], []
+    ia, pooled, moe_aux, moe_drop = [], [], [], []
     for i in range(cfg.n_layers):
         h_in = h.detach() if local_mode else h
         head = layer_view(heads, i) if heads is not None else None
         args = (layer_view(params["layers"], i), head, h_in, angles, cfg,
                 attn_fn)
-        h, ll = (checkpoint(_train_block, *args, use_reentrant=False)
-                 if remat else _train_block(*args))
+        h, ll, maux = (checkpoint(_train_block, *args, use_reentrant=False)
+                       if remat else _train_block(*args))
         if ll is not None:
             lloss = lloss + ll
+        if maux is not None:
+            moe_aux.append(maux["moe_aux"])
+            moe_drop.append(maux["moe_dropped"])
         ia.append(h_in.detach().abs().mean().float())
         pooled.append(h.detach().mean(dim=(0, 1)).float())
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     if local_mode:
         h = h.detach()          # readout learns on frozen features (SL layer)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    aux = {"local_loss": lloss, "moe_aux": zero, "moe_dropped": zero,
+    aux = {"local_loss": lloss,
+           "moe_aux": torch.stack(moe_aux).mean() if moe_aux else zero,
+           "moe_dropped": torch.stack(moe_drop).mean() if moe_drop else zero,
            "ia": torch.stack(ia), "pooled": torch.stack(pooled)}
     if want_hidden:
         return h, aux
@@ -207,11 +231,12 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
 
 
 def _train_block(lp, head, h, angles, cfg: ModelConfig, attn_fn):
-    """One block and, given a local head, its OSSL loss: (h_out, loss)."""
-    h, _ = _block(lp, h, angles, cfg, attn_fn)
+    """One block and, given a local head, its OSSL loss: (h_out, loss or
+    None, moe aux or None)."""
+    h, _, maux = _block(lp, h, angles, cfg, attn_fn)
     if head is None:
-        return h, None
-    return h, ossl_lib.local_loss(h, head, ossl_lib.OSSLConfig())
+        return h, None, maux
+    return h, ossl_lib.local_loss(h, head, ossl_lib.OSSLConfig()), maux
 
 
 def _token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -278,7 +303,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
     prefill on the card. Only the last position goes through the final norm
     and the head: the norm is per row, so its logits are the reference's
     ``logits[:, -1]``. The last ``min(S, C)`` positions land at ring slots
-    ``pos % C``, as decode writes them.
+    ``pos % C``, as decode writes them. An MoE layer sees the same
+    ``[B, S, D]`` input as in the reference's two passes, so its capacity
+    and its drops are the reference's.
     """
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_seq, tokens.device)
@@ -290,8 +317,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
     slots = torch.tensor([(s - take + i) % c for i in range(take)],
                          device=h.device)
     for i in range(cfg.n_layers):
-        h, (k, v) = _block(layer_view(params["layers"], i), h, angles, cfg,
-                           attn_fn)
+        h, (k, v), _ = _block(layer_view(params["layers"], i), h, angles,
+                              cfg, attn_fn)
         cache["k"][i, :, slots] = k[:, s - take:]
         cache["v"][i, :, slots] = v[:, s - take:]
     cache["pos"] = s
@@ -316,7 +343,6 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
         a, _, _ = L.attn_decode(lp["attn"], hn, angles, cache["k"][i],
                                 cache["v"][i], pos, cfg, cfg.sparsity)
         h = h + a
-        hn = L.rmsnorm(lp["norm2"], h, cfg.norm_eps)
-        h = h + L.mlp_apply(lp["mlp"], hn, cfg, cfg.sparsity)
+        h = h + _ffn(lp, h, cfg)[0]
     new_cache = dict(cache, pos=pos + 1)
     return _head(params, cfg, h)[:, 0, :], new_cache

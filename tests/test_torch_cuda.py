@@ -18,7 +18,9 @@ in place bit for bit (the kernel rounds as the plain version does); the LIF step
 ``1e-5`` (the kernel may fuse ``αv + I`` into one FMA); flash attention per
 element within ``ref.bf16_out_tolerance`` / ``ref.bf16_grad_tolerance``
 (bf16) or ``1e-5`` / ``1e-4`` of the largest element (f32). A row of
-``nm_spmm`` computed alone and in a batch must agree bit for bit.
+``nm_spmm`` computed alone and in a batch must agree bit for bit. The MoE
+layer (no kernel of its own: ``torch.bmm`` over the dispatch buffer) on
+the card against the CPU in f32: slots equal, output within ``1e-5``.
 """
 import numpy as np
 import pytest
@@ -473,6 +475,7 @@ def f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
     (torch.float32, 2, 256, 8, 2, 64, None),
     (torch.bfloat16, 1, 300, 4, 4, 160, 37),
     (torch.bfloat16, 2, 1000, 4, 1, 64, None),     # ragged, MQA
+    (torch.bfloat16, 2, 256, 4, 4, 128, None),     # group 1, as Moonlight
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, b, s, h, kv, dh, window):
     q, k, v = (torch.tensor(a).to(cuda, dtype) for a in qkv(5, b, s, h, kv, dh))
@@ -553,3 +556,56 @@ def test_flash_bwd_window1_within_absolute_bound(cuda, dh):
     _, _, (r, tol) = f32_grads_and_tolerances(q.cpu(), k.cpu(), v.cpu(),
                                               dout.cpu(), 1)
     assert bool(((dv.cpu().float() - r).abs() <= tol).all())
+
+
+# ------------------------------------------------------------ MoE routing
+
+def _moe_cfg(**kw):
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    return dataclasses.replace(get_reduced("moonshot_v1_16b_a3b"), **kw)
+
+
+@pytest.mark.cuda
+def test_moe_apply_on_card_matches_cpu(cuda):
+    """f32, capacity factor 0.5 so that choices are dropped: the same slots
+    on both devices (a different token dropped at capacity would move every
+    later rank of its expert) and the output within 1e-5."""
+    from repro_torch.models import moe
+    cfg = _moe_cfg(moe_experts=8, moe_top_k=3, moe_capacity_factor=0.5)
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x = torch.randn((2, 24, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    pc = {k: v.to(cuda) if torch.is_tensor(v) else {m: t.to(cuda) for m, t in v.items()}
+          for k, v in p.items()}
+    out, aux = moe.moe_apply(p, x, cfg)
+    out_c, aux_c = moe.moe_apply(pc, x.to(cuda), cfg)
+    c = moe.capacity(48, cfg)
+    slot = moe._dispatch(x.reshape(48, -1), p["router"], cfg, c)[0]
+    slot_c = moe._dispatch(x.to(cuda).reshape(48, -1), pc["router"], cfg, c)[0]
+    assert torch.equal(slot, slot_c.cpu()) and bool((slot == 8 * c).any())
+    assert float(aux_c["moe_dropped"]) == float(aux["moe_dropped"]) > 0.0
+    assert float((out_c.cpu() - out).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_moe_ties_put_the_lower_expert_first_on_card(cuda):
+    """Equal router columns (1 = 5, 2 = 3 = 6) on inputs whose logits are
+    exact in f32: tied experts come in index order, as on the CPU."""
+    from repro_torch.models import moe
+    cfg = _moe_cfg(moe_experts=8, moe_top_k=3)
+    rng = np.random.default_rng(5)
+    flat = torch.tensor(rng.integers(-3, 4, (64, cfg.d_model)).astype(np.float32) / 4)
+    router = torch.tensor(rng.integers(-3, 4, (cfg.d_model, 8)).astype(np.float32) / 16)
+    router[:, 5] = router[:, 1]
+    router[:, 3] = router[:, 6] = router[:, 2]
+    c = 64 * 3                                   # keeps every choice
+    slot = moe._dispatch(flat.to(cuda), router.to(cuda), cfg, c)[0].cpu()
+    assert torch.equal(slot, moe._dispatch(flat, router, cfg, c)[0])
+    ids = (slot // c).reshape(64, 3).tolist()
+    ties = 0
+    for row in ids:
+        for lo, hi in ((1, 5), (2, 3), (2, 6), (3, 6)):
+            if lo in row and hi in row:
+                ties += 1
+                assert row.index(lo) < row.index(hi)
+    assert ties > 0
