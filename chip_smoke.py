@@ -39,7 +39,9 @@ Phases, each raising on failure:
    tiles skipped, rows whose first visited tile is all masked), a ragged
    S = 1000, MQA, Moonlight's prefill (B 4, S 2048, 16 query and 16 KV
    heads of 128: group 1), windows of 500 and 65 (off the key-tile edges), head
-   widths 160 (StableLM) and 64, and f32 at dh 160 with a window of 37,
+   widths 160 (StableLM) and 64, f32 at dh 160 with a window of 37, and
+   Zamba2's shared block at its prefill (B 4, S 2048, 32 query and 32 KV
+   heads of 64, its window of 4096 past S),
    against the plain ``ref.flash_fwd`` (bf16 out per element within
    ``ref.bf16_out_tolerance``) and, as the library yardstick,
    ``scaled_dot_product_attention``.
@@ -181,6 +183,32 @@ Phases, each raising on failure:
    steps, tokens/s, step ms p50 and utilization. Then the two requests
    admitted at step 0 (slots 0 and 1) against their lone 1-slot runs under
    (a)'s routing and divergence rules.
+17. ssm and hybrid serving at full size, once Moonlight is freed, one model
+   on the card at a time: Mamba2-2.7B (64 layers, d_model 2560, d_inner
+   5120, 80 SSD heads of 64, state 128) and Zamba2-1.2B (38 layers, d_model
+   2048, its shared attention + MLP block after every 6th layer, 32 heads of
+   64, window 4096), bf16, random weights from a CUDA generator seeded 0,
+   each generate 32 greedy tokens for 4 random prompts of 2048 tokens
+   through ``launch.serve.generate``, under phase 8's gates and records:
+   ``flash_fwd`` exactly 0 launches for Mamba2 and 6 for Zamba2 (its shared
+   block's calls), all in the prefill, no other kernel. For Mamba2 also one
+   layer's chunked SSD (f32) at the prefill shape, timed, with its share of
+   the prefill's busy time.
+18. (a) chunked prefill against replay: each model at full width, cut to 2
+   (Mamba2) and 12 (Zamba2, two shared-block calls) layers, 2 prompts of
+   512 tokens: ``prefill`` against the reference's algorithm, the prompt
+   replayed token by token through ``decode_step``. ``pos`` equal, the last
+   logits within PARITY_REL_L2, every cache tensor of layer i (conv window,
+   SSM state, the shared block's K/V rings) within (i + 1) x
+   CACHE_REL_L2_PER_LAYER relative L2, the prefill's ``flash_fwd``
+   launches one per shared-block call; then 8 greedy tokens from each cache
+   equal up to a first divergence, allowed only at phase 9's near-tie (of
+   the replay's logits).
+   (b) Zamba2's 12 layers, ``attn="flash"`` against ``attn="plain"``, under
+   phase 9's rules.
+   (c) the continuous batcher on the full Mamba2 under phase 16b's traffic
+   and gates (no kernel launches), the two step-0 requests equal to their
+   lone 1-slot runs up to a near-tie divergence.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -236,6 +264,20 @@ BATCH_PROMPT_MIN, BATCH_PROMPT_MAX = 16, 48
 # wrong head or slot mapping moves the router's input by O(100 %) and its
 # flips' gaps by up to the logits' spread (hundreds of ulps).
 ROUTER_GAP_ULPS = 16
+SSM_ARCH, HYBRID_ARCH = "mamba2_2p7b", "zamba2_1p2b"
+SSM_PARITY_LAYERS, HYBRID_PARITY_LAYERS = 2, 12   # Zamba2: 2 shared calls
+# phase 18a: the chunked prefill and the replay round at other places (the
+# conv's bf16 sum of products against an f32-accumulated one, bf16
+# activations between layers after f32 SSD sums in other orders), and each
+# layer adds its own rounding to what it inherits: at a reduced width in
+# bf16 on the CPU the SSM state moved 0.5 % at layer 0 and ~0.35 % more a
+# layer, to 4.1 % at layer 12. So the cache tensors written at layer i (the
+# shared block's after layer i) are held to (i + 1) x CACHE_REL_L2_PER_LAYER
+# relative L2, one bf16 ulp of 2^-8 four times over a layer. A state not
+# carried across chunks, a conv window off by a token or a ring slot off by
+# one moves a tensor by O(100 %) at the first layer it touches. The last
+# logits within PARITY_REL_L2.
+CACHE_REL_L2_PER_LAYER = 2 ** -6
 
 
 def log(msg):
@@ -688,7 +730,7 @@ def flash_case(torch, name, dtype, b, s, h, kv, dh, window):
     dname = str(dtype).split(".")[-1]
     bound_ms, bound_by = bound(nbytes, flops, dname)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window is None:
+    if window is None or window >= s:     # a window past S masks nothing
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
     else:
@@ -1206,11 +1248,11 @@ def lm_serve(torch, cfg, params, tag="lm_serving"):
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
-            "wu_outer_slots": 0, **NO_ATTN, "flash_fwd": cfg.n_layers}
+            "wu_outer_slots": 0, **NO_ATTN, "flash_fwd": attn_calls(cfg)}
     if launches != want:
         raise AssertionError(f"LM serving launched {launches}, want {want} "
-                             f"(one prefill of {cfg.n_layers} layers, none in "
-                             f"decode)")
+                             f"(one prefill of {attn_calls(cfg)} attention "
+                             f"layers, none in decode)")
     new = out[:, LM_PROMPT:]
     if tuple(out.shape) != (LM_BATCH, LM_PROMPT + LM_NEW) \
             or not torch.equal(out[:, :LM_PROMPT], prompt) \
@@ -1242,11 +1284,17 @@ def lm_serve(torch, cfg, params, tag="lm_serving"):
         prof_decode = trace_summary(torch, lambda: step(params, cache, toks[-1]))
     nparams = cfg.param_count()
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
-    cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for k, t in cache.items() if k != "pos")
+    # the recurrent state (Mamba2's conv window and SSM state) is also
+    # written back whole every step; a K/V cache only at one position
+    state_bytes = sum(cache[k].numel() * cache[k].element_size()
+                      for k in ("conv", "ssm") if k in cache)
     rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
            "batch": LM_BATCH, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
            "param_count": nparams, "weight_bytes": weight_bytes,
-           "kv_cache_bytes": cache_bytes, "launches": launches,
+           "cache_bytes": cache_bytes, "state_write_bytes": state_bytes,
+           "launches": launches,
            "generate_s": gen_s, "max_memory_allocated": peak,
            "tokens_equal_step_by_step": bool(torch.equal(
                torch.stack(toks, 1), new)),
@@ -1254,11 +1302,23 @@ def lm_serve(torch, cfg, params, tag="lm_serving"):
            "prompt_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_ms * 1e3,
            "decode_ms_p50": p50, "decode_ms": step_ms,
            "generated_tokens_per_s": LM_BATCH / p50 * 1e3,
-           # decode reads every weight and the cache once per step
-           "decode_bound_ms": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+           # decode reads every weight and the cache once per step, and
+           # writes the recurrent state
+           "decode_bound_ms": (weight_bytes + cache_bytes + state_bytes)
+           / HBM_BYTES_PER_S * 1e3,
            "prefill_trace": prof_prefill, "decode_trace": prof_decode}
     log(f"{tag} {json.dumps({k: v for k, v in rec.items() if k != 'decode_ms'})}")
     return rec, launches
+
+
+def attn_calls(cfg):
+    """``flash_fwd`` launches in one prefill: one per attention layer (the
+    hybrid's shared-block calls; none for ssm)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
 
 
 def leaves(tree):
@@ -1287,9 +1347,9 @@ def greedy_trace(torch, cfg, params, prompt, n_new, attn):
     return torch.stack([lg.argmax(-1) for lg in out], 1), out
 
 
-def lm_parity(torch, cfg, params):
+def lm_parity(torch, cfg, params, tag="lm_parity"):
     """Flash against plain attention on the full-width model, under the rule
-    in the module docstring (phase 9)."""
+    in the module docstring (phase 9; phase 18b for Zamba2)."""
     from repro_torch.launch.serve import generate
     prompt = lm_prompts(torch, cfg, PARITY_BATCH, PARITY_PROMPT, 2)
     tok_f, lg_f = greedy_trace(torch, cfg, params, prompt, PARITY_NEW, "flash")
@@ -1315,9 +1375,9 @@ def lm_parity(torch, cfg, params):
             row.update(plain_top2_gap=gap, band=band)
             ok &= gap <= band
         rec["rows"].append(row)
-    log(f"lm_parity {json.dumps(rec)}")
+    log(f"{tag} {json.dumps(rec)}")
     if not ok:
-        raise AssertionError(f"flash vs plain LM path: {rec}")
+        raise AssertionError(f"flash vs plain LM path ({tag}): {rec}")
     return rec
 
 
@@ -1985,7 +2045,8 @@ def lm_resume(torch, workdir):
 
 class RouterSpy:
     """While open, records every MoE call in call order (the layers of one
-    step, then the next step): its router logits (bf16) and top-k expert
+    step, then the next step; none for a model without MoE layers, where
+    ``keep_logits`` alone is of use): its router logits (bf16) and top-k expert
     ids, slots, capacity and ``moe_dropped``, on the host, by wrapping
     ``models.moe._dispatch``; the module's results pass through unchanged.
     The logits are recomputed from the call's own inputs with the same
@@ -2206,9 +2267,9 @@ def moe_parity(torch, cfg, params):
     return rec
 
 
-def moe_batcher(torch, cfg, params):
-    """Phase 16b (module docstring). Returns the record and the timed run's
-    launches."""
+def lm_batcher(torch, cfg, params, tag):
+    """Phase 16b on Moonlight and 18c on Mamba2 (module docstring). Returns
+    the record and the timed run's launches."""
     from repro_torch.launch.batching import ContinuousBatcher, Request
     gen = torch.Generator().manual_seed(5)
     lens = torch.randint(BATCH_PROMPT_MIN, BATCH_PROMPT_MAX + 1,
@@ -2248,19 +2309,24 @@ def moe_batcher(torch, cfg, params):
         raise AssertionError(f"batcher: {stats}, outputs {outs}")
 
     # the requests admitted at step 0 into slots 0 and 1 against their lone
-    # 1-slot runs, under route_flips and first_divergence
-    with RouterSpy(torch) as spy_b:
-        _, outs_b, _ = run(BATCH_SLOTS, range(BATCH_REQUESTS))
+    # 1-slot runs, under first_divergence (and for MoE route_flips, on a
+    # second, spied run of the batch)
+    moe = cfg.family == "moe"
+    outs_b, first = outs, {}
+    if moe:
+        with RouterSpy(torch) as spy_b:
+            _, outs_b, _ = run(BATCH_SLOTS, range(BATCH_REQUESTS))
     lone = []
     for r in (0, 1):
         with RouterSpy(torch, keep_logits=True) as spy_l:
             _, outs_l, _ = run(1, [r])
-        n_calls = len(spy_l.calls)
-        flips, first, _ = route_flips(
-            [(c["logits"][r:r + 1], c["ids"][r:r + 1])
-             for c in spy_b.calls[:n_calls]],
-            [(c["logits"], c["ids"]) for c in spy_l.calls],
-            cfg.n_layers, lambda step, tok: r)
+        flips = None
+        if moe:
+            flips, first, _ = route_flips(
+                [(c["logits"][r:r + 1], c["ids"][r:r + 1])
+                 for c in spy_b.calls[:len(spy_l.calls)]],
+                [(c["logits"], c["ids"]) for c in spy_l.calls],
+                cfg.n_layers, lambda step, tok: r)
         p = lens[r]
         row, fine = first_divergence(
             outs_b[r], outs_l[r],
@@ -2269,8 +2335,9 @@ def moe_batcher(torch, cfg, params):
         row.update(rid=r, prompt_len=p, routing=flips,
                    equal=outs_b[r] == outs_l[r])
         lone.append(row)
-        if not (fine and flips["max_gap_ulps"] <= ROUTER_GAP_ULPS):
-            raise AssertionError(f"batcher request {r} against its lone run: "
+        if not (fine and (flips is None
+                          or flips["max_gap_ulps"] <= ROUTER_GAP_ULPS)):
+            raise AssertionError(f"{tag} request {r} against its lone run: "
                                  f"{row}")
     rec = {"slots": BATCH_SLOTS, "requests": BATCH_REQUESTS,
            "new_tokens": BATCH_NEW, "prompt_lens": lens,
@@ -2280,8 +2347,95 @@ def moe_batcher(torch, cfg, params):
            "step_ms_p50": sorted(step_ms)[len(step_ms) // 2],
            "step_ms_max": max(step_ms), "launches": launches,
            "spied_run_equals_timed": outs_b == outs, "lone_runs": lone}
-    log(f"moe_batcher {json.dumps(rec)}")
+    log(f"{tag} {json.dumps(rec)}")
     return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 17-18: the ssm and hybrid families (Mamba2-2.7B, Zamba2-1.2B)
+# ---------------------------------------------------------------------------
+
+def ssd_record(torch, cfg, serving):
+    """One layer's chunked SSD (``mamba2._ssd``, f32) at the prefill shape,
+    on random inputs of the shapes the layer gives it: device time, its
+    operations' bound at the f32 peak, and the share of the profiled
+    prefill's busy time that ``n_layers`` such calls take."""
+    from repro_torch.models import mamba2 as M
+    g = torch.Generator(device="cuda").manual_seed(6)
+    b, s, q = LM_BATCH, LM_PROMPT, cfg.ssm_chunk
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xdt = torch.randn((b, s, h, p), generator=g, device="cuda")
+    da = -0.1 * torch.rand((b, s, h), generator=g, device="cuda")
+    bm, cm = (torch.randn((b, s, n), generator=g, device="cuda")
+              for _ in range(2))
+    ms = device_ms(torch, lambda: M._ssd(xdt, da, bm, cm, q))
+    # C·Bᵀ, (C·Bᵀ ⊙ L)·xdt, the chunk end states and the inter-chunk term
+    flops = 2 * b * (s // q) * (q * q * n + h * q * q * p + 2 * h * q * p * n)
+    bound_ms, bound_by = bound(0, flops, "float32")
+    busy = serving["prefill_trace"]["device_busy_ms"]
+    rec = {"layer_ms": ms, "flops": flops, "bound_ms": bound_ms,
+           "bound_by": bound_by, "layers": cfg.n_layers,
+           "share_of_prefill_busy": cfg.n_layers * ms / busy}
+    log(f"ssd {json.dumps(rec)}")
+    return rec
+
+
+def ssm_prefill_parity(torch, cfg, params, n_layers, tag):
+    """Phase 18a (module docstring): on the model cut to ``n_layers``, the
+    chunked prefill against the reference's algorithm, the prompt replayed
+    token by token through ``decode_step``."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    cut_params = dict(params, layers=first_layers(params["layers"], n_layers))
+    prompt = lm_prompts(torch, cut, PARITY_BATCH, PARITY_PROMPT, 2)
+    max_seq = PARITY_PROMPT + PARITY_NEW
+    with torch.no_grad():
+        counters = reset_counters()
+        lg_c, cache_c = T.prefill(cut_params, cut, prompt, max_seq)
+        flash = counters["flash_fwd"].launches
+        cache_r = T.init_cache(cut, PARITY_BATCH, max_seq, "cuda")
+        for t in range(PARITY_PROMPT):
+            lg_r, cache_r = T.decode_step(cut_params, cache_r, prompt[:, t], cut)
+        every = cut.hybrid_attn_every
+        rel, over = {}, {}       # per cache key: largest rel L2 and rel/bound
+        for k, t in cache_r.items():
+            if k == "pos":
+                continue
+            errs = [rel_l2(cache_c[k][i], t[i]) for i in range(len(t))]
+            depth = [(i + 1) * (every if k.startswith("shared") else 1)
+                     for i in range(len(t))]
+            rel[k] = max(errs)
+            over[k] = max(e / (d * CACHE_REL_L2_PER_LAYER)
+                          for e, d in zip(errs, depth))
+        logits_rel = rel_l2(lg_c, lg_r)
+        runs = {}
+        for name, lg, cache in (("chunked", lg_c, cache_c),
+                                ("replay", lg_r, cache_r)):
+            out = [lg.float()]
+            for _ in range(1, PARITY_NEW):
+                lg, cache = T.decode_step(cut_params, cache, out[-1].argmax(-1),
+                                          cut)
+                out.append(lg.float())
+            runs[name] = (torch.stack([x.argmax(-1) for x in out], 1), out)
+    (tok_c, _), (tok_r, lg_rs) = runs["chunked"], runs["replay"]
+    rec = {"n_layers": n_layers, "batch": PARITY_BATCH,
+           "prompt_len": PARITY_PROMPT, "new_tokens": PARITY_NEW,
+           "flash_fwd_launches": flash, "logits_rel_l2": logits_rel,
+           "cache_rel_l2": rel, "cache_rel_l2_over_bound": over,
+           "pos": [cache_c["pos"], cache_r["pos"]], "rows": []}
+    ok = (flash == attn_calls(cut) and cache_c["pos"] == cache_r["pos"]
+          and logits_rel <= PARITY_REL_L2
+          and all(v <= 1.0 for v in over.values()))
+    for r in range(PARITY_BATCH):
+        row, fine = first_divergence(tok_c[r].tolist(), tok_r[r].tolist(),
+                                     lambda j: lg_rs[j][r], None)
+        rec["rows"].append(row)
+        ok &= fine
+    log(f"{tag} {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"chunked prefill vs replay ({tag}): {rec}")
+    return rec
 
 
 def flat(tree, prefix=()):
@@ -2390,6 +2544,8 @@ def main() -> int:
     slot_recs = [wu_slots_case(torch, name, frac)
                  for name, frac in (("all_open", 1.0), ("open40", 0.4))]
     bf16 = torch.bfloat16
+    from repro_torch.configs import get_config
+    hybrid_window = get_config(HYBRID_ARCH).swa_window
     fa_recs = [flash_case(torch, *case) for case in (
         ("prefill", bf16, LM_BATCH, LM_PROMPT, 40, 10, 128, None),
         ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
@@ -2403,7 +2559,11 @@ def main() -> int:
         ("window500", bf16, 2, 2048, 40, 10, 128, 500),
         ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
         ("dh64_ragged_mqa", bf16, 2, 1000, 16, 1, 64, None),
-        ("f32_dh160_window37", torch.float32, 1, 300, 4, 4, 160, 37))]
+        ("f32_dh160_window37", torch.float32, 1, 300, 4, 4, 160, 37),
+        # Zamba2's shared block at its prefill: 32 query and 32 KV heads of
+        # 64 (group 1), its window of 4096 past S
+        ("zamba2_prefill", bf16, LM_BATCH, LM_PROMPT, 32, 32, 64,
+         hybrid_window))]
     bwd_recs = [flash_bwd_case(torch, *case) for case in (
         ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
         ("f32", torch.float32, 2, 256, 8, 2, 64, None),
@@ -2508,9 +2668,41 @@ def main() -> int:
 
     # 16. MoE parity (2 layers), then the continuous batcher (48 layers)
     record["moe_parity"] = moe_parity(torch, moe_cfg, moe_params)
-    record["moe_batcher"], batcher_launches = moe_batcher(torch, moe_cfg,
-                                                          moe_params)
+    record["moe_batcher"], batcher_launches = lm_batcher(
+        torch, moe_cfg, moe_params, "moe_batcher")
     del moe_params
+
+    # 17-18. ssm and hybrid serving at full size, each with its parity
+    # checks, once Moonlight is freed; one model on the card at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ssm = time.perf_counter()
+    ssm_cfg, ssm_params, record["ssm_init_s"] = lm_model(torch, SSM_ARCH)
+    record["ssm_serving"], ssm_launches = lm_serve(torch, ssm_cfg, ssm_params,
+                                                   tag="ssm_serving")
+    record["ssm_serving"]["ssd"] = ssd_record(torch, ssm_cfg,
+                                              record["ssm_serving"])
+    record["ssm_prefill_parity"] = ssm_prefill_parity(
+        torch, ssm_cfg, ssm_params, SSM_PARITY_LAYERS, "ssm_prefill_parity")
+    record["ssm_batcher"], ssm_batcher_launches = lm_batcher(
+        torch, ssm_cfg, ssm_params, "ssm_batcher")
+    del ssm_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    hy_cfg, hy_params, record["hybrid_init_s"] = lm_model(torch, HYBRID_ARCH)
+    record["hybrid_serving"], hybrid_launches = lm_serve(
+        torch, hy_cfg, hy_params, tag="hybrid_serving")
+    record["hybrid_prefill_parity"] = ssm_prefill_parity(
+        torch, hy_cfg, hy_params, HYBRID_PARITY_LAYERS, "hybrid_prefill_parity")
+    import dataclasses
+    record["hybrid_parity"] = lm_parity(
+        torch, dataclasses.replace(hy_cfg, n_layers=HYBRID_PARITY_LAYERS),
+        dict(hy_params, layers=first_layers(hy_params["layers"],
+                                            HYBRID_PARITY_LAYERS)),
+        tag="hybrid_parity")
+    del hy_params
+    record["ssm_hybrid_phases_s"] = time.perf_counter() - t_ssm
+    log(f"ssm_hybrid_phases_s {record['ssm_hybrid_phases_s']}")
 
     by_path = {name: {"serving": serve_launches[name],
                       "training": train_launches[name],
@@ -2519,7 +2711,10 @@ def main() -> int:
                       "live_topology": topo_launches[name],
                       "lm_resume": resume_launches[name],
                       "moe_serving": moe_launches[name],
-                      "moe_batcher": batcher_launches[name]}
+                      "moe_batcher": batcher_launches[name],
+                      "ssm_serving": ssm_launches[name],
+                      "ssm_batcher": ssm_batcher_launches[name],
+                      "hybrid_serving": hybrid_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

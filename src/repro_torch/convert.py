@@ -127,11 +127,16 @@ def lm_params_from_numpy(np_params: Mapping[str, Any], cfg: Any,
 
 def lm_cache_from_numpy(np_cache: Mapping[str, Any], cfg: Any,
                         device="cuda") -> dict:
-    """The reference's KV cache ``{"pos", "k", "v"}``: K/V in
-    ``cfg.dtype``, ``pos`` a host int."""
+    """The reference's decode cache: the KV cache ``{"pos", "k", "v"}``, or
+    for ssm and hybrid ``{"pos", "conv", "ssm"}`` plus the hybrid's
+    ``shared_k``/``shared_v``. ``ssm`` stays f32 whatever ``cfg.dtype``;
+    the other tensors take ``cfg.dtype``; ``pos`` is a host int."""
     dtype = getattr(torch, cfg.dtype)
-    out = {k: torch.tensor(np.asarray(v, np.float32), device=device).to(dtype)
-           for k, v in np_cache.items() if k != "pos"}
+    out = {}
+    for k, v in np_cache.items():
+        if k != "pos":
+            t = torch.tensor(np.asarray(v, np.float32), device=device)
+            out[k] = t if k == "ssm" else t.to(dtype)
     out["pos"] = int(np_cache["pos"])
     return out
 

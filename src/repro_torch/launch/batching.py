@@ -13,8 +13,10 @@ stream scheduler multiplexes stateful SNN sessions through it, and
 
 The cache position is global (one host int for the grid, as in the
 reference): a request admitted into a reused slot starts at the grid's
-position, above its previous occupant's K/V, which it still attends to.
-So only requests admitted at step 0 equal their lone runs.
+position, above its previous occupant's K/V, which it still attends to
+(for ssm and hybrid models it also starts from the occupant's SSM state
+and conv window, as in the reference). So only requests admitted at step
+0 equal their lone runs.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Training step factory and the single-host loop (``repro.launch.train``).
 
 ``make_train_step`` builds the step for any dense, vlm or audio config (the
-moe family serves but does not train yet: ``make_train_step`` and
-``init_train_state`` raise for it):
+moe, ssm and hybrid families serve but do not train yet: ``make_train_step``
+and ``init_train_state`` raise for them):
 
 * ``mode="backprop"`` — cross entropy + AdamW;
 * ``mode="local"``    — OSSL: per-block predictive + contrastive losses
@@ -102,6 +102,11 @@ def _check_trains(cfg: ModelConfig) -> None:
             f"{cfg.name}: MoE training is not ported yet: gradients through "
             f"the dispatch, gated_scale_tree and lm_dsst_event over the "
             f"expert leaves (ROADMAP Queue 1 item 11e)")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.family} training is not ported yet: gradients "
+            f"through the chunked SSD and the shared block, with flash_bwd "
+            f"at dh 64 (ROADMAP Queue 1 item 11f)")
 
 
 def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",

@@ -1,5 +1,5 @@
-"""LM model zoo (``repro.models``) for the attention families the port
-serves (dense, moe, vlm, audio): pure functions over parameter dict trees
+"""LM model zoo (``repro.models``) for every family of the pool (dense,
+moe, ssm, hybrid, vlm, audio): pure functions over parameter dict trees
 (init / apply), per-layer leaves stacked ``[L, ...]`` as in the reference.
-Mamba2 (``mamba2.py``) is not ported yet."""
-from . import layers, moe, transformer  # noqa: F401
+``mamba2.py`` is the ssm and hybrid families' mixer."""
+from . import layers, mamba2, moe, transformer  # noqa: F401

@@ -1,0 +1,222 @@
+"""Mamba2 (``repro.models.mamba2``): the SSD block (state-space duality,
+arXiv:2405.21060), with a chunked-parallel path and a recurrent decode path
+over the same parameters.
+
+* ``mamba2_init``       — the reference's leaves: the fused ``in_proj``
+  (z, xBC, dt), the depthwise ``conv_w`` / ``conv_b``, ``a_log``,
+  ``d_skip``, ``dt_bias``, the gated norm's ``norm_g`` and ``out_proj``;
+  ``lead`` stacks layers as ``layers.linear_init`` does.
+* ``mamba2_forward``    — the chunked SSD over a whole sequence, whose
+  length must be a multiple of ``ssm_chunk`` (the reference asserts it).
+* ``mamba2_prefill``    — the same pass for any length, which also returns
+  the final SSM state and the conv window: the cache that a replay of the
+  sequence through ``mamba2_decode`` leaves.
+* ``mamba2_init_cache`` / ``mamba2_decode`` — the per-token recurrence.
+
+Within a chunk the recurrence is expanded into an attention-like quadratic
+form; across chunks the small ``[B, H, P, N]`` state is carried by a loop
+over the chunks. The reference's three- and four-operand einsums are
+written as fixed two-operand products (``C·Bᵀ``, then ``(C·Bᵀ ⊙ L)·xdt``
+per head, and so on), so the contraction order, and with it the rounding,
+does not depend on whether ``opt_einsum`` is installed. ``dt``, ``da``,
+the chunk math and the SSM state are f32; the conv window and the outputs
+take the config's dtype, as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig, SparsityConfig
+from .layers import _randn, linear_apply, linear_init, rmsnorm
+
+
+def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+                sp: Optional[SparsityConfig] = None,
+                lead: Tuple[int, ...] = ()) -> Dict[str, object]:
+    """The mixer's params, drawn from ``gen`` on its device (``in_proj``,
+    ``conv_w``, ``out_proj``, in that order); the other leaves are the
+    reference's constants, computed in f32 and cast to ``dtype``."""
+    d, di, ns, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * ns
+    sp_mlp = sp if (sp and "mlp" in sp.targets) else None
+    dev = gen.device
+
+    def const(v: torch.Tensor) -> torch.Tensor:
+        return v.to(dev, dtype).expand(*lead, -1).clone()
+    return {
+        # z, xBC, dt: the fused input projection (the dominant matmul)
+        "in_proj": linear_init(gen, d, 2 * di + 2 * ns + h, dtype, sp_mlp,
+                               lead=lead),
+        "conv_w": _randn(gen, (*lead, cfg.ssm_conv, conv_dim), dtype) * 0.2,
+        "conv_b": torch.zeros((*lead, conv_dim), dtype=dtype, device=dev),
+        "a_log": const(torch.log(torch.linspace(1.0, 16.0, h))),
+        "d_skip": torch.ones((*lead, h), dtype=dtype, device=dev),
+        "dt_bias": const(torch.log(torch.expm1(torch.full((h,), 0.01)))),
+        "norm_g": torch.ones((*lead, di), dtype=dtype, device=dev),
+        "out_proj": linear_init(gen, di, d, dtype, sp_mlp, lead=lead),
+    }
+
+
+def _split_proj(p, x, cfg: ModelConfig):
+    di, ns = cfg.d_inner, cfg.ssm_state
+    zxbcdt = linear_apply(p["in_proj"], x)
+    return (zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * ns],
+            zxbcdt[..., 2 * di + 2 * ns:])
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Depthwise causal conv over time. xbc [B, S, C], w [W, C]; the W
+    products summed in xbc's dtype in the order i = 0..W-1, as the
+    reference sums them."""
+    width, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    out = pad[:, :s] * w[0]
+    for i in range(1, width):
+        out = out + pad[:, i: i + s] * w[i]
+    return F.silu(out + b)
+
+
+def _dt_da(p, dt: torch.Tensor):
+    """The step ``dt = softplus(dt + dt_bias)`` and the log-decay
+    ``da = -exp(a_log)·dt`` (<= 0), both f32."""
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    return dt, -torch.exp(p["a_log"].float()) * dt
+
+
+def _ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
+         cm: torch.Tensor, q: int):
+    """The chunked SSD in f32. xdt [B, S, H, P], da [B, S, H], bm and cm
+    [B, S, N], with S a multiple of the chunk ``q``. Returns y [B, S, H, P]
+    (the skip term not added) and the state after the last position
+    [B, H, P, N]."""
+    b, s, h, pd = xdt.shape
+    nc, n = s // q, bm.shape[-1]
+    x_c = xdt.reshape(b, nc, q, h, pd).permute(0, 1, 3, 2, 4)       # [B,NC,H,Q,P]
+    b_c = bm.reshape(b, nc, 1, q, n)
+    c_c = cm.reshape(b, nc, 1, q, n)
+    cs = da.reshape(b, nc, q, h).transpose(2, 3).cumsum(-1)          # [B,NC,H,Q]
+
+    # within a chunk: y_i = sum_{j <= i} (C_i·B_j) exp(cs_i - cs_j) xdt_j.
+    # One [B, NC, H, Q, Q] tensor, updated in place (671 MB at Mamba2-2.7B's
+    # prefill); the mask goes in before the exp, where exp(seg) above the
+    # diagonal could overflow
+    tri = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
+    seg = cs[..., :, None] - cs[..., None, :]
+    seg.masked_fill_(~tri, float("-inf")).exp_()
+    y = seg.mul_(c_c @ b_c.transpose(-1, -2)) @ x_c                  # [B,NC,H,Q,P]
+    del seg
+
+    # each chunk's end state from its own inputs, and its total decay
+    decay_to_end = torch.exp(cs[..., -1:] - cs)                       # [B,NC,H,Q]
+    local = (x_c * decay_to_end[..., None]).transpose(-1, -2) @ b_c   # [B,NC,H,P,N]
+    chunk_decay = torch.exp(cs[..., -1])                              # [B,NC,H]
+
+    # across chunks: the state entering each chunk
+    state = torch.zeros((b, h, pd, n), dtype=torch.float32, device=xdt.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = chunk_decay[:, c, :, None, None] * state + local[:, c]
+    s_prev = torch.stack(entering, 1)                                 # [B,NC,H,P,N]
+    y = y + (c_c @ s_prev.transpose(-1, -2)) * torch.exp(cs)[..., None]
+    return y.permute(0, 1, 3, 2, 4).reshape(b, s, h, pd), state
+
+
+def _mamba2(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool):
+    b, s, _ = x.shape
+    di, ns, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    q = cfg.ssm_chunk
+
+    z, xbc_in, dt = _split_proj(p, x, cfg)
+    xbc = _causal_conv(xbc_in, p["conv_w"], p["conv_b"])
+    xs = xbc[..., :di].reshape(b, s, h, pd)
+    bm, cm = xbc[..., di: di + ns].float(), xbc[..., di + ns:].float()
+    dt, da = _dt_da(p, dt)
+    xdt = xs.float() * dt[..., None]
+    pad = -s % q
+    if pad:
+        # padded positions carry da = 0 and xdt = 0: the state passes them
+        # unchanged, and their rows of y are dropped
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        da, bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (da, bm, cm))
+    y, state = _ssd(xdt, da, bm, cm, q)
+    y = y[:, :s] + p["d_skip"].float()[:, None] * xs.float()
+    y = y.reshape(b, s, di).to(x.dtype)
+
+    y = rmsnorm(p["norm_g"], y * F.silu(z), cfg.norm_eps)
+    out = linear_apply(p["out_proj"], y)
+    if not want_cache:
+        return out
+    # the conv window a replay leaves: the last W - 1 inputs, zeros before
+    # the first token
+    w1 = cfg.ssm_conv - 1
+    tail = F.pad(xbc_in[:, max(0, s - w1):], (0, 0, max(0, w1 - s), 0))
+    return out, state, tail
+
+
+def mamba2_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Chunked SSD over a full sequence. x [B, S, D] -> [B, S, D]; S must be
+    a multiple of ``cfg.ssm_chunk``."""
+    if x.shape[1] % cfg.ssm_chunk:
+        raise ValueError(f"sequence {x.shape[1]} is not a multiple of the "
+                         f"SSD chunk {cfg.ssm_chunk}")
+    return _mamba2(p, x, cfg, want_cache=False)
+
+
+def mamba2_prefill(p, x: torch.Tensor, cfg: ModelConfig):
+    """``mamba2_forward`` for any S, keeping the decode cache: (out [B, S,
+    D], ssm state [B, H, P, N] f32 after the last position, conv window
+    [B, W-1, C] in x's dtype: the last W - 1 pre-conv inputs, left-padded
+    with zeros when S < W - 1)."""
+    return _mamba2(p, x, cfg, want_cache=True)
+
+
+# ---------------------------------------------------------------------------
+# recurrent decode
+# ---------------------------------------------------------------------------
+
+def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype, device="cuda",
+                      lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """``conv [*lead, B, W-1, C]`` in ``dtype``, ``ssm [*lead, B, H, P, N]``
+    in f32, zero."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": torch.zeros((*lead, batch, cfg.ssm_conv - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros((*lead, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state), dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                  cfg: ModelConfig):
+    """One token. x [B, 1, D] -> ([B, 1, D], cache). The cache's ``conv``
+    and ``ssm`` are written IN PLACE (the reference returns new ones; the
+    returned dict is ``cache``)."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"mamba2_decode takes one token, got {s}")
+    di, ns, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+
+    z, xbc, dt = _split_proj(p, x[:, 0, :], cfg)
+    # conv over the rolling window
+    window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)        # [B, W, C]
+    conv_out = F.silu((window * p["conv_w"]).sum(dim=1) + p["conv_b"])
+    cache["conv"].copy_(window[:, 1:])
+
+    xs = conv_out[..., :di].reshape(b, h, pd)
+    bm, cm = conv_out[..., di: di + ns].float(), conv_out[..., di + ns:].float()
+    dt, da = _dt_da(p, dt)                                             # [B, H]
+    xdt = xs.float() * dt[..., None]                                   # [B, H, P]
+    ssm = cache["ssm"]
+    ssm.mul_(torch.exp(da)[:, :, None, None]).add_(
+        xdt[..., None] * bm[:, None, None, :])
+    y = (ssm @ cm[:, None, :, None])[..., 0]                           # [B, H, P]
+    y = y + p["d_skip"].float()[:, None] * xs.float()
+    y = y.reshape(b, di).to(x.dtype)
+
+    y = rmsnorm(p["norm_g"], y * F.silu(z), cfg.norm_eps)
+    return linear_apply(p["out_proj"], y)[:, None, :], cache

@@ -1,9 +1,13 @@
-"""Model assembly (``repro.models.transformer``) for the attention families
-the port serves (dense, moe, vlm and audio) and trains (all but moe).
+"""Model assembly (``repro.models.transformer``) for every family of the
+pool: the attention families (dense, moe, vlm, audio), ``ssm`` (Mamba2)
+and ``hybrid`` (Zamba2: a Mamba2 trunk plus one shared attention and MLP
+block, applied after every ``hybrid_attn_every``-th layer). All of them
+serve; all but moe, ssm and hybrid train.
 
 * ``init_params``   — stacked per-layer params (``[L, ...]`` leaves, the
-  reference's tree), drawn from a ``torch.Generator`` on its device; with
-  ``local_heads`` the OSSL predictor heads ``[L, D, D]``.
+  reference's tree; ``shared`` for the hybrid), drawn from a
+  ``torch.Generator`` on its device; with ``local_heads`` the OSSL
+  predictor heads ``[L, D, D]``.
 * ``forward``       — full-sequence forward: logits (or, ``want_hidden``,
   the final normed hidden states) and ``aux`` (``local_loss``, ``moe_aux``,
   ``moe_dropped``, ``ia``, ``pooled``). ``local_mode`` detaches every block
@@ -12,24 +16,32 @@ the port serves (dense, moe, vlm and audio) and trains (all but moe).
 * ``lm_loss`` / ``lm_loss_chunked`` — mean next-token cross entropy, the
   latter over sequence chunks so the ``[B, S, V]`` logits never exist.
 * ``init_cache`` / ``prefill`` / ``decode_step`` — serving: GQA KV caches
-  (ring buffer under SWA), with the position a host int.
+  (ring buffer under SWA), the Mamba2 conv window and SSM state, and the
+  shared block's ring caches, with the position a host int.
 
 The layer loop is a Python ``for`` over views of the stacked leaves (the
-reference scans). Attention takes an explicit route instead of the
-reference's mesh context: ``attn="flash"`` (default) goes through
-``layers.attn_full_flash`` → ``kernels/flash_attn`` (the CUDA kernels on
-the card, the plain version on the CPU); ``attn="plain"`` is the
-reference's path without the context, ``attn_full`` or, beyond
-``CHUNKED_ATTN_THRESHOLD``, ``attn_full_chunked``.
+reference scans), so the hybrid's "is this a shared-block layer" test is a
+host ``if`` where the reference uses ``lax.cond``. Attention takes an
+explicit route instead of the reference's mesh context: ``attn="flash"``
+(default) goes through ``layers.attn_full_flash`` → ``kernels/flash_attn``
+(the CUDA kernels on the card, the plain version on the CPU), for the
+hybrid's shared block too (the reference routes only the attention
+families through flash; it is the same causal attention with the window);
+``attn="plain"`` is the reference's path without the context,
+``attn_full`` or, beyond ``CHUNKED_ATTN_THRESHOLD``, ``attn_full_chunked``.
 
 The moe family puts ``models/moe.py``'s layer (``lp["moe"]``) where the
 others have the MLP. Its capacity is that of each call's tokens, so a
 decode step is not the forward at the same position once the prefill
 drops a choice (as in the reference).
 
+The ssm and hybrid prefill is one chunked pass (``mamba2.mamba2_prefill``)
+that keeps each layer's final SSM state and conv window; the reference
+replays the prompt token by token through ``decode_step``, which computes
+the same function (chunked ≡ recurrent is the reference's own invariant).
+
 Not here: the reference's ``probe`` mode (XLA cost accounting: it has no
-counterpart in eager torch) and the ssm and hybrid families — each raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+counterpart in eager torch).
 """
 from __future__ import annotations
 
@@ -42,14 +54,12 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core import ossl as ossl_lib
 from . import layers as L
+from . import mamba2 as M
 from . import moe as MOE
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
+SSM_FAMILIES = ("ssm", "hybrid")
 CHUNKED_ATTN_THRESHOLD = 2048
-_LATER = {
-    "ssm": "models/mamba2.py (ROADMAP Queue 1 item 11c)",
-    "hybrid": "models/mamba2.py and the shared block (ROADMAP Queue 1 item 11c)",
-}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -57,12 +67,18 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet: "
-            f"{_LATER[cfg.family]}")
-    if cfg.family not in ATTN_FAMILIES:
+    if cfg.family not in ATTN_FAMILIES + SSM_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _shared_slot(cfg: ModelConfig, shared, i: int):
+    """The shared-block cache slot of layer ``i``, or None where the shared
+    block does not run after it (every layer but each ``every``-th of a
+    hybrid whose params hold the block)."""
+    every = cfg.hybrid_attn_every
+    if shared is None or not every or (i + 1) % every:
+        return None
+    return (i + 1) // every - 1
 
 
 def layer_view(tree, i: int):
@@ -93,26 +109,38 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda",
     lead = (cfg.n_layers,)
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg, dtype),
-        "layers": {
-            "norm1": L.rmsnorm_init(cfg.d_model, dtype, dev, lead),
-            "attn": L.attn_init(gen, cfg, dtype, cfg.sparsity, lead),
-            "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev, lead),
-        },
+        "layers": {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev, lead)},
         "final_norm": L.rmsnorm_init(cfg.d_model, dtype, dev),
     }
-    if cfg.family == "moe":
-        params["layers"]["moe"] = MOE.moe_init(gen, cfg, dtype, cfg.sparsity,
-                                               lead)
+    lp = params["layers"]
+    if cfg.family in SSM_FAMILIES:
+        lp["mixer"] = M.mamba2_init(gen, cfg, dtype, cfg.sparsity, lead)
     else:
-        params["layers"]["mlp"] = L.mlp_init(gen, cfg, dtype, cfg.sparsity,
-                                             lead=lead)
+        lp["attn"] = L.attn_init(gen, cfg, dtype, cfg.sparsity, lead)
+        lp["norm2"] = L.rmsnorm_init(cfg.d_model, dtype, dev, lead)
+        if cfg.family == "moe":
+            lp["moe"] = MOE.moe_init(gen, cfg, dtype, cfg.sparsity, lead)
+        else:
+            lp["mlp"] = L.mlp_init(gen, cfg, dtype, cfg.sparsity, lead=lead)
     if not cfg.tie_embeddings:
         params["lm_head"] = L._randn(gen, (cfg.d_model, cfg.vocab), dtype) \
             * (cfg.d_model ** -0.5)
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        params["shared"] = _shared_block_init(gen, cfg, dtype)
     if local_heads:
         params["local_heads"] = ossl_lib.local_head_init(gen, cfg.d_model,
                                                          dtype, lead)
     return _to(params, device)
+
+
+def _shared_block_init(gen: torch.Generator, cfg: ModelConfig, dtype):
+    """Zamba2's shared attention + MLP block: one set of params, reused
+    after every ``hybrid_attn_every``-th layer, never sparse."""
+    dev = gen.device
+    return {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev),
+            "attn": L.attn_init(gen, cfg, dtype, None),
+            "norm2": L.rmsnorm_init(cfg.d_model, dtype, dev),
+            "mlp": L.mlp_init(gen, cfg, dtype, None)}
 
 
 # ---------------------------------------------------------------------------
@@ -146,20 +174,49 @@ def _attn_fn(cfg: ModelConfig, s: int, attn: str):
 
 def _ffn(lp, h, cfg: ModelConfig):
     """The block's second half, MLP or MoE, on the normed stream:
-    (out, moe aux or None)."""
+    (out, moe aux or None). The hybrid's shared block takes it too (its MLP
+    is dense, so the sparsity config changes nothing there)."""
     hn = L.rmsnorm(lp["norm2"], h, cfg.norm_eps)
     if cfg.family == "moe":
         return MOE.moe_apply(lp["moe"], hn, cfg)
     return L.mlp_apply(lp["mlp"], hn, cfg, cfg.sparsity), None
 
 
-def _block(lp, h, angles, cfg: ModelConfig, attn_fn):
-    """One attention + MLP (or MoE) block: (h_out, (k, v), moe aux or None)."""
+def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
+    """One block: (h_out, (k, v) or None, moe aux or None). Attention + MLP
+    (or MoE); or, for ssm and hybrid, the Mamba2 mixer followed by the
+    shared block where ``shared`` is given (its K/V returned)."""
+    if cfg.family in SSM_FAMILIES:
+        h = h + M.mamba2_forward(lp["mixer"],
+                                 L.rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg)
+        if shared is None:
+            return h, None, None
+        h, kv = _shared_apply(shared, h, angles, cfg, attn_fn)
+        return h, kv, None
     a, kv = attn_fn(lp["attn"], L.rmsnorm(lp["norm1"], h, cfg.norm_eps),
                     angles, cfg, cfg.sparsity)
     h = h + a
     f, aux = _ffn(lp, h, cfg)
     return h + f, kv, aux
+
+
+def _shared_apply(shared, h, angles, cfg: ModelConfig, attn_fn):
+    """The hybrid's shared attention + MLP block over a whole sequence:
+    (h_out, (k, v))."""
+    a, kv = attn_fn(shared["attn"], L.rmsnorm(shared["norm1"], h, cfg.norm_eps),
+                    angles, cfg)
+    h = h + a
+    return h + _ffn(shared, h, cfg)[0], kv
+
+
+def _shared_decode(shared, h, angles, ck, cv, pos: int, cfg: ModelConfig):
+    """The shared block for one token against its slot's ring cache
+    ``ck``/``cv`` [B, C, KV, dh], written in place at ``pos % C``."""
+    a, _, _ = L.attn_decode(shared["attn"],
+                            L.rmsnorm(shared["norm1"], h, cfg.norm_eps),
+                            angles, ck, cv, pos, cfg)
+    h = h + a
+    return h + _ffn(shared, h, cfg)[0]
 
 
 def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -193,21 +250,25 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
     have them) and detaches the final hidden states, so the readout learns
     on frozen features. With ``cfg.remat`` each block (and its local loss)
     runs under ``torch.utils.checkpoint`` when gradients are on: the
-    backward recomputes it, and the flash kernel launches again."""
+    backward recomputes it, and the flash kernel launches again. For ssm
+    and hybrid, ``S`` must be a multiple of ``cfg.ssm_chunk`` (``ValueError``;
+    the reference asserts it); ``prefill`` takes any ``S``."""
     _check_family(cfg)
     h = L.embed_apply(params["embed"], tokens, embeds)
     b, s, _ = h.shape
     angles = _angles_for(cfg, positions, b, s, h.device)
     attn_fn = _attn_fn(cfg, s, attn)
     heads = params.get("local_heads") if local_mode else None
+    shared = params.get("shared")
     remat = cfg.remat and torch.is_grad_enabled()
     lloss = torch.zeros((), dtype=torch.float32, device=h.device)
     ia, pooled, moe_aux, moe_drop = [], [], [], []
     for i in range(cfg.n_layers):
         h_in = h.detach() if local_mode else h
         head = layer_view(heads, i) if heads is not None else None
+        sh = shared if _shared_slot(cfg, shared, i) is not None else None
         args = (layer_view(params["layers"], i), head, h_in, angles, cfg,
-                attn_fn)
+                attn_fn, sh)
         h, ll, maux = (checkpoint(_train_block, *args, use_reentrant=False)
                        if remat else _train_block(*args))
         if ll is not None:
@@ -230,10 +291,11 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
     return h @ _head_matrix(params, cfg), aux
 
 
-def _train_block(lp, head, h, angles, cfg: ModelConfig, attn_fn):
-    """One block and, given a local head, its OSSL loss: (h_out, loss or
-    None, moe aux or None)."""
-    h, _, maux = _block(lp, h, angles, cfg, attn_fn)
+def _train_block(lp, head, h, angles, cfg: ModelConfig, attn_fn, shared):
+    """One block (with the hybrid's shared block after it where ``shared``
+    is given) and, given a local head, its OSSL loss: (h_out, loss or None,
+    moe aux or None)."""
+    h, _, maux = _block(lp, h, angles, cfg, attn_fn, shared)
     if head is None:
         return h, None, maux
     return h, ossl_lib.local_loss(h, head, ossl_lib.OSSLConfig()), maux
@@ -283,13 +345,25 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cuda") -> Dict[str, Any]:
-    """``{"pos": 0, "k", "v": [L, B, C, KV, dh]}``; ``pos`` is a host int."""
+    """The decode cache, ``pos`` a host int. Attention families:
+    ``{"pos": 0, "k", "v": [L, B, C, KV, dh]}``. ssm and hybrid: ``conv [L,
+    B, W-1, C]`` in the config's dtype and ``ssm [L, B, H, P, N]`` in f32;
+    the hybrid adds ``shared_k``/``shared_v [L // every, B, C, KV, dh]``,
+    one ring per shared-block call. ``C = cache_len(cfg, max_seq)``."""
     _check_family(cfg)
-    c = cache_len(cfg, max_seq)
-    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.head_dim)
-    return {"pos": 0,
-            "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+    c, dtype = cache_len(cfg, max_seq), _dtype(cfg)
+
+    def kv(n):
+        return torch.zeros((n, batch, c, cfg.n_kv_heads, cfg.head_dim),
+                           dtype=dtype, device=device)
+    if cfg.family in ATTN_FAMILIES:
+        return {"pos": 0, "k": kv(cfg.n_layers), "v": kv(cfg.n_layers)}
+    cache = {"pos": 0, **M.mamba2_init_cache(cfg, batch, dtype, device,
+                                             lead=(cfg.n_layers,))}
+    if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+        slots = cfg.n_layers // cfg.hybrid_attn_every
+        cache["shared_k"], cache["shared_v"] = kv(slots), kv(slots)
+    return cache
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
@@ -299,28 +373,46 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
 
     One pass over the blocks collects each layer's K/V as it goes (the
     reference runs ``forward`` and then re-runs every layer for K/V), so
-    ``attn="flash"`` launches the flash kernel ``n_layers`` times per
-    prefill on the card. Only the last position goes through the final norm
-    and the head: the norm is per row, so its logits are the reference's
-    ``logits[:, -1]``. The last ``min(S, C)`` positions land at ring slots
-    ``pos % C``, as decode writes them. An MoE layer sees the same
-    ``[B, S, D]`` input as in the reference's two passes, so its capacity
-    and its drops are the reference's.
+    ``attn="flash"`` launches the flash kernel once per attention layer on
+    the card (``n_layers``; ``n_layers // hybrid_attn_every`` for the
+    hybrid, none for ssm). Only the last position goes through the final
+    norm and the head: the norm is per row, so its logits are the
+    reference's ``logits[:, -1]``. The last ``min(S, C)`` positions land at
+    ring slots ``pos % C``, as decode writes them. An MoE layer sees the
+    same ``[B, S, D]`` input as in the reference's two passes, so its
+    capacity and its drops are the reference's.
+
+    ssm and hybrid: each mixer runs the chunked SSD over the prompt (any
+    ``S``; ``mamba2.mamba2_prefill``) and keeps its final state and conv
+    window, where the reference replays the prompt token by token through
+    ``decode_step``; the two compute the same cache.
     """
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_seq, tokens.device)
     h = L.embed_apply(params["embed"], tokens)
     angles = _angles_for(cfg, None, b, s, h.device)
     attn_fn = _attn_fn(cfg, s, attn)
-    c = cache["k"].shape[2]
+    c = cache_len(cfg, max_seq)
     take = min(s, c)
-    slots = torch.tensor([(s - take + i) % c for i in range(take)],
-                         device=h.device)
+    ring = torch.tensor([(s - take + i) % c for i in range(take)],
+                        device=h.device)
+    shared = params.get("shared")
     for i in range(cfg.n_layers):
-        h, (k, v), _ = _block(layer_view(params["layers"], i), h, angles,
-                              cfg, attn_fn)
-        cache["k"][i, :, slots] = k[:, s - take:]
-        cache["v"][i, :, slots] = v[:, s - take:]
+        lp = layer_view(params["layers"], i)
+        if cfg.family in ATTN_FAMILIES:
+            h, (k, v), _ = _block(lp, h, angles, cfg, attn_fn)
+            ck, cv = cache["k"][i], cache["v"][i]
+        else:
+            o, cache["ssm"][i], cache["conv"][i] = M.mamba2_prefill(
+                lp["mixer"], L.rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg)
+            h = h + o
+            slot = _shared_slot(cfg, shared, i)
+            if slot is None:
+                continue
+            h, (k, v) = _shared_apply(shared, h, angles, cfg, attn_fn)
+            ck, cv = cache["shared_k"][slot], cache["shared_v"][slot]
+        ck[:, ring] = k[:, s - take:]
+        cv[:, ring] = v[:, s - take:]
     cache["pos"] = s
     return _head(params, cfg, h[:, -1]), cache
 
@@ -328,8 +420,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. tokens [B] -> (logits [B, V], cache). The cache's
-    K/V are written in place (the returned dict holds the same tensors, with
-    ``pos`` advanced); nothing is read back from the device."""
+    tensors are written in place (the returned dict holds the same tensors,
+    with ``pos`` advanced); nothing is read back from the device. The
+    hybrid's shared block after layer ``i`` attends through ring
+    ``(i + 1) // every - 1``."""
     _check_family(cfg)
     h = L.embed_apply(params["embed"], tokens[:, None])          # [B,1,D]
     b = h.shape[0]
@@ -337,9 +431,18 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
     p1 = torch.full((b, 1), pos, device=h.device)
     angles = _angles_for(cfg, torch.stack([p1] * 3)
                          if cfg.rope_mode == "mrope" else p1, b, 1, h.device)
+    shared = params.get("shared")
     for i in range(cfg.n_layers):
         lp = layer_view(params["layers"], i)
         hn = L.rmsnorm(lp["norm1"], h, cfg.norm_eps)
+        if cfg.family in SSM_FAMILIES:
+            mc = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
+            h = h + M.mamba2_decode(lp["mixer"], hn, mc, cfg)[0]
+            slot = _shared_slot(cfg, shared, i)
+            if slot is not None:
+                h = _shared_decode(shared, h, angles, cache["shared_k"][slot],
+                                   cache["shared_v"][slot], pos, cfg)
+            continue
         a, _, _ = L.attn_decode(lp["attn"], hn, angles, cache["k"][i],
                                 cache["v"][i], pos, cfg, cfg.sparsity)
         h = h + a

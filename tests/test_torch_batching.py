@@ -2,9 +2,9 @@
 span tracer (``obs/trace.py``).
 
 The batcher: the invariants of tests/test_batching.py on the port, and the
-port's batcher against the reference's on the same weights (reduced Phi-3
-and Moonshot, f32), token for token, slot reuse included. Greedy tokens
-must be equal; no tolerance.
+port's batcher against the reference's on the same weights (reduced Phi-3,
+Moonshot, Mamba2 and Zamba2, f32), token for token, slot reuse included.
+Greedy tokens must be equal; no tolerance.
 """
 import functools
 import threading
@@ -108,12 +108,14 @@ def test_slot_reuse_more_requests_than_slots():
 # against the reference's batcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["phi3_medium_14b", "moonshot_v1_16b_a3b"])
+@pytest.mark.parametrize("arch", ["phi3_medium_14b", "moonshot_v1_16b_a3b",
+                                  "mamba2_2p7b", "zamba2_1p2b"])
 def test_batcher_tokens_equal_reference(arch):
     """Five requests of mixed lengths through two slots (reused three
     times), the first stopped at once by ``eos_id``: the same tokens, finish
     order and grid statistics as the reference's batcher (reused slots
-    included, whose requests see the previous occupant's K/V there too)."""
+    included, whose requests see the previous occupant's K/V, or for
+    Mamba2 and Zamba2 its SSM state and conv window, there too)."""
     cfg, jp, tp = _model(arch)
     specs = [(_prompt(cfg, 20 + i, 3 + 2 * i % 5), 2 + i % 3) for i in range(5)]
     eos = _lone(cfg, tp, specs[0][0], 1)[0]      # request 0 stops at once

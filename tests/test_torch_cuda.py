@@ -476,6 +476,8 @@ def f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
     (torch.bfloat16, 1, 300, 4, 4, 160, 37),
     (torch.bfloat16, 2, 1000, 4, 1, 64, None),     # ragged, MQA
     (torch.bfloat16, 2, 256, 4, 4, 128, None),     # group 1, as Moonlight
+    # Zamba2's shared block: 32 query and 32 KV heads of 64, window past S
+    (torch.bfloat16, 2, 256, 32, 32, 64, 4096),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, b, s, h, kv, dh, window):
     q, k, v = (torch.tensor(a).to(cuda, dtype) for a in qkv(5, b, s, h, kv, dh))
@@ -609,3 +611,37 @@ def test_moe_ties_put_the_lower_expert_first_on_card(cuda):
                 ties += 1
                 assert row.index(lo) < row.index(hi)
     assert ties > 0
+
+
+# ------------------------------------------------------------ ssm and hybrid
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_2p7b", "zamba2_1p2b"])
+def test_chunked_prefill_equals_replay_on_card(cuda, arch):
+    """The chunked prefill (a ragged 13-token prompt, the hybrid's ring of 8
+    wrapped) against the same prompt replayed through ``decode_step`` on
+    the card, f32 at a small width with heads of 64 so the hybrid's shared
+    block runs the flash kernel: last logits and every cache tensor within
+    1e-4, and ``flash_fwd`` launched once per shared-block call."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_reduced(arch), d_head=64)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg, device=cuda)
+    tok = torch.randint(0, cfg.vocab, (2, 13),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = fk.flash_fwd_cuda.launches
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, tok, 16)
+        calls = fk.flash_fwd_cuda.launches - before
+        replay = T.init_cache(cfg, 2, 16, device=cuda)
+        for t in range(tok.shape[1]):
+            want, replay = T.decode_step(params, replay, tok[:, t], cfg)
+    every = cfg.hybrid_attn_every
+    assert calls == (cfg.n_layers // every if every else 0)
+    assert float((logits - want).abs().max()) <= 1e-4
+    assert cache["pos"] == replay["pos"] == 13
+    for k in ("conv", "ssm", "shared_k", "shared_v"):
+        if k in replay:
+            assert cache[k].dtype == replay[k].dtype
+            assert float((cache[k] - replay[k]).abs().max()) <= 1e-4, k
