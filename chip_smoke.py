@@ -24,7 +24,8 @@ Phases, each raising on failure:
    larger) and, where one PyTorch call computes the same function, that
    call's time (timed only; the port never calls it). ``nm_spmm`` also runs
    fused with the per-slot delta at the serving shape (1024 slots, 512 ->
-   512, T 104, f32; and 1000 slots), against ``ref.nm_spmm_fused``, with
+   512, T 104, f32; and 1000 slots; and 256, phase 19e's interactive tier,
+   as ``lif`` and ``wu_outer_slots`` too), against ``ref.nm_spmm_fused``, with
    rows computed alone equal bit for bit to the same rows of the batch.
    ``wu_outer`` also writes exact zeros for a closed gate (``scale = 0``),
    and runs with the add into the compact weights fused in (the training
@@ -209,6 +210,29 @@ Phases, each raising on failure:
    (c) the continuous batcher on the full Mamba2 under phase 16b's traffic
    and gates (no kernel launches), the two step-0 requests equal to their
    lone 1-slot runs up to a near-tie divergence.
+19. the serving runtime on phase 4's fleet, run right after phase 4. Each
+   run is phase 4's paper network, streams and gates (every stream 4
+   predictions, launches grid steps x C x L summed over the tiers, finite
+   deltas) and is held bit for bit (window logits and final deltas of
+   every stream) against phase 4's run. (a) ingestion A/B: the streams as
+   ``AERStreamSource``s at depth 1, polled inline, then through the ingest
+   worker; the worker queued chunks and every stream detached; records
+   events/s, phase walls, ``serving_ingest_chunks_total``, the queue peak
+   and the steal polls; and, for the record, the ingesting run again with
+   the worker's idle wait at 50 ms instead of 0.5. (b) depth 2 with
+   ingestion, and for the record without it. (c) the default
+   ``AutopilotConfig`` from depth 1 with ingestion: it moved or recorded
+   its decisions; records the depth timeline, the depths visited and the
+   final overlap EMA. (d) an ``obs.Tracer`` on phase 4's fleet, two
+   untraced and two traced runs interleaved: no span dropped, exactly one
+   ``sched.step/stage/poll_sources/dispatch/retire/device_wait`` span per
+   grid step, the Prometheus scrape parses back; records the tracer's cost
+   (traced over untraced wall, beside the reference's 25 % allowance, not
+   gated) and writes the Chrome trace to ``chiprun_out/runtime_trace.json``.
+   (e) two tiers, ``interactive`` (chunk 2, 256 slots, every 4th stream) and
+   ``bulk`` (chunk 8, 768 slots), with ingestion: one chunk fn per tier, and
+   every stream equal to its run on a single-grid fleet of its tier's
+   geometry (two more runs); records per-tier step walls and events/s.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -217,12 +241,16 @@ launch, the training path's), the card line, and last
 ``chiprun_out/chip_smoke.json``. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are missing.
 """
+import copy
+import hashlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -636,8 +664,8 @@ def wu_case(torch, name, dtype, b, spec):
     return rec
 
 
-def wu_slots_case(torch, name, open_frac):
-    """The per-slot update in place at the serving shape (1024 slots, K = N
+def wu_slots_case(torch, name, open_frac, s=N_STREAMS):
+    """The per-slot update in place at the serving shape (``s`` slots, K = N
     = 512, T 104, f32) on one layer of slot-leading deltas ``[S, 2, J, T,
     1, 1]``, a share ``open_frac`` of the slots open: bit for bit against
     the plain ``delta + ref.wu_outer_slots``, closed slots and the other
@@ -647,7 +675,6 @@ def wu_slots_case(torch, name, open_frac):
     from repro_torch.kernels.nm_spmm import ops as nm_ops
     from repro_torch.kernels.wu_outer import ref
     from repro_torch.kernels.wu_outer.kernel import wu_outer_slots_cuda
-    s = N_STREAMS
     k = o = 512
     gen = torch.Generator().manual_seed(5)
     spec = paper_spec_4groups(k, 0.8)
@@ -893,54 +920,115 @@ def reset_counters():
 NO_ATTN = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
-def serve(torch, params, task):
-    from repro_torch.serving import (StreamScheduler, StreamSession,
-                                     TaskStreamSource)
+def fleet_digest(done):
+    """Per stream, what the bit-for-bit gates compare: the timesteps fed,
+    the window logits' bytes and a SHA-256 of the final deltas' bytes (the
+    deltas themselves, 430 MB for the fleet, are not kept)."""
+    return {s.sid: (s.timesteps_fed,
+                    b"".join(p.logits.tobytes() for p in s.predictions),
+                    hashlib.sha256(s.final_deltas.tobytes()).hexdigest())
+            for s in done}
+
+
+def check_same(want, got, what):
+    """Raise unless two fleet digests agree stream for stream."""
+    if sorted(want) != sorted(got):
+        raise AssertionError(f"{what}: other streams retired")
+    bad = [sid for sid in want if want[sid] != got[sid]]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} streams differ bit for bit "
+                             f"(first {bad[:8]})")
+
+
+_SOURCES = {}
+
+
+def stream_sources(task, sids, aer):
+    """Fresh sources for ``sids``. Each is built once (its seeded sampling is
+    most of a fleet's set-up) and handed out as a copy rewound to its first
+    chunk: a source's only state is its cursor, and no consumer writes the
+    chunks it releases."""
+    from repro_torch.serving import AERStreamSource, TaskStreamSource
+    out = []
+    for sid in sids:
+        key = (id(task), aer, sid)
+        if key not in _SOURCES:
+            source = AERStreamSource if aer else TaskStreamSource
+            _SOURCES[key] = source(task, N_WINDOWS, seed=sid)
+        src = copy.copy(_SOURCES[key])
+        src._next = 0
+        out.append(src)
+    return out
+
+
+def run_fleet(torch, params, task, tag, sids=None, chunk_len=CHUNK_LEN,
+              aer=False, tiers=None, tier_of=None, **kw):
+    """Serve gesture streams ``sids`` (all N_STREAMS by default; seed = sid,
+    N_WINDOWS windows, AER-packed with ``aer``) through the port's
+    ``StreamScheduler`` on the paper network until drained, one slot a
+    stream (``tiers``: ``(name, chunk_len, n_slots)`` geometries, each
+    stream on ``tier_of(sid)``); ``kw`` go to the scheduler. Gates: every
+    stream retired with N_WINDOWS predictions and finite final deltas;
+    ``nm_spmm``, ``nm_spmm_fused``, ``lif`` and ``wu_outer_slots`` launched
+    grid steps x C x L times summed over the tiers, ``wu_outer`` and the
+    attention kernels never. Returns ``(record, launches, digest,
+    scheduler)``."""
+    from repro_torch.serving import StreamScheduler, StreamSession, TierConfig
     cfg = paper_config("kernels")
+    sids = list(range(N_STREAMS)) if sids is None else list(sids)
+    geometry = ([TierConfig(*t) for t in tiers] if tiers else
+                [TierConfig("default", chunk_len, len(sids))])
     t0 = time.perf_counter()
-    sources = [TaskStreamSource(task, N_WINDOWS, seed=sid)
-               for sid in range(N_STREAMS)]
-    sched = StreamScheduler(params, cfg, n_slots=N_STREAMS,
-                            chunk_len=CHUNK_LEN, pipeline_depth=1,
-                            device="cuda")
-    for sid, src in enumerate(sources):
-        sched.submit(StreamSession(sid=sid, source=src))
-    setup_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counters = reset_counters()
-    t0 = time.perf_counter()
-    done = sched.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    sources = stream_sources(task, sids, aer)
+    sched = StreamScheduler(params, cfg, n_slots=len(sids),
+                            chunk_len=chunk_len, device="cuda",
+                            tiers=geometry if tiers else None, **kw)
+    try:
+        for sid, src in zip(sids, sources):
+            sched.submit(StreamSession(sid=sid, source=src),
+                         tier=tier_of(sid) if tier_of else None)
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        done = sched.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        sched.close()
     steps = sched.grid.stats["steps"]
-    per_step = steps * CHUNK_LEN * cfg.n_layers
+    per_step = cfg.n_layers * sum(
+        sched.tier_grid(t.name).stats["steps"] * t.chunk_len
+        for t in geometry)
     # serving keeps its base weights frozen: the batch-summed update never
     # launches, the per-slot one once per layer-timestep (in place, into the
     # slots' deltas), every nm_spmm launch carries the slots' deltas, and the
     # SNN has no attention
     want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
             "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN}
-    if len(done) != N_STREAMS:
-        raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
+    if len(done) != len(sids):
+        raise AssertionError(f"{tag}: {len(done)} of {len(sids)} streams "
+                             "retired")
     short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
     if short:
-        raise AssertionError(f"streams without {N_WINDOWS} predictions: {short[:8]}")
+        raise AssertionError(f"{tag}: streams without {N_WINDOWS} "
+                             f"predictions: {short[:8]}")
     if launches != want:
-        raise AssertionError(f"serving launched {launches}, want {want} "
-                             f"({steps} steps x {CHUNK_LEN} x {cfg.n_layers} "
-                             f"for nm_spmm, lif and wu_outer_slots)")
+        raise AssertionError(f"{tag} launched {launches}, want {want} "
+                             f"(grid steps x C x {cfg.n_layers} summed over "
+                             f"the tiers for nm_spmm, lif and wu_outer_slots)")
     if not bool(torch.isfinite(sched.deltas).all()):
-        raise AssertionError("non-finite serving deltas")
-    if not all(bool(torch.isfinite(torch.from_numpy(s.final_deltas)).all())
-               for s in done):
-        raise AssertionError("non-finite final deltas")
+        raise AssertionError(f"{tag}: non-finite serving deltas")
+    if not all(bool(np.isfinite(s.final_deltas).all()) for s in done):
+        raise AssertionError(f"{tag}: non-finite final deltas")
     roll = sched.telemetry.rollup()
-    rec = {"streams": N_STREAMS, "windows_per_stream": N_WINDOWS,
-           "grid_steps": steps, "chunk_len": CHUNK_LEN, "n_slots": N_STREAMS,
-           "pipeline_depth": 1, "launches": launches, "wall_s": wall,
-           "setup_s": setup_s, "events_in": roll["events_in"],
+    rec = {"streams": len(sids), "windows_per_stream": N_WINDOWS,
+           "grid_steps": steps, "chunk_len": chunk_len, "n_slots": len(sids),
+           "pipeline_depth": sched.pipeline_depth, "aer": aer,
+           "ingest": sched.ingest is not None, "launches": launches,
+           "wall_s": wall, "setup_s": setup_s, "events_in": roll["events_in"],
            "timesteps": roll["timesteps"],
            "events_per_s": roll["events_per_s"],
            "timesteps_per_s": roll["timesteps_per_s"],
@@ -949,8 +1037,161 @@ def serve(torch, params, task):
            "phases": sched.telemetry.phase_percentiles(),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "deltas_bytes": sched.deltas.numel() * 4}
-    log(f"serving {json.dumps(rec)}")
-    return rec, launches
+    if tiers:
+        rec["tiers"] = [list(t) for t in tiers]
+    log(f"{tag} {json.dumps(rec)}")
+    return rec, launches, fleet_digest(done), sched
+
+
+# phase 19e: every 4th stream on a short-chunk tier, the rest on a long one
+RUNTIME_TIERS = (("interactive", 2, N_STREAMS // 4),
+                 ("bulk", CHUNK_LEN, N_STREAMS - N_STREAMS // 4))
+RUNTIME_SPANS = ("sched.step", "sched.stage", "sched.poll_sources",
+                 "sched.dispatch", "sched.retire", "sched.device_wait")
+
+
+def runtime(torch, params, task, ref):
+    """Phase 19 (module docstring): the serving runtime on phase 4's fleet,
+    each run held bit for bit against phase 4's digest ``ref`` (19e's
+    tiered run against its two single-grid runs)."""
+    from repro_torch.obs import (Tracer, parse_prometheus_text,
+                                 prometheus_text, write_chrome_trace)
+    from repro_torch.serving import (AutopilotConfig, DepthAutopilot,
+                                     IngestConfig)
+    out, launches = {}, {}
+
+    def run(tag, **kw):
+        rec, n, digest, sched = run_fleet(torch, params, task, tag, **kw)
+        launches[tag] = n
+        return rec, digest, sched
+
+    # 19a: AER sources, depth 1, ingestion off then on
+    rec_off, d_off, _ = run("runtime_aer_inline", aer=True, pipeline_depth=1)
+    rec_on, d_on, sched = run("runtime_aer_ingest", aer=True,
+                              pipeline_depth=1, ingest=True)
+    check_same(d_off, d_on, "19a: ingestion on against off")
+    check_same(ref, d_off, "19a: AER sources against phase 4")
+    stats = sched.ingest.stats()
+    if stats["chunks_queued"] <= 0 or stats["attached"] != 0:
+        raise AssertionError(f"19a: ingest worker stats {stats}: it queued "
+                             "nothing or a stream stayed attached")
+    parsed = parse_prometheus_text(prometheus_text(sched.telemetry.registry))
+    rec_on.update(ingest_stats=stats,
+                  ingest_chunks_total=parsed["serving_ingest_chunks_total"],
+                  ingest_queue_peak=parsed["serving_ingest_queue_peak_chunks"])
+    # for the record: the worker idle-waits 0.5 ms between polling rounds
+    # over every stream; the same run with a 50 ms idle wait (a drain wakes
+    # it at once either way)
+    rec_idle, digest, _ = run("runtime_aer_ingest_idle50ms", aer=True,
+                              pipeline_depth=1,
+                              ingest=IngestConfig(idle_wait_s=0.05))
+    check_same(ref, digest, "19a: ingestion with a 50 ms idle wait")
+    out["ingest"] = {"inline": rec_off, "ingest": rec_on,
+                     "ingest_idle50ms": rec_idle}
+    del sched, d_off, d_on
+
+    # 19b: depth 2, ingestion on
+    out["depth2"], digest, _ = run("runtime_depth2", pipeline_depth=2,
+                                   ingest=True)
+    check_same(ref, digest, "19b: depth 2 against phase 4")
+    # for the record: depth 2 with the sources polled inline, phase 4's
+    # fleet but for the depth
+    out["depth2_inline"], digest, _ = run("runtime_depth2_inline",
+                                          pipeline_depth=2)
+    check_same(ref, digest, "19b: depth 2 inline against phase 4")
+
+    # 19c: the default autopilot from depth 1, ingestion on; its decisions
+    # recorded into a tracer of its own
+    ap_tracer = Tracer(capacity=1 << 16)
+    ap = DepthAutopilot(AutopilotConfig(), tracer=ap_tracer)
+    rec, digest, sched = run("runtime_autopilot", pipeline_depth=1,
+                             ingest=True, autopilot=ap)
+    check_same(ref, digest, "19c: the autopilot's run against phase 4")
+    actions = {}
+    for sp in ap_tracer.spans("autopilot.decision"):
+        actions[sp.attr("action")] = actions.get(sp.attr("action"), 0) + 1
+    if len(ap.depths_visited()) < 2 and not actions:
+        raise AssertionError("19c: the autopilot neither moved nor recorded "
+                             "a decision")
+    rec.update(timeline=[list(t) for t in ap.timeline],
+               depths_visited=list(ap.depths_visited()), overlap_ema=ap.ema,
+               decisions=actions, final_depth=sched.pipeline_depth,
+               config=dict(vars(ap.cfg)))
+    out["autopilot"] = rec
+    log(f"runtime_autopilot_decisions {json.dumps(actions)} timeline "
+        f"{rec['timeline']} ema {ap.ema}")
+    del sched
+
+    # 19d: phase 4's fleet with and without a tracer, interleaved
+    walls = {"untraced": [], "traced": []}
+    for i in range(2):
+        rec, digest, _ = run(f"runtime_untraced_{i}", pipeline_depth=1)
+        check_same(ref, digest, "19d: untraced run against phase 4")
+        walls["untraced"].append(rec["wall_s"])
+        tracer = Tracer(capacity=1 << 16)
+        rec, digest, sched = run(f"runtime_traced_{i}", pipeline_depth=1,
+                                 tracer=tracer)
+        check_same(ref, digest, "19d: traced run against phase 4")
+        walls["traced"].append(rec["wall_s"])
+        steps = sched.grid.stats["steps"]
+        if tracer.n_dropped:
+            raise AssertionError(f"19d: the tracer dropped {tracer.n_dropped}")
+        for name in RUNTIME_SPANS:
+            got = sorted(sp.attr("grid_step") for sp in tracer.spans(name))
+            if got != list(range(1, steps + 1)):
+                raise AssertionError(f"19d: {name} spans name grid steps "
+                                     f"{got[:6]}..., want one each of "
+                                     f"1..{steps}")
+        parsed = parse_prometheus_text(
+            prometheus_text(sched.telemetry.registry))
+        if parsed.get("serving_grid_steps_total") != steps:
+            raise AssertionError("19d: the Prometheus scrape does not parse "
+                                 "back to the run's grid steps")
+    span_ms = {}
+    for name in RUNTIME_SPANS:
+        durs = sorted(sp.dur_s * 1e3 for sp in tracer.spans(name))
+        span_ms[name] = {"p50": durs[len(durs) // 2], "max": durs[-1],
+                         "total": sum(durs)}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    write_chrome_trace(os.path.join(ROOT, "chiprun_out",
+                                    "runtime_trace.json"), tracer)
+    cost = sum(walls["traced"]) / sum(walls["untraced"]) - 1.0
+    out["tracer"] = {"walls_s": walls, "cost": cost, "allowance": 0.25,
+                     "spans": tracer.n_recorded, "span_ms": span_ms,
+                     "scrape_samples": len(parsed)}
+    log(f"runtime_tracer {json.dumps(out['tracer'])}")
+    del sched, tracer
+
+    # 19e: two tiers against single-grid runs of each tier's geometry
+    def tier_of(sid):
+        return "interactive" if sid % 4 == 0 else "bulk"
+    rec, tiered, sched = run("runtime_tiers", tiers=RUNTIME_TIERS,
+                             tier_of=tier_of, ingest=True, pipeline_depth=1)
+    if sched.n_compiles_by_tier != {name: 1 for name, _, _ in RUNTIME_TIERS}:
+        raise AssertionError(f"19e: chunk fns run per tier "
+                             f"{sched.n_compiles_by_tier}, want 1 each")
+    per_tier = sched.telemetry.per_tier()
+    rec.update(tier_latency=sched.telemetry.tier_percentiles(),
+               tier_events_per_s={name: t["events_in"] / rec["wall_s"]
+                                  for name, t in per_tier.items()},
+               n_compiles_by_tier=sched.n_compiles_by_tier)
+    del sched
+    solo, solo_recs = {}, {}
+    for name, c, n in RUNTIME_TIERS:
+        solo_recs[name], digest, _ = run(
+            f"runtime_solo_{name}", chunk_len=c, pipeline_depth=1,
+            sids=[sid for sid in range(N_STREAMS) if tier_of(sid) == name])
+        solo.update(digest)
+    check_same(solo, tiered, "19e: tiered streams against their tier's "
+               "single grid")
+    rec["solo"] = solo_recs
+    out["tiers"] = rec
+    log(f"runtime_tiers_summary {json.dumps({k: rec[k] for k in ('tier_latency', 'tier_events_per_s', 'events_per_s')})}")
+    total = {name: sum(n[name] for n in launches.values())
+             for name in kernel_counters()}
+    out["launches_by_run"] = launches
+    _SOURCES.clear()
+    return out, total
 
 
 def step_breakdown(torch, params, want_factors=False):
@@ -2532,17 +2773,22 @@ def main() -> int:
                for name, spec, sparse in (("paper", paper, True),
                                           ("tiled", tiled, False))
                for dt in (torch.float32, torch.bfloat16)]
+    # phase 19e's interactive tier runs the serving kernels at 256 slots
     fused_recs = [nm_fused_case(torch, name, b)
-                  for name, b in (("serving", N_STREAMS), ("ragged1000", 1000))]
-    lif_recs = [lif_case(torch, shape) for shape in ((1024, 512), (1000, 500))]
+                  for name, b in (("serving", N_STREAMS), ("ragged1000", 1000),
+                                  ("interactive", N_STREAMS // 4))]
+    lif_recs = [lif_case(torch, shape) for shape in (
+        (1024, 512), (1000, 500), (N_STREAMS // 4, 512))]
     wu_recs = [wu_case(torch, name, dt, b, spec)
                for name, dt, b, spec in (
                    ("paper", torch.float32, TRAIN_BATCH, paper),
                    ("paper", torch.bfloat16, TRAIN_BATCH, paper),
                    ("tiled", torch.float32, 128, tiled),
                    ("ragged", torch.float32, 13, paper))]
-    slot_recs = [wu_slots_case(torch, name, frac)
-                 for name, frac in (("all_open", 1.0), ("open40", 0.4))]
+    slot_recs = [wu_slots_case(torch, name, frac, s)
+                 for name, frac, s in (("all_open", 1.0, N_STREAMS),
+                                       ("open40", 0.4, N_STREAMS),
+                                       ("interactive", 1.0, N_STREAMS // 4))]
     bf16 = torch.bfloat16
     from repro_torch.configs import get_config
     hybrid_window = get_config(HYBRID_ARCH).swa_window
@@ -2584,8 +2830,14 @@ def main() -> int:
     cfg = paper_config("kernels")
     params = init_params(0, cfg, device="cuda")
     task = make_task("gesture", n_in=cfg.n_in, t_steps=cfg.t_steps)
-    record["serving"], serve_launches = serve(torch, params, task)
+    record["serving"], serve_launches, serve_digest, _ = run_fleet(
+        torch, params, task, "serving", pipeline_depth=1)
     record["step_breakdown"] = step_breakdown(torch, params)
+
+    # 19. the serving runtime on phase 4's fleet, held against phase 4's run
+    record["runtime"], runtime_launches = runtime(torch, params, task,
+                                                  serve_digest)
+    del serve_digest
 
     # 5. path parity
     record["path_parity"] = path_parity(torch, params, task)
@@ -2705,6 +2957,7 @@ def main() -> int:
     log(f"ssm_hybrid_phases_s {record['ssm_hybrid_phases_s']}")
 
     by_path = {name: {"serving": serve_launches[name],
+                      "runtime": runtime_launches[name],
                       "training": train_launches[name],
                       "lm_serving": lm_launches[name],
                       "lm_training": lm_train_launches[name],

@@ -1,8 +1,13 @@
 """Synthetic event-stream tasks mirroring ElfCore's five benchmarks
-(a numpy copy of ``repro.data.events``: ``EventTask`` and ``make_task``).
+(a numpy copy of ``repro.data.events``).
 
 Spatiotemporal spike patterns with per-class templates, Poisson noise and
 timing jitter; the channel count defaults to the chip's 512 inputs.
+
+Also here: the functional stand-in for the async SerDes front-end —
+``pack_events`` / ``unpack_events`` frame spike vectors into 30-bit-payload
+serial packets, and ``DelayBuffer`` is the 4-slot spatiotemporal buffer that
+emulates axonal delays.
 """
 from __future__ import annotations
 
@@ -123,3 +128,42 @@ def _fit(x: np.ndarray, n_in: int) -> np.ndarray:
     out = np.zeros((x.shape[0], n_in))
     out[:, : x.shape[1]] = x
     return out
+
+
+# ---------------------------------------------------------------------------
+# SerDes functional stand-in: the framing, not the circuits
+# ---------------------------------------------------------------------------
+
+PAYLOAD_BITS = 30
+
+
+def pack_events(spikes: np.ndarray) -> np.ndarray:
+    """[T, n_in] {0,1} -> serial packets [T, ceil(n_in/30)] uint32 (30-bit payload)."""
+    t_steps, n_in = spikes.shape
+    n_words = -(-n_in // PAYLOAD_BITS)
+    padded = np.zeros((t_steps, n_words * PAYLOAD_BITS), np.uint32)
+    padded[:, :n_in] = spikes.astype(np.uint32)
+    words = padded.reshape(t_steps, n_words, PAYLOAD_BITS)
+    weights = (1 << np.arange(PAYLOAD_BITS, dtype=np.uint64))
+    return (words.astype(np.uint64) * weights).sum(-1).astype(np.uint32)
+
+
+def unpack_events(packets: np.ndarray, n_in: int) -> np.ndarray:
+    """Serial packets [T, n_words] uint32 -> [T, n_in] f32 spikes."""
+    t_steps, n_words = packets.shape
+    bits = (packets[..., None].astype(np.uint64)
+            >> np.arange(PAYLOAD_BITS, dtype=np.uint64)) & 1
+    return bits.reshape(t_steps, -1)[:, :n_in].astype(np.float32)
+
+
+class DelayBuffer:
+    """4-slot spatiotemporal buffer emulating axonal delays (Fig. 3)."""
+
+    def __init__(self, n_in: int, depth: int = 4):
+        self.buf = np.zeros((depth, n_in), np.float32)
+
+    def push(self, spikes: np.ndarray, delay_taps=(0, 1, 2, 3),
+             weights=(1.0, 0.5, 0.25, 0.125)) -> np.ndarray:
+        self.buf = np.roll(self.buf, 1, axis=0)
+        self.buf[0] = spikes
+        return sum(w * self.buf[d] for d, w in zip(delay_taps, weights))

@@ -1,4 +1,23 @@
-"""Observability for the port: copies of the reference's jax-free metrics
-registry (``obs/metrics.py``), which the serving telemetry sits on, and
-span tracer (``obs/trace.py``), which the continuous batcher records into."""
-from .trace import NULL_TRACER, Span, Tracer  # noqa: F401
+"""Observability for the port (``repro.obs``): copies of the reference's
+jax-free span tracer (``obs/trace.py``), metrics registry (``obs/metrics.py``,
+which the serving telemetry sits on) and exporters (``obs/export.py``:
+Prometheus text, a JSONL log, a Chrome trace).
+
+Instrumentation never touches the device computation and adds no
+host-device sync: tracing on and off serve the same bits.
+"""
+from .export import (chrome_trace, parse_prometheus_text, prometheus_text,
+                     read_jsonl, span_records, write_chrome_trace,
+                     write_jsonl)
+from .metrics import (LATENCY_BUCKETS_S, RATIO_BUCKETS, Counter, Family,
+                      Gauge, Histogram, MetricsRegistry, linear_buckets,
+                      log_buckets)
+from .trace import NULL_TRACER, Span, Tracer
+
+__all__ = [
+    "Counter", "Family", "Gauge", "Histogram", "LATENCY_BUCKETS_S",
+    "MetricsRegistry", "NULL_TRACER", "RATIO_BUCKETS", "Span", "Tracer",
+    "chrome_trace", "linear_buckets", "log_buckets", "parse_prometheus_text",
+    "prometheus_text", "read_jsonl", "span_records", "write_chrome_trace",
+    "write_jsonl",
+]

@@ -1,5 +1,5 @@
 """Slot-multiplexed micro-batching for stateful SNN streams
-(``repro.serving.scheduler``, one tier).
+(``repro.serving.scheduler``).
 
 One chunk step with fixed shapes — events ``[chunk_len, n_slots, n_in]``,
 valid ``[chunk_len, n_slots]`` — advances every active stream by up to
@@ -13,32 +13,65 @@ host buffers and copied with ``non_blocking=True``, and the step is only
 enqueued. Retire makes the one device-to-host transfer: every metric, and
 the final lanes of retiring sessions, packed into one buffer and fetched
 with one ``.cpu()``. ``pipeline_depth`` 0 retires each step inside
-``step()``; 1 stages step ``t+1`` while the card computes step ``t``. Both
-give bit-identical trajectories.
+``step()``; 1 stages step ``t+1`` while the card computes step ``t``;
+deeper queues keep more steps in flight. Every step is enqueued on one
+CUDA stream, in order, so the in-place lane resets of a later stage land
+after the steps already dispatched; a step's retiring lanes are copied at
+its dispatch. Every depth gives bit-identical trajectories.
 
-With a :class:`~.topology_service.TopologyService` attached, the chunk fn
-carries the DSST factors (``want_factors=True``): every retire feeds the
-service, and a due prune/regrow epoch runs between grid steps. The epoch
-of grid step ``t`` lands after ``t`` retires and before ``t+1`` dispatches,
-with ``t``'s snapshot of the merge-eligible lanes, so a pipelined fleet
-with epochs equals the serial one bit for bit. The evolved ``(params,
-deltas)`` keep their shapes, dtypes and device; the exec weight rep is
-re-derived from the new mask and the chunk fn is never rebuilt
-(``n_compiles`` counts the distinct chunk fns the grid steps ran: it
-stays 1).
+**QoS tiers.** ``tiers=[TierConfig(...), ...]`` splits the fleet into
+per-tier slot grids, each with its own lane-batched state and deltas, its
+own chunk fn and its own staging pipeline, over the same exec weights: an
+``interactive`` tier with a short ``chunk_len`` (windows close after fewer
+staged timesteps) beside a ``bulk`` tier with a long one (fewer dispatches
+per timestep). A session's tier is fixed at ``submit``. The clock advances,
+and sources are polled, once per grid step, in the first tier's stage.
+``step()`` returns fleet-global slot ids (``slot0`` offsets). Without
+``tiers`` there is one tier, "default", built from ``n_slots`` and
+``chunk_len``.
+
+**Async ingestion.** ``ingest=True`` (or an :class:`~.ingest.IngestConfig`
+or :class:`~.ingest.IngestWorker`) moves source polling to a worker thread;
+the stage phase then only drains its queues. The worker replays the
+virtual clock exactly, so ingestion on and off are bit-identical. Call
+:meth:`close` to stop the thread.
+
+**Adaptive depth.** ``autopilot=True`` (or an
+:class:`~.autopilot.AutopilotConfig` / :class:`~.autopilot.DepthAutopilot`)
+retunes ``pipeline_depth`` from the EMA of the measured overlap ratio; a
+change flushes every tier and resizes the empty pipelines, so an adaptive
+run equals every fixed depth it visited, bit for bit.
+
+**Tracing.** ``tracer=`` (an ``obs.Tracer``) records the phase spans
+``sched.step/stage/poll_sources/admit/dispatch/retire/device_wait``,
+``autopilot.decision/apply`` and ``topology.epoch``. Spans and telemetry
+read host clocks only and add no sync: ``sched.device_wait`` wraps the one
+``.cpu()``. Stage-side spans name the grid step being staged; a retire
+span names the step that produced its results.
+
+With a :class:`~.topology_service.TopologyService` attached (single-tier
+fleets only), the chunk fn carries the DSST factors (``want_factors=True``):
+every retire feeds the service, and a due prune/regrow epoch runs between
+grid steps. The epoch of grid step ``t`` lands after ``t`` retires and
+before ``t+1`` dispatches, with ``t``'s snapshot of the merge-eligible
+lanes; the depth (and the autopilot's range) is clamped to 1 to keep that
+order. The evolved ``(params, deltas)`` keep their shapes, dtypes and
+device; the exec weight rep is re-derived from the new mask and the chunk
+fn is never rebuilt (``n_compiles`` counts, per tier, the distinct chunk
+fns the grid steps ran: it stays 1).
 
 ``compact`` picks the delta layout: compact ``[S, L, J, T, bk, bo]`` (the
 default for uniform layer geometry) or dense ``[S, L, Kmax, N]`` (the A/B
 baseline, whose exec rep carries the dense mask).
 
-Not ported yet: QoS tiers, async ingestion, the depth autopilot, the span
-tracer, slot sharding over a mesh and pipeline depths above 1. Passing any
-of them raises ``NotImplementedError``.
+Not ported yet: slot sharding over a mesh (``mesh=`` raises
+``NotImplementedError``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +80,10 @@ from ..core import engine
 from ..core.snn import (ChunkMetrics, SNNConfig, init_stream_deltas,
                         init_stream_state, serving_params)
 from ..launch.batching import SlotGrid
+from ..obs.trace import NULL_TRACER, Tracer
 from .adapt import AdaptConfig, make_chunk_fn
+from .autopilot import AutopilotConfig, DepthAutopilot
+from .ingest import IngestConfig, IngestWorker
 from .session import SessionStatus, StreamSession, WindowPrediction, reset_lane
 from .staging import InFlight, LaneRecord, StagedChunk, StagingPipeline
 from .telemetry import FleetTelemetry
@@ -57,26 +93,78 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _staging(tier: "_Tier") -> int:
+    """The grid step ``tier``'s next dispatch will get (``grid.tick`` runs
+    at dispatch, and every tier ticks once a grid step): what its
+    stage-side spans name. The reference names every tier's by the first
+    tier's count, which is one ahead for the later tiers once the first
+    has dispatched."""
+    return tier.grid.stats["steps"] + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TierConfig:
+    """One QoS tier's grid geometry: ``chunk_len`` trades latency (a short
+    chunk closes windows after fewer staged timesteps) for dispatches per
+    timestep; ``n_slots`` is the tier's lane count."""
+    name: str
+    chunk_len: int
+    n_slots: int
+
+    def __post_init__(self):
+        if not self.name:
+            raise ValueError("tier name must be non-empty")
+        if self.chunk_len < 1 or self.n_slots < 1:
+            raise ValueError(
+                f"tier {self.name!r} needs chunk_len >= 1 and n_slots >= 1, "
+                f"got {self.chunk_len}/{self.n_slots}")
+
+
+class _Tier:
+    """Runtime state of one tier: its slot grid, lane-batched state and
+    deltas, chunk fn (and the distinct chunk fns its steps ran), and staging
+    pipeline. ``slot0`` is the tier's offset in the fleet-global slot
+    numbering; everything inside is tier-local."""
+
+    __slots__ = ("name", "chunk_len", "n_slots", "slot0", "grid", "state",
+                 "deltas", "chunk_fn", "fns_run", "pipeline")
+
+    def __init__(self, name: str, chunk_len: int, n_slots: int, slot0: int):
+        self.name, self.chunk_len = name, chunk_len
+        self.n_slots, self.slot0 = n_slots, slot0
+        self.fns_run: List[Callable] = []
+
+
 class StreamScheduler:
-    """Drives a fleet of :class:`StreamSession`\\ s over one slot grid.
+    """Drives a fleet of :class:`StreamSession`\\ s over per-tier slot grids.
 
     Args:
       params:   frozen shared base params (stacked dense layout,
         ``core.snn``), on the fleet's device.
       cfg:      the fleet's :class:`SNNConfig`.
-      n_slots:  grid width.
-      chunk_len: timesteps per grid step.
+      n_slots:  grid width of the default tier (ignored with ``tiers``).
+      chunk_len: timesteps per grid step of the default tier.
       adapt:    per-stream delta hygiene (:class:`AdaptConfig`).
       clock_dt_s: virtual seconds per grid step (drives source arrivals).
       telemetry: a :class:`FleetTelemetry` to fill (fresh one by default).
-      pipeline_depth: 0 = serial phases, 1 = double-buffered staging.
+      pipeline_depth: 0 = serial phases, 1 = double-buffered staging, > 1 =
+        a deeper queue (clamped to 1 with a topology service).
       device:   where the fleet's tensors live (``"cuda"`` by default).
+      mesh:     not ported (raises ``NotImplementedError``).
       topology: optional :class:`TopologyService`, live DSST epochs; it
-        must be built for ``cfg``.
+        must be built for ``cfg``, on a single-tier fleet.
       want_factors: the chunk fn's DSST-factor mode; None = True iff a
         non-frozen topology service is attached (which requires it).
       compact:  delta layout; None = compact iff the layer geometry is
         uniform, False = the dense baseline.
+      tracer:   an ``obs.Tracer`` for the phase spans (``NULL_TRACER`` by
+        default).
+      tiers:    QoS tier geometries (:class:`TierConfig`, unique names);
+        None = one tier "default" from ``n_slots`` / ``chunk_len``.
+      ingest:   async source ingestion: True, an :class:`IngestConfig` or an
+        :class:`IngestWorker`; None / False polls inline in stage.
+      autopilot: adaptive depth: True, an :class:`AutopilotConfig` or a
+        :class:`DepthAutopilot`; None / False keeps the depth fixed.
     """
 
     def __init__(self, params, cfg: SNNConfig, n_slots: int,
@@ -85,17 +173,13 @@ class StreamScheduler:
                  telemetry: Optional[FleetTelemetry] = None,
                  pipeline_depth: int = 0, device="cuda", *, mesh=None,
                  topology=None, want_factors: Optional[bool] = None,
-                 compact: Optional[bool] = None, tracer=None, tiers=None,
+                 compact: Optional[bool] = None,
+                 tracer: Optional[Tracer] = None,
+                 tiers: Optional[Sequence[TierConfig]] = None,
                  ingest=None, autopilot=None):
-        unported = {"mesh": mesh, "tracer": tracer, "tiers": tiers,
-                    "ingest": ingest, "autopilot": autopilot}
-        for name, value in unported.items():
-            if value is not None and value is not False:
-                raise NotImplementedError(
-                    f"StreamScheduler({name}=...) is not ported yet")
-        if pipeline_depth not in (0, 1):
+        if mesh is not None:
             raise NotImplementedError(
-                f"pipeline_depth {pipeline_depth}: only 0 and 1 are ported")
+                "StreamScheduler(mesh=...) is not ported yet")
         if topology is not None and topology.cfg != cfg:
             raise ValueError("topology service was built for a different "
                              "SNNConfig than this scheduler's")
@@ -106,51 +190,119 @@ class StreamScheduler:
             raise ValueError("a live topology service consumes the chunk "
                              "step's DSST factors; want_factors=False would "
                              "starve it")
+        if topology is not None:
+            # an epoch due after step t must land before step t+1 is
+            # dispatched; depth 1 keeps that order, deeper queues would not
+            pipeline_depth = min(pipeline_depth, 1)
+        if tiers is None:
+            tier_cfgs = [TierConfig("default", chunk_len=chunk_len,
+                                    n_slots=n_slots)]
+        else:
+            tier_cfgs = list(tiers)
+            if not tier_cfgs:
+                raise ValueError("tiers must be a non-empty TierConfig list")
+            names = [t.name for t in tier_cfgs]
+            if len(set(names)) != len(names):
+                raise ValueError(f"duplicate tier names in {names}")
+            if topology is not None and len(tier_cfgs) > 1:
+                raise ValueError(
+                    "a topology service folds one fleet-wide delta grid "
+                    "into the shared base; attach it to a single-tier "
+                    "scheduler")
         self.device = torch.device(device)
         self.params, self.cfg = params, cfg
         self.topology, self.want_factors = topology, want_factors
         self.compact = engine.geometry(cfg).uniform if compact is None \
             else compact
-        self.n_slots, self.chunk_len = n_slots, chunk_len
-        self.grid: SlotGrid = SlotGrid(n_slots)
-        self.state = init_stream_state(cfg, n_slots, device=self.device)
-        self.deltas = init_stream_deltas(cfg, n_slots, device=self.device,
-                                         compact=self.compact)
-        self.chunk_fn = make_chunk_fn(cfg, adapt, want_factors=want_factors)
-        self._fns_run: List[Callable] = []
-        self.pipeline = StagingPipeline(depth=pipeline_depth)
+        self._tiers: List[_Tier] = []
+        slot0 = 0
+        for tc in tier_cfgs:
+            tier = _Tier(tc.name, tc.chunk_len, tc.n_slots, slot0)
+            slot0 += tc.n_slots
+            tier.grid = SlotGrid(tc.n_slots)
+            tier.state = init_stream_state(cfg, tc.n_slots, device=self.device)
+            tier.deltas = init_stream_deltas(cfg, tc.n_slots,
+                                             device=self.device,
+                                             compact=self.compact)
+            tier.chunk_fn = make_chunk_fn(cfg, adapt,
+                                          want_factors=want_factors)
+            tier.pipeline = StagingPipeline(depth=pipeline_depth)
+            self._tiers.append(tier)
+        self._by_name = {t.name: t for t in self._tiers}
+        self.n_slots = slot0                     # fleet-wide lane count
+        self.chunk_len = self._tiers[0].chunk_len
+        self.pipeline_depth = pipeline_depth
         self.clock = 0.0
         self.clock_dt_s = clock_dt_s
         self.telemetry = telemetry or FleetTelemetry()
+        self.tracer = tracer or NULL_TRACER
         self.retired: List[StreamSession] = []
         self._pin = self.device.type == "cuda"
+
+        self.ingest: Optional[IngestWorker] = None
+        if ingest:
+            if isinstance(ingest, IngestWorker):
+                self.ingest = ingest
+            elif isinstance(ingest, IngestConfig):
+                self.ingest = IngestWorker(clock_dt_s, ingest)
+            else:
+                self.ingest = IngestWorker(clock_dt_s)
+            if self.ingest._dt != float(clock_dt_s):
+                raise ValueError(
+                    "ingest worker clock_dt_s disagrees with the "
+                    "scheduler's — the virtual-clock replay would diverge")
+
+        self.autopilot: Optional[DepthAutopilot] = None
+        if autopilot:
+            if isinstance(autopilot, DepthAutopilot):
+                ap = autopilot
+            elif isinstance(autopilot, AutopilotConfig):
+                ap = DepthAutopilot(autopilot, tracer=self.tracer)
+            else:
+                ap = DepthAutopilot(tracer=self.tracer)
+            if topology is not None and ap.cfg.max_depth > 1:
+                # the constructor's clamp, for the controller's range
+                ap = DepthAutopilot(
+                    dataclasses.replace(ap.cfg, max_depth=1),
+                    tracer=ap.tracer)
+            ap.note_depth(0, pipeline_depth)
+            self.autopilot = ap
+
         self._refresh_exec_params()
 
     def _refresh_exec_params(self) -> None:
-        """(Re)derive the weight rep the chunk fn consumes from the dense
+        """(Re)derive the weight rep the chunk fns consume from the dense
         ``self.params`` (the compact rep; the dense layout's adds its
         ``mask_f``) and re-measure the resident bytes. Runs at construction
         and after every topology swap, the only times the base changes."""
         self._exec_params = serving_params(self.params, self.cfg,
                                            compact=self.compact)
         self._params_bytes = sum(_nbytes(t) for t in self._exec_params.values())
-        self._delta_bytes = _nbytes(self.deltas)
+        self._delta_bytes = sum(_nbytes(t.deltas) for t in self._tiers)
 
-    def _replace_lanes(self, deltas: torch.Tensor) -> None:
-        """Install swapped deltas: a tensor of the live one's shape, dtype
-        and device, so the chunk fn takes it as it took the old one."""
-        old = self.deltas
+    def _replace_lanes(self, tier: _Tier, deltas: torch.Tensor) -> None:
+        """Install swapped deltas on ``tier``: a tensor of the live one's
+        shape, dtype and device, so the chunk fn takes it as it took the
+        old one."""
+        old = tier.deltas
         if (deltas.shape, deltas.dtype, deltas.device) != (
                 old.shape, old.dtype, old.device):
             raise ValueError(f"swapped deltas {tuple(deltas.shape)} "
                              f"{deltas.dtype} {deltas.device} do not match "
                              f"the fleet's {tuple(old.shape)} {old.dtype} "
                              f"{old.device}")
-        self.deltas = deltas
+        tier.deltas = deltas
 
     # -- lifecycle -----------------------------------------------------------
-    def submit(self, session: StreamSession) -> None:
-        """Queue a session for admission at the next stage phase."""
+    def submit(self, session: StreamSession,
+               tier: Optional[str] = None) -> None:
+        """Queue a session for admission at the next stage phase, on
+        ``tier``, else the session's own ``tier``, else the first tier."""
+        name = tier or session.tier or self._tiers[0].name
+        if name not in self._by_name:
+            raise ValueError(
+                f"unknown tier {name!r}; have {sorted(self._by_name)}")
+        session.tier = name
         session.status = SessionStatus.QUEUED
         if session.n_in is None:
             session.n_in = self.cfg.n_in
@@ -158,34 +310,79 @@ class StreamScheduler:
             raise ValueError(
                 f"session {session.sid} n_in={session.n_in} != "
                 f"cfg.n_in={self.cfg.n_in}")
-        self.grid.submit(session)
+        if self.ingest is not None:
+            self.ingest.attach(session)
+        self._by_name[name].grid.submit(session)
 
-    def _admit(self) -> None:
-        def on_admit(slot: int, sess: StreamSession):
-            sess.slot, sess.status = slot, SessionStatus.ACTIVE
-            reset_lane(self.state, self.deltas, self.cfg, slot)
-        self.grid.admit(on_admit)
+    def close(self) -> None:
+        """Stop the ingest worker thread (a no-op without one; safe to call
+        twice). A closed scheduler still drains correctly: the drain then
+        steal-polls inline, the serial semantics."""
+        if self.ingest is not None:
+            self.ingest.stop()
+
+    def _admit(self, tier: _Tier) -> None:
+        with self.tracer.span("sched.admit", grid_step=_staging(tier),
+                              tier=tier.name) as sp:
+            n = 0
+
+            def on_admit(slot: int, sess: StreamSession):
+                nonlocal n
+                n += 1
+                sess.slot, sess.status = slot, SessionStatus.ACTIVE
+                reset_lane(tier.state, tier.deltas, self.cfg, slot)
+            tier.grid.admit(on_admit)
+            sp.set(admitted=n)
 
     def _poll_sources(self) -> None:
-        """Move newly arrived chunks into session buffers."""
-        for sess in list(self.grid.occupant) + list(self.grid.queue):
-            if sess is not None and sess.source is not None:
-                for chunk in sess.source.poll(self.clock):
-                    sess.push_events(chunk)
+        """Move newly arrived chunks into session buffers, fleet-wide: a
+        lock-protected drain of the ingest queues, or inline polls."""
+        with self.tracer.span("sched.poll_sources",
+                              grid_step=self._staging_step) as sp:
+            if self.ingest is not None:
+                n, peak = self.ingest.drain(self._staging_step)
+                self.telemetry.record_ingest(n, peak)
+            else:
+                n = 0
+                for tier in self._tiers:
+                    for sess in (list(tier.grid.occupant)
+                                 + list(tier.grid.queue)):
+                        if sess is not None and sess.source is not None:
+                            for chunk in sess.source.poll(self.clock):
+                                sess.push_events(chunk)
+                                n += 1
+            sp.set(chunks=n)
+
+    @property
+    def _staging_step(self) -> int:
+        """The grid step the first tier's next dispatch will get: what the
+        fleet-wide stage-side spans name."""
+        return _staging(self._tiers[0])
 
     def _host_buffer(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, pin_memory=self._pin)
 
     # -- phase 1: stage ------------------------------------------------------
-    def _stage(self) -> StagedChunk:
-        """Host-only assembly of one grid step: advance the clock, poll the
-        sources, admit into free lanes, pack the buffers, and decide which
-        sessions exhaust after this step."""
+    def _stage(self, tier: _Tier) -> StagedChunk:
+        """Host-only assembly of one tier's grid step."""
         t0 = time.perf_counter()
-        self.clock += self.clock_dt_s
-        self._poll_sources()
-        self._admit()
-        C, S = self.chunk_len, self.n_slots
+        with self.tracer.span("sched.stage", grid_step=_staging(tier),
+                              tier=tier.name):
+            staged = self._stage_body(tier)
+        dt = time.perf_counter() - t0
+        self.telemetry.record_phase("stage", dt)
+        self.telemetry.record_tier_phase(tier.name, "stage", dt)
+        return staged
+
+    def _stage_body(self, tier: _Tier) -> StagedChunk:
+        """Advance the clock and poll the sources (first tier only: both
+        are fleet-wide), admit into free lanes, pack the buffers, and decide
+        which sessions exhaust after this step."""
+        if tier is self._tiers[0]:
+            self.clock += self.clock_dt_s
+            self._poll_sources()
+        self._admit(tier)
+        C, S = tier.chunk_len, tier.n_slots
         events_t = self._host_buffer((C, S, self.cfg.n_in), torch.float32)
         valid_t = self._host_buffer((C, S), torch.bool)
         amask_t = self._host_buffer((S,), torch.bool)
@@ -193,7 +390,7 @@ class StreamScheduler:
         lanes: List[LaneRecord] = []
         retiring = []
         fed: Dict[int, int] = {}
-        for slot, sess in enumerate(self.grid.occupant):
+        for slot, sess in enumerate(tier.grid.occupant):
             if sess is None:
                 continue
             chunk = sess.pop_chunk(C)
@@ -209,41 +406,47 @@ class StreamScheduler:
                 retiring.append((slot, sess))
         gone = {slot for slot, _ in retiring}
         merge_slots = tuple(
-            slot for slot, sess in enumerate(self.grid.occupant)
+            slot for slot, sess in enumerate(tier.grid.occupant)
             if sess is not None and sess.adapt and slot not in gone)
-        self.telemetry.record_phase("stage", time.perf_counter() - t0)
         return StagedChunk(events=events_t, valid=valid_t, adapt_mask=amask_t,
                            lanes=lanes, retiring=retiring,
                            merge_slots=merge_slots, fed=fed)
 
     # -- phase 2: dispatch ---------------------------------------------------
-    def _dispatch(self, staged: StagedChunk) -> InFlight:
-        """Enqueue the chunk step (no host wait), copy the lanes the retire
-        phase will read, then free retiring sessions' lanes so the next
-        stage phase can re-admit into them."""
+    def _dispatch(self, tier: _Tier, staged: StagedChunk) -> InFlight:
+        """Enqueue the tier's chunk step (no host wait), copy the lanes the
+        retire phase will read, then free retiring sessions' lanes so the
+        next stage phase can re-admit into them."""
         t0 = time.perf_counter()
-        dev = self.device
-        events = staged.events.to(dev, non_blocking=True)
-        valid = staged.valid.to(dev, non_blocking=True)
-        amask = staged.adapt_mask.to(dev, non_blocking=True)
-        if not any(fn is self.chunk_fn for fn in self._fns_run):
-            self._fns_run.append(self.chunk_fn)
-        self.deltas, self.state, metrics = self.chunk_fn(
-            self._exec_params, self.deltas, self.state, events, valid, amask)
-        final = None
-        if staged.retiring:
-            # a copy: a later stage may reset these lanes in place before
-            # this step retires
-            slots = torch.tensor([s for s, _ in staged.retiring],
-                                 dtype=torch.long, pin_memory=self._pin)
-            slots = slots.to(dev, non_blocking=True)
-            final = self.deltas.index_select(0, slots)
-        self.grid.tick()
-        for slot, _ in staged.retiring:
-            self.grid.retire(slot)
-        fl = InFlight(staged=staged, final_deltas=final, metrics=metrics,
-                      grid_step=self.grid.stats["steps"])
-        self.telemetry.record_phase("dispatch", time.perf_counter() - t0)
+        with self.tracer.span("sched.dispatch", grid_step=_staging(tier),
+                              tier=tier.name) as sp:
+            dev = self.device
+            events = staged.events.to(dev, non_blocking=True)
+            valid = staged.valid.to(dev, non_blocking=True)
+            amask = staged.adapt_mask.to(dev, non_blocking=True)
+            fn = tier.chunk_fn
+            if not any(f is fn for f in tier.fns_run):
+                tier.fns_run.append(fn)
+            tier.deltas, tier.state, metrics = fn(
+                self._exec_params, tier.deltas, tier.state, events, valid,
+                amask)
+            final = None
+            if staged.retiring:
+                # a copy: a later stage may reset these lanes in place
+                # before this step retires
+                slots = torch.tensor([s for s, _ in staged.retiring],
+                                     dtype=torch.long, pin_memory=self._pin)
+                slots = slots.to(dev, non_blocking=True)
+                final = tier.deltas.index_select(0, slots)
+            tier.grid.tick()
+            for slot, _ in staged.retiring:
+                tier.grid.retire(slot)
+            sp.set(lanes=len(staged.lanes), retiring=len(staged.retiring))
+            fl = InFlight(staged=staged, final_deltas=final, metrics=metrics,
+                          grid_step=tier.grid.stats["steps"])
+        dt = time.perf_counter() - t0
+        self.telemetry.record_phase("dispatch", dt)
+        self.telemetry.record_tier_phase(tier.name, "dispatch", dt)
         return fl
 
     # -- phase 3: retire -----------------------------------------------------
@@ -264,64 +467,126 @@ class StreamScheduler:
             off += n
         return out
 
-    def _retire(self, fl: InFlight) -> None:
+    def _retire(self, tier: _Tier, fl: InFlight) -> None:
         """Consume one in-flight step: fetch (the only device wait), route
-        window predictions, fold telemetry, finalize retiring sessions."""
+        window predictions, fold telemetry, finalize retiring sessions. The
+        span names ``fl.grid_step``, the step that produced the results."""
         t0 = time.perf_counter()
-        m = self._fetch(fl)
-        wait_s = time.perf_counter() - t0
-        self.telemetry.record_overlap(hidden_s=fl.queued_s, wait_s=wait_s)
+        with self.tracer.span("sched.retire", grid_step=fl.grid_step,
+                              tier=tier.name):
+            with self.tracer.span("sched.device_wait",
+                                  grid_step=fl.grid_step):
+                tw0 = time.perf_counter()
+                m = self._fetch(fl)
+                wait_s = time.perf_counter() - tw0
+            ratio = self.telemetry.record_overlap(hidden_s=fl.queued_s,
+                                                  wait_s=wait_s)
+            if self.autopilot is not None:
+                self.telemetry.record_overlap_ema(
+                    self.autopilot.observe(ratio))
+            self._retire_body(tier, fl, m)
+        dt = time.perf_counter() - t0
+        self.telemetry.record_phase("retire", dt)
+        self.telemetry.record_tier_phase(tier.name, "retire", dt)
+
+    def _retire_body(self, tier: _Tier, fl: InFlight, m) -> None:
+        staged = fl.staged
         logits, wend = m["logits"], m["window_end"]           # [C,S,·], [C,S]
-        for rec in fl.staged.lanes:
+        tsum = {"timesteps": 0.0, "events_in": 0.0, "sop_forward": 0.0,
+                "sop_wu": 0.0, "sop_wu_offered": 0.0, "windows": 0}
+        for rec in staged.lanes:
             slot, sess = rec.slot, rec.session
             sess.timesteps_fed += rec.n_fed
+            steps = float(m["steps"][slot])
+            sop_forward = float(m["sop_forward"][slot])
+            sop_wu = float(m["sop_wu"][slot])
+            sop_wu_offered = float(m["sop_wu_offered"][slot])
+            windows = int(wend[:, slot].sum())
             self.telemetry.stream(sess.sid).add_chunk(
-                steps=m["steps"][slot], events_in=rec.events_in,
-                sop_forward=m["sop_forward"][slot], sop_wu=m["sop_wu"][slot],
-                sop_wu_offered=m["sop_wu_offered"][slot],
+                steps=steps, events_in=rec.events_in,
+                sop_forward=sop_forward, sop_wu=sop_wu,
+                sop_wu_offered=sop_wu_offered,
                 gate_opened=m["gate_opened"][slot].sum(),
                 gate_offered=m["gate_offered"][slot].sum(),
-                windows=int(wend[:, slot].sum()),
-                local_loss=m["local_loss"][slot])
+                windows=windows, local_loss=m["local_loss"][slot])
+            tsum["timesteps"] += steps
+            tsum["events_in"] += rec.events_in
+            tsum["sop_forward"] += sop_forward
+            tsum["sop_wu"] += sop_wu
+            tsum["sop_wu_offered"] += sop_wu_offered
+            tsum["windows"] += windows
             for t in np.nonzero(wend[:, slot])[0]:
                 sess.predictions.append(WindowPrediction(
                     window_idx=len(sess.predictions),
                     logits=logits[t, slot].copy()))
-        for i, (slot, sess) in enumerate(fl.staged.retiring):
+        if staged.lanes:
+            self.telemetry.record_tier_chunk(tier.name, **tsum)
+        for i, (slot, sess) in enumerate(staged.retiring):
             sess.final_deltas = m["final_deltas"][i].copy()
             sess.status, sess.slot = SessionStatus.RETIRED, None
+            if self.ingest is not None:
+                self.ingest.detach(sess)
             self.retired.append(sess)
         svc = self.topology
         if svc is not None and not svc.frozen and "pre_mag" in m:
             svc.observe(ChunkMetrics(**{f: m.get(f)
                                         for f in ChunkMetrics._fields}))
-            self.maybe_evolve_topology(merge_slots=fl.staged.merge_slots,
+            self.maybe_evolve_topology(merge_slots=staged.merge_slots,
                                        grid_step=fl.grid_step)
-        self.telemetry.record_phase("retire", time.perf_counter() - t0)
+
+    # -- adaptive depth ------------------------------------------------------
+    def _apply_autopilot(self) -> None:
+        """Evaluate the depth controller and, on a change, apply it at a
+        drain-safe boundary: flush every in-flight step, then resize the
+        empty pipelines."""
+        step = self._staging_step
+        new = self.autopilot.decide(step, self.pipeline_depth)
+        if new == self.pipeline_depth:
+            return
+        with self.tracer.span("autopilot.apply", grid_step=step,
+                              depth=self.pipeline_depth, new_depth=new):
+            self.flush()
+            for tier in self._tiers:
+                tier.pipeline.set_depth(new)
+        self.pipeline_depth = new
+        self.autopilot.note_depth(step, new)
+        self.telemetry.record_depth(new, changed=True)
 
     # -- the one grid step ---------------------------------------------------
     def step(self) -> Dict[int, int]:
-        """One grid step; returns {slot: timesteps fed} for the step staged
-        (and dispatched) by this call. Pipelined, its bookkeeping lands one
-        ``step()`` later or at :meth:`flush`."""
+        """One grid step across every tier; returns {global slot: timesteps
+        fed} for the step staged (and dispatched) by this call. Pipelined,
+        its bookkeeping lands in a later ``step()`` or at :meth:`flush`."""
         t0 = time.perf_counter()
         self.telemetry.record_bytes_held(self._params_bytes, self._delta_bytes)
-        staged = self._stage()
-        if self.pipeline.depth == 0:
-            self._retire(self._dispatch(staged))
-        else:
-            while self.pipeline.full:
-                self._retire(self.pipeline.pop())
-            self.pipeline.push(self._dispatch(staged))
+        if self.autopilot is not None:
+            self._apply_autopilot()
+        fed: Dict[int, int] = {}
+        with self.tracer.span("sched.step", grid_step=self._staging_step):
+            for tier in self._tiers:
+                tt0 = time.perf_counter()
+                staged = self._stage(tier)
+                if tier.pipeline.depth == 0:
+                    self._retire(tier, self._dispatch(tier, staged))
+                else:
+                    while tier.pipeline.full:
+                        self._retire(tier, tier.pipeline.pop())
+                    tier.pipeline.push(self._dispatch(tier, staged))
+                self.telemetry.record_tier_step(
+                    tier.name, time.perf_counter() - tt0)
+                for slot, n in staged.fed.items():
+                    fed[tier.slot0 + slot] = n
         self.telemetry.record_step(time.perf_counter() - t0)
-        return staged.fed
+        return fed
 
     def flush(self) -> None:
-        """Retire every in-flight step (no-op in serial mode)."""
-        while len(self.pipeline):
-            t0 = time.perf_counter()
-            self._retire(self.pipeline.pop())
-            self.telemetry.record_flush(time.perf_counter() - t0)
+        """Retire every in-flight step of every tier (no-op in serial
+        mode)."""
+        for tier in self._tiers:
+            while len(tier.pipeline):
+                t0 = time.perf_counter()
+                self._retire(tier, tier.pipeline.pop())
+                self.telemetry.record_flush(time.perf_counter() - t0)
 
     # -- live topology evolution --------------------------------------------
     def maybe_evolve_topology(self, force: bool = False, merge_slots=None,
@@ -332,19 +597,24 @@ class StreamScheduler:
         both (the current adaptive occupants, the current step). Returns the
         ``TopologyEpochEvent`` when an epoch ran, else None."""
         svc = self.topology
-        step = self.grid.stats["steps"] if grid_step is None else grid_step
+        tier = self._tiers[0]             # topology fleets are single-tier
+        step = tier.grid.stats["steps"] if grid_step is None else grid_step
         if svc is None or not (force or svc.due(step)):
             return None
         if merge_slots is None:
             merge_slots = tuple(
-                slot for slot, sess in enumerate(self.grid.occupant)
+                slot for slot, sess in enumerate(tier.grid.occupant)
                 if sess is not None and sess.adapt)
         t0 = time.perf_counter()
-        params, deltas, event = svc.evolve(self.params, self.deltas,
-                                           merge_slots=merge_slots,
-                                           grid_step=step)
+        with self.tracer.span("topology.epoch", grid_step=step,
+                              epoch=svc.epoch_idx) as sp:
+            params, deltas, event = svc.evolve(self.params, tier.deltas,
+                                               merge_slots=merge_slots,
+                                               grid_step=step)
+            sp.set(pruned=event.pruned, regrown=event.regrown,
+                   merged=len(event.merged_slots))
         self.params = params
-        self._replace_lanes(deltas)
+        self._replace_lanes(tier, deltas)
         self._refresh_exec_params()   # new mask -> new compact wc/idx
         self.telemetry.record_topology_epoch(
             grid_step=event.grid_step, pruned=event.pruned,
@@ -356,28 +626,84 @@ class StreamScheduler:
     def run_until_drained(self, max_steps: int = 100_000) -> List[StreamSession]:
         """Step until every submitted session is served, then flush;
         returns the retired sessions (bookkeeping complete)."""
-        while not self.grid.drained:
+        while not all(t.grid.drained for t in self._tiers):
             self.step()
-            if self.grid.stats["steps"] >= max_steps:
+            if self._tiers[0].grid.stats["steps"] >= max_steps:
                 break
         self.flush()
         return self.retired
 
     # -- introspection -------------------------------------------------------
     @property
+    def grid(self) -> SlotGrid:
+        """The first tier's slot grid (the fleet's, on one tier)."""
+        return self._tiers[0].grid
+
+    @property
+    def pipeline(self) -> StagingPipeline:
+        """The first tier's staging pipeline (every tier runs the same
+        depth)."""
+        return self._tiers[0].pipeline
+
+    @property
+    def chunk_fn(self):
+        """The first tier's chunk step."""
+        return self._tiers[0].chunk_fn
+
+    @chunk_fn.setter
+    def chunk_fn(self, value):
+        self._tiers[0].chunk_fn = value
+
+    @property
+    def state(self):
+        """The first tier's lane-batched ``StreamState``."""
+        return self._tiers[0].state
+
+    @state.setter
+    def state(self, value):
+        self._tiers[0].state = value
+
+    @property
+    def deltas(self) -> torch.Tensor:
+        """The first tier's slot-leading delta tensor."""
+        return self._tiers[0].deltas
+
+    @deltas.setter
+    def deltas(self, value):
+        self._tiers[0].deltas = value
+
+    @property
+    def tiers(self) -> Tuple[str, ...]:
+        """Tier names, in grid order (``slot0`` ascending)."""
+        return tuple(t.name for t in self._tiers)
+
+    def tier_grid(self, name: str) -> SlotGrid:
+        """The named tier's slot grid."""
+        return self._by_name[name].grid
+
+    @property
     def drained(self) -> bool:
-        """No session queued or active and no step in flight."""
-        return self.grid.drained and len(self.pipeline) == 0
+        """No session queued or active on any tier, and no step in flight."""
+        return all(t.grid.drained and len(t.pipeline) == 0
+                   for t in self._tiers)
 
     @property
     def n_compiles(self) -> int:
-        """Distinct chunk fns this scheduler's grid steps have run, however
-        they were built: 0 before the first step, then 1 for the life of
-        the fleet, topology swaps included. The counterpart of the
-        reference's one-trace-per-geometry guarantee."""
-        return len(self._fns_run)
+        """The most distinct chunk fns any tier's grid steps have run,
+        however they were built: 0 before the first step, then 1 for the
+        life of the fleet, topology swaps included. The counterpart of the
+        reference's one-trace-per-geometry guarantee, per tier."""
+        return max(len(t.fns_run) for t in self._tiers)
+
+    @property
+    def n_compiles_by_tier(self) -> Dict[str, int]:
+        """Per-tier count of the distinct chunk fns run."""
+        return {t.name: len(t.fns_run) for t in self._tiers}
 
     @property
     def utilization(self) -> float:
-        """Mean fraction of lanes occupied at dispatch."""
-        return self.grid.utilization
+        """Mean fraction of lanes occupied at dispatch, over all steps and
+        tiers (slot-weighted)."""
+        num = sum(t.grid.stats["slot_busy"] for t in self._tiers)
+        den = sum(t.grid.stats["steps"] * t.n_slots for t in self._tiers)
+        return num / den if den else 0.0

@@ -46,11 +46,15 @@ class StreamSession:
     adapt: bool = True                      # OSSL adaptation on for this stream
     n_in: Optional[int] = None              # event width; learned on first
     #   push or stamped by the scheduler at submit
+    tier: Optional[str] = None              # QoS tier; resolved at submit
     status: SessionStatus = SessionStatus.QUEUED
     slot: Optional[int] = None
     timesteps_fed: int = 0
     predictions: List[WindowPrediction] = dataclasses.field(default_factory=list)
     _pending: List[np.ndarray] = dataclasses.field(default_factory=list)
+    # the IngestWorker holding this session's queued-but-undrained chunks
+    # (set by IngestWorker.attach, cleared at detach)
+    _ingest: Any = None
     # this stream's deltas at retirement, in the fleet's layout: compact
     # [n_layers, J, T, bk, bo] or dense [n_layers, Kmax, N]
     final_deltas: Optional[np.ndarray] = None
@@ -87,9 +91,14 @@ class StreamSession:
 
     @property
     def exhausted(self) -> bool:
-        """True when the source has ended and no buffered events remain."""
+        """True when the source has ended and no buffered events remain,
+        neither here nor queued in the ingest worker. The worker polls
+        ahead of the grid, so ``source.exhausted`` can flip while the tail
+        chunk still waits in its queue for a later tick; without the queue
+        check the session would retire before its tail was fed."""
         src_done = self.source is None or self.source.exhausted
-        return src_done and not self._pending
+        queued = self._ingest is not None and self._ingest.has_pending(self.sid)
+        return src_done and not queued and not self._pending
 
 
 # ---------------------------------------------------------------------------

@@ -4,15 +4,16 @@
 The scheduler's grid step runs as stage (host only: clock, sources,
 admission, packing the ``[C, S, n_in]`` buffers), dispatch (enqueue the
 chunk step on the card and return) and retire (one device-to-host fetch,
-then bookkeeping). With ``depth=1`` the stage phase of step ``t+1`` runs
-while the card computes step ``t``.
+then bookkeeping). With ``depth >= 1`` the stage phase of step ``t+1`` runs
+while the card computes step ``t`` (and, deeper, while earlier steps still
+wait to retire).
 
 PyTorch tensors are mutable and the scheduler's lane surgery writes them in
 place, unlike the reference's immutable arrays. So an :class:`InFlight`
 step does not keep a handle on the live delta tensor: dispatch copies the
 lanes that its retire phase will read (those of the sessions retiring after
-the step) before any later stage can reset them. Pipeline on and off
-therefore read the same values.
+the step) before any later stage can reset them. Every depth therefore
+reads the same values.
 """
 from __future__ import annotations
 
@@ -69,8 +70,12 @@ class InFlight:
 class StagingPipeline:
     """Bounded FIFO of in-flight grid steps (the double buffer).
 
-    ``depth`` 0 retires every step inside ``step()`` (the reference
-    behaviour); ``depth`` 1 stages step ``t+1`` while step ``t`` computes.
+    ``depth`` is the number of dispatched steps that may be outstanding
+    before the scheduler must retire the oldest: 0 retires every step inside
+    ``step()`` (the reference behaviour); 1 stages step ``t+1`` while step
+    ``t`` computes; deeper queues also hide retire's host bookkeeping, but
+    would defer a topology epoch past steps already dispatched, so the
+    scheduler clamps depth to 1 under a topology service.
     """
 
     def __init__(self, depth: int = 1):
@@ -78,6 +83,19 @@ class StagingPipeline:
             raise ValueError(f"pipeline depth must be >= 0, got {depth}")
         self.depth = depth
         self._q: Deque[InFlight] = deque()
+
+    def set_depth(self, depth: int) -> None:
+        """Resize at a drain-safe boundary (the autopilot's apply point).
+        Refuses while steps are in flight: an adaptive run equals every
+        fixed depth it visited because each resize meets an empty queue."""
+        if depth < 0:
+            raise ValueError(f"pipeline depth must be >= 0, got {depth}")
+        if self._q:
+            raise RuntimeError(
+                f"cannot resize with {len(self._q)} step(s) in flight — "
+                "flush the pipeline first (depth changes land only at "
+                "drain-safe boundaries)")
+        self.depth = depth
 
     def __len__(self) -> int:
         return len(self._q)

@@ -4,7 +4,9 @@
 Chunk lengths are uniform in [min_chunk, max_chunk], inter-arrival gaps
 exponential on a virtual clock, and ``poll(now)`` releases only the chunks
 that have arrived by ``now``. Seeded and deterministic: the same seed gives
-the same chunks as the reference's sources.
+the same chunks as the reference's sources. ``AERStreamSource`` stores the
+same chunks address-event packed and decodes them at ``poll``, so a poll
+pays a real decode cost.
 """
 from __future__ import annotations
 
@@ -89,5 +91,56 @@ class TaskStreamSource:
         while (self._next < len(self._chunks)
                and self._chunks[self._next][0] <= now):
             out.append(self._chunks[self._next][1])
+            self._next += 1
+        return out
+
+
+# ---------------------------------------------------------------------------
+# address-event representation (AER): packed chunks with a real decode cost
+# ---------------------------------------------------------------------------
+
+def aer_encode(chunk: np.ndarray):
+    """Pack a dense ``[c, n_in]`` binary spike chunk as address events:
+    ``(c, n_in, t_idx, k_idx)``, one ``(t, k)`` pair per nonzero entry."""
+    t, k = np.nonzero(chunk)
+    return (int(chunk.shape[0]), int(chunk.shape[1]),
+            t.astype(np.int32), k.astype(np.int32))
+
+
+def aer_decode(c: int, n_in: int, t: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """Densify one AER-packed chunk back to ``[c, n_in]`` f32 spikes."""
+    out = np.zeros((c, n_in), np.float32)
+    out[t, k] = 1.0
+    return out
+
+
+class AERStreamSource:
+    """A :class:`TaskStreamSource` whose chunks are stored address-event
+    packed and densified at ``poll`` time: the same arrival schedule, chunk
+    cuts and labels, poll for poll, plus a decode per chunk. Spikes are
+    binary, so the round trip is exact."""
+
+    def __init__(self, task: EventTask, n_windows: int, seed: int = 0,
+                 arrival: ArrivalConfig | None = None):
+        inner = TaskStreamSource(task, n_windows, seed=seed, arrival=arrival)
+        self.labels = inner.labels
+        self._packed = [(t, aer_encode(c)) for t, c in inner._chunks]
+        self._next = 0
+
+    @property
+    def exhausted(self) -> bool:
+        """True once every packed chunk has arrived and been polled."""
+        return self._next >= len(self._packed)
+
+    @property
+    def n_timesteps(self) -> int:
+        return sum(c for _, (c, _n, _t, _k) in self._packed)
+
+    def poll(self, now: float) -> List[np.ndarray]:
+        """Densified chunks whose arrival time is <= ``now``."""
+        out = []
+        while (self._next < len(self._packed)
+               and self._packed[self._next][0] <= now):
+            out.append(aer_decode(*self._packed[self._next][1]))
             self._next += 1
         return out

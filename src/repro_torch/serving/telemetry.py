@@ -1,14 +1,13 @@
-"""Per-stream and fleet-level serving telemetry (``repro.serving.telemetry``).
-
-The counters and rollup the port's single-tier scheduler uses, on the
-port's own copy of the metrics registry. Per-stream counters are monotone
-(a negative increment raises) and separable (a slot's counters only get
-that slot's lane of the chunk metrics); step and phase wall times land in
-bounded fixed-bucket histograms; the host/device overlap ratio is
+"""Per-stream and fleet-level serving telemetry (``repro.serving.telemetry``),
+on the port's own copy of the metrics registry. Per-stream counters are
+monotone (a negative increment raises) and separable (a slot's counters
+only get that slot's lane of the chunk metrics); step and phase wall times
+land in bounded fixed-bucket histograms; the host/device overlap ratio is
 ``hidden / (hidden + wait)`` per retired step; live topology epochs land
 in counters (totals) and a bounded ring of recent events, each with the
-epoch's host wall. Tier, ingest and pipeline-depth families come with those
-scheduler features.
+epoch's host wall. QoS tiers get ``tier``-labelled families of their own
+(step and phase walls, summed chunk counters), beside the pipeline depth,
+the autopilot's overlap EMA and the ingest queues' drains.
 """
 from __future__ import annotations
 
@@ -17,7 +16,8 @@ from collections import deque
 from typing import Deque, Dict, List, Optional
 
 from ..core.energy import OperatingPoint, report
-from ..obs.metrics import LATENCY_BUCKETS_S, RATIO_BUCKETS, MetricsRegistry
+from ..obs.metrics import (LATENCY_BUCKETS_S, QUEUE_DEPTH_BUCKETS,
+                           RATIO_BUCKETS, MetricsRegistry)
 
 # every per-stream counter family: attribute name -> (metric name, help)
 STREAM_COUNTER_FAMILIES = {
@@ -43,6 +43,23 @@ STREAM_COUNTER_FAMILIES = {
 STREAM_GAUGE_FAMILIES = {
     "local_loss": ("serving_stream_local_loss_sum",
                    "summed local OSSL loss"),
+}
+
+# per-tier counter families, beside the per-stream ones (which keep their
+# one ``sid`` label): attribute name -> (metric name, help)
+TIER_COUNTER_FAMILIES = {
+    "timesteps": ("serving_tier_timesteps_total",
+                  "valid timesteps advanced, by QoS tier"),
+    "events_in": ("serving_tier_events_in_total",
+                  "input spikes consumed, by QoS tier"),
+    "sop_forward": ("serving_tier_sop_forward_total",
+                    "forward synaptic ops, by QoS tier"),
+    "sop_wu": ("serving_tier_sop_wu_total",
+               "weight-update MACs actually paid, by QoS tier"),
+    "sop_wu_offered": ("serving_tier_sop_wu_offered_total",
+                       "weight-update MACs offered to the gate, by QoS tier"),
+    "windows": ("serving_tier_windows_total",
+                "completed T-step windows (predictions), by QoS tier"),
 }
 
 class StreamCounters:
@@ -155,6 +172,38 @@ class FleetTelemetry:
         self._topo_wall = self.registry.counter(
             "serving_topology_epoch_seconds_total",
             "host wall of the live epochs (fold, evolve, project, swap)")
+        # -- QoS tiers / adaptive depth / async ingest ------------------------
+        self._tier_step_hist = self.registry.histogram(
+            "serving_tier_step_seconds",
+            "host wall of one tier's slice of a grid step",
+            labels=("tier",), buckets=LATENCY_BUCKETS_S)
+        self._tier_phase_hist = self.registry.histogram(
+            "serving_tier_phase_seconds",
+            "per-tier per-phase host wall time",
+            labels=("tier", "phase"), buckets=LATENCY_BUCKETS_S)
+        self._tier_counters = {
+            attr: self.registry.counter(name, help, labels=("tier",))
+            for attr, (name, help) in TIER_COUNTER_FAMILIES.items()}
+        self._depth_gauge = self.registry.gauge(
+            "serving_pipeline_depth",
+            "current staging pipeline depth (autopilot-set or fixed)")
+        self._depth_changes = self.registry.counter(
+            "serving_pipeline_depth_changes_total",
+            "adaptive depth changes applied at drain-safe boundaries")
+        self._overlap_ema = self.registry.gauge(
+            "serving_overlap_ema",
+            "the depth autopilot's EMA of the per-step overlap ratio")
+        self._ingest_chunks = self.registry.counter(
+            "serving_ingest_chunks_total",
+            "source chunks drained from the async ingest queues")
+        self._ingest_queue_peak = self.registry.gauge(
+            "serving_ingest_queue_peak_chunks",
+            "high-water per-stream ingest queue depth (backpressure caps "
+            "it at the configured capacity)")
+        self._ingest_drain_hist = self.registry.histogram(
+            "serving_ingest_drained_chunks",
+            "chunks released to session buffers per poll-window drain",
+            buckets=QUEUE_DEPTH_BUCKETS)
         # the per-epoch log is a bounded ring; the totals live in the
         # counters above, which topology_rollup() reads
         self.topology_epochs: Deque[dict] = deque(maxlen=max_epoch_events)
@@ -194,6 +243,49 @@ class FleetTelemetry:
         self._wait_s.inc(wait_s)
         self._overlap_hist.observe(ratio)
         return ratio
+
+    def record_tier_step(self, tier: str, latency_s: float) -> None:
+        """Log one tier's slice of a grid step's host wall."""
+        self._tier_step_hist.labels(tier=tier).observe(float(latency_s))
+
+    def record_tier_phase(self, tier: str, phase: str,
+                          latency_s: float) -> None:
+        """Per-tier per-phase host wall (the ``tier``-labelled companion of
+        ``record_phase``)."""
+        self._tier_phase_hist.labels(tier=tier, phase=phase).observe(
+            float(latency_s))
+
+    def record_tier_chunk(self, tier: str, *, timesteps, events_in,
+                          sop_forward, sop_wu, sop_wu_offered,
+                          windows) -> None:
+        """Fold one retired grid step's tier-summed metrics into the
+        ``tier``-labelled counter families."""
+        c = self._tier_counters
+        c["timesteps"].labels(tier=tier).inc(float(timesteps))
+        c["events_in"].labels(tier=tier).inc(float(events_in))
+        c["sop_forward"].labels(tier=tier).inc(float(sop_forward))
+        c["sop_wu"].labels(tier=tier).inc(float(sop_wu))
+        c["sop_wu_offered"].labels(tier=tier).inc(float(sop_wu_offered))
+        c["windows"].labels(tier=tier).inc(int(windows))
+
+    def record_depth(self, depth: int, changed: bool = False) -> None:
+        """Log the pipeline depth in force; ``changed=True`` counts an
+        autopilot change applied at a drain-safe boundary."""
+        self._depth_gauge.set(float(depth))
+        if changed:
+            self._depth_changes.inc()
+
+    def record_overlap_ema(self, ema: float) -> None:
+        """Export the autopilot's overlap-ratio EMA (its control signal)."""
+        self._overlap_ema.set(float(ema))
+
+    def record_ingest(self, chunks: int, queue_peak: int) -> None:
+        """Log one drain of the async ingest queues: chunks released to
+        session buffers this tick, and the worker's lifetime high-water
+        per-stream queue depth (at most the configured capacity)."""
+        self._ingest_chunks.inc(int(chunks))
+        self._ingest_queue_peak.set(float(queue_peak))
+        self._ingest_drain_hist.observe(float(chunks))
 
     def record_bytes_held(self, params_bytes: int, delta_bytes: int) -> None:
         """Log the resident serving weight-state bytes."""
@@ -261,6 +353,53 @@ class FleetTelemetry:
                                   "total_s": child.sum}
         return out
 
+    def tier_percentiles(self) -> dict:
+        """Per-tier ``{tier: {"p50_ms", "p99_ms", "total_s"}}`` of the
+        tier-step wall histogram."""
+        out = {}
+        for values, child in self._tier_step_hist.samples():
+            if child.count:
+                out[values[0]] = {"p50_ms": child.percentile(50) * 1e3,
+                                  "p99_ms": child.percentile(99) * 1e3,
+                                  "total_s": child.sum}
+        return out
+
+    def per_tier(self) -> dict:
+        """Per-tier counter rollup and energy: ``{tier: {timesteps,
+        events_in, windows, wu_skip_rate, energy}}`` for every tier that
+        retired at least one chunk."""
+        acc: Dict[str, dict] = {}
+        for attr, (name, _help) in TIER_COUNTER_FAMILIES.items():
+            for values, child in self.registry.get(name).samples():
+                acc.setdefault(values[0], {})[attr] = float(child.value)
+        out = {}
+        for tier, c in sorted(acc.items()):
+            offered = c.get("sop_wu_offered", 0.0)
+            out[tier] = {
+                "timesteps": c.get("timesteps", 0.0),
+                "events_in": c.get("events_in", 0.0),
+                "windows": int(c.get("windows", 0)),
+                "wu_skip_rate": (1.0 - c.get("sop_wu", 0.0) / offered
+                                 if offered > 0 else 0.0),
+                "energy": report(c.get("sop_forward", 0.0),
+                                 c.get("sop_wu", 0.0), offered,
+                                 c.get("timesteps", 0.0),
+                                 op=self.op).as_dict(),
+            }
+        return out
+
+    def tier_rollup(self) -> dict:
+        """The QoS part of :meth:`rollup`: per-tier counters and energy,
+        per-tier step-wall percentiles, the depth and ingest state."""
+        return {
+            "tiers": self.per_tier(),
+            "tier_latency": self.tier_percentiles(),
+            "pipeline_depth": float(self._depth_gauge.value),
+            "depth_changes": int(self._depth_changes.value),
+            "ingest_chunks": int(self._ingest_chunks.value),
+            "ingest_queue_peak": int(self._ingest_queue_peak.value),
+        }
+
     def overlap_ratio(self) -> float:
         """Aggregate host/device overlap over the whole run (0.0 serial)."""
         denom = self._hidden_s.value + self._wait_s.value
@@ -268,8 +407,8 @@ class FleetTelemetry:
 
     def rollup(self) -> dict:
         """Fleet-level summary: summed stream counters, throughput over the
-        recorded step + flush wall, latency percentiles, overlap, energy and
-        the topology rollup."""
+        recorded step + flush wall, latency percentiles, overlap, energy,
+        the topology rollup and the tier rollup."""
         def fam_total(attr):
             fam = self.registry.get(STREAM_COUNTER_FAMILIES[attr][0])
             return fam.total() if fam is not None else 0.0
@@ -296,6 +435,7 @@ class FleetTelemetry:
             "bytes_held": self.bytes_held(),
             **self.latency_percentiles(),
             **self.topology_rollup(),
+            **self.tier_rollup(),
         }
 
     def per_stream(self) -> List[dict]:

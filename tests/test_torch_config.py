@@ -112,7 +112,40 @@ def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 63      # every module was imported
+    assert int(out.stdout.strip()) >= 73      # every module was imported
+
+
+@pytest.mark.parametrize("module", ["serving.ingest", "serving.autopilot",
+                                    "obs.export"])
+def test_runtime_modules_alone_pull_in_no_jax_and_no_repro(module):
+    """The serving runtime's host-side modules, each imported alone in a
+    fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('repro_torch.{module}')\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'repro' or k.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_ingest_worker_module_uses_no_torch():
+    """The ingest worker thread competes with the host enqueue for the
+    interpreter lock and must never touch a tensor: its module imports
+    nothing but the standard library."""
+    tree = ast.parse((PORT / "serving" / "ingest.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "a relative import reaches the package"
+            imported.add((node.module or "").split(".")[0])
+    assert imported <= {"__future__", "dataclasses", "threading",
+                        "collections", "typing"}, imported
 
 
 def test_no_source_file_imports_repro_or_jax():

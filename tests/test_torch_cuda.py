@@ -645,3 +645,74 @@ def test_chunked_prefill_equals_replay_on_card(cuda, arch):
         if k in replay:
             assert cache[k].dtype == replay[k].dtype
             assert float((cache[k] - replay[k]).abs().max()) <= 1e-4, k
+
+
+# ---------------------------------------------------- the serving runtime
+
+def _card_fleet(cuda, aer, sids=range(6), tier_of=None, **kw):
+    """Gesture streams ``sids`` (AER-packed or their dense twins) through a
+    small kernels-backend fleet on the card; {sid: session}, and the
+    ``nm_spmm`` launches the run made."""
+    from repro_torch.core.snn import SNNConfig, init_params
+    from repro_torch.data.events import make_task
+    from repro_torch.serving import (AERStreamSource, StreamScheduler,
+                                     StreamSession, TaskStreamSource)
+    cfg = SNNConfig(n_in=32, n_hidden=32, n_layers=2, n_out=8, t_steps=16,
+                    backend="kernels")
+    task = make_task("gesture", n_in=cfg.n_in, t_steps=cfg.t_steps)
+    source = AERStreamSource if aer else TaskStreamSource
+    sched = StreamScheduler(init_params(0, cfg, device=cuda), cfg,
+                            device=cuda, **kw)
+    before = nm_kernel.nm_spmm_cuda.launches
+    try:
+        for sid in sids:
+            sched.submit(StreamSession(sid=sid, source=source(
+                task, n_windows=2, seed=sid), adapt=sid % 2 == 0),
+                tier=None if tier_of is None else tier_of(sid))
+        done = {s.sid: s for s in sched.run_until_drained()}
+    finally:
+        sched.close()
+    assert sched.drained and sorted(done) == sorted(sids)
+    return done, nm_kernel.nm_spmm_cuda.launches - before
+
+
+def _assert_same_streams(a, b):
+    assert sorted(a) == sorted(b)
+    for sid in a:
+        assert a[sid].timesteps_fed == b[sid].timesteps_fed
+        assert len(a[sid].predictions) == len(b[sid].predictions) == 2
+        for pa, pb in zip(a[sid].predictions, b[sid].predictions):
+            np.testing.assert_array_equal(pa.logits, pb.logits)
+        np.testing.assert_array_equal(a[sid].final_deltas, b[sid].final_deltas)
+
+
+@pytest.mark.cuda
+def test_ingest_depth2_aer_fleet_equals_serial_dense_fleet_on_card(cuda):
+    """AER sources through the ingest worker at pipeline depth 2 against
+    their dense twins polled inline at depth 0, on the card: bit for bit,
+    every step through the kernels."""
+    serial, n0 = _card_fleet(cuda, aer=False, n_slots=4, chunk_len=6)
+    deep, n1 = _card_fleet(cuda, aer=True, n_slots=4, chunk_len=6,
+                           ingest=True, pipeline_depth=2)
+    _assert_same_streams(serial, deep)
+    assert n0 == n1 > 0
+
+
+@pytest.mark.cuda
+def test_two_tier_fleet_equals_single_grids_on_card(cuda):
+    """A two-tier fleet (chunks of 2 and 8) against single-grid fleets with
+    each tier's geometry, on the card: bit for bit."""
+    from repro_torch.serving import TierConfig
+
+    def tier_of(sid):
+        return "interactive" if sid % 3 == 0 else "bulk"
+    tiered, _ = _card_fleet(
+        cuda, aer=True, tier_of=tier_of, n_slots=2, ingest=True,
+        tiers=[TierConfig("interactive", chunk_len=2, n_slots=2),
+               TierConfig("bulk", chunk_len=8, n_slots=4)])
+    solo = {}
+    for name, c, s in (("interactive", 2, 2), ("bulk", 8, 4)):
+        solo.update(_card_fleet(cuda, aer=True, n_slots=s, chunk_len=c,
+                                sids=[i for i in range(6)
+                                      if tier_of(i) == name])[0])
+    _assert_same_streams(solo, tiered)

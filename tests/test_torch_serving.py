@@ -231,12 +231,12 @@ def test_lane_surgery_touches_one_lane_only(params):
     assert torch.equal(dl[0], before[2]) and torch.equal(dl[2], before[3])
 
 
-@pytest.mark.parametrize("option", ["mesh", "topology", "tracer", "tiers",
-                                    "ingest", "autopilot"])
+@pytest.mark.parametrize("option", ["mesh", "topology"])
 def test_unported_scheduler_options_raise(params, option):
-    """The options still to port raise ``NotImplementedError``; the live
-    topology service is ported, and the scheduler refuses only a service
-    built for another config (``ValueError``) and depths above 1."""
+    """Slot sharding over a mesh is still to port and raises
+    ``NotImplementedError``. The live topology service is ported: the
+    scheduler refuses a service built for another config (``ValueError``)
+    and clamps the pipeline depth to 1 under one, as the reference does."""
     if option == "topology":
         import dataclasses
         from repro_torch.serving import TopologyService
@@ -244,9 +244,10 @@ def test_unported_scheduler_options_raise(params, option):
         with pytest.raises(ValueError, match="different SNNConfig"):
             StreamScheduler(params, CFG, n_slots=2, device="cpu",
                             topology=other)
-        with pytest.raises(NotImplementedError):
-            StreamScheduler(params, CFG, n_slots=2, device="cpu",
-                            topology=TopologyService(CFG), pipeline_depth=2)
+        sched = StreamScheduler(params, CFG, n_slots=2, device="cpu",
+                                topology=TopologyService(CFG),
+                                pipeline_depth=2)
+        assert sched.pipeline_depth == sched.pipeline.depth == 1
         return
     with pytest.raises(NotImplementedError):
         StreamScheduler(params, CFG, n_slots=2, device="cpu",
