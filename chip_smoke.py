@@ -233,6 +233,24 @@ Phases, each raising on failure:
    ``bulk`` (chunk 8, 768 slots), with ingestion: one chunk fn per tier, and
    every stream equal to its run on a single-grid fleet of its tier's
    geometry (two more runs); records per-tier step walls and events/s.
+20. the static checks on the card, run right after phase 19 on phase 4's
+   params and task (``repro_torch.analysis``). (a) every registry entry at
+   its small geometry on ``cuda`` passes its contract set, the launch
+   counters read around each checked call: the compact SNN entries launch
+   ``nm_spmm`` (fused), ``lif`` and ``wu_outer_slots`` C x L times a call,
+   the dense ones ``nm_spmm`` (unfused) and ``lif``, the decode step none.
+   (b) phase 4's chunk fn (the paper network, 1024 slots, C 8), factors off
+   and on: ``mask_free``, ``no_dense_deltas``, ``slot_separable(1024)``,
+   ``dtype_discipline``, ``no_collectives`` and ``compile_count`` (and
+   ``no_factor_carries`` with the factors off) hold, 16 launches each a
+   call; records the recorded call's wall beside an unchecked call's and
+   the checked calls' peak. (c) 20 grid steps of phase 4's fleet at depth 1
+   polled inline, at depth 2 with ingestion and the autopilot, and on 19e's
+   two tiers, with ``_poll_sources``, ``_stage``, ``_admit``, ``_dispatch``
+   and ``_apply_autopilot`` under ``torch.cuda.set_sync_debug_mode
+   ("error")`` (retire, whose fetch is the one sanctioned wait, unguarded):
+   no phase may sync; launches 20 x C x L summed over the tiers. Prints
+   ``analysis {...}``.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -1190,6 +1208,177 @@ def runtime(torch, params, task, ref):
     total = {name: sum(n[name] for n in launches.values())
              for name in kernel_counters()}
     out["launches_by_run"] = launches
+    _SOURCES.clear()
+    return out, total
+
+
+SYNC_STEPS = 20
+# what a compact serving chunk step launches, C x L times each (a fused
+# nm_spmm launch counts on both of its counters, as in phase 4)
+SERVING_KERNELS = ("nm_spmm", "nm_spmm_fused", "lif", "wu_outer_slots")
+
+
+def analysis(torch, params, task):
+    """Phase 20 (module docstring): the static checks on the card."""
+    from repro_torch.analysis import dispatch_contracts as dc
+    from repro_torch.analysis import registry
+    from repro_torch.analysis.sync_guard import GUARDED_PHASES, guard_syncs
+    from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
+                                      serving_params)
+    from repro_torch.serving import (AutopilotConfig, StreamScheduler,
+                                     StreamSession, TierConfig, make_chunk_fn)
+    out = {"registry": {}}
+    total = {name: 0 for name in kernel_counters()}
+
+    # (a) every registry entry at its small geometry, launches read around
+    # each checked call; the compact SNN entries launch the serving kernels
+    # C x L times a call
+    small = registry.snn_cfg()
+    for name in registry.names():
+        fn, args, contracts, kwargs = registry.build(name, "cuda")
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        rep = dc.check(fn, args, contracts, kwargs=kwargs, name=name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        for n in total:
+            total[n] += launches[n]
+        if not rep.ok:
+            raise AssertionError(f"20a: {rep}")
+        per_call = {n: k / rep.calls for n, k in launches.items() if k}
+        if name.startswith("launch."):
+            want = {}                 # the decode step reads its cache plainly
+        else:                         # args: (params, deltas, state, events, ..)
+            # the dense layout: the base product unfused, the per-slot
+            # update a masked outer product in plain torch
+            want = {n: float(args[3].shape[0] * small.n_layers)
+                    for n in (("nm_spmm", "lif") if "dense" in name
+                              else SERVING_KERNELS)}
+        if per_call != want:
+            raise AssertionError(f"20a: {name} launched {per_call} a call, "
+                                 f"want {want}")
+        out["registry"][name] = {"contracts": list(rep.contracts),
+                                 "calls": rep.calls, "launches": launches,
+                                 "launches_per_call": per_call,
+                                 "wall_s": wall}
+    log(f"analysis_registry {json.dumps(out['registry'])}")
+
+    # (b) the contract set at full width, on phase 4's chunk fn (1024 slots,
+    # C 8, the paper network) with the factors off (as phase 4 serves) and on
+    cfg = paper_config("kernels")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    S = N_STREAMS
+    args = (serving_params(params, cfg), init_stream_deltas(cfg, S, "cuda"),
+            init_stream_state(cfg, S, "cuda"),
+            (torch.rand((CHUNK_LEN, S, cfg.n_in), device="cuda", generator=g)
+             < 0.05).float(),
+            torch.ones((CHUNK_LEN, S), dtype=torch.bool, device="cuda"),
+            torch.ones(S, dtype=torch.bool, device="cuda"))
+    k_max = max(cfg.layer_fanins)
+    out["full_width"] = {
+        "slots": S, "chunk_len": CHUNK_LEN,
+        "dense_deltas_bytes": S * cfg.n_layers * k_max * cfg.n_hidden * 4,
+        "compact_deltas_bytes": args[1].numel() * 4}
+    for want_factors in (False, True):
+        fn = registry.counted(make_chunk_fn(cfg, want_factors=want_factors))
+        contracts = registry.chunk_contracts(cfg, S, CHUNK_LEN, compact=True,
+                                             want_factors=want_factors)
+        fn(*args)
+        torch.cuda.synchronize()
+        plain = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        n_ops = len(dc.record(fn, args).ops)
+        torch.cuda.synchronize()
+        recorded = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        rep = dc.check(fn, args, contracts, name="phase4.chunk_fn")
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        for n in total:
+            total[n] += launches[n]
+        if not rep.ok:
+            raise AssertionError(f"20b (want_factors={want_factors}): {rep}")
+        want = {n: rep.calls * CHUNK_LEN * cfg.n_layers
+                for n in SERVING_KERNELS}
+        got = {n: k for n, k in launches.items() if k}
+        if got != want:
+            raise AssertionError(f"20b: the checked calls launched {got}, "
+                                 f"want {want}")
+        rec = {"contracts": list(rep.contracts), "calls": rep.calls,
+               "launches": got, "ops_recorded": n_ops,
+               "unchecked_ms": sorted(plain)[1] * 1e3,
+               "recorded_ms": recorded * 1e3,
+               "recorded_over_unchecked": recorded / sorted(plain)[1],
+               "check_ms": check_s * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        out["full_width"]["factors" if want_factors else "frozen"] = rec
+    del args
+    log(f"analysis_full_width {json.dumps(out['full_width'])}")
+
+    # (c) 20 grid steps of phase 4's fleet per run with the stage-side
+    # phases under the sync debug mode: depth 1 polled inline, depth 2 with
+    # ingestion and the autopilot, phase 19e's two tiers
+    def tier_of(sid):
+        return "interactive" if sid % 4 == 0 else "bulk"
+    runs = {"depth1_inline": dict(pipeline_depth=1),
+            "depth2_ingest_autopilot": dict(pipeline_depth=2, ingest=True,
+                                            autopilot=AutopilotConfig()),
+            "tiers": dict(pipeline_depth=1, ingest=True,
+                          tiers=[TierConfig(*t) for t in RUNTIME_TIERS])}
+    out["sync_check"] = {}
+    sids = list(range(N_STREAMS))
+    for tag, kw in runs.items():
+        sched = StreamScheduler(params, cfg, n_slots=N_STREAMS,
+                                chunk_len=CHUNK_LEN, device="cuda", **kw)
+        try:
+            for sid, src in zip(sids, stream_sources(task, sids, False)):
+                sched.submit(StreamSession(sid=sid, source=src),
+                             tier=tier_of(sid) if "tiers" in kw else None)
+            guard_syncs(sched)
+            counters = reset_counters()
+            t0 = time.perf_counter()
+            errors = []
+            for _ in range(SYNC_STEPS):
+                try:
+                    sched.step()
+                except RuntimeError as e:
+                    errors.append(str(e)[:300])
+                    break
+            if not errors:
+                sched.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            sched.close()
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        for n, k in launches.items():
+            total[n] += k
+        chunk = sum(t.chunk_len for t in kw["tiers"]) if "tiers" in kw \
+            else CHUNK_LEN
+        want = {n: SYNC_STEPS * chunk * cfg.n_layers for n in SERVING_KERNELS}
+        if not errors and launches != want:
+            raise AssertionError(f"20c {tag}: launched {launches}, want "
+                                 f"{want}")
+        rec = {"grid_steps": SYNC_STEPS, "syncs": len(errors),
+               "errors": errors, "guarded": list(GUARDED_PHASES),
+               "wall_s": wall, "launches": launches,
+               "pipeline_depth": sched.pipeline_depth}
+        out["sync_check"][tag] = rec
+        if errors:
+            raise AssertionError(f"20c {tag}: a device sync in a guarded "
+                                 f"phase: {errors[0]}")
+    out["launches"] = total
+    log(f"analysis {json.dumps(out)}")
     _SOURCES.clear()
     return out, total
 
@@ -2839,6 +3028,9 @@ def main() -> int:
                                                   serve_digest)
     del serve_digest
 
+    # 20. the static checks on the card, on phase 4's params and task
+    record["analysis"], analysis_launches = analysis(torch, params, task)
+
     # 5. path parity
     record["path_parity"] = path_parity(torch, params, task)
 
@@ -2958,6 +3150,7 @@ def main() -> int:
 
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
+                      "analysis": analysis_launches[name],
                       "training": train_launches[name],
                       "lm_serving": lm_launches[name],
                       "lm_training": lm_train_launches[name],

@@ -34,6 +34,7 @@ masked outer product for dense deltas).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -435,12 +436,25 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
 
 
 def _layer_arrays(cfg, device):
+    """Per-layer fan-in and spec density, ``[L]`` f32 on ``device``."""
     geo = geometry(cfg)
-    fan = torch.tensor([float(f) for f in geo.fanins], dtype=torch.float32,
-                       device=device)
-    dens = torch.tensor([cfg.spec(f).density for f in geo.fanins],
-                        dtype=torch.float32, device=device)
-    return fan, dens
+    return _layer_arrays_on(tuple(float(f) for f in geo.fanins),
+                            tuple(cfg.spec(f).density for f in geo.fanins),
+                            torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _layer_arrays_on(fanins, densities, device):
+    """Built once per geometry and device and then shared (nothing writes
+    them), so a chunk step copies nothing for them; the one copy goes from
+    pinned memory without waiting, so no step syncs with the card (a
+    ``torch.tensor(..., device="cuda")`` of a host list waits for its
+    copy)."""
+    host = torch.tensor([fanins, densities], dtype=torch.float32)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    on = host.to(device, non_blocking=True)
+    return on[0], on[1]
 
 
 def _windows(cfg) -> Tuple[int, int]:
@@ -608,7 +622,9 @@ def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
     carry = (layers_out, x_tr, _stack_layers(ssm), t_w, samp, own)
     if want_factors:
         carry = carry + (_stack_layers(acc_pre), _stack_layers(acc_post))
-    return carry, {k: torch.stack(v) for k, v in outs.items()}
+    outs = {k: torch.stack(v) for k, v in outs.items()}
+    _assert_slot_separable(carry, outs, events.shape[0], S, cfg, want_factors)
+    return carry, outs
 
 
 def ordered_slot_sum(x: torch.Tensor) -> torch.Tensor:
@@ -622,3 +638,18 @@ def ordered_slot_sum(x: torch.Tensor) -> torch.Tensor:
         x = paired if x.shape[0] % 2 == 0 else \
             torch.cat([paired, x[2 * half:]], dim=0)
     return x[0]
+
+
+def _assert_slot_separable(carry, outs, C: int, S: int, cfg,
+                           want_factors: bool) -> None:
+    """The chunk step's zero-collective contract: every per-stream quantity
+    keeps its slot axis through the chunk. A reduction over slots, which
+    would break a slot-sharded fleet, shows up here as a dropped ``S``
+    dimension, on every chunk (shape checks only: no op, no sync). Thin
+    wrapper over the shared checker (``analysis.dispatch_contracts``),
+    imported lazily so the engine keeps no static analysis dependency."""
+    from ..analysis.dispatch_contracts import \
+        assert_chunk_carry_slot_separable
+    assert_chunk_carry_slot_separable(carry, outs, C=C, S=S,
+                                      n_layers=cfg.n_layers,
+                                      want_factors=want_factors)

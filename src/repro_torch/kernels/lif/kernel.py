@@ -51,6 +51,18 @@ def _kernel():
     return triton, lif_kernel
 
 
+def n_specializations() -> int:
+    """Triton specialisations of the LIF kernel compiled in this process
+    (0 before its first launch), summed over devices."""
+    if not _kernel.cache_info().currsize:
+        return 0
+    _, lif_kernel = _kernel()
+    caches = getattr(lif_kernel, "device_caches", None)
+    if caches is not None:        # newer Triton: {device: (kernels, ...)}
+        return sum(len(c[0]) for c in caches.values())
+    return sum(len(c) for c in lif_kernel.cache.values())
+
+
 def lif_cuda(v: torch.Tensor, tr: torch.Tensor, current: torch.Tensor, *,
              alpha: float, beta: float, theta: float):
     """``(v', tr', s)`` on the card for contiguous CUDA tensors of one shape,

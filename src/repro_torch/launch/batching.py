@@ -165,7 +165,8 @@ class ContinuousBatcher:
             toks = torch.tensor(self._feed_tokens(), device=self.device)
             logits, self.cache = T.decode_step(self.params, self.cache, toks,
                                                self.cfg)
-            # the one read-back per step: autoregressive feedback
+            # the one read-back per step, the decode loop's retire point;
+            # lint: ok SYNC01 — autoregressive feedback is synchronous
             nxt = logits.argmax(-1).tolist()
         self.grid.tick()
         for i, req in enumerate(self.grid.occupant):

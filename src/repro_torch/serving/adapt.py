@@ -31,6 +31,16 @@ class AdaptConfig:
     lr_scale: float = 1.0        # scales cfg.lr for the serving path
 
 
+_CHUNK_FNS_BUILT = 0
+
+
+def chunk_fns_built() -> int:
+    """How many chunk fns :func:`make_chunk_fn` has built in this process:
+    the port's counterpart of a trace, read by the ``compile_count``
+    contract (``analysis.dispatch_contracts.compile_events``)."""
+    return _CHUNK_FNS_BUILT
+
+
 def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
                   want_factors: bool = True):
     """Build the slot-grid step.
@@ -46,6 +56,8 @@ def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
     order-fixed ``engine.ordered_slot_sum``, so metrics carry ``[L, Kmax]``
     / ``[L, N]``; when False they are never computed.
     """
+    global _CHUNK_FNS_BUILT
+    _CHUNK_FNS_BUILT += 1
     adapt = adapt or AdaptConfig()
     scfg = cfg if adapt.lr_scale == 1.0 else dataclasses.replace(
         cfg, lr=cfg.lr * adapt.lr_scale)

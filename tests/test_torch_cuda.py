@@ -716,3 +716,76 @@ def test_two_tier_fleet_equals_single_grids_on_card(cuda):
                                 sids=[i for i in range(6)
                                       if tier_of(i) == name])[0])
     _assert_same_streams(solo, tiered)
+
+
+# ------------------------------------------------------- the static checks
+
+def _registry_names():
+    from repro_torch.analysis import registry
+    return registry.names()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _registry_names())
+def test_registry_entry_passes_on_card(cuda, name):
+    """Every registry entry at its small geometry on the card; the compact
+    SNN entries launch the fused ``nm_spmm`` (counted on both ``nm_spmm``
+    counters), ``lif`` and ``wu_outer_slots`` kernels C x L times a
+    call."""
+    from repro_torch.analysis import dispatch_contracts as dc
+    from repro_torch.analysis import registry
+    from repro_torch.kernels.lif.kernel import lif_cuda
+    from repro_torch.kernels.wu_outer.kernel import wu_outer_slots_cuda
+    fn, args, contracts, kwargs = registry.build(name, "cuda")
+    counters = (nm_kernel.nm_spmm_cuda, nm_kernel.nm_spmm_fused_cuda,
+                lif_cuda, wu_outer_slots_cuda)
+    before = [c.launches for c in counters]
+    report = dc.check(fn, args, contracts, kwargs=kwargs, name=name)
+    assert report.ok, str(report)
+    got = [c.launches - b for c, b in zip(counters, before)]
+    if name.startswith(("serving.", "snn.")) and "dense" not in name:
+        per_call = args[3].shape[0] * registry.snn_cfg().n_layers
+        assert got == [report.calls * per_call] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(pipeline_depth=1),
+    dict(pipeline_depth=2, ingest=True, autopilot=True),
+    dict(pipeline_depth=1, ingest=True, tiers="two")],
+    ids=["depth1_inline", "depth2_ingest_autopilot", "tiers"])
+def test_stage_and_dispatch_make_no_device_sync_on_card(cuda, kw):
+    """A small fleet drained with its stage-side phases under the sync debug
+    mode raises nothing. The chunk step's per-layer fan-in and density are
+    built afresh here, inside a guarded dispatch: built from a host list
+    with ``torch.tensor(..., device="cuda")`` they made a sync on every
+    chunk."""
+    from repro_torch.analysis.sync_guard import guard_syncs
+    from repro_torch.core import engine
+    from repro_torch.core.snn import SNNConfig, init_params
+    from repro_torch.data.events import make_task
+    from repro_torch.serving import (StreamScheduler, StreamSession,
+                                     TaskStreamSource, TierConfig)
+    engine._layer_arrays_on.cache_clear()
+    cfg = SNNConfig(n_in=32, n_hidden=32, n_layers=2, n_out=8, t_steps=16,
+                    backend="kernels")
+    task = make_task("gesture", n_in=cfg.n_in, t_steps=cfg.t_steps)
+    kw = dict(kw)
+    if kw.get("tiers"):
+        kw["tiers"] = [TierConfig("interactive", chunk_len=2, n_slots=2),
+                       TierConfig("bulk", chunk_len=8, n_slots=4)]
+    sched = StreamScheduler(init_params(0, cfg, device=cuda), cfg, n_slots=4,
+                            chunk_len=6, device=cuda, **kw)
+    try:
+        for sid in range(6):
+            sched.submit(StreamSession(sid=sid, source=TaskStreamSource(
+                task, n_windows=2, seed=sid)),
+                tier=("interactive" if sid % 3 == 0 else "bulk")
+                if kw.get("tiers") else None)
+        guard_syncs(sched)
+        done = sched.run_until_drained()
+    finally:
+        sched.close()
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(done) == 6
+    assert all(len(s.predictions) == 2 for s in done)
