@@ -42,7 +42,9 @@ Phases, each raising on failure:
    heads of 128: group 1), windows of 500 and 65 (off the key-tile edges), head
    widths 160 (StableLM) and 64, f32 at dh 160 with a window of 37, and
    Zamba2's shared block at its prefill (B 4, S 2048, 32 query and 32 KV
-   heads of 64, its window of 4096 past S),
+   heads of 64, its window of 4096 past S), and the training shapes of
+   phases 21 and 22 (B 2, S 4096): Moonlight's (16 and 16 heads of 128)
+   and Zamba2's shared block (32 and 32 heads of 64, window 4096 = S),
    against the plain ``ref.flash_fwd`` (bf16 out per element within
    ``ref.bf16_out_tolerance``) and, as the library yardstick,
    ``scaled_dot_product_attention``.
@@ -95,7 +97,8 @@ Phases, each raising on failure:
    ``flash_bwd_dq``) against the plain f32 ``ref.flash_bwd`` (GQA groups
    summed in f32) on the forward kernel's ``out`` and ``lse``: at the LM
    training shape (B 2, S 4096, H 12, KV 2, dh 128, bf16), f32, a window of
-   500, a ragged S = 1000, MQA, dh 160 with a window of 65 and dh 64; bf16
+   500, a ragged S = 1000, MQA, dh 160 with a window of 65, dh 64, and the
+   Moonlight and Zamba2 training shapes of phase 3's forward list; bf16
    per element within ``ref.bf16_grad_tolerance``, f32 within ``1e-5`` of
    the tensor's largest element; timed beside the plain version, the bound
    and the backward of ``scaled_dot_product_attention`` (its backend named).
@@ -252,6 +255,36 @@ Phases, each raising on failure:
    no phase may sync; launches 20 x C x L summed over the tiers. Prints
    ``analysis {...}``.
 
+21. MoE training, once phase 16 has freed Moonlight's serving weights (at
+   most MOE_HELD_BYTES still allocated): Moonlight-16B-A3B at full width,
+   MOE_TRAIN_LAYERS of its 48 layers (the whole model's training state
+   does not fit one card), under phase 10's traffic, gates and records
+   (``flash_fwd`` 2L, ``flash_bwd_dkv`` and ``flash_bwd_dq`` L a step, the
+   SNN kernels never), the loss in MOE_LOSS_CHUNK-position slabs;
+   ``moe_dropped`` a step, MFU on the active params (attention, router, 6
+   of 64 experts, head). (a) at MOE_PARITY_LAYERS layers, 2 x 1024: the
+   same ``loss_and_grads`` twice, deterministic algorithms off, gradients
+   equal bit for bit; flash vs plain under phase 11's rule, deterministic
+   algorithms on; MOE_LOOP_TOKENS tokens through layer 0's MoE at a
+   capacity that drops nothing, the gradients of its output with respect
+   to its input, router, w1, w2 and w3 against a per-token loop in f32
+   (MOE_LOOP_GRAD_REL_L2 per token row, expert and router column); one
+   masked-expert step (n 2 of m 4, block 32) with ``dsst_every=1``: every
+   mask keeps 2 of each 4, the weights are zero off it, some units moved.
+22. ssm and hybrid training at full size, once phase 18 has freed its
+   models, one at a time: Mamba2-2.7B and Zamba2-1.2B under phase 10's
+   traffic, gates and records (``flash_fwd`` 0 and 12, ``flash_bwd_dkv``
+   and ``flash_bwd_dq`` 0 and 6 a step: the shared block's calls, twice
+   forward under remat); for Mamba2 one SSD layer's forward and forward +
+   backward at the training shape and their share of the profiled step's
+   busy time, for Zamba2 the shared block's flash time a step. (a) Mamba2
+   cut to SSM_PARITY_LAYERS layers in f32, 2 x 1024: the card's
+   ``loss_and_grads`` against the host's from the same params, loss and
+   every leaf within SSM_GRAD_REL_L2 relative L2 (the SSD's backward has
+   no kernel and no plain twin). (b) Zamba2 cut to HYBRID_PARITY_LAYERS
+   layers, flash vs plain under phase 11's rule, with the flash route's
+   launches exact.
+
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
 launch, the training path's), the card line, and last
@@ -259,6 +292,7 @@ launch, the training path's), the card line, and last
 ``chiprun_out/chip_smoke.json``. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are missing.
 """
+import contextlib
 import copy
 import hashlib
 import json
@@ -324,6 +358,26 @@ SSM_PARITY_LAYERS, HYBRID_PARITY_LAYERS = 2, 12   # Zamba2: 2 shared calls
 # one moves a tensor by O(100 %) at the first layer it touches. The last
 # logits within PARITY_REL_L2.
 CACHE_REL_L2_PER_LAYER = 2 ** -6
+# phase 21: Moonlight at full width, 4 of its 48 layers (the whole model's
+# training state, ~336 GB, does not fit one card); the loss in slabs of
+# 1024 positions, so the [8192, 163840] f32 logits (5.4 GB, and as much
+# again for their gradient) never exist whole
+MOE_TRAIN_LAYERS, MOE_LOSS_CHUNK = 4, 1024
+# phase 21a: the MoE layer's gradients against a per-token loop in f32 on
+# the same bf16 values. The layer rounds to bf16 (2^-9 relative at most)
+# at its logits, gates, the two expert products, the silu product, the
+# output, and each product of the backward: about eight roundings on the
+# longest path (the router's), <= 2^-6 if all lined up; 2^-5 leaves twice
+# that. Held per token row (input), per expert (w1, w2, w3) and per router
+# column, so that one lost or misrouted choice (~1/6 of a row's or an
+# expert's gradient, a token picks 6 experts) stands out.
+MOE_LOOP_GRAD_REL_L2 = 2 ** -5
+# phase 22a: Mamba2 (2 layers, f32) on the card against the host, TF32 off:
+# the same f32 arithmetic summed in other orders (cuBLAS and the card's
+# reductions against the host's), ~1e-6 relative a leaf; 1e-4 leaves 100x.
+# A wrong SSD backward (a lost inter-chunk term, a transposed decay) moves
+# the mixer's leaves by O(1).
+SSM_GRAD_REL_L2 = 1e-4
 
 
 def log(msg):
@@ -865,7 +919,7 @@ def flash_bwd_case(torch, name, dtype, b, s, h, kv, dh, window):
     plain = timings(torch, "plain_", lambda: ref.flash_bwd(
         *kl, ol, lse, dol, window))
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-    if window is None:
+    if window is None or window >= s:     # a window past S masks nothing
         so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                             enable_gqa=True)
     else:
@@ -1815,25 +1869,75 @@ def param_leaves(tree):
     return [x for x in leaves(tree) if x.is_floating_point()]
 
 
-def lm_train(torch):
-    """Phase 10: Qwen2-VL-2B at full width and depth trains TRAIN_STEPS
-    steps of ``make_train_step``; raises unless every step's loss, grad norm
-    and params are finite and launched exactly 2L ``flash_fwd``, L
-    ``flash_bwd_dkv`` and L ``flash_bwd_dq``, and the last loss is below the
-    first."""
+def active_matmul_params(cfg, params):
+    """The matmul params one token's forward touches: every float leaf of
+    the layers (norms and the SSM's small vectors included, as phase 10
+    counts them), of a MoE layer's experts only its top k of E, the hybrid's
+    shared block once per call, and the head."""
+    n = sum(x.numel() for x in param_leaves(params["layers"]))
+    if cfg.family == "moe":
+        moe = params["layers"]["moe"]
+        experts = sum(moe[m]["w"].numel() for m in ("w1", "w2", "w3") if m in moe)
+        n -= experts - experts * cfg.moe_top_k // cfg.moe_experts
+    if "shared" in params:
+        n += attn_calls(cfg) * sum(x.numel() for x in param_leaves(params["shared"]))
+    return n + params["lm_head"].numel()
+
+
+def train_flops(cfg, params, b, s):
+    """Model flops of one training step: 6 x the active matmul params x
+    tokens, plus 6 x each attention call's score products (QKᵀ and PV, 2·dh
+    a visible pair and head). The SSD's own products (f32, on the CUDA
+    cores) are not counted."""
+    score = 2 * cfg.head_dim * causal_pairs(s, cfg.swa_window) * b * cfg.n_heads
+    return (6 * active_matmul_params(cfg, params) * b * s
+            + 6 * score * attn_calls(cfg))
+
+
+def eval_ce(torch, cfg, params, batches, loss_chunk):
+    """The next-token cross entropy of ``params`` on each of ``batches``,
+    without autograd."""
+    from repro_torch.models import transformer as T
+    chunked = bool(loss_chunk) and not cfg.tie_embeddings
+    out = []
+    with torch.no_grad():
+        for b in batches:
+            h, _ = T.forward(params, cfg, tokens=b["tokens"], want_hidden=chunked)
+            ce = (T.lm_loss_chunked(h, params["lm_head"], b["labels"], loss_chunk)
+                  if chunked else T.lm_loss(h, b["labels"]))
+            out.append(float(ce))
+            del h
+    return out
+
+
+def lm_train(torch, cfg=None, hp=None, tag="lm_training", loss_chunk=None,
+             same_batches=False):
+    """Phase 10 (and 21, 22 with their configs): the model trains
+    TRAIN_STEPS steps of ``make_train_step`` from ``init_train_state`` on a
+    CUDA generator seeded 0, batch TRAIN_B x TRAIN_S from ``TokenPipeline``;
+    raises unless every step's loss, grad norm and params are finite and
+    launched exactly ``attn_calls`` ``flash_bwd_dkv`` and ``flash_bwd_dq``
+    and twice as many ``flash_fwd`` under remat (the SNN kernels never), and
+    the model learned: the last loss below the first (phase 10), or with
+    ``same_batches`` the mean cross entropy over the run's batches after
+    the steps below the initial model's over the same batches (the
+    pipeline's batches differ in difficulty by more than 8 steps of
+    learning: an untrained model's CE moves by up to 1 nat from one batch
+    to the next). Returns (record, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.core.gating import GatingConfig
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.launch.train import (TrainHParams, init_train_state,
                                           make_train_step)
     from repro_torch.optim import AdamWConfig, adamw_update
-    cfg = get_config(TRAIN_ARCH)
-    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
-                      gating=GatingConfig())
+    cfg = cfg or get_config(TRAIN_ARCH)
+    hp = hp or TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=100),
+                            gating=GatingConfig())
     t0 = time.perf_counter()
     params, opt_state, sparse_state = init_train_state(
         torch.Generator(device="cuda").manual_seed(0), cfg, hp, "cuda")
-    step = make_train_step(cfg, hp)
+    step = make_train_step(cfg, hp, loss_chunk=loss_chunk)
     pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                         global_batch=TRAIN_B))
     torch.cuda.synchronize()
@@ -1841,17 +1945,18 @@ def lm_train(torch):
     state_bytes = sum(x.numel() * x.element_size() for x in
                       param_leaves(params) + param_leaves(opt_state.m)
                       + param_leaves(opt_state.v))
-    L = cfg.n_layers
+    L, calls = cfg.n_layers, attn_calls(cfg)
     want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
-            "wu_outer_slots": 0, "flash_fwd": 2 * L, "flash_bwd_dkv": L,
-            "flash_bwd_dq": L}
+            "wu_outer_slots": 0, "flash_fwd": (2 if cfg.remat else 1) * calls,
+            "flash_bwd_dkv": calls, "flash_bwd_dq": calls}
+    batches = [{k: torch.from_numpy(v).to("cuda", torch.long)
+                for k, v in next(pipe)[1].items()} for _ in range(TRAIN_STEPS)]
+    ce_before = eval_ce(torch, cfg, params, batches, loss_chunk) \
+        if same_batches else None
     steps = []
     total = {name: 0 for name in want}
     torch.cuda.reset_peak_memory_stats()
-    for i in range(TRAIN_STEPS):
-        _, batch = next(pipe)
-        batch = {k: torch.from_numpy(v).to("cuda", torch.long)
-                 for k, v in batch.items()}
+    for i, batch in enumerate(batches):
         counters = reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1861,8 +1966,10 @@ def lm_train(torch):
         ms = (time.perf_counter() - t0) * 1e3
         launches = {name: c.launches for name, c in counters.items()}
         rec = {"step": i, "ms": ms, "loss": float(m["loss"]),
+               "ce": float(m["ce"]),
                "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
-               "gate_frac": float(m["gate_frac"]), "launches": launches,
+               "gate_frac": float(m["gate_frac"]),
+               "moe_dropped": float(m["moe_dropped"]), "launches": launches,
                "params_finite": all(bool(torch.isfinite(x).all())
                                     for x in param_leaves(params))}
         steps.append(rec)
@@ -1870,20 +1977,30 @@ def lm_train(torch):
             total[name] += n
         if launches != want or not rec["params_finite"] \
                 or not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
-            raise AssertionError(f"LM training step {i}: {rec}; launches want "
+            raise AssertionError(f"{tag} step {i}: {rec}; launches want "
                                  f"{want}")
     peak = torch.cuda.max_memory_allocated()
-    if not steps[-1]["loss"] < steps[0]["loss"]:
-        raise AssertionError(f"LM training loss did not fall: "
-                             f"{[r['loss'] for r in steps]}")
+    learned = {"last_loss_below_first": steps[-1]["loss"] < steps[0]["loss"]}
+    if same_batches:
+        ce_after = eval_ce(torch, cfg, params, batches, loss_chunk)
+        learned.update(ce_before=ce_before, ce_after=ce_after,
+                       mean_ce_before=sum(ce_before) / len(ce_before),
+                       mean_ce_after=sum(ce_after) / len(ce_after))
+        fell = learned["mean_ce_after"] < learned["mean_ce_before"]
+    else:
+        fell = learned["last_loss_below_first"]
+    if not fell:
+        raise AssertionError(f"{tag}: loss did not fall: {learned}; "
+                             f"losses "
+                             f"{[r['loss'] for r in steps]}; ce "
+                             f"{[r['ce'] for r in steps]}; moe_dropped "
+                             f"{[r['moe_dropped'] for r in steps]}; step ms "
+                             f"{[r['ms'] for r in steps]}")
     timed = sorted(r["ms"] for r in steps[1:])
     ms = timed[len(timed) // 2]
     tokens = TRAIN_B * TRAIN_S
-    n_mat = sum(x.numel() for x in leaves(params["layers"])) \
-        + params["lm_head"].numel()
-    score = 2 * cfg.head_dim * causal_pairs(TRAIN_S, cfg.swa_window) \
-        * TRAIN_B * cfg.n_heads
-    model_flops = 6 * n_mat * tokens + 6 * score * L
+    n_mat = active_matmul_params(cfg, params)
+    model_flops = train_flops(cfg, params, TRAIN_B, TRAIN_S)
     _, batch = next(pipe)
     batch = {k: torch.from_numpy(v).to("cuda", torch.long) for k, v in batch.items()}
     holder = {"state": (params, opt_state, sparse_state)}
@@ -1904,22 +2021,25 @@ def lm_train(torch):
     torch.cuda.synchronize()
     split = {"loss_and_grads_ms": (t1 - t0) * 1e3,
              "adamw_ms": (time.perf_counter() - t1) * 1e3}
-    del grads, p, o, holder
-    rec = {"arch": TRAIN_ARCH, "n_layers": L, "d_model": cfg.d_model,
-           "dtype": cfg.dtype, "remat": cfg.remat, "batch": TRAIN_B,
-           "seq": TRAIN_S, "steps": TRAIN_STEPS, "init_s": init_s,
+    del grads, p, o, holder, params, opt_state, sparse_state
+    rec = {"arch": cfg.name, "family": cfg.family, "n_layers": L,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
+           "loss_chunk": loss_chunk, "init_s": init_s,
            "param_count": cfg.param_count(), "matmul_params": n_mat,
            "state_bytes": state_bytes, "ms_per_step": ms,
            "tokens_per_s": tokens / ms * 1e3, "model_flops": model_flops,
            "mfu": model_flops / (ms * 1e-3) / PEAK_BF16,
            "bound_ms_at_peak": model_flops / PEAK_BF16 * 1e3,
            "max_memory_allocated": peak, "losses": [r["loss"] for r in steps],
+           "ce": [r["ce"] for r in steps],
            "gate_frac": [r["gate_frac"] for r in steps],
+           "moe_dropped": [r["moe_dropped"] for r in steps],
            "grad_norms": [r["grad_norm"] for r in steps],
            "step_ms": [r["ms"] for r in steps],
            "launches_per_step": want, "launches": total, **split,
-           "profiled_step": profiled}
-    log(f"lm_training {json.dumps(rec)}")
+           "learned": learned, "profiled_step": profiled}
+    log(f"{tag} {json.dumps(rec)}")
     return rec, total
 
 
@@ -2868,6 +2988,328 @@ def ssm_prefill_parity(torch, cfg, params, n_layers, tag):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 21-22: MoE, ssm and hybrid training
+# ---------------------------------------------------------------------------
+
+class RoutePin:
+    """Pins the MoE routing of one run to another's. Without ``replay`` it
+    keeps the expert choice (``moe._top_k_ids``) of every MoE call in call
+    order in ``ids``; with ``replay`` (another pin's ``ids``) each call takes
+    the recorded choice instead of its own, and ``flipped`` counts the
+    tokens whose own top-k set differed (under remat the forward's calls
+    come first, then the recompute's, in the same order on both routes)."""
+
+    def __init__(self, torch, replay=None):
+        self.torch, self.replay, self.ids, self.flipped = torch, replay, [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, moe._top_k_ids
+        self.i = 0
+
+        def top_k(x, k):
+            ids = self.real(x, k)
+            if self.replay is None:
+                self.ids.append(ids)
+                return ids
+            want = self.replay[self.i]
+            self.i += 1
+            sort = self.torch.sort
+            self.flipped += int((sort(ids, -1).values != sort(want, -1).values)
+                                .any(-1).sum())
+            return want
+        moe._top_k_ids = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k_ids = self.real
+        return False
+
+
+def route_grads(torch, cfg, params, batch, hp, pin=False):
+    """``loss_and_grads`` through ``attn="flash"`` and ``attn="plain"`` from
+    the same params and batch, under phase 11's rule: the record, and
+    whether the loss lies within 1 % and every gradient leaf within
+    TRAIN_GRAD_REL_L2. With ``pin`` the plain run takes the flash run's
+    expert choices (``RoutePin``), so that the routes differ by rounding
+    only: at a capacity that drops, one near-tie flip re-ranks its
+    experts' queues and moves which later tokens are dropped."""
+    from repro_torch.launch.train import make_train_step
+    out, chosen, flipped = {}, None, None
+    for attn in ("flash", "plain"):
+        pinned = RoutePin(torch, chosen)
+        with (pinned if pin else contextlib.nullcontext()):
+            loss, _, grads = make_train_step(cfg, hp, attn=attn).loss_and_grads(
+                params, batch)
+        chosen, flipped = pinned.ids, pinned.flipped
+        out[attn] = (float(loss), {"/".join(k): v for k, v in flat(grads).items()
+                                   if v is not None})
+        del grads
+    (lf, gf), (lp, gp) = out["flash"], out["plain"]
+    grad_err = {k: rel_l2(gf[k], gp[k]) for k in gp}
+    rec = {"loss_flash": lf, "loss_plain": lp,
+           "loss_rel_err": abs(lf - lp) / abs(lp), "grad_rel_l2": grad_err,
+           "grad_rel_l2_max": max(grad_err.values()),
+           "grad_rel_l2_bound": TRAIN_GRAD_REL_L2}
+    if pin:
+        rec["routing_pinned"] = True
+        rec["plain_route_own_choices_differing"] = flipped
+    ok = rec["loss_rel_err"] <= 0.01 and rec["grad_rel_l2_max"] <= TRAIN_GRAD_REL_L2
+    return rec, ok
+
+
+def moe_loop_grads(torch, cfg, params):
+    """Phase 21a's per-token check: MOE_LOOP_TOKENS tokens through layer 0's
+    MoE at a capacity that drops nothing, and the vector-Jacobian products
+    of its output (against a random cotangent) with respect to the input,
+    the router and w1, w2, w3, against a loop through each token's top-k
+    experts in f32 on the same bf16 values (the module's expert choice,
+    the gates renormalised over them). Each row of the input's gradient,
+    each expert's slice of w1, w2, w3 and each router column is held to
+    MOE_LOOP_GRAD_REL_L2."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.models import moe as MOE, transformer as T
+    loop_cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.moe_experts))
+    lp = T.layer_view(params["layers"], 0)["moe"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    n, d, k = MOE_LOOP_TOKENS, cfg.d_model, cfg.moe_top_k
+    x = torch.randn((1, n, d), generator=g, device="cuda").to(getattr(torch, cfg.dtype))
+    cot = torch.randn((1, n, d), generator=g, device="cuda")
+    names = ("w1", "w2", "w3")
+    leaves_ = {"x": x, "router": lp["router"], **{m: lp[m]["w"] for m in names}}
+    mod = {m: v.detach().requires_grad_() for m, v in leaves_.items()}
+    p = {"router": mod["router"], **{m: {"w": mod[m]} for m in names}}
+    out, aux = MOE.moe_apply(p, mod["x"], loop_cfg)
+    got = dict(zip(mod, torch.autograd.grad((out.float() * cot).sum(),
+                                            list(mod.values()))))
+    dropped = float(aux["moe_dropped"])
+    del out
+    with torch.no_grad():
+        ids = MOE._top_k_ids(torch.softmax((x[0] @ lp["router"]).float(), -1), k)
+    ref = {m: v.detach().float().requires_grad_() for m, v in leaves_.items()}
+    probs = torch.softmax(ref["x"][0] @ ref["router"], -1)
+    gate = torch.gather(probs, -1, ids)
+    gate = gate / gate.sum(-1, keepdim=True)
+    rows = []
+    for t in range(n):
+        xt = ref["x"][0, t:t + 1]
+        acc = 0
+        for j in range(k):
+            e = int(ids[t, j])
+            h = F.silu(xt @ ref["w1"][e]) * (xt @ ref["w3"][e])
+            acc = acc + gate[t, j] * (h @ ref["w2"][e])
+        rows.append(acc)
+    want = dict(zip(ref, torch.autograd.grad(
+        (torch.cat(rows)[None] * cot).sum(), list(ref.values()))))
+    del ref, rows, probs, gate
+
+    def worst(a, b, dim):
+        """The largest relative L2 over slices of ``dim`` that the oracle's
+        gradient reaches."""
+        a, b = a.float().movedim(dim, 0), b.float().movedim(dim, 0)
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        nb = b.norm(dim=1)
+        live = nb > 0
+        return float(((a - b).norm(dim=1)[live] / nb[live]).max()), int(live.sum())
+    errs = {"x": worst(got["x"][0], want["x"][0], 0),
+            "router": worst(got["router"], want["router"], 1),
+            **{m: worst(got[m], want[m], 0) for m in names}}
+    rec = {"tokens": n, "moe_dropped": dropped,
+           "capacity": MOE.capacity(n, loop_cfg),
+           "worst_rel_l2": {m: e for m, (e, _) in errs.items()},
+           "slices": {m: c for m, (_, c) in errs.items()},
+           "bound": MOE_LOOP_GRAD_REL_L2}
+    ok = dropped == 0.0 and all(e <= MOE_LOOP_GRAD_REL_L2 for e, _ in errs.values())
+    return rec, ok
+
+
+def moe_train_parity(torch):
+    """Phase 21a (module docstring)."""
+    import dataclasses
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.launch.train import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_PARITY_LAYERS)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_PARITY_S),
+                              generator=g, device="cuda")
+             for k in ("tokens", "labels")}
+    params, _, _ = init_train_state(
+        torch.Generator(device="cuda").manual_seed(1), cfg, hp, "cuda")
+    rec = {"layers": cfg.n_layers, "batch": TRAIN_B, "seq": TRAIN_PARITY_S}
+    # the same loss_and_grads twice, deterministic algorithms off: the
+    # dispatch and the combine backward by gathers, bit for bit
+    step = make_train_step(cfg, hp)
+    runs = [step.loss_and_grads(params, batch) for _ in range(2)]
+    g1, g2 = (flat(r[2]) for r in runs)
+    differ = [k for k, v in g1.items() if v is not None
+              and not torch.equal(v, g2[k])]
+    rec["repeat"] = {"loss": [float(r[0]) for r in runs],
+                     "moe_dropped": float(runs[0][1][1]["moe_dropped"]),
+                     "leaves": sum(v is not None for v in g1.values()),
+                     "leaves_differing": ["/".join(k) for k in differ]}
+    ok = not differ and rec["repeat"]["loss"][0] == rec["repeat"]["loss"][1]
+    del runs, g1, g2
+    torch.use_deterministic_algorithms(True)
+    try:
+        rec["routes"], fine = route_grads(torch, cfg, params, batch, hp,
+                                          pin=True)
+        # for the record: each route choosing its own experts
+        rec["routes_unpinned"], _ = route_grads(torch, cfg, params, batch, hp)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ok &= fine
+    rec["loop"], fine = moe_loop_grads(torch, cfg, params)
+    ok &= fine
+    del params
+
+    # masked experts with a DSST event after the step
+    # d_ff 1408 is 44 blocks of 32: groups of 4 blocks
+    sp = SparsityConfig(n=2, m=4, block=32, targets=("expert",), mode="masked")
+    cfg_s = cfg.with_sparsity(sp)
+    hp_s = dataclasses.replace(hp, dsst_every=1)
+    p_s, o_s, s_s = init_train_state(torch.Generator(device="cuda").manual_seed(3),
+                                     cfg_s, hp_s, "cuda")
+    before = {m: p_s["layers"]["moe"][m]["umask"].clone() for m in ("w1", "w2", "w3")}
+    p_s, _, _, m_s = make_train_step(cfg_s, hp_s)(p_s, o_s, s_s, batch)
+    masks = {}
+    for m, um in before.items():
+        node = p_s["layers"]["moe"][m]
+        new, w = node["umask"], node["w"]
+        groups = new.reshape(new.shape[0], -1, sp.m).sum(-1)
+        off = ~new.repeat_interleave(w.shape[-2] // new.shape[-2], dim=-2)
+        masks[m] = {"umask_shape": list(new.shape), "w_shape": list(w.shape),
+                    "n_per_group_exact": bool((groups == sp.n).all()),
+                    "units_moved": int((new & ~um).sum()),
+                    "max_abs_w_off_mask": float(
+                        torch.where(off[:, None], w, 0).abs().max())}
+    rec["masked"] = {"masks": masks,
+                     "dsst_mask_change": float(m_s["dsst_mask_change"]),
+                     "loss": float(m_s["loss"])}
+    del p_s, o_s, s_s
+    ok &= (all(v["n_per_group_exact"] and v["units_moved"] > 0
+               and v["max_abs_w_off_mask"] == 0.0 for v in masks.values())
+           and rec["masked"]["dsst_mask_change"] > 0
+           and math.isfinite(rec["masked"]["loss"]))
+    log(f"moe_train_parity {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"MoE training parity: {rec}")
+    return rec
+
+
+def ssd_train_record(torch, cfg, training):
+    """One layer's chunked SSD (``mamba2._ssd``, f32) at the training shape
+    (TRAIN_B x TRAIN_S), on random inputs of the layer's shapes: its
+    forward and its forward + backward time (CUDA events over back-to-back
+    calls: each call moves GBs, so a warm L2 changes nothing, and a few
+    dozen launches leave no gaps worth counting), and the share of the
+    profiled training step's busy time that ``n_layers`` layers take (under
+    remat each layer runs its forward twice and its backward once)."""
+    from repro_torch.models import mamba2 as M
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b, s, q = TRAIN_B, TRAIN_S, cfg.ssm_chunk
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xs = [torch.randn((b, s, h, p), generator=g, device="cuda"),
+          -0.1 * torch.rand((b, s, h), generator=g, device="cuda"),
+          torch.randn((b, s, n), generator=g, device="cuda"),
+          torch.randn((b, s, n), generator=g, device="cuda")]
+    xs = [x.requires_grad_() for x in xs]
+    gy = torch.randn((b, s, h, p), generator=g, device="cuda")
+
+    def fwd():
+        with torch.no_grad():
+            M._ssd(*xs, q)
+
+    def fwd_bwd():
+        y, _ = M._ssd(*xs, q)
+        torch.autograd.grad(y, xs, gy)
+    fwd_ms, fb_ms = wall_ms(torch, fwd), wall_ms(torch, fwd_bwd)
+    busy = training["profiled_step"]["device_busy_ms"]
+    rec = {"layer_fwd_ms": fwd_ms, "layer_fwd_bwd_ms": fb_ms,
+           "layers": cfg.n_layers,
+           "share_of_step_busy": cfg.n_layers * (fwd_ms + fb_ms) / busy}
+    log(f"ssd_training {json.dumps(rec)}")
+    return rec
+
+
+def ssm_train_parity(torch):
+    """Phase 22a (module docstring): the card's ``loss_and_grads`` on
+    Mamba2 cut to SSM_PARITY_LAYERS layers in f32 against the same call on
+    the host from the same params and batch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.optim.optimizer import tree_map
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_PARITY_LAYERS,
+                              dtype="float32")
+    hp = TrainHParams()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_PARITY_S),
+                              generator=g, device="cuda")
+             for k in ("tokens", "labels")}
+    params, _, _ = init_train_state(
+        torch.Generator(device="cuda").manual_seed(2), cfg, hp, "cuda")
+    step = make_train_step(cfg, hp)
+    t0 = time.perf_counter()
+    loss_c, _, grads_c = step.loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, _, grads_h = step.loss_and_grads(tree_map(lambda x: x.cpu(), params),
+                                             {k: v.cpu() for k, v in batch.items()})
+    host_s = time.perf_counter() - t0
+    gc_, gh = flat(grads_c), flat(grads_h)
+    err = {"/".join(k): rel_l2(v.cpu(), gh[k]) for k, v in gc_.items()
+           if v is not None}
+    rec = {"layers": cfg.n_layers, "dtype": cfg.dtype, "batch": TRAIN_B,
+           "seq": TRAIN_PARITY_S, "loss_card": float(loss_c),
+           "loss_host": float(loss_h),
+           "loss_rel_err": abs(float(loss_c) - float(loss_h)) / abs(float(loss_h)),
+           "grad_rel_l2": err, "grad_rel_l2_max": max(err.values()),
+           "bound": SSM_GRAD_REL_L2, "card_s": card_s, "host_s": host_s,
+           "host_threads": torch.get_num_threads()}
+    log(f"ssm_train_parity {json.dumps(rec)}")
+    if not (rec["loss_rel_err"] <= SSM_GRAD_REL_L2
+            and rec["grad_rel_l2_max"] <= SSM_GRAD_REL_L2):
+        raise AssertionError(f"Mamba2 training on the card against the host: {rec}")
+    return rec
+
+
+def hybrid_train_parity(torch):
+    """Phase 22b (module docstring): Zamba2 cut to HYBRID_PARITY_LAYERS
+    layers, flash against plain under phase 11's rule."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainHParams, init_train_state
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              n_layers=HYBRID_PARITY_LAYERS)
+    hp = TrainHParams()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_PARITY_S),
+                              generator=g, device="cuda")
+             for k in ("tokens", "labels")}
+    params, _, _ = init_train_state(
+        torch.Generator(device="cuda").manual_seed(4), cfg, hp, "cuda")
+    counters = reset_counters()
+    rec, ok = route_grads(torch, cfg, params, batch, hp)
+    calls = attn_calls(cfg)
+    rec.update(layers=cfg.n_layers, shared_calls=calls, batch=TRAIN_B,
+               seq=TRAIN_PARITY_S,
+               launches={n: c.launches for n, c in counters.items()})
+    # the flash route's one backward: 2 forwards (remat) and one backward a call
+    ok &= rec["launches"]["flash_fwd"] == 2 * calls and \
+        rec["launches"]["flash_bwd_dkv"] == rec["launches"]["flash_bwd_dq"] == calls
+    log(f"hybrid_train_parity {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"Zamba2 training, flash vs plain: {rec}")
+    return rec
+
+
 def flat(tree, prefix=()):
     if isinstance(tree, dict):
         out = {}
@@ -2875,6 +3317,20 @@ def flat(tree, prefix=()):
             out.update(flat(v, prefix + (k,)))
         return out
     return {prefix: tree}
+
+
+def free_before(torch, what):
+    """Frees what the phases before left behind, and raises unless at most
+    MOE_HELD_BYTES stay allocated before ``what`` is drawn; returns the
+    bytes still allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > MOE_HELD_BYTES:
+        raise AssertionError(f"{held} bytes still allocated before drawing "
+                             f"{what}")
+    return held
 
 
 def main() -> int:
@@ -2998,7 +3454,11 @@ def main() -> int:
         # Zamba2's shared block at its prefill: 32 query and 32 KV heads of
         # 64 (group 1), its window of 4096 past S
         ("zamba2_prefill", bf16, LM_BATCH, LM_PROMPT, 32, 32, 64,
-         hybrid_window))]
+         hybrid_window),
+        # the training shapes of phases 21 and 22: Moonlight (group 1, dh
+        # 128) and Zamba2's shared block (group 1, dh 64, window 4096 = S)
+        ("moonlight_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 128, None),
+        ("zamba2_train", bf16, TRAIN_B, TRAIN_S, 32, 32, 64, hybrid_window))]
     bwd_recs = [flash_bwd_case(torch, *case) for case in (
         ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
         ("f32", torch.float32, 2, 256, 8, 2, 64, None),
@@ -3006,7 +3466,9 @@ def main() -> int:
         ("ragged1000", bf16, 2, 1000, 12, 2, 128, None),
         ("mqa", bf16, 2, 2048, 12, 1, 128, None),
         ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
-        ("dh64_ragged", bf16, 2, 1000, 16, 4, 64, None))]
+        ("dh64_ragged", bf16, 2, 1000, 16, 4, 64, None),
+        ("moonlight_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 128, None),
+        ("zamba2_train", bf16, TRAIN_B, TRAIN_S, 32, 32, 64, hybrid_window))]
     record["parity"] = {"nm_spmm": nm_recs, "nm_spmm_fused": fused_recs,
                         "lif": lif_recs,
                         "wu_outer": wu_recs, "wu_outer_slots": slot_recs,
@@ -3098,12 +3560,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # 15. MoE serving at full size, once phases 8-14 have freed their models
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    if held > MOE_HELD_BYTES:
-        raise AssertionError(f"{held} bytes still allocated before drawing "
-                             f"{MOE_ARCH}")
+    held = free_before(torch, MOE_ARCH)
     moe_cfg, moe_params, record["moe_init_s"] = lm_model(torch, MOE_ARCH)
     record["moe_held_bytes_before_init"] = held
     record["moe_serving"], moe_launches = lm_serve(torch, moe_cfg, moe_params,
@@ -3115,6 +3572,19 @@ def main() -> int:
     record["moe_batcher"], batcher_launches = lm_batcher(
         torch, moe_cfg, moe_params, "moe_batcher")
     del moe_params
+
+    # 21. MoE training at full width (4 layers), once Moonlight's serving
+    # weights are freed; then its parity checks (2 layers)
+    import dataclasses
+    t_train = time.perf_counter()
+    free_before(torch, MOE_ARCH)
+    record["moe_training"], moe_train_launches = lm_train(
+        torch, dataclasses.replace(moe_cfg, n_layers=MOE_TRAIN_LAYERS),
+        tag="moe_training", loss_chunk=MOE_LOSS_CHUNK, same_batches=True)
+    free_before(torch, MOE_ARCH)
+    record["moe_train_parity"] = moe_train_parity(torch)
+    record["moe_training_phases_s"] = time.perf_counter() - t_train
+    log(f"moe_training_phases_s {record['moe_training_phases_s']}")
 
     # 17-18. ssm and hybrid serving at full size, each with its parity
     # checks, once Moonlight is freed; one model on the card at a time
@@ -3138,7 +3608,6 @@ def main() -> int:
         torch, hy_cfg, hy_params, tag="hybrid_serving")
     record["hybrid_prefill_parity"] = ssm_prefill_parity(
         torch, hy_cfg, hy_params, HYBRID_PARITY_LAYERS, "hybrid_prefill_parity")
-    import dataclasses
     record["hybrid_parity"] = lm_parity(
         torch, dataclasses.replace(hy_cfg, n_layers=HYBRID_PARITY_LAYERS),
         dict(hy_params, layers=first_layers(hy_params["layers"],
@@ -3147,6 +3616,28 @@ def main() -> int:
     del hy_params
     record["ssm_hybrid_phases_s"] = time.perf_counter() - t_ssm
     log(f"ssm_hybrid_phases_s {record['ssm_hybrid_phases_s']}")
+
+    # 22. ssm and hybrid training at full size, one model at a time; then
+    # their parity checks
+    t_train = time.perf_counter()
+    free_before(torch, SSM_ARCH)
+    record["ssm_training"], ssm_train_launches = lm_train(
+        torch, ssm_cfg, tag="ssm_training", same_batches=True)
+    record["ssm_training"]["ssd"] = ssd_train_record(torch, ssm_cfg,
+                                                     record["ssm_training"])
+    free_before(torch, HYBRID_ARCH)
+    record["hybrid_training"], hybrid_train_launches = lm_train(
+        torch, hy_cfg, tag="hybrid_training", same_batches=True)
+    flash_ms = record["hybrid_training"]["profiled_step"][
+        "device_ms_by_class"].get("flash", 0.0)
+    record["hybrid_training"]["shared_block_flash_ms"] = flash_ms
+    log(f"hybrid_training shared_block_flash_ms {flash_ms}")
+    free_before(torch, "the ssm parity model")
+    record["ssm_train_parity"] = ssm_train_parity(torch)
+    free_before(torch, "the hybrid parity model")
+    record["hybrid_train_parity"] = hybrid_train_parity(torch)
+    record["ssm_hybrid_training_phases_s"] = time.perf_counter() - t_train
+    log(f"ssm_hybrid_training_phases_s {record['ssm_hybrid_training_phases_s']}")
 
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
@@ -3160,7 +3651,10 @@ def main() -> int:
                       "moe_batcher": batcher_launches[name],
                       "ssm_serving": ssm_launches[name],
                       "ssm_batcher": ssm_batcher_launches[name],
-                      "hybrid_serving": hybrid_launches[name]}
+                      "hybrid_serving": hybrid_launches[name],
+                      "moe_training": moe_train_launches[name],
+                      "ssm_training": ssm_train_launches[name],
+                      "hybrid_training": hybrid_train_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

@@ -1,8 +1,7 @@
 """Training step factory and the single-host loop (``repro.launch.train``).
 
-``make_train_step`` builds the step for any dense, vlm or audio config (the
-moe, ssm and hybrid families serve but do not train yet: ``make_train_step``
-and ``init_train_state`` raise for them):
+``make_train_step`` builds the step for any config of the pool (dense,
+moe, vlm, audio, ssm and hybrid):
 
 * ``mode="backprop"`` — cross entropy + AdamW;
 * ``mode="local"``    — OSSL: per-block predictive + contrastive losses
@@ -96,19 +95,6 @@ def _detach(tree):
     return {k: v.detach() for k, v in tree.items()}
 
 
-def _check_trains(cfg: ModelConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training is not ported yet: gradients through "
-            f"the dispatch, gated_scale_tree and lm_dsst_event over the "
-            f"expert leaves (ROADMAP Queue 1 item 11e)")
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} training is not ported yet: gradients "
-            f"through the chunked SSD and the shared block, with flash_bwd "
-            f"at dh 64 (ROADMAP Queue 1 item 11f)")
-
-
 def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",
                     loss_chunk: Optional[int] = None):
     """The step ``(params, opt_state, sparse_state, batch) -> (params,
@@ -118,7 +104,6 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",
     new ``w`` and ``umask`` leaves. Metrics are device tensors, except
     ``lr`` (a float). ``step.loss_and_grads(params, batch)`` gives the
     step's ``(loss, (ce, aux), grads)`` without the update."""
-    _check_trains(cfg)
     local = hp.mode == "local"
     if hp.mode not in ("backprop", "local"):
         raise ValueError(f"mode must be 'backprop' or 'local', got {hp.mode!r}")
@@ -200,7 +185,6 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig, hp: TrainHParams,
                      device="cuda"):
     """(params, AdamW state, SparseTrainState) on ``device``, the params
     drawn from ``gen`` (a CUDA generator draws them on the card)."""
-    _check_trains(cfg)
     params = T.init_params(gen, cfg, device=device,
                            local_heads=hp.mode == "local")
     return (params, adamw_init(params),

@@ -100,14 +100,20 @@ def _ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     cs = da.reshape(b, nc, q, h).transpose(2, 3).cumsum(-1)          # [B,NC,H,Q]
 
     # within a chunk: y_i = sum_{j <= i} (C_i·B_j) exp(cs_i - cs_j) xdt_j.
-    # One [B, NC, H, Q, Q] tensor, updated in place (671 MB at Mamba2-2.7B's
-    # prefill); the mask goes in before the exp, where exp(seg) above the
-    # diagonal could overflow
+    # The mask goes in before the exp, where exp(seg) above the diagonal
+    # could overflow (and its gradient, 0 · inf, would be NaN)
     tri = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
     seg = cs[..., :, None] - cs[..., None, :]
-    seg.masked_fill_(~tri, float("-inf")).exp_()
-    y = seg.mul_(c_c @ b_c.transpose(-1, -2)) @ x_c                  # [B,NC,H,Q,P]
-    del seg
+    cb = c_c @ b_c.transpose(-1, -2)
+    if torch.is_grad_enabled():
+        # out of place: exp saves its output for the backward
+        y = (seg.masked_fill(~tri, float("-inf")).exp() * cb) @ x_c
+    else:
+        # one [B, NC, H, Q, Q] tensor, updated in place (671 MB at
+        # Mamba2-2.7B's prefill); the same arithmetic as above
+        seg.masked_fill_(~tri, float("-inf")).exp_()
+        y = seg.mul_(cb) @ x_c                                        # [B,NC,H,Q,P]
+    del seg, cb
 
     # each chunk's end state from its own inputs, and its total decay
     decay_to_end = torch.exp(cs[..., -1:] - cs)                       # [B,NC,H,Q]

@@ -21,6 +21,14 @@ Ties: the router's top-k takes ``core.dsst._top_k_ids`` (descending, the
 lower expert first on a tie, as ``jax.lax.top_k``), and the rank within an
 expert a stable argsort, so the same choice is dropped at capacity.
 
+Gradients: the scatter into the buffer and the gather back out are each a
+gather through a slot map (``_SlotGather``) whose backward is a gather
+through the inverse map, a token's choices summed over a fixed axis. Kept
+slots are distinct, so no backward sums rows by atomics or depends on a
+global deterministic mode: two calls of a step give the same gradients bit
+for bit. ``moe_aux`` carries its gradient through ``probs.mean(0)`` (the
+integer load is constant), as in the reference; ``moe_dropped`` has none.
+
 Not here: the reference's multi-device dispatch (``_moe_apply_shardmap``,
 EP or TP inside experts); on one device the reference takes this path too.
 """
@@ -145,16 +153,57 @@ def _expert_ffn(p, ebuf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _expert_apply(p["w2"], h)                            # [E, C, D]
 
 
+class _SlotGather(torch.autograd.Function):
+    """``out[i] = x[fwd[i]]``, where ``fwd[i] == len(x)`` reads a zero row.
+    ``bwd`` is the inverse map (``x``'s row j was read by ``out`` row
+    ``bwd[j]`` alone, or by none where ``bwd[j] == len(out)``), so the
+    backward is the gather ``g_x[j] = g[bwd[j]]``. With ``group`` > 1, x's
+    row j was read ``group`` times, by rows ``bwd[j·group : (j+1)·group]``,
+    and its gradient sums them in that order."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd, group):
+        ctx.save_for_backward(bwd)
+        ctx.group = group
+        return _padded(x)[fwd]
+
+    @staticmethod
+    def backward(ctx, g):
+        (bwd,) = ctx.saved_tensors
+        gx = _padded(g)[bwd]
+        if ctx.group > 1:
+            gx = gx.view(-1, ctx.group, g.shape[-1]).sum(1)
+        return gx, None, None, None
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1, x.shape[-1]))])
+
+
+def _slot_maps(slot: torch.Tensor, n_slots: int, k: int):
+    """(token of each buffer slot, or N for an empty slot [E·C]; the
+    (token, choice) row of each slot, or N·K [E·C]). Each map is written
+    without a duplicate index: dropped choices land in rows of their own
+    past the E·C slots."""
+    nk = slot.shape[0]
+    ar = torch.arange(nk, device=slot.device)
+    dest = torch.where(slot < n_slots, slot, n_slots + ar)
+    row = torch.full((n_slots + nk,), nk, dtype=torch.int64,
+                     device=slot.device)
+    row[dest] = ar
+    row = row[:n_slots]
+    return torch.where(row < nk, row // k, nk // k), row
+
+
 def _combine(flat: torch.Tensor, eout: torch.Tensor, slot: torch.Tensor,
-             gate: torch.Tensor, c: int) -> torch.Tensor:
+             row: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """Each token's kept choices, weighted by their gates and summed; a
-    dropped choice reads the appended zero row (never the buffer's trash
-    row, whose contents depend on which duplicate write landed last)."""
+    dropped choice reads a zero row. ``row`` is the inverse of ``slot``
+    (``_slot_maps``), the gather that carries the gradient back."""
     n, d = flat.shape
-    e, k = eout.shape[0], gate.shape[1]
-    flat_out = torch.cat([eout.reshape(e * c, d), flat.new_zeros((1, d))])
-    routed = flat_out[slot].reshape(n, k, d)
-    return (routed * gate[..., None]).sum(1)
+    k = gate.shape[1]
+    routed = _SlotGather.apply(eout.reshape(-1, d), slot, row, 1)
+    return (routed.view(n, k, d) * gate[..., None]).sum(1)
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
@@ -169,8 +218,8 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
     c = capacity(n, cfg)
     flat = x.reshape(n, d)
     slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
-    buf = flat.new_zeros((e * c + 1, d))
-    # kept slots are distinct; every dropped choice writes the trash row E·C
-    buf[slot] = flat.repeat_interleave(k, dim=0)
-    eout = _expert_ffn(p, buf[:e * c].view(e, c, d), cfg)
-    return _combine(flat, eout, slot, gate, c).reshape(b, s, d), aux
+    token, row = _slot_maps(slot, e * c, k)
+    # the buffer gathers its tokens; a token's gradient gathers its k slots
+    buf = _SlotGather.apply(flat, token, slot, k)
+    eout = _expert_ffn(p, buf.view(e, c, d), cfg)
+    return _combine(flat, eout, slot, row, gate).reshape(b, s, d), aux

@@ -2,7 +2,9 @@
 pool: the attention families (dense, moe, vlm, audio), ``ssm`` (Mamba2)
 and ``hybrid`` (Zamba2: a Mamba2 trunk plus one shared attention and MLP
 block, applied after every ``hybrid_attn_every``-th layer). All of them
-serve; all but moe, ssm and hybrid train.
+serve and train. The hybrid's shared block is one set of params: under
+remat each checkpointed block that calls it recomputes it, and its
+gradient is the sum over its calls.
 
 * ``init_params``   — stacked per-layer params (``[L, ...]`` leaves, the
   reference's tree; ``shared`` for the hybrid), drawn from a

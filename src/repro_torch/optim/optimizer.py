@@ -39,6 +39,10 @@ def trainable(leaf: torch.Tensor) -> bool:
     return leaf.is_floating_point()
 
 
+# leaves above this many elements are updated a leading slice at a time
+ADAMW_SLAB = 1 << 26
+
+
 class AdamWState(NamedTuple):
     step: int          # host int
     m: Any
@@ -103,6 +107,18 @@ def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
 
     def upd(g, p, m, v, s):
         if not trainable(p):
+            return
+        if p.numel() > ADAMW_SLAB and p.dim() > 1:
+            # slabs of the leading axis of at most ADAMW_SLAB elements (a
+            # single row is split again): the update is elementwise, so the
+            # result is the same bit for bit, and its f32 temporaries stay
+            # a slab large (Mamba2-2.7B's stacked in_proj would take 6.9 GB
+            # each)
+            s = None if s is None else torch.broadcast_to(s, p.shape)
+            rows = ADAMW_SLAB // (p.numel() // p.shape[0])
+            for i in range(0, p.shape[0], max(rows, 1)):
+                ix = slice(i, i + rows) if rows > 1 else i
+                upd(g[ix], p[ix], m[ix], v[ix], None if s is None else s[ix])
             return
         g = g.float() * clip
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)

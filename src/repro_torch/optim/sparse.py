@@ -11,6 +11,13 @@
   ``core/dsst.prune_regrow``, which breaks top-k ties as ``jax.lax.top_k``.
 * ``SparseTrainState`` — gating statistics carried across steps.
 
+A masked expert leaf (``w [L, E, K, O]`` with one ``umask [L, KB, 1]`` a
+layer for all its experts, as ``models/moe`` draws and applies it) takes
+its mask across the expert axis, and its DSST unit scores sum over the
+experts too. The reference broadcasts the ``[L, K, 1]`` mask against
+``[L, E, K, O]`` and fails there (``ROADMAP.md`` Queue 3); its dense and
+stacked leaves are the port's.
+
 Everything stays on the device: no value is read back to decide anything.
 """
 from __future__ import annotations
@@ -56,10 +63,19 @@ def compute_gates(state: SparseTrainState, ia: torch.Tensor,
 # update-scale tree (gate × mask)
 # ---------------------------------------------------------------------------
 
+def _lift(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A layer's mask ``[*lead, KB, 1]`` against its weight: an expert leaf
+    ``[*lead, E, K, O]`` shares one pattern among its experts, so the mask
+    gains a unit axis for them."""
+    extra = w.dim() - m.dim()
+    return m.reshape(*m.shape[:-2], *(1,) * extra, *m.shape[-2:])
+
+
 def _expand_mask(node) -> torch.Tensor:
     m = node["umask"]                                            # [..., KB, 1]
     block = node["w"].shape[-2] // m.shape[-2]
-    return m.repeat_interleave(block, dim=-2).float()            # [..., K, 1]
+    return _lift(m.repeat_interleave(block, dim=-2).float(),
+                 node["w"])                                      # [..., K, 1]
 
 
 def gated_scale_tree(params, gate_vec: Optional[torch.Tensor],
@@ -100,12 +116,16 @@ def gated_scale_tree(params, gate_vec: Optional[torch.Tensor],
 # DSST over a parameter tree
 # ---------------------------------------------------------------------------
 
-def _unit_score_shared(x: torch.Tensor, kb: int) -> torch.Tensor:
+def _unit_score_shared(x: torch.Tensor, kb: int, experts: int = 0
+                       ) -> torch.Tensor:
     """|x| summarised per mask unit for shared-pattern masks: [.., K, O] ->
-    [.., KB, 1] (sum over block rows and all output columns)."""
+    [.., KB, 1] (sum over block rows and all output columns); with
+    ``experts`` axes before K (an expert leaf, one pattern for all its
+    experts), over those too."""
     *lead, k, o = x.shape
     xg = x.abs().reshape(*lead, kb, k // kb, o)
-    return xg.sum(dim=(-1, -2))[..., None]
+    dims = tuple(range(-3 - experts, -3)) + (-1, -2)
+    return xg.sum(dim=dims)[..., None]
 
 
 def lm_dsst_event(params, grads, sp: SparsityConfig
@@ -117,10 +137,10 @@ def lm_dsst_event(params, grads, sp: SparsityConfig
     flips = []
 
     def one(w, umask, gw):
-        kb = umask.shape[-2]
-        wsc = _unit_score_shared(w, kb)
-        gsc = _unit_score_shared(gw, kb)
-        if w.dim() > 2:   # stacked [L, ...]: one topology-stacked event
+        kb, experts = umask.shape[-2], w.dim() - umask.dim()
+        wsc = _unit_score_shared(w, kb, experts)
+        gsc = _unit_score_shared(gw, kb, experts)
+        if umask.dim() > 2:   # stacked [L, ...]: one topology-stacked event
             shape = (-1,) + tuple(umask.shape[-2:])
             nm2, st = prune_regrow_stacked(umask.reshape(shape),
                                            wsc.reshape(shape),
@@ -130,7 +150,7 @@ def lm_dsst_event(params, grads, sp: SparsityConfig
         else:
             new_umask, st = prune_regrow(umask, wsc, gsc, spec1, k_re)
             flips.append(st.mask_change.float())
-        surv = umask & new_umask
+        surv = _lift(umask & new_umask, w)
         block = w.shape[-2] // kb
         return w * surv.repeat_interleave(block, dim=-2).to(w.dtype), new_umask
 

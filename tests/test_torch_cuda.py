@@ -20,7 +20,8 @@ element within ``ref.bf16_out_tolerance`` / ``ref.bf16_grad_tolerance``
 (bf16) or ``1e-5`` / ``1e-4`` of the largest element (f32). A row of
 ``nm_spmm`` computed alone and in a batch must agree bit for bit. The MoE
 layer (no kernel of its own: ``torch.bmm`` over the dispatch buffer) on
-the card against the CPU in f32: slots equal, output within ``1e-5``.
+the card against the CPU in f32: slots equal, output within ``1e-5``; a
+reduced MoE training step's gradients equal bit for bit across two calls.
 """
 import numpy as np
 import pytest
@@ -478,6 +479,9 @@ def f32_grads_and_tolerances(q, k, v, dout, window, out=None, lse=None):
     (torch.bfloat16, 2, 256, 4, 4, 128, None),     # group 1, as Moonlight
     # Zamba2's shared block: 32 query and 32 KV heads of 64, window past S
     (torch.bfloat16, 2, 256, 32, 32, 64, 4096),
+    # the training shapes of Moonlight and of Zamba2's shared block
+    (torch.bfloat16, 2, 4096, 16, 16, 128, None),
+    (torch.bfloat16, 2, 4096, 32, 32, 64, 4096),
 ])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, b, s, h, kv, dh, window):
     q, k, v = (torch.tensor(a).to(cuda, dtype) for a in qkv(5, b, s, h, kv, dh))
@@ -514,17 +518,24 @@ def _op_grads(cuda, dtype, b, s, h, kv, dh, window, seed=14):
     (torch.bfloat16, 1, 520, 6, 2, 128, 130),
     (torch.bfloat16, 2, 333, 4, 2, 128, None),
     (torch.bfloat16, 1, 260, 4, 1, 160, 65),
+    # the training shapes of Moonlight (group 1, dh 128) and of Zamba2's
+    # shared block (group 1, dh 64, its window of 4096 = S)
+    (torch.bfloat16, 2, 4096, 16, 16, 128, None),
+    (torch.bfloat16, 2, 4096, 32, 32, 64, 4096),
 ])
 def test_flash_bwd_kernels_match_plain_on_card(cuda, dtype, b, s, h, kv, dh,
                                                window):
+    """The plain f32 gradients are computed on the card (the training
+    shapes' [B·H, S, S] products would take minutes on the host)."""
     q, k, v, dout, got = _op_grads(cuda, dtype, b, s, h, kv, dh, window)
     out, lse = fk.flash_fwd_cuda(q, k, v, window)
-    want = f32_grads_and_tolerances(q.cpu(), k.cpu(), v.cpu(), dout.cpu(),
-                                    window, out.cpu(), lse.cpu())
+    want = f32_grads_and_tolerances(q, k, v, dout, window, out, lse)
     for x, (r, tol) in zip(got, want):
         if dtype == torch.float32:   # sums in another order
             tol = 1e-4 * (1 + r.abs().max())
-        assert bool(((x.cpu().float() - r).abs() <= tol).all())
+        assert bool(((x.float() - r).abs() <= tol).all())
+    del want
+    torch.cuda.empty_cache()
 
 
 # The absolute bound at window 1: each row sees only its own key, so p = 1
@@ -611,6 +622,40 @@ def test_moe_ties_put_the_lower_expert_first_on_card(cuda):
                 ties += 1
                 assert row.index(lo) < row.index(hi)
     assert ties > 0
+
+
+@pytest.mark.cuda
+def test_moe_train_step_grads_repeat_bit_for_bit_on_card(cuda):
+    """A reduced Moonshot (bf16, heads of 64 so that the flash kernels run,
+    capacity factor 0.5 so that choices drop) through ``loss_and_grads``
+    twice, deterministic algorithms off: every gradient leaf equal bit for
+    bit. The dispatch and the combine backward by gathers, so no row sum
+    depends on the order of atomics."""
+    import dataclasses
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(_moe_cfg(moe_capacity_factor=0.5), d_head=64,
+                              dtype="bfloat16")
+    hp = train.TrainHParams()
+    params, _, _ = train.init_train_state(
+        torch.Generator(device=cuda).manual_seed(0), cfg, hp, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 256), generator=g, device=cuda)
+             for k in ("tokens", "labels")}
+    assert not torch.are_deterministic_algorithms_enabled()
+    step = train.make_train_step(cfg, hp)
+    before = fk.flash_bwd_dkv_cuda.launches
+    runs = [step.loss_and_grads(params, batch) for _ in range(2)]
+    assert fk.flash_bwd_dkv_cuda.launches == before + 2 * cfg.n_layers
+    (l1, a1, g1), (l2, a2, g2) = runs
+    assert torch.equal(l1, l2) and float(a1[1]["moe_dropped"]) > 0.0
+
+    def leaves(t):
+        return [x for v in t.values() for x in leaves(v)] \
+            if isinstance(t, dict) else [t]
+    pairs = [(x, y) for x, y in zip(leaves(g1), leaves(g2)) if x is not None]
+    assert len(pairs) > 10
+    for x, y in pairs:
+        assert torch.equal(x, y)
 
 
 # ------------------------------------------------------------ ssm and hybrid

@@ -255,19 +255,6 @@ def test_decode_matches_forward_within_port(swa):
         assert float((lg - logits[:, t]).abs().max()) < 1e-4, t
 
 
-@pytest.mark.parametrize("arch", ["mamba2_2p7b", "zamba2_1p2b"])
-def test_ssm_hybrid_do_not_train_yet(arch):
-    """The ssm and hybrid families serve (tests/test_torch_mamba2.py) but do
-    not train: the training entry points name the ROADMAP item that brings
-    it."""
-    cfg = C.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 11f"):
-        train.make_train_step(cfg, train.TrainHParams())
-    with pytest.raises(NotImplementedError, match="item 11f"):
-        train.init_train_state(torch.Generator().manual_seed(0), cfg,
-                               train.TrainHParams(), device="cpu")
-
-
 def test_init_params_tree_matches_reference_and_local_modes_raise():
     """The params tree, with and without the OSSL ``local_heads``, has the
     reference's paths and shapes (local modes no longer raise: LM training

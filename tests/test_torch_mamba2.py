@@ -9,6 +9,10 @@ bound, tests/test_models_smoke.py::test_mamba2_ssd_duality_long) and for
 the chunked prefill's state and conv window against a replay; ``2e-4``
 for prefill and decode against the reference (its own prefill
 tolerance). Greedy tokens must be equal; tree paths and shapes exact.
+Gradients (the mixer's, the shared block's) within ``1e-4`` of each
+tensor's largest element, the train step's bound
+(tests/test_torch_train.py); the in-place SSD (no autograd) and the
+out-of-place one equal bit for bit.
 
 The reference's ``prefill`` runs ``forward`` first, which asserts
 ``S % ssm_chunk == 0``, and then replays the prompt through
@@ -281,3 +285,143 @@ def test_cache_from_numpy_keeps_the_ssm_state_f32():
     assert {k: (v.dtype, v.shape) for k, v in own.items() if k != "pos"} == \
         {k: (v.dtype, v.shape) for k, v in got.items() if k != "pos"}
     assert got["pos"] == own["pos"] == 0
+
+
+# ---------------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------------
+
+def _close_rel(got, want, rtol):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=rtol,
+                               atol=rtol * max(1e-30, float(np.abs(want).max())))
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _leaves(v, prefix + (k,))]
+    return [(prefix, tree)]
+
+
+@pytest.mark.parametrize("s", [16, 24])
+def test_mamba2_forward_grads_match_reference(s):
+    """Two and three SSD chunks of 8: the gradients of ``sum(out · r)`` with
+    respect to the input and every float leaf of the mixer equal
+    ``jax.grad`` of the reference's ``mamba2_forward``."""
+    cfg, jlp, lp = _mixer("mamba2_2p7b")
+    rng = np.random.default_rng(s)
+    x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    r = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    jgx, jgp = jax.grad(lambda xx, p: (JM.mamba2_forward(p, xx, cfg) * r).sum(),
+                        argnums=(0, 1))(jnp.asarray(x), jlp)
+    paths = [k for k, v in _leaves(lp) if v.is_floating_point()]
+    tracked = {k: v.detach().requires_grad_() for k, v in _leaves(lp)
+               if k in paths}
+    tp = {k[0]: {k[1]: v} if len(k) > 1 else v for k, v in tracked.items()}
+    xx = _t(x).requires_grad_()
+    out = M.mamba2_forward(tp, xx, cfg)
+    grads = torch.autograd.grad((out * _t(r)).sum(), [xx, *tracked.values()])
+    _close_rel(grads[0], jgx, 1e-4)
+    jflat = dict(_leaves(jgp))
+    assert len(paths) == 8
+    for k, g in zip(paths, grads[1:]):
+        assert float(np.abs(np.asarray(jflat[k])).max()) > 0.0, k
+        _close_rel(g, jflat[k], 1e-4)
+
+
+def test_ssd_in_place_equals_out_of_place():
+    """Where autograd is off the SSD updates its decay tensor in place (the
+    serving prefill's peak); with autograd on it runs out of place. The two
+    forwards are equal bit for bit, and the backward is finite."""
+    rng = np.random.default_rng(11)
+    b, s, h, p, n, q = 2, 24, 3, 4, 5, 8
+    xdt, bm, cm = (_t(rng.standard_normal(shape).astype(np.float32))
+                   for shape in ((b, s, h, p), (b, s, n), (b, s, n)))
+    da = -_t(rng.random((b, s, h)).astype(np.float32)) * 4
+    with torch.no_grad():
+        y0, st0 = M._ssd(xdt, da, bm, cm, q)
+    leaves = [t.clone().requires_grad_() for t in (xdt, da, bm, cm)]
+    y1, st1 = M._ssd(*leaves, q)
+    assert torch.equal(y0, y1) and torch.equal(st0, st1)
+    grads = torch.autograd.grad(y1.sum() + st1.sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_padded_prefill_passes_gradients_only_to_real_positions():
+    """A ragged sequence is padded inside the SSD to whole chunks: the
+    gradients of the real positions' outputs with respect to the real
+    inputs equal those of a caller-padded sequence run as whole chunks
+    (the mixer is causal), and the padding gets none."""
+    cfg, _, lp = _mixer("mamba2_2p7b")
+    rng = np.random.default_rng(12)
+    s = 13
+    x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+    r = _t(rng.standard_normal((2, s, cfg.d_model)).astype(np.float32))
+    xr = _t(x).requires_grad_()
+    (g_ragged,) = torch.autograd.grad(
+        (M.mamba2_prefill(lp, xr, cfg)[0] * r).sum(), [xr])
+    xp = _t(np.pad(x, ((0, 0), (0, 16 - s), (0, 0)))).requires_grad_()
+    (g_whole,) = torch.autograd.grad(
+        (M.mamba2_forward(lp, xp, cfg)[:, :s] * r).sum(), [xp])
+    _close_rel(g_ragged, g_whole[:, :s].numpy(), 1e-5)
+    assert float(g_whole[:, s:].abs().max()) == 0.0
+
+
+def test_shared_block_grads_match_reference():
+    """Zamba2's shared block called twice in a row (one set of params, as
+    after layers 1 and 3 of the reduced config): the gradients of its
+    params and of the input are the reference's, summed over the calls."""
+    cfg, jp, tp = _model("zamba2_1p2b")
+    b, s = 2, 16
+    rng = np.random.default_rng(13)
+    h = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    r = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    jang = JT._angles_for(cfg, None, b, s)
+
+    def jloss(hh, shared):
+        from repro.models import layers as JL
+        for _ in range(2):
+            hh = JT._shared_apply(shared, hh, jang, cfg, JL.attn_full)
+        return (hh * r).sum()
+    jgh, jgs = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(h), jp["shared"])
+    from repro_torch.models import layers as L
+    shared = {k: v for k, v in _leaves(tp["shared"])}
+    tracked = {k: v.detach().requires_grad_() for k, v in shared.items()}
+    tree = {}
+    for k, v in tracked.items():
+        node = tree
+        for part in k[:-1]:
+            node = node.setdefault(part, {})
+        node[k[-1]] = v
+    hh = _t(h).requires_grad_()
+    ang = T._angles_for(cfg, None, b, s, "cpu")
+    out = hh
+    for _ in range(2):
+        out, _ = T._shared_apply(tree, out, ang, cfg, L.attn_full_flash)
+    grads = torch.autograd.grad((out * _t(r)).sum(), [hh, *tracked.values()])
+    _close_rel(grads[0], jgh, 1e-4)
+    jflat = dict(_leaves(jgs))
+    assert set(jflat) == set(tracked)
+    for k, g in zip(tracked, grads[1:]):
+        _close_rel(g, jflat[k], 1e-4)
+
+
+def test_ssd_grads_stay_finite_where_the_decay_overflows_above_the_diagonal():
+    """With a large step (``dt_bias`` 8: a decay of up to 16·8 a position)
+    ``exp(cs_i - cs_j)`` above the diagonal overflows in f32. The port masks
+    before the ``exp``, so its gradients stay finite; the reference takes
+    ``where(tri, exp(seg), 0)``, whose gradient there is ``0 · inf = NaN``
+    (a reference-side caveat, ROADMAP Queue 3). The forwards agree."""
+    cfg, jlp, _ = _mixer("mamba2_2p7b")
+    jlp = dict(jlp, dt_bias=jnp.full_like(jlp["dt_bias"], 8.0))
+    lp = convert.lm_params_from_numpy(_np_tree(jlp), cfg, "cpu")
+    x = np.random.default_rng(14).standard_normal((1, 16, cfg.d_model)).astype(np.float32)
+    jout = JM.mamba2_forward(jlp, jnp.asarray(x), cfg)
+    jg = jax.grad(lambda p: JM.mamba2_forward(p, jnp.asarray(x), cfg).sum())(jlp)
+    a_log = lp["a_log"].requires_grad_()
+    xx = _t(x).requires_grad_()
+    out = M.mamba2_forward(lp, xx, cfg)
+    _close(out, jout, 1e-5)
+    grads = torch.autograd.grad(out.sum(), [xx, a_log])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert not bool(np.isfinite(np.asarray(jg["a_log"])).all())

@@ -174,6 +174,36 @@ def test_adamw_update_matches_reference(scaled, step):
                 _close(fa[k], fb[k])
 
 
+@pytest.mark.parametrize("slab", [4, 400])
+@pytest.mark.parametrize("gated", [False, True])
+def test_adamw_slab_update_equals_whole_leaf_bitwise(monkeypatch, gated, slab):
+    """A leaf above ``ADAMW_SLAB`` elements is updated in slabs of its
+    leading axis (a single row split again: slab 4; two rows at a time:
+    400): params and moments equal the whole-leaf update bit for bit, with
+    a per-layer gate and an expert leaf's shared mask."""
+    rng = np.random.default_rng(9)
+    shapes = {"w": (3, 4, 8, 5), "b": (6, 7), "s": (5,)}
+    p = {k: _t(rng.standard_normal(v).astype(np.float32)) for k, v in shapes.items()}
+    g = {k: _t(rng.standard_normal(v).astype(np.float32)) for k, v in shapes.items()}
+    scale = None
+    if gated:
+        mask = _t((rng.random((3, 1, 8, 1)) < 0.5).astype(np.float32))
+        scale = {"w": mask * _t(np.array([1.0, 0.0, 1.0], np.float32)).reshape(3, 1, 1, 1),
+                 "b": torch.ones(()), "s": torch.ones(())}
+    out = []
+    for size in (opt.ADAMW_SLAB, slab):
+        monkeypatch.setattr(opt, "ADAMW_SLAB", size)
+        pp = {k: v.clone() for k, v in p.items()}
+        st = opt.adamw_init(pp)
+        for _ in range(2):
+            pp, st, _ = opt.adamw_update(g, pp, st, opt.AdamWConfig(lr=1e-2), scale)
+        out.append((pp, st))
+    (pa, sa), (pb, sb) = out
+    for a, b in ((pa, pb), (sa.m, sb.m), (sa.v, sb.v)):
+        for k in shapes:
+            assert torch.equal(a[k], b[k]), k
+
+
 @pytest.mark.parametrize("cfg_kw", [{}, {"enabled": False}, {"theta_ia": 0.5}])
 def test_compute_gates_matches_reference(cfg_kw):
     rng = np.random.default_rng(4)
@@ -305,6 +335,7 @@ def test_lm_loss_and_chunked_match_reference():
 # ---------------------------------------------------------------------------
 
 MASKED = dict(n=2, m=4, block=8, targets=("mlp",), mode="masked")
+MASKED_EXPERTS = dict(MASKED, targets=("expert",))
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)
 STEP_CASES = {
     "backprop": ("stablelm_12b", {}, None),
@@ -312,6 +343,19 @@ STEP_CASES = {
     "masked_dsst": ("stablelm_12b", {"dsst_every": 1}, MASKED),
     "local": ("qwen2_vl_2b", {"mode": "local"}, None),
     "microbatch": ("qwen2_vl_2b", {"microbatch": 2, "gating": True}, None),
+    # moe: Mixtral's window of 8 inside S 16, top 2 of 4 experts
+    "mixtral_backprop": ("mixtral_8x7b", {}, None),
+    "moonshot_gating": ("moonshot_v1_16b_a3b", {"gating": True}, None),
+    "moonshot_masked_experts_dsst": ("moonshot_v1_16b_a3b",
+                                     {"dsst_every": 1, "gating": True},
+                                     MASKED_EXPERTS),
+    "moonshot_local": ("moonshot_v1_16b_a3b", {"mode": "local"}, None),
+    # ssm and hybrid: S 16 is two SSD chunks of 8; Zamba2's 4 layers call
+    # the shared block twice
+    "mamba2_backprop": ("mamba2_2p7b", {}, None),
+    "mamba2_masked_dsst": ("mamba2_2p7b", {"dsst_every": 1}, MASKED),
+    "zamba2_gating": ("zamba2_1p2b", {"gating": True}, None),
+    "zamba2_microbatch": ("zamba2_1p2b", {"microbatch": 2}, None),
 }
 
 
@@ -332,17 +376,24 @@ def _hps(hp):
                                gating=gating.GatingConfig() if gated else None, **kw))
 
 
-def _jax_loss_and_grads(cfg, hp, params, batch):
-    """The reference step's loss and gradients (``make_train_step``'s
-    ``loss_fn``, with its microbatch mean)."""
+def _jax_loss_fn(cfg, hp):
+    """The reference step's ``loss_fn``: (loss, (ce, aux))."""
     def loss_fn(p, bt):
         logits, aux = JT.forward(p, cfg, tokens=bt["tokens"],
                                  local_mode=hp.mode == "local")
-        loss = JT.lm_loss(logits, bt["labels"]) + hp.moe_aux_weight * aux["moe_aux"]
+        ce = JT.lm_loss(logits, bt["labels"])
+        loss = ce + hp.moe_aux_weight * aux["moe_aux"]
         if hp.mode == "local":
             loss = loss + aux["local_loss"]
-        return loss
-    vg = jax.value_and_grad(loss_fn, allow_int=True)
+        return loss, (ce, aux)
+    return loss_fn
+
+
+def _jax_loss_and_grads(cfg, hp, params, batch):
+    """The reference step's loss and gradients (``make_train_step``'s
+    ``loss_fn``, with its microbatch mean)."""
+    loss_fn = _jax_loss_fn(cfg, hp)
+    vg = jax.value_and_grad(lambda p, bt: loss_fn(p, bt)[0], allow_int=True)
     k = hp.microbatch
     parts = [{n: x[i * x.shape[0] // k:(i + 1) * x.shape[0] // k]
               for n, x in batch.items()} for i in range(k)]
@@ -352,6 +403,73 @@ def _jax_loss_and_grads(cfg, hp, params, batch):
                          if g[0].dtype != jax.dtypes.float0 else None,
                          *[g for _, g in outs])
     return loss, grads
+
+
+def _expert_paths(tree, path=()):
+    """The paths of the masked expert nodes: ``w [L, E, K, O]`` beside one
+    ``umask [L, KB, 1]`` a layer for all its experts."""
+    if not isinstance(tree, dict):
+        return []
+    if "umask" in tree and "w" in tree:
+        return [path] if np.ndim(tree["w"]) == np.ndim(tree["umask"]) + 1 else []
+    return [p for k, v in tree.items() for p in _expert_paths(v, path + (k,))]
+
+
+def _expert_layout(tree, paths, real, to_flat):
+    """``tree`` with each expert node's ``w`` laid out ``[L, K, E·O]``
+    (``to_flat``), or back to the layout of the same node in ``real``."""
+    def at(node, path):
+        if path in paths:
+            w = node["w"]
+            if to_flat:
+                w = jnp.swapaxes(w, 1, 2).reshape(w.shape[0], w.shape[2], -1)
+            else:
+                real_w = real
+                for k in path:
+                    real_w = real_w[k]
+                _, e, k_in, o = real_w["w"].shape
+                w = jnp.swapaxes(w.reshape(w.shape[0], k_in, e, o), 1, 2)
+            return {**node, "w": w}
+        if not isinstance(node, dict):
+            return node
+        return {k: at(v, path + (k,)) for k, v in node.items()}
+    return at(tree, ())
+
+
+def _jax_step_flat_experts(cfg, hp, params, opt_state, sparse_state, batch):
+    """The reference's train step (``dsst_every=1``) for masked experts,
+    which ``make_train_step`` cannot take: its ``gated_scale_tree`` and
+    ``lm_dsst_event`` broadcast a layer's ``[L, K, 1]`` mask against ``w
+    [L, E, K, O]`` and fail. One pattern for all experts of a layer is the
+    pattern of the leaf laid out ``[L, K, E·O]``, so the update and the
+    event run through the reference's own functions on that layout, and
+    the leaves go back after. Loss and gradients: the reference's, on the
+    real tree."""
+    assert hp.dsst_every == 1 and hp.microbatch == 1
+    paths = set(_expert_paths(params))
+    (loss, (ce, aux)), grads = jax.value_and_grad(
+        _jax_loss_fn(cfg, hp), has_aux=True, allow_int=True)(params, batch)
+
+    def fl(t):
+        return _expert_layout(t, paths, params, True)
+
+    def back(t):
+        return _expert_layout(t, paths, params, False)
+    fp, fg = fl(params), fl(grads)
+    fo = jopt.AdamWState(opt_state.step, fl(opt_state.m), fl(opt_state.v))
+    gates = None
+    if hp.gating is not None:
+        gates, sparse_state = jsparse.compute_gates(
+            sparse_state, aux["ia"], aux["pooled"], hp.gating)
+    scale = jsparse.gated_scale_tree(fp, gates, cfg.sparsity)
+    fp, fo, om = jopt.adamw_update(fg, fp, fo, hp.opt, scale)
+    fp, stats = jsparse.lm_dsst_event(fp, fg, cfg.sparsity)
+    metrics = {"loss": loss, "ce": ce,
+               "gate_frac": jnp.ones(()) if gates is None else gates.mean(),
+               "moe_dropped": aux["moe_dropped"], **om,
+               "dsst_mask_change": stats["dsst_mask_change"]}
+    return (back(fp), jopt.AdamWState(fo.step, back(fo.m), back(fo.v)),
+            sparse_state, metrics)
 
 
 @functools.lru_cache(maxsize=None)
@@ -367,7 +485,9 @@ def _step_case(name):
           "labels": rng.integers(0, jc.vocab, (4, 16)).astype(np.int32)}
     jb = jax.tree.map(jnp.asarray, bt)
     jloss, jgrads = _jax_loss_and_grads(jc, jhp, jp, jb)
-    jout = jax.jit(jtrain.make_train_step(jc, jhp))(jp, jo, js, jb)
+    jstep = jtrain.make_train_step(jc, jhp) if not _expert_paths(jp) \
+        else functools.partial(_jax_step_flat_experts, jc, jhp)
+    jout = jax.jit(jstep)(jp, jo, js, jb)
     tp = convert.lm_params_from_numpy(_np(jp), tc, "cpu")
     to, ts = convert.train_state_from_numpy(_np(jo), _np(js), "cpu")
     tb = {k: _t(v).long() for k, v in bt.items()}
@@ -412,24 +532,39 @@ def test_train_step_metrics_and_state_match_reference(name):
             assert bool(torch.isfinite(ft[k]).all())
     if "dsst_mask_change" in jm:
         _close(tm["dsst_mask_change"], jm["dsst_mask_change"])
-        um = ft[("layers", "mlp", "w1", "umask")]
-        assert not np.array_equal(um.numpy(),
-                                  r["jp"]["layers"]["mlp"]["w1"]["umask"])
-        g = um.reshape(*um.shape[:-2], -1, 4)          # m = 4 units a group
-        assert bool((g.sum(-1) == 2).all())            # n = 2 kept of each
+        masks = {k: v for k, v in ft.items() if k[-1] == "umask"}
+        assert masks
+        moved = 0
+        for k, um in masks.items():
+            moved += not np.array_equal(um.numpy(), _jflat(r["jp"])[k])
+            g = um.reshape(*um.shape[:-2], -1, 4)      # m = 4 units a group
+            assert bool((g.sum(-1) == 2).all())        # n = 2 kept of each
+            w = ft[k[:-1] + ("w",)]
+            block = w.shape[-2] // um.shape[-2]
+            off = ~um.repeat_interleave(block, dim=-2)
+            if w.dim() > um.dim():                     # experts share it
+                off = off.unsqueeze(-3)
+            assert float(torch.where(off, w, 0).abs().max()) == 0.0
+        assert moved
 
 
-def test_remat_gives_the_same_loss_and_grads():
-    cfg = C.get_reduced("qwen2_vl_2b")
+@pytest.mark.parametrize("arch,mode", [("qwen2_vl_2b", "local"),
+                                       ("moonshot_v1_16b_a3b", "backprop"),
+                                       ("zamba2_1p2b", "backprop")])
+def test_remat_gives_the_same_loss_and_grads(arch, mode):
+    """Remat recomputes each block in the backward (the MoE's routing, the
+    hybrid's shared block inside each checkpointed block that calls it):
+    loss and gradients equal bit for bit without it."""
+    cfg = C.get_reduced(arch)
     params = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu",
-                           local_heads=True)
+                           local_heads=mode == "local")
     rng = np.random.default_rng(2)
     batch = {k: torch.tensor(rng.integers(0, cfg.vocab, (2, 16))) for k in
              ("tokens", "labels")}
     out = {}
     for remat in (False, True):
         step = train.make_train_step(dataclasses.replace(cfg, remat=remat),
-                                     train.TrainHParams(mode="local"))
+                                     train.TrainHParams(mode=mode))
         out[remat] = step.loss_and_grads(params, batch)
     assert torch.equal(out[True][0], out[False][0])
     for a, b in zip(opt.tree_leaves(out[True][2]), opt.tree_leaves(out[False][2])):
@@ -497,8 +632,15 @@ def test_resume_from_checkpoint_identical(tmp_path):
             assert torch.equal(fg[k], fr[k]), k
 
 
-def test_train_state_from_numpy_matches_reference_init():
-    jc, tc = _cfgs("stablelm_12b", MASKED)
+@pytest.mark.parametrize("arch,sp", [("stablelm_12b", MASKED),
+                                     ("moonshot_v1_16b_a3b", MASKED_EXPERTS),
+                                     ("mamba2_2p7b", MASKED),
+                                     ("zamba2_1p2b", None)])
+def test_train_state_from_numpy_matches_reference_init(arch, sp):
+    """The reference's state carried across has the port's own init's trees,
+    shapes and dtypes: params and AdamW moments of the expert, mixer and
+    shared leaves included."""
+    jc, tc = _cfgs(arch, sp)
     jhp, thp = _hps({"mode": "local"})
     jp, jo, js = jtrain.init_train_state(jax.random.PRNGKey(0), jc, jhp)
     tp = convert.lm_params_from_numpy(_np(jp), tc, "cpu")
@@ -511,7 +653,12 @@ def test_train_state_from_numpy_matches_reference_init():
         assert {k: (tuple(v.shape), v.dtype) for k, v in fa.items()} == \
             {k: (tuple(v.shape), v.dtype) for k, v in fb.items()}
     assert ("local_heads", "p") in _flat(tp)
-    assert _flat(tp)[("layers", "mlp", "w1", "umask")].dtype == torch.bool
+    masks = [v for k, v in _flat(tp).items() if k[-1] == "umask"]
+    assert all(m.dtype == torch.bool for m in masks) and len(masks) == (
+        0 if sp is None else 2 if arch == "mamba2_2p7b" else 3)
+    if arch == "zamba2_1p2b":
+        assert _flat(to.m)[("shared", "attn", "wq", "w")].shape == \
+            tuple(np.shape(jo.m["shared"]["attn"]["wq"]["w"]))
     assert to.step == o2.step == 0
     assert ts.pooled_ema.shape == s2.pooled_ema.shape == (tc.n_layers, tc.d_model)
     for a, b in zip(ts.gate, s2.gate):
