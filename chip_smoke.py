@@ -284,6 +284,32 @@ Phases, each raising on failure:
    no kernel and no plain twin). (b) Zamba2 cut to HYBRID_PARITY_LAYERS
    layers, flash vs plain under phase 11's rule, with the flash route's
    launches exact.
+23. the runtime and the launcher, once phase 22 has freed its models. The
+   dry-run CLI (``python -m repro_torch.launch.dryrun --arch all --shape
+   all``) and ``launcher --arch qwen2_vl_2b --validate`` start first, in
+   processes of their own (they compute on ``meta``, on the CPU). (a)
+   recovery: Qwen2-VL-2B at full width cut to RECOVERY_LAYERS of its 28
+   layers, phase 10's traffic (B 2 x S 4096, flash route, batches from
+   ``synthetic_lm_batch`` by step), deterministic algorithms on:
+   ``run_with_recovery`` over RECOVERY_STEPS steps, a checkpoint every
+   RECOVERY_EVERY, nodes lost at RECOVERY_FAIL_AT; it must log 2 restarts
+   restored from [-1, 3] and end equal bit for bit to a straight loop of
+   the same step from a clone of the initial state. Records each save and
+   restore (wall, bytes, the allocation before it and the peak across it:
+   one state beside the straight run's, never two), the time lost to the
+   failures and the flash launches of both runs (2L / L / L a step,
+   replays counted), exact. (b) compression: int8 and top-k (5 %)
+   ``ErrorFeedback.step`` over one step's gradient tree (~560 M elements),
+   ms a tree and ``compressed_bytes`` over the f32 bytes; the embedding's
+   gradient and a stacked MLP leaf compressed on the card and on the host,
+   payloads equal bit for bit. (c) the dry run: exit 0, every applicable
+   cell ok and none failed; its Qwen2-VL-2B (params, moments, gating state)
+   bytes equal the bytes phase 10's ``init_train_state`` requested from the
+   allocator, exactly, and what it allocated within the allocator's
+   rounding (``allocation_growth``); its peak estimate at phase 10's cell
+   beside the peak measured there (not gated). (d) the launcher's CLI on the
+   card: ``--arch stablelm_12b --steps 4 --seq-len 32 --global-batch 4
+   --opt zero1`` prints a loss, ``--validate`` prints ``validate OK``.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -1934,9 +1960,15 @@ def lm_train(torch, cfg=None, hp=None, tag="lm_training", loss_chunk=None,
     hp = hp or TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
                                             total_steps=100),
                             gating=GatingConfig())
+    torch.cuda.synchronize()
+    held = allocation(torch)
     t0 = time.perf_counter()
     params, opt_state, sparse_state = init_train_state(
         torch.Generator(device="cuda").manual_seed(0), cfg, hp, "cuda")
+    torch.cuda.synchronize()
+    # what the state took from the allocator (phase 23c's dry-run gate)
+    init_allocated = allocation_growth(torch, held,
+                                       (params, opt_state, sparse_state))
     step = make_train_step(cfg, hp, loss_chunk=loss_chunk)
     pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
                                         global_batch=TRAIN_B))
@@ -2026,6 +2058,7 @@ def lm_train(torch, cfg=None, hp=None, tag="lm_training", loss_chunk=None,
            "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
            "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS,
            "loss_chunk": loss_chunk, "init_s": init_s,
+           "init_allocated": init_allocated,
            "param_count": cfg.param_count(), "matmul_params": n_mat,
            "state_bytes": state_bytes, "ms_per_step": ms,
            "tokens_per_s": tokens / ms * 1e3, "model_flops": model_flops,
@@ -2041,6 +2074,27 @@ def lm_train(torch, cfg=None, hp=None, tag="lm_training", loss_chunk=None,
            "learned": learned, "profiled_step": profiled}
     log(f"{tag} {json.dumps(rec)}")
     return rec, total
+
+
+def allocation(torch):
+    """(bytes allocated, bytes requested) from the caching allocator: the
+    blocks it handed out, and the sizes asked for before its rounding."""
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+
+def allocation_growth(torch, before, tree):
+    """What a new state tree took from the allocator since ``before``, with
+    the most its rounding may add: a block is a multiple of ALLOC_ROUND
+    bytes, and one above 1 MiB (the large pool) keeps a remainder of up to
+    1 MiB that is not split off (PyTorch's ``CUDACachingAllocator``)."""
+    from repro_torch.launch.dryrun import tensors
+    alloc, req = allocation(torch)
+    sizes = [x.numel() * x.element_size() for x in tensors(tree)]
+    return {"bytes": alloc - before[0], "requested_bytes": req - before[1],
+            "tensor_leaves": len(sizes),
+            "rounding_bound": sum(ALLOC_ROUND - 1 + (1 << 20 if n > 1 << 20
+                                                     else 0) for n in sizes)}
 
 
 def rel_l2(a, b):
@@ -2439,10 +2493,13 @@ def dir_bytes(path):
 
 
 def leaves_equal(torch, a, b):
+    """Keys of the leaves of two trees that differ (tensors bit for bit
+    with their dtypes, host ints by value)."""
     from repro_torch.checkpoint.checkpoint import _flatten
     fa, fb = _flatten(a), _flatten(b)
     return [k for (k, x), (_, y) in zip(fa, fb)
-            if not (x.dtype == y.dtype and torch.equal(x, y))] \
+            if not (x.dtype == y.dtype and torch.equal(x, y)
+                    if isinstance(x, torch.Tensor) else x == y)] \
         if [k for k, _ in fa] == [k for k, _ in fb] else ["<structure>"]
 
 
@@ -3310,6 +3367,352 @@ def hybrid_train_parity(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the runtime and the launcher (recovery, compression, dry run, CLI)
+# ---------------------------------------------------------------------------
+
+# (a) Qwen2-VL-2B at full width cut to 2 of its 28 layers (the whole
+# model's state, ~18 GB, would take ~20 s a save), phase 10's traffic
+RECOVERY_LAYERS, RECOVERY_STEPS, RECOVERY_EVERY = 2, 6, 4
+RECOVERY_FAIL_AT = {1: 1, 5: 1}
+# beside the states: cuBLAS's workspaces and the step's small leftovers
+# (76 MB on the first run); a second state would be 5.6 GB
+RECOVERY_SLACK = 256 << 20
+COMPRESS_KINDS = (("int8", 0.05), ("topk", 0.05))
+ALLOC_ROUND = 512              # the caching allocator's block granularity
+
+
+def start_tool(args, workdir, name):
+    """A ``python -m`` tool of the port in a process of its own (CPU only:
+    the dry run and ``--validate`` compute on ``meta``), its output to a
+    file; returns (process, output path, start time)."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = os.path.join(workdir, name + ".log")
+    f = open(out, "w")
+    proc = subprocess.Popen([sys.executable, "-m"] + args, stdout=f,
+                            stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    f.close()
+    return proc, out, time.time()
+
+
+def finish_tool(tool, timeout):
+    """(exit code, output, wall s from the start to the tool's last line:
+    its output file's modification time, not when it was collected)."""
+    proc, out, t0 = tool
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    with open(out) as f:
+        text = f.read()
+    return rc, text, os.path.getmtime(out) - t0
+
+
+def recovery(torch, workdir):
+    """Phase 23a (module docstring). Returns (record, launches, state,
+    step function, first batch)."""
+    import copy
+    import dataclasses
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.data.pipeline import PipelineConfig, synthetic_lm_batch
+    from repro_torch.launch.train import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.launch.dryrun import tensors
+    from repro_torch.runtime import run_with_recovery
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RECOVERY_LAYERS)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+    pcfg = PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    step = make_train_step(cfg, hp)
+
+    def batch_of(i):
+        return {k: torch.from_numpy(v).to("cuda", torch.long)
+                for k, v in synthetic_lm_batch(pcfg, i).items()}
+
+    def step_fn(state, i):
+        p, o, sp = state
+        p, o, sp, m = step(p, o, sp, batch_of(i))
+        return (p, o, sp), {"loss": m["loss"]}
+
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    init = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, hp, "cuda")
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tensors(init))
+    calls = {"save": [], "restore": []}
+    orig = {"save": ckpt.save, "restore": ckpt.restore}
+
+    def save(base, s, tree, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = orig["save"](base, s, tree, **kw)
+        calls["save"].append({"step": s, "s": time.perf_counter() - t0,
+                              "bytes": dir_bytes(path)})
+        return path
+
+    def restore(base, tpl, step=None, device=None):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = orig["restore"](base, tpl, step=step, device=device)
+        torch.cuda.synchronize()
+        calls["restore"].append({
+            "step": out[0], "s": time.perf_counter() - t0,
+            "bytes": dir_bytes(os.path.join(base, f"step_{out[0]:09d}")),
+            "allocated_before": held,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        return out
+
+    base = os.path.join(workdir, "recovery")
+    torch.use_deterministic_algorithms(True)
+    ckpt.save, ckpt.restore = save, restore
+    try:
+        counters = reset_counters()
+        straight = copy.deepcopy(init)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(RECOVERY_STEPS):
+            straight, _ = step_fn(straight, i)
+        torch.cuda.synchronize()
+        straight_s = time.perf_counter() - t0
+        straight_launches = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        out, rlog = run_with_recovery(step_fn, init, RECOVERY_STEPS, base,
+                                     ckpt_every=RECOVERY_EVERY,
+                                     fail_at=RECOVERY_FAIL_AT)
+        torch.cuda.synchronize()
+        recovered_s = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        ckpt.save, ckpt.restore = orig["save"], orig["restore"]
+        torch.use_deterministic_algorithms(False)
+    del init
+    differ = leaves_equal(torch, out, straight)
+    # step executions: 0, [lost at 1], 0-4, [lost at 5], 4-5
+    runs = RECOVERY_STEPS
+    replays = 1 + 5 + 2
+    L = cfg.n_layers
+    want = {n: 0 for n in launches}
+    want.update(flash_fwd=2 * L * (runs + replays),
+                flash_bwd_dkv=L * (runs + replays),
+                flash_bwd_dq=L * (runs + replays))
+    restores_ok = all(
+        r["allocated_before"] <= held0 + state_bytes + RECOVERY_SLACK
+        and r["max_memory_allocated"] <= held0 + 2 * state_bytes + RECOVERY_SLACK
+        for r in calls["restore"])
+    rec = {"arch": TRAIN_ARCH, "layers": L, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "batch": TRAIN_B, "seq": TRAIN_S,
+           "steps": RECOVERY_STEPS, "ckpt_every": RECOVERY_EVERY,
+           "fail_at": {str(k): v for k, v in RECOVERY_FAIL_AT.items()},
+           "log": rlog, "state_bytes": state_bytes, "held_before": held0,
+           "saves": calls["save"], "restores": calls["restore"],
+           "straight_s": straight_s, "recovered_s": recovered_s,
+           "lost_s": recovered_s - straight_s,
+           "step_executions": {"straight": runs, "recovered": replays},
+           "leaves_differing": differ,
+           "restores_hold_one_state": restores_ok,
+           "launches_straight": straight_launches, "launches": launches,
+           "launches_want": want}
+    log(f"runtime_recovery {json.dumps(rec)}")
+    if (differ or rlog != {"restarts": 2, "restored_from": [-1, 3]}
+            or launches != want or not restores_ok
+            or [c["step"] for c in calls["save"]] != [-1, 3]
+            or [c["step"] for c in calls["restore"]] != [-1, 3]):
+        raise AssertionError(f"recovery: {rec}")
+    del straight
+    return rec, launches, out, step, batch_of(0)
+
+
+def compression(torch, state, step, batch):
+    """Phase 23b (module docstring): error-feedback compression over one
+    step's gradient tree, timed on the card, gated against the host on the
+    embedding's gradient and a stacked MLP leaf."""
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.runtime.compression import (CompressionConfig,
+                                                 ErrorFeedback, compress,
+                                                 compressed_bytes)
+    _, _, grads = step.loss_and_grads(state[0], batch)
+    torch.cuda.synchronize()
+    leaves_ = [g for g in tree_leaves(grads) if g is not None]
+    n = sum(g.numel() for g in leaves_)
+    f32_bytes = 4 * n
+    gate_leaves = {"embed/tok": grads["embed"]["tok"],
+                   "layers/mlp/w1/w": grads["layers"]["mlp"]["w1"]["w"]}
+    host = {k: g.cpu() for k, g in gate_leaves.items()}
+    out = {"elements": n, "grad_dtype": str(leaves_[0].dtype),
+           "f32_bytes": f32_bytes}
+    for kind, frac in COMPRESS_KINDS:
+        cfg = CompressionConfig(kind=kind, topk_frac=frac)
+        ef = ErrorFeedback.init(grads)
+        _, ef = ef.step(grads, cfg)                 # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec_, ef = ef.step(grads, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del rec_
+        del ef
+        nbytes = sum(compressed_bytes(compress(g, cfg), cfg) for g in leaves_)
+        gates = {}
+        for k, g in gate_leaves.items():
+            t0 = time.perf_counter()
+            ch = compress(host[k], cfg)
+            host_s = time.perf_counter() - t0
+            cc = compress(g, cfg)
+            gates[k] = {"elements": g.numel(), "host_s": host_s,
+                        "payload_equal": all(
+                            h.dtype == c.dtype and torch.equal(h, c.cpu())
+                            for h, c in zip(ch.payload, cc.payload))}
+            del ch, cc
+        out[kind] = {"frac": frac if kind == "topk" else None,
+                     "ms_per_tree": sorted(times)[1], "ms_all": times,
+                     "compressed_bytes": nbytes,
+                     "ratio_to_f32": nbytes / f32_bytes, "host_gate": gates}
+    del grads
+    log(f"runtime_compression {json.dumps(out)}")
+    bad = [(kind, k) for kind, _ in COMPRESS_KINDS
+           for k, g in out[kind]["host_gate"].items() if not g["payload_equal"]]
+    if bad or not (0.25 < out["int8"]["ratio_to_f32"] < 0.26
+                   and 0.099 < out["topk"]["ratio_to_f32"] < 0.101):
+        raise AssertionError(f"compression on the card: {out}")
+    return out
+
+
+def dryrun_check(torch, tool, workdir, lm_training, timeout):
+    """Phase 23c (module docstring): the dry-run CLI's result, its Qwen2-VL-2B
+    argument bytes against phase 10's allocation, and its peak estimate at
+    phase 10's cell beside the peak measured there."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.train import TrainHParams
+    from repro_torch.optim import AdamWConfig
+    # phase 10's cell, on meta in this process while the CLI runs
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+    phase10 = lower_cell(get_config(TRAIN_ARCH),
+                         ShapeConfig("phase10", TRAIN_S, TRAIN_B, "train"), hp=hp)
+    rc, text, wall = finish_tool(tool, timeout)
+    outdir = os.path.join(workdir, "dryrun")
+    cells = {}
+    for name in sorted(os.listdir(outdir)):
+        if name.endswith(".json"):
+            with open(os.path.join(outdir, name)) as f:
+                r = json.load(f)
+            cells[name[:-5]] = ({"skipped": r["skipped"]} if "skipped" in r else
+                                {"argument_bytes": r["memory"]["argument_bytes"],
+                                 "peak_estimate_bytes":
+                                     r["memory"]["peak_estimate_bytes"],
+                                 "flops_per_device": r["flops_per_device"],
+                                 "flash_flops": r["flash_flops"],
+                                 "lower_s": r["lower_s"]})
+    with open(os.path.join(outdir, f"{TRAIN_ARCH}__train_4k__1.json")) as f:
+        parts = json.load(f)["memory"]["argument_bytes_by_part"]
+    state_bytes = parts["params"] + parts["opt_state"] + parts["sparse_state"]
+    alloc = lm_training["init_allocated"]
+    done = [l for l in text.splitlines() if l.startswith("done:")]
+    rec = {"rc": rc, "wall_s": wall, "summary": done[-1] if done else None,
+           "cells": cells, "n_cells": len(cells),
+           "qwen2_vl_2b_state_bytes": state_bytes,
+           "phase10_requested_bytes": alloc["requested_bytes"],
+           "phase10_allocated_bytes": alloc["bytes"],
+           "allocated_minus_dryrun": alloc["bytes"] - state_bytes,
+           "rounding_bound": alloc["rounding_bound"],
+           "tensor_leaves": alloc["tensor_leaves"],
+           "phase10_cell": {"argument_bytes": phase10["memory"]["argument_bytes"],
+                            "temp_bytes": phase10["memory"]["temp_bytes"],
+                            "peak_estimate_bytes":
+                                phase10["memory"]["peak_estimate_bytes"],
+                            "flops_per_device": phase10["flops_per_device"],
+                            "flash_flops": phase10["flash_flops"],
+                            "lower_s": phase10["lower_s"],
+                            "measured_max_memory_allocated":
+                                lm_training["max_memory_allocated"]}}
+    log(f"runtime_dryrun {json.dumps(rec)}")
+    from repro_torch.configs import ARCH_IDS, shape_applicable
+    want_skip = sum(not shape_applicable(get_config(a), s)[0]
+                    for a in ARCH_IDS for s in SHAPES.values())
+    skipped = sum(1 for c in cells.values() if "skipped" in c)
+    if (rc != 0 or not done or done[-1] != (
+            f"done: ok={len(ARCH_IDS) * len(SHAPES) - want_skip} "
+            f"skip={want_skip} fail=0")
+            or len(cells) != len(ARCH_IDS) * len(SHAPES) or skipped != want_skip
+            or alloc["requested_bytes"] != state_bytes
+            or not 0 <= alloc["bytes"] - state_bytes <= alloc["rounding_bound"]):
+        raise AssertionError(f"dry run: {rec}\n{text[-4000:]}")
+    return rec
+
+
+def launcher_check(torch, validate_tool, timeout):
+    """Phase 23d (module docstring): the launcher's CLI on the card."""
+    t0 = time.perf_counter()
+    train = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.launcher", "--arch",
+         "stablelm_12b", "--steps", "4", "--seq-len", "32", "--global-batch",
+         "4", "--opt", "zero1"], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT, timeout=timeout)
+    train_s = time.perf_counter() - t0
+    rc, text, validate_s = finish_tool(validate_tool, timeout)
+    rec = {"train": {"rc": train.returncode, "wall_s": train_s,
+                     "stdout": train.stdout[-2000:]},
+           "validate": {"rc": rc, "wall_s": validate_s,
+                        "stdout": text[-2000:]}}
+    log(f"runtime_launcher {json.dumps(rec)}")
+    if (train.returncode != 0 or "loss" not in train.stdout
+            or "device=cuda" not in train.stdout
+            or rc != 0 or "validate OK" not in text):
+        raise AssertionError(f"launcher: {rec}\n{train.stderr[-4000:]}")
+    return rec
+
+
+def runtime_phase(torch, lm_training):
+    """Phase 23: recovery, compression, the dry run and the launcher. The
+    dry run and ``--validate`` (CPU only) run in processes of their own
+    while (a) and (b) use the card."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    t0 = time.perf_counter()
+    try:
+        dry = start_tool(["repro_torch.launch.dryrun", "--arch", "all",
+                          "--shape", "all", "--out",
+                          os.path.join(workdir, "dryrun"), "--force"],
+                         workdir, "dryrun")
+        val = start_tool(["repro_torch.launch.launcher", "--arch", TRAIN_ARCH,
+                          "--validate"], workdir, "validate")
+        try:
+            rec = {}
+            rec["recovery"], launches, state, step, batch = recovery(
+                torch, workdir)
+            rec["compression"] = compression(torch, state, step, batch)
+            del state, step, batch
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["dryrun"] = dryrun_check(torch, dry, workdir, lm_training, 600)
+            rec["launcher"] = launcher_check(torch, val, 600)
+        finally:
+            for proc, _, _ in (dry, val):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"runtime_phase_s {rec['phase_s']}")
+    return rec, launches
+
+
 def flat(tree, prefix=()):
     if isinstance(tree, dict):
         out = {}
@@ -3639,6 +4042,13 @@ def main() -> int:
     record["ssm_hybrid_training_phases_s"] = time.perf_counter() - t_train
     log(f"ssm_hybrid_training_phases_s {record['ssm_hybrid_training_phases_s']}")
 
+    # 23. the runtime and the launcher, once phase 22's models are freed:
+    # recovery at full width (2 layers), compression of its gradients, the
+    # dry run against phase 10's allocation, the launcher's CLI
+    free_before(torch, "phase 23's training state")
+    record["runtime_launcher"], recovery_launches = runtime_phase(
+        torch, record["lm_training"])
+
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
                       "analysis": analysis_launches[name],
@@ -3654,7 +4064,8 @@ def main() -> int:
                       "hybrid_serving": hybrid_launches[name],
                       "moe_training": moe_train_launches[name],
                       "ssm_training": ssm_train_launches[name],
-                      "hybrid_training": hybrid_train_launches[name]}
+                      "hybrid_training": hybrid_train_launches[name],
+                      "runtime_recovery": recovery_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

@@ -204,7 +204,8 @@ def _from_numpy(arr: np.ndarray, leaf, device=None):
         if arr.dtype.kind == "V":                  # bf16 words
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            # ascontiguousarray makes a 0-d array 1-d: reshape it back
+            t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"stored shape {tuple(t.shape)} != template "
                              f"{tuple(leaf.shape)}")

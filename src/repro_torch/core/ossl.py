@@ -30,9 +30,12 @@ class OSSLConfig:
 
 def local_head_init(gen: torch.Generator, d_model: int, dtype=torch.float32,
                     lead=()) -> Dict[str, torch.Tensor]:
-    """``{"p": [*lead, D, D]}`` drawn from ``gen`` on its device."""
-    p = torch.randn((*lead, d_model, d_model), generator=gen,
-                    device=gen.device, dtype=dtype)
+    """``{"p": [*lead, D, D]}`` drawn from ``gen`` on its device (a meta
+    ``gen``, ``models.layers.MetaGenerator``: the shape only)."""
+    shape = (*lead, d_model, d_model)
+    if gen.device.type == "meta":
+        return {"p": torch.empty(shape, dtype=dtype, device="meta")}
+    p = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
     return {"p": p * (d_model ** -0.5)}
 
 

@@ -12,8 +12,10 @@ Sparse linear parameter forms (``configs.SparsityConfig.mode``):
 
 Random draws come from an explicit ``torch.Generator`` and land on its
 device; sparsity masks are drawn on the CPU from a seed taken from it, so
-a seed gives the same mask on every device. Layouts are the reference's:
-activations ``[B, S, D]``, heads ``[B, S, H, dh]``.
+a seed gives the same mask on every device. A :class:`MetaGenerator` in
+its place draws nothing: every leaf comes back empty on the ``meta``
+device, with its shape and dtype (the dry run's params). Layouts are the
+reference's: activations ``[B, S, D]``, heads ``[B, S, H, dh]``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,15 @@ from ..configs.base import ModelConfig, SparsityConfig
 from ..core.sparsity import NMSpec, random_unit_mask
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes are wanted:
+    the init functions then draw nothing and return ``meta`` tensors."""
+    device = torch.device("meta")
+
+
 def _randn(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
 
 
@@ -34,6 +44,18 @@ def _cpu_gen(gen: torch.Generator) -> torch.Generator:
     """A CPU generator seeded from ``gen`` (for masks drawn on the CPU)."""
     seed = int(torch.randint(0, 2 ** 62, (), generator=gen, device=gen.device))
     return torch.Generator().manual_seed(seed)
+
+
+def unit_masks(gen: torch.Generator, spec: NMSpec, k: int, o: int,
+               n: int) -> torch.Tensor:
+    """``n`` random N:M unit masks, bool ``[n, KB, J]`` on the CPU, drawn
+    from a CPU generator seeded from ``gen`` (a meta ``gen``: their shape
+    on ``meta``, nothing drawn)."""
+    if gen.device.type == "meta":
+        return torch.empty((n, *spec.unit_counts(k, o)), dtype=torch.bool,
+                           device="meta")
+    mgen = _cpu_gen(gen)
+    return torch.stack([random_unit_mask(mgen, spec, k, o) for _ in range(n)])
 
 
 # ---------------------------------------------------------------------------
@@ -51,12 +73,10 @@ def linear_init(gen: torch.Generator, k: int, o: int, dtype,
     if sp is None:
         return {"w": _randn(gen, (*lead, k, o), dtype) * scale}
     spec = NMSpec(n=sp.n, m=sp.m, block=sp.block, out_tile=o)
-    mgen = _cpu_gen(gen)
     n_stack = 1
     for d in lead:
         n_stack *= d
-    umask = torch.stack([random_unit_mask(mgen, spec, k, o)
-                         for _ in range(n_stack)]).reshape(*lead, k // sp.block, 1)
+    umask = unit_masks(gen, spec, k, o, n_stack).reshape(*lead, k // sp.block, 1)
     umask = umask.to(gen.device)
     scale = scale / (sp.density ** 0.5)                           # variance-preserving
     if sp.mode == "masked":
@@ -128,8 +148,11 @@ def mrope_angles(pos3: torch.Tensor, d_head: int, theta: float,
     slot i takes its position from the section it falls in."""
     d_half = d_head // 2
     assert sum(sections) == d_half, (sections, d_half)
+    # output_size: the length is known, so no read of the repeats (and a
+    # meta tensor, the dry run's, needs none)
     sec_id = torch.repeat_interleave(torch.arange(3, device=pos3.device),
-                                     torch.tensor(sections, device=pos3.device))
+                                     torch.tensor(sections, device=pos3.device),
+                                     output_size=d_half)
     pos_per_freq = pos3[sec_id].movedim(0, -1)                  # [B, S, d_half]
     return pos_per_freq.float() * _inv_freq(d_half, theta, pos3.device)
 

@@ -42,8 +42,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SparsityConfig
 from ..core.dsst import _top_k_ids
-from ..core.sparsity import NMSpec, random_unit_mask
-from .layers import _cpu_gen, _randn, _rows_from_umask
+from ..core.sparsity import NMSpec
+from .layers import _randn, _rows_from_umask, unit_masks
 
 
 def _randn_scaled(gen: torch.Generator, shape, dtype, scale: float):
@@ -58,9 +58,7 @@ def _expert_mat(gen: torch.Generator, e: int, k_in: int, k_out: int, dtype,
         return {"w": _randn_scaled(gen, (*lead, e, k_in, k_out), dtype,
                                    k_in ** -0.5)}
     spec = NMSpec(n=sp.n, m=sp.m, block=sp.block, out_tile=k_out)
-    mgen = _cpu_gen(gen)
-    umask = torch.stack([random_unit_mask(mgen, spec, k_in, k_out)
-                         for _ in range(math.prod(lead))])   # [prod(lead), KB, 1]
+    umask = unit_masks(gen, spec, k_in, k_out, math.prod(lead))  # [prod(lead), KB, 1]
     if sp.mode == "masked":
         return {"w": _randn_scaled(gen, (*lead, e, k_in, k_out), dtype,
                                    k_in ** -0.5),

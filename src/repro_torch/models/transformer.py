@@ -9,7 +9,8 @@ gradient is the sum over its calls.
 * ``init_params``   — stacked per-layer params (``[L, ...]`` leaves, the
   reference's tree; ``shared`` for the hybrid), drawn from a
   ``torch.Generator`` on its device; with ``local_heads`` the OSSL
-  predictor heads ``[L, D, D]``.
+  predictor heads ``[L, D, D]``. ``init_params_shaped``: the same tree
+  on the ``meta`` device (shapes and dtypes only).
 * ``forward``       — full-sequence forward: logits (or, ``want_hidden``,
   the final normed hidden states) and ``aux`` (``local_loss``, ``moe_aux``,
   ``moe_dropped``, ``ia``, ``pooled``). ``local_mode`` detaches every block
@@ -133,6 +134,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda",
         params["local_heads"] = ossl_lib.local_head_init(gen, cfg.d_model,
                                                          dtype, lead)
     return _to(params, device)
+
+
+def init_params_shaped(cfg: ModelConfig, local_heads: bool = False
+                       ) -> Dict[str, Any]:
+    """``init_params``'s tree on the ``meta`` device: every leaf's shape
+    and dtype, with no memory and no draw (the dry run's params)."""
+    return init_params(L.MetaGenerator(), cfg, device="meta",
+                       local_heads=local_heads)
 
 
 def _shared_block_init(gen: torch.Generator, cfg: ModelConfig, dtype):

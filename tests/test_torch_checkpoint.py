@@ -244,6 +244,19 @@ def test_bf16_round_trip_in_the_port(tmp_path):
     assert back["rows"].dtype == torch.int64 and back["step"] == 3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_zero_dim_leaves_keep_their_shape(tmp_path, dtype):
+    """A 0-d tensor leaf (a scalar state) restores 0-d, also into a
+    ``meta`` template onto a device."""
+    t = {"s": torch.tensor(3, dtype=dtype), "v": torch.arange(2, dtype=dtype)}
+    ckpt.save(str(tmp_path), 0, t)
+    _, back, _ = ckpt.restore(str(tmp_path), t)
+    _assert_trees_equal(back, t)
+    tpl = {k: torch.empty_like(v, device="meta") for k, v in t.items()}
+    _, back, _ = ckpt.restore(str(tmp_path), tpl, device="cpu")
+    _assert_trees_equal(back, t)
+
+
 # -------------------------------------------------------------- fleets
 
 def _fleet(seed=0, compact=True):

@@ -834,3 +834,82 @@ def test_stage_and_dispatch_make_no_device_sync_on_card(cuda, kw):
         torch.cuda.set_sync_debug_mode("default")
     assert len(done) == 6
     assert all(len(s.predictions) == 2 for s in done)
+
+
+# ---------------------------------------------------------------------------
+# the runtime on the card: recovery, compression, placement
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_recovery_restores_into_meta_without_a_second_state(cuda, tmp_path):
+    """A restart frees the lost state's card memory before it restores the
+    checkpoint straight onto the card: the peak across the run stays one
+    state (the step is in place), and the result equals the straight run
+    bit for bit. The donated initial state's storage is released."""
+    from repro_torch.runtime import run_with_recovery
+    n = 1 << 22                                     # 16 MiB a leaf
+
+    def init():
+        g = torch.Generator(device=cuda).manual_seed(0)
+        return {"w": torch.randn(n, generator=g, device=cuda),
+                "m": (torch.zeros(n, device=cuda), 0)}
+
+    def step(state, i):
+        state["w"].mul_(0.5).add_(float(i))
+        state["m"][0].add_(state["w"])
+        return {"w": state["w"], "m": (state["m"][0], state["m"][1] + 1)}, {}
+
+    want = init()
+    for i in range(6):
+        want, _ = step(want, i)
+    start = init()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, log = run_with_recovery(step, start, 6, str(tmp_path), ckpt_every=2,
+                                 fail_at={1: 1, 4: 1})
+    torch.cuda.synchronize()
+    assert log == {"restarts": 2, "restored_from": [-1, 3]}
+    assert torch.cuda.max_memory_allocated() - base < (1 << 20)
+    assert torch.equal(got["w"], want["w"]) and torch.equal(got["m"][0], want["m"][0])
+    assert got["m"][1] == 6 and got["w"].device.type == "cuda"
+    assert start["w"].untyped_storage().nbytes() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "topk"])
+def test_compression_on_card_equals_host(cuda, kind):
+    """int8 and top-k payloads on the card equal the host's bit for bit
+    (ties and a ragged size included), and so does error feedback."""
+    from repro_torch.runtime.compression import (CompressionConfig,
+                                                 ErrorFeedback, compress)
+    cfg = CompressionConfig(kind=kind, topk_frac=0.05)
+    g = torch.Generator().manual_seed(3)
+    tree = {"a": torch.randn((300, 257), generator=g),
+            "b": {"c": torch.randn(4099, generator=g).bfloat16()}}
+    tree["a"][::3, ::5] = 1.5
+    for leaf in (tree["a"], tree["b"]["c"]):
+        ch, cc = compress(leaf, cfg), compress(leaf.to(cuda), cfg)
+        for h, c in zip(ch.payload, cc.payload):
+            assert h.dtype == c.dtype and torch.equal(h, c.cpu())
+    efh = ErrorFeedback.init(tree)
+    card = {"a": tree["a"].to(cuda), "b": {"c": tree["b"]["c"].to(cuda)}}
+    efc = ErrorFeedback.init(card)
+    for _ in range(3):
+        rh, efh = efh.step(tree, cfg)
+        rc, efc = efc.step(card, cfg)
+    assert torch.equal(rh["a"], rc["a"].cpu())
+    assert torch.equal(rh["b"]["c"], rc["b"]["c"].cpu())
+    assert torch.equal(efh.residual["a"], efc.residual["a"].cpu())
+
+
+@pytest.mark.cuda
+def test_elastic_remesh_moves_a_tree_onto_the_card(cuda):
+    from repro_torch.runtime import elastic_remesh
+    tree = {"w": torch.randn((64, 8)), "opt": (torch.arange(5), 3)}
+    out = elastic_remesh(tree, [cuda], lambda path: None)
+    assert out["w"].device.type == "cuda" and out["opt"][0].device.type == "cuda"
+    assert torch.equal(out["w"].cpu(), tree["w"])
+    assert torch.equal(out["opt"][0].cpu(), tree["opt"][0]) and out["opt"][1] == 3
+    with pytest.raises(NotImplementedError):
+        elastic_remesh(tree, [cuda, torch.device("cpu")], lambda path: None)
