@@ -310,6 +310,25 @@ Phases, each raising on failure:
    beside the peak measured there (not gated). (d) the launcher's CLI on the
    card: ``--arch stablelm_12b --steps 4 --seq-len 32 --global-batch 4
    --opt zero1`` prints a loss, ``--validate`` prints ``validate OK``.
+24. the slot-sharded serving fleet on a ``("slots",)`` mesh of four
+   entries of the one card (``make_serving_mesh(devices=[cuda:0] * 4)``:
+   the shards run one after another on the card's stream, through the code
+   that runs them on distinct cards). (a) right after phase 20: phase 4's
+   fleet (1024 gesture streams x 4 windows, the paper network, 1024 slots
+   as 4 shards of 256, C 8, depth 1), its digest equal to phase 4's bit for
+   bit, one chunk fn, ``nm_spmm`` (all fused), ``lif`` and
+   ``wu_outer_slots`` launched grid steps x C x L x 4 times and
+   ``wu_outer`` never; recorded, not gated: events/s, step p50 / p99, peak
+   memory, and the sharded step's breakdown (busy ms, launches a step).
+   (b) right after phase 13: phase 12's live topology service on the mesh
+   against phase 12's 1-device run: epochs (index, grid step, pruned,
+   regrown, mask change, merged lanes), params and masks, deltas and every
+   stream's predictions bit for bit, one chunk fn. (c) the sync guard over
+   the sharded fleet's stage, admit and dispatch (phase 20c's check, 0
+   syncs), phase 20's registry with its 9 entries, the sharded fleet's
+   checkpoint equal to the 1-device fleet's file for file (arrays bit for
+   bit) and restored onto the mesh, and ``elastic_remesh`` from 4 shards to
+   2 and back bit for bit.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -1097,7 +1116,9 @@ def run_fleet(torch, params, task, tag, sids=None, chunk_len=CHUNK_LEN,
     finally:
         sched.close()
     steps = sched.grid.stats["steps"]
-    per_step = cfg.n_layers * sum(
+    # on a slot mesh every entry launches the kernels for its own slots
+    shards = 1 if sched.mesh is None else sched.mesh.size
+    per_step = cfg.n_layers * shards * sum(
         sched.tier_grid(t.name).stats["steps"] * t.chunk_len
         for t in geometry)
     # serving keeps its base weights frozen: the batch-summed update never
@@ -1115,15 +1136,17 @@ def run_fleet(torch, params, task, tag, sids=None, chunk_len=CHUNK_LEN,
                              f"predictions: {short[:8]}")
     if launches != want:
         raise AssertionError(f"{tag} launched {launches}, want {want} "
-                             f"(grid steps x C x {cfg.n_layers} summed over "
-                             f"the tiers for nm_spmm, lif and wu_outer_slots)")
+                             f"(grid steps x C x {cfg.n_layers} x {shards} "
+                             f"shards summed over the tiers for nm_spmm, lif "
+                             f"and wu_outer_slots)")
     if not bool(torch.isfinite(sched.deltas).all()):
         raise AssertionError(f"{tag}: non-finite serving deltas")
     if not all(bool(np.isfinite(s.final_deltas).all()) for s in done):
         raise AssertionError(f"{tag}: non-finite final deltas")
     roll = sched.telemetry.rollup()
     rec = {"streams": len(sids), "windows_per_stream": N_WINDOWS,
-           "grid_steps": steps, "chunk_len": chunk_len, "n_slots": len(sids),
+           "grid_steps": steps, "chunk_len": chunk_len,
+           "n_slots": sched.n_slots, "shards": shards,
            "pipeline_depth": sched.pipeline_depth, "aer": aer,
            "ingest": sched.ingest is not None, "launches": launches,
            "wall_s": wall, "setup_s": setup_s, "events_in": roll["events_in"],
@@ -1298,15 +1321,71 @@ SYNC_STEPS = 20
 SERVING_KERNELS = ("nm_spmm", "nm_spmm_fused", "lif", "wu_outer_slots")
 
 
+def sync_check(torch, params, task, runs, total, phase):
+    """Phase 20c's check, for each of ``runs`` (scheduler keywords by tag):
+    SYNC_STEPS grid steps of phase 4's fleet with the stage-side phases
+    under the sync debug mode (``guard_syncs``), launches added to
+    ``total``; a sync in a guarded phase or launches other than SYNC_STEPS
+    x C x L (summed over tiers, times the mesh's entries) fail ``phase``."""
+    from repro_torch.analysis.sync_guard import GUARDED_PHASES, guard_syncs
+    from repro_torch.serving import StreamScheduler, StreamSession
+    cfg = paper_config("kernels")
+
+    def tier_of(sid):
+        return "interactive" if sid % 4 == 0 else "bulk"
+    out = {}
+    sids = list(range(N_STREAMS))
+    for tag, kw in runs.items():
+        sched = StreamScheduler(params, cfg, n_slots=N_STREAMS,
+                                chunk_len=CHUNK_LEN, device="cuda", **kw)
+        try:
+            for sid, src in zip(sids, stream_sources(task, sids, False)):
+                sched.submit(StreamSession(sid=sid, source=src),
+                             tier=tier_of(sid) if "tiers" in kw else None)
+            guard_syncs(sched)
+            counters = reset_counters()
+            t0 = time.perf_counter()
+            errors = []
+            for _ in range(SYNC_STEPS):
+                try:
+                    sched.step()
+                except RuntimeError as e:
+                    errors.append(str(e)[:300])
+                    break
+            if not errors:
+                sched.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            sched.close()
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        for n, k in launches.items():
+            total[n] += k
+        chunk = sum(t.chunk_len for t in kw["tiers"]) if "tiers" in kw \
+            else CHUNK_LEN
+        shards = kw["mesh"].size if "mesh" in kw else 1
+        want = {n: SYNC_STEPS * chunk * cfg.n_layers * shards
+                for n in SERVING_KERNELS}
+        if not errors and launches != want:
+            raise AssertionError(f"{phase} {tag}: launched {launches}, want "
+                                 f"{want}")
+        out[tag] = {"grid_steps": SYNC_STEPS, "syncs": len(errors),
+                    "errors": errors, "guarded": list(GUARDED_PHASES),
+                    "wall_s": wall, "launches": launches,
+                    "pipeline_depth": sched.pipeline_depth, "shards": shards}
+        if errors:
+            raise AssertionError(f"{phase} {tag}: a device sync in a guarded "
+                                 f"phase: {errors[0]}")
+    return out
+
+
 def analysis(torch, params, task):
     """Phase 20 (module docstring): the static checks on the card."""
     from repro_torch.analysis import dispatch_contracts as dc
     from repro_torch.analysis import registry
-    from repro_torch.analysis.sync_guard import GUARDED_PHASES, guard_syncs
     from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
                                       serving_params)
-    from repro_torch.serving import (AutopilotConfig, StreamScheduler,
-                                     StreamSession, TierConfig, make_chunk_fn)
+    from repro_torch.serving import AutopilotConfig, TierConfig, make_chunk_fn
     out = {"registry": {}}
     total = {name: 0 for name in kernel_counters()}
 
@@ -1333,7 +1412,10 @@ def analysis(torch, params, task):
         else:                         # args: (params, deltas, state, events, ..)
             # the dense layout: the base product unfused, the per-slot
             # update a masked outer product in plain torch
-            want = {n: float(args[3].shape[0] * small.n_layers)
+            # a sharded entry's every mesh entry launches them
+            mesh = getattr(fn, "mesh", None)
+            shards = 1 if mesh is None else mesh.size
+            want = {n: float(args[3].shape[0] * small.n_layers * shards)
                     for n in (("nm_spmm", "lif") if "dense" in name
                               else SERVING_KERNELS)}
         if per_call != want:
@@ -1408,74 +1490,35 @@ def analysis(torch, params, task):
     # (c) 20 grid steps of phase 4's fleet per run with the stage-side
     # phases under the sync debug mode: depth 1 polled inline, depth 2 with
     # ingestion and the autopilot, phase 19e's two tiers
-    def tier_of(sid):
-        return "interactive" if sid % 4 == 0 else "bulk"
     runs = {"depth1_inline": dict(pipeline_depth=1),
             "depth2_ingest_autopilot": dict(pipeline_depth=2, ingest=True,
                                             autopilot=AutopilotConfig()),
             "tiers": dict(pipeline_depth=1, ingest=True,
                           tiers=[TierConfig(*t) for t in RUNTIME_TIERS])}
-    out["sync_check"] = {}
-    sids = list(range(N_STREAMS))
-    for tag, kw in runs.items():
-        sched = StreamScheduler(params, cfg, n_slots=N_STREAMS,
-                                chunk_len=CHUNK_LEN, device="cuda", **kw)
-        try:
-            for sid, src in zip(sids, stream_sources(task, sids, False)):
-                sched.submit(StreamSession(sid=sid, source=src),
-                             tier=tier_of(sid) if "tiers" in kw else None)
-            guard_syncs(sched)
-            counters = reset_counters()
-            t0 = time.perf_counter()
-            errors = []
-            for _ in range(SYNC_STEPS):
-                try:
-                    sched.step()
-                except RuntimeError as e:
-                    errors.append(str(e)[:300])
-                    break
-            if not errors:
-                sched.flush()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            sched.close()
-        launches = {n: c.launches for n, c in counters.items() if c.launches}
-        for n, k in launches.items():
-            total[n] += k
-        chunk = sum(t.chunk_len for t in kw["tiers"]) if "tiers" in kw \
-            else CHUNK_LEN
-        want = {n: SYNC_STEPS * chunk * cfg.n_layers for n in SERVING_KERNELS}
-        if not errors and launches != want:
-            raise AssertionError(f"20c {tag}: launched {launches}, want "
-                                 f"{want}")
-        rec = {"grid_steps": SYNC_STEPS, "syncs": len(errors),
-               "errors": errors, "guarded": list(GUARDED_PHASES),
-               "wall_s": wall, "launches": launches,
-               "pipeline_depth": sched.pipeline_depth}
-        out["sync_check"][tag] = rec
-        if errors:
-            raise AssertionError(f"20c {tag}: a device sync in a guarded "
-                                 f"phase: {errors[0]}")
+    out["sync_check"] = sync_check(torch, params, task, runs, total, "20c")
     out["launches"] = total
     log(f"analysis {json.dumps(out)}")
     _SOURCES.clear()
     return out, total
 
 
-def step_breakdown(torch, params, want_factors=False):
+def step_breakdown(torch, params, want_factors=False, mesh=None,
+                   tag="step_breakdown"):
     """Where one full-grid chunk step goes (1024 slots, all valid, 8
     timesteps). One untraced call gives the host's enqueue time and its wall
     to completion; one call under ``torch.profiler`` gives the device busy
     time (summed kernel durations), the device span (first kernel start to
     last kernel end) and that same call's wall, from which the idle share
     is taken; with the largest kernels by name. ``want_factors``: the chunk
-    accumulates the DSST factors a live topology service reads."""
+    accumulates the DSST factors a live topology service reads. ``mesh``:
+    the slot-sharded step, its arguments placed on the mesh beforehand (as
+    the scheduler holds them), so the call is the shards' steps alone."""
     from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
                                       serving_params)
+    from repro_torch.launch import sharding
     from repro_torch.serving import make_chunk_fn
     cfg = paper_config("kernels")
-    fn = make_chunk_fn(cfg, want_factors=want_factors)
+    fn = make_chunk_fn(cfg, want_factors=want_factors, mesh=mesh)
     g = torch.Generator(device="cuda").manual_seed(0)
     S = N_STREAMS
     args = (serving_params(params, cfg), init_stream_deltas(cfg, S, "cuda"),
@@ -1484,6 +1527,9 @@ def step_breakdown(torch, params, want_factors=False):
              < 0.05).float(),
             torch.ones((CHUNK_LEN, S), dtype=torch.bool, device="cuda"),
             torch.ones(S, dtype=torch.bool, device="cuda"))
+    if mesh is not None:
+        args = sharding.place_args(
+            args, sharding.chunk_step_specs(want_factors)[0], mesh)
     fn(*args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1492,9 +1538,10 @@ def step_breakdown(torch, params, want_factors=False):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
     rec = {"slots": S, "chunk_len": CHUNK_LEN, "want_factors": want_factors,
+           "shards": 1 if mesh is None else mesh.size,
            "wall_ms": step_ms, "enqueue_ms": enqueue_ms,
            **trace_summary(torch, lambda: fn(*args))}
-    log(f"step_breakdown {json.dumps(rec)}")
+    log(f"{tag} {json.dumps(rec)}")
     return rec
 
 
@@ -3368,6 +3415,170 @@ def hybrid_train_parity(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 24: the slot-sharded serving fleet, 4 mesh entries of the one card
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+
+
+def serving_mesh(n=SHARDS):
+    """A ``("slots",)`` mesh of ``n`` entries of the one card: the shards
+    run one after another on its stream, through the code that runs them on
+    distinct cards."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(devices=["cuda:0"] * n)
+
+
+def sharded_serving(torch, params, task, digest, analysis_rec):
+    """Phase 24a, with 24c's sync guard and registry count (module
+    docstring): phase 4's fleet on 4 shards of 256, held bit for bit
+    against phase 4's digest."""
+    mesh = serving_mesh()
+    rec, launches, got, sched = run_fleet(torch, params, task,
+                                          "sharded_serving",
+                                          pipeline_depth=1, mesh=mesh)
+    check_same(digest, got, "24a: the 4-shard fleet against phase 4")
+    if sched.n_compiles != 1 or sched.n_slots != N_STREAMS:
+        raise AssertionError(f"24a: {sched.n_compiles} chunk fns, "
+                             f"{sched.n_slots} slots; want 1 and {N_STREAMS}")
+    del sched, got
+    rec["n_compiles"] = 1
+    rec["step_breakdown"] = step_breakdown(torch, params, mesh=mesh,
+                                           tag="sharded_step_breakdown")
+    total = dict(launches)
+    rec["sync_check"] = sync_check(
+        torch, params, task, {"sharded_depth1": dict(pipeline_depth=1,
+                                                     mesh=mesh)},
+        total, "24c")
+    names = sorted(analysis_rec["registry"])
+    if len(names) != 9 or "serving.chunk_fn[sharded]" not in names:
+        raise AssertionError(f"24c: the registry ran {names} on the card, "
+                             "want 9 entries with serving.chunk_fn[sharded]")
+    rec["registry_entries"] = names
+    log(f"sharded_serving_checks {json.dumps({k: rec[k] for k in ('n_compiles', 'sync_check', 'registry_entries')})}")
+    _SOURCES.clear()
+    return rec, total
+
+
+def npz_equal(a, b):
+    """Two ``.npz`` files hold the same arrays, name for name, bit for bit
+    (their zip headers carry write times, so their bytes may differ)."""
+    with np.load(a) as fa, np.load(b) as fb:
+        return sorted(fa.files) == sorted(fb.files) and all(
+            fa[k].dtype == fb[k].dtype and fa[k].shape == fb[k].shape
+            and fa[k].tobytes() == fb[k].tobytes() for k in fa.files)
+
+
+def sharded_topology(torch, params, task, fleet, workdir):
+    """Phase 24b and 24c's checkpoint and remesh checks (module docstring):
+    phase 12's live topology fleet on 4 shards against phase 12's run."""
+    from repro_torch.launch import sharding
+    from repro_torch.runtime import elastic_remesh
+    from repro_torch.serving import (StreamScheduler, StreamSession,
+                                     TaskStreamSource, TopologyService,
+                                     TopologyServiceConfig, restore_fleet,
+                                     save_fleet)
+    cfg = paper_config("kernels")
+    mesh = serving_mesh()
+    svc = TopologyService(cfg, TopologyServiceConfig(
+        epoch_every=TOPO_EVERY, merge_top=TOPO_MERGE_TOP))
+    sched = StreamScheduler(params, cfg, n_slots=N_STREAMS,
+                            chunk_len=CHUNK_LEN, pipeline_depth=1,
+                            topology=svc, mesh=mesh)
+    for sid in range(N_STREAMS):
+        sched.submit(StreamSession(sid=sid, source=TaskStreamSource(
+            task, N_WINDOWS, seed=sid)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    done = sched.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    per_step = sched.grid.stats["steps"] * CHUNK_LEN * cfg.n_layers * SHARDS
+    want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
+            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN}
+    if launches != want:
+        raise AssertionError(f"24b launched {launches}, want {want}")
+
+    def epochs(service):
+        return [(e.epoch, e.grid_step, e.pruned, e.regrown, e.mask_change,
+                 e.merged_slots) for e in service.events]
+    if epochs(svc) != epochs(fleet.topology) or len(svc.events) < 3:
+        raise AssertionError(f"24b: epochs {epochs(svc)} against phase "
+                             f"12's {epochs(fleet.topology)}")
+    differ = leaves_equal(torch, fleet.params, sched.params)
+    if differ or not torch.equal(fleet.deltas, sched.deltas):
+        raise AssertionError(f"24b: params {differ} or deltas differ from "
+                             "phase 12's")
+    check_same(fleet_digest(fleet.retired), fleet_digest(done),
+               "24b: the 4-shard live topology fleet against phase 12")
+    if sched.n_compiles != 1:
+        raise AssertionError(f"24b: {sched.n_compiles} chunk fns, want 1")
+    roll = sched.telemetry.rollup()
+    rec = {"streams": N_STREAMS, "shards": SHARDS,
+           "grid_steps": sched.grid.stats["steps"], "epochs": len(svc.events),
+           "epoch_records": epochs(svc), "n_compiles": 1,
+           "launches": launches, "wall_s": wall,
+           "events_per_s": roll["events_per_s"],
+           "p50_step_ms": roll["p50_ms"], "p99_step_ms": roll["p99_ms"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    # 24c: the two fleets' checkpoints file for file; the sharded one read
+    # back onto the mesh
+    step = fleet.grid.stats["steps"]
+    one, four = os.path.join(workdir, "one"), os.path.join(workdir, "four")
+    p1 = save_fleet(one, step, fleet.params, fleet.deltas, fleet.state,
+                    keep=1)
+    t0 = time.perf_counter()
+    p4 = save_fleet(four, step, sched.params, sched.deltas, sched.state,
+                    keep=1)
+    save_s = time.perf_counter() - t0
+    files = sorted(os.listdir(p1))
+    if files != sorted(os.listdir(p4)) or not all(
+            (npz_equal(os.path.join(p1, f), os.path.join(p4, f))
+             if f.endswith(".npz") else
+             open(os.path.join(p1, f), "rb").read()
+             == open(os.path.join(p4, f), "rb").read()) for f in files):
+        raise AssertionError(f"24c: the 4-shard fleet's checkpoint {files} "
+                             "differs from the 1-device fleet's")
+    t0 = time.perf_counter()
+    _, _, d4, s4, _ = restore_fleet(four, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if not (isinstance(d4, sharding.SlotSharded)
+            and torch.equal(d4.full(), sched.deltas)
+            and not leaves_equal(torch, sharding.gather(s4), sched.state)):
+        raise AssertionError("24c: the restored sharded fleet differs")
+    del d4, s4
+    rec["checkpoint"] = {"files": files, "save_s": save_s,
+                         "restore_s": restore_s}
+
+    # 24c: elastic_remesh from 4 shards to 2 and back, bit for bit
+    def spec_fn(path):
+        return None if path[0] == "params" else sharding.slot_spec(0)
+    tree = {"params": sched.params, "deltas": sched.deltas,
+            "state": sched.state}
+    t0 = time.perf_counter()
+    on4 = elastic_remesh(tree, mesh, spec_fn)
+    on2 = elastic_remesh(on4, serving_mesh(2), spec_fn)
+    back = elastic_remesh(on2, mesh, spec_fn)
+    torch.cuda.synchronize()
+    remesh_s = time.perf_counter() - t0
+    if not (on2["deltas"].width == N_STREAMS // 2
+            and back["deltas"].width == N_STREAMS // SHARDS):
+        raise AssertionError("24c: remesh widths")
+    differ = leaves_equal(torch, tree, sharding.gather(back))
+    if differ:
+        raise AssertionError(f"24c: 4 -> 2 -> 4 shards changed {differ}")
+    rec["remesh"] = {"shards": [SHARDS, 2, SHARDS], "wall_s": remesh_s}
+    del tree, on4, on2, back, sched, done
+    log(f"sharded_topology {json.dumps(rec)}")
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 23: the runtime and the launcher (recovery, compression, dry run, CLI)
 # ---------------------------------------------------------------------------
 
@@ -3891,10 +4102,15 @@ def main() -> int:
     # 19. the serving runtime on phase 4's fleet, held against phase 4's run
     record["runtime"], runtime_launches = runtime(torch, params, task,
                                                   serve_digest)
-    del serve_digest
 
     # 20. the static checks on the card, on phase 4's params and task
     record["analysis"], analysis_launches = analysis(torch, params, task)
+
+    # 24a (and 24c's sync guard and registry count): phase 4's fleet on a
+    # 4-shard slot mesh, held against phase 4's run
+    record["sharded_serving"], sharded_launches = sharded_serving(
+        torch, params, task, serve_digest, record["analysis"])
+    del serve_digest
 
     # 5. path parity
     record["path_parity"] = path_parity(torch, params, task)
@@ -3949,11 +4165,17 @@ def main() -> int:
     # 13. serving parity across a swap; the dense layout against the compact
     record["topology_parity"] = topology_parity(torch, params, task)
 
-    # 14. checkpoints: phase 12's fleet, then LM training resumed
+    # 14. checkpoints: phase 12's fleet, then LM training resumed; first
+    # 24b (and 24c's checkpoint and remesh checks): phase 12's live topology
+    # on a 4-shard slot mesh, held against phase 12's fleet
     import shutil
     import tempfile
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
+        record["sharded_topology"], sharded_topo_launches = sharded_topology(
+            torch, params, task, fleet, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
         record["fleet_checkpoint"] = fleet_checkpoint(torch, fleet, workdir)
         del fleet, params, task
         gc.collect()
@@ -4065,7 +4287,9 @@ def main() -> int:
                       "moe_training": moe_train_launches[name],
                       "ssm_training": ssm_train_launches[name],
                       "hybrid_training": hybrid_train_launches[name],
-                      "runtime_recovery": recovery_launches[name]}
+                      "runtime_recovery": recovery_launches[name],
+                      "sharded_serving": sharded_launches[name],
+                      "sharded_topology": sharded_topo_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

@@ -67,8 +67,9 @@ def _dtype_name(dtype) -> str:
 
 def _tensor_specs(tree) -> Tuple[Tuple[Tuple[int, ...], str], ...]:
     """``(shape, dtype)`` of every tensor in a tree of lists, tuples (named
-    ones included) and dicts, in order; a plain walk, since it runs on
-    every dispatched op."""
+    ones included), dicts and other registered pytree nodes (a slot-sharded
+    tensor's shards), in order; a plain walk, since it runs on every
+    dispatched op."""
     out, stack = [], [tree]
     while stack:
         x = stack.pop()
@@ -78,6 +79,9 @@ def _tensor_specs(tree) -> Tuple[Tuple[Tuple[int, ...], str], ...]:
             stack.extend(reversed(x))
         elif isinstance(x, dict):
             stack.extend(reversed(list(x.values())))
+        elif type(x) in pytree.SUPPORTED_NODES:
+            kids, _ = pytree.SUPPORTED_NODES[type(x)].flatten_fn(x)
+            stack.extend(reversed(kids))
     return tuple(out)
 
 

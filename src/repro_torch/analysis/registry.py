@@ -4,15 +4,13 @@ points bound to contract sets.
 Each entry names one production entry point plus the invariants its
 callers rely on; ``check_all()`` runs every set on a small-but-real
 configuration (compact AND dense delta layouts, both QoS tiers' chunk
-geometries, factors on and off) on the device asked for, so a change that
-breaks a hot-path contract (a collective in the chunk step, a dense mask in
-the compact run, a factor accumulator surviving ``want_factors=False``)
-fails with the contract's name, not as a parity diff later::
+geometries, factors on and off, sharded over a slot mesh and not) on the
+device asked for, so a change that breaks a hot-path contract (a
+collective in the chunk step, a dense mask in the compact run, a factor
+accumulator surviving ``want_factors=False``) fails with the contract's
+name, not as a parity diff later::
 
     python -m repro_torch.analysis.registry --device cpu
-
-The reference's ``serving.chunk_fn[sharded]`` entry waits for the port's
-slot-sharded scheduler (``StreamScheduler(mesh=...)``, not ported yet).
 
 Entries are built lazily (registering costs nothing at import), each
 returning ``(fn, args, contracts, kwargs)`` for
@@ -28,8 +26,10 @@ _REG: Dict[str, Callable[[str], tuple]] = {}
 
 # small-but-real geometry shared by the SNN entries; S is distinct from the
 # chunk length, layer count and n_out so slot_separable cannot pass
-# vacuously (see its docstring)
+# vacuously (see its docstring); so is the sharded entry's per-shard count
+# (_S_SHARDED slots over _MESH entries of the device: 3 a shard)
 _S, _C = 4, 5
+_S_SHARDED, _MESH = 6, 2
 
 
 def register(name: str):
@@ -130,7 +130,10 @@ def counted(fn):
 
 
 def _chunk_entry(device: str, *, want_factors: bool, compact: bool,
-                 chunk_len: int = _C, n_slots: int = _S):
+                 chunk_len: int = _C, n_slots: int = _S, mesh=None):
+    """A serving chunk fn on the registry's inputs; with a slot ``mesh``
+    the per-shard slot count is the one the contracts hold every result
+    leaf to (a sharded result's leaves are its shards)."""
     from ..core import snn
     from ..serving.adapt import AdaptConfig, make_chunk_fn
 
@@ -138,9 +141,11 @@ def _chunk_entry(device: str, *, want_factors: bool, compact: bool,
     params, deltas, state, events, valid, amask = _snn_inputs(
         cfg, device, compact=compact, chunk_len=chunk_len, n_slots=n_slots)
     exec_params = snn.serving_params(params, cfg, compact=compact)
-    fn = counted(make_chunk_fn(cfg, AdaptConfig(), want_factors=want_factors))
+    fn = counted(make_chunk_fn(cfg, AdaptConfig(), want_factors=want_factors,
+                               mesh=mesh))
+    per_shard = n_slots if mesh is None else n_slots // mesh.size
     return fn, (exec_params, deltas, state, events, valid, amask), \
-        chunk_contracts(cfg, n_slots, chunk_len, compact=compact,
+        chunk_contracts(cfg, per_shard, chunk_len, compact=compact,
                         want_factors=want_factors), None
 
 
@@ -181,6 +186,18 @@ def _chunk_tier_bulk(device):
     """The bulk QoS tier's geometry: a long chunk."""
     return _chunk_entry(device, want_factors=True, compact=True,
                         chunk_len=12, n_slots=4)
+
+
+@register("serving.chunk_fn[sharded]")
+def _chunk_sharded(device):
+    """The slot-sharded step (the port's ``shard_map``) on a mesh of two
+    entries of ``device``: no collective anywhere in the call, placement
+    and gather included, and every result leaf, a shard, keeping its
+    per-shard slot axis. The same code runs on distinct cards."""
+    from ..launch.mesh import make_serving_mesh
+    return _chunk_entry(device, want_factors=True, compact=True,
+                        n_slots=_S_SHARDED,
+                        mesh=make_serving_mesh(devices=[device] * _MESH))
 
 
 @register("snn.run_chunk[compact]")

@@ -18,7 +18,11 @@ current goes through ``nm_spmm`` under either backend; ``"kernels"`` adds
 the fused LIF kernel. The dense delta layout (``[S, L, Kmax, N]``, the
 A/B baseline) takes the rep of :func:`prepare_weights` with its dense
 mask: ``nm_spmm`` unfused (``"kernels"``) or ``pre @ w`` (``"ref"``) for
-the base, an ``einsum`` for the deltas, and a masked dense update.
+the base, an order-fixed sum of products for the deltas, and a masked
+dense update. Serving sums each slot's deltas product and readout in an
+order fixed by the layer's widths alone, so a slot rounds alike however
+many slots share the call (what a slot-sharded fleet's bit-identity with
+one device rests on); the ``"ref"`` base ``pre @ w`` stays a GEMM.
 Training carries the weight rep :func:`prepare_weights` picks: ``"ref"``
 the dense ``{"w", "mask_f"}`` (a plain ``pre @ w`` and a masked dense WU),
 ``"kernels"`` the compact rep (``nm_spmm``, ``lif`` and ``wu_outer``
@@ -259,13 +263,16 @@ def fwd_current(pre, w_l, delta_l):
     ``nm_spmm``, with compact per-slot deltas (``[S, J, T, bk, bo]``) on the
     same kept-block ids fused into the same pass (``nm_spmm_fused``); the
     dense rep is a plain ``pre @ w``. Dense per-slot deltas
-    (``[S, Kmax, N]``) add ``einsum("sk,skn->sn")`` to either base."""
+    (``[S, Kmax, N]``) add each slot's ``pre · delta`` to either base,
+    summed over ``Kmax`` by :func:`ordered_sum` (a batched GEMM's order
+    depends on the slot count, as :func:`ordered_readout` says)."""
     if delta_l is not None and delta_l.dim() == 5:
         return nm_ops.nm_spmm_fused(pre, w_l["wc"], w_l["idx"], delta_l)
     cur = (nm_ops.nm_spmm_batched(pre, w_l["wc"], w_l["idx"])
            if "wc" in w_l else pre @ w_l["w"])
     if delta_l is not None:
-        cur = cur + torch.einsum("sk,skn->sn", pre, delta_l)
+        cur = cur + ordered_sum(pre.t()[:, :, None]
+                                * delta_l.transpose(0, 1))
     return cur
 
 
@@ -422,7 +429,10 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
         tr_pc = torch.where(vv, tr_pc, st.tr_pc)
         s = s * valid.to(s.dtype)[:, None]
 
-    logits = carry.logits + tr @ xs.readout
+    # serving sums each slot's readout in an order that does not depend on
+    # how many slots share the call (the slot-sharded fleet's guarantee)
+    logits = carry.logits + (ordered_readout(tr, xs.readout) if serving
+                             else tr @ xs.readout)
     new_carry = LayerCarry(
         pre_spikes=_pad_cols(s, geo.k_max),
         pre_trace=_pad_cols(tr, geo.k_max),
@@ -627,17 +637,35 @@ def scan_chunk(wrep, readout, deltas, layers: LayerState, x_tr, ss_mean,
     return carry, outs
 
 
-def ordered_slot_sum(x: torch.Tensor) -> torch.Tensor:
-    """Reduce the leading slot axis with a shape-fixed binary halving tree:
-    ``(x[:S//2] + x[S//2:2*(S//2)])`` recursively, odd tails riding along
-    one level — the reference's association order, a function of ``S``
-    alone."""
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis by a shape-fixed binary halving tree:
+    ``(x[:n//2] + x[n//2:2*(n//2)])`` recursively, odd tails riding along
+    one level. Every add is elementwise, so the association order is a
+    function of ``n`` alone and each other index sums the same way whatever
+    the other extents (a reduction kernel's order can depend on them)."""
     while x.shape[0] > 1:
         half = x.shape[0] // 2
         paired = x[:half] + x[half:2 * half]
         x = paired if x.shape[0] % 2 == 0 else \
             torch.cat([paired, x[2 * half:]], dim=0)
     return x[0]
+
+
+def ordered_slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """Reduce the leading slot axis by :func:`ordered_sum`: the
+    reference's association order, a function of ``S`` alone."""
+    return ordered_sum(x)
+
+
+def ordered_readout(tr: torch.Tensor, readout: torch.Tensor) -> torch.Tensor:
+    """``tr @ readout`` (``[S, N] x [N, n_out]``) with each slot's sums in
+    an order fixed by ``N`` alone: the products ``[N, S, n_out]`` summed
+    over ``N`` by :func:`ordered_sum`. A GEMM library picks its algorithm by
+    the row count, so a slot's logits could round otherwise with another
+    number of slots in the call (cuBLAS does, 1024 rows against 256 on the
+    H100), and a slot-sharded fleet would then drift from the 1-device
+    one."""
+    return ordered_sum(tr.t()[:, :, None] * readout[:, None, :])
 
 
 def _assert_slot_separable(carry, outs, C: int, S: int, cfg,

@@ -286,6 +286,18 @@ class ChunkMetrics(NamedTuple):
     post_mag: Optional[torch.Tensor]  # [S, L, N] summed |OSSL modulator|
 
 
+def _chunk_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading chunk axis as a left fold, one elementwise add a
+    timestep: every slot's order is then fixed, so a slot's sum does not
+    depend on how many slots share the call (a reduction kernel's can: the
+    CPU's vectorised outer sum takes another order at other widths), and a
+    slot-sharded fleet sums as the 1-device one does."""
+    acc = x[0]
+    for t in range(1, x.shape[0]):
+        acc = acc + x[t]
+    return acc
+
+
 def _swap(t: torch.Tensor) -> torch.Tensor:
     """Slot-leading public layout <-> layer-leading engine layout."""
     return t.transpose(0, 1)
@@ -341,13 +353,13 @@ def run_chunk(params: Dict[str, Any], deltas: torch.Tensor,
     metrics = ChunkMetrics(
         logits=outs["logits"],
         window_end=outs["at_end"],
-        sop_forward=outs["sop_fwd"].sum(0),
-        sop_wu=outs["sop_wu"].sum(0),
-        sop_wu_offered=outs["sop_wu_off"].sum(0),
-        gate_opened=outs["opened"].sum(0),
-        gate_offered=outs["offered"].sum(0),
-        local_loss=outs["loss"].sum(0),
-        steps=outs["steps"].sum(0),
+        sop_forward=_chunk_sum(outs["sop_fwd"]),
+        sop_wu=_chunk_sum(outs["sop_wu"]),
+        sop_wu_offered=_chunk_sum(outs["sop_wu_off"]),
+        gate_opened=_chunk_sum(outs["opened"]),
+        gate_offered=_chunk_sum(outs["offered"]),
+        local_loss=_chunk_sum(outs["loss"]),
+        steps=_chunk_sum(outs["steps"]),
         pre_mag=_swap(accs[0]) if accs else None,
         post_mag=_swap(accs[1]) if accs else None,
     )

@@ -24,8 +24,8 @@ tensors (shapes and dtypes, no data, no memory), which needs no card:
   kernels compute, and recomputes its forward in its backward; so does its
   memory. ``flash_flops`` is that route's share of ``flops_per_device``,
   counted the same way on one call and multiplied by the calls.
-* collectives: none. The port has no mesh until ``ROADMAP.md`` Queue 1
-  item 10; ``--mesh`` is accepted and recorded and changes nothing.
+* collectives: none. The port has no LM mesh until ``ROADMAP.md`` Queue 1
+  item 10b; ``--mesh`` is accepted and recorded and changes nothing.
 
 The step has no host reads inside (``launch/train``), so every cell runs
 on ``meta``; an op that needed data would fail here.
@@ -65,7 +65,7 @@ from .serve import make_serve_step
 from .train import TrainHParams, make_train_step
 
 META = torch.device("meta")
-MESH_NAME = "1"                      # one device: the port has no mesh yet
+MESH_NAME = "1"                      # one device: no LM mesh yet
 
 
 class LiveBytes(TorchDispatchMode):
@@ -279,7 +279,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"],
-                    help="recorded only: the port has no mesh yet")
+                    help="recorded only: the port has no LM mesh yet")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--sparsity", action="store_true",

@@ -13,7 +13,7 @@ multi-host deployment runs.
 
 The reference reduces the config (``make_reduced``) when its production
 mesh (256 or 512 devices) cannot be built and trains on what it has. The
-port has no mesh until ``ROADMAP.md`` Queue 1 item 10, so a run always
+port has no LM mesh until ``ROADMAP.md`` Queue 1 item 10b, so a run always
 takes that local branch, on ``--device`` (default ``cuda``), and a fleet
 of more than one process is refused there (its replicas would train
 apart, with no gradient all-reduce). ``--validate`` runs
@@ -92,7 +92,7 @@ def launch_train(arch: str, *, multi_pod: bool, opt: str, steps: int,
     if pcount > 1:
         raise NotImplementedError(
             f"{pcount} processes would train apart: data parallelism needs "
-            "the mesh of ROADMAP.md Queue 1 item 10")
+            "the LM mesh of ROADMAP.md Queue 1 item 10b")
     cfg = C.make_reduced(cfg)        # no production mesh: the local branch
     dev = torch.device(device)
     if pid == 0:
@@ -124,7 +124,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="recorded only: the port has no mesh yet")
+                    help="recorded only: the port has no LM mesh yet")
     ap.add_argument("--opt", default="seq,losschunk,zero1,mb:4,moe")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq-len", type=int, default=4096)

@@ -7,9 +7,9 @@ Exercised by *simulation*, as in the reference: failures are injected.
   (simulated) node failure it restores the latest valid checkpoint through
   the port's ``checkpoint`` and continues; the continuation equals an
   uninterrupted run bit for bit (the data is indexed by step).
-* ``elastic_remesh`` — the reference re-shards a tree onto a new mesh; the
-  port has no mesh yet (``ROADMAP.md`` Queue 1 item 10), so it moves a
-  tree onto one device and refuses anything else.
+* ``elastic_remesh`` — re-place a tree onto a new slot mesh of any size
+  (``launch.mesh.make_serving_mesh``) or onto one device: slot-axis leaves
+  shard, the rest replicate, bit for bit.
 * ``HeartbeatMonitor`` / ``StragglerPolicy`` — per-replica step-time EMAs;
   replicas slower than ``threshold ×`` the fleet median are flagged
   (numpy only, the reference's code).
@@ -24,6 +24,8 @@ import torch
 
 from .. import checkpoint as ckpt
 from ..checkpoint.checkpoint import _children, _flatten, _is_namedtuple
+from ..launch import sharding
+from ..launch.mesh import SlotMesh, make_serving_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -86,27 +88,40 @@ def _map_with_path(fn, tree, path=()):
 
 
 def elastic_remesh(tree: Any, target, spec_fn: Callable[[Any], Any]) -> Any:
-    """Place every tensor leaf of ``tree`` on ``target``: one
-    ``torch.device`` (or a list of one), with ``spec_fn(path)`` replicated
-    (``None`` or ``()``) for every leaf; values are unchanged. ``path`` is
-    the leaf's keys from the root (dict keys, sequence indices, ``.field``
-    for a NamedTuple). More than one device, or a sharded spec, needs a
-    mesh, which the port does not have until ``ROADMAP.md`` Queue 1 item
-    10: it raises ``NotImplementedError`` there rather than replicate."""
-    devices = list(target) if isinstance(target, (list, tuple)) else [target]
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"elastic_remesh onto {len(devices)} devices needs a mesh "
-            "(ROADMAP.md Queue 1 item 10)")
-    dev = torch.device(devices[0])
+    """Place every tensor leaf of ``tree`` on ``target``: a slot mesh, a
+    list of devices (two or more make one, which may repeat a device but
+    not mix types), or one ``torch.device`` (or a list of one).
+
+    ``spec_fn(path)`` gives a leaf's spec (``path``: its keys from the root:
+    dict keys, sequence indices, ``.field`` for a NamedTuple).
+    ``launch.sharding.slot_spec(k)`` splits axis ``k`` over the mesh's
+    entries, ``None`` or ``()`` replicates (one copy an entry); on one
+    device every leaf is moved whole. Leaves already placed
+    (``SlotSharded``, ``Replicated``) are gathered first, so a tree moves
+    between meshes of any size with its values unchanged. A spec naming
+    any other mesh axis (a model or data axis) needs the LM mesh, not
+    ported yet (``ROADMAP.md`` Queue 1 item 10b): ``NotImplementedError``.
+    """
+    mesh = dev = None
+    if isinstance(target, SlotMesh):
+        mesh = target
+    else:
+        devices = list(target) if isinstance(target, (list, tuple)) \
+            else [target]
+        if len(devices) > 1:
+            mesh = make_serving_mesh(devices=devices)
+        else:
+            dev = torch.device(devices[0])
 
     def one(path, leaf):
-        spec = spec_fn(path)
-        if spec is not None and tuple(spec) != ():
-            raise NotImplementedError(
-                f"elastic_remesh: spec {spec!r} at {path} shards a leaf; "
-                "sharding needs a mesh (ROADMAP.md Queue 1 item 10)")
-        return leaf.to(dev) if isinstance(leaf, torch.Tensor) else leaf
+        spec = sharding.P(*(spec_fn(path) or ()))
+        if not isinstance(leaf, (torch.Tensor, sharding.SlotSharded,
+                                 sharding.Replicated)):
+            return leaf
+        if mesh is None:
+            sharding.spec_slot_dim(spec)        # refuses an LM mesh's axes
+            return sharding.gather(leaf).to(dev)
+        return sharding.NamedSharding(mesh, spec).place(leaf)
     return _map_with_path(one, tree)
 
 

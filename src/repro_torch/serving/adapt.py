@@ -8,19 +8,23 @@ weights are
 decide when a stream's delta absorbs an update. This module owns the step
 around ``run_chunk``: per-stream adapt on/off (a frozen lane keeps its delta
 across the step), delta hygiene (decay and clip on live lanes only), and the
-order-fixed slot reduction of the DSST factors, and folding a lane's
-delta into the shared base (:func:`merge_lane_into_base`).
+order-fixed slot reduction of the DSST factors, slot sharding over a
+``("slots",)`` mesh (each entry advances only its own slots, with no
+communication), and folding a lane's delta into the shared base
+(:func:`merge_lane_into_base`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..core import engine
 from ..core import topology as topology_lib
 from ..core.snn import ChunkMetrics, SNNConfig, StreamState, run_chunk
+from ..launch import sharding
+from ..launch.mesh import SlotMesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +46,7 @@ def chunk_fns_built() -> int:
 
 
 def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
-                  want_factors: bool = True):
+                  want_factors: bool = True, mesh: Optional[SlotMesh] = None):
     """Build the slot-grid step.
 
     Returns ``fn(params, deltas, state, events, valid, adapt_mask)`` ->
@@ -55,6 +59,19 @@ def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
     ``post_mag`` and this step slot-reduces them on the device with the
     order-fixed ``engine.ordered_slot_sum``, so metrics carry ``[L, Kmax]``
     / ``[L, N]``; when False they are never computed.
+
+    With ``mesh`` (a ``("slots",)`` mesh, ``launch.mesh.make_serving_mesh``)
+    it is the port's ``shard_map``: ``S`` must divide by the mesh's entry
+    count (``launch.sharding.check_slot_divisible``); the arguments are
+    placed by ``launch.sharding.chunk_step_specs`` (params replicated, one
+    replica an entry; the per-stream tensors split along their slot axis,
+    each entry's block its own copy; inputs already placed so pass
+    through), and the step above runs once per entry, on that entry's
+    device and slots, with no communication between entries. Results come
+    back as ``launch.sharding.SlotSharded`` leaves; only then are the
+    per-slot DSST factors slot-reduced, over the slots in global order on
+    the first entry's device, so the factors, like everything else, equal
+    the 1-device step's bit for bit.
     """
     global _CHUNK_FNS_BUILT
     _CHUNK_FNS_BUILT += 1
@@ -62,9 +79,8 @@ def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
     scfg = cfg if adapt.lr_scale == 1.0 else dataclasses.replace(
         cfg, lr=cfg.lr * adapt.lr_scale)
 
-    @torch.no_grad()
-    def chunk_fn(params, deltas, state: StreamState, events, valid, adapt_mask
-                 ) -> Tuple[torch.Tensor, StreamState, ChunkMetrics]:
+    def step(params, deltas, state: StreamState, events, valid, adapt_mask
+             ) -> Tuple[torch.Tensor, StreamState, ChunkMetrics]:
         new_deltas, new_state, metrics = run_chunk(
             params, deltas, state, events, valid, scfg, learn=adapt.enabled,
             want_factors=want_factors)
@@ -84,20 +100,52 @@ def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
             sop_wu_offered=metrics.sop_wu_offered * adapt_mask,
             gate_opened=metrics.gate_opened * adapt_mask[:, None],
             gate_offered=metrics.gate_offered * adapt_mask[:, None])
-        if want_factors:
-            metrics = metrics._replace(
-                pre_mag=engine.ordered_slot_sum(metrics.pre_mag),
-                post_mag=engine.ordered_slot_sum(metrics.post_mag))
         return out, new_state, metrics
 
+    def reduce_factors(metrics: ChunkMetrics) -> ChunkMetrics:
+        if not want_factors:
+            return metrics
+        return metrics._replace(
+            pre_mag=engine.ordered_slot_sum(sharding.gather(metrics.pre_mag)),
+            post_mag=engine.ordered_slot_sum(
+                sharding.gather(metrics.post_mag)))
+
+    if mesh is None:
+        @torch.no_grad()
+        def chunk_fn(params, deltas, state: StreamState, events, valid,
+                     adapt_mask):
+            deltas, state, metrics = step(params, deltas, state, events,
+                                          valid, adapt_mask)
+            return deltas, state, reduce_factors(metrics)
+    else:
+        in_specs, out_specs = sharding.chunk_step_specs(want_factors)
+
+        @torch.no_grad()
+        def chunk_fn(params, deltas, state: StreamState, events, valid,
+                     adapt_mask):
+            sharding.check_slot_divisible(events.shape[1], mesh)
+            args = sharding.place_args(
+                (params, deltas, state, events, valid, adapt_mask), in_specs,
+                mesh)
+            outs = [step(*sharding.shard_at(args, i))
+                    for i in range(mesh.size)]
+            deltas, state, metrics = sharding.stack_shards(outs, out_specs,
+                                                           mesh)
+            return deltas, state, reduce_factors(metrics)
+
     chunk_fn.want_factors = want_factors
+    chunk_fn.mesh = mesh
     return chunk_fn
 
 
 def delta_norms(deltas: torch.Tensor) -> torch.Tensor:
     """Per-slot L2 norm of the adaptation, summed over layers. ``[S]``.
     Either layout: compact storage holds only kept coordinates and dense
-    deltas are zero off the mask, so both report the same norms."""
+    deltas are zero off the mask, so both report the same norms. Slot-
+    sharded deltas give their norms shard by shard, gathered in slot
+    order."""
+    if isinstance(deltas, sharding.SlotSharded):
+        return sharding.map_shards(delta_norms, deltas).full()
     sq = (deltas * deltas).sum(dim=tuple(range(2, deltas.dim())))
     return torch.sqrt(sq).sum(1)
 
@@ -110,8 +158,9 @@ def merge_lane_into_base(params: Dict[str, Any], deltas: torch.Tensor,
     base (``engine.densify_deltas`` over the mask's kept-block ids), a dense
     ``[L, Kmax, N]`` lane is zero off the mask by the topology invariant, so
     a plain add keeps the base's sparsity bit for bit. Only ``hidden/w`` is
-    rebuilt; every other key rides through."""
-    lane = deltas[slot]
+    rebuilt; every other key rides through. ``deltas`` may be slot-sharded:
+    the lane is read from its shard."""
+    lane = deltas[slot].to(params["hidden"]["w"].device)
     if lane.dim() == 5:              # compact [L, J, T, bk, bo]
         idx = topology_lib.stacked_kept_ids(params["hidden"]["mask"], cfg)
         lane = engine.densify_deltas(lane[None], idx, cfg)[0]

@@ -13,6 +13,10 @@ the caller's fleet runs the other layout: ``engine.compact_deltas`` or
 ``engine.densify_deltas`` over the restored mask's ``stacked_kept_ids``,
 a gather or a scatter, so the deltas are bitwise at every kept coordinate
 (off the mask the dense layout is zero by the topology invariant).
+
+A slot-sharded fleet (``launch.sharding.SlotSharded`` deltas and state) is
+saved gathered, so it writes the files a 1-device fleet writes;
+``restore_fleet(..., mesh=)`` shards what it reads over a slot mesh.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from ..checkpoint import checkpoint
 from ..core import engine
 from ..core import topology as topology_lib
 from ..core.snn import SNNConfig, StreamState, init_stream_state
+from ..launch import sharding
 
 _DENSE_DELTA_RANK = 4      # [S, L, Kmax, N]
 
@@ -36,12 +41,12 @@ def save_fleet(base: str, step: int, params: Dict[str, Any],
                deltas: torch.Tensor, state: StreamState,
                extra: Optional[Dict] = None, keep: int = 3) -> str:
     """Checkpoint one fleet's ``(params, deltas, state)`` at ``step``; the
-    deltas are stored in their own layout."""
+    deltas are stored in their own layout, slot-sharded ones gathered."""
     extra = dict(extra or {})
     extra["n_slots"] = int(deltas.shape[0])
     extra["delta_layout"] = "compact" if deltas.dim() == 6 else "dense"
-    return checkpoint.save(base, step, _fleet_tree(params, deltas, state),
-                           extra=extra, keep=keep)
+    tree = _fleet_tree(params, *sharding.gather((deltas, state)))
+    return checkpoint.save(base, step, tree, extra=extra, keep=keep)
 
 
 def _template(cfg: SNNConfig, shapes: Dict[str, Tuple]) -> Dict[str, Any]:
@@ -59,12 +64,16 @@ def _template(cfg: SNNConfig, shapes: Dict[str, Tuple]) -> Dict[str, Any]:
 
 
 def restore_fleet(base: str, cfg: SNNConfig, step: Optional[int] = None,
-                  compact: Optional[bool] = None, device="cuda"
-                  ) -> Tuple[int, Dict[str, Any], torch.Tensor, StreamState,
-                             Dict]:
+                  compact: Optional[bool] = None, device="cuda", *,
+                  mesh=None) -> Tuple[int, Dict[str, Any], torch.Tensor,
+                                      StreamState, Dict]:
     """Restore ``(step, params, deltas, state, extra)`` onto ``device``,
     migrating the delta layout to ``compact`` (None = the
-    ``init_stream_deltas`` auto choice)."""
+    ``init_stream_deltas`` auto choice). With a slot ``mesh`` the deltas
+    and state come back sharded over it and the params on its first
+    entry's device."""
+    if mesh is not None:
+        device = mesh.devices[0]
     step, shapes, _ = checkpoint.peek(base, step)
     stored_compact = len(shapes["deltas"][0]) != _DENSE_DELTA_RANK
     step, tree, extra = checkpoint.restore(base, _template(cfg, shapes),
@@ -76,4 +85,8 @@ def restore_fleet(base: str, cfg: SNNConfig, step: Optional[int] = None,
         idx = topology_lib.stacked_kept_ids(params["hidden"]["mask"], cfg)
         deltas = (engine.compact_deltas(deltas, idx, cfg) if want_compact
                   else engine.densify_deltas(deltas, idx, cfg))
-    return step, params, deltas, tree["state"], extra
+    state = tree["state"]
+    if mesh is not None:
+        deltas, state = sharding.device_put(
+            (deltas, state), sharding.slot_sharding(mesh))
+    return step, params, deltas, state, extra

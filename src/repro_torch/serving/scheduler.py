@@ -64,8 +64,19 @@ fns the grid steps ran: it stays 1).
 default for uniform layer geometry) or dense ``[S, L, Kmax, N]`` (the A/B
 baseline, whose exec rep carries the dense mask).
 
-Not ported yet: slot sharding over a mesh (``mesh=`` raises
-``NotImplementedError``).
+**Slot sharding.** With a ``("slots",)`` mesh
+(``launch.mesh.make_serving_mesh``) every tier's grid shards over the
+mesh's entries: its width is padded per entry
+(``launch.sharding.tier_slot_allocation``), its state and deltas are
+``launch.sharding.SlotSharded`` (entry ``i`` holds slots ``[i·w,
+(i+1)·w)`` on its device), the base is replicated to every entry, and the
+chunk fn runs each entry's slots on its own device with no communication,
+bit for bit the 1-device fleet's step. Lane surgery writes a global slot in
+the shard that holds it, the staging buffers are laid out shard-major (each
+shard's block one contiguous pinned region, copied to its device without
+waiting), and retire reads each device's metrics back once. ``state`` and
+``deltas`` gather the full slot-leading tensors, so callers read a sharded
+fleet as they read a 1-device one.
 """
 from __future__ import annotations
 
@@ -79,7 +90,9 @@ import torch
 from ..core import engine
 from ..core.snn import (ChunkMetrics, SNNConfig, init_stream_deltas,
                         init_stream_state, serving_params)
+from ..launch import sharding
 from ..launch.batching import SlotGrid
+from ..launch.sharding import SlotSharded
 from ..obs.trace import NULL_TRACER, Tracer
 from .adapt import AdaptConfig, make_chunk_fn
 from .autopilot import AutopilotConfig, DepthAutopilot
@@ -89,8 +102,10 @@ from .staging import InFlight, LaneRecord, StagedChunk, StagingPipeline
 from .telemetry import FleetTelemetry
 
 
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
+def _layout(x) -> list:
+    """``(shape, dtype, device)`` of a tensor, or of each of its shards."""
+    parts = x.shards if isinstance(x, SlotSharded) else (x,)
+    return [(tuple(p.shape), p.dtype, p.device) for p in parts]
 
 
 def _staging(tier: "_Tier") -> int:
@@ -149,8 +164,10 @@ class StreamScheduler:
       telemetry: a :class:`FleetTelemetry` to fill (fresh one by default).
       pipeline_depth: 0 = serial phases, 1 = double-buffered staging, > 1 =
         a deeper queue (clamped to 1 with a topology service).
-      device:   where the fleet's tensors live (``"cuda"`` by default).
-      mesh:     not ported (raises ``NotImplementedError``).
+      device:   where the fleet's tensors live (``"cuda"`` by default);
+        with ``mesh``, the mesh's entries hold them instead.
+      mesh:     optional 1-D ``("slots",)`` mesh: shard every tier's grid
+        over its entries (widths padded per entry).
       topology: optional :class:`TopologyService`, live DSST epochs; it
         must be built for ``cfg``, on a single-tier fleet.
       want_factors: the chunk fn's DSST-factor mode; None = True iff a
@@ -177,9 +194,6 @@ class StreamScheduler:
                  tracer: Optional[Tracer] = None,
                  tiers: Optional[Sequence[TierConfig]] = None,
                  ingest=None, autopilot=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamScheduler(mesh=...) is not ported yet")
         if topology is not None and topology.cfg != cfg:
             raise ValueError("topology service was built for a different "
                              "SNNConfig than this scheduler's")
@@ -209,7 +223,17 @@ class StreamScheduler:
                     "a topology service folds one fleet-wide delta grid "
                     "into the shared base; attach it to a single-tier "
                     "scheduler")
-        self.device = torch.device(device)
+        if mesh is not None:
+            # padded to a multiple of the entry count so every entry owns an
+            # equal shard (padding lanes just idle: an empty slot is free),
+            # and floored at 2 slots an entry, the reference's rule
+            widths = sharding.tier_slot_allocation(
+                [t.n_slots for t in tier_cfgs], mesh)
+            tier_cfgs = [dataclasses.replace(t, n_slots=w)
+                         for t, w in zip(tier_cfgs, widths)]
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None \
+            else mesh.devices[0]
         self.params, self.cfg = params, cfg
         self.topology, self.want_factors = topology, want_factors
         self.compact = engine.geometry(cfg).uniform if compact is None \
@@ -220,12 +244,10 @@ class StreamScheduler:
             tier = _Tier(tc.name, tc.chunk_len, tc.n_slots, slot0)
             slot0 += tc.n_slots
             tier.grid = SlotGrid(tc.n_slots)
-            tier.state = init_stream_state(cfg, tc.n_slots, device=self.device)
-            tier.deltas = init_stream_deltas(cfg, tc.n_slots,
-                                             device=self.device,
-                                             compact=self.compact)
+            tier.state, tier.deltas = self._new_lanes(tc.n_slots)
             tier.chunk_fn = make_chunk_fn(cfg, adapt,
-                                          want_factors=want_factors)
+                                          want_factors=want_factors,
+                                          mesh=mesh)
             tier.pipeline = StagingPipeline(depth=pipeline_depth)
             self._tiers.append(tier)
         self._by_name = {t.name: t for t in self._tiers}
@@ -238,6 +260,7 @@ class StreamScheduler:
         self.tracer = tracer or NULL_TRACER
         self.retired: List[StreamSession] = []
         self._pin = self.device.type == "cuda"
+        self._n_shards = 1 if mesh is None else mesh.size
 
         self.ingest: Optional[IngestWorker] = None
         if ingest:
@@ -275,22 +298,44 @@ class StreamScheduler:
         ``self.params`` (the compact rep; the dense layout's adds its
         ``mask_f``) and re-measure the resident bytes. Runs at construction
         and after every topology swap, the only times the base changes."""
-        self._exec_params = serving_params(self.params, self.cfg,
-                                           compact=self.compact)
-        self._params_bytes = sum(_nbytes(t) for t in self._exec_params.values())
-        self._delta_bytes = sum(_nbytes(t.deltas) for t in self._tiers)
+        rep = serving_params(self.params, self.cfg, compact=self.compact)
+        self._params_bytes = sum(t.nbytes for t in rep.values())
+        # on a mesh: one replica an entry, whether or not devices repeat
+        self._exec_params = rep if self.mesh is None \
+            else sharding.replicate(rep, self.mesh)
+        # a tensor's bytes, or a SlotSharded's summed over its shards
+        self._delta_bytes = sum(t.deltas.nbytes for t in self._tiers)
+
+    def _new_lanes(self, n_slots: int):
+        """A tier's fresh ``(state, deltas)``: on a mesh, each entry's shard
+        made on its device."""
+        def lanes(n, dev):
+            return (init_stream_state(self.cfg, n, device=dev),
+                    init_stream_deltas(self.cfg, n, device=dev,
+                                       compact=self.compact))
+        if self.mesh is None:
+            return lanes(n_slots, self.device)
+        w = n_slots // self.mesh.size
+        s0 = sharding.slot_spec(0)
+        return sharding.stack_shards(
+            [lanes(w, dev) for dev in self.mesh.devices], (s0, s0),
+            self.mesh)
+
+    def _place(self, tree):
+        """A caller's slot-leading tree, sharded over the mesh (as it is
+        without one)."""
+        if self.mesh is None:
+            return tree
+        return sharding.device_put(tree, sharding.slot_sharding(self.mesh))
 
     def _replace_lanes(self, tier: _Tier, deltas: torch.Tensor) -> None:
-        """Install swapped deltas on ``tier``: a tensor of the live one's
-        shape, dtype and device, so the chunk fn takes it as it took the
-        old one."""
+        """Install swapped deltas on ``tier``: a tensor (or shards) of the
+        live one's shape, dtype and device, so the chunk fn takes it as it
+        took the old one."""
         old = tier.deltas
-        if (deltas.shape, deltas.dtype, deltas.device) != (
-                old.shape, old.dtype, old.device):
-            raise ValueError(f"swapped deltas {tuple(deltas.shape)} "
-                             f"{deltas.dtype} {deltas.device} do not match "
-                             f"the fleet's {tuple(old.shape)} {old.dtype} "
-                             f"{old.device}")
+        if type(deltas) is not type(old) or _layout(deltas) != _layout(old):
+            raise ValueError(f"swapped deltas {_layout(deltas)} do not match "
+                             f"the fleet's {_layout(old)}")
         tier.deltas = deltas
 
     # -- lifecycle -----------------------------------------------------------
@@ -382,10 +427,12 @@ class StreamScheduler:
             self.clock += self.clock_dt_s
             self._poll_sources()
         self._admit(tier)
-        C, S = tier.chunk_len, tier.n_slots
-        events_t = self._host_buffer((C, S, self.cfg.n_in), torch.float32)
-        valid_t = self._host_buffer((C, S), torch.bool)
-        amask_t = self._host_buffer((S,), torch.bool)
+        # shard-major: shard i's block [i] is one contiguous (pinned) region
+        C, D = tier.chunk_len, self._n_shards
+        w = tier.n_slots // D
+        events_t = self._host_buffer((D, C, w, self.cfg.n_in), torch.float32)
+        valid_t = self._host_buffer((D, C, w), torch.bool)
+        amask_t = self._host_buffer((D, w), torch.bool)
         events, valid, amask = events_t.numpy(), valid_t.numpy(), amask_t.numpy()
         lanes: List[LaneRecord] = []
         retiring = []
@@ -395,10 +442,11 @@ class StreamScheduler:
                 continue
             chunk = sess.pop_chunk(C)
             n = chunk.shape[0]
+            i, j = divmod(slot, w)
             if n:
-                events[:n, slot] = chunk
-                valid[:n, slot] = True
-            amask[slot] = sess.adapt
+                events[i, :n, j] = chunk
+                valid[i, :n, j] = True
+            amask[i, j] = sess.adapt
             fed[slot] = n
             lanes.append(LaneRecord(slot=slot, session=sess, n_fed=n,
                                     events_in=float(chunk.sum())))
@@ -420,10 +468,9 @@ class StreamScheduler:
         t0 = time.perf_counter()
         with self.tracer.span("sched.dispatch", grid_step=_staging(tier),
                               tier=tier.name) as sp:
-            dev = self.device
-            events = staged.events.to(dev, non_blocking=True)
-            valid = staged.valid.to(dev, non_blocking=True)
-            amask = staged.adapt_mask.to(dev, non_blocking=True)
+            events = self._to_device(staged.events, 1)
+            valid = self._to_device(staged.valid, 1)
+            amask = self._to_device(staged.adapt_mask, 0)
             fn = tier.chunk_fn
             if not any(f is fn for f in tier.fns_run):
                 tier.fns_run.append(fn)
@@ -434,10 +481,8 @@ class StreamScheduler:
             if staged.retiring:
                 # a copy: a later stage may reset these lanes in place
                 # before this step retires
-                slots = torch.tensor([s for s, _ in staged.retiring],
-                                     dtype=torch.long, pin_memory=self._pin)
-                slots = slots.to(dev, non_blocking=True)
-                final = tier.deltas.index_select(0, slots)
+                final = self._copy_lanes(tier.deltas,
+                                         [s for s, _ in staged.retiring])
             tier.grid.tick()
             for slot, _ in staged.retiring:
                 tier.grid.retire(slot)
@@ -449,22 +494,66 @@ class StreamScheduler:
         self.telemetry.record_tier_phase(tier.name, "dispatch", dt)
         return fl
 
+    def _to_device(self, blocks: torch.Tensor, slot_dim: int):
+        """Staged shard-major host blocks onto the fleet without waiting:
+        block ``i`` to entry ``i``'s device (a ``SlotSharded`` along
+        ``slot_dim``), or the one block to the fleet's device."""
+        if self.mesh is None:
+            return blocks[0].to(self.device, non_blocking=True)
+        return SlotSharded([blocks[i].to(dev, non_blocking=True)
+                            for i, dev in enumerate(self.mesh.devices)],
+                           self.mesh, slot_dim)
+
+    def _copy_lanes(self, deltas, slots: List[int]) -> Tuple:
+        """Copies of the lanes ``slots`` (ascending) of a tier's deltas: one
+        block a shard that holds any, in shard order, so the blocks joined
+        are the lanes in ``slots`` order."""
+        shards = deltas.shards if isinstance(deltas, SlotSharded) \
+            else (deltas,)
+        w = shards[0].shape[0]
+        out = []
+        for i, d in enumerate(shards):
+            local = [s - i * w for s in slots if i * w <= s < (i + 1) * w]
+            if local:
+                idx = torch.tensor(local, dtype=torch.long,
+                                   pin_memory=self._pin)
+                out.append(d.index_select(
+                    0, idx.to(d.device, non_blocking=True)))
+        return tuple(out)
+
     # -- phase 3: retire -----------------------------------------------------
     def _fetch(self, fl: InFlight):
-        """The one device-to-host transfer of a step: every metric (and the
-        retiring lanes) flattened into one f32 buffer, one ``.cpu()``."""
+        """The device-to-host transfer of a step: every metric (and the
+        retiring lanes) flattened into one f32 buffer a device, one
+        ``.cpu()`` each (one a step without a mesh); sharded values are
+        joined along their slot axis on the host."""
         named = [(k, v) for k, v in fl.metrics._asdict().items()
                  if v is not None]
         if fl.final_deltas is not None:
             named.append(("final_deltas", fl.final_deltas))
-        flat = torch.cat([v.reshape(-1).to(torch.float32) for _, v in named])
-        host = flat.cpu().numpy()
-        out, off = {}, 0
+        pieces, by_dev = [], {}
         for k, v in named:
-            n = v.numel()
-            a = host[off:off + n].reshape(tuple(v.shape))
-            out[k] = a.astype(bool) if v.dtype == torch.bool else a
-            off += n
+            if isinstance(v, SlotSharded):
+                parts, dim = v.shards, v.slot_dim
+            else:
+                parts, dim = (v if isinstance(v, tuple) else (v,)), 0
+            pieces.append((k, parts, dim))
+            for p in parts:
+                by_dev.setdefault(p.device, []).append(p)
+        host = {}
+        for dev, ts in by_dev.items():
+            flat = torch.cat([t.reshape(-1).to(torch.float32) for t in ts])
+            host[dev] = flat.cpu().numpy()
+        off = dict.fromkeys(host, 0)
+        out = {}
+        for k, parts, dim in pieces:
+            arrs = []
+            for p in parts:
+                n, o = p.numel(), off[p.device]
+                a = host[p.device][o:o + n].reshape(tuple(p.shape))
+                arrs.append(a.astype(bool) if p.dtype == torch.bool else a)
+                off[p.device] = o + n
+            out[k] = arrs[0] if len(arrs) == 1 else np.concatenate(arrs, dim)
         return out
 
     def _retire(self, tier: _Tier, fl: InFlight) -> None:
@@ -656,21 +745,23 @@ class StreamScheduler:
 
     @property
     def state(self):
-        """The first tier's lane-batched ``StreamState``."""
-        return self._tiers[0].state
+        """The first tier's lane-batched ``StreamState`` (on a mesh, the
+        full tensors gathered from its shards: a copy)."""
+        return sharding.gather(self._tiers[0].state)
 
     @state.setter
     def state(self, value):
-        self._tiers[0].state = value
+        self._tiers[0].state = self._place(value)
 
     @property
     def deltas(self) -> torch.Tensor:
-        """The first tier's slot-leading delta tensor."""
-        return self._tiers[0].deltas
+        """The first tier's slot-leading delta tensor (on a mesh, gathered
+        from its shards: a copy)."""
+        return sharding.gather(self._tiers[0].deltas)
 
     @deltas.setter
     def deltas(self, value):
-        self._tiers[0].deltas = value
+        self._tiers[0].deltas = self._place(value)
 
     @property
     def tiers(self) -> Tuple[str, ...]:

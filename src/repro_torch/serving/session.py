@@ -6,8 +6,9 @@ The device-side state lives in slot-leading batched tensors; a session only
 remembers which lane is its own.
 
 Lane surgery writes in place: ``write_lane``/``reset_lane`` touch exactly
-one slot index of every leaf and leave every other lane's bits alone. The
-scheduler never lets a later write reach what an in-flight step still has
+one slot index of every leaf and leave every other lane's bits alone. A
+slot-sharded leaf (``launch.sharding.SlotSharded``) is written in the shard
+that holds the slot. The scheduler never lets a later write reach what an in-flight step still has
 to read (see ``serving/staging.InFlight``).
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.snn import SNNConfig, init_stream_deltas, init_stream_state
+from ..launch.sharding import SlotSharded
 
 
 class SessionStatus(enum.Enum):
@@ -106,14 +108,14 @@ class StreamSession:
 # ---------------------------------------------------------------------------
 
 def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, SlotSharded)):
         return [tree]
     return [leaf for sub in tree for leaf in _leaves(sub)]
 
 
 def _map(fn, tree):
     """``fn`` over every tensor of a tensor / (nested) NamedTuple."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, SlotSharded)):
         return fn(tree)
     return type(tree)(*(_map(fn, sub) for sub in tree))
 
@@ -129,7 +131,7 @@ def write_lane(batched, single, slot: int):
 def read_lane(batched, slot: int):
     """A copy of lane ``slot`` of every leaf, keeping a leading axis of 1
     (the shape ``write_lane`` takes back)."""
-    return _map(lambda b: b[slot:slot + 1].clone(), batched)
+    return _map(lambda b: b[slot][None].clone(), batched)
 
 
 def fresh_lane_state(cfg: SNNConfig, compact: Optional[bool] = None,

@@ -36,9 +36,11 @@ class LaneRecord:
 class StagedChunk:
     """One grid step's host-assembled inputs + scheduling decisions.
 
-    ``events [C, S, n_in]`` f32, ``valid [C, S]`` bool and ``adapt_mask
-    [S]`` bool are host tensors (pinned when the fleet lives on a CUDA
-    device, so dispatch copies them asynchronously). ``retiring`` lists the
+    ``events [D, C, S/D, n_in]`` f32, ``valid [D, C, S/D]`` bool and
+    ``adapt_mask [D, S/D]`` bool are host tensors laid out shard-major over
+    the fleet's ``D`` slot shards (``D = 1`` without a mesh), so each
+    shard's block is one contiguous region; pinned when the fleet lives on
+    a CUDA device, so dispatch copies each block asynchronously. ``retiring`` lists the
     ``(slot, session)`` pairs that exhaust after this step. ``merge_slots``
     snapshots the adaptive occupants a topology epoch after this step may
     fold into the base (taken here, so a pipelined retire sees the lanes
@@ -58,7 +60,8 @@ class InFlight:
     """A dispatched-but-unretired grid step: the staged host record, the
     chunk step's metrics (device tensors), and ``final_deltas``: a copy,
     taken at dispatch, of the post-step lanes of ``staged.retiring`` (in
-    that order, in the fleet's delta layout), or None when nobody retires."""
+    that order, in the fleet's delta layout: a tuple of per-shard blocks,
+    joined in shard order), or None when nobody retires."""
     staged: StagedChunk
     final_deltas: Optional[Any]
     metrics: Any

@@ -23,6 +23,11 @@ session. The cycle, driven by ``StreamScheduler.maybe_evolve_topology``:
    every tensor keeps its shape, dtype and device, so the scheduler swaps
    them between grid steps and the chunk step is never rebuilt. The
    exactly-n-per-group invariant is checked after every epoch.
+
+A slot-sharded fleet (``launch.sharding.SlotSharded`` deltas) runs the same
+epoch: each lane's norm is read from its shard, a hot lane folds into the
+base from its shard, and every shard is remapped on its own device, so the
+deltas come back sharded as they went in.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 
 from ..core import topology as topology_lib
 from ..core.snn import ChunkMetrics, SNNConfig
+from ..launch import sharding
 from .adapt import delta_norms, merge_lane_into_base
 
 
@@ -56,6 +62,13 @@ class TopologyEpochEvent:
     regrown: int
     mask_change: float           # mean fraction of units flipped per layer
     merged_slots: Tuple[int, ...]  # hot lanes folded into the base first
+
+
+def _per_shard(fn, deltas):
+    """``fn`` on a delta tensor, or on every shard of a slot-sharded one."""
+    if isinstance(deltas, sharding.SlotSharded):
+        return sharding.map_shards(fn, deltas)
+    return fn(deltas)
 
 
 def _host(x) -> np.ndarray:
@@ -153,7 +166,7 @@ class TopologyService:
         hot = tuple(sorted(eligible, key=lambda s: -norms[s])[:svc.merge_top])
         if not hot:
             return params, deltas, ()
-        deltas = deltas.clone()
+        deltas = _per_shard(torch.clone, deltas)
         for slot in hot:
             params = merge_lane_into_base(params, deltas, slot, self.cfg,
                                           weight=svc.merge_weight)
@@ -168,7 +181,8 @@ class TopologyService:
                merge_slots: Sequence[int] = (), grid_step: int = 0
                ) -> Tuple[Dict[str, Any], torch.Tensor, TopologyEpochEvent]:
         """One live topology epoch: ``(params', deltas', event)`` of the
-        inputs' shapes, dtypes and device; nothing passed in is written."""
+        inputs' shapes, dtypes and devices (slot-sharded deltas stay so);
+        nothing passed in is written."""
         if self.frozen:
             raise ValueError(
                 "topology is frozen (dsst disabled, dense baseline, or past "
@@ -181,9 +195,12 @@ class TopologyService:
             params, torch.from_numpy(self.pre).to(dev),
             torch.from_numpy(self.post).to(dev), self.cfg,
             step=self.virtual_step)
-        new_deltas = topology_lib.project_deltas(
-            deltas, old_mask, new_params["hidden"]["mask"], self.cfg)
-        if not topology_lib.check(new_params["hidden"]["mask"], self.cfg):
+        new_mask = new_params["hidden"]["mask"]
+        new_deltas = _per_shard(
+            lambda d: topology_lib.project_deltas(
+                d, old_mask.to(d.device), new_mask.to(d.device), self.cfg),
+            deltas)
+        if not topology_lib.check(new_mask, self.cfg):
             raise AssertionError("topology epoch violated the "
                                  "exactly-n-per-group invariant")
         event = TopologyEpochEvent(

@@ -10,8 +10,8 @@ engine's per-chunk slot-separability assert accepts and rejects the same
 carry trees as the reference's, with the same message; the port's
 ``scan_chunk`` runs it on every call, and a reduction over slots planted
 into it fails. The registry passes every entry on the CPU, with the
-reference's entry names (less ``serving.chunk_fn[sharded]``, which waits
-for the slot-sharded scheduler) and contract sets.
+reference's entry names (``serving.chunk_fn[sharded]`` included, on a
+two-entry CPU slot mesh) and contract sets.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -464,8 +464,6 @@ def _reference_entries():
 
     out = {}
     for name in jregistry.names():
-        if name == "serving.chunk_fn[sharded]":
-            continue
         _, _, contracts, _ = jregistry._REG[name]()
         out[name] = [c.name for c in contracts]
     return out
@@ -473,8 +471,8 @@ def _reference_entries():
 
 def test_registry_every_entrypoint_passes_on_cpu():
     """Every entry point passes its contract set on the CPU, under the
-    reference's names and with its contract lists (the sharded entry waits
-    for the slot-sharded scheduler)."""
+    reference's names and with its contract lists, the slot-sharded chunk
+    step's among them."""
     reports = registry.check_all(device="cpu")
     assert set(reports) == set(registry.names())
     for name, r in reports.items():

@@ -112,14 +112,15 @@ def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 73      # every module was imported
+    assert int(out.stdout.strip()) >= 75      # every module was imported
 
 
 @pytest.mark.parametrize("module", ["serving.ingest", "serving.autopilot",
-                                    "obs.export"])
+                                    "obs.export", "launch.mesh",
+                                    "launch.sharding"])
 def test_runtime_modules_alone_pull_in_no_jax_and_no_repro(module):
-    """The serving runtime's host-side modules, each imported alone in a
-    fresh interpreter."""
+    """The serving runtime's host-side modules and the slot mesh and its
+    rules, each imported alone in a fresh interpreter."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('repro_torch.{module}')\n"

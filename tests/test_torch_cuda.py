@@ -22,6 +22,8 @@ element within ``ref.bf16_out_tolerance`` / ``ref.bf16_grad_tolerance``
 layer (no kernel of its own: ``torch.bmm`` over the dispatch buffer) on
 the card against the CPU in f32: slots equal, output within ``1e-5``; a
 reduced MoE training step's gradients equal bit for bit across two calls.
+The slot-sharded chunk step and fleet on four mesh entries of the card
+against the 1-device ones, bit for bit.
 """
 import numpy as np
 import pytest
@@ -775,8 +777,8 @@ def _registry_names():
 def test_registry_entry_passes_on_card(cuda, name):
     """Every registry entry at its small geometry on the card; the compact
     SNN entries launch the fused ``nm_spmm`` (counted on both ``nm_spmm``
-    counters), ``lif`` and ``wu_outer_slots`` kernels C x L times a
-    call."""
+    counters), ``lif`` and ``wu_outer_slots`` kernels C x L times a call,
+    on each entry of a sharded one's mesh."""
     from repro_torch.analysis import dispatch_contracts as dc
     from repro_torch.analysis import registry
     from repro_torch.kernels.lif.kernel import lif_cuda
@@ -789,7 +791,9 @@ def test_registry_entry_passes_on_card(cuda, name):
     assert report.ok, str(report)
     got = [c.launches - b for c, b in zip(counters, before)]
     if name.startswith(("serving.", "snn.")) and "dense" not in name:
-        per_call = args[3].shape[0] * registry.snn_cfg().n_layers
+        mesh = getattr(fn, "mesh", None)
+        per_call = args[3].shape[0] * registry.snn_cfg().n_layers * (
+            1 if mesh is None else mesh.size)
         assert got == [report.calls * per_call] * 4
 
 
@@ -911,5 +915,99 @@ def test_elastic_remesh_moves_a_tree_onto_the_card(cuda):
     assert out["w"].device.type == "cuda" and out["opt"][0].device.type == "cuda"
     assert torch.equal(out["w"].cpu(), tree["w"])
     assert torch.equal(out["opt"][0].cpu(), tree["opt"][0]) and out["opt"][1] == 3
-    with pytest.raises(NotImplementedError):
+    # a mesh holds one device type: a card and the host stay a refusal
+    with pytest.raises(ValueError, match="one device type"):
         elastic_remesh(tree, [cuda, torch.device("cpu")], lambda path: None)
+
+
+# ------------------------------------------- the slot-sharded serving fleet
+# On the card, 4 mesh entries of the one device, 64 slots a shard: torch's
+# reduction kernels pick the same launch shape from 16 rows up (a shard of
+# 1 or 2 rows may sum a row in another order: see PERF.md), so each shard
+# is kept well above that.
+
+SHARDS, SHARD_SLOTS = 4, 64
+
+
+def _card_mesh(cuda):
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(devices=[cuda] * SHARDS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [True, False])
+def test_sharded_chunk_step_equals_one_card_on_card(cuda, compact):
+    """Three carried chunk steps (decay and clip, ragged valid, a mixed
+    adapt mask, factors on) on 4 shards of one card against the 1-device
+    step: every output bit for bit, and each shard launching the kernels
+    once a layer-timestep."""
+    from repro_torch.core.snn import (SNNConfig, init_params,
+                                      init_stream_deltas, init_stream_state,
+                                      serving_params)
+    from repro_torch.kernels.lif.kernel import lif_cuda
+    from repro_torch.launch import sharding
+    from repro_torch.serving.adapt import AdaptConfig, make_chunk_fn
+    cfg = SNNConfig(n_in=32, n_hidden=32, n_layers=2, n_out=8, t_steps=16,
+                    backend="kernels")
+    S, C = SHARDS * SHARD_SLOTS, 6
+    ex = serving_params(init_params(0, cfg, device=cuda), cfg,
+                        compact=compact)
+    adapt = AdaptConfig(delta_decay=0.95, delta_clip=0.3)
+    fn1, fn4 = make_chunk_fn(cfg, adapt), make_chunk_fn(cfg, adapt,
+                                                        mesh=_card_mesh(cuda))
+    st1 = init_stream_state(cfg, S, device=cuda)
+    dl1 = init_stream_deltas(cfg, S, device=cuda, compact=compact)
+    st4, dl4 = st1, dl1
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        ev = torch.tensor(rng.random((C, S, cfg.n_in)) < 0.3,
+                          dtype=torch.float32, device=cuda)
+        va = torch.tensor(rng.random((C, S)) < 0.8, device=cuda)
+        am = torch.tensor(rng.random(S) < 0.7, device=cuda)
+        dl1, st1, m1 = fn1(ex, dl1, st1, ev, va, am)
+        before = lif_cuda.launches
+        dl4, st4, m4 = fn4(ex, dl4, st4, ev, va, am)
+        assert lif_cuda.launches - before == \
+            SHARDS * C * cfg.n_layers
+    assert isinstance(dl4, sharding.SlotSharded)
+    assert float(m1.sop_wu.sum()) > 0
+    assert torch.equal(dl1, dl4.full())
+    for a, b in zip(torch.utils._pytree.tree_leaves(st1),
+                    torch.utils._pytree.tree_leaves(sharding.gather(st4))):
+        assert torch.equal(a, b)
+    for name, a, b in zip(m1._fields, m1, sharding.gather(m4)):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_sharded_fleet_equals_one_card_fleet_on_card(cuda):
+    """The scheduler on 4 shards of one card against the 1-device fleet:
+    gesture streams at depth 1, bit for bit, one chunk fn, and each
+    shard's staged block one contiguous pinned region."""
+    n = SHARDS * SHARD_SLOTS
+    one, k1 = _card_fleet(cuda, aer=False, n_slots=n, chunk_len=6,
+                          pipeline_depth=1)
+    four, k4 = _card_fleet(cuda, aer=False, n_slots=n, chunk_len=6,
+                           pipeline_depth=1, mesh=_card_mesh(cuda))
+    _assert_same_streams(one, four)
+    assert k4 == SHARDS * k1 > 0
+
+
+@pytest.mark.cuda
+def test_sharded_staging_blocks_are_pinned_and_contiguous_on_card(cuda):
+    from repro_torch.core.snn import SNNConfig, init_params
+    from repro_torch.serving import ReplaySource, StreamScheduler, StreamSession
+    cfg = SNNConfig(n_in=32, n_hidden=32, n_layers=2, n_out=8, t_steps=16,
+                    backend="kernels")
+    sched = StreamScheduler(init_params(0, cfg, device=cuda), cfg,
+                            n_slots=SHARDS * 2, chunk_len=4,
+                            mesh=_card_mesh(cuda))
+    ev = (np.random.default_rng(0).random((8, cfg.n_in)) < 0.3)
+    for sid in range(3):
+        sched.submit(StreamSession(sid=sid, source=ReplaySource(
+            ev.astype(np.float32))))
+    staged = sched._stage(sched._tiers[0])
+    for buf in (staged.events, staged.valid, staged.adapt_mask):
+        assert buf.shape[0] == SHARDS
+        for block in buf:
+            assert block.is_contiguous() and block.is_pinned()

@@ -125,9 +125,14 @@ def test_elastic_remesh_changes_sharding():
 
 
 def test_elastic_remesh_refuses_what_needs_a_mesh():
+    """Only an LM mesh's axes are refused now: a model or data axis, on a
+    slot mesh (two devices listed make one) or on one device. Placement
+    onto slot meshes is held in tests/test_torch_sharding.py."""
     tree = {"w": torch.ones((8, 8))}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        elastic_remesh(tree, [torch.device("cpu")] * 2, lambda path: ())
+    for axis in ("model", "data"):
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            elastic_remesh(tree, [torch.device("cpu")] * 2,
+                           lambda path, a=axis: (a,))
     with pytest.raises(NotImplementedError, match="item 10"):
         elastic_remesh(tree, torch.device("cpu"), lambda path: ("data",))
     paths = []

@@ -98,9 +98,9 @@ def test_fleet_init_from_the_scheduler_env():
 
 def test_more_than_one_process_is_refused(monkeypatch):
     """Replicas would train apart without the gradient all-reduce that the
-    mesh (ROADMAP.md Queue 1 item 10) brings."""
+    LM mesh (ROADMAP.md Queue 1 item 10b) brings."""
     monkeypatch.setattr(launcher, "fleet_init", lambda device: (0, 2))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         launcher.launch_train("stablelm_12b", multi_pod=False, opt="zero1",
                               steps=1, seq_len=8, global_batch=2,
                               ckpt_dir=None, validate_only=False,

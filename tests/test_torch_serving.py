@@ -231,24 +231,19 @@ def test_lane_surgery_touches_one_lane_only(params):
     assert torch.equal(dl[0], before[2]) and torch.equal(dl[2], before[3])
 
 
-@pytest.mark.parametrize("option", ["mesh", "topology"])
+@pytest.mark.parametrize("option", ["topology"])
 def test_unported_scheduler_options_raise(params, option):
-    """Slot sharding over a mesh is still to port and raises
-    ``NotImplementedError``. The live topology service is ported: the
+    """Every scheduler option is ported now (slot sharding over a mesh is
+    held in tests/test_torch_sharding.py). The live topology service: the
     scheduler refuses a service built for another config (``ValueError``)
     and clamps the pipeline depth to 1 under one, as the reference does."""
-    if option == "topology":
-        import dataclasses
-        from repro_torch.serving import TopologyService
-        other = TopologyService(dataclasses.replace(CFG, n_out=3))
-        with pytest.raises(ValueError, match="different SNNConfig"):
-            StreamScheduler(params, CFG, n_slots=2, device="cpu",
-                            topology=other)
-        sched = StreamScheduler(params, CFG, n_slots=2, device="cpu",
-                                topology=TopologyService(CFG),
-                                pipeline_depth=2)
-        assert sched.pipeline_depth == sched.pipeline.depth == 1
-        return
-    with pytest.raises(NotImplementedError):
+    import dataclasses
+    from repro_torch.serving import TopologyService
+    other = TopologyService(dataclasses.replace(CFG, n_out=3))
+    with pytest.raises(ValueError, match="different SNNConfig"):
         StreamScheduler(params, CFG, n_slots=2, device="cpu",
-                        **{option: object()})
+                        **{option: other})
+    sched = StreamScheduler(params, CFG, n_slots=2, device="cpu",
+                            topology=TopologyService(CFG),
+                            pipeline_depth=2)
+    assert sched.pipeline_depth == sched.pipeline.depth == 1
