@@ -328,7 +328,39 @@ Phases, each raising on failure:
    syncs), phase 20's registry with its 9 entries, the sharded fleet's
    checkpoint equal to the 1-device fleet's file for file (arrays bit for
    bit) and restored onto the mesh, and ``elastic_remesh`` from 4 shards to
-   2 and back bit for bit.
+   2 and back bit for bit. (d) right after (a): shards of 1 and of 2 slots
+   at the paper's width, where torch's row reductions may take another
+   launch shape: the chunk step (3 chunks, decay and clip, factors on) on
+   4 shards against the 1-device step, and the fleet at 2 slots a shard
+   (the scheduler's floor) against the 1-device fleet, in the compact and
+   the dense delta layouts, every output bit for bit. (The ``"ref"``
+   backend's dense base GEMM is refused on a slot mesh of the card.)
+25. data-parallel LM training across processes (slice 16), once phase 23
+   has freed its state: Qwen2-VL-2B at full width cut to DP_LAYERS of its
+   28 layers, phase 10's batch (B 2 x S 4096), the gate on, the flash
+   route, under ``spmd.activate(mesh, flash_attn=True, seq_shard=True)``,
+   each configuration in processes of its own (``dp_child``). (a) one rank
+   joins a one-rank NCCL group through ``launcher.fleet_init``'s
+   variables, builds ``make_host_mesh()`` (a ``DeviceMesh`` of 1 x 1) and
+   runs DP_STEPS_A data-parallel steps with ZeRO-1, every collective
+   issued (counted), against ``make_train_step``'s steps from the same
+   state: params, moments and losses bit for bit; ``dp_overhead_ms`` is
+   the DP step's median time (CUDA events) less the plain step's. (b) two
+   ranks share ``cuda:0`` over gloo (NCCL refuses two ranks on one
+   device), each on its half of the global batch
+   (``synthetic_lm_batch(..., rank, 2)``), DP_STEPS_B steps with ZeRO-1 off
+   and on: the ranks' params bit-identical, ZeRO-1 bit for bit the
+   replicated update with half the moments a rank, and against the
+   1-process step on the two halves concatenated the step-0 gradients
+   within TRAIN_GRAD_REL_L2 a leaf (phase 11's bound), the losses within
+   DP_LOSS_REL and the params within DP_PARAM_REL_L2; each rank's peak
+   memory and step times recorded. (c) ``launcher --arch qwen2_vl_2b
+   --validate --multi-pod``, a CPU tool process on a fake 512-rank group,
+   prints the per-device argument bytes under the 2 x 16 x 16 placements;
+   they must equal this script's own sum of each leaf's local block from
+   ``placements`` over the full config on ``meta``. The flash kernels'
+   launches of (a) and (b)'s DP runs are the ``lm_dp_training`` path,
+   exact (2L / L / L a step and process).
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -3579,6 +3611,503 @@ def sharded_topology(torch, params, task, fleet, workdir):
 
 
 # ---------------------------------------------------------------------------
+# phase 24d: shards of 1 and 2 slots at the paper's width
+# ---------------------------------------------------------------------------
+
+def narrow_shards(torch, params, task):
+    """Phase 24d (module docstring): the chunk step on 4 shards of 1 and of
+    2 slots and the fleet at 2 slots a shard, both delta layouts, against
+    the 1-device ones, bit for bit."""
+    from repro_torch.core.snn import (init_stream_deltas, init_stream_state,
+                                      serving_params)
+    from repro_torch.launch import sharding
+    from repro_torch.serving import StreamScheduler, StreamSession
+    from repro_torch.serving.adapt import AdaptConfig, make_chunk_fn
+    cfg = paper_config("kernels")
+    adapt = AdaptConfig(delta_decay=0.95, delta_clip=0.3)
+    mesh = serving_mesh()
+    rng = np.random.default_rng(24)
+    # chunks enough for a window: the OSSL update runs from t_wu on
+    n_chunks = -(-cfg.t_steps // CHUNK_LEN) + 1
+    rec = {"steps": {}, "fleets": {}, "chunks": n_chunks}
+    t0 = time.perf_counter()
+    for compact in (True, False):
+        layout = "compact" if compact else "dense"
+        ex = serving_params(params, cfg, compact=compact)
+        fn1 = make_chunk_fn(cfg, adapt)
+        fn4 = make_chunk_fn(cfg, adapt, mesh=mesh)
+        for width in (1, 2):
+            S = SHARDS * width
+            st1 = st4 = init_stream_state(cfg, S, device="cuda")
+            dl1 = dl4 = init_stream_deltas(cfg, S, device="cuda",
+                                           compact=compact)
+            differ, sop_wu = [], 0.0
+            for c in range(n_chunks):
+                ev = torch.tensor(rng.random((CHUNK_LEN, S, cfg.n_in)) < 0.05,
+                                  dtype=torch.float32, device="cuda")
+                va = torch.tensor(rng.random((CHUNK_LEN, S)) < 0.9,
+                                  device="cuda")
+                am = torch.ones(S, dtype=torch.bool, device="cuda")
+                dl1, st1, m1 = fn1(ex, dl1, st1, ev, va, am)
+                dl4, st4, m4 = fn4(ex, dl4, st4, ev, va, am)
+                sop_wu += float(m1.sop_wu.sum())
+                if not torch.equal(dl1, dl4.full()):
+                    differ.append(f"chunk {c} deltas")
+                differ += [f"chunk {c} {k}" for k in leaves_equal(
+                    torch, {"state": st1, "metrics": m1._asdict()},
+                    {"state": sharding.gather(st4),
+                     "metrics": sharding.gather(m4)._asdict()})]
+            rec["steps"][f"{layout}_{width}"] = {
+                "slots": S, "differ": differ, "sop_wu": sop_wu}
+            if differ or not sop_wu > 0:
+                raise AssertionError(f"24d: {layout} layout, {width} slot(s) "
+                                     f"a shard: {differ[:8]}, sop_wu "
+                                     f"{sop_wu}")
+        digests = []
+        for m in (None, mesh):
+            sids = list(range(2 * SHARDS))
+            sched = StreamScheduler(params, cfg, n_slots=len(sids),
+                                    chunk_len=CHUNK_LEN, pipeline_depth=1,
+                                    compact=compact, mesh=m, device="cuda")
+            try:
+                for sid, src in zip(sids, stream_sources(task, sids, False)):
+                    sched.submit(StreamSession(sid=sid, source=src))
+                done = sched.run_until_drained()
+            finally:
+                sched.close()
+            digests.append(fleet_digest(done))
+        check_same(digests[0], digests[1],
+                   f"24d: the {layout} fleet at 2 slots a shard")
+        rec["fleets"][layout] = {"streams": 2 * SHARDS, "shards": SHARDS}
+    _SOURCES.clear()
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"narrow_shards {json.dumps(rec)}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 25: data-parallel LM training across processes (slice 16)
+# ---------------------------------------------------------------------------
+
+# Qwen2-VL-2B at full width cut to 2 of its 28 layers (phase 23a's state),
+# phase 10's batch (B 2 x S 4096), the gate on, the flash route
+DP_LAYERS, DP_STEPS_A, DP_STEPS_B, DP_WORLD_B = 2, 4, 3, 2
+# 25b against the 1-process step: the step-0 gradients (all-reduced) of
+# every leaf within TRAIN_GRAD_REL_L2, the bound phase 11 holds the card's
+# training gradients to; the losses within DP_LOSS_REL (the two sum one
+# batch's bf16 rows in other orders); the params after DP_STEPS_B steps
+# within DP_PARAM_REL_L2 of their norm (a rank that gathered a wrong block
+# or skipped an update moves a leaf by O(1) of its update, a stale block by
+# O(1) of the leaf)
+DP_LOSS_REL, DP_PARAM_REL_L2 = 1e-3, 1e-2
+
+
+def dp_setup(torch):
+    """What the DP processes and the 1-process reference share: (config,
+    hparams, pipeline config)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.launch.train import TrainHParams
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=DP_LAYERS)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+    return cfg, hp, PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                   global_batch=TRAIN_B)
+
+
+def dp_batch(torch, pcfg, step, ranks, world):
+    """The batch of ``ranks`` (concatenated in rank order) at ``step``,
+    on the card."""
+    from repro_torch.data.pipeline import synthetic_lm_batch
+    parts = [synthetic_lm_batch(pcfg, step, r, world) for r in ranks]
+    return {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
+            .to("cuda", torch.long) for k in parts[0]}
+
+
+def count_collectives():
+    """Wrap ``dist.all_reduce`` and ``dist.all_gather`` to count their
+    calls (and payload elements) in this process; returns the counts."""
+    import torch.distributed as dist
+    counts = {"all_reduce": 0, "all_gather": 0, "all_reduce_elems": 0,
+              "all_gather_elems": 0}
+    for name in ("all_reduce", "all_gather"):
+        orig = getattr(dist, name)
+
+        def wrapped(*a, _orig=orig, _name=name, **k):
+            counts[_name] += 1
+            t = a[1] if _name == "all_gather" else a[0]
+            counts[_name + "_elems"] += t.numel()
+            return _orig(*a, **k)
+        setattr(dist, name, wrapped)
+    return counts
+
+
+def event_ms(torch, fn):
+    """(result, ms of ``fn`` by CUDA events)."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def dp_child():
+    """One process of phase 25 (``python -c`` from the repo root): argv
+    ``[mode, out_path]``; joins the group through ``fleet_init``'s
+    variables. ``a``: one rank over NCCL, the DP step against
+    ``make_train_step``; ``b``: one of two ranks on ``cuda:0`` over gloo,
+    ZeRO-1 off and on. Writes its record as JSON (rank 0 of ``b`` also its
+    tensors for the parent's comparison)."""
+    import statistics
+    import torch
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    from repro_torch.launch import spmd
+    from repro_torch.launch.launcher import fleet_init
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import init_train_state, make_train_step
+    import dataclasses
+    mode, out = sys.argv[1], sys.argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    backend = "nccl" if mode == "a" else "gloo"
+    rank, world = fleet_init("cuda", backend=backend)
+    counts = count_collectives()
+    mesh = make_host_mesh(device="cuda")
+    cfg, hp, pcfg = dp_setup(torch)
+    rec = {"mode": mode, "rank": rank, "world": world,
+           "backend": dist.get_backend(), "mesh": dict(zip(
+               mesh.mesh_dim_names, mesh.shape)),
+           "device": torch.cuda.get_device_name(0)}
+
+    def fresh(hp_, m):
+        return init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, hp_, "cuda", mesh=m)
+
+    def run(step_fn, state, n, ranks, world_):
+        losses, ms = [], []
+        for i in range(n):
+            batch = dp_batch(torch, pcfg, i, ranks, world_)
+            torch.cuda.synchronize()
+            (p, o, s, m), t = event_ms(torch, lambda: step_fn(*state, batch))
+            state = (p, o, s)
+            losses.append(float(m["loss"]))
+            ms.append(t)
+        return state, losses, ms
+
+    opts = dict(flash_attn=True, seq_shard=True)
+    if mode == "a":
+        hp1 = dataclasses.replace(hp, zero1=True)
+        plain, plain_losses, plain_ms = run(
+            make_train_step(cfg, hp1, attn="flash"), fresh(hp1, None),
+            DP_STEPS_A, [0], 1)
+        with spmd.activate(mesh, **opts):
+            step = make_train_step(cfg, hp1, mesh=mesh)
+            state = fresh(hp1, mesh)
+            torch.cuda.synchronize()
+            counters = reset_counters()
+            before = dict(counts)
+            state, losses, ms = run(step, state, DP_STEPS_A, [0], 1)
+            launches = {n: c.launches for n, c in counters.items()}
+        rec.update(
+            steps=DP_STEPS_A, zero1=True, losses=losses,
+            plain_losses=plain_losses, dp_ms=ms, plain_ms=plain_ms,
+            dp_median_ms=statistics.median(ms),
+            plain_median_ms=statistics.median(plain_ms),
+            dp_overhead_ms=statistics.median(ms) - statistics.median(plain_ms),
+            launches=launches,
+            collectives={k: counts[k] - before[k] for k in counts},
+            leaves_differing=leaves_equal(torch, state, plain),
+            losses_equal=losses == plain_losses,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+    else:
+        import hashlib
+        digests, runs = {}, {}
+        launches = None
+        for zero1 in (False, True):
+            key = "on" if zero1 else "off"
+            hpz = dataclasses.replace(hp, zero1=zero1)
+            with spmd.activate(mesh, **opts):
+                step = make_train_step(cfg, hpz, mesh=mesh)
+                state = fresh(hpz, mesh)
+                if not zero1:
+                    # every rank joins the all-reduce; rank 0 keeps it
+                    g0 = step.dp.mean_grads(step.loss_and_grads(
+                        state[0], dp_batch(torch, pcfg, 0, [rank], world))[2])
+                    if rank == 0:
+                        torch.save({"grads": {k: v.cpu() for k, v in
+                                              flat(g0).items()
+                                              if v is not None}},
+                                   out + ".grads.pt")
+                    del g0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                counters = reset_counters()
+                before = dict(counts)
+                t0 = time.perf_counter()
+                state, losses, ms = run(step, state, DP_STEPS_B, [rank], world)
+                wall = time.perf_counter() - t0
+                got = {n: c.launches for n, c in counters.items()}
+                launches = got if launches is None else \
+                    {n: launches[n] + got[n] for n in got}
+            params = flat(state[0])
+            digests[key] = hashlib.sha256(b"".join(
+                v.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+                for v in params.values())).hexdigest()
+            runs[key] = {
+                "losses": losses, "step_ms": ms, "wall_s": wall,
+                "moment_elems": sum(v.numel() for v in flat(state[1].m)
+                                    .values()),
+                "collectives": {k: counts[k] - before[k] for k in counts},
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            if not zero1 and rank == 0:
+                torch.save({"params": {k: v.cpu() for k, v in params.items()}},
+                           out + ".params.pt")
+            del state, params
+        rec.update(steps=DP_STEPS_B, runs=runs, digests=digests,
+                   zero1_equal=digests["off"] == digests["on"],
+                   launches=launches)
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_dp(mode, world, workdir, timeout=600):
+    """``world`` processes of :func:`dp_child` joined through the
+    scheduler's variables; waits for all (killing any left at the
+    timeout) and returns their records in rank order."""
+    env = dict(os.environ, PYTHONPATH=SRC,
+               COORDINATOR_ADDRESS=f"localhost:{free_port()}",
+               PROCESS_COUNT=str(world))
+    outs = [os.path.join(workdir, f"dp_{mode}_{r}.json") for r in range(world)]
+    code = "import chip_smoke; chip_smoke.dp_child()"
+    procs = []
+    t0 = time.time()
+    try:
+        for r in range(world):
+            with open(outs[r] + ".log", "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, mode, outs[r]],
+                    env=dict(env, PROCESS_ID=str(r)), cwd=ROOT, stdout=f,
+                    stderr=subprocess.STDOUT))
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, timeout - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for r in range(len(procs)):
+        with open(outs[r] + ".log") as f:
+            texts.append(f.read())
+    bad = [(r, p.returncode, t[-4000:]) for r, (p, t) in
+           enumerate(zip(procs, texts)) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"phase 25{mode}: processes failed {bad}")
+    recs = []
+    for path in outs:
+        with open(path) as f:
+            recs.append(json.load(f))
+    return recs, time.time() - t0
+
+
+def dp_reference(torch):
+    """The 1-process step on 25b's global batch (both ranks' halves
+    concatenated), from the same seed: step-0 gradients, losses and the
+    params after DP_STEPS_B steps, on the host."""
+    from repro_torch.launch.train import init_train_state, make_train_step
+    cfg, hp, pcfg = dp_setup(torch)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, hp, "cuda")
+        step = make_train_step(cfg, hp, attn="flash")
+        ranks = list(range(DP_WORLD_B))
+        g0 = step.loss_and_grads(state[0], dp_batch(torch, pcfg, 0, ranks,
+                                                    DP_WORLD_B))[2]
+        grads = {k: v.cpu() for k, v in flat(g0).items() if v is not None}
+        del g0
+        losses = []
+        for i in range(DP_STEPS_B):
+            p, o, s, m = step(*state, dp_batch(torch, pcfg, i, ranks,
+                                               DP_WORLD_B))
+            state = (p, o, s)
+            losses.append(float(m["loss"]))
+        params = {k: v.cpu() for k, v in flat(state[0]).items()}
+        init = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, hp, "cuda")[0]
+        params0 = {k: v.cpu() for k, v in flat(init).items()}
+        del state, init
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return grads, losses, params, params0
+
+
+def dp_bytes_per_device(multi_pod, global_batch, seq_len):
+    """25c's own sum: each argument leaf's local block from ``placements``
+    on the production mesh (an axis-size mesh; each ``Shard(d)`` divides
+    dim d by its mesh dim's size), over the full Qwen2-VL-2B's params,
+    ZeRO-1 moments, gating state and batch on ``meta``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.dryrun import input_specs
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import SparseTrainState, adamw_init
+    from repro_torch.configs.base import ShapeConfig
+    from torch.distributed.tensor import Shard
+    cfg = get_config(TRAIN_ARCH)
+    shape = ((2, 16, 16), ("pod", "data", "model")) if multi_pod else \
+        ((16, 16), ("data", "model"))
+    mesh = AbstractMesh(*shape)
+    params = T.init_params_shaped(cfg)
+    opt = adamw_init(params)
+    sparse = SparseTrainState.init(cfg.n_layers, cfg.d_model, "meta")
+    batch = input_specs(cfg, ShapeConfig("validate", seq_len, global_batch,
+                                         "train"))
+    pairs = [(params, SH.tree_shardings(params, cfg, mesh)),
+             (opt, SH.opt_state_shardings(opt, params, cfg, mesh)),
+             (sparse, SH.tree_map_with_path(lambda p, x: SH.replicated(mesh),
+                                            sparse)),
+             (batch, SH.batch_shardings(batch, mesh))]
+
+    def local_bytes(x, sh):
+        dims = list(x.shape)
+        for size, pl in zip(mesh.shape, SH.placements(sh.spec, mesh)):
+            if isinstance(pl, Shard):
+                dims[pl.dim] //= size
+        return math.prod(dims) * x.element_size()
+    from repro_torch.launch.dryrun import _leaf_pairs
+    return sum(local_bytes(x, sh) for tree, shardings in pairs
+               for x, sh in _leaf_pairs(tree, shardings)
+               if isinstance(x, torch.Tensor))
+
+
+def dp_phase(torch):
+    """Phase 25 (module docstring). Returns (record, launches)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    rec = {"arch": TRAIN_ARCH, "layers": DP_LAYERS, "batch": TRAIN_B,
+           "seq": TRAIN_S}
+    # 25c's CPU tool runs while 25a and 25b use the card
+    validate_tool = start_tool(["repro_torch.launch.launcher", "--arch",
+                                TRAIN_ARCH, "--validate", "--multi-pod"],
+                               workdir, "validate25")
+    try:
+        # 25a: one rank over NCCL, against make_train_step, bit for bit
+        (a,), wall_a = spawn_dp("a", 1, workdir)
+        L = DP_LAYERS
+        flash_want = {"flash_fwd": 2 * L, "flash_bwd_dkv": L,
+                      "flash_bwd_dq": L}
+        want_a = {n: 0 for n in a["launches"]}
+        want_a.update({k: v * DP_STEPS_A for k, v in flash_want.items()})
+        a["wall_s"] = wall_a
+        rec["a"] = a
+        log(f"lm_dp_nccl {json.dumps(a)}")
+        if (a["leaves_differing"] or not a["losses_equal"]
+                or a["backend"] != "nccl" or a["launches"] != want_a
+                or a["collectives"]["all_reduce"] < 2 * DP_STEPS_A):
+            raise AssertionError(f"25a: {a}; launches want {want_a}")
+
+        # 25b: two ranks on cuda:0 over gloo, against the 1-process step
+        t0 = time.perf_counter()
+        grads, ref_losses, ref_params, params0 = dp_reference(torch)
+        ref_s = time.perf_counter() - t0
+        free_before(torch, "phase 25b's processes")
+        b, wall_b = spawn_dp("b", DP_WORLD_B, workdir)
+        r0 = os.path.join(workdir, "dp_b_0.json")
+        got_g = torch.load(r0 + ".grads.pt")["grads"]
+        got_p = torch.load(r0 + ".params.pt")["params"]
+        grad_rel = {"/".join(k): rel_l2(got_g[k].float(), g.float())
+                    for k, g in grads.items()}
+        param_rel = {"/".join(k): rel_l2(got_p[k].float(), p.float())
+                     for k, p in ref_params.items() if p.is_floating_point()}
+        upd_rel = {"/".join(k): rel_l2(got_p[k].float() - params0[k].float(),
+                                       p.float() - params0[k].float())
+                   for k, p in ref_params.items()
+                   if p.is_floating_point() and not torch.equal(p, params0[k])}
+        losses_b = b[0]["runs"]["off"]["losses"]
+        loss_rel = [abs(x - y) / abs(y) for x, y in zip(losses_b, ref_losses)]
+        want_b = {n: 0 for n in b[0]["launches"]}
+        want_b.update({k: 2 * v * DP_STEPS_B for k, v in flash_want.items()})
+        launches = {n: a["launches"][n] + sum(r["launches"][n] for r in b)
+                    for n in a["launches"]}
+        rec["b"] = {
+            "ranks": b, "wall_s": wall_b, "reference_s": ref_s,
+            "reference_losses": ref_losses, "loss_rel": loss_rel,
+            "grad_rel_l2_max": max(grad_rel.values()),
+            "grad_rel_l2": grad_rel, "param_rel_l2_max": max(param_rel.values()),
+            "update_rel_l2": upd_rel,
+            "tolerance": {"grad_rel_l2": TRAIN_GRAD_REL_L2,
+                          "loss_rel": DP_LOSS_REL,
+                          "param_rel_l2": DP_PARAM_REL_L2},
+            "ranks_equal": [b[0]["digests"][z] == b[1]["digests"][z]
+                            for z in ("off", "on")],
+            "zero1_equal": [r["zero1_equal"] for r in b],
+            "peak_bytes": [r["runs"][z]["max_memory_allocated"]
+                           for r in b for z in ("off", "on")],
+            "step_ms": [r["runs"][z]["step_ms"] for r in b
+                        for z in ("off", "on")]}
+        log(f"lm_dp_gloo {json.dumps({k: v for k, v in rec['b'].items() if k not in ('grad_rel_l2', 'update_rel_l2', 'ranks')})}")
+        log(f"lm_dp_gloo_ranks {json.dumps(b)}")
+        if (not all(rec["b"]["ranks_equal"]) or not all(rec["b"]["zero1_equal"])
+                or any(r["backend"] != "gloo" for r in b)
+                or rec["b"]["grad_rel_l2_max"] > TRAIN_GRAD_REL_L2
+                or max(loss_rel) > DP_LOSS_REL
+                or rec["b"]["param_rel_l2_max"] > DP_PARAM_REL_L2
+                or any(r["launches"] != want_b for r in b)
+                or any(r["runs"]["on"]["moment_elems"]
+                       >= r["runs"]["off"]["moment_elems"] for r in b)
+                or any(r["runs"]["on"]["collectives"]["all_gather"] == 0
+                       for r in b)):
+            raise AssertionError(f"25b: {rec['b']}; launches want {want_b}")
+        del grads, ref_params, params0, got_g, got_p
+
+        # 25c: the launcher's --validate on a fake 512-rank group against
+        # this script's own sum of local blocks
+        rc, text, wall_c = finish_tool(validate_tool, 600)
+        line = [l for l in text.splitlines() if "validate OK" in l]
+        want_c = dp_bytes_per_device(True, 256, 4096)
+        got_c = int(line[-1].split("argument bytes/dev ")[1].split()[0]) \
+            if line else None
+        rec["c"] = {"rc": rc, "wall_s": wall_c, "line": line[-1] if line
+                    else text[-2000:], "argument_bytes_per_device": got_c,
+                    "script_sum": want_c,
+                    "single_pod_sum": dp_bytes_per_device(False, 256, 4096)}
+        log(f"lm_dp_validate {json.dumps(rec['c'])}")
+        if rc != 0 or got_c != want_c or "2x16x16" not in rec["c"]["line"]:
+            raise AssertionError(f"25c: {rec['c']}")
+    finally:
+        proc = validate_tool[0]
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm_dp_phase_s {rec['phase_s']}")
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 23: the runtime and the launcher (recovery, compression, dry run, CLI)
 # ---------------------------------------------------------------------------
 
@@ -4111,6 +4640,8 @@ def main() -> int:
     record["sharded_serving"], sharded_launches = sharded_serving(
         torch, params, task, serve_digest, record["analysis"])
     del serve_digest
+    # 24d: shards of 1 and 2 slots, both layouts, against the 1-device ones
+    record["narrow_shards"] = narrow_shards(torch, params, task)
 
     # 5. path parity
     record["path_parity"] = path_parity(torch, params, task)
@@ -4271,6 +4802,12 @@ def main() -> int:
     record["runtime_launcher"], recovery_launches = runtime_phase(
         torch, record["lm_training"])
 
+    # 25. data-parallel LM training across processes: one NCCL rank against
+    # make_train_step, two gloo ranks on the card against the 1-process
+    # step, the launcher's dry run on a fake 512-rank group
+    free_before(torch, "phase 25's processes")
+    record["lm_dp_training"], dp_launches = dp_phase(torch)
+
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
                       "analysis": analysis_launches[name],
@@ -4289,7 +4826,8 @@ def main() -> int:
                       "hybrid_training": hybrid_train_launches[name],
                       "runtime_recovery": recovery_launches[name],
                       "sharded_serving": sharded_launches[name],
-                      "sharded_topology": sharded_topo_launches[name]}
+                      "sharded_topology": sharded_topo_launches[name],
+                      "lm_dp_training": dp_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

@@ -87,6 +87,32 @@ def ossl_modulator(tr, tr_pc, tr_cc, v, cfg):
     return g * surrogate_grad(v, theta=cfg.theta, width=cfg.surrogate_width)
 
 
+def serving_ossl_terms(tr, tr_pc, tr_cc, v, cfg, eps=1e-6):
+    """Serving's OSSL terms per slot: (modulator ``[S, N]``,
+    ``cos(tr, tr_pc)`` ``[S]``, ``cos(tr, tr_cc)`` ``[S]``), by the
+    formulas of :func:`ossl_modulator` and :func:`_cos`. The five row sums
+    they need (three squared norms, two dot products) are taken in one
+    :func:`ordered_sum` over ``N``: a reduction kernel picks its launch
+    shape, and with it a row's summation order, by the row count (on the
+    card 2 rows sum otherwise than 8), so a slot's numbers would depend on
+    how many slots share the call and a slot-sharded fleet would drift from
+    the 1-device one."""
+    a = torch.stack([tr, tr_pc, tr_cc, tr, tr])
+    b = torch.stack([tr, tr_pc, tr_cc, tr_pc, tr_cc])
+    sq, sq_pc, sq_cc, dot_pc, dot_cc = ordered_sum((a * b).movedim(-1, 0))
+    n, n_pc, n_cc = sq.sqrt(), sq_pc.sqrt(), sq_cc.sqrt()
+
+    def cos_grad(other, n_other, dot):
+        na = n[:, None] + eps
+        nb = n_other[:, None] + eps
+        c = dot[:, None] / (na * nb)
+        return other / (na * nb) - c * tr / (na * na)
+    g = cos_grad(tr_pc, n_pc, dot_pc) - cfg.cc_weight * cos_grad(tr_cc, n_cc,
+                                                                  dot_cc)
+    mod = g * surrogate_grad(v, theta=cfg.theta, width=cfg.surrogate_width)
+    return mod, dot_pc / (n * n_pc + eps), dot_cc / (n * n_cc + eps)
+
+
 # ---------------------------------------------------------------------------
 # state / geometry
 # ---------------------------------------------------------------------------
@@ -368,11 +394,14 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
         tr_pc = tr if t_row == t_pc else st.tr_pc
 
     # ---- OSSL three-factor WU, gated, concurrent with SI ----
-    mod = ossl_modulator(tr, tr_pc, st.tr_cc, v, cfg)
     if serving:
+        # row sums in an order fixed by N alone (serving_ossl_terms); the
+        # spike counts below are sums of 0/1, exact in any order
+        mod, cos_pc, cos_cc = serving_ossl_terms(tr, tr_pc, st.tr_cc, v, cfg)
         ia = pre.mean(-1) if geo.uniform else pre.sum(-1) / xs.fanin
-        ss = _cos(tr, st.tr_cc)
+        ss = cos_cc
     else:
+        mod = ossl_modulator(tr, tr_pc, st.tr_cc, v, cfg)
         ia = pre.mean() if geo.uniform \
             else pre.sum() / (pre.shape[0] * xs.fanin)
         ss = _cos(tr, st.tr_cc).mean()
@@ -418,8 +447,9 @@ def _layer_timestep(cfg, backend: Backend, geo: Geometry, learn: bool,
     sop_fwd = carry.sop_fwd + pre.sum(-1) * cfg.n_hidden * xs.density
     sop_wu_off = carry.sop_wu_off + offered * late
     sop_wu = carry.sop_wu + offered * wu_on
-    loss = carry.loss + \
-        (-_cos(tr, tr_pc) + cfg.cc_weight * _cos(tr, st.tr_cc)) * late
+    if not serving:
+        cos_pc, cos_cc = _cos(tr, tr_pc), _cos(tr, st.tr_cc)
+    loss = carry.loss + (-cos_pc + cfg.cc_weight * cos_cc) * late
 
     # invalid slots keep their exact previous state
     if serving:

@@ -24,8 +24,17 @@ tensors (shapes and dtypes, no data, no memory), which needs no card:
   kernels compute, and recomputes its forward in its backward; so does its
   memory. ``flash_flops`` is that route's share of ``flops_per_device``,
   counted the same way on one call and multiplied by the calls.
-* collectives: none. The port has no LM mesh until ``ROADMAP.md`` Queue 1
-  item 10b; ``--mesh`` is accepted and recorded and changes nothing.
+* ``memory.argument_bytes_per_device`` (with ``mesh``) — each argument
+  leaf's local block under the reference's placements on that mesh
+  (``launch.sharding``: ``tree_shardings`` for the params,
+  ``opt_state_shardings`` for the moments with ``zero1`` and
+  ``tree_shardings`` without, ``batch_shardings``, ``cache_shardings``;
+  the gating state replicates), summed. ``temp_bytes`` and the peak
+  estimate stay the one-device, unsharded step's (``temp_scope`` says
+  so): the step runs unsharded on ``meta``. The CLI records this figure
+  for each mesh of ``--mesh`` (16 × 16, 2 × 16 × 16) as
+  ``argument_bytes_per_device_by_mesh``, on an ``AbstractMesh``.
+* collectives: none counted yet (``ROADMAP.md`` Queue 1 item 10c).
 
 The step has no host reads inside (``launch/train``), so every cell runs
 on ``meta``; an op that needed data would fail here.
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -61,11 +71,15 @@ from ..configs.base import ModelConfig, ShapeConfig, SparsityConfig
 from ..kernels.flash_attn.ops import flash_attention
 from ..models import transformer as T
 from ..optim import SparseTrainState, adamw_init
+from . import sharding as SH
+from .mesh import AbstractMesh
 from .serve import make_serve_step
 from .train import TrainHParams, make_train_step
 
 META = torch.device("meta")
-MESH_NAME = "1"                      # one device: no LM mesh yet
+MESH_NAME = "1"                      # the step runs on one device
+PRODUCTION_MESHES = {"16x16": ((16, 16), ("data", "model")),
+                     "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
 
 class LiveBytes(TorchDispatchMode):
@@ -195,11 +209,54 @@ def cell_arguments(cfg: ModelConfig, shape: ShapeConfig,
     return {"params": params, "cache": spec["cache"], "tokens": spec["tokens"]}
 
 
+def _leaf_pairs(tree, shardings):
+    """(leaf, its NamedSharding) over a tree and its shardings tree."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaf_pairs(tree[k], shardings[k])
+    elif isinstance(tree, (tuple, list)):
+        for a, b in zip(tree, shardings):
+            yield from _leaf_pairs(a, b)
+    else:
+        yield tree, shardings
+
+
+def argument_shardings(cfg: ModelConfig, parts: Dict[str, Any],
+                       hp: TrainHParams, mesh) -> Dict[str, Any]:
+    """The reference's placements of the cell's arguments, by part."""
+    out = {"params": SH.tree_shardings(parts["params"], cfg, mesh)}
+    if "opt_state" in parts:
+        out["opt_state"] = (
+            SH.opt_state_shardings(parts["opt_state"], parts["params"], cfg,
+                                   mesh) if hp.zero1 else
+            SH.tree_shardings(parts["opt_state"], cfg, mesh))
+        out["sparse_state"] = SH.tree_map_with_path(
+            lambda _p, _x: SH.replicated(mesh), parts["sparse_state"])
+    if "batch" in parts:
+        out["batch"] = SH.batch_shardings(parts["batch"], mesh)
+    if "cache" in parts:
+        out["cache"] = SH.cache_shardings(parts["cache"], cfg, mesh)
+        out["tokens"] = SH.batch_shardings(parts["tokens"], mesh)
+    return out
+
+
+def argument_bytes_per_device(cfg: ModelConfig, parts: Dict[str, Any],
+                              hp: TrainHParams, mesh) -> int:
+    """One device's bytes of the cell's arguments under the reference's
+    placements on ``mesh``: each tensor leaf's local block."""
+    shardings = argument_shardings(cfg, parts, hp, mesh)
+    return sum(math.prod(sh.shard_shape(x.shape)) * x.element_size()
+               for k in parts for x, sh in _leaf_pairs(parts[k], shardings[k])
+               if isinstance(x, torch.Tensor))
+
+
 def lower_cell(cfg: ModelConfig, shape: ShapeConfig, *,
                hp: Optional[TrainHParams] = None, attn: str = "flash",
-               loss_chunk: Optional[int] = None) -> Dict[str, Any]:
+               loss_chunk: Optional[int] = None, mesh=None) -> Dict[str, Any]:
     """Run the cell's step once on ``meta`` and return the reference's
-    record keys that have a meaning on one device (module docstring)."""
+    record keys that have a meaning on one device (module docstring); with
+    ``mesh`` (an LM mesh of any kind) also the per-device argument bytes
+    under its placements."""
     hp = hp or TrainHParams()
     rec: Dict[str, Any] = {"arch": cfg.name, "shape": shape.name,
                            "mesh": MESH_NAME, "n_devices": 1, "kind": shape.kind,
@@ -238,6 +295,12 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, *,
                      "argument_bytes_by_part": by_part,
                      "temp_bytes": live.peak,
                      "peak_estimate_bytes": arg_bytes + live.peak}
+    if mesh is not None:
+        rec["mesh"] = "x".join(str(n) for n in mesh.shape)
+        rec["n_devices"] = mesh.size()
+        rec["memory"]["argument_bytes_per_device"] = \
+            argument_bytes_per_device(cfg, parts, hp, mesh)
+        rec["memory"]["temp_scope"] = "one device, unsharded step"
     rec["flops_per_device"] = float(fc.get_total_flops())
     rec["flash_flops"] = float(flash_flops(cfg, shape, hp))
     rec["collective_wire_bytes_per_device"] = 0.0
@@ -279,7 +342,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"],
-                    help="recorded only: the port has no LM mesh yet")
+                    help="the production meshes whose per-device argument "
+                         "bytes each cell records")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--sparsity", action="store_true",
@@ -295,6 +359,9 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     archs = C.ARCH_IDS if args.arch == "all" else [C.normalize(args.arch)]
     shapes = list(C.SHAPES) if args.shape == "all" else [args.shape]
+    meshes = {name: AbstractMesh(*PRODUCTION_MESHES[name]) for name in
+              {"single": ["16x16"], "multi": ["2x16x16"],
+               "both": ["16x16", "2x16x16"]}[args.mesh]}
 
     n_ok = n_skip = n_fail = 0
     for arch in archs:
@@ -323,6 +390,10 @@ def main(argv=None) -> int:
                 rec = lower_cell(cfg, shape, hp=hp,
                                  loss_chunk=opts["loss_chunk"] or None)
                 rec["opts"] = dict(opts, mesh_requested=args.mesh)
+                parts = cell_arguments(cfg, shape, hp)
+                rec["memory"]["argument_bytes_per_device_by_mesh"] = {
+                    name: argument_bytes_per_device(cfg, parts, hp, m)
+                    for name, m in meshes.items()}
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1)
                 print(f"[ok]     {cid}: lower {rec['lower_s']:.1f}s "

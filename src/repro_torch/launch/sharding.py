@@ -24,20 +24,42 @@ Both containers are ``torch.utils._pytree`` nodes whose children are the
 per-entry pieces, so a tree walk over a sharded result sees each entry's
 tensors at the per-shard slot count.
 
-The logical-axis LM rules (``spec_for``, ``tree_shardings``, the batch,
-cache and logits rules) are not ported yet (``ROADMAP.md`` Queue 1 item
-10b).
+The logical-axis LM rules (the reference's, MaxText-style): Megatron
+tensor parallelism on "model", data parallelism on ("pod", "data").
+Embeddings and the head put vocab or ``d_model`` on "model"; attention QKV
+are column-parallel and O row-parallel; the MLP up column-, down
+row-parallel; MoE experts on "model" (EP) or their hidden dim on "model"
+(TP inside experts), as the config says; the Mamba2 projections column /
+row-parallel with the conv and norm channels on "model"; kept-row tables
+and norms replicate. A rule is matched on the leaf's path suffix and
+right-aligned to its rank, so the leading ``[L]`` of stacked subtrees
+(``layers``, ``local_heads``) and an expert axis replicate. The first
+alternative that divides wins; otherwise the spec is demoted to its first
+alternative with each non-dividing axis dropped, and a warning is logged
+(the reference's text, under this module's logger). ``spec_for`` needs
+only the mesh's axis sizes, so the rules run on a
+``launch.mesh.AbstractMesh`` with no process group; with a ``DeviceMesh``
+a :class:`NamedSharding` places a tensor as a ``DTensor``
+(:func:`placements`, :func:`device_put`). ZeRO-1's moment rule
+(:func:`opt_state_shardings`) also names the dim that the DP step of
+``launch/train`` splits its moments on.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+import math
 import operator
-from typing import Any, Callable, List, Sequence, Tuple
+import re
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from .mesh import SLOT_AXIS, SlotMesh
+from ..configs.base import ModelConfig
+from .mesh import SLOT_AXIS, AbstractMesh, SlotMesh, axis_sizes, dp_axes
+
+log = logging.getLogger(__name__)
 
 
 class PartitionSpec(tuple):
@@ -46,7 +68,10 @@ class PartitionSpec(tuple):
     leaf of the spec trees below, never walked into."""
 
     def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+        # a one-axis tuple names that axis, as JAX normalises it
+        return super().__new__(cls, tuple(
+            p[0] if isinstance(p, tuple) and len(p) == 1 else p
+            for p in parts))
 
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
@@ -89,15 +114,286 @@ def slot_spec(slot_dim: int = 0) -> PartitionSpec:
     return P(*((None,) * slot_dim), SLOT_AXIS)
 
 
-def spec_slot_dim(spec: PartitionSpec):
-    """The dim ``spec`` splits over "slots"; None for a replicated spec.
-    Any other mesh axis is an LM mesh's, which the port does not have."""
+def spec_slot_dim(spec: PartitionSpec, mesh=None):
+    """The dim ``spec`` splits over "slots"; None for a replicated spec,
+    and on an LM mesh (``mesh`` neither None nor a :class:`SlotMesh`),
+    which has no slot axis. On a slot mesh or one device any other axis is
+    refused: moving a tree across model and data axes is ``ROADMAP.md``
+    Queue 1 item 10c."""
+    if mesh is not None and not isinstance(mesh, SlotMesh):
+        return None
     other = [a for a in spec if a not in (None, SLOT_AXIS)]
     if other:
         raise NotImplementedError(
-            f"spec {spec!r} names mesh axes {other}: only the serving slot "
-            "axis is ported (the LM mesh is ROADMAP.md Queue 1 item 10b)")
+            f"spec {spec!r} names mesh axes {other}: a slot mesh or one "
+            "device places by the slot axis only; a tree placed across "
+            "model and data axes (elastic_remesh onto an LM mesh) is "
+            "ROADMAP.md Queue 1 item 10c")
     return spec.index(SLOT_AXIS) if SLOT_AXIS in spec else None
+
+
+# ---------------------------------------------------------------------------
+# the logical-axis LM rules
+# ---------------------------------------------------------------------------
+
+def _rules(cfg: ModelConfig) -> Sequence[Tuple[str, Any]]:
+    """(path regex, right-aligned partition tuple, or a list of them to
+    try in order). First match wins."""
+    if cfg.moe_shard_experts:      # EP: experts on model
+        moe_mat = ("model", None, None)
+    else:                          # TP inside experts
+        moe_up = (None, None, "model")
+        moe_dn = (None, "model", None)
+    r: list = [
+        # alternatives: the first fully divisible one wins. The embedding
+        # prefers d_model on "model": a vocab-sharded table turns the token
+        # gather into an all-gather of the whole table
+        (r"embed/tok$", [(None, "model"), ("model", None)]),
+        (r"embed/frontend_proj$", (None, "model")),
+        (r"lm_head$", [(None, "model"), ("model", None)]),
+        (r"(wq|wk|wv)/w$", (None, "model")),
+        (r"(wq|wk|wv)/rows$", (None,)),
+        (r"wo/w$", ("model", None)),
+        (r"moe/router$", (None, None)),
+    ]
+    if cfg.family == "moe":
+        if cfg.moe_shard_experts:
+            r += [(r"moe/(w1|w3|w2)/w$", moe_mat)]
+        else:
+            r += [(r"moe/(w1|w3)/w$", moe_up), (r"moe/w2/w$", moe_dn)]
+    r += [
+        (r"(w1|w3)/w$", (None, "model")),
+        (r"w2/w$", ("model", None)),
+        (r"rows$", (None,)),
+        (r"umask$", (None, None)),
+        (r"mixer/in_proj/w$", (None, "model")),
+        (r"mixer/out_proj/w$", ("model", None)),
+        (r"mixer/conv_w$", (None, "model")),
+        (r"mixer/conv_b$", ("model",)),
+        (r"mixer/norm_g$", ("model",)),
+        (r"mixer/(a_log|d_skip|dt_bias)$", (None,)),
+        (r"local_heads/p$", (None, "model")),
+        (r"(norm1|norm2|final_norm|norm_g)$", (None,)),
+    ]
+    return r
+
+
+def _path_str(path) -> str:
+    """A leaf's path as the reference writes it: dict keys and sequence
+    indices as they are, a NamedTuple field as ``.name``."""
+    return "/".join(str(p) for p in path)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: Tuple = ()) -> Any:
+    """``fn(path, leaf)`` over nested dicts, NamedTuples (a field's key is
+    ``.name``), tuples and lists, rebuilt in the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, path + ("." + f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _ndim(leaf) -> int:
+    return len(leaf.shape) if hasattr(leaf, "shape") else 0
+
+
+def spec_for(path_str: str, shape: Tuple[int, ...], cfg: ModelConfig,
+             mesh) -> PartitionSpec:
+    """The leaf's spec by the first rule whose pattern its path matches,
+    right-aligned to its rank; the first alternative whose axes all divide
+    their dims wins, else the first with the non-dividing axes dropped
+    (logged as a demotion). Reads only the mesh's axis sizes."""
+    sizes = axis_sizes(mesh)
+    shape = tuple(int(d) for d in shape)
+    base: Optional[Any] = None
+    for pat, spec in _rules(cfg):
+        if re.search(pat, path_str):
+            base = spec
+            break
+    candidates = base if isinstance(base, list) \
+        else [base if base is not None else ()]
+
+    def fit(b) -> Tuple[PartitionSpec, bool]:
+        # right-align: leading stacked dims (layers L, experts E, ...)
+        # replicate
+        full = (None,) * (len(shape) - len(b)) + tuple(b)
+        full = full[-len(shape):] if shape else ()
+        fixed, clean = [], True
+        for dim, ax in zip(shape, full):
+            if ax is None:
+                fixed.append(None)
+            elif dim % sizes[ax] == 0:
+                fixed.append(ax)
+            else:
+                fixed.append(None)
+                clean = False
+        return P(*fixed), clean
+
+    first = None
+    for cand in candidates:
+        p, clean = fit(cand)
+        if first is None:
+            first = p
+        if clean:
+            return p
+    log.warning("demoted sharding for %s %s -> %s", path_str, shape, first)
+    return first
+
+
+def tree_shardings(tree: Any, cfg: ModelConfig, mesh) -> Any:
+    """A tree of tensors (``meta`` ones too) -> a :class:`NamedSharding`
+    tree of the same structure; scalars and host values replicate."""
+    def one(path, leaf):
+        if _ndim(leaf) == 0:
+            return NamedSharding(mesh, P())
+        return NamedSharding(mesh, spec_for(_path_str(path), leaf.shape,
+                                            cfg, mesh))
+    return tree_map_with_path(one, tree)
+
+
+def _dp_total(mesh) -> Tuple[Tuple[str, ...], int]:
+    axes = dp_axes(mesh)
+    sizes = axis_sizes(mesh)
+    return axes, math.prod(sizes[a] for a in axes)
+
+
+def opt_state_shardings(opt_tree: Any, params_tree: Any, cfg: ModelConfig,
+                        mesh) -> Any:
+    """ZeRO-1: each moment leaf also splits one spare dim over the DP axes
+    (the first dim its parameter's spec leaves whole that the DP size
+    divides); params stay DP-replicated. A leaf with no such dim stays
+    as its parameter is."""
+    axes, total = _dp_total(mesh)
+
+    def one(path, leaf):
+        if _ndim(leaf) == 0:
+            return NamedSharding(mesh, P())
+        base = spec_for(_path_str(path), leaf.shape, cfg, mesh)
+        if total <= 1:
+            return NamedSharding(mesh, base)
+        spec = list(base) + [None] * (len(leaf.shape) - len(base))
+        for i, (dim, ax) in enumerate(zip(leaf.shape, spec)):
+            if ax is None and dim % total == 0 and dim >= total:
+                spec[i] = axes if len(axes) > 1 else axes[0]
+                break
+        return NamedSharding(mesh, P(*spec))
+    return tree_map_with_path(one, opt_tree)
+
+
+def dp_split_dim(spec: PartitionSpec, mesh) -> Optional[int]:
+    """The dim that ``spec`` splits over the mesh's DP axes (ZeRO-1's
+    moment dim), or None."""
+    axes = dp_axes(mesh)
+    want = axes if len(axes) > 1 else (axes[0] if axes else None)
+    for i, ax in enumerate(spec):
+        if want is not None and ax == want:
+            return i
+    return None
+
+
+def batch_spec(mesh, global_batch: int, extra_dims: int = 1) -> PartitionSpec:
+    """``[B, ...]``: batch on the DP axes when they divide it, replicated
+    otherwise."""
+    axes, total = _dp_total(mesh)
+    if axes and global_batch % total == 0:
+        return P(axes, *([None] * extra_dims))
+    return P(*([None] * (extra_dims + 1)))
+
+
+def batch_shardings(batch: Any, mesh) -> Any:
+    def one(_, leaf):
+        nd = _ndim(leaf)
+        if nd == 0:
+            return NamedSharding(mesh, P())
+        return NamedSharding(mesh, batch_spec(mesh, leaf.shape[0], nd - 1))
+    return tree_map_with_path(one, batch)
+
+
+def cache_shardings(cache: Any, cfg: ModelConfig, mesh) -> Any:
+    """KV and SSM caches ``[L, B, ...]``: B on the DP axes; KV caches put
+    the sequence dim on "model" (else ``dh``), the SSM state its head dim
+    ``P``, the conv window its channels."""
+    tp = axis_sizes(mesh)["model"]
+
+    def one(path, leaf):
+        ps = _path_str(path)
+        nd = _ndim(leaf)
+        if nd == 0:
+            return NamedSharding(mesh, P())
+        shape = tuple(leaf.shape)
+        dp = batch_spec(mesh, shape[1], 0) if nd > 1 else P(None)
+        dpax = dp[0] if len(dp) else None
+        spec: list = [None] * nd
+        spec[1] = dpax
+        model_dim = None
+        if re.search(r"(^|/)(k|v|shared_k|shared_v)$", ps):
+            # [L, B, C, KV, dh]: prefer C (sequence); fall back to dh
+            model_dim = 2 if shape[2] % tp == 0 else nd - 1
+        elif ps.endswith("ssm"):
+            model_dim = nd - 2          # P (head dim), N stays whole
+        elif ps.endswith("conv"):
+            model_dim = nd - 1          # channels
+        if model_dim is not None and shape[model_dim] % tp == 0:
+            spec[model_dim] = "model"
+        return NamedSharding(mesh, P(*spec))
+    return tree_map_with_path(one, cache)
+
+
+def logits_sharding(mesh, global_batch: int, cfg: ModelConfig,
+                    with_seq: bool = True) -> "NamedSharding":
+    bspec = batch_spec(mesh, global_batch, 0)
+    dpax = bspec[0] if len(bspec) else None
+    vocab_ok = cfg.vocab % axis_sizes(mesh)["model"] == 0
+    dims = (dpax, None, "model" if vocab_ok else None) if with_seq \
+        else (dpax, "model" if vocab_ok else None)
+    return NamedSharding(mesh, P(*dims))
+
+
+def replicated(mesh) -> "NamedSharding":
+    return NamedSharding(mesh, P())
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """``spec`` as DTensor placements, one a mesh dim: ``Shard(d)`` where
+    tensor dim ``d`` is split over that mesh axis (a tuple of axes on one
+    dim, such as ``("pod", "data")``, gives a ``Shard`` on each, in mesh
+    order: the first axis major, as the reference splits), else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for name in mesh.mesh_dim_names:
+        dims = [d for d, ax in enumerate(spec)
+                if ax == name or (isinstance(ax, tuple) and name in ax)]
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec!r} splits dims {dims} over "
+                             f"mesh axis {name!r}")
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def shard_shape(spec: PartitionSpec, shape: Sequence[int], mesh
+                ) -> Tuple[int, ...]:
+    """One device's block of a ``shape`` tensor under ``spec``
+    (``NamedSharding.shard_shape``): each dim divided by the sizes of the
+    axes it is split over, which must divide it."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        n = math.prod(sizes[a] for a in
+                      (ax if isinstance(ax, tuple) else (ax,))
+                      if a is not None)
+        if dim % n:
+            raise ValueError(f"dim {i} of {tuple(shape)} does not split "
+                             f"{n} ways ({spec!r})")
+        out.append(dim // n)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -297,14 +593,30 @@ def shard(x, mesh: SlotMesh, slot_dim: int = 0) -> SlotSharded:
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A mesh and a spec: where :func:`device_put` puts a leaf."""
-    mesh: SlotMesh
+    """A mesh and a spec: where :func:`device_put` puts a leaf. On a
+    :class:`SlotMesh` a :class:`SlotSharded` or :class:`Replicated`; on a
+    ``DeviceMesh`` a ``DTensor`` (``distribute_tensor`` by
+    :func:`placements`); on a 1-device ``AbstractMesh`` the tensor on its
+    device."""
+    mesh: Any
     spec: PartitionSpec
 
     def place(self, x):
-        d = spec_slot_dim(self.spec)
-        return replicate(x, self.mesh) if d is None \
-            else shard(x, self.mesh, d)
+        if isinstance(self.mesh, SlotMesh):
+            d = spec_slot_dim(self.spec)
+            return replicate(x, self.mesh) if d is None \
+                else shard(x, self.mesh, d)
+        if isinstance(self.mesh, AbstractMesh):
+            if self.mesh.size() != 1 or self.mesh.device is None:
+                raise ValueError(f"an abstract mesh of {self.mesh.shape} "
+                                 "places no tensor")
+            return x.to(self.mesh.device)
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(x, self.mesh,
+                                 placements(self.spec, self.mesh))
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        return shard_shape(self.spec, shape, self.mesh)
 
 
 def slot_sharding(mesh: SlotMesh, slot_dim: int = 0) -> NamedSharding:

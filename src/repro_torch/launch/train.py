@@ -12,13 +12,36 @@ moe, vlm, audio, ssm and hybrid):
 * ``dsst_every``      — connectivity prune/regrow for masked N:M configs;
 * ``microbatch``      — gradient accumulation over slices of the batch.
 
-Where the reference reads its mesh context (``spmd.current()``), the step
-takes explicit arguments: ``attn`` (``"flash"``: the flash kernels on the
-card; ``"plain"``) and ``loss_chunk`` (chunked cross entropy). The step
-counter is a host int, so the schedule and the DSST decision are made on
-the host; nothing is read back from the card inside a step. ``zero1``
-only picks a sharding of the moments in the reference; on one device it
-changes nothing, so the port accepts it and ignores it.
+The step takes ``attn`` (``"flash"``: the flash kernels on the card;
+``"plain"``) and ``loss_chunk`` (chunked cross entropy); where one is not
+given, the active ``launch.spmd`` context supplies it at call time, as the
+reference reads its context, and with no context the route is flash and
+the loss whole. The step counter is a host int, so the schedule and the
+DSST decision are made on the host; nothing is read back from the card
+inside a step.
+
+Data parallelism: ``make_train_step(..., mesh=)`` on an LM mesh
+(``launch.mesh.make_host_mesh``) runs the same body on the rank's own
+batch, then
+
+* all-reduces the gradients over the DP process groups (``data``, then
+  ``pod``) in flat f32 buckets in tree order and divides by the DP size
+  (integer and boolean leaves carry none);
+* all-reduces, as means, what every rank must decide alike on: the gating
+  engine's ``ia`` and ``pooled`` (so every rank opens the same layers) and
+  the metrics ``loss``, ``ce`` and ``moe_dropped``; the clip and the DSST
+  event read the reduced gradients;
+* with ``hp.zero1`` (ZeRO-1, the reference's ``opt_state_shardings``),
+  keeps only its block of ``m`` and ``v`` along the dim the rule names,
+  updates only that block of each parameter and all-gathers the rest, bit
+  for bit the replicated update (``init_train_state(mesh=)`` allocates
+  the blocks). A leaf with no dividing dim stays replicated.
+
+On a 1 × 1 ``AbstractMesh`` (no process group) the step issues no
+collective and is ``make_train_step``'s. A model axis above 1 (tensor
+parallelism, ``ROADMAP.md`` Queue 1 item 10d) and the MoE family at a DP
+size above 1 (each rank's capacity and aux loss from its own tokens: the
+reference's shard-mapped dispatch, item 10c) are refused.
 
 ``run_training`` is the single-host loop. With ``ckpt_dir`` it resumes
 from the newest valid checkpoint there (the caller replays the data
@@ -39,8 +62,10 @@ from ..core.gating import GatingConfig
 from ..models import transformer as T
 from ..optim import (AdamWConfig, SparseTrainState, adamw_init, adamw_update,
                      gated_scale_tree, lm_dsst_event)
-from ..optim.optimizer import tree_map, trainable
+from ..optim.optimizer import AdamWState, tree_leaves, tree_map, trainable
 from ..optim.sparse import compute_gates
+from . import spmd
+from .mesh import AbstractMesh, axis_sizes, dp_axes, dp_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +76,7 @@ class TrainHParams:
     dsst_every: int = 0               # 0 = static connectivity
     moe_aux_weight: float = 0.01
     microbatch: int = 1               # grad-accumulation splits of the batch
-    zero1: bool = False               # a sharding choice: no effect on one device
+    zero1: bool = False               # DP-split optimizer moments (ZeRO-1)
 
 
 STACKED = ("layers", "local_heads")     # subtrees whose leaves lead with L
@@ -95,27 +120,177 @@ def _detach(tree):
     return {k: v.detach() for k, v in tree.items()}
 
 
-def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",
-                    loss_chunk: Optional[int] = None):
+# ---------------------------------------------------------------------------
+# data parallelism
+# ---------------------------------------------------------------------------
+
+GRAD_BUCKET = 1 << 26            # f32 elements an all-reduce bucket holds
+
+
+class DataParallel:
+    """The collectives of the data-parallel step on an LM mesh: the DP
+    groups (``data`` first, then ``pod``), this rank's index over the DP
+    axes (``pod`` major) and the ZeRO-1 layout. On an ``AbstractMesh``
+    there are no groups, and nothing is communicated."""
+
+    def __init__(self, mesh, cfg: ModelConfig, hp: "TrainHParams"):
+        sizes = axis_sizes(mesh)
+        if sizes.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"a model axis of {sizes['model']}: the step would run "
+                "tensor-parallel over DTensors (ROADMAP.md Queue 1 item 10d)")
+        self.mesh, self.cfg = mesh, cfg
+        self.axes, self.size = dp_axes(mesh), dp_size(mesh)
+        if cfg.family == "moe" and self.size > 1:
+            raise NotImplementedError(
+                f"the moe family at a DP size of {self.size}: each rank's "
+                "capacity and aux loss would come from its own tokens, the "
+                "reference's shard-mapped dispatch (ROADMAP.md Queue 1 item "
+                "10c)")
+        self.groups = [] if isinstance(mesh, AbstractMesh) else \
+            [mesh.get_group(a) for a in reversed(self.axes)]
+        self.rank = 0
+        if self.groups:
+            for a in self.axes:
+                self.rank = self.rank * sizes[a] + mesh.get_local_rank(a)
+        self.zero1 = hp.zero1 and self.size > 1
+
+    def zero1_layout(self, params) -> Any:
+        """``(dim, rank, DP size)`` for each leaf whose moments ZeRO-1
+        splits (``sharding.opt_state_shardings``), else None."""
+        from .sharding import dp_split_dim, opt_state_shardings
+        if not self.zero1:
+            return tree_map(lambda _: None, params)
+        shard = opt_state_shardings(params, params, self.cfg, self.mesh)
+
+        def one(p, sh):
+            d = dp_split_dim(sh.spec, self.mesh) if trainable(p) else None
+            return None if d is None else (d, self.rank, self.size)
+        return tree_map(one, params, shard)
+
+    def _all_reduce_mean(self, flat: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        for g in self.groups:
+            dist.all_reduce(flat, group=g)
+        return flat.div_(self.size)
+
+    def mean_grads(self, grads):
+        """Every float gradient averaged over the DP ranks, in place, in
+        flat f32 buckets of at most ``GRAD_BUCKET`` elements (a larger leaf
+        alone), in tree order."""
+        if not self.groups:
+            return grads
+        bucket: list = []
+
+        def flush():
+            flat = self._all_reduce_mean(torch.cat(
+                [g.reshape(-1).float() for g in bucket]))
+            o = 0
+            for g in bucket:
+                g.copy_(flat[o:o + g.numel()].view_as(g))
+                o += g.numel()
+            bucket.clear()
+        n = 0
+        for g in tree_leaves(grads):
+            if g is None:
+                continue
+            if bucket and n + g.numel() > GRAD_BUCKET:
+                flush()
+                n = 0
+            bucket.append(g)
+            n += g.numel()
+        if bucket:
+            flush()
+        return grads
+
+    def mean_stats(self, named: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """f32 statistics (scalars and arrays) averaged over the DP ranks in
+        one all-reduce."""
+        if not self.groups:
+            return named
+        flat = self._all_reduce_mean(torch.cat(
+            [v.reshape(-1).float() for v in named.values()]))
+        out, o = {}, 0
+        for k, v in named.items():
+            out[k] = flat[o:o + v.numel()].view_as(v).to(v.dtype)
+            o += v.numel()
+        return out
+
+    def gather_blocks(self, block: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` -> the whole tensor, the blocks
+        in DP-rank order (``data`` within each ``pod``, then ``pod``)."""
+        import torch.distributed as dist
+        x = block.contiguous()
+        for g in self.groups:
+            parts = [torch.empty_like(x)
+                     for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, x, group=g)
+            x = torch.cat(parts, dim=dim)
+        return x
+
+    def gather_params(self, params, layout) -> None:
+        """After a ZeRO-1 update: each split leaf's blocks all-gathered
+        from their ranks into the whole parameter, in place."""
+        def one(p, z):
+            if z is not None:
+                d, i, n = z
+                w = p.shape[d] // n
+                p.copy_(self.gather_blocks(p.narrow(d, i * w, w), d))
+        with torch.no_grad():
+            tree_map(one, params, layout)
+
+    def full_opt_state(self, opt_state: AdamWState, layout) -> AdamWState:
+        """ZeRO-1 moments gathered whole (every rank calls it; for a
+        checkpoint)."""
+        def one(m, z):
+            return m if z is None else self.gather_blocks(m, z[0])
+        return AdamWState(opt_state.step, tree_map(one, opt_state.m, layout),
+                          tree_map(one, opt_state.v, layout))
+
+    def local_opt_state(self, opt_state: AdamWState, layout) -> AdamWState:
+        """Whole moments -> this rank's ZeRO-1 blocks (copies)."""
+        def one(m, z):
+            if z is None:
+                return m
+            d, i, n = z
+            w = m.shape[d] // n
+            return m.narrow(d, i * w, w).clone()
+        return AdamWState(opt_state.step, tree_map(one, opt_state.m, layout),
+                          tree_map(one, opt_state.v, layout))
+
+
+def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
+                    loss_chunk: Optional[int] = None, mesh=None):
     """The step ``(params, opt_state, sparse_state, batch) -> (params,
     opt_state, sparse_state, metrics)``; ``batch`` holds ``tokens`` (or
     ``embeds``) and ``labels`` as tensors on the params' device. Params and
     moments are updated in place (``adamw_update``); a DSST event returns
     new ``w`` and ``umask`` leaves. Metrics are device tensors, except
     ``lr`` (a float). ``step.loss_and_grads(params, batch)`` gives the
-    step's ``(loss, (ce, aux), grads)`` without the update."""
+    step's ``(loss, (ce, aux), grads)`` without the update (one rank's).
+
+    ``attn`` / ``loss_chunk``: given, they win; not given, the active SPMD
+    context's ``flash_attn`` / ``loss_chunk`` apply, read at each call.
+    ``mesh``: the data-parallel step over that LM mesh (module docstring),
+    ``step.dp`` its :class:`DataParallel`; ``batch`` is then the rank's own
+    part of the global batch."""
     local = hp.mode == "local"
     if hp.mode not in ("backprop", "local"):
         raise ValueError(f"mode must be 'backprop' or 'local', got {hp.mode!r}")
-    chunked = bool(loss_chunk) and not cfg.tie_embeddings
+    dp = DataParallel(mesh, cfg, hp) if mesh is not None else None
 
     def loss_fn(params, batch):
+        ctx = spmd.current()
+        chunk = loss_chunk if loss_chunk is not None else \
+            (ctx.loss_chunk if ctx is not None else None)
+        chunked = bool(chunk) and not cfg.tie_embeddings
         out, aux = T.forward(params, cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), attn=attn,
                              local_mode=local, want_hidden=chunked)
         if chunked:  # out is the hidden stream; CE in [B, chunk, V] slabs
             ce = T.lm_loss_chunked(out, params["lm_head"], batch["labels"],
-                                   loss_chunk)
+                                   chunk)
         else:
             ce = T.lm_loss(out, batch["labels"])
         loss = ce + hp.moe_aux_weight * aux["moe_aux"]
@@ -143,6 +318,7 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",
         return loss, (ce, aux), gsum
 
     masked = bool(cfg.sparsity) and cfg.sparsity.mode == "masked"
+    layout: Dict[str, Any] = {}
 
     def train_step(params, opt_state, sparse_state: SparseTrainState, batch):
         if hp.microbatch > 1 and any(v.shape[0] % hp.microbatch
@@ -150,6 +326,21 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",
             raise ValueError(f"batch does not split into {hp.microbatch} "
                              f"microbatches")
         loss, (ce, aux), grads = grad_step(params, batch)
+        zero1 = None
+        if dp is not None:
+            # every rank decides the gates, the clip and the DSST event on
+            # the same (reduced) numbers
+            grads = dp.mean_grads(grads)
+            red = dp.mean_stats({"loss": loss, "ce": ce,
+                                 "moe_dropped": aux["moe_dropped"],
+                                 "ia": aux["ia"], "pooled": aux["pooled"]})
+            loss, ce = red["loss"], red["ce"]
+            aux = dict(aux, moe_dropped=red["moe_dropped"], ia=red["ia"],
+                       pooled=red["pooled"])
+            if dp.zero1:
+                if "params" not in layout:
+                    layout["params"] = dp.zero1_layout(params)
+                zero1 = layout["params"]
 
         # activity-dependent gated updates (ElfCore WU gating at LM scale)
         if hp.gating is not None:
@@ -163,7 +354,9 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",
             gate_frac = torch.ones((), device=loss.device)
 
         params, opt_state, om = adamw_update(grads, params, opt_state, hp.opt,
-                                             scale)
+                                             scale, zero1=zero1)
+        if zero1 is not None:
+            dp.gather_params(params, zero1)
         metrics = {"loss": loss, "ce": ce, "gate_frac": gate_frac,
                    "moe_dropped": aux["moe_dropped"], **om}
         # DSST connectivity event (masked N:M configs), decided on the host
@@ -178,16 +371,21 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn: str = "flash",
 
     # the step's own loss and gradients, without the update (for parity)
     train_step.loss_and_grads = grad_step
+    train_step.dp = dp
     return train_step
 
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig, hp: TrainHParams,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """(params, AdamW state, SparseTrainState) on ``device``, the params
-    drawn from ``gen`` (a CUDA generator draws them on the card)."""
+    drawn from ``gen`` (a CUDA generator draws them on the card; every rank
+    of a data-parallel run draws the same). With ``mesh`` and ``hp.zero1``
+    the moments are allocated as this rank's ZeRO-1 blocks."""
     params = T.init_params(gen, cfg, device=device,
                            local_heads=hp.mode == "local")
-    return (params, adamw_init(params),
+    opt = adamw_init(params) if mesh is None \
+        else adamw_init(params, DataParallel(mesh, cfg, hp).zero1_layout(params))
+    return (params, opt,
             SparseTrainState.init(cfg.n_layers, cfg.d_model, device=device))
 
 
@@ -199,7 +397,7 @@ def _sync(device) -> None:
 def run_training(cfg: ModelConfig, hp: TrainHParams, pipeline, n_steps: int,
                  seed: int = 0, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 50, log_every: int = 10, callback=None,
-                 device="cuda", attn: str = "flash",
+                 device="cuda", attn=None,
                  loss_chunk: Optional[int] = None
                  ) -> Tuple[Any, Dict[str, Any]]:
     """Single-host training loop from a fresh state drawn with ``seed``.

@@ -29,8 +29,11 @@ global deterministic mode: two calls of a step give the same gradients bit
 for bit. ``moe_aux`` carries its gradient through ``probs.mean(0)`` (the
 integer load is constant), as in the reference; ``moe_dropped`` has none.
 
-Not here: the reference's multi-device dispatch (``_moe_apply_shardmap``,
-EP or TP inside experts); on one device the reference takes this path too.
+Under an SPMD context with ``shardmap_moe`` the reference dispatches
+inside ``shard_map``, each data shard's tokens local to it
+(``_moe_apply_shardmap``, EP or TP inside experts). On a mesh of one
+device that is this path; on more it is ``ROADMAP.md`` Queue 1 item 10c,
+and ``moe_apply`` refuses it.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig, SparsityConfig
 from ..core.dsst import _top_k_ids
 from ..core.sparsity import NMSpec
+from ..launch import spmd
 from .layers import _randn, _rows_from_umask, unit_masks
 
 
@@ -211,6 +215,13 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
     ``moe_load`` [E] (share of choices per expert), f32. The capacity is
     that of the call's ``B·S`` tokens; the expert form is read off the
     params (the reference's ``sp`` argument goes unused there too)."""
+    ctx = spmd.current()
+    compact_experts = any("rows" in p[w] for w in ("w1", "w2") if w in p)
+    if ctx is not None and ctx.shardmap_moe and not compact_experts \
+            and ctx.mesh_size() > 1:
+        raise NotImplementedError(
+            "the MoE shard map (data-shard-local dispatch) on a mesh of "
+            f"{ctx.mesh_size()} devices is ROADMAP.md Queue 1 item 10c")
     b, s, d = x.shape
     n, e, k = b * s, cfg.moe_experts, cfg.moe_top_k
     c = capacity(n, cfg)

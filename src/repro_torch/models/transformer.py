@@ -24,14 +24,17 @@ gradient is the sum over its calls.
 
 The layer loop is a Python ``for`` over views of the stacked leaves (the
 reference scans), so the hybrid's "is this a shared-block layer" test is a
-host ``if`` where the reference uses ``lax.cond``. Attention takes an
-explicit route instead of the reference's mesh context: ``attn="flash"``
-(default) goes through ``layers.attn_full_flash`` → ``kernels/flash_attn``
-(the CUDA kernels on the card, the plain version on the CPU), for the
-hybrid's shared block too (the reference routes only the attention
-families through flash; it is the same causal attention with the window);
-``attn="plain"`` is the reference's path without the context,
+host ``if`` where the reference uses ``lax.cond``. Attention takes a route:
+``attn="flash"`` goes through ``layers.attn_full_flash`` →
+``kernels/flash_attn`` (the CUDA kernels on the card, the plain version on
+the CPU), for the hybrid's shared block too (the reference routes only the
+attention families through flash; it is the same causal attention with the
+window); ``attn="plain"`` is the reference's path without the context,
 ``attn_full`` or, beyond ``CHUNKED_ATTN_THRESHOLD``, ``attn_full_chunked``.
+With no ``attn`` given, an active ``launch.spmd`` context picks the route
+by its ``flash_attn`` flag, as the reference's does; with none the route
+is ``"flash"``. ``forward`` calls ``spmd.constrain_seq`` at every block
+boundary, where the reference does.
 
 The moe family puts ``models/moe.py``'s layer (``lp["moe"]``) where the
 others have the MLP. Its capacity is that of each call's tokens, so a
@@ -56,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core import ossl as ossl_lib
+from ..launch import spmd
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
@@ -173,7 +177,17 @@ def _angles_for(cfg: ModelConfig, positions, b: int, s: int, device):
     return L.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _attn_fn(cfg: ModelConfig, s: int, attn: str):
+def attn_route(attn=None) -> str:
+    """``attn`` where given; else ``"flash"`` or ``"plain"`` by the active
+    SPMD context's ``flash_attn``; ``"flash"`` with no context."""
+    if attn is not None:
+        return attn
+    ctx = spmd.current()
+    return "flash" if ctx is None or ctx.flash_attn else "plain"
+
+
+def _attn_fn(cfg: ModelConfig, s: int, attn=None):
+    attn = attn_route(attn)
     if attn == "flash":
         return L.attn_full_flash
     if attn != "plain":
@@ -244,7 +258,7 @@ def _head(params, cfg: ModelConfig, h):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
-            attn: str = "flash", local_mode: bool = False,
+            attn=None, local_mode: bool = False,
             want_hidden: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward. Returns (logits [B,S,V], aux), or the final
@@ -282,6 +296,8 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
                 attn_fn, sh)
         h, ll, maux = (checkpoint(_train_block, *args, use_reentrant=False)
                        if remat else _train_block(*args))
+        # sequence-parallel layer boundary (launch/spmd)
+        h = spmd.constrain_seq(h)
         if ll is not None:
             lloss = lloss + ll
         if maux is not None:
@@ -378,7 +394,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
-            attn: str = "flash"):
+            attn=None):
     """Run the full prompt and build a decode cache. Returns
     (last_logits [B, V], cache).
 

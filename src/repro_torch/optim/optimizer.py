@@ -64,13 +64,20 @@ def tree_leaves(tree):
     return [tree]
 
 
-def adamw_init(params) -> AdamWState:
-    def zeros(p):
+def adamw_init(params, zero1=None) -> AdamWState:
+    """Zero moments; with ``zero1`` (``adamw_update``'s tree) a split
+    leaf's moments are its block only."""
+    def zeros(p, z=None):
         if trainable(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            shape = list(p.shape)
+            if z is not None:
+                shape[z[0]] //= z[2]
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
         return torch.zeros((), dtype=torch.int8, device=p.device)
-    return AdamWState(step=0, m=tree_map(zeros, params),
-                      v=tree_map(zeros, params))
+    if zero1 is None:
+        zero1 = tree_map(lambda _: None, params)
+    return AdamWState(step=0, m=tree_map(zeros, params, zero1),
+                      v=tree_map(zeros, params, zero1))
 
 
 def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
@@ -93,11 +100,19 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
-                 update_scale=None) -> Tuple[Any, AdamWState, Dict[str, Any]]:
+                 update_scale=None, zero1=None
+                 ) -> Tuple[Any, AdamWState, Dict[str, Any]]:
     """One AdamW step. ``update_scale``: optional tree of per-leaf scales
     (the activity-dependent gate: 0 skips a layer's update, the chip's
     gated WU applied to the optimizer; a masked weight's scale also carries
-    its mask). Updates ``params``, ``m`` and ``v`` in place."""
+    its mask). Updates ``params``, ``m`` and ``v`` in place.
+
+    ``zero1``: optional tree of ``(dim, index, parts)`` or None per leaf
+    (ZeRO-1, ``launch/train``): that leaf's ``m`` and ``v`` hold only block
+    ``index`` of ``parts`` along ``dim``, and only that block of the
+    parameter is updated (the caller gathers the rest). The update is
+    elementwise and the clip reads the whole gradient, so each block comes
+    out as the whole-leaf update's, bit for bit."""
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = cosine_schedule(cfg, state.step)
@@ -105,9 +120,15 @@ def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
     bc1 = float(np.float32(1) - np.float32(cfg.b1) ** t)
     bc2 = float(np.float32(1) - np.float32(cfg.b2) ** t)
 
-    def upd(g, p, m, v, s):
+    def upd(g, p, m, v, s, z=None):
         if not trainable(p):
             return
+        if z is not None:
+            d, i, n = z
+            w = p.shape[d] // n
+            if s is not None:
+                s = torch.broadcast_to(s, p.shape).narrow(d, i * w, w)
+            g, p = g.narrow(d, i * w, w), p.narrow(d, i * w, w)
         if p.numel() > ADAMW_SLAB and p.dim() > 1:
             # slabs of the leading axis of at most ADAMW_SLAB elements (a
             # single row is split again): the update is elementwise, so the
@@ -131,7 +152,8 @@ def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
 
     scale = update_scale if update_scale is not None \
         else tree_map(lambda _: None, params)
+    zero1 = zero1 if zero1 is not None else tree_map(lambda _: None, params)
     with torch.no_grad():
-        tree_map(upd, grads, params, state.m, state.v, scale)
+        tree_map(upd, grads, params, state.m, state.v, scale, zero1)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(state.step + 1, state.m, state.v), metrics

@@ -99,8 +99,9 @@ def elastic_remesh(tree: Any, target, spec_fn: Callable[[Any], Any]) -> Any:
     device every leaf is moved whole. Leaves already placed
     (``SlotSharded``, ``Replicated``) are gathered first, so a tree moves
     between meshes of any size with its values unchanged. A spec naming
-    any other mesh axis (a model or data axis) needs the LM mesh, not
-    ported yet (``ROADMAP.md`` Queue 1 item 10b): ``NotImplementedError``.
+    any other mesh axis (a model or data axis) would move the tree across
+    an LM mesh's axes, which is ``ROADMAP.md`` Queue 1 item 10c:
+    ``NotImplementedError``.
     """
     mesh = dev = None
     if isinstance(target, SlotMesh):

@@ -124,6 +124,7 @@ def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
         def chunk_fn(params, deltas, state: StreamState, events, valid,
                      adapt_mask):
             sharding.check_slot_divisible(events.shape[1], mesh)
+            _refuse_dense_base_on_cuda(params)
             args = sharding.place_args(
                 (params, deltas, state, events, valid, adapt_mask), in_specs,
                 mesh)
@@ -136,6 +137,21 @@ def make_chunk_fn(cfg: SNNConfig, adapt: AdaptConfig | None = None,
     chunk_fn.want_factors = want_factors
     chunk_fn.mesh = mesh
     return chunk_fn
+
+
+def _refuse_dense_base_on_cuda(params) -> None:
+    """A slot mesh on the card serves the compact base only. The ``"ref"``
+    backend's dense layout takes its base current as the GEMM ``pre @ w``
+    (``engine.fwd_current``), and cuBLAS picks its summation order by the
+    row count, so a slot would round otherwise at another shard width and
+    the sharded fleet would drift from the 1-device one."""
+    rep = params.full() if isinstance(params, sharding.Replicated) else params
+    w = rep.get("w") if isinstance(rep, dict) else None
+    if isinstance(w, torch.Tensor) and w.device.type == "cuda":
+        raise ValueError(
+            "a slot mesh on CUDA serves the compact base (backend "
+            "'kernels'); the 'ref' backend's dense base GEMM pre @ w "
+            "rounds by the shard's row count there")
 
 
 def delta_norms(deltas: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,9 @@ layer (no kernel of its own: ``torch.bmm`` over the dispatch buffer) on
 the card against the CPU in f32: slots equal, output within ``1e-5``; a
 reduced MoE training step's gradients equal bit for bit across two calls.
 The slot-sharded chunk step and fleet on four mesh entries of the card
-against the 1-device ones, bit for bit.
+against the 1-device ones, bit for bit, at 64, 2 and 1 slots a shard. The
+data-parallel LM step over a one-rank NCCL group against the plain step,
+bit for bit.
 """
 import numpy as np
 import pytest
@@ -921,10 +923,10 @@ def test_elastic_remesh_moves_a_tree_onto_the_card(cuda):
 
 
 # ------------------------------------------- the slot-sharded serving fleet
-# On the card, 4 mesh entries of the one device, 64 slots a shard: torch's
-# reduction kernels pick the same launch shape from 16 rows up (a shard of
-# 1 or 2 rows may sum a row in another order: see PERF.md), so each shard
-# is kept well above that.
+# On the card, 4 mesh entries of the one device, 64 slots a shard; and
+# shards of 1 and 2 slots, where torch's row reductions may pick another
+# launch shape, in both delta layouts. The "ref" backend's dense base GEMM
+# is refused on a slot mesh of the card.
 
 SHARDS, SHARD_SLOTS = 4, 64
 
@@ -934,22 +936,20 @@ def _card_mesh(cuda):
     return make_serving_mesh(devices=[cuda] * SHARDS)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("compact", [True, False])
-def test_sharded_chunk_step_equals_one_card_on_card(cuda, compact):
+def _sharded_step_against_one_card(cuda, compact, width, cfg=None):
     """Three carried chunk steps (decay and clip, ragged valid, a mixed
-    adapt mask, factors on) on 4 shards of one card against the 1-device
-    step: every output bit for bit, and each shard launching the kernels
-    once a layer-timestep."""
+    adapt mask, factors on) on 4 shards of ``width`` slots against the
+    1-device step: every output bit for bit, and each shard launching the
+    kernels once a layer-timestep."""
     from repro_torch.core.snn import (SNNConfig, init_params,
                                       init_stream_deltas, init_stream_state,
                                       serving_params)
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.launch import sharding
     from repro_torch.serving.adapt import AdaptConfig, make_chunk_fn
-    cfg = SNNConfig(n_in=32, n_hidden=32, n_layers=2, n_out=8, t_steps=16,
-                    backend="kernels")
-    S, C = SHARDS * SHARD_SLOTS, 6
+    cfg = cfg or SNNConfig(n_in=32, n_hidden=32, n_layers=2, n_out=8,
+                           t_steps=16, backend="kernels")
+    S, C = SHARDS * width, 6
     ex = serving_params(init_params(0, cfg, device=cuda), cfg,
                         compact=compact)
     adapt = AdaptConfig(delta_decay=0.95, delta_clip=0.3)
@@ -959,24 +959,86 @@ def test_sharded_chunk_step_equals_one_card_on_card(cuda, compact):
     dl1 = init_stream_deltas(cfg, S, device=cuda, compact=compact)
     st4, dl4 = st1, dl1
     rng = np.random.default_rng(0)
+    opened = 0.0
     for _ in range(3):
         ev = torch.tensor(rng.random((C, S, cfg.n_in)) < 0.3,
                           dtype=torch.float32, device=cuda)
         va = torch.tensor(rng.random((C, S)) < 0.8, device=cuda)
         am = torch.tensor(rng.random(S) < 0.7, device=cuda)
+        am[0] = True
         dl1, st1, m1 = fn1(ex, dl1, st1, ev, va, am)
+        opened += float(m1.sop_wu.sum())
         before = lif_cuda.launches
         dl4, st4, m4 = fn4(ex, dl4, st4, ev, va, am)
         assert lif_cuda.launches - before == \
             SHARDS * C * cfg.n_layers
-    assert isinstance(dl4, sharding.SlotSharded)
-    assert float(m1.sop_wu.sum()) > 0
-    assert torch.equal(dl1, dl4.full())
-    for a, b in zip(torch.utils._pytree.tree_leaves(st1),
-                    torch.utils._pytree.tree_leaves(sharding.gather(st4))):
-        assert torch.equal(a, b)
-    for name, a, b in zip(m1._fields, m1, sharding.gather(m4)):
-        assert torch.equal(a, b), name
+        assert isinstance(dl4, sharding.SlotSharded)
+        assert torch.equal(dl1, dl4.full())
+        for a, b in zip(torch.utils._pytree.tree_leaves(st1),
+                        torch.utils._pytree.tree_leaves(
+                            sharding.gather(st4))):
+            assert torch.equal(a, b)
+        for name, a, b in zip(m1._fields, m1, sharding.gather(m4)):
+            assert torch.equal(a, b), name
+    assert opened > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [True, False])
+def test_sharded_chunk_step_equals_one_card_on_card(cuda, compact):
+    """4 shards of 64 slots against the 1-device step, bit for bit."""
+    _sharded_step_against_one_card(cuda, compact, SHARD_SLOTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("width", [1, 2])
+def test_narrow_shards_equal_one_card_on_card(cuda, compact, width):
+    """Shards of 1 and 2 slots at the paper's layer width (512), where
+    torch's row reductions take another launch shape than at 4 or 8 rows:
+    the step, across a window's weight updates, still equals the 1-device
+    step bit for bit, in both delta layouts (serving sums each slot's OSSL
+    terms in an order fixed by N: ``engine.serving_ossl_terms``)."""
+    from repro_torch.core.snn import SNNConfig
+    _sharded_step_against_one_card(cuda, compact, width, cfg=SNNConfig(
+        n_in=512, n_hidden=512, n_layers=2, n_out=16, t_steps=16,
+        backend="kernels"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact", [True, False])
+def test_fleet_at_two_slots_a_shard_equals_one_card_on_card(cuda, compact):
+    """The scheduler at its floor of 2 slots an entry, both delta layouts,
+    against the 1-device fleet of the same width: bit for bit."""
+    n = SHARDS * 2
+    one, k1 = _card_fleet(cuda, aer=False, n_slots=n, chunk_len=6,
+                          pipeline_depth=1, compact=compact)
+    four, k4 = _card_fleet(cuda, aer=False, n_slots=n, chunk_len=6,
+                           pipeline_depth=1, compact=compact,
+                           mesh=_card_mesh(cuda))
+    _assert_same_streams(one, four)
+    assert k4 == SHARDS * k1 > 0
+
+
+@pytest.mark.cuda
+def test_slot_mesh_refuses_the_dense_base_gemm_on_card(cuda):
+    """The "ref" backend's dense layout (base ``pre @ w``) is refused on a
+    slot mesh of the card, whose GEMM rounds by the shard's row count."""
+    from repro_torch.core.snn import (SNNConfig, init_params,
+                                      init_stream_deltas, init_stream_state,
+                                      serving_params)
+    from repro_torch.serving.adapt import make_chunk_fn
+    cfg = SNNConfig(n_in=32, n_hidden=32, n_layers=2, n_out=8, t_steps=16,
+                    backend="ref")
+    ex = serving_params(init_params(0, cfg, device=cuda), cfg, compact=False)
+    S = SHARDS * 2
+    fn = make_chunk_fn(cfg, mesh=_card_mesh(cuda))
+    with pytest.raises(ValueError, match="dense base GEMM"):
+        fn(ex, init_stream_deltas(cfg, S, device=cuda, compact=False),
+           init_stream_state(cfg, S, device=cuda),
+           torch.zeros((2, S, cfg.n_in), device=cuda),
+           torch.ones((2, S), dtype=torch.bool, device=cuda),
+           torch.ones(S, dtype=torch.bool, device=cuda))
 
 
 @pytest.mark.cuda
@@ -1011,3 +1073,82 @@ def test_sharded_staging_blocks_are_pinned_and_contiguous_on_card(cuda):
         assert buf.shape[0] == SHARDS
         for block in buf:
             assert block.is_contiguous() and block.is_pinned()
+
+
+# ------------------------------------- data-parallel LM training (slice 16)
+
+@pytest.fixture
+def nccl_world_of_one(cuda, monkeypatch):
+    """A one-rank NCCL group joined through fleet_init's variables, torn
+    down after the test."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.launcher import fleet_init
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("COORDINATOR_ADDRESS", f"localhost:{port}")
+    monkeypatch.setenv("PROCESS_COUNT", "1")
+    monkeypatch.setenv("PROCESS_ID", "0")
+    assert fleet_init("cuda") == (0, 1) and dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "stablelm_12b"])
+def test_dp_step_over_one_nccl_rank_equals_the_plain_step_on_card(
+        cuda, nccl_world_of_one, arch):
+    """The data-parallel step on the host mesh of a one-rank NCCL group
+    (every collective issued; a sum over one rank and a divide by 1 are
+    exact), ZeRO-1 on and the gate on, against ``make_train_step``'s three
+    steps from the same state: params, moments and losses bit for bit."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.optimizer import tree_leaves
+    # bf16 at a head width the flash kernels have (64)
+    cfg = dataclasses.replace(C.get_reduced(arch), dtype="bfloat16",
+                              d_head=64)
+    if cfg.rope_mode == "mrope":
+        cfg = dataclasses.replace(cfg, mrope_sections=(8, 12, 12))
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-2, warmup_steps=1),
+                      gating=GatingConfig(), zero1=True)
+    mesh = make_host_mesh()
+    assert tuple(mesh.shape) == (1, 1) and mesh.get_group("data").size() == 1
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.tensor(rng.integers(0, cfg.vocab, (2, 64)),
+                                       device=cuda),
+                "labels": torch.tensor(rng.integers(0, cfg.vocab, (2, 64)),
+                                       device=cuda)} for _ in range(3)]
+    if cfg.frontend:
+        for b in batches:
+            b["embeds"] = torch.tensor(
+                rng.standard_normal((2, 64, cfg.frontend_dim)),
+                dtype=torch.bfloat16, device=cuda)
+            del b["tokens"]
+    runs = []
+    for dp in (False, True):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        with spmd.activate(mesh, flash_attn=True, seq_shard=True):
+            state = init_train_state(gen, cfg, hp, cuda,
+                                     mesh=mesh if dp else None)
+            step = make_train_step(cfg, hp, mesh=mesh if dp else None)
+            losses = []
+            for b in batches:
+                p, o, s, m = step(*state, b)
+                state = (p, o, s)
+                losses.append(float(m["loss"]))
+        runs.append((state, losses))
+    (a, la), (b, lb) = runs
+    assert la == lb
+    for x, y in zip(tree_leaves(a[0]) + tree_leaves(a[1].m)
+                    + tree_leaves(a[1].v),
+                    tree_leaves(b[0]) + tree_leaves(b[1].m)
+                    + tree_leaves(b[1].v)):
+        assert x.dtype == y.dtype and torch.equal(x, y)

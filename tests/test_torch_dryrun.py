@@ -310,6 +310,10 @@ def test_cli_writes_ok_and_skipped_cells(tmp_path, capsys):
         rec = json.load(f)
     assert rec["kind"] == "decode" and rec["opts"]["mesh_requested"] == "single"
     assert rec["memory"]["argument_bytes"] > 0 and rec["flops_per_device"] > 0
+    # --mesh single: the decode cell's bytes a device on the 16 x 16 mesh
+    by_mesh = rec["memory"]["argument_bytes_per_device_by_mesh"]
+    assert list(by_mesh) == ["16x16"]
+    assert 0 < by_mesh["16x16"] < rec["memory"]["argument_bytes"]
     with open(os.path.join(out, "qwen2_vl_2b__long_500k__1.json")) as f:
         assert "skipped" in json.load(f)
     # a second run reads the cached cell

@@ -126,11 +126,12 @@ def test_elastic_remesh_changes_sharding():
 
 def test_elastic_remesh_refuses_what_needs_a_mesh():
     """Only an LM mesh's axes are refused now: a model or data axis, on a
-    slot mesh (two devices listed make one) or on one device. Placement
-    onto slot meshes is held in tests/test_torch_sharding.py."""
+    slot mesh (two devices listed make one) or on one device; moving a
+    tree across them is ROADMAP.md Queue 1 item 10c. Placement onto slot
+    meshes is held in tests/test_torch_sharding.py."""
     tree = {"w": torch.ones((8, 8))}
     for axis in ("model", "data"):
-        with pytest.raises(NotImplementedError, match="item 10b"):
+        with pytest.raises(NotImplementedError, match="item 10c"):
             elastic_remesh(tree, [torch.device("cpu")] * 2,
                            lambda path, a=axis: (a,))
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -97,11 +97,18 @@ def test_fleet_init_from_the_scheduler_env():
 
 
 def test_more_than_one_process_is_refused(monkeypatch):
-    """Replicas would train apart without the gradient all-reduce that the
-    LM mesh (ROADMAP.md Queue 1 item 10b) brings."""
-    monkeypatch.setattr(launcher, "fleet_init", lambda device: (0, 2))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        launcher.launch_train("stablelm_12b", multi_pod=False, opt="zero1",
-                              steps=1, seq_len=8, global_batch=2,
-                              ckpt_dir=None, validate_only=False,
-                              device="cpu")
+    """More than one process now trains data-parallel
+    (tests/test_torch_dp_train.py), except the MoE family: each rank's
+    capacity and aux loss would come from its own tokens, the shard-mapped
+    dispatch of ROADMAP.md Queue 1 item 10c."""
+    from repro_torch.launch import mesh
+    monkeypatch.setattr(launcher, "fleet_init",
+                        lambda device, backend=None: (0, 2))
+    monkeypatch.setattr(mesh, "make_host_mesh",
+                        lambda model=1, device=None: mesh.AbstractMesh(
+                            (2, model), ("data", "model"), device))
+    with pytest.raises(NotImplementedError, match="item 10c"):
+        launcher.launch_train("moonshot_v1_16b_a3b", multi_pod=False,
+                              opt="zero1", steps=1, seq_len=8,
+                              global_batch=2, ckpt_dir=None,
+                              validate_only=False, device="cpu")

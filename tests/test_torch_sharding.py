@@ -240,6 +240,46 @@ def test_sharded_chunk_step_bit_identical(jparams, params, compact):
                                rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("compact,width", [(True, 1), (True, 2),
+                                           (False, 2)])
+def test_narrow_shards_at_paper_width_bit_identical(compact, width):
+    """Shards of 1 and 2 slots at the paper's layer width (512 hidden),
+    across a whole window so the OSSL update runs: 8 shards ≡ the 1-device
+    step bit for bit. A reduction kernel's row order may follow the row
+    count, so serving takes every per-slot sum in an order fixed by the
+    widths alone (``engine.serving_ossl_terms``, ``ordered_readout``). The
+    dense layout's base on the CPU is a matmul, a gemv at one row: the
+    reference's floor of 2 slots an entry (``tier_slot_allocation``); on
+    the card both layouts hold at 1 (tests/test_torch_cuda.py)."""
+    cfg = snn.SNNConfig(n_in=512, n_hidden=512, n_layers=2, n_out=16,
+                        t_steps=20)
+    p = snn.init_params(0, cfg, device="cpu")
+    S, C = N_DEV * width, 8
+    rng = np.random.default_rng(1)
+    adapt = AdaptConfig(delta_decay=0.95, delta_clip=0.3)
+    fn1 = make_chunk_fn(cfg, adapt)
+    fn8 = make_chunk_fn(cfg, adapt, mesh=_mesh())
+    ex = snn.serving_params(p, cfg, compact=compact)
+    st1 = st8 = snn.init_stream_state(cfg, S, "cpu")
+    dl1 = dl8 = snn.init_stream_deltas(cfg, S, "cpu", compact=compact)
+    opened = 0.0
+    for _ in range(3):
+        args = (torch.from_numpy((rng.random((C, S, cfg.n_in)) < 0.3)
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.random((C, S)) < 0.9),
+                torch.ones(S, dtype=torch.bool))
+        dl1, st1, m1 = fn1(ex, dl1, st1, *args)
+        dl8, st8, m8 = fn8(ex, dl8, st8, *args)
+        opened += float(m1.sop_wu.sum())
+        assert torch.equal(dl1, dl8.full())
+        for a, b in zip(torch.utils._pytree.tree_leaves(st1),
+                        torch.utils._pytree.tree_leaves(SH.gather(st8))):
+            assert torch.equal(a, b)
+        for name, a, b in zip(m1._fields, m1, SH.gather(m8)):
+            assert torch.equal(a, b), name
+    assert opened > 0
+
+
 def test_sharded_chunk_step_refuses_an_indivisible_grid(params):
     fn = make_chunk_fn(CFG, mesh=_mesh(3))
     ex = snn.serving_params(params, CFG)
