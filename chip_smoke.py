@@ -361,6 +361,38 @@ Phases, each raising on failure:
    ``placements`` over the full config on ``meta``. The flash kernels'
    launches of (a) and (b)'s DP runs are the ``lm_dp_training`` path,
    exact (2L / L / L a step and process).
+26. the MoE family data-parallel (slice 17), once phase 25 has freed its
+   state: two gloo ranks share ``cuda:0`` (``moe_dp_child``), one after
+   another in the same two processes. (a) Moonlight-16B-A3B at full width
+   cut to DP_MOE_LAYERS of its 48 layers, phase 10's batch (B 2 x S 4096,
+   one row a rank), the gate on, the flash route, the loss in phase 21's
+   slabs, under ``spmd.activate(mesh, flash_attn=True, shardmap_moe=True)``
+   on ``make_host_mesh()`` (data 2), with deterministic algorithms on:
+   DP_MOE_STEPS steps with ZeRO-1 off and then on; the ranks' params
+   bit-identical (digests: ``tensor_digest``), ZeRO-1 bit for bit the
+   replicated update, the all-reduced step-0 gradients bit for bit
+   ``((g0.float() + g1.float()) / 2).to(dtype)`` of the 1-process
+   ``grad_step`` on each half alone (run in this process first; each half
+   has its own capacity), the DP loss and ``moe_dropped`` the halves'
+   means; recorded: the 1-process step on the whole batch and its
+   ``moe_dropped``, each rank's peak memory and step ms, the collectives.
+   The flash launches of the DP steps are the ``lm_dp_moe_training`` path,
+   exact (2L / L / L a step and process). (b) one Moonlight MoE layer at
+   full width (64 experts, top 6, d_ff 1408) on ``make_host_mesh(model=2)``
+   (data 1, model 2), each rank running 32 experts, x [2, 4096, 2048] bf16:
+   the output and the gradients of x, the router and the rank's expert
+   block within EP_REL_L2 relative L2 of the 1-process ``moe_apply`` on
+   the card, the aux terms equal, nothing outside the block, three
+   all-reduces a forward and backward; ms and the all-reduced bytes
+   recorded. (c) phase 23b's gradient tree (Qwen2-VL-2B, 2 layers, 562 M
+   elements), each rank's scaled by ``1 + 0.01 n`` from its own seed,
+   through ``compressed_mean``, int8 and top-k 5 %: the ranks' results
+   bit-identical (digests), and on DP_COMPRESS_GATE's leaves bit for bit
+   the host's mean of the same inputs; ms a tree and the gathered bytes
+   against f32. (d) (a)'s ZeRO-1 moments placed on the mesh as
+   ``DTensor`` s (``DataParallel.placed_opt_state``) and remeshed by
+   ``elastic_remesh`` onto one device, a leaf at a time: bit for bit the
+   replicated run's moments.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -3732,7 +3764,8 @@ def count_collectives():
     calls (and payload elements) in this process; returns the counts."""
     import torch.distributed as dist
     counts = {"all_reduce": 0, "all_gather": 0, "all_reduce_elems": 0,
-              "all_gather_elems": 0}
+              "all_gather_elems": 0, "all_reduce_bytes": 0,
+              "all_gather_bytes": 0}
     for name in ("all_reduce", "all_gather"):
         orig = getattr(dist, name)
 
@@ -3740,6 +3773,7 @@ def count_collectives():
             counts[_name] += 1
             t = a[1] if _name == "all_gather" else a[0]
             counts[_name + "_elems"] += t.numel()
+            counts[_name + "_bytes"] += t.numel() * t.element_size()
             return _orig(*a, **k)
         setattr(dist, name, wrapped)
     return counts
@@ -3884,15 +3918,16 @@ def free_port():
         return s.getsockname()[1]
 
 
-def spawn_dp(mode, world, workdir, timeout=600):
-    """``world`` processes of :func:`dp_child` joined through the
-    scheduler's variables; waits for all (killing any left at the
-    timeout) and returns their records in rank order."""
+def spawn_dp(mode, world, workdir, timeout=600, entry="dp_child"):
+    """``world`` processes of :func:`dp_child` (or another ``entry`` of
+    this script that reads the same ``[mode, out_path]`` argv) joined
+    through the scheduler's variables; waits for all (killing any left at
+    the timeout) and returns their records in rank order."""
     env = dict(os.environ, PYTHONPATH=SRC,
                COORDINATOR_ADDRESS=f"localhost:{free_port()}",
                PROCESS_COUNT=str(world))
     outs = [os.path.join(workdir, f"dp_{mode}_{r}.json") for r in range(world)]
-    code = "import chip_smoke; chip_smoke.dp_child()"
+    code = f"import chip_smoke; chip_smoke.{entry}()"
     procs = []
     t0 = time.time()
     try:
@@ -3919,7 +3954,7 @@ def spawn_dp(mode, world, workdir, timeout=600):
     bad = [(r, p.returncode, t[-4000:]) for r, (p, t) in
            enumerate(zip(procs, texts)) if p.returncode != 0]
     if bad:
-        raise AssertionError(f"phase 25{mode}: processes failed {bad}")
+        raise AssertionError(f"{entry} {mode}: processes failed {bad}")
     recs = []
     for path in outs:
         with open(path) as f:
@@ -4104,6 +4139,457 @@ def dp_phase(torch):
         shutil.rmtree(workdir, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"lm_dp_phase_s {rec['phase_s']}")
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the MoE family data-parallel (slice 17): the shard-mapped
+# dispatch, EP at full width, the compressed DP mean, elastic_remesh
+# ---------------------------------------------------------------------------
+
+# Moonlight at full width cut to 2 of its 48 layers (~1.8 B params), phase
+# 10's batch (B 2 x S 4096, one row a rank), the gate on, the flash route,
+# the loss in phase 21's slabs
+DP_MOE_LAYERS, DP_MOE_STEPS, DP_MOE_WORLD = 2, 2, 2
+# 26b: one MoE layer on a (data 1, model 2) mesh against the 1-process
+# layer. The ranks' partial combines are each rounded to bf16 and their sum
+# rounded again (the 1-process layer rounds one sum over k once), and the
+# input and router gradients sum two bf16 partials the same way: one or
+# two more roundings of 2^-9 relative on a path of about eight. 2^-6
+# relative L2 leaves that 8x room; a rank that missed its partial (or
+# summed the cotangent twice) moves a tensor by O(1).
+EP_REL_L2 = 2 ** -6
+# 26c: the compressed mean of the card against the host on these leaves
+# (the whole tree's payloads are held card against host in phase 23b)
+DP_COMPRESS_GATE = (("layers", "mlp", "w1", "w"), ("layers", "mlp", "w2", "w"))
+
+
+def tensor_digest(torch, x):
+    """Two 64-bit checksums of ``x``'s bits, computed on its device: the
+    sum of its elements' bit patterns and their sum weighted by odd
+    position factors (integer sums wrap, in any order): any difference in
+    the bits of a few elements changes the pair."""
+    flat_ = x.detach().contiguous().reshape(-1)
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[flat_.element_size()]
+    v = flat_.view(bits).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) * 2 + 1
+    return [int(v.sum()), int((v * w).sum()), str(x.dtype), list(x.shape)]
+
+
+def tree_digests(torch, tree):
+    return {"/".join(k): tensor_digest(torch, v) for k, v in flat(tree).items()
+            if isinstance(v, torch.Tensor)}
+
+
+def moe_dp_setup(torch):
+    """(config, hparams, pipeline config) of 26a."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.launch.train import TrainHParams
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=DP_MOE_LAYERS)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+    return cfg, hp, PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                   global_batch=TRAIN_B)
+
+
+def moe_dp_reference(torch, workdir):
+    """26a's yardsticks, in this process with deterministic algorithms on:
+    the 1-process ``grad_step`` on each rank's half alone, and the digests
+    of ``((g0.float() + g1.float()) / 2).to(dtype)`` a leaf (written for
+    the ranks); the halves' losses and ``moe_dropped``; and one 1-process
+    step on the whole batch, its ``moe_dropped`` beside the DP one."""
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim.optimizer import tree_map
+    cfg, hp, pcfg = moe_dp_setup(torch)
+    torch.use_deterministic_algorithms(True)
+    rec = {}
+    try:
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, hp, "cuda")
+        step = make_train_step(cfg, hp, attn="flash", loss_chunk=MOE_LOSS_CHUNK)
+        halves = []
+        for r in range(DP_MOE_WORLD):
+            loss, (_, aux), g = step.loss_and_grads(
+                state[0], dp_batch(torch, pcfg, 0, [r], DP_MOE_WORLD))
+            halves.append((float(loss), float(aux["moe_dropped"]), g))
+        mean = tree_map(lambda a, b: None if a is None else
+                        ((a.float() + b.float()) / 2).to(a.dtype),
+                        halves[0][2], halves[1][2])
+        rec["grad_digests"] = tree_digests(torch, mean)
+        rec["half_losses"] = [h[0] for h in halves]
+        rec["half_moe_dropped"] = [h[1] for h in halves]
+        del mean, halves
+        batch = dp_batch(torch, pcfg, 0, list(range(DP_MOE_WORLD)),
+                         DP_MOE_WORLD)
+        torch.cuda.synchronize()
+        (_, _, _, m), ms = event_ms(torch, lambda: step(*state, batch))
+        rec.update(whole_batch_loss=float(m["loss"]),
+                   whole_batch_moe_dropped=float(m["moe_dropped"]),
+                   whole_batch_step_ms=ms)
+        del state, step, batch, m
+    finally:
+        torch.use_deterministic_algorithms(False)
+    with open(os.path.join(workdir, "moe_ref.json"), "w") as f:
+        json.dump(rec, f)
+    return rec
+
+
+def moe_ep_check(torch, mesh_ep, counts):
+    """26b in one rank: one Moonlight MoE layer at full width (64 experts,
+    top 6, d_ff 1408), x [TRAIN_B, TRAIN_S, 2048] bf16, through
+    ``moe_apply`` under ``shardmap_moe`` on the (1, 2) mesh and alone;
+    ``counts``: :func:`count_collectives`'."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.launch import spmd
+    from repro_torch.models import moe as MOE
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    p = MOE.moe_init(gen, cfg, torch.bfloat16)
+    x = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    wt = torch.randn(x.shape, generator=gen, device="cuda")
+    leaves = [p["router"]] + [p[k]["w"] for k in ("w1", "w2", "w3")]
+    for t in [x] + leaves:
+        t.requires_grad_()
+
+    def fwd_bwd():
+        out, aux = MOE.moe_apply(p, x, cfg)
+        loss = (out.float() * wt).mean() + aux["moe_aux"]
+        return out.detach(), {k: v.detach() for k, v in aux.items()}, \
+            torch.autograd.grad(loss, [x] + leaves)
+
+    one = fwd_bwd()                                  # warm-up, and the yardstick
+    ms_one = statistics.median(event_ms(torch, fwd_bwd)[1] for _ in range(3))
+    with spmd.activate(mesh_ep, shardmap_moe=True):
+        m = spmd.model_rank(mesh_ep)
+        before = dict(counts)
+        ep = fwd_bwd()
+        moved = {k: counts[k] - before[k] for k in counts}
+        ms_ep = statistics.median(event_ms(torch, fwd_bwd)[1]
+                                  for _ in range(3))
+    el = cfg.moe_experts // spmd.model_size(mesh_ep)
+    rel = {"out": rel_l2(ep[0], one[0]), "x": rel_l2(ep[2][0], one[2][0]),
+           "router": rel_l2(ep[2][1], one[2][1])}
+    outside = 0
+    for i, k in enumerate(("w1", "w2", "w3")):
+        got, want = ep[2][i + 2], one[2][i + 2]
+        rel[k] = rel_l2(got.narrow(0, m * el, el), want.narrow(0, m * el, el))
+        outside += int(got.ne(0).sum()) - int(got.narrow(0, m * el, el)
+                                              .ne(0).sum())
+    aux_equal = all(torch.equal(ep[1][k], one[1][k]) for k in one[1])
+    return {"model_rank": m, "experts_local": el, "rel_l2": rel,
+            "aux_equal": aux_equal, "grad_outside_block": outside,
+            "moe_dropped": float(one[1]["moe_dropped"]),
+            "ms_fwd_bwd": ms_ep, "ms_fwd_bwd_one_process": ms_one,
+            "all_reduce_calls": moved["all_reduce"],
+            "all_reduce_bytes": moved["all_reduce_bytes"],
+            "bound": EP_REL_L2}
+
+
+def moe_compressed_check(torch, mesh, rank, workdir, counts):
+    """26c in one rank: phase 23b's gradient tree (Qwen2-VL-2B, 2 layers,
+    B 2 x S 4096), each element scaled by ``1 + 0.01 n`` with ``n`` drawn
+    from this rank's seed, through ``compressed_mean`` over the DP groups,
+    int8 and top-k 5 %: ms a tree, bytes, digests; the gate leaves' inputs
+    and (rank 0) means go to ``workdir`` for the host's check."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, synthetic_lm_batch
+    from repro_torch.launch import spmd
+    from repro_torch.launch.train import (TrainHParams, init_train_state,
+                                          make_train_step)
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.runtime.compression import (CompressionConfig,
+                                                 compressed_mean)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RECOVERY_LAYERS)
+    hp = TrainHParams()
+    pcfg = PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B)
+    state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, hp, "cuda")
+    batch = {k: torch.from_numpy(v).to("cuda", torch.long)
+             for k, v in synthetic_lm_batch(pcfg, 0).items()}
+    grads = make_train_step(cfg, hp).loss_and_grads(state[0], batch)[2]
+    del state
+    gen = torch.Generator(device="cuda").manual_seed(1000 + rank)
+    live = [g for g in tree_leaves(grads) if g is not None]
+    for g in live:
+        g.copy_(g.float() * (1 + 0.01 * torch.randn(
+            g.shape, generator=gen, device="cuda")))
+    n = sum(g.numel() for g in live)
+    fg = flat(grads)
+    torch.save({"/".join(k): fg[k].cpu() for k in DP_COMPRESS_GATE},
+               os.path.join(workdir, f"compress_in_{rank}.pt"))
+    groups = spmd.dp_groups(mesh)
+    rec = {"elements": n, "f32_bytes": 4 * n, "grad_dtype": str(live[0].dtype)}
+    for kind, frac in COMPRESS_KINDS:
+        ccfg = CompressionConfig(kind=kind, topk_frac=frac)
+        ms = []
+        for _ in range(2):
+            before = dict(counts)
+            (mean, _), t = event_ms(torch, lambda: compressed_mean(
+                grads, ccfg, groups))
+            ms.append(t)
+            moved = {k: counts[k] - before[k] for k in counts}
+        fm = flat(mean)
+        if rank == 0:
+            torch.save({"/".join(k): fm[k].cpu() for k in DP_COMPRESS_GATE},
+                       os.path.join(workdir, f"compress_out_{kind}.pt"))
+        rec[kind] = {"ms_per_tree": ms, "all_gather_calls": moved["all_gather"],
+                     "payload_bytes": moved["all_gather_bytes"],
+                     "gathered_bytes": moved["all_gather_bytes"]
+                     * DP_MOE_WORLD,
+                     "payload_to_f32": moved["all_gather_bytes"] / (4 * n),
+                     "digests": tree_digests(torch, mean)}
+        del mean, fm
+    del grads, live, fg
+    return rec
+
+
+def moe_dp_child():
+    """One process of phase 26 (``python -c`` from the repo root): argv
+    ``[mode, out_path]``; one of two gloo ranks on ``cuda:0``, joined
+    through ``fleet_init``'s variables. (a) and (d) on ``make_host_mesh()``
+    (data 2), (b) on ``make_host_mesh(model=2)``, (c) on (a)'s mesh, one
+    after another, each freeing its tensors. Writes its record as JSON."""
+    import faulthandler
+    import gc
+    import torch
+    sys.path.insert(0, SRC)
+    import dataclasses
+    import torch.distributed as dist
+    faulthandler.enable()
+    from repro_torch.launch import spmd
+    from repro_torch.launch.launcher import fleet_init
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.runtime.fault_tolerance import elastic_remesh
+    _, out = sys.argv[1], sys.argv[2]
+    workdir = os.path.dirname(out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = fleet_init("cuda", backend="gloo")
+    counts = count_collectives()
+    mesh = make_host_mesh(device="cuda")
+    cfg, hp, pcfg = moe_dp_setup(torch)
+    with open(os.path.join(workdir, "moe_ref.json")) as f:
+        ref = json.load(f)
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+
+    # (a) and (d): the DP step, ZeRO-1 off then on, deterministic algorithms
+    torch.use_deterministic_algorithms(True)
+    batch0 = dp_batch(torch, pcfg, 0, [rank], world)
+    launches, runs, moments = None, {}, None
+    t_a = time.perf_counter()
+    for zero1 in (False, True):
+        key = "on" if zero1 else "off"
+        hpz = dataclasses.replace(hp, zero1=zero1)
+        run = {}
+        with spmd.activate(mesh, flash_attn=True, shardmap_moe=True):
+            step = make_train_step(cfg, hpz, mesh=mesh,
+                                   loss_chunk=MOE_LOSS_CHUNK)
+            state = init_train_state(torch.Generator(device="cuda")
+                                     .manual_seed(0), cfg, hpz, "cuda",
+                                     mesh=mesh)
+            if not zero1:
+                loss, (_, aux), g = step.loss_and_grads(state[0], batch0)
+                run["half_loss"] = float(loss)
+                g = step.dp.mean_grads(g)
+                got = tree_digests(torch, g)
+                run["grads_differing"] = [k for k, d in ref["grad_digests"]
+                                          .items() if got.get(k) != d]
+                run["grad_leaves"] = len(got)
+                del g, got
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters = reset_counters()
+            before = dict(counts)
+            losses, dropped, ms = [], [], []
+            for i in range(DP_MOE_STEPS):
+                batch = dp_batch(torch, pcfg, i, [rank], world)
+                (p, o, s, m), t = event_ms(torch, lambda: step(*state, batch))
+                state = (p, o, s)
+                losses.append(float(m["loss"]))
+                dropped.append(float(m["moe_dropped"]))
+                ms.append(t)
+            got_l = {n: c.launches for n, c in counters.items()}
+            launches = got_l if launches is None else \
+                {n: launches[n] + got_l[n] for n in got_l}
+        run.update(losses=losses, moe_dropped=dropped, step_ms=ms,
+                   collectives={k: counts[k] - before[k] for k in counts},
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   moment_elems=sum(v.numel() for v in
+                                    tree_leaves(state[1].m)),
+                   param_digests=tree_digests(torch, state[0]))
+        if not zero1:
+            moments = tree_digests(torch, {"m": state[1].m, "v": state[1].v})
+        else:
+            # (d): the ZeRO-1 moments placed on the mesh, remeshed a leaf at
+            # a time onto one device, against the replicated run's
+            layout = step.dp.zero1_layout(state[0])
+            placed = step.dp.placed_opt_state(state[1], layout)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            differ = []
+            for k, leaf in flat({"m": placed.m, "v": placed.v}).items():
+                whole = elastic_remesh({"x": leaf}, torch.device("cuda"),
+                                       lambda path: None)["x"]
+                if tensor_digest(torch, whole) != moments["/".join(k)]:
+                    differ.append("/".join(k))
+                del whole
+            torch.cuda.synchronize()
+            rec["d"] = {"leaves": len(moments), "differing": differ,
+                        "wall_s": time.perf_counter() - t0}
+            del placed
+        runs[key] = run
+        del state, step, p, o, s, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    rec["a"] = {"runs": runs, "launches": launches,
+                "zero1_equal": runs["off"]["param_digests"]
+                == runs["on"]["param_digests"],
+                "wall_s": time.perf_counter() - t_a}
+
+    # (b): expert parallelism on (data 1, model 2)
+    t0 = time.perf_counter()
+    rec["b"] = moe_ep_check(torch, make_host_mesh(model=DP_MOE_WORLD,
+                                                  device="cuda"), counts)
+    rec["b"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c): the compressed DP mean
+    t0 = time.perf_counter()
+    rec["c"] = moe_compressed_check(torch, mesh, rank, workdir, counts)
+    rec["c"]["wall_s"] = time.perf_counter() - t0
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def host_compressed_mean(torch, ins, kind, frac):
+    """The compressed mean of ``ins`` (one tensor a rank, in rank order) on
+    the host, as ``compressed_mean`` computes it: each rank's f32
+    reconstruction summed in rank order, divided by a tensor of the rank
+    count, in the input's dtype."""
+    from repro_torch.runtime.compression import (CompressionConfig, compress,
+                                                 decompress)
+    cfg = CompressionConfig(kind=kind, topk_frac=frac)
+    total = None
+    for g in ins:
+        rec = decompress(compress(g.float(), cfg), cfg).float()
+        total = rec if total is None else total.add_(rec)
+    return total.div_(torch.full_like(total, float(len(ins)))).to(ins[0].dtype)
+
+
+def moe_dp_phase(torch):
+    """Phase 26 (module docstring). Returns (record, launches)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_moe_dp_")
+    try:
+        t0 = time.perf_counter()
+        ref = moe_dp_reference(torch, workdir)
+        ref["wall_s"] = time.perf_counter() - t0
+        free_before(torch, "phase 26's processes")
+        ranks, wall = spawn_dp("moe", DP_MOE_WORLD, workdir,
+                               entry="moe_dp_child")
+        L = DP_MOE_LAYERS
+        steps = 2 * DP_MOE_STEPS                  # ZeRO-1 off and on
+        want = {n: 0 for n in ranks[0]["a"]["launches"]}
+        want.update({"flash_fwd": 2 * L * steps, "flash_bwd_dkv": L * steps,
+                     "flash_bwd_dq": L * steps})
+        launches = {n: sum(r["a"]["launches"][n] for r in ranks)
+                    for n in want}
+        a_runs = [r["a"]["runs"] for r in ranks]
+        dp_loss = a_runs[0]["off"]["losses"][0]
+        dp_dropped = a_runs[0]["off"]["moe_dropped"][0]
+        half_loss = sum(ref["half_losses"]) / DP_MOE_WORLD
+        half_dropped = sum(ref["half_moe_dropped"]) / DP_MOE_WORLD
+        a = {"arch": MOE_ARCH, "layers": L, "batch": TRAIN_B, "seq": TRAIN_S,
+             "steps": DP_MOE_STEPS, "reference": ref, "wall_s": wall,
+             "grads_differing": [r["a"]["runs"]["off"]["grads_differing"]
+                                 for r in ranks],
+             "grad_leaves": a_runs[0]["off"]["grad_leaves"],
+             "dp_loss": dp_loss, "halves_mean_loss": half_loss,
+             "dp_moe_dropped": dp_dropped,
+             "halves_mean_moe_dropped": half_dropped,
+             "whole_batch_moe_dropped": ref["whole_batch_moe_dropped"],
+             "ranks_equal": [a_runs[0][z]["param_digests"]
+                             == a_runs[1][z]["param_digests"]
+                             for z in ("off", "on")],
+             "zero1_equal": [r["a"]["zero1_equal"] for r in ranks],
+             "losses": [[x[z]["losses"] for z in ("off", "on")]
+                        for x in a_runs],
+             "step_ms": [[x[z]["step_ms"] for z in ("off", "on")]
+                         for x in a_runs],
+             "peak_bytes": [[x[z]["max_memory_allocated"]
+                             for z in ("off", "on")] for x in a_runs],
+             "moment_elems": [[x[z]["moment_elems"] for z in ("off", "on")]
+                              for x in a_runs],
+             "collectives": [[x[z]["collectives"] for z in ("off", "on")]
+                             for x in a_runs],
+             "launches": launches}
+        log(f"moe_dp {json.dumps(a)}")
+        if (any(a["grads_differing"]) or not all(a["ranks_equal"])
+                or not all(a["zero1_equal"])
+                or abs(dp_loss - half_loss) > 1e-5 * abs(half_loss)
+                or abs(dp_dropped - half_dropped) > 1e-6
+                or any(r["backend"] != "gloo" for r in ranks)
+                or any(r["a"]["launches"] != want for r in ranks)
+                or any(x["on"]["moment_elems"] >= x["off"]["moment_elems"]
+                       for x in a_runs)):
+            raise AssertionError(f"26a: {a}; launches want {want} a rank")
+
+        b = [r["b"] for r in ranks]
+        log(f"moe_ep {json.dumps(b)}")
+        if (sorted(x["model_rank"] for x in b) != [0, 1]
+                or any(max(x["rel_l2"].values()) > EP_REL_L2 for x in b)
+                or not all(x["aux_equal"] for x in b)
+                or any(x["grad_outside_block"] for x in b)
+                or any(x["all_reduce_calls"] != 3 for x in b)):
+            raise AssertionError(f"26b: {b}")
+
+        c = {"ranks": [r["c"] for r in ranks], "host": {}}
+        ins = [torch.load(os.path.join(workdir, f"compress_in_{i}.pt"))
+               for i in range(DP_MOE_WORLD)]
+        for kind, frac in COMPRESS_KINDS:
+            got = torch.load(os.path.join(workdir, f"compress_out_{kind}.pt"))
+            t0 = time.perf_counter()
+            equal = {k: torch.equal(host_compressed_mean(
+                torch, [x[k] for x in ins], kind, frac), got[k]) for k in got}
+            c["host"][kind] = {"equal": equal,
+                               "host_s": time.perf_counter() - t0}
+        c["ranks_equal"] = {kind: ranks[0]["c"][kind]["digests"]
+                            == ranks[1]["c"][kind]["digests"]
+                            for kind, _ in COMPRESS_KINDS}
+        log(f"moe_dp_compressed {json.dumps({k: v for k, v in c.items() if k != 'ranks'})} "
+            f"{json.dumps([{kind: {k: v for k, v in r['c'][kind].items() if k != 'digests'} for kind, _ in COMPRESS_KINDS} for r in ranks])}")
+        if (not all(c["ranks_equal"].values())
+                or any(len(h["equal"]) != len(DP_COMPRESS_GATE)
+                       or not all(h["equal"].values())
+                       for h in c["host"].values())):
+            raise AssertionError(f"26c: {c}")
+
+        d = [r["d"] for r in ranks]
+        log(f"moe_dp_remesh {json.dumps(d)}")
+        if any(x["differing"] or x["leaves"] == 0 for x in d):
+            raise AssertionError(f"26d: {d}")
+        rec = {"a": a, "b": b, "c": c, "d": d, "ranks": ranks}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"moe_dp_phase_s {rec['phase_s']}")
     return rec, launches
 
 
@@ -4808,6 +5294,12 @@ def main() -> int:
     free_before(torch, "phase 25's processes")
     record["lm_dp_training"], dp_launches = dp_phase(torch)
 
+    # 26. the MoE family data-parallel: the shard-mapped step (two gloo
+    # ranks on the card against the 1-process halves), expert parallelism
+    # at full width, the compressed DP mean, elastic_remesh of ZeRO-1
+    free_before(torch, "phase 26's reference state")
+    record["lm_dp_moe_training"], moe_dp_launches = moe_dp_phase(torch)
+
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
                       "analysis": analysis_launches[name],
@@ -4827,7 +5319,8 @@ def main() -> int:
                       "runtime_recovery": recovery_launches[name],
                       "sharded_serving": sharded_launches[name],
                       "sharded_topology": sharded_topo_launches[name],
-                      "lm_dp_training": dp_launches[name]}
+                      "lm_dp_training": dp_launches[name],
+                      "lm_dp_moe_training": moe_dp_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

@@ -20,7 +20,9 @@ process on ``synthetic_lm_batch(pcfg, step, pid, pcount)``; only rank 0
 prints and saves. A production mesh has a model axis of 16, which needs the
 tensor-parallel step (``ROADMAP.md`` Queue 1 item 10d): training on one is
 refused, ``--validate`` is not. The MoE family at more than one process
-needs the shard-mapped dispatch (item 10c) and is refused.
+trains under ``--opt moe`` (the shard-mapped dispatch: each process
+dispatches its own tokens); without it, it is refused (one dispatch over
+the global batch, item 10d).
 
 ``--validate`` runs ``dryrun.lower_cell`` on the **full** config with the
 production mesh: with no process group it builds one of fake ranks (the
@@ -29,8 +31,8 @@ prints the per-device argument bytes under the mesh's placements beside
 the one-device, unsharded peak estimate of the step on ``meta``.
 ``--opt``: ``losschunk`` → chunked cross entropy (512), ``flash`` → the
 flash route (else plain attention), ``mb:N`` microbatches, ``zero1`` →
-DP-split moments, ``seq`` → sequence-parallel boundaries, ``moe`` → the
-MoE shard map; the last two place nothing on a model axis of 1.
+DP-split moments, ``seq`` → sequence-parallel boundaries (nothing to
+place on a model axis of 1), ``moe`` → the MoE shard map.
 """
 from __future__ import annotations
 

@@ -117,18 +117,18 @@ def slot_spec(slot_dim: int = 0) -> PartitionSpec:
 def spec_slot_dim(spec: PartitionSpec, mesh=None):
     """The dim ``spec`` splits over "slots"; None for a replicated spec,
     and on an LM mesh (``mesh`` neither None nor a :class:`SlotMesh`),
-    which has no slot axis. On a slot mesh or one device any other axis is
-    refused: moving a tree across model and data axes is ``ROADMAP.md``
-    Queue 1 item 10c."""
+    which has no slot axis and places by its own axes
+    (:class:`NamedSharding` on a ``DeviceMesh``). On a slot mesh
+    (``mesh`` a :class:`SlotMesh` or None) any other axis is refused: a
+    slot mesh has no model or data axis."""
     if mesh is not None and not isinstance(mesh, SlotMesh):
         return None
     other = [a for a in spec if a not in (None, SLOT_AXIS)]
     if other:
-        raise NotImplementedError(
-            f"spec {spec!r} names mesh axes {other}: a slot mesh or one "
-            "device places by the slot axis only; a tree placed across "
-            "model and data axes (elastic_remesh onto an LM mesh) is "
-            "ROADMAP.md Queue 1 item 10c")
+        raise ValueError(
+            f"spec {spec!r} names mesh axes {other}: a slot mesh places by "
+            "the slot axis only; place a tree by model and data axes on an "
+            "LM mesh (launch.mesh.make_host_mesh)")
     return spec.index(SLOT_AXIS) if SLOT_AXIS in spec else None
 
 

@@ -24,17 +24,38 @@ placement; a plain tensor on a mesh whose model axis is above 1 would need
 the tensor-parallel step of ``ROADMAP.md`` Queue 1 item 10d, and is
 refused. On a model axis of 1 the constraint places nothing and returns
 its input.
+
+The shard-mapped MoE (``models/moe``) runs its body on each rank as
+``shard_map`` runs it on each device, and reads the mesh through
+:func:`dp_groups` / :func:`dp_rank` (the DP axes), :func:`model_group` /
+:func:`model_rank` / :func:`model_size` (the model axis). Its collectives
+carry the gradients as JAX transposes them under ``shard_map``:
+
+* :func:`psum_model` — the sum over ``model`` of partial results; its
+  backward is the identity, since the cotangent of a result replicated
+  over ``model`` is already whole on every rank
+  (``torch.distributed.nn.functional.all_reduce`` would all-reduce it
+  again, and every weight gradient would come out ``model`` times too
+  large);
+* :func:`grad_psum_model` — the identity on a value replicated over
+  ``model`` that enters a partial computation; its backward sums the
+  partial cotangents over ``model`` (how ``shard_map`` transposes an
+  input that its ``in_specs`` replicate);
+* :func:`pmean_dp` — the mean over the DP axes; its backward is the
+  identity, because each rank's loss is its own and the DP step averages
+  the ranks' gradients (``launch/train.DataParallel.mean_grads``), which
+  then equal the gradient of the reference's mean.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
-from .mesh import axis_sizes, dp_axes as mesh_dp_axes
+from .mesh import AbstractMesh, axis_sizes, dp_axes as mesh_dp_axes
 
 
 @dataclasses.dataclass
@@ -115,3 +136,96 @@ def constrain_seq(h: torch.Tensor) -> torch.Tensor:
             "step to run tensor-parallel over DTensors (ROADMAP.md Queue 1 "
             "item 10d)")
     return h
+
+
+# ---------------------------------------------------------------------------
+# the mesh's process groups, and collectives with shard_map's gradients
+# ---------------------------------------------------------------------------
+
+def dp_groups(mesh) -> List[Any]:
+    """The process groups of the mesh's DP axes, ``data`` first, then
+    ``pod``; none on an :class:`AbstractMesh`."""
+    if isinstance(mesh, AbstractMesh):
+        return []
+    return [mesh.get_group(a) for a in reversed(mesh_dp_axes(mesh))]
+
+
+def dp_rank(mesh) -> int:
+    """This rank's index over the DP axes, ``pod`` major; 0 on an
+    :class:`AbstractMesh`."""
+    if isinstance(mesh, AbstractMesh):
+        return 0
+    sizes, r = axis_sizes(mesh), 0
+    for a in mesh_dp_axes(mesh):
+        r = r * sizes[a] + mesh.get_local_rank(a)
+    return r
+
+
+def model_size(mesh, axis: str = "model") -> int:
+    return axis_sizes(mesh).get(axis, 1)
+
+
+def model_group(mesh, axis: str = "model"):
+    """The process group of the model axis (None on an
+    :class:`AbstractMesh`)."""
+    return None if isinstance(mesh, AbstractMesh) else mesh.get_group(axis)
+
+
+def model_rank(mesh, axis: str = "model") -> int:
+    """This rank's index on the model axis."""
+    return 0 if isinstance(mesh, AbstractMesh) else mesh.get_local_rank(axis)
+
+
+def _all_reduce(x: torch.Tensor, groups: Sequence[Any]) -> torch.Tensor:
+    import torch.distributed as dist
+    y = x.clone(memory_format=torch.contiguous_format)
+    for g in groups:
+        dist.all_reduce(y, group=g)
+    return y
+
+
+class _ReduceIdentityGrad(torch.autograd.Function):
+    """Forward: the sum over ``groups`` (divided by ``div``); backward: the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, x, groups, div):
+        y = _all_reduce(x, groups)
+        return y if div == 1 else y.div_(div)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _IdentityReduceGrad(torch.autograd.Function):
+    """Forward: the identity; backward: the sum over ``groups``."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups), None
+
+
+def psum_model(x: torch.Tensor, ctx: SpmdCtx) -> torch.Tensor:
+    """``jax.lax.psum(x, tp)`` under ``shard_map``: the sum over the model
+    axis, the cotangent passed through unchanged."""
+    return _ReduceIdentityGrad.apply(x, [model_group(ctx.mesh, ctx.tp_axis)],
+                                     1)
+
+
+def grad_psum_model(x: torch.Tensor, ctx: SpmdCtx) -> torch.Tensor:
+    """``x`` (replicated over the model axis) as it enters a computation
+    whose cotangents are partial on each model rank: its gradient is their
+    sum over the axis."""
+    return _IdentityReduceGrad.apply(x, [model_group(ctx.mesh, ctx.tp_axis)])
+
+
+def pmean_dp(x: torch.Tensor, ctx: SpmdCtx) -> torch.Tensor:
+    """``jax.lax.pmean(x, dp)``: the mean over the DP axes, the gradient
+    this rank's own (module docstring)."""
+    return _ReduceIdentityGrad.apply(x, dp_groups(ctx.mesh), dp_size(ctx))

@@ -37,11 +37,20 @@ batch, then
   for bit the replicated update (``init_train_state(mesh=)`` allocates
   the blocks). A leaf with no dividing dim stays replicated.
 
+The MoE family at a DP size above 1 trains under an SPMD context with
+``shardmap_moe``: each rank dispatches its own tokens, with the capacity
+of its tokens, and ``moe_aux``, ``moe_dropped`` and ``moe_load`` are the
+DP means (``models/moe._moe_apply_shardmap``), the reference's
+shard-mapped step. Each rank's loss keeps its own aux term's gradient, so
+the mean of the ranks' gradients is the gradient of the reference's
+DP-mean aux loss; no collective in the loss is differentiated twice.
+
 On a 1 × 1 ``AbstractMesh`` (no process group) the step issues no
 collective and is ``make_train_step``'s. A model axis above 1 (tensor
-parallelism, ``ROADMAP.md`` Queue 1 item 10d) and the MoE family at a DP
-size above 1 (each rank's capacity and aux loss from its own tokens: the
-reference's shard-mapped dispatch, item 10c) are refused.
+parallelism, ``ROADMAP.md`` Queue 1 item 10d) is refused, and so is the
+MoE family at a DP size above 1 without ``shardmap_moe``: the reference
+then dispatches the global batch at once, which in eager torch is a
+redistribution of the tokens across ranks (item 10d).
 
 ``run_training`` is the single-host loop. With ``ckpt_dir`` it resumes
 from the newest valid checkpoint there (the caller replays the data
@@ -65,7 +74,7 @@ from ..optim import (AdamWConfig, SparseTrainState, adamw_init, adamw_update,
 from ..optim.optimizer import AdamWState, tree_leaves, tree_map, trainable
 from ..optim.sparse import compute_gates
 from . import spmd
-from .mesh import AbstractMesh, axis_sizes, dp_axes, dp_size
+from .mesh import axis_sizes, dp_axes, dp_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,19 +150,23 @@ class DataParallel:
                 "tensor-parallel over DTensors (ROADMAP.md Queue 1 item 10d)")
         self.mesh, self.cfg = mesh, cfg
         self.axes, self.size = dp_axes(mesh), dp_size(mesh)
-        if cfg.family == "moe" and self.size > 1:
-            raise NotImplementedError(
-                f"the moe family at a DP size of {self.size}: each rank's "
-                "capacity and aux loss would come from its own tokens, the "
-                "reference's shard-mapped dispatch (ROADMAP.md Queue 1 item "
-                "10c)")
-        self.groups = [] if isinstance(mesh, AbstractMesh) else \
-            [mesh.get_group(a) for a in reversed(self.axes)]
-        self.rank = 0
-        if self.groups:
-            for a in self.axes:
-                self.rank = self.rank * sizes[a] + mesh.get_local_rank(a)
+        self.check_dispatch()
+        self.groups = spmd.dp_groups(mesh)
+        self.rank = spmd.dp_rank(mesh)
         self.zero1 = hp.zero1 and self.size > 1
+
+    def check_dispatch(self) -> None:
+        """The MoE family at a DP size above 1 needs the active SPMD
+        context's ``shardmap_moe`` (module docstring)."""
+        ctx = spmd.current()
+        if self.cfg.family == "moe" and self.size > 1 and \
+                not (ctx is not None and ctx.shardmap_moe):
+            raise NotImplementedError(
+                f"the moe family at a DP size of {self.size} without "
+                "shardmap_moe: one dispatch over the global batch, a "
+                "redistribution of the tokens across ranks (ROADMAP.md "
+                "Queue 1 item 10d); under spmd.activate(mesh, "
+                "shardmap_moe=True) each rank dispatches its own tokens")
 
     def zero1_layout(self, params) -> Any:
         """``(dim, rank, DP size)`` for each leaf whose moments ZeRO-1
@@ -248,6 +261,20 @@ class DataParallel:
         return AdamWState(opt_state.step, tree_map(one, opt_state.m, layout),
                           tree_map(one, opt_state.v, layout))
 
+    def placed_opt_state(self, opt_state: AdamWState, layout) -> AdamWState:
+        """ZeRO-1 moments as ``DTensor`` s on the mesh, with no copy: a
+        split leaf ``Shard`` on its dim over the DP axes, the rest
+        ``Replicate``. ``runtime.fault_tolerance.elastic_remesh`` moves
+        such a tree onto another mesh or one device."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        def one(m, z):
+            pl = [Shard(z[0]) if z is not None and a in self.axes
+                  else Replicate() for a in self.mesh.mesh_dim_names]
+            return DTensor.from_local(m, self.mesh, pl, run_check=False)
+        return AdamWState(opt_state.step, tree_map(one, opt_state.m, layout),
+                          tree_map(one, opt_state.v, layout))
+
     def local_opt_state(self, opt_state: AdamWState, layout) -> AdamWState:
         """Whole moments -> this rank's ZeRO-1 blocks (copies)."""
         def one(m, z):
@@ -325,6 +352,8 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
                                      for v in batch.values()):
             raise ValueError(f"batch does not split into {hp.microbatch} "
                              f"microbatches")
+        if dp is not None:
+            dp.check_dispatch()
         loss, (ce, aux), grads = grad_step(params, batch)
         zero1 = None
         if dp is not None:

@@ -29,11 +29,13 @@ global deterministic mode: two calls of a step give the same gradients bit
 for bit. ``moe_aux`` carries its gradient through ``probs.mean(0)`` (the
 integer load is constant), as in the reference; ``moe_dropped`` has none.
 
-Under an SPMD context with ``shardmap_moe`` the reference dispatches
-inside ``shard_map``, each data shard's tokens local to it
-(``_moe_apply_shardmap``, EP or TP inside experts). On a mesh of one
-device that is this path; on more it is ``ROADMAP.md`` Queue 1 item 10c,
-and ``moe_apply`` refuses it.
+Under an SPMD context with ``shardmap_moe`` on a mesh of more than one
+device, each rank runs the reference's ``shard_map`` body on its own
+tokens (:func:`_moe_apply_shardmap`): its capacity from its own tokens,
+the experts split over the model axis, EP (``cfg.moe_shard_experts``,
+Moonlight: each rank runs ``E / tp`` experts) or TP inside the experts
+(Mixtral: ``w1``, ``w3`` split on F, ``w2`` on F's rows), the combine
+summed over ``model``. On one device it is this path.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from ..configs.base import ModelConfig, SparsityConfig
 from ..core.dsst import _top_k_ids
 from ..core.sparsity import NMSpec
 from ..launch import spmd
+from ..launch.mesh import AbstractMesh
 from .layers import _randn, _rows_from_umask, unit_masks
 
 
@@ -219,9 +222,7 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
     compact_experts = any("rows" in p[w] for w in ("w1", "w2") if w in p)
     if ctx is not None and ctx.shardmap_moe and not compact_experts \
             and ctx.mesh_size() > 1:
-        raise NotImplementedError(
-            "the MoE shard map (data-shard-local dispatch) on a mesh of "
-            f"{ctx.mesh_size()} devices is ROADMAP.md Queue 1 item 10c")
+        return _moe_apply_shardmap(p, x, cfg, ctx)
     b, s, d = x.shape
     n, e, k = b * s, cfg.moe_experts, cfg.moe_top_k
     c = capacity(n, cfg)
@@ -232,3 +233,91 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
     buf = _SlotGather.apply(flat, token, slot, k)
     eout = _expert_ffn(p, buf.view(e, c, d), cfg)
     return _combine(flat, eout, slot, row, gate).reshape(b, s, d), aux
+
+
+def _local_experts(p, cfg: ModelConfig, tp_n: int, m: int):
+    """This model rank's block of each expert matrix, as ``shard_map``'s
+    ``in_specs`` slice the replicated leaves: EP splits the expert axis,
+    TP inside experts ``w1`` / ``w3`` on F (their last dim) and ``w2`` on
+    F's rows. The reference's specs name ``w`` alone: masked experts are
+    refused, as there (compact ones take the unsharded path)."""
+    out = {}
+    for name in ("w1", "w2", "w3"):
+        if name not in p:
+            continue
+        if set(p[name]) != {"w"}:
+            raise ValueError(
+                f"the shard-mapped MoE takes dense experts; {name} holds "
+                f"{sorted(p[name])} (the reference's in_specs name w alone)")
+        w = p[name]["w"]
+        dim = 0 if cfg.moe_shard_experts else (1 if name == "w2" else 2)
+        if w.shape[dim] % tp_n:
+            raise ValueError(f"{name}'s dim {dim} ({w.shape[dim]}) does not "
+                             f"split over a model axis of {tp_n}")
+        blk = w.shape[dim] // tp_n
+        out[name] = {"w": w.narrow(dim, m * blk, blk)}
+    return out
+
+
+def _moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, ctx
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's ``_moe_apply_shardmap`` body on this rank. ``x`` is
+    the rank's own block of the batch along the DP axes (as the DP step's
+    batch is), replicated over ``model``; the expert leaves are whole and
+    this rank takes its block (:func:`_local_experts`).
+
+    * EP: every rank scatters its tokens into the full ``[E, C, D]``
+      buffer, runs its ``E / tp`` experts, writes them into a zero
+      ``[E, C, D]`` output, combines and sums over ``model``;
+    * TP inside experts: every rank runs its F-slice of every expert and
+      the combine is summed over ``model``.
+
+    ``C`` is the capacity of this rank's tokens. Where the DP size is
+    above 1, ``moe_aux``, ``moe_dropped`` and ``moe_load`` are the means
+    over the DP axes (the reference's rule: there the global batch is the
+    DP size times this block, which the DP axes divide).
+
+    Gradients, as JAX transposes the ``shard_map``: the sum over
+    ``model`` passes its cotangent through (``spmd.psum_model``), and the
+    tokens entering the buffer and the gates entering the combine sum their
+    partial cotangents over ``model`` (``spmd.grad_psum_model``), so the
+    input and router gradients are whole on every model rank and each
+    rank's expert block carries its own. ``moe_aux`` carries this rank's
+    gradient (``spmd.pmean_dp``): the DP step's mean of the ranks'
+    gradients is the gradient of the reference's DP mean. On a model axis
+    of 1 no collective runs on the tokens and the body is
+    :func:`moe_apply`'s on this rank's tokens, bit for bit."""
+    if isinstance(ctx.mesh, AbstractMesh):
+        raise ValueError(f"an abstract mesh of {ctx.mesh.shape} has no "
+                         "process group to run the MoE shard map on")
+    b, s, d = x.shape
+    n, e, k = b * s, cfg.moe_experts, cfg.moe_top_k
+    tp_n = spmd.model_size(ctx.mesh, ctx.tp_axis)
+    m = spmd.model_rank(ctx.mesh, ctx.tp_axis)
+    c = capacity(n, cfg)
+    flat = x.reshape(n, d)
+    slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
+    tokens = flat
+    if tp_n > 1:
+        tokens, gate = spmd.grad_psum_model(flat, ctx), \
+            spmd.grad_psum_model(gate, ctx)
+    token, row = _slot_maps(slot, e * c, k)
+    buf = _SlotGather.apply(tokens, token, slot, k).view(e, c, d)
+    wl = _local_experts(p, cfg, tp_n, m)
+    if cfg.moe_shard_experts and tp_n > 1:
+        el = e // tp_n
+        eout = _expert_ffn(wl, buf.narrow(0, m * el, el), cfg)
+        eout = F.pad(eout, (0, 0, 0, 0, m * el, e - (m + 1) * el))
+    else:
+        eout = _expert_ffn(wl, buf, cfg)
+    out = _combine(flat, eout, slot, row, gate)
+    if tp_n > 1:
+        out = spmd.psum_model(out, ctx)
+    if spmd.dp_size(ctx) > 1:
+        # one collective for the three: moe_aux's gradient is this rank's
+        flat_aux = spmd.pmean_dp(torch.cat([
+            aux["moe_aux"].reshape(1), aux["moe_dropped"].reshape(1).float(),
+            aux["moe_load"]]), ctx)
+        aux = {"moe_aux": flat_aux[0], "moe_dropped": flat_aux[1],
+               "moe_load": flat_aux[2:]}
+    return out.reshape(b, s, d), aux

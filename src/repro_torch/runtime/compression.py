@@ -20,17 +20,25 @@ to it, so the payload (values, indices and their order) is the
 reference's.
 
 ``ErrorFeedback.step`` wraps either around a gradient tree (nested dicts,
-``None`` at the integer leaves, as ``launch/train`` gives them); the
-all-reduce itself is the caller's.
+``None`` at the integer leaves, as ``launch/train`` gives them).
+
+``compressed_mean`` is the compressed DP all-reduce, the reference's
+pattern ``pmean(decompress(compress(g)))`` over the data axis: each rank
+compresses its leaves (with error feedback, given an ``ErrorFeedback``),
+the payloads are all-gathered over the DP process groups, and every rank
+decompresses each rank's payload and sums them in rank order, so that
+every rank holds the same mean bit for bit. ``make_train_step`` does not
+call it (the reference's step does not compress either); a caller swaps it
+in for ``DataParallel.mean_grads``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..optim.optimizer import tree_map
+from ..optim.optimizer import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,3 +156,70 @@ def _unzip(tree, i):
     if isinstance(tree, dict):
         return {k: _unzip(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _gather(x: torch.Tensor, groups: Sequence[Any]) -> List[torch.Tensor]:
+    """``x`` of every rank of ``groups`` (``data`` first, then ``pod``), in
+    DP-rank order (``pod`` major)."""
+    import torch.distributed as dist
+    parts = [x.contiguous()]
+    for g in groups:
+        n = dist.get_world_size(g)
+        stacked = torch.stack(parts)
+        out = [torch.empty_like(stacked) for _ in range(n)]
+        dist.all_gather(out, stacked, group=g)
+        parts = [p for o in out for p in o.unbind(0)]
+    return parts
+
+
+def _payload_parts(c: Compressed) -> Tuple[torch.Tensor, ...]:
+    return c.payload if isinstance(c.payload, tuple) else (c.payload,)
+
+
+def compressed_mean(grads, cfg: CompressionConfig, groups: Sequence[Any],
+                    ef: Optional[ErrorFeedback] = None):
+    """``(mean, ef')``: every float leaf of ``grads`` replaced by the mean
+    over the DP ranks of ``decompress(compress(g + e))`` (``e`` the
+    residual of ``ef``, else 0), in the leaf's dtype; ``ef'`` the new
+    residuals (None without ``ef``). ``groups``: the DP process groups
+    (``launch.spmd.dp_groups(mesh)``); none gives this rank's own
+    reconstruction. The payload parts of every leaf are packed into one
+    buffer a part dtype and all-gathered together (an int8 payload: int8
+    values and f32 scales; a top-k one: f32 values and int32 indices), and
+    each rank's reconstructions are summed in rank order, then divided by
+    the number of ranks."""
+    live = [g for g in tree_leaves(grads) if g is not None]
+    res = [None] * len(live) if ef is None else \
+        [e for e in tree_leaves(ef.residual) if e is not None]
+    geff = [g.float() if e is None else g.float() + e
+            for g, e in zip(live, res)]
+    comps = [compress(g, cfg) for g in geff]
+    # pack: one flat buffer for each payload part, the leaves in order
+    n_parts = len(_payload_parts(comps[0])) if comps else 0
+    packed = [torch.cat([_payload_parts(c)[i].reshape(-1) for c in comps])
+              for i in range(n_parts)]
+    gathered = [_gather(buf, groups) for buf in packed]
+    n_ranks = len(gathered[0]) if gathered else 1
+    sums: List[Optional[torch.Tensor]] = [None] * len(comps)
+    for r in range(n_ranks):
+        offs = [0] * n_parts
+        for j, c in enumerate(comps):
+            parts = []
+            for i, p in enumerate(_payload_parts(c)):
+                parts.append(gathered[i][r][offs[i]:offs[i] + p.numel()]
+                             .view(p.shape))
+                offs[i] += p.numel()
+            rec = decompress(Compressed(
+                tuple(parts) if isinstance(c.payload, tuple) else parts[0],
+                c.meta), cfg).float()
+            sums[j] = rec if sums[j] is None else sums[j].add_(rec)
+    # a tensor divisor, as _int8_compress's: the same rounding on every
+    # device
+    means = iter([s.div_(torch.full_like(s, float(n_ranks))).to(g.dtype)
+                  for s, g in zip(sums, live)])
+    mean = tree_map(lambda g: None if g is None else next(means), grads)
+    if ef is None:
+        return mean, None
+    resid = iter([g - decompress(c, cfg) for g, c in zip(geff, comps)])
+    return mean, ErrorFeedback(tree_map(
+        lambda g: None if g is None else next(resid), grads))

@@ -7,9 +7,11 @@ Exercised by *simulation*, as in the reference: failures are injected.
   (simulated) node failure it restores the latest valid checkpoint through
   the port's ``checkpoint`` and continues; the continuation equals an
   uninterrupted run bit for bit (the data is indexed by step).
-* ``elastic_remesh`` — re-place a tree onto a new slot mesh of any size
-  (``launch.mesh.make_serving_mesh``) or onto one device: slot-axis leaves
-  shard, the rest replicate, bit for bit.
+* ``elastic_remesh`` — re-place a tree onto a new mesh or one device, bit
+  for bit: a slot mesh of any size (``launch.mesh.make_serving_mesh``;
+  slot-axis leaves shard, the rest replicate), an LM mesh of any shape
+  (a ``DeviceMesh``; leaves become ``DTensor`` s by their spec), or one
+  device.
 * ``HeartbeatMonitor`` / ``StragglerPolicy`` — per-replica step-time EMAs;
   replicas slower than ``threshold ×`` the fleet median are flagged
   (numpy only, the reference's code).
@@ -87,24 +89,60 @@ def _map_with_path(fn, tree, path=()):
     return type(tree)(vals)
 
 
+def _whole(leaf):
+    """A placed leaf as one tensor: a slot mesh's pieces gathered, a
+    ``DTensor`` gathered whole (every rank of its mesh calls this, in the
+    tree's order)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        return _gather_dtensor(leaf)
+    return sharding.gather(leaf)
+
+
+def _gather_dtensor(x) -> torch.Tensor:
+    """A ``DTensor`` whose ``Shard`` placements split their dims evenly,
+    gathered by ``all_gather`` over each sharded mesh dim's group, the
+    innermost mesh dim first (a dim split over two mesh dims is split by
+    the outer one first). ``full_tensor`` would do it by functional
+    collectives, which gloo does not run on CUDA tensors."""
+    import torch.distributed as dist
+    mesh, out = x.device_mesh, x.to_local()
+    for dim in reversed(range(mesh.ndim)):
+        pl = x.placements[dim]
+        if pl.is_replicate():
+            continue
+        n = mesh.size(dim)
+        if not pl.is_shard() or x.shape[pl.dim] % n:
+            raise ValueError(f"{x.placements} on {tuple(x.shape)}: only "
+                             "even Shard and Replicate placements gather")
+        parts = [torch.empty_like(out) for _ in range(n)]
+        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(dim))
+        out = torch.cat(parts, dim=pl.dim)
+    return out
+
+
 def elastic_remesh(tree: Any, target, spec_fn: Callable[[Any], Any]) -> Any:
-    """Place every tensor leaf of ``tree`` on ``target``: a slot mesh, a
-    list of devices (two or more make one, which may repeat a device but
-    not mix types), or one ``torch.device`` (or a list of one).
+    """Place every tensor leaf of ``tree`` on ``target``: a slot mesh, an
+    LM mesh (a ``DeviceMesh`` from ``launch.mesh``, or a 1 × 1
+    ``AbstractMesh`` on a device), a list of devices (two or more make a
+    slot mesh, which may repeat a device but not mix types), or one
+    ``torch.device`` (or a list of one).
 
     ``spec_fn(path)`` gives a leaf's spec (``path``: its keys from the root:
-    dict keys, sequence indices, ``.field`` for a NamedTuple).
+    dict keys, sequence indices, ``.field`` for a NamedTuple), as the
+    reference's ``NamedSharding(new_mesh, spec_fn(path))``. On a slot mesh
     ``launch.sharding.slot_spec(k)`` splits axis ``k`` over the mesh's
-    entries, ``None`` or ``()`` replicates (one copy an entry); on one
-    device every leaf is moved whole. Leaves already placed
-    (``SlotSharded``, ``Replicated``) are gathered first, so a tree moves
-    between meshes of any size with its values unchanged. A spec naming
-    any other mesh axis (a model or data axis) would move the tree across
-    an LM mesh's axes, which is ``ROADMAP.md`` Queue 1 item 10c:
-    ``NotImplementedError``.
+    entries and ``None`` or ``()`` replicates (one copy an entry); a model
+    or data axis is refused there. On an LM mesh the spec names its axes
+    (``launch.sharding.tree_shardings`` gives the reference's) and a leaf
+    becomes a ``DTensor`` holding this rank's block; every rank of that
+    mesh calls this with the same tree. On one device every leaf is moved
+    whole, whatever its spec. Leaves already placed (``SlotSharded``,
+    ``Replicated``, ``DTensor``) are gathered whole first, so a tree moves
+    between meshes of any shape with its values unchanged.
     """
     mesh = dev = None
-    if isinstance(target, SlotMesh):
+    if isinstance(target, SlotMesh) or hasattr(target, "mesh_dim_names"):
         mesh = target
     else:
         devices = list(target) if isinstance(target, (list, tuple)) \
@@ -115,14 +153,14 @@ def elastic_remesh(tree: Any, target, spec_fn: Callable[[Any], Any]) -> Any:
             dev = torch.device(devices[0])
 
     def one(path, leaf):
-        spec = sharding.P(*(spec_fn(path) or ()))
         if not isinstance(leaf, (torch.Tensor, sharding.SlotSharded,
                                  sharding.Replicated)):
             return leaf
+        spec = sharding.P(*(spec_fn(path) or ()))
+        whole = _whole(leaf)
         if mesh is None:
-            sharding.spec_slot_dim(spec)        # refuses an LM mesh's axes
-            return sharding.gather(leaf).to(dev)
-        return sharding.NamedSharding(mesh, spec).place(leaf)
+            return whole.to(dev)
+        return sharding.NamedSharding(mesh, spec).place(whole)
     return _map_with_path(one, tree)
 
 

@@ -25,7 +25,11 @@ reduced MoE training step's gradients equal bit for bit across two calls.
 The slot-sharded chunk step and fleet on four mesh entries of the card
 against the 1-device ones, bit for bit, at 64, 2 and 1 slots a shard. The
 data-parallel LM step over a one-rank NCCL group against the plain step,
-bit for bit.
+bit for bit. The MoE family data-parallel (two gloo ranks on the card):
+the DP gradients bit for bit the mean of the 1-process halves', ZeRO-1
+and its remeshed moments bit for bit, expert parallelism within ``1e-5``
+/ ``1e-4`` of the 1-process layer, the compressed mean bit for bit the
+host's.
 """
 import numpy as np
 import pytest
@@ -1096,13 +1100,15 @@ def nccl_world_of_one(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "stablelm_12b"])
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "stablelm_12b",
+                                  "moonshot_v1_16b_a3b"])
 def test_dp_step_over_one_nccl_rank_equals_the_plain_step_on_card(
         cuda, nccl_world_of_one, arch):
     """The data-parallel step on the host mesh of a one-rank NCCL group
     (every collective issued; a sum over one rank and a divide by 1 are
-    exact), ZeRO-1 on and the gate on, against ``make_train_step``'s three
-    steps from the same state: params, moments and losses bit for bit."""
+    exact), ZeRO-1 on and the gate on, under ``shardmap_moe`` (one device:
+    the plain dispatch), against ``make_train_step``'s three steps from
+    the same state: params, moments and losses bit for bit."""
     import dataclasses
     from repro_torch import configs as C
     from repro_torch.core.gating import GatingConfig
@@ -1135,7 +1141,8 @@ def test_dp_step_over_one_nccl_rank_equals_the_plain_step_on_card(
     runs = []
     for dp in (False, True):
         gen = torch.Generator(device=cuda).manual_seed(0)
-        with spmd.activate(mesh, flash_attn=True, seq_shard=True):
+        with spmd.activate(mesh, flash_attn=True, seq_shard=True,
+                           shardmap_moe=True):
             state = init_train_state(gen, cfg, hp, cuda,
                                      mesh=mesh if dp else None)
             step = make_train_step(cfg, hp, mesh=mesh if dp else None)
@@ -1152,3 +1159,157 @@ def test_dp_step_over_one_nccl_rank_equals_the_plain_step_on_card(
                     tree_leaves(b[0]) + tree_leaves(b[1].m)
                     + tree_leaves(b[1].v)):
         assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+# ------------------------- the MoE family data-parallel (slice 17)
+
+# one of two gloo ranks on the card: argv = (out,); phase 26's gates at a
+# reduced width, f32, the plain attention route
+_DP_MOE_WORKER = r"""
+import faulthandler, sys, json, dataclasses, torch
+faulthandler.enable()
+import torch.distributed as dist
+sys.path.insert(0, {src!r})
+from repro_torch import configs as C
+from repro_torch.core.gating import GatingConfig
+from repro_torch.launch import spmd
+from repro_torch.launch.launcher import fleet_init
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.train import TrainHParams, init_train_state, make_train_step
+from repro_torch.models import moe as MOE
+from repro_torch.optim import AdamWConfig
+from repro_torch.optim.optimizer import tree_leaves, tree_map
+from repro_torch.runtime.compression import (CompressionConfig, compress,
+                                             compressed_mean, decompress)
+from repro_torch.runtime.fault_tolerance import elastic_remesh
+torch.use_deterministic_algorithms(True)
+rank, world = fleet_init("cuda", backend="gloo")
+dev = torch.device("cuda")
+mesh = make_host_mesh(device="cuda")
+cfg = dataclasses.replace(C.get_reduced("moonshot_v1_16b_a3b"),
+                          moe_capacity_factor=1.0)
+hp = TrainHParams(opt=AdamWConfig(lr=1e-2, warmup_steps=1),
+                  gating=GatingConfig())
+gen = torch.Generator().manual_seed(1)
+batch = {{k: torch.randint(0, cfg.vocab, (2, 32), generator=gen).to(dev)
+         for k in ("tokens", "labels")}}
+half = lambda r: {{k: v[r:r + 1] for k, v in batch.items()}}
+rec = {{}}
+# (a) the DP gradients against the 1-process halves, bit for bit
+state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                         hp, dev)
+one = make_train_step(cfg, hp, attn="plain")
+g0, g1 = (one.loss_and_grads(state[0], half(r))[2] for r in (0, 1))
+want = tree_map(lambda a, b: None if a is None else
+                ((a.float() + b.float()) / 2).to(a.dtype), g0, g1)
+finals = {{}}
+with spmd.activate(mesh, shardmap_moe=True):
+    for zero1 in (False, True):
+        hpz = dataclasses.replace(hp, zero1=zero1)
+        step = make_train_step(cfg, hpz, mesh=mesh, attn="plain")
+        st = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                              hpz, dev, mesh=mesh)
+        if not zero1:
+            got = step.dp.mean_grads(step.loss_and_grads(st[0], half(rank))[2])
+            rec["grads_equal"] = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(want)) if b is not None)
+        for i in range(2):
+            st = step(*st, half(rank))[:3]
+        finals[zero1] = st
+        if zero1:
+            placed = step.dp.placed_opt_state(st[1], step.dp.zero1_layout(st[0]))
+            whole = elastic_remesh({{"m": placed.m, "v": placed.v}}, dev,
+                                   lambda path: None)
+            rec["remesh_equal"] = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(whole), tree_leaves({{"m": finals[False][1].m,
+                                                 "v": finals[False][1].v}})))
+rec["zero1_equal"] = all(torch.equal(a, b) for a, b in zip(
+    tree_leaves(finals[False][0]), tree_leaves(finals[True][0])))
+rec["params"] = [float(t.double().sum()) for t in tree_leaves(finals[True][0])]
+# (b) expert parallelism on (data 1, model 2) against the 1-process layer
+p = MOE.moe_init(torch.Generator(device=dev).manual_seed(3), cfg, torch.float32)
+x = torch.randn((2, 16, cfg.d_model), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(4))
+leaves = [x, p["router"]] + [p[k]["w"] for k in ("w1", "w2", "w3")]
+for t in leaves:
+    t.requires_grad_()
+def fwd_bwd():
+    out, aux = MOE.moe_apply(p, x, cfg)
+    return out, torch.autograd.grad((out * out).mean() + aux["moe_aux"], leaves)
+o1, gr1 = fwd_bwd()
+with spmd.activate(make_host_mesh(model=2, device="cuda"), shardmap_moe=True):
+    o2, gr2 = fwd_bwd()
+el = cfg.moe_experts // 2
+close = lambda a, b, t: float((a - b).abs().max()) <= t * float(b.abs().max())
+rec["ep_equal"] = close(o2, o1, 1e-5) and all(
+    close(a, b, 1e-4) for a, b in zip(gr2[:2], gr1[:2])) and all(
+    close(a.narrow(0, rank * el, el), b.narrow(0, rank * el, el), 1e-4)
+    for a, b in zip(gr2[2:], gr1[2:]))
+# (c) the compressed mean against the host's, bit for bit
+def grads_of(r):
+    g = torch.Generator().manual_seed(100 + r)
+    return {{"a": torch.randn((64, 300), generator=g),
+            "b": torch.randn((1000,), generator=g)}}
+for kind in ("int8", "topk"):
+    ccfg = CompressionConfig(kind=kind)
+    mean, _ = compressed_mean(tree_map(lambda t: t.to(dev), grads_of(rank)),
+                              ccfg, spmd.dp_groups(mesh))
+    host = {{}}
+    for k in ("a", "b"):
+        s = sum(decompress(compress(grads_of(r)[k], ccfg), ccfg)
+                for r in range(world))
+        host[k] = s / torch.full_like(s, float(world))
+    rec["compressed_" + kind] = all(torch.equal(mean[k].cpu(), host[k])
+                                    for k in host)
+with open(sys.argv[1], "w") as f:
+    json.dump(rec, f)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_dp_moe_two_gloo_ranks_on_card(cuda, tmp_path):
+    """Phase 26's gates at a reduced width (f32, plain attention), two gloo
+    ranks on the card: the DP gradients bit for bit the mean of the
+    1-process halves', ZeRO-1 bit for bit, its moments remeshed onto one
+    device bit for bit the replicated ones, the ranks' params equal; one
+    MoE layer on (data 1, model 2) within 1e-5 (output) and 1e-4
+    (gradients) of the 1-process layer; the compressed mean, int8 and
+    top-k, bit for bit the host's."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = os.path.join(root, "src")
+    env = dict(os.environ, PYTHONPATH=src, PROCESS_COUNT="2",
+               COORDINATOR_ADDRESS=f"localhost:{port}",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    outs = [str(tmp_path / f"rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DP_MOE_WORKER.format(src=src), outs[r]],
+        env=dict(env, PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (so, se) in zip(procs, logs):
+        assert p.returncode == 0, so + se
+    recs = []
+    for o in outs:
+        with open(o) as f:
+            recs.append(json.load(f))
+    for r in recs:
+        assert {k: v for k, v in r.items() if k != "params"} == {
+            "grads_equal": True, "remesh_equal": True, "zero1_equal": True,
+            "ep_equal": True, "compressed_int8": True,
+            "compressed_topk": True}, r
+    assert recs[0]["params"] == recs[1]["params"]

@@ -17,7 +17,8 @@ reduced StableLM-12B in f32, each on its half of the global batch
   cpu``: only rank 0 prints, and it prints its loss.
 
 Each spawned process runs under its own timeout. The MoE family under a
-DP size above 1 is refused (item 10c) in process.
+DP size above 1 without ``shardmap_moe`` is refused (item 10d) in
+process; with it, ``tests/test_torch_dp_moe.py`` holds the step.
 """
 import os
 import socket
@@ -31,6 +32,7 @@ import torch
 from repro_torch import configs as C
 from repro_torch.core.gating import GatingConfig
 from repro_torch.data.pipeline import PipelineConfig, synthetic_lm_batch
+from repro_torch.launch import spmd
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.launch.train import (TrainHParams, init_train_state,
                                       make_train_step)
@@ -222,14 +224,31 @@ def test_launch_train_with_two_processes():
     assert outs[1] == ""
 
 
+def test_launch_moe_with_two_processes():
+    """``--opt moe``: the MoE family trains data-parallel at world size 2,
+    each process dispatching its own tokens."""
+    outs = _spawn(lambda r: [
+        "-m", "repro_torch.launch.launcher", "--arch", "moonshot_v1_16b_a3b",
+        "--steps", "2", "--seq-len", "16", "--global-batch", "4", "--opt",
+        "zero1,moe", "--device", "cpu", "--backend", "gloo"])
+    assert "step 0 loss" in outs[0] and "'shardmap_moe': True" in outs[0]
+    assert "mesh={'data': 2, 'model': 1}" in outs[0] and outs[1] == ""
+
+
 def test_moe_under_data_parallelism_is_refused():
-    """Each rank would take its capacity and aux loss from its own tokens:
-    the reference's shard-mapped dispatch, ROADMAP.md Queue 1 item 10c. A
-    model axis above 1 is item 10d."""
+    """Without ``shardmap_moe`` the reference dispatches the global batch
+    at once, a redistribution of the tokens across ranks: ROADMAP.md Queue
+    1 item 10d, refused when the step is built and when it is called. With
+    it the step builds. A model axis above 1 is item 10d too."""
     mesh = AbstractMesh((2, 1), ("data", "model"))
     for arch in ("mixtral_8x7b", "moonshot_v1_16b_a3b"):
-        with pytest.raises(NotImplementedError, match="item 10c"):
+        with pytest.raises(NotImplementedError, match="item 10d"):
             make_train_step(C.get_reduced(arch), TrainHParams(), mesh=mesh)
+        with spmd.activate(mesh, shardmap_moe=True):
+            step = make_train_step(C.get_reduced(arch), TrainHParams(),
+                                   mesh=mesh)
+        with pytest.raises(NotImplementedError, match="item 10d"):
+            step(None, None, None, {})
     make_train_step(C.get_reduced("mixtral_8x7b"), TrainHParams(),
                     mesh=AbstractMesh((1, 1), ("data", "model")))
     with pytest.raises(NotImplementedError, match="item 10d"):

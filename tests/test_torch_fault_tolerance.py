@@ -125,17 +125,18 @@ def test_elastic_remesh_changes_sharding():
 
 
 def test_elastic_remesh_refuses_what_needs_a_mesh():
-    """Only an LM mesh's axes are refused now: a model or data axis, on a
-    slot mesh (two devices listed make one) or on one device; moving a
-    tree across them is ROADMAP.md Queue 1 item 10c. Placement onto slot
-    meshes is held in tests/test_torch_sharding.py."""
+    """A model or data axis is refused on a slot mesh (two devices listed
+    make one), which has neither; on one device every leaf moves whole
+    whatever its spec. Placement onto slot meshes is held in
+    tests/test_torch_sharding.py, onto LM meshes in
+    tests/test_torch_elastic_lm.py."""
     tree = {"w": torch.ones((8, 8))}
     for axis in ("model", "data"):
-        with pytest.raises(NotImplementedError, match="item 10c"):
+        with pytest.raises(ValueError, match="slot mesh"):
             elastic_remesh(tree, [torch.device("cpu")] * 2,
                            lambda path, a=axis: (a,))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        elastic_remesh(tree, torch.device("cpu"), lambda path: ("data",))
+    out = elastic_remesh(tree, torch.device("cpu"), lambda path: ("data",))
+    assert torch.equal(out["w"], tree["w"])
     paths = []
     elastic_remesh({"a": {"b": torch.ones(1)}, "c": [torch.ones(1)]}, "cpu",
                    lambda path: paths.append(path))

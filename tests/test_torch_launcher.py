@@ -98,16 +98,16 @@ def test_fleet_init_from_the_scheduler_env():
 
 def test_more_than_one_process_is_refused(monkeypatch):
     """More than one process now trains data-parallel
-    (tests/test_torch_dp_train.py), except the MoE family: each rank's
-    capacity and aux loss would come from its own tokens, the shard-mapped
-    dispatch of ROADMAP.md Queue 1 item 10c."""
+    (tests/test_torch_dp_train.py), the MoE family too under ``--opt moe``
+    (the shard-mapped dispatch); without it the MoE family is refused: one
+    dispatch over the global batch is ROADMAP.md Queue 1 item 10d."""
     from repro_torch.launch import mesh
     monkeypatch.setattr(launcher, "fleet_init",
                         lambda device, backend=None: (0, 2))
     monkeypatch.setattr(mesh, "make_host_mesh",
                         lambda model=1, device=None: mesh.AbstractMesh(
                             (2, model), ("data", "model"), device))
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(NotImplementedError, match="item 10d"):
         launcher.launch_train("moonshot_v1_16b_a3b", multi_pod=False,
                               opt="zero1", steps=1, seq_len=8,
                               global_batch=2, ckpt_dir=None,

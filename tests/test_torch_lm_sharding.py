@@ -237,14 +237,14 @@ def test_placements_of_a_pod_data_tuple():
 
 
 def test_spec_slot_dim_on_lm_and_slot_meshes():
-    """On an LM mesh an LM axis names no slot dim; on a slot mesh or one
-    device it is refused, naming the item that moves trees across LM
-    axes."""
+    """On an LM mesh an LM axis names no slot dim (the mesh places by its
+    own axes); on a slot mesh (or None, read as one) it is refused: a slot
+    mesh has no model or data axis."""
     from repro_torch.launch.mesh import make_serving_mesh
     spec = SH.P(None, "model")
     assert SH.spec_slot_dim(spec, AbstractMesh(*MESHES["16x16"])) is None
     for mesh in (None, make_serving_mesh(devices=["cpu"] * 2)):
-        with pytest.raises(NotImplementedError, match="item 10c"):
+        with pytest.raises(ValueError, match="slot mesh"):
             SH.spec_slot_dim(spec, mesh)
     assert SH.spec_slot_dim(SH.slot_spec(1)) == 1
 

@@ -145,7 +145,9 @@ def test_constrain_seq_places_a_dtensor_as_the_reference(fake_group,
 
 def test_moe_shard_map_refused_beyond_one_device():
     """``shardmap_moe`` on a mesh of one device is today's ``moe_apply``
-    (the reference's shard map at one shard); on more it is item 10c."""
+    (the reference's shard map at one shard). On more, each rank runs the
+    shard map's body (tests/test_torch_moe_shardmap.py), which an abstract
+    mesh, with no process group, cannot: refused."""
     cfg = C.get_reduced("mixtral_8x7b")
     params = T.init_params(torch.Generator().manual_seed(0), cfg,
                            device="cpu")
@@ -157,5 +159,5 @@ def test_moe_shard_map_refused_beyond_one_device():
     assert torch.equal(a, b)
     with spmd.activate(AbstractMesh((2, 1), ("data", "model")),
                        shardmap_moe=True):
-        with pytest.raises(NotImplementedError, match="item 10c"):
+        with pytest.raises(ValueError, match="abstract mesh"):
             T.forward(params, cfg, tokens=tok, attn="plain")
