@@ -342,9 +342,10 @@ Phases, each raising on failure:
    each configuration in processes of its own (``dp_child``). (a) one rank
    joins a one-rank NCCL group through ``launcher.fleet_init``'s
    variables, builds ``make_host_mesh()`` (a ``DeviceMesh`` of 1 x 1) and
-   runs DP_STEPS_A data-parallel steps with ZeRO-1, every collective
-   issued (counted), against ``make_train_step``'s steps from the same
-   state: params, moments and losses bit for bit; ``dp_overhead_ms`` is
+   runs DP_STEPS_A data-parallel steps with ZeRO-1 asked for, against
+   ``make_train_step``'s steps from the same state: params, moments and
+   losses bit for bit, and no collective issued (counted: a DP axis of 1
+   has no group, ``spmd.dp_groups``); ``dp_overhead_ms`` is
    the DP step's median time (CUDA events) less the plain step's. (b) two
    ranks share ``cuda:0`` over gloo (NCCL refuses two ranks on one
    device), each on its half of the global batch
@@ -393,6 +394,28 @@ Phases, each raising on failure:
    ``DTensor`` s (``DataParallel.placed_opt_state``) and remeshed by
    ``elastic_remesh`` onto one device, a leaf at a time: bit for bit the
    replicated run's moments.
+27. tensor parallelism (slice 18), once phase 26 has freed its state: two
+   gloo ranks share ``cuda:0`` on ``make_host_mesh(model=2)`` (data 1,
+   model 2), ``tp_child``, with the parameters placed as ``DTensor`` s by
+   the rules. (a) phase 25's Qwen2-VL-2B (DP_LAYERS layers, B 2 x S 4096,
+   the gate on) under ``spmd.activate(mesh, flash_attn=True,
+   seq_shard=True)``, each rank on the whole batch, DP_STEPS_B steps
+   against 25b's 1-process reference (kept from phase 25): the step-0
+   gradients within TRAIN_GRAD_REL_L2 a leaf, the losses within
+   DP_LOSS_REL, the params within DP_PARAM_REL_L2, the replicated leaves
+   bit-identical across ranks, every gradient in its parameter's
+   placements, the moments of their parameters' local shapes; each rank's
+   state bytes, peak memory, step ms and collectives a step recorded; the
+   flash launches are the ``lm_tp_training`` path, exact (2L / L / L a
+   step and rank, on 6 of 12 query heads). (b) Phi-3-medium-14B at full
+   width cut to TP_LAYERS layers, LM_BATCH x LM_PROMPT prompts, prefill
+   and TP_NEW greedy decode steps over caches split over their slots
+   (``init_cache(mesh=)``), against the 1-process greedy trace in this
+   process: the last prefill logits within TP_LOGIT_REL_L2 relative L2, the
+   tokens equal on both ranks and to the 1-process tokens up to a
+   1-process top-2 gap of TP_GAP_ULPS bf16 ulps; prefill ms, decode ms at
+   p50 and the collectives' bytes a token recorded; the flash launches are
+   the ``lm_tp_serving`` path, exact (L a rank).
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -4060,7 +4083,7 @@ def dp_phase(torch):
         log(f"lm_dp_nccl {json.dumps(a)}")
         if (a["leaves_differing"] or not a["losses_equal"]
                 or a["backend"] != "nccl" or a["launches"] != want_a
-                or a["collectives"]["all_reduce"] < 2 * DP_STEPS_A):
+                or any(a["collectives"].values())):
             raise AssertionError(f"25a: {a}; launches want {want_a}")
 
         # 25b: two ranks on cuda:0 over gloo, against the 1-process step
@@ -4115,6 +4138,8 @@ def dp_phase(torch):
                 or any(r["runs"]["on"]["collectives"]["all_gather"] == 0
                        for r in b)):
             raise AssertionError(f"25b: {rec['b']}; launches want {want_b}")
+        # phase 27a holds the tensor-parallel step to the same reference
+        _DP_REF["b"] = (grads, ref_losses, ref_params, params0)
         del grads, ref_params, params0, got_g, got_p
 
         # 25c: the launcher's --validate on a fake 512-rank group against
@@ -4147,10 +4172,11 @@ def dp_phase(torch):
 # dispatch, EP at full width, the compressed DP mean, elastic_remesh
 # ---------------------------------------------------------------------------
 
-# Moonlight at full width cut to 2 of its 48 layers (~1.8 B params), phase
-# 10's batch (B 2 x S 4096, one row a rank), the gate on, the flash route,
-# the loss in phase 21's slabs
-DP_MOE_LAYERS, DP_MOE_STEPS, DP_MOE_WORLD = 2, 2, 2
+# Moonlight at full width cut to 1 of its 48 layers (~1.2 B params: the
+# embedding and head dominate; 2 layers until phase 27 needed the time),
+# phase 10's batch (B 2 x S 4096, one row a rank), the gate on, the flash
+# route, the loss in phase 21's slabs
+DP_MOE_LAYERS, DP_MOE_STEPS, DP_MOE_WORLD = 1, 2, 2
 # 26b: one MoE layer on a (data 1, model 2) mesh against the 1-process
 # layer. The ranks' partial combines are each rounded to bf16 and their sum
 # rounded again (the 1-process layer rounds one sum over k once), and the
@@ -4591,6 +4617,308 @@ def moe_dp_phase(torch):
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"moe_dp_phase_s {rec['phase_s']}")
     return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 27: tensor parallelism on (data 1, model 2) for the attention
+# families (slice 18)
+# ---------------------------------------------------------------------------
+
+# 27a: phase 25's Qwen2-VL-2B (2 layers, B 2 x S 4096, the gate on, flash,
+# sequence-parallel) on (data 1, model 2), each rank on the whole batch,
+# against 25b's 1-process step (the same batch, seed and steps): its
+# gradients, losses and params bounds (TRAIN_GRAD_REL_L2, DP_LOSS_REL,
+# DP_PARAM_REL_L2). 27b: Phi-3-medium-14B at full width cut to TP_LAYERS
+# of its 40 layers, LM_BATCH x LM_PROMPT, prefill and TP_NEW greedy decode
+# steps. The ranks sum each row-parallel product (wo, w2) from two bf16
+# partials that each rank rounded, and the sum is rounded again: one more
+# rounding of 2^-9 relative on each of the 2 x TP_LAYERS sublayer outputs
+# that feed the residual stream, about 2^-9 x 2 x 2 relative on the final
+# stream, which the head carries into the logits; 2^-5 relative L2 leaves
+# 4x room. A lost head block, a misplaced cache slot or a wrong vocab
+# offset moves the logits by O(1). A greedy token may differ from the
+# 1-process token only where that run's top two logits lie within
+# TP_GAP_ULPS bf16 ulps of its top logit (4x phase 9's PARITY_GAP_ULPS:
+# the extra roundings above, a few ulps of a logit).
+TP_WORLD, TP_LAYERS, TP_NEW = 2, 2, 16
+TP_LOGIT_REL_L2, TP_GAP_ULPS = 2 ** -5, 8
+_DP_REF = {}
+
+
+def tp_serve_setup(torch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=TP_LAYERS)
+    return cfg, lm_prompts(torch, cfg, LM_BATCH, LM_PROMPT, 27)
+
+
+def tp_serve_reference(torch):
+    """27b's yardstick in this process: the 1-process prefill and greedy
+    decode (``greedy_trace``) of 2-layer Phi-3 from phase 8's seed: the
+    tokens and every step's logits on the host."""
+    from repro_torch.models import transformer as T
+    cfg, prompt = tp_serve_setup(torch)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+    toks, logits = greedy_trace(torch, cfg, params, prompt, TP_NEW, "flash")
+    del params
+    return toks.cpu(), [lg.cpu() for lg in logits]
+
+
+def tp_child():
+    """One of two gloo ranks of phase 27 on ``cuda:0`` (``python -c`` from
+    the repo root): argv ``[mode, out_path]``; (a) the tensor-parallel
+    step, (b) tensor-parallel serving on ``make_host_mesh(model=2)``.
+    Writes its record as JSON and its local blocks (step-0 gradients,
+    params after the steps, the last prefill logits) beside it."""
+    import faulthandler
+    import gc
+    import statistics
+    import torch
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    faulthandler.enable()
+    from repro_torch.launch import spmd
+    from repro_torch.launch.launcher import fleet_init
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import (init_train_state, make_train_step,
+                                          place_params)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizer import tree_leaves
+    _, out = sys.argv[1], sys.argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = fleet_init("cuda", backend="gloo")
+    counts = count_collectives()
+    mesh = make_host_mesh(model=TP_WORLD, device="cuda")
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "model_rank": mesh.get_local_rank("model")}
+
+    def blocks(tree):
+        return {"/".join(k): (v.to_local().cpu(), spmd.model_dim(v))
+                for k, v in flat(tree).items() if v is not None}
+
+    # (a) the step, 3 steps, ZeRO-1 off
+    cfg, hp, pcfg = dp_setup(torch)
+    batches = [dp_batch(torch, pcfg, i, list(range(DP_WORLD_B)), DP_WORLD_B)
+               for i in range(DP_STEPS_B)]
+    t_a = time.perf_counter()
+    with spmd.activate(mesh, flash_attn=True, seq_shard=True):
+        step = make_train_step(cfg, hp, mesh=mesh)
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, hp, "cuda", mesh=mesh)
+        rec["state_bytes"] = sum(
+            v.to_local().numel() * v.to_local().element_size()
+            for v in tree_leaves(state[0]) + tree_leaves(state[1].m)
+            + tree_leaves(state[1].v) if hasattr(v, "to_local"))
+        g0 = step.dp.mean_grads(step.loss_and_grads(state[0], batches[0])[2])
+        rec["grad_placements_equal"] = all(
+            tuple(g.placements) == tuple(p.placements) for g, p in
+            zip(tree_leaves(g0), tree_leaves(state[0])) if g is not None)
+        rec["moment_shapes_equal"] = all(
+            m.to_local().shape == p.to_local().shape for m, p in
+            zip(tree_leaves(state[1].m), tree_leaves(state[0]))
+            if p.is_floating_point())
+        torch.save(blocks(g0), out + ".grads.pt")
+        del g0
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters()
+        before = dict(counts)
+        losses, ms = [], []
+        for b in batches:
+            (p, o, s, m), t = event_ms(torch, lambda: step(*state, b))
+            state = (p, o, s)
+            losses.append(float(m["loss"]))
+            ms.append(t)
+        rec["a"] = {"losses": losses, "step_ms": ms,
+                    "launches": {n: c.launches for n, c in counters.items()},
+                    "collectives": {k: (counts[k] - before[k]) // DP_STEPS_B
+                                    for k in counts},
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "wall_s": time.perf_counter() - t_a}
+    rec["replicated_digests"] = {
+        "/".join(k): tensor_digest(torch, v.to_local())
+        for k, v in flat(state[0]).items() if spmd.model_dim(v) is None}
+    torch.save(blocks(state[0]), out + ".params.pt")
+    del state, step, p, o, s, m, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) serving: prefill and TP_NEW greedy decode steps
+    t_b = time.perf_counter()
+    cfg_s, prompt = tp_serve_setup(torch)
+    params = place_params(T.init_params(torch.Generator(device="cuda")
+                                        .manual_seed(0), cfg_s,
+                                        device="cuda"), cfg_s, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()      # (b)'s own peak, not (a)'s
+    with torch.no_grad():
+        counters = reset_counters()
+        before = dict(counts)
+        (logits, cache), t_pre = event_ms(torch, lambda: T.prefill(
+            params, cfg_s, prompt, LM_PROMPT + TP_NEW, attn="flash"))
+        pre_moved = {k: counts[k] - before[k] for k in counts}
+        launches = {n: c.launches for n, c in counters.items()}
+        tp = spmd.tensor_parallel(logits)
+        torch.save({"logits": logits.to_local().float().cpu()},
+                   out + ".prefill.pt")
+        toks, dec_ms = [], []
+        before = dict(counts)
+        for _ in range(TP_NEW):
+            tok = spmd.vocab_argmax(logits.to_local(), tp)
+            toks.append(tok)
+            (logits, cache), t = event_ms(torch, lambda: T.decode_step(
+                params, cache, tok, cfg_s))
+            dec_ms.append(t)
+        dec_moved = {k: (counts[k] - before[k]) / TP_NEW for k in counts}
+    rec["b"] = {"prefill_ms": t_pre, "decode_ms": dec_ms,
+                "decode_ms_p50": statistics.median(dec_ms),
+                "tokens": torch.stack(toks, 1).tolist(),
+                "launches": launches, "prefill_collectives": pre_moved,
+                "decode_collectives_per_step": dec_moved,
+                "decode_bytes_per_token": (dec_moved["all_reduce_bytes"]
+                                           + dec_moved["all_gather_bytes"])
+                / LM_BATCH,
+                "cache_model_dim": spmd.model_dim(cache["k"]),
+                "cache_local_shape": list(cache["k"].to_local().shape),
+                "wall_s": time.perf_counter() - t_b}
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def whole_blocks(ranks):
+    """``{leaf: whole tensor}`` from the ranks' ``(block, model dim)``
+    pairs, in model-rank order."""
+    out = {}
+    for k, (t, d) in ranks[0].items():
+        out[k] = t if d is None else \
+            torch_cat([r[k][0] for r in ranks], d)
+    return out
+
+
+def torch_cat(parts, dim):
+    import torch
+    return torch.cat(parts, dim=dim)
+
+
+def tp_phase(torch):
+    """Phase 27 (module docstring). Returns (record, training launches,
+    serving launches)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        grads, ref_losses, ref_params, _ = _DP_REF.pop("b", None) or \
+            dp_reference(torch)
+        ref_toks, ref_logits = tp_serve_reference(torch)
+        free_before(torch, "phase 27's processes")
+        ranks, wall = spawn_dp("tp", TP_WORLD, workdir, entry="tp_child")
+        paths = [os.path.join(workdir, f"dp_tp_{r}.json") for r in
+                 range(TP_WORLD)]
+        order = sorted(range(TP_WORLD), key=lambda r: ranks[r]["model_rank"])
+        loaded = {kind: [torch.load(paths[r] + kind) for r in order]
+                  for kind in (".grads.pt", ".params.pt")}
+        got_g, got_p = (whole_blocks(loaded[k]) for k in (".grads.pt",
+                                                           ".params.pt"))
+        grad_rel = {"/".join(k): rel_l2(got_g["/".join(k)].float(), g.float())
+                    for k, g in grads.items()}
+        param_rel = {"/".join(k): rel_l2(got_p["/".join(k)].float(), p.float())
+                     for k, p in ref_params.items() if p.is_floating_point()}
+        L = DP_LAYERS
+        want_a = {n: 0 for n in ranks[0]["a"]["launches"]}
+        want_a.update({"flash_fwd": 2 * L * DP_STEPS_B,
+                       "flash_bwd_dkv": L * DP_STEPS_B,
+                       "flash_bwd_dq": L * DP_STEPS_B})
+        losses = ranks[0]["a"]["losses"]
+        loss_rel = [abs(x - y) / abs(y) for x, y in zip(losses, ref_losses)]
+        a = {"arch": TRAIN_ARCH, "layers": L, "batch": TRAIN_B, "seq": TRAIN_S,
+             "steps": DP_STEPS_B, "mesh": ranks[0]["mesh"],
+             "losses": losses, "reference_losses": ref_losses,
+             "loss_rel": loss_rel, "grad_rel_l2_max": max(grad_rel.values()),
+             "param_rel_l2_max": max(param_rel.values()),
+             "grad_rel_l2": grad_rel,
+             "ranks_equal": ranks[0]["replicated_digests"]
+             == ranks[1]["replicated_digests"],
+             "replicated_leaves": len(ranks[0]["replicated_digests"]),
+             "grad_placements_equal": [r["grad_placements_equal"]
+                                       for r in ranks],
+             "moment_shapes_equal": [r["moment_shapes_equal"] for r in ranks],
+             "step_ms": [r["a"]["step_ms"] for r in ranks],
+             "peak_bytes": [r["a"]["max_memory_allocated"] for r in ranks],
+             "state_bytes_per_rank": [r["state_bytes"] for r in ranks],
+             "collectives_per_step": [r["a"]["collectives"] for r in ranks],
+             "launches": [r["a"]["launches"] for r in ranks],
+             "tolerance": {"grad_rel_l2": TRAIN_GRAD_REL_L2,
+                           "loss_rel": DP_LOSS_REL,
+                           "param_rel_l2": DP_PARAM_REL_L2}}
+        log(f"lm_tp_training {json.dumps({k: v for k, v in a.items() if k != 'grad_rel_l2'})}")
+        if (a["grad_rel_l2_max"] > TRAIN_GRAD_REL_L2
+                or max(loss_rel) > DP_LOSS_REL
+                or a["param_rel_l2_max"] > DP_PARAM_REL_L2
+                or not a["ranks_equal"] or not a["replicated_leaves"]
+                or not all(a["grad_placements_equal"])
+                or not all(a["moment_shapes_equal"])
+                or any(r["backend"] != "gloo" for r in ranks)
+                or any(r["a"]["launches"] != want_a for r in ranks)):
+            raise AssertionError(f"27a: {a}; launches want {want_a} a rank")
+        del grads, ref_params, got_g, got_p, loaded
+
+        pre = [torch.load(paths[r] + ".prefill.pt")["logits"] for r in order]
+        got = torch.cat(pre, dim=-1)
+        want = ref_logits[0].float()
+        b_rel = rel_l2(got, want)
+        toks = [r["b"]["tokens"] for r in ranks]
+        rows = []
+        ok = b_rel <= TP_LOGIT_REL_L2 and toks[0] == toks[1]
+        for i in range(LM_BATCH):
+            mine = toks[0][i]
+            theirs = ref_toks[i, :TP_NEW].tolist()
+            row, fine = first_divergence(mine, theirs,
+                                         lambda j: ref_logits[j][i], None)
+            band = TP_GAP_ULPS / PARITY_GAP_ULPS
+            if row["first_divergence"] is not None:
+                row["band"] *= band
+                fine = row["top2_gap"] <= row["band"]
+            rows.append(row)
+            ok &= fine
+        want_b = {n: 0 for n in ranks[0]["b"]["launches"]}
+        want_b["flash_fwd"] = TP_LAYERS
+        b = {"arch": LM_ARCH, "layers": TP_LAYERS, "batch": LM_BATCH,
+             "prompt": LM_PROMPT, "new_tokens": TP_NEW,
+             "prefill_logits_rel_l2": b_rel, "bound": TP_LOGIT_REL_L2,
+             "rows": rows, "ranks_tokens_equal": toks[0] == toks[1],
+             "prefill_ms": [r["b"]["prefill_ms"] for r in ranks],
+             "decode_ms_p50": [r["b"]["decode_ms_p50"] for r in ranks],
+             "decode_bytes_per_token": [r["b"]["decode_bytes_per_token"]
+                                        for r in ranks],
+             "decode_collectives_per_step": [
+                 r["b"]["decode_collectives_per_step"] for r in ranks],
+             "prefill_collectives": [r["b"]["prefill_collectives"]
+                                     for r in ranks],
+             "cache": [r["b"]["cache_model_dim"] for r in ranks],
+             "cache_local_shape": ranks[0]["b"]["cache_local_shape"],
+             "peak_bytes": [r["max_memory_allocated"] for r in ranks],
+             "launches": [r["b"]["launches"] for r in ranks]}
+        log(f"lm_tp_serving {json.dumps(b)}")
+        if (not ok or any(r["b"]["launches"] != want_b for r in ranks)):
+            raise AssertionError(f"27b: {b}; launches want {want_b} a rank")
+        launches_a = {n: sum(r["a"]["launches"][n] for r in ranks)
+                      for n in want_a}
+        launches_b = {n: sum(r["b"]["launches"][n] for r in ranks)
+                      for n in want_b}
+        rec = {"a": a, "b": b, "wall_s": wall}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm_tp_phase_s {rec['phase_s']}")
+    return rec, launches_a, launches_b
 
 
 # ---------------------------------------------------------------------------
@@ -5087,7 +5415,11 @@ def main() -> int:
         # the training shapes of phases 21 and 22: Moonlight (group 1, dh
         # 128) and Zamba2's shared block (group 1, dh 64, window 4096 = S)
         ("moonlight_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 128, None),
-        ("zamba2_train", bf16, TRAIN_B, TRAIN_S, 32, 32, 64, hybrid_window))]
+        ("zamba2_train", bf16, TRAIN_B, TRAIN_S, 32, 32, 64, hybrid_window),
+        # phase 27's local heads on (data 1, model 2): Qwen2-VL's 6 of 12
+        # query heads over 1 of 2 KV heads, Phi-3's 20 of 40 over 5 of 10
+        ("tp_train", bf16, TRAIN_B, TRAIN_S, 6, 1, 128, None),
+        ("tp_prefill", bf16, LM_BATCH, LM_PROMPT, 20, 5, 128, None))]
     bwd_recs = [flash_bwd_case(torch, *case) for case in (
         ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
         ("f32", torch.float32, 2, 256, 8, 2, 64, None),
@@ -5097,7 +5429,8 @@ def main() -> int:
         ("dh160_ragged_window65", bf16, 2, 1000, 32, 8, 160, 65),
         ("dh64_ragged", bf16, 2, 1000, 16, 4, 64, None),
         ("moonlight_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 128, None),
-        ("zamba2_train", bf16, TRAIN_B, TRAIN_S, 32, 32, 64, hybrid_window))]
+        ("zamba2_train", bf16, TRAIN_B, TRAIN_S, 32, 32, 64, hybrid_window),
+        ("tp_train", bf16, TRAIN_B, TRAIN_S, 6, 1, 128, None))]
     record["parity"] = {"nm_spmm": nm_recs, "nm_spmm_fused": fused_recs,
                         "lif": lif_recs,
                         "wu_outer": wu_recs, "wu_outer_slots": slot_recs,
@@ -5300,6 +5633,12 @@ def main() -> int:
     free_before(torch, "phase 26's reference state")
     record["lm_dp_moe_training"], moe_dp_launches = moe_dp_phase(torch)
 
+    # 27. tensor parallelism on (data 1, model 2): two gloo ranks on the
+    # card train Qwen2-VL-2B (2 layers) against 25b's 1-process step and
+    # serve Phi-3-medium-14B (2 layers) against the 1-process run
+    free_before(torch, "phase 27's reference state")
+    record["lm_tp"], tp_train_launches, tp_serve_launches = tp_phase(torch)
+
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
                       "analysis": analysis_launches[name],
@@ -5320,7 +5659,9 @@ def main() -> int:
                       "sharded_serving": sharded_launches[name],
                       "sharded_topology": sharded_topo_launches[name],
                       "lm_dp_training": dp_launches[name],
-                      "lm_dp_moe_training": moe_dp_launches[name]}
+                      "lm_dp_moe_training": moe_dp_launches[name],
+                      "lm_tp_training": tp_train_launches[name],
+                      "lm_tp_serving": tp_serve_launches[name]}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

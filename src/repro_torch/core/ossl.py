@@ -44,11 +44,14 @@ def _l2n(x: torch.Tensor, dim: int = -1, eps: float = 1e-6) -> torch.Tensor:
 
 
 def local_loss(h_out: torch.Tensor, head: Dict[str, torch.Tensor],
-               cfg: OSSLConfig) -> torch.Tensor:
+               cfg: OSSLConfig, proj=None) -> torch.Tensor:
     """Per-block OSSL loss. ``h_out``: [B, S, D] block output (the caller
-    detached the block input; the PC targets are detached here)."""
+    detached the block input; the PC targets are detached here). ``proj``:
+    the predictor's product where it is not ``x @ head["p"]`` (a
+    tensor-parallel caller's, over its column block of ``p``)."""
     d = cfg.predict_offset
-    pred = _l2n(h_out[:, :-d] @ head["p"])                      # [B, S-d, D]
+    x = h_out[:, :-d]
+    pred = _l2n(proj(x) if proj is not None else x @ head["p"])  # [B, S-d, D]
     tgt = _l2n(h_out[:, d:].detach())
     pc = -(pred * tgt).sum(-1).mean()
 

@@ -14,7 +14,9 @@ group's dK/dV in f32, inside the kernel or over its head split's partials,
 and ``kernel.flash_bwd_dq_cuda``); ``dout``
 is copied only where its rows break the kernels' 16-byte rule. On the CPU
 gradients flow through the plain version (the reference's ``_vjp_bwd`` ref
-branch).
+branch). Under tensor parallelism the op runs on each rank's own heads:
+``models/layers`` hands it the local blocks, so a CUDA block launches the
+kernels; a ``DTensor`` is refused.
 
 ``_to_kernel_layout`` / ``_from_kernel_layout`` (the reference's
 ``[B·H, S, dh]`` layout with K/V broadcast per group) stay for the tests,
@@ -89,7 +91,13 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Causal GQA attention, model layout in and out."""
+    """Causal GQA attention, model layout in and out. Under tensor
+    parallelism the caller hands each rank's own heads as plain tensors;
+    a ``DTensor`` raises (the kernels take raw pointers)."""
+    if any(hasattr(x, "to_local") for x in (q, k, v)):
+        raise TypeError("flash_attention takes plain tensors: under tensor "
+                        "parallelism each rank's own heads (the local "
+                        "blocks), not DTensors")
     return _FlashAttention.apply(q, k, v, window)
 
 

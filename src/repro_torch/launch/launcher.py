@@ -15,14 +15,18 @@ multi-host deployment runs; every process runs the same program.
 As the reference does, ``launch_train`` tries the production mesh
 (``launch.mesh.make_production_mesh``: 256 or 512 ranks); where it cannot
 be built it takes the host mesh (``make_host_mesh(model=1)``: data over
-every process) and the reduced config, and trains data-parallel on it, each
-process on ``synthetic_lm_batch(pcfg, step, pid, pcount)``; only rank 0
-prints and saves. A production mesh has a model axis of 16, which needs the
-tensor-parallel step (``ROADMAP.md`` Queue 1 item 10d): training on one is
-refused, ``--validate`` is not. The MoE family at more than one process
-trains under ``--opt moe`` (the shard-mapped dispatch: each process
-dispatches its own tokens); without it, it is refused (one dispatch over
-the global batch, item 10d).
+every process) and the reduced config, and trains data-parallel on it.
+Each process takes the rows of its DP index,
+``synthetic_lm_batch(pcfg, step, dp_rank, dp_size)`` (the ranks of one
+model group share them); only rank 0 prints and saves. A production mesh
+has a model axis of 16: the attention families (dense, vlm, audio) train
+on it tensor-parallel, their parameters placed as ``DTensor`` s by the
+rules (``launch/train.place_params``); the moe, ssm and hybrid families
+there, and checkpoints of a tensor-parallel state, are refused
+(``ROADMAP.md`` Queue 1 item 10e); ``--validate`` runs for all. The MoE
+family at more than one process trains under ``--opt moe`` (the
+shard-mapped dispatch: each process dispatches its own tokens); without
+it, it is refused (one dispatch over the global batch, item 10e).
 
 ``--validate`` runs ``dryrun.lower_cell`` on the **full** config with the
 production mesh: with no process group it builds one of fake ranks (the
@@ -99,7 +103,7 @@ def launch_train(arch: str, *, multi_pod: bool, opt: str, steps: int,
     from ..data.pipeline import PipelineConfig, synthetic_lm_batch
     from ..optim import adamw_init
     from . import spmd
-    from .mesh import (axis_sizes, init_fake_group, make_host_mesh,
+    from .mesh import (axis_sizes, dp_size, init_fake_group, make_host_mesh,
                        make_production_mesh)
     from .train import TrainHParams, init_train_state, make_train_step
 
@@ -146,6 +150,11 @@ def launch_train(arch: str, *, multi_pod: bool, opt: str, steps: int,
             torch.Generator(device=dev).manual_seed(0), cfg, hp, dev,
             mesh=mesh)
         layout = dp.zero1_layout(params)
+        if ckpt_dir and axis_sizes(mesh).get("model", 1) > 1:
+            raise NotImplementedError(
+                "checkpoints of a tensor-parallel state (DTensor leaves) "
+                f"({spmd.ITEM_10E})")
+        rows, n_rows = spmd.dp_rank(mesh), dp_size(mesh)
         start = 0
         if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
             # a checkpoint holds whole moments; under ZeRO-1 each rank
@@ -157,7 +166,7 @@ def launch_train(arch: str, *, multi_pod: bool, opt: str, steps: int,
             start += 1
         for step in range(start, steps):
             batch = {k: torch.from_numpy(v).to(dev, torch.long) for k, v in
-                     synthetic_lm_batch(pcfg, step, pid, pcount).items()}
+                     synthetic_lm_batch(pcfg, step, rows, n_rows).items()}
             params, opt_state, sparse_state, m = step_fn(
                 params, opt_state, sparse_state, batch)
             if pid == 0 and step % 10 == 0:

@@ -13,6 +13,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import transformer as T
+from . import spmd
 
 
 def make_serve_step(cfg: ModelConfig):
@@ -41,7 +42,12 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int,
              attn: str = "flash") -> torch.Tensor:
     """prompt [B, S] -> [B, S + n_new] (greedy when temperature == 0), on
     the prompt's device. ``attn`` routes the prefill's attention
-    (``transformer.forward``); decode reads the KV cache in plain torch."""
+    (``transformer.forward``); decode reads the KV cache in plain torch.
+
+    ``DTensor`` parameters (tensor parallelism): the caches are placed,
+    ``prompt`` is this rank's rows, and every rank of the model axis
+    picks the same tokens: greedy by ``spmd.vocab_argmax`` over its vocab
+    block, sampling from the ``[B, V]`` logits gathered."""
     b, s = prompt.shape
     max_seq = max_seq or (s + n_new)
     last_logits, cache = T.prefill(params, cfg, prompt, max_seq, attn=attn)
@@ -50,6 +56,15 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int,
             if temperature > 0.0 else None)
 
     def pick(logits, i):
+        tp = spmd.tensor_parallel(logits)
+        if tp is not None:
+            local = logits.to_local()
+            if local.shape[-1] == logits.shape[-1]:
+                logits = local
+            elif temperature <= 0.0:
+                return spmd.vocab_argmax(local, tp).to(prompt.dtype)
+            else:
+                logits = tp.all_gather(local, -1)
         if temperature <= 0.0:
             return logits.argmax(-1).to(prompt.dtype)
         probs = torch.softmax(logits.float() / temperature, dim=-1)

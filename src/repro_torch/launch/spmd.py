@@ -20,10 +20,22 @@ Used as::
 
 Eager torch has no sharding constraint to hand a compiler. Given a
 ``DTensor``, :func:`constrain_seq` redistributes it to the reference's
-placement; a plain tensor on a mesh whose model axis is above 1 would need
-the tensor-parallel step of ``ROADMAP.md`` Queue 1 item 10d, and is
-refused. On a model axis of 1 the constraint places nothing and returns
-its input.
+placement; a plain tensor on a mesh whose model axis is above 1 means that
+the caller placed nothing, and is refused. On a model axis of 1 the
+constraint places nothing and returns its input. The tensor-parallel
+forward does not call it: its stream is a local block whose
+sequence-parallel boundaries are :class:`TensorParallel`'s collectives.
+
+Tensor parallelism (the attention families at a model axis above 1): with
+parameters placed as ``DTensor`` s by ``launch.sharding.tree_shardings``,
+``models/transformer`` runs each rank's shard of the model as
+``local_map`` runs a function, through :class:`TensorParallel` (the
+Megatron collectives: :meth:`TensorParallel.enter` and
+:meth:`TensorParallel.leave`, under ``seq_shard`` the sequence-parallel
+pair); the residual stream keeps one layout through the forward (whole,
+or this rank's block of the sequence), and the logits come back
+vocab-parallel. The moe, ssm and hybrid families at a model axis above 1
+are ``ROADMAP.md`` Queue 1 item 10e (:func:`check_tp_family`).
 
 The shard-mapped MoE (``models/moe``) runs its body on each rank as
 ``shard_map`` runs it on each device, and reads the mesh through
@@ -132,9 +144,10 @@ def constrain_seq(h: torch.Tensor) -> torch.Tensor:
                                                    ctx.mesh))
     if tp > 1:
         raise NotImplementedError(
-            f"a sequence-parallel boundary on a model axis of {tp} needs the "
-            "step to run tensor-parallel over DTensors (ROADMAP.md Queue 1 "
-            "item 10d)")
+            f"a sequence-parallel boundary on a model axis of {tp} over a "
+            "plain tensor: the caller placed nothing; place the parameters "
+            "by launch.sharding.tree_shardings (launch.train.place_params), "
+            "and the model runs tensor-parallel over them")
     return h
 
 
@@ -143,11 +156,14 @@ def constrain_seq(h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def dp_groups(mesh) -> List[Any]:
-    """The process groups of the mesh's DP axes, ``data`` first, then
-    ``pod``; none on an :class:`AbstractMesh`."""
+    """The process groups of the mesh's DP axes above 1, ``data`` first,
+    then ``pod`` (a collective over one rank changes nothing); none on an
+    :class:`AbstractMesh`."""
     if isinstance(mesh, AbstractMesh):
         return []
-    return [mesh.get_group(a) for a in reversed(mesh_dp_axes(mesh))]
+    sizes = axis_sizes(mesh)
+    return [mesh.get_group(a) for a in reversed(mesh_dp_axes(mesh))
+            if sizes[a] > 1]
 
 
 def dp_rank(mesh) -> int:
@@ -229,3 +245,337 @@ def pmean_dp(x: torch.Tensor, ctx: SpmdCtx) -> torch.Tensor:
     """``jax.lax.pmean(x, dp)``: the mean over the DP axes, the gradient
     this rank's own (module docstring)."""
     return _ReduceIdentityGrad.apply(x, dp_groups(ctx.mesh), dp_size(ctx))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over placed parameters (the attention families)
+# ---------------------------------------------------------------------------
+
+TP_FAMILIES = ("dense", "vlm", "audio")
+ITEM_10E = "ROADMAP.md Queue 1 item 10e"
+
+
+def check_tp_family(family: str, size: int) -> None:
+    """The moe, ssm and hybrid families run at a model axis of 1 only."""
+    if size > 1 and family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"the {family} family at a model axis of {size}: tensor "
+            f"parallelism runs the attention families {TP_FAMILIES} only "
+            f"({ITEM_10E})")
+
+
+def _gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``dim``, in rank order (eager
+    ``all_gather``, which gloo runs on CUDA tensors)."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _block(x: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
+    w = x.shape[dim] // size
+    return x.narrow(dim, rank * w, w)
+
+
+class _GatherSliceGrad(torch.autograd.Function):
+    """Forward: the blocks gathered along ``dim``; backward: this rank's
+    block of the cotangent (the consumer is replicated, so every rank's
+    cotangent is whole)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _gather(x, dim, tp.group, tp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.tp.rank, ctx.tp.size).contiguous(), \
+            None, None
+
+
+class _GatherReduceScatterGrad(torch.autograd.Function):
+    """Forward: the blocks gathered along ``dim``; backward: the partial
+    cotangents summed over the model axis, this rank's block kept (the
+    consumer is a column-parallel product: Megatron SP's entry)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _gather(x, dim, tp.group, tp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = _all_reduce(g, [ctx.tp.group])
+        return _block(s, ctx.dim, ctx.tp.rank, ctx.tp.size).contiguous(), \
+            None, None
+
+
+class _ReduceScatterGatherGrad(torch.autograd.Function):
+    """Forward: the partial results summed over the model axis and this
+    rank's block along ``dim`` kept (``Partial -> Shard(dim)`` as an
+    ``all_reduce`` and a slice: gloo has no ``reduce_scatter`` on CUDA);
+    backward: the blocks of the cotangent gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        s = _all_reduce(x, [tp.group])
+        return _block(s, dim, tp.rank, tp.size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.tp.group, ctx.tp.size), None, None
+
+
+class _SliceGatherGrad(torch.autograd.Function):
+    """Forward: this rank's block along ``dim`` (``Replicate ->
+    Shard(dim)``); backward: the blocks of the cotangent gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return _block(x, dim, tp.rank, tp.size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.tp.group, ctx.tp.size), None, None
+
+
+@dataclasses.dataclass(eq=False)
+class TensorParallel:
+    """The model axis of a step whose parameters are ``DTensor`` s placed by
+    ``launch.sharding.tree_shardings``: its process group, this rank's
+    index and the axis size, and ``seq``, whether the residual stream holds
+    this rank's block of the sequence (Megatron SP, ``seq_shard``).
+
+    The model's body runs each rank's shard as ``local_map`` runs a
+    function: the parameters enter as their local blocks
+    (:func:`local_tree`), and the Megatron collectives stand where the
+    reference's placements would put them: :meth:`enter` before a
+    column-parallel product, :meth:`leave` after a row-parallel one. All
+    are eager ``all_reduce`` / ``all_gather`` calls over the model group,
+    which gloo runs on CUDA tensors; ``reduce_scatter`` is an
+    ``all_reduce`` and a slice."""
+    mesh: Any
+    group: Any
+    rank: int
+    size: int
+    seq: bool = False
+    tp_axis: str = "model"
+
+    def placements(self, model_placement=None) -> tuple:
+        """Replicate on every mesh axis but the model axis, which takes
+        ``model_placement`` (Replicate when None)."""
+        from torch.distributed.tensor import Replicate
+        return tuple(model_placement if (n == self.tp_axis and model_placement
+                                         is not None) else Replicate()
+                     for n in self.mesh.mesh_dim_names)
+
+    def wrap(self, local: torch.Tensor, model_placement=None):
+        """A local block (or a replicated value) as a ``DTensor``."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local, self.mesh,
+                                  self.placements(model_placement),
+                                  run_check=False)
+
+    # -- the stream's entry into and exit from a tensor-parallel region ----
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream as the replicated input of column-parallel products:
+        gathered along the sequence under SP; the cotangents, partial on
+        each rank, summed."""
+        if self.size == 1:
+            return x
+        if self.seq:
+            return _GatherReduceScatterGrad.apply(x, 1, self)
+        return _IdentityReduceGrad.apply(x, [self.group])
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sum back into the stream:
+        summed (all-reduced, or reduce-scattered along the sequence under
+        SP)."""
+        if self.size == 1:
+            return y
+        if self.seq:
+            return _ReduceScatterGatherGrad.apply(y, 1, self)
+        return _ReduceIdentityGrad.apply(y, [self.group], 1)
+
+    def enter_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """Column blocks of an activation gathered whole for products that
+        each rank runs on its own share (a K/V projection split inside a
+        head, a compact row table): the partial cotangents summed."""
+        return x if self.size == 1 else \
+            _GatherReduceScatterGrad.apply(x, x.dim() - 1, self)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Blocks along ``dim`` gathered for a replicated consumer."""
+        return x if self.size == 1 else _GatherSliceGrad.apply(x, dim, self)
+
+    def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A replicated value's block along ``dim``."""
+        return x if self.size == 1 else _SliceGatherGrad.apply(x, dim, self)
+
+    def grad_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated parameter used on partial data (a norm on the
+        sequence block under SP): its gradient summed."""
+        return x if self.size == 1 else \
+            _IdentityReduceGrad.apply(x, [self.group])
+
+    # -- collectives without autograd (statistics, serving) ----------------
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return x if self.size == 1 else _gather(x, dim, self.group, self.size)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        import torch.distributed as dist
+        if self.size == 1:
+            return x
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
+        return y
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of equal-sized blocks' means (a statistic
+        of the sequence-sharded stream)."""
+        return x if self.size == 1 else self.all_reduce(x).div_(self.size)
+
+    def local_kv_heads(self, n_heads: int, n_kv: int) -> Tuple[int, int]:
+        """``(first, count)``: the KV heads that this rank's block of the
+        query heads reads (query heads are contiguous per KV head, so a
+        block of whole groups, or a block inside one group)."""
+        hl = n_heads // self.size
+        g = n_heads // n_kv
+        if hl % g and g % hl:
+            raise ValueError(f"{n_heads} query heads over {n_kv} KV heads "
+                             f"split {self.size} ways cut a GQA group "
+                             "unevenly")
+        first = self.rank * hl // g
+        return first, max(1, hl // g)
+
+
+_tp_state = threading.local()
+
+
+def active_tp() -> Optional[TensorParallel]:
+    """The tensor-parallel state of the model body that is running."""
+    return getattr(_tp_state, "tp", None)
+
+
+@contextlib.contextmanager
+def use_tp(tp: Optional[TensorParallel]):
+    prev = active_tp()
+    _tp_state.tp = tp
+    try:
+        yield tp
+    finally:
+        _tp_state.tp = prev
+
+
+def _first_dtensor(tree):
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        for v in tree.values():
+            d = _first_dtensor(v)
+            if d is not None:
+                return d
+        return None
+    if isinstance(tree, (list, tuple)):
+        return next((d for d in map(_first_dtensor, tree) if d is not None),
+                    None)
+    return tree if isinstance(tree, DTensor) else None
+
+
+def tensor_parallel(params, seq_len: Optional[int] = None
+                    ) -> Optional[TensorParallel]:
+    """The :class:`TensorParallel` of a parameter tree placed as
+    ``DTensor`` s (None for plain tensors). ``seq``: the active context's
+    ``seq_shard``, where the model axis divides ``seq_len``."""
+    d = _first_dtensor(params)
+    if d is None:
+        return None
+    mesh = d.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        raise ValueError(f"parameters placed on a mesh of axes {names}: the "
+                         "LM rules place on an LM mesh (launch.mesh)")
+    size = axis_sizes(mesh)["model"]
+    ctx = current()
+    seq = bool(ctx is not None and ctx.seq_shard and size > 1
+               and seq_len is not None and seq_len % size == 0)
+    return TensorParallel(mesh=mesh, group=mesh.get_group("model"),
+                          rank=mesh.get_local_rank("model"), size=size,
+                          seq=seq)
+
+
+def local_tree(tree):
+    """Every ``DTensor`` leaf as its local block (``to_local``: its
+    gradient comes back as a ``DTensor`` in the leaf's own placements);
+    lists (a stacked leaf tracked a layer at a time) element-wise."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [local_tree(v) for v in tree]
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+def model_dim(x) -> Optional[int]:
+    """The tensor dim a ``DTensor`` splits over the model axis, else None."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return None
+    names = x.device_mesh.mesh_dim_names or ()
+    for n, pl in zip(names, x.placements):
+        if n == "model" and isinstance(pl, Shard):
+            return pl.dim
+    return None
+
+
+def place_local(x: torch.Tensor, sharding) -> Any:
+    """A whole tensor, the same on every rank, placed by a
+    ``launch.sharding.NamedSharding`` on a ``DeviceMesh`` with no
+    communication: each rank keeps its own block (``DTensor.from_local``);
+    dims that a spec splits must divide."""
+    from torch.distributed.tensor import DTensor, Shard
+    from .sharding import placements
+    mesh = sharding.mesh
+    pls = placements(sharding.spec, mesh)
+    local = x
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            n = mesh.size(i)
+            if local.shape[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(x.shape)} does not "
+                                 f"split {n} ways")
+            local = _block(local, pl.dim, mesh.get_local_rank(i), n)
+    return DTensor.from_local(local.clone(memory_format=torch.contiguous_format),
+                              mesh, pls, run_check=False)
+
+
+def vocab_argmax(local: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``argmax`` over vocab-sharded logits (this rank's block of the last
+    dim): each rank's max and its global index gathered, the largest value
+    winning and the lowest index among equal ones, as ``torch.argmax``;
+    the same token on every rank."""
+    v = local.shape[-1]
+    i = local.argmax(-1, keepdim=True)
+    vals = tp.all_gather(local.gather(-1, i).float(), -1)
+    idx = tp.all_gather(i + tp.rank * v, -1)
+    best = vals.amax(-1, keepdim=True)
+    return torch.where(vals == best, idx,
+                       torch.iinfo(idx.dtype).max).amin(-1)
+
+
+def local_block(x: torch.Tensor, like) -> torch.Tensor:
+    """A scale broadcastable to ``DTensor`` ``like`` -> its block on this
+    rank (the dims ``like`` splits over the model axis, where ``x`` is not
+    broadcast along them)."""
+    d = model_dim(like)
+    if d is None:
+        return x
+    x = x.reshape((1,) * (like.dim() - x.dim()) + tuple(x.shape))
+    if x.shape[d] == 1:
+        return x
+    n = axis_sizes(like.device_mesh)["model"]
+    return _block(x, d, like.device_mesh.get_local_rank("model"), n)

@@ -46,11 +46,30 @@ the mean of the ranks' gradients is the gradient of the reference's
 DP-mean aux loss; no collective in the loss is differentiated twice.
 
 On a 1 × 1 ``AbstractMesh`` (no process group) the step issues no
-collective and is ``make_train_step``'s. A model axis above 1 (tensor
-parallelism, ``ROADMAP.md`` Queue 1 item 10d) is refused, and so is the
-MoE family at a DP size above 1 without ``shardmap_moe``: the reference
-then dispatches the global batch at once, which in eager torch is a
-redistribution of the tokens across ranks (item 10d).
+collective and is ``make_train_step``'s. The MoE family at a DP size above
+1 without ``shardmap_moe`` is refused: the reference then dispatches the
+global batch at once, which in eager torch is a redistribution of the
+tokens across ranks (``ROADMAP.md`` Queue 1 item 10e).
+
+Tensor parallelism: on a mesh whose model axis is above 1 the attention
+families (dense, vlm, audio) train with their parameters placed as
+``DTensor`` s by the rules (``init_train_state(mesh=)``,
+:func:`place_params`); the model runs each rank's shard
+(``launch/spmd.TensorParallel``), the loss is the vocab-parallel cross
+entropy, and
+
+* ``_grads`` returns every gradient as a ``DTensor`` in its parameter's
+  placements (a stacked leaf's per-layer blocks stacked);
+* the DP buckets hold each rank's local blocks and all-reduce over the DP
+  groups only; ``ia``, ``pooled`` and the metrics come out of the forward
+  whole on every rank;
+* the moments are ``DTensor`` s of their parameters' placements and local
+  shapes; ZeRO-1 splits a leaf's local block along the dim
+  ``opt_state_shardings`` names, bit for bit the replicated update;
+* the clip reads every block's squares once (``optim.global_norm``).
+
+The moe, ssm and hybrid families at a model axis above 1 are refused
+(item 10e).
 
 ``run_training`` is the single-host loop. With ``ckpt_dir`` it resumes
 from the newest valid checkpoint there (the caller replays the data
@@ -117,12 +136,26 @@ def _grads(params, loss_fn, batch):
     gs = torch.autograd.grad(loss, xs, allow_unused=True, materialize_grads=True)
     by_id = {id(x): g for x, g in zip(xs, gs)}
 
-    def grad_of(x):
+    def grad_of(x, p):
         if isinstance(x, list):
-            return torch.stack([by_id[id(v)] for v in x])
+            g = [by_id[id(v)] for v in x]
+            if hasattr(p, "to_local"):      # a DTensor: stack the blocks
+                return _placed_like(torch.stack([v.to_local() for v in g]), p)
+            return torch.stack(g)
         return by_id.get(id(x))
-    grads = {k: tree_map(grad_of, v) for k, v in tracked.items()}
+    grads = {k: tree_map(grad_of, v, params[k]) for k, v in tracked.items()}
     return loss.detach(), (ce.detach(), _detach(aux)), grads
+
+
+def _placed_like(local: torch.Tensor, p):
+    """A local block as a ``DTensor`` in ``p``'s placements."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              run_check=False)
+
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
 
 
 def _detach(tree):
@@ -143,11 +176,7 @@ class DataParallel:
     there are no groups, and nothing is communicated."""
 
     def __init__(self, mesh, cfg: ModelConfig, hp: "TrainHParams"):
-        sizes = axis_sizes(mesh)
-        if sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"a model axis of {sizes['model']}: the step would run "
-                "tensor-parallel over DTensors (ROADMAP.md Queue 1 item 10d)")
+        spmd.check_tp_family(cfg.family, axis_sizes(mesh).get("model", 1))
         self.mesh, self.cfg = mesh, cfg
         self.axes, self.size = dp_axes(mesh), dp_size(mesh)
         self.check_dispatch()
@@ -164,8 +193,8 @@ class DataParallel:
             raise NotImplementedError(
                 f"the moe family at a DP size of {self.size} without "
                 "shardmap_moe: one dispatch over the global batch, a "
-                "redistribution of the tokens across ranks (ROADMAP.md "
-                "Queue 1 item 10d); under spmd.activate(mesh, "
+                "redistribution of the tokens across ranks "
+                f"({spmd.ITEM_10E}); under spmd.activate(mesh, "
                 "shardmap_moe=True) each rank dispatches its own tokens")
 
     def zero1_layout(self, params) -> Any:
@@ -207,6 +236,7 @@ class DataParallel:
         for g in tree_leaves(grads):
             if g is None:
                 continue
+            g = _local(g)               # a DTensor's block: its own shard
             if bucket and n + g.numel() > GRAD_BUCKET:
                 flush()
                 n = 0
@@ -248,6 +278,7 @@ class DataParallel:
         def one(p, z):
             if z is not None:
                 d, i, n = z
+                p = _local(p)
                 w = p.shape[d] // n
                 p.copy_(self.gather_blocks(p.narrow(d, i * w, w), d))
         with torch.no_grad():
@@ -269,6 +300,8 @@ class DataParallel:
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
         def one(m, z):
+            if isinstance(m, DTensor):          # placed already (the TP step)
+                return m
             pl = [Shard(z[0]) if z is not None and a in self.axes
                   else Replicate() for a in self.mesh.mesh_dim_names]
             return DTensor.from_local(m, self.mesh, pl, run_check=False)
@@ -409,13 +442,28 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig, hp: TrainHParams,
     """(params, AdamW state, SparseTrainState) on ``device``, the params
     drawn from ``gen`` (a CUDA generator draws them on the card; every rank
     of a data-parallel run draws the same). With ``mesh`` and ``hp.zero1``
-    the moments are allocated as this rank's ZeRO-1 blocks."""
+    the moments are allocated as this rank's ZeRO-1 blocks. On a mesh whose
+    model axis is above 1 the params are ``DTensor`` s placed by the rules
+    (:func:`place_params`) and the moments ``DTensor`` s of their
+    placements (``optim.adamw_init``)."""
     params = T.init_params(gen, cfg, device=device,
                            local_heads=hp.mode == "local")
+    if mesh is not None and axis_sizes(mesh).get("model", 1) > 1:
+        params = place_params(params, cfg, mesh)
     opt = adamw_init(params) if mesh is None \
         else adamw_init(params, DataParallel(mesh, cfg, hp).zero1_layout(params))
     return (params, opt,
             SparseTrainState.init(cfg.n_layers, cfg.d_model, device=device))
+
+
+def place_params(params, cfg: ModelConfig, mesh):
+    """``params`` (the same on every rank) as ``DTensor`` s placed by the
+    LM rules (``launch.sharding.tree_shardings``), each rank keeping its
+    own block: no communication."""
+    from .sharding import tree_shardings
+    from .spmd import check_tp_family, place_local
+    check_tp_family(cfg.family, axis_sizes(mesh).get("model", 1))
+    return tree_map(place_local, params, tree_shardings(params, cfg, mesh))
 
 
 def _sync(device) -> None:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SparsityConfig
 from ..core.sparsity import NMSpec, random_unit_mask
+from ..launch import spmd
 
 
 class MetaGenerator:
@@ -102,14 +103,28 @@ def _rows_from_umask(block_mask: torch.Tensor, block: int, *, n: int,
 
 def linear_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
                  sp: Optional[SparsityConfig] = None) -> torch.Tensor:
-    """x [..., K] @ W -> [..., O] for any storage form."""
+    """x [..., K] @ W -> [..., O] for any storage form.
+
+    Under tensor parallelism (``launch.spmd.TensorParallel``) ``p`` holds
+    this rank's block; a row-parallel block of a compact or masked weight
+    reads its own rows of the replicated ``rows`` / ``umask`` (a compact
+    one gathers the input's column blocks first: its kept rows index the
+    whole input)."""
     if "rows" in p:
-        return x.index_select(-1, p["rows"]) @ p["w"]
+        rows, w = p["rows"], p["w"]
+        if rows.shape[-1] != w.shape[-2]:            # a row-parallel block
+            tp = spmd.active_tp()
+            x = tp.enter_cols(x)
+            rows = rows.narrow(-1, tp.rank * w.shape[-2], w.shape[-2])
+        return x.index_select(-1, rows) @ w
     if "umask" in p:
         # straight-through: forward sees w·mask, the gradient stays dense
-        rows = p["w"].shape[-2] // p["umask"].shape[-2]
-        maskf = p["umask"].repeat_interleave(rows, dim=-2).to(p["w"].dtype)
-        w = p["w"]
+        w, tp = p["w"], spmd.active_tp()
+        rows = sp.block if tp is not None and sp is not None \
+            else w.shape[-2] // p["umask"].shape[-2]
+        maskf = p["umask"].repeat_interleave(rows, dim=-2).to(w.dtype)
+        if maskf.shape[-2] != w.shape[-2]:           # a row-parallel block
+            maskf = maskf.narrow(-2, tp.rank * w.shape[-2], w.shape[-2])
         return x @ (w - (w * (1.0 - maskf)).detach())
     return x @ p["w"]
 
@@ -207,25 +222,51 @@ def causal_mask(s: int, window: Optional[int] = None, dtype=torch.float32,
     return torch.where(ok, 0.0, float("-inf")).to(dtype)
 
 
+def _kv_heads(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A K or V projection ``[B, S, ·]`` as heads ``[B, S, KV', dh]``: all
+    KV heads, or under tensor parallelism this rank's block of whole heads.
+    Where the model axis divides ``KV · dh`` but not ``KV``, the column
+    split lands inside a head: the blocks are gathered whole
+    (``TensorParallel.enter_cols``)."""
+    b, s, width = y.shape
+    tp = spmd.active_tp()
+    if tp is not None and width < cfg.n_kv_heads * cfg.head_dim and \
+            cfg.n_kv_heads % tp.size:
+        y = tp.enter_cols(y)
+    return y.reshape(b, s, -1, cfg.head_dim)
+
+
 def _qkv(p, x, angles, cfg: ModelConfig, sp):
+    """q ``[B, S, H', dh]`` (H' = H, or this rank's block of heads) and the
+    K/V heads (``_kv_heads``), rotated."""
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear_apply(p["wq"], x, sp).reshape(b, s, h, dh)
-    k = linear_apply(p["wk"], x, sp).reshape(b, s, kv, dh)
-    v = linear_apply(p["wv"], x, sp).reshape(b, s, kv, dh)
+    q = linear_apply(p["wq"], x, sp).reshape(b, s, -1, cfg.head_dim)
+    k = _kv_heads(linear_apply(p["wk"], x, sp), cfg)
+    v = _kv_heads(linear_apply(p["wv"], x, sp), cfg)
     if angles is not None:
         q, k = apply_rotary(q, angles), apply_rotary(k, angles)
     return q, k, v
+
+
+def _group_kv(q, k, v, cfg: ModelConfig):
+    """The K/V heads that ``q``'s heads read: all of them, or under tensor
+    parallelism, where K/V were gathered whole, the block of this rank's
+    query heads (GQA groups stay whole: ``TensorParallel.local_kv_heads``)."""
+    if q.shape[2] == cfg.n_heads or k.shape[2] != cfg.n_kv_heads:
+        return k, v
+    first, n = spmd.active_tp().local_kv_heads(cfg.n_heads, cfg.n_kv_heads)
+    return k[:, :, first:first + n], v[:, :, first:first + n]
 
 
 def attn_full(p, x, angles, cfg: ModelConfig, sp=None):
     """Training / prefill attention over the whole sequence."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, angles, cfg, sp)
-    scores = _gqa_scores(q, k)
+    ka, va = _group_kv(q, k, v, cfg)
+    scores = _gqa_scores(q, ka)
     scores = scores + causal_mask(s, cfg.swa_window, scores.dtype, x.device)
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-    out = _gqa_out(probs, v).reshape(b, s, -1)
+    out = _gqa_out(probs, va).reshape(b, s, -1)
     return linear_apply(p["wo"], out, sp), (k, v)
 
 
@@ -237,6 +278,7 @@ def attn_full_chunked(p, x, angles, cfg: ModelConfig, sp=None,
     qc = min(q_chunk, s)
     assert s % qc == 0, (s, qc)
     q, k, v = _qkv(p, x, angles, cfg, sp)
+    ka, va = _group_kv(q, k, v, cfg)
     j_abs = torch.arange(s, device=x.device)
     outs = []
     for c0 in range(0, s, qc):
@@ -244,10 +286,10 @@ def attn_full_chunked(p, x, angles, cfg: ModelConfig, sp=None,
         ok = j_abs[None, :] <= i_abs[:, None]
         if cfg.swa_window is not None:
             ok &= (i_abs[:, None] - j_abs[None, :]) < cfg.swa_window
-        scores = _gqa_scores(q[:, c0:c0 + qc], k)               # [B,KV,G,qc,S]
+        scores = _gqa_scores(q[:, c0:c0 + qc], ka)              # [B,KV,G,qc,S]
         scores = torch.where(ok, scores, float("-inf"))
         probs = torch.softmax(scores.float(), -1).to(x.dtype)
-        outs.append(_gqa_out(probs, v))                         # [B,qc,H,dh]
+        outs.append(_gqa_out(probs, va))                        # [B,qc,H,dh]
     out = torch.cat(outs, dim=1).reshape(b, s, -1)
     return linear_apply(p["wo"], out, sp), (k, v)
 
@@ -255,11 +297,12 @@ def attn_full_chunked(p, x, angles, cfg: ModelConfig, sp=None,
 def attn_full_flash(p, x, angles, cfg: ModelConfig, sp=None):
     """Training/prefill attention through the flash op
     (``kernels/flash_attn``): the CUDA kernel on the card, the plain
-    version on the CPU."""
+    version on the CPU; under tensor parallelism on this rank's heads."""
     from ..kernels.flash_attn.ops import flash_attention
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, angles, cfg, sp)
-    out = flash_attention(q, k, v, cfg.swa_window).reshape(b, s, -1)
+    ka, va = _group_kv(q, k, v, cfg)
+    out = flash_attention(q, ka, va, cfg.swa_window).reshape(b, s, -1)
     return linear_apply(p["wo"], out, sp), (k, v)
 
 
@@ -293,6 +336,81 @@ def attn_decode(p, x, angles, cache_k, cache_v, pos: int, cfg: ModelConfig,
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     out = _gqa_out(probs, cache_v).reshape(b, 1, -1)
     return linear_apply(p["wo"], out, sp), cache_k, cache_v
+
+
+def attn_decode_tp(p, x, angles, cache_k, cache_v, split: str, pos: int,
+                   cfg: ModelConfig, sp=None):
+    """``attn_decode`` under tensor parallelism: ``cache_k/v`` are this
+    rank's blocks of the layer's ``[B, C, KV, dh]`` caches, placed by
+    ``launch.sharding.cache_shardings``: ``split`` ``"slots"`` (C on the
+    model axis) or ``"dh"`` (the head dim). Every rank
+    writes the new token's K/V for all heads into its block (gathered over
+    the heads: ``2·B·KV·dh`` elements a layer), so each rank reads all the
+    query heads (gathered, ``B·H·dh``):
+
+    * ``"slots"``: flash-decoding: each rank's softmax over its own slots,
+      its row max, its sum of ``exp`` and its unnormalised output in f32,
+      merged exactly over the model axis (an ``all_reduce`` of the max,
+      then one of the rescaled sums and outputs, ``B·H·(dh + 1)`` f32);
+    * ``"dh"``: the scores' partial dot products summed (``B·H·C`` f32),
+      the output's head-dim blocks gathered;
+
+    then this rank's query heads go through its rows of ``wo``: the
+    caller sums the partial result over the model axis. Returns the
+    partial ``[B, 1, D]``."""
+    tp = spmd.active_tp()
+    b = x.shape[0]
+    hl, dh = cfg.n_heads // tp.size, cfg.head_dim
+    q, k, v = _qkv(p, x, angles, cfg, sp)
+    kw = k if k.shape[2] == cfg.n_kv_heads else tp.all_gather(k, 2)
+    vw = v if v.shape[2] == cfg.n_kv_heads else tp.all_gather(v, 2)
+    qa = tp.all_gather(q, 2)                          # [B, 1, H, dh]
+    if split == "slots":
+        cl = cache_k.shape[1]
+        c, r0 = cl * tp.size, tp.rank * cl
+        slot = pos % c
+        if r0 <= slot < r0 + cl:
+            cache_k[:, slot - r0], cache_v[:, slot - r0] = kw[:, 0], vw[:, 0]
+        ids = r0 + torch.arange(cl, device=x.device)
+        scores = _gqa_scores(qa.float(), cache_k.float())  # [B,KV,G,1,Cl]
+        scores = torch.where(_slot_valid(ids, slot, c, pos, cfg), scores,
+                             float("-inf"))
+        m = scores.amax(-1)                                 # [B,KV,G,1]
+        top = tp.all_reduce(m, "max")
+        e = torch.exp(scores - top[..., None])
+        part = torch.cat([e.sum(-1, keepdim=True),
+                          torch.einsum("bkgst,btkd->bkgsd", e,
+                                       cache_v.float())], dim=-1)
+        tot = tp.all_reduce(part)                           # [B,KV,G,1,1+dh]
+        out = (tot[..., 1:] / tot[..., :1]).to(x.dtype)     # [B,KV,G,1,dh]
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, -1, dh)
+    else:                                                   # "dh"
+        c, dl = cache_k.shape[1], cache_k.shape[-1]
+        d0 = tp.rank * dl
+        slot = pos % c
+        cache_k[:, slot] = kw[:, 0, :, d0:d0 + dl]
+        cache_v[:, slot] = vw[:, 0, :, d0:d0 + dl]
+        kvh = cache_k.shape[2]
+        qg = qa[..., d0:d0 + dl].float().reshape(b, 1, kvh, -1, dl)
+        scores = tp.all_reduce(torch.einsum("bskgd,btkd->bkgst", qg,
+                                            cache_k.float())) / (dh ** 0.5)
+        valid = _slot_valid(torch.arange(c, device=x.device), slot, c, pos,
+                            cfg)
+        probs = torch.softmax(torch.where(valid, scores, float("-inf")),
+                              dim=-1).to(x.dtype)
+        out = tp.all_gather(_gqa_out(probs, cache_v), 3)    # [B,1,H,dh]
+    out = out[:, :, tp.rank * hl:(tp.rank + 1) * hl].reshape(b, 1, -1)
+    return linear_apply(p["wo"], out, sp)
+
+
+def _slot_valid(slot_ids, slot: int, c: int, pos: int, cfg: ModelConfig):
+    """Which ring slots hold a position the token at ``pos`` may read."""
+    abs_pos = torch.where(slot_ids <= slot, pos - slot + slot_ids,
+                          pos - slot + slot_ids - c)
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if cfg.swa_window is not None:
+        valid &= (pos - abs_pos) < cfg.swa_window
+    return valid
 
 
 # ---------------------------------------------------------------------------

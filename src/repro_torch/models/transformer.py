@@ -51,6 +51,7 @@ counterpart in eager torch).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, Tuple
 
@@ -204,7 +205,20 @@ def _ffn(lp, h, cfg: ModelConfig):
     hn = L.rmsnorm(lp["norm2"], h, cfg.norm_eps)
     if cfg.family == "moe":
         return MOE.moe_apply(lp["moe"], hn, cfg)
-    return L.mlp_apply(lp["mlp"], hn, cfg, cfg.sparsity), None
+    return _leave(L.mlp_apply(lp["mlp"], _enter(hn), cfg, cfg.sparsity)), None
+
+
+def _enter(x):
+    """The stream into column-parallel products (``launch.spmd``'s
+    ``TensorParallel.enter``; the identity with no tensor parallelism)."""
+    tp = spmd.active_tp()
+    return x if tp is None else tp.enter(x)
+
+
+def _leave(y):
+    """A row-parallel product's partial sum back into the stream."""
+    tp = spmd.active_tp()
+    return y if tp is None else tp.leave(y)
 
 
 def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
@@ -218,9 +232,9 @@ def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
             return h, None, None
         h, kv = _shared_apply(shared, h, angles, cfg, attn_fn)
         return h, kv, None
-    a, kv = attn_fn(lp["attn"], L.rmsnorm(lp["norm1"], h, cfg.norm_eps),
+    a, kv = attn_fn(lp["attn"], _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps)),
                     angles, cfg, cfg.sparsity)
-    h = h + a
+    h = h + _leave(a)
     f, aux = _ffn(lp, h, cfg)
     return h + f, kv, aux
 
@@ -250,7 +264,91 @@ def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
 
 def _head(params, cfg: ModelConfig, h):
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return h @ _head_matrix(params, cfg)
+    return _logits(params, cfg, h)
+
+
+def _logits(params, cfg: ModelConfig, h):
+    """``h @ head``; under tensor parallelism (``h`` the replicated stream
+    or its sequence block) this rank's vocab columns, as a ``DTensor``
+    sharded on the vocab dim (vocab-parallel: never gathered)."""
+    tp = spmd.active_tp()
+    if tp is None:
+        return h @ _head_matrix(params, cfg)
+    from torch.distributed.tensor import Shard
+    return tp.wrap(_enter(h) @ params["lm_head"], Shard(h.dim() - 1))
+
+
+def _embed(params, cfg: ModelConfig, tokens=None, embeds=None):
+    """``layers.embed_apply``; under tensor parallelism from this rank's
+    ``d_model`` columns of the table (or of ``frontend_proj``), gathered:
+    the replicated stream."""
+    tp = spmd.active_tp()
+    p = params["embed"]
+    if tp is None:
+        return L.embed_apply(p, tokens, embeds)
+    h = embeds @ p["frontend_proj"] if embeds is not None \
+        else p["tok"][tokens]
+    return tp.gather(h, -1)
+
+
+def _enter_tp(params, cfg: ModelConfig, seq_len: int):
+    """(the tensor-parallel state, the parameters as local blocks) for
+    ``DTensor`` parameters; (None, params) for plain ones. Under SP the
+    norms' gradients are summed over the model axis (each rank normed its
+    own block of the sequence)."""
+    tp = spmd.tensor_parallel(params, seq_len)
+    if tp is None:
+        return None, params
+    spmd.check_tp_family(cfg.family, tp.size)
+    if tp.size > 1:
+        _check_tp_split(params, cfg, tp)
+    local = spmd.local_tree(params)
+    return tp, (_grad_summed_norms(local, tp) if tp.seq else local)
+
+
+def _grad_summed_norms(tree, tp):
+    """The norms' weights with their gradients summed over the model axis."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _grad_summed_norms(v, tp)
+        elif k in ("norm1", "norm2", "final_norm"):
+            out[k] = [tp.grad_sum(x) for x in v] if isinstance(v, list) \
+                else tp.grad_sum(v)
+        else:
+            out[k] = v
+    return out
+
+
+_TP_SPLIT = {("embed", "tok"): 1, ("embed", "frontend_proj"): 1,
+             ("lm_head",): 1}
+_TP_SPLIT.update({("layers", *node, "w"): dim for node, dim in (
+    (("attn", "wq"), 2), (("attn", "wk"), 2), (("attn", "wv"), 2),
+    (("attn", "wo"), 1), (("mlp", "w1"), 2), (("mlp", "w2"), 1),
+    (("mlp", "w3"), 2))})
+
+
+def _check_tp_split(params, cfg: ModelConfig, tp) -> None:
+    """Tensor parallelism needs the query heads, the embedding's and the
+    head's columns and every projection split over the model axis as the
+    rules split them at sizes they divide (a demoted, replicated leaf
+    would take partial gradients)."""
+    if cfg.tie_embeddings:
+        raise NotImplementedError("tied embeddings under tensor parallelism")
+    if cfg.n_heads % tp.size:
+        raise ValueError(f"{cfg.n_heads} query heads do not split "
+                         f"{tp.size} ways")
+    for path, dim in _TP_SPLIT.items():
+        node = params
+        for k in path:
+            node = node.get(k) if isinstance(node, dict) else None
+        if isinstance(node, list):
+            node, dim = node[0], dim - 1
+        if node is not None and spmd.model_dim(node) != dim:
+            raise ValueError(f"{'/'.join(path)} is not split on dim {dim} "
+                             f"over the model axis of {tp.size} (the rules "
+                             "demoted it): place the parameters on a mesh "
+                             "whose model axis divides it")
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +377,16 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
     and hybrid, ``S`` must be a multiple of ``cfg.ssm_chunk`` (``ValueError``;
     the reference asserts it); ``prefill`` takes any ``S``."""
     _check_family(cfg)
-    h = L.embed_apply(params["embed"], tokens, embeds)
+    tp, params = _enter_tp(params, cfg, (tokens if tokens is not None
+                                         else embeds).shape[1])
+    with spmd.use_tp(tp):
+        return _forward(params, cfg, tokens, embeds, positions, attn,
+                        local_mode, want_hidden, tp)
+
+
+def _forward(params, cfg: ModelConfig, tokens, embeds, positions, attn,
+             local_mode: bool, want_hidden: bool, tp):
+    h = _embed(params, cfg, tokens, embeds)
     b, s, _ = h.shape
     angles = _angles_for(cfg, positions, b, s, h.device)
     attn_fn = _attn_fn(cfg, s, attn)
@@ -288,16 +395,20 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
     remat = cfg.remat and torch.is_grad_enabled()
     lloss = torch.zeros((), dtype=torch.float32, device=h.device)
     ia, pooled, moe_aux, moe_drop = [], [], [], []
+    if tp is not None and tp.seq:
+        h = tp.split(h, 1)      # the stream's sequence block (Megatron SP)
     for i in range(cfg.n_layers):
         h_in = h.detach() if local_mode else h
         head = layer_view(heads, i) if heads is not None else None
         sh = shared if _shared_slot(cfg, shared, i) is not None else None
         args = (layer_view(params["layers"], i), head, h_in, angles, cfg,
-                attn_fn, sh)
+                attn_fn, sh, tp)
         h, ll, maux = (checkpoint(_train_block, *args, use_reentrant=False)
                        if remat else _train_block(*args))
-        # sequence-parallel layer boundary (launch/spmd)
-        h = spmd.constrain_seq(h)
+        # sequence-parallel layer boundary (launch/spmd); under tensor
+        # parallelism the stream keeps its layout (tp.seq) throughout
+        if tp is None:
+            h = spmd.constrain_seq(h)
         if ll is not None:
             lloss = lloss + ll
         if maux is not None:
@@ -309,39 +420,103 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None, positions=None,
     if local_mode:
         h = h.detach()          # readout learns on frozen features (SL layer)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    ia, pooled = torch.stack(ia), torch.stack(pooled)
+    if tp is not None and tp.seq:       # the statistics of the whole sequence
+        both = tp.mean(torch.cat([ia, pooled.reshape(-1)]))
+        ia, pooled = both[:ia.numel()], both[ia.numel():].view_as(pooled)
     aux = {"local_loss": lloss,
            "moe_aux": torch.stack(moe_aux).mean() if moe_aux else zero,
            "moe_dropped": torch.stack(moe_drop).mean() if moe_drop else zero,
-           "ia": torch.stack(ia), "pooled": torch.stack(pooled)}
+           "ia": ia, "pooled": pooled}
     if want_hidden:
-        return h, aux
-    return h @ _head_matrix(params, cfg), aux
+        if tp is None:
+            return h, aux
+        return tp.wrap(tp.gather(h, 1) if tp.seq else h), aux
+    return _logits(params, cfg, h), aux
 
 
-def _train_block(lp, head, h, angles, cfg: ModelConfig, attn_fn, shared):
+def _train_block(lp, head, h, angles, cfg: ModelConfig, attn_fn, shared,
+                 tp=None):
     """One block (with the hybrid's shared block after it where ``shared``
     is given) and, given a local head, its OSSL loss: (h_out, loss or None,
-    moe aux or None)."""
-    h, _, maux = _block(lp, h, angles, cfg, attn_fn, shared)
+    moe aux or None). ``tp`` is passed in, not read from the thread: under
+    remat the backward recomputes the block, maybe on another thread."""
+    with spmd.use_tp(tp):
+        h, _, maux = _block(lp, h, angles, cfg, attn_fn, shared)
     if head is None:
         return h, None, maux
-    return h, ossl_lib.local_loss(h, head, ossl_lib.OSSLConfig()), maux
+    if tp is None:
+        return h, ossl_lib.local_loss(h, head, ossl_lib.OSSLConfig()), maux
+    # the whole sequence on every rank; the predictor's column block
+    # gathered (its gradient, partial a rank, summed)
+    p = head["p"]
+    proj = None if p.shape[-1] == cfg.d_model else \
+        (lambda x: tp.gather(tp.grad_sum(x) @ p, -1))
+    return h, ossl_lib.local_loss(tp.gather(h, 1) if tp.seq else h, head,
+                                  ossl_lib.OSSLConfig(), proj=proj), maux
 
 
 def _token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-token cross entropy in f32: ``logsumexp(logits) - logits[target]``."""
+    """Per-token cross entropy in f32: ``logsumexp(logits) - logits[target]``.
+    Logits placed as a ``DTensor`` whose vocab dim is split over the model
+    axis take the vocab-parallel form (:class:`_VocabParallelCE`)."""
+    tp = spmd.tensor_parallel(logits)
+    if tp is not None:
+        local = logits.to_local()
+        if local.shape[-1] != logits.shape[-1]:
+            return _VocabParallelCE.apply(local, targets, tp)
+        logits = local
     logits32 = logits.float()
     gold = torch.gather(logits32, -1, targets[..., None].long())[..., 0]
     return torch.logsumexp(logits32, dim=-1) - gold
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Cross entropy of vocab-sharded logits (Megatron's pattern, f32): the
+    row max and the sum of ``exp`` all-reduced over the model axis, the
+    gold logit taken on the rank that holds the target and all-reduced;
+    the backward is this rank's ``softmax - onehot``, with no collective.
+    The ``[.., V]`` logits are never gathered."""
+
+    @staticmethod
+    def forward(ctx, local, targets, tp):
+        x = local.float()
+        v = x.shape[-1]
+        m = tp.all_reduce(x.max(-1).values, "max")
+        e = torch.exp(x - m[..., None])
+        se = tp.all_reduce(e.sum(-1))
+        t = targets.long() - tp.rank * v
+        own = (t >= 0) & (t < v)
+        tc = t.clamp(0, v - 1)
+        gold = tp.all_reduce(torch.gather(x, -1, tc[..., None])[..., 0]
+                             * own)
+        ctx.save_for_backward(e, se, tc, own)
+        ctx.dtype = local.dtype
+        return torch.log(se) + m - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, tc, own = ctx.saved_tensors
+        grad = e / se[..., None]
+        grad.scatter_add_(-1, tc[..., None], -own[..., None].float())
+        return (grad * g[..., None]).to(ctx.dtype), None, None
+
+
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy, in f32."""
+    """Mean next-token cross entropy, in f32 (vocab-parallel for logits
+    placed on the model axis, as the reference's "vocab dim may be
+    model-sharded")."""
     return _token_ce(logits, targets).mean()
 
 
 def _chunk_ce(h, head, t):
     return _token_ce(h @ head, t).sum()
+
+
+def _chunk_ce_tp(h, head, t, tp):
+    """A chunk's vocab-parallel CE from the replicated stream and this
+    rank's head columns (``h``'s gradient, partial a rank, summed)."""
+    return _VocabParallelCE.apply(tp.grad_sum(h) @ head, t, tp).sum()
 
 
 def lm_loss_chunked(h: torch.Tensor, head: torch.Tensor,
@@ -354,11 +529,18 @@ def lm_loss_chunked(h: torch.Tensor, head: torch.Tensor,
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    fn, extra = _chunk_ce, ()
+    tp = spmd.tensor_parallel(head)
+    if tp is not None:          # the replicated stream, this rank's columns
+        vocab = head.shape[-1]
+        h, head = h.to_local(), head.to_local()
+        if head.shape[-1] != vocab:
+            fn, extra = _chunk_ce_tp, (tp,)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
-        args = (h[:, c0:c0 + chunk], head, targets[:, c0:c0 + chunk])
-        total = total + (checkpoint(_chunk_ce, *args, use_reentrant=False)
-                         if torch.is_grad_enabled() else _chunk_ce(*args))
+        args = (h[:, c0:c0 + chunk], head, targets[:, c0:c0 + chunk], *extra)
+        total = total + (checkpoint(fn, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else fn(*args))
     return total / (b * s)
 
 
@@ -371,14 +553,22 @@ def cache_len(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device="cuda") -> Dict[str, Any]:
+               device="cuda", mesh=None) -> Dict[str, Any]:
     """The decode cache, ``pos`` a host int. Attention families:
     ``{"pos": 0, "k", "v": [L, B, C, KV, dh]}``. ssm and hybrid: ``conv [L,
     B, W-1, C]`` in the config's dtype and ``ssm [L, B, H, P, N]`` in f32;
     the hybrid adds ``shared_k``/``shared_v [L // every, B, C, KV, dh]``,
-    one ring per shared-block call. ``C = cache_len(cfg, max_seq)``."""
+    one ring per shared-block call. ``C = cache_len(cfg, max_seq)``.
+
+    ``mesh`` (a ``DeviceMesh``; tensor parallelism, the attention
+    families): ``k`` and ``v`` are ``DTensor`` s placed by
+    ``launch.sharding.cache_shardings``, each rank holding its zeroed
+    block; ``batch`` is this rank's rows, its block of the global batch
+    over the DP axes."""
     _check_family(cfg)
     c, dtype = cache_len(cfg, max_seq), _dtype(cfg)
+    if mesh is not None and hasattr(mesh, "get_group"):
+        return _placed_cache(cfg, batch, c, dtype, device, mesh)
 
     def kv(n):
         return torch.zeros((n, batch, c, cfg.n_kv_heads, cfg.head_dim),
@@ -391,6 +581,56 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         slots = cfg.n_layers // cfg.hybrid_attn_every
         cache["shared_k"], cache["shared_v"] = kv(slots), kv(slots)
     return cache
+
+
+def _placed_cache(cfg: ModelConfig, batch: int, c: int, dtype, device, mesh):
+    from torch.distributed.tensor import DTensor
+    from ..launch import sharding as SH
+    from ..launch.mesh import axis_sizes, dp_size
+    spmd.check_tp_family(cfg.family, axis_sizes(mesh).get("model", 1))
+    shape = (cfg.n_layers, batch * dp_size(mesh), c, cfg.n_kv_heads,
+             cfg.head_dim)
+    meta = {"k": torch.empty(shape, device="meta"),
+            "v": torch.empty(shape, device="meta")}
+    out = {"pos": 0}
+    for name, sh in SH.cache_shardings(meta, cfg, mesh).items():
+        if axis_sizes(mesh)["model"] > 1 and "model" not in sh.spec:
+            raise ValueError(f"the rules leave the {name} cache {shape} "
+                             "replicated over the model axis: neither its "
+                             "slots nor its head dim split")
+        local = torch.zeros(SH.shard_shape(sh.spec, shape, mesh),
+                            dtype=dtype, device=device)
+        out[name] = DTensor.from_local(local, mesh, SH.placements(sh.spec,
+                                                                  mesh),
+                                       run_check=False)
+    return out
+
+
+_CACHE_SPLIT = {2: "slots", 4: "dh"}      # a placed [L, B, C, KV, dh] cache
+
+
+def _tp_write(cache, i: int, k, v, slots, cfg: ModelConfig, tp) -> None:
+    """Prompt K/V ``[B, n, KV', dh]`` (this rank's heads, or all of them)
+    written at ring ``slots`` (host ints) into this rank's blocks of layer
+    ``i``'s placed caches: the heads gathered whole, each rank keeping its
+    own slots or head-dim block."""
+    for name, x in (("k", k), ("v", v)):
+        if x.shape[2] != cfg.n_kv_heads:
+            x = tp.all_gather(x, 2)
+        split = _CACHE_SPLIT.get(spmd.model_dim(cache[name]))
+        local = cache[name].to_local()[i]                  # [B, C', KV, dh']
+        if split == "slots":
+            cl = local.shape[1]
+            r0 = tp.rank * cl
+            mine = [j for j, sl in enumerate(slots) if r0 <= sl < r0 + cl]
+            if mine:
+                dst = torch.tensor([slots[j] - r0 for j in mine],
+                                   device=x.device)
+                local[:, dst] = x[:, torch.tensor(mine, device=x.device)]
+            continue
+        dl = local.shape[-1]                               # split "dh"
+        local[:, torch.tensor(slots, device=x.device)] = \
+            x[..., tp.rank * dl:(tp.rank + 1) * dl]
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
@@ -413,10 +653,25 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
     ``S``; ``mamba2.mamba2_prefill``) and keeps its final state and conv
     window, where the reference replays the prompt token by token through
     ``decode_step``; the two compute the same cache.
+
+    ``DTensor`` parameters (tensor parallelism, the attention families):
+    the caches are placed (``init_cache(mesh=)``), ``tokens`` are this
+    rank's rows, and the logits come back vocab-parallel.
     """
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_seq, tokens.device)
-    h = L.embed_apply(params["embed"], tokens)
+    _check_family(cfg)
+    tp, params = _enter_tp(params, cfg, s)
+    with spmd.use_tp(tp):
+        return _prefill(params, cfg, tokens, max_seq, attn, tp)
+
+
+def _prefill(params, cfg: ModelConfig, tokens, max_seq: int, attn, tp):
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_seq, tokens.device,
+                       mesh=None if tp is None else tp.mesh)
+    h = _embed(params, cfg, tokens)
+    if tp is not None and tp.seq:
+        h = tp.split(h, 1)
     angles = _angles_for(cfg, None, b, s, h.device)
     attn_fn = _attn_fn(cfg, s, attn)
     c = cache_len(cfg, max_seq)
@@ -428,7 +683,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
         lp = layer_view(params["layers"], i)
         if cfg.family in ATTN_FAMILIES:
             h, (k, v), _ = _block(lp, h, angles, cfg, attn_fn)
-            ck, cv = cache["k"][i], cache["v"][i]
+            ck, cv = (cache["k"][i], cache["v"][i]) if tp is None \
+                else (None, None)
         else:
             o, cache["ssm"][i], cache["conv"][i] = M.mamba2_prefill(
                 lp["mixer"], L.rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg)
@@ -438,10 +694,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
                 continue
             h, (k, v) = _shared_apply(shared, h, angles, cfg, attn_fn)
             ck, cv = cache["shared_k"][slot], cache["shared_v"][slot]
+        if tp is not None:
+            _tp_write(cache, i, k[:, s - take:], v[:, s - take:],
+                      ring.tolist(), cfg, tp)
+            continue
         ck[:, ring] = k[:, s - take:]
         cv[:, ring] = v[:, s - take:]
     cache["pos"] = s
-    return _head(params, cfg, h[:, -1]), cache
+    if tp is not None and tp.seq:       # the last position, whole
+        h = tp.gather(h, 1)
+        tp = dataclasses.replace(tp, seq=False)
+    with spmd.use_tp(tp):
+        return _head(params, cfg, h[:, -1]), cache
 
 
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
@@ -450,9 +714,17 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
     tensors are written in place (the returned dict holds the same tensors,
     with ``pos`` advanced); nothing is read back from the device. The
     hybrid's shared block after layer ``i`` attends through ring
-    ``(i + 1) // every - 1``."""
+    ``(i + 1) // every - 1``. ``DTensor`` parameters and placed caches:
+    ``layers.attn_decode_tp`` on this rank's blocks, the logits
+    vocab-parallel."""
     _check_family(cfg)
-    h = L.embed_apply(params["embed"], tokens[:, None])          # [B,1,D]
+    tp, params = _enter_tp(params, cfg, 1)
+    with spmd.use_tp(tp):
+        return _decode_step(params, cache, tokens, cfg, tp)
+
+
+def _decode_step(params, cache, tokens, cfg: ModelConfig, tp):
+    h = _embed(params, cfg, tokens[:, None])                     # [B,1,D]
     b = h.shape[0]
     pos = cache["pos"]
     p1 = torch.full((b, 1), pos, device=h.device)
@@ -470,9 +742,17 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
                 h = _shared_decode(shared, h, angles, cache["shared_k"][slot],
                                    cache["shared_v"][slot], pos, cfg)
             continue
-        a, _, _ = L.attn_decode(lp["attn"], hn, angles, cache["k"][i],
-                                cache["v"][i], pos, cfg, cfg.sparsity)
-        h = h + a
+        if tp is not None:
+            a = L.attn_decode_tp(
+                lp["attn"], _enter(hn), angles, cache["k"].to_local()[i],
+                cache["v"].to_local()[i],
+                _CACHE_SPLIT.get(spmd.model_dim(cache["k"])), pos, cfg,
+                cfg.sparsity)
+            h = h + _leave(a)
+        else:
+            a, _, _ = L.attn_decode(lp["attn"], hn, angles, cache["k"][i],
+                                    cache["v"][i], pos, cfg, cfg.sparsity)
+            h = h + a
         h = h + _ffn(lp, h, cfg)[0]
     new_cache = dict(cache, pos=pos + 1)
     return _head(params, cfg, h)[:, 0, :], new_cache

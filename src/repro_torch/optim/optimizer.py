@@ -11,6 +11,11 @@ on the host (in float32, as the reference computes it on the device) and
 nothing is read back from the card. The reference returns new params and
 moments; ``adamw_update`` writes params, ``m`` and ``v`` in place (it saves
 a second copy of the f32 moments, 14 GB at Qwen2-VL-2B) and returns them.
+
+Parameters placed as ``DTensor`` s (tensor parallelism, ``launch/spmd``):
+each moment is a ``DTensor`` in its parameter's placements (ZeRO-1's block
+also split over the DP axes), the update runs on the local blocks in
+place, and ``global_norm`` sums every block's squares once.
 """
 from __future__ import annotations
 
@@ -64,20 +69,36 @@ def tree_leaves(tree):
     return [tree]
 
 
+def _local(x):
+    """A ``DTensor``'s local block (the tensor itself otherwise)."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
 def adamw_init(params, zero1=None) -> AdamWState:
     """Zero moments; with ``zero1`` (``adamw_update``'s tree) a split
-    leaf's moments are its block only."""
+    leaf's moments are its block only. A ``DTensor`` parameter's moments
+    are ``DTensor`` s of its placements and local shape (ZeRO-1: the block
+    along ``zero1``'s dim also split over the mesh's DP axes)."""
     def zeros(p, z=None):
         if trainable(p):
-            shape = list(p.shape)
+            shape = list(_local(p).shape)
             if z is not None:
                 shape[z[0]] //= z[2]
-            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+            m = torch.zeros(shape, dtype=torch.float32, device=p.device)
+            return _placed_moment(m, p, z) if hasattr(p, "to_local") else m
         return torch.zeros((), dtype=torch.int8, device=p.device)
     if zero1 is None:
         zero1 = tree_map(lambda _: None, params)
     return AdamWState(step=0, m=tree_map(zeros, params, zero1),
                       v=tree_map(zeros, params, zero1))
+
+
+def _placed_moment(m, p, z):
+    from torch.distributed.tensor import DTensor, Shard
+    names = p.device_mesh.mesh_dim_names
+    pls = [Shard(z[0]) if z is not None and n in ("pod", "data") else pl
+           for n, pl in zip(names, p.placements)]
+    return DTensor.from_local(m, p.device_mesh, pls, run_check=False)
 
 
 def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
@@ -93,10 +114,28 @@ def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the summed squares of every float leaf (``None`` skipped)."""
-    sq = [l.float().square().sum() for l in tree_leaves(tree)
-          if l is not None and trainable(l)]
-    return torch.sqrt(torch.stack(sq).sum())
+    """sqrt of the summed squares of every float leaf (``None`` skipped).
+    A ``DTensor`` leaf split over the model axis adds its local block's
+    squares, all-reduced over that axis once; a replicated one counts
+    once, as a plain leaf."""
+    import torch.distributed as dist
+    from ..launch.spmd import model_dim
+    sq, split, group = [], [], None
+    for l in tree_leaves(tree):
+        if l is None or not trainable(l):
+            continue
+        s = _local(l).float().square().sum()
+        if model_dim(l) is not None:
+            split.append(s)
+            group = l.device_mesh.get_group("model")
+        else:
+            sq.append(s)
+    total = torch.stack(sq).sum() if sq else None
+    if split:
+        part = torch.stack(split).sum()
+        dist.all_reduce(part, group=group)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
@@ -123,6 +162,10 @@ def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
     def upd(g, p, m, v, s, z=None):
         if not trainable(p):
             return
+        if hasattr(p, "to_local"):          # a DTensor: its local block
+            from ..launch.spmd import local_block
+            s = None if s is None else local_block(s, p)
+            g, p, m, v = _local(g), _local(p), _local(m), _local(v)
         if z is not None:
             d, i, n = z
             w = p.shape[d] // n

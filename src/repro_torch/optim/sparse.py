@@ -19,6 +19,12 @@ experts too. The reference broadcasts the ``[L, K, 1]`` mask against
 stacked leaves are the port's.
 
 Everything stays on the device: no value is read back to decide anything.
+
+Under tensor parallelism (``DTensor`` leaves placed by the LM rules) the
+scales are built whole and ``adamw_update`` takes each leaf's block; the
+DSST event scores a column-split matrix from its local block summed over
+the model axis, a row-split one from the blocks gathered, so every rank
+takes the same event and keeps its own block of the surviving weights.
 """
 from __future__ import annotations
 
@@ -71,8 +77,13 @@ def _lift(m: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return m.reshape(*m.shape[:-2], *(1,) * extra, *m.shape[-2:])
 
 
+def _whole(x):
+    """A replicated ``DTensor`` (a mask) as its local, whole tensor."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
 def _expand_mask(node) -> torch.Tensor:
-    m = node["umask"]                                            # [..., KB, 1]
+    m = _whole(node["umask"])                                    # [..., KB, 1]
     block = node["w"].shape[-2] // m.shape[-2]
     return _lift(m.repeat_interleave(block, dim=-2).float(),
                  node["w"])                                      # [..., K, 1]
@@ -136,23 +147,25 @@ def lm_dsst_event(params, grads, sp: SparsityConfig
     k_re = max(0, min(sp.n - 1, int(round(sp.n * 0.3))))
     flips = []
 
-    def one(w, umask, gw):
-        kb, experts = umask.shape[-2], w.dim() - umask.dim()
-        wsc = _unit_score_shared(w, kb, experts)
-        gsc = _unit_score_shared(gw, kb, experts)
+    def event(umask, wsc, gsc):
         if umask.dim() > 2:   # stacked [L, ...]: one topology-stacked event
             shape = (-1,) + tuple(umask.shape[-2:])
             nm2, st = prune_regrow_stacked(umask.reshape(shape),
                                            wsc.reshape(shape),
                                            gsc.reshape(shape), spec1, k_re)
-            new_umask = nm2.reshape(umask.shape)
             flips.append(st.mask_change.float().mean())
-        else:
-            new_umask, st = prune_regrow(umask, wsc, gsc, spec1, k_re)
-            flips.append(st.mask_change.float())
-        surv = _lift(umask & new_umask, w)
-        block = w.shape[-2] // kb
-        return w * surv.repeat_interleave(block, dim=-2).to(w.dtype), new_umask
+            return nm2.reshape(umask.shape)
+        new_umask, st = prune_regrow(umask, wsc, gsc, spec1, k_re)
+        flips.append(st.mask_change.float())
+        return new_umask
+
+    def one(w, umask, gw):
+        if hasattr(w, "to_local"):
+            return _one_placed(w, umask, gw, event)
+        kb, experts = umask.shape[-2], w.dim() - umask.dim()
+        new_umask = event(umask, _unit_score_shared(w, kb, experts),
+                          _unit_score_shared(gw, kb, experts))
+        return _survivors(w, umask, new_umask, kb), new_umask
 
     def rec(node, gnode):
         if isinstance(node, dict):
@@ -166,3 +179,54 @@ def lm_dsst_event(params, grads, sp: SparsityConfig
     dev = tree_leaves(params)[0].device
     total = torch.stack(flips).sum() if flips else torch.zeros((), device=dev)
     return new_params, {"dsst_mask_change": total}
+
+
+def _survivors(w, umask, new_umask, kb: int):
+    """``w`` with the units that the event pruned zeroed (``w`` a whole
+    matrix, or the local rows of one: ``umask`` then expanded to them)."""
+    surv = _lift(umask & new_umask, w)
+    return w * surv.repeat_interleave(w.shape[-2] // kb, dim=-2).to(w.dtype)
+
+
+def _one_placed(w, umask, gw, event):
+    """``lm_dsst_event``'s per-matrix event on ``DTensor`` leaves: the unit
+    scores of the whole matrix from this rank's block (summed over the
+    model axis for a column split, gathered for a row split), the event
+    taken on them (the same on every rank), this rank's block of the
+    surviving weights kept."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from ..launch.spmd import model_dim
+    mesh = w.device_mesh
+    d = model_dim(w)
+    wl, gl, um = w.to_local(), gw.to_local(), _whole(umask)
+    kb, experts = um.shape[-2], w.dim() - um.dim()
+    if d is None or d == w.dim() - 1:
+        wsc = _unit_score_shared(wl, kb, experts)
+        gsc = _unit_score_shared(gl, kb, experts)
+        if d is not None:
+            group = mesh.get_group("model")
+            for t in (wsc, gsc):
+                dist.all_reduce(t, group=group)
+        new_um = event(um, wsc, gsc)
+        new_w = _survivors(wl, um, new_um, kb)
+    elif d == w.dim() - 2 and kb % mesh.size(
+            mesh.mesh_dim_names.index("model")) == 0:
+        group = mesh.get_group("model")
+        n, r = dist.get_world_size(group), mesh.get_local_rank("model")
+
+        def gathered(x):
+            part = _unit_score_shared(x, kb // n, experts).contiguous()
+            parts = [torch.empty_like(part) for _ in range(n)]
+            dist.all_gather(parts, part, group=group)
+            return torch.cat(parts, dim=-2)
+        new_um = event(um, gathered(wl), gathered(gl))
+        rows = kb // n                       # this rank's units of the mask
+        new_w = _survivors(wl, um.narrow(-2, r * rows, rows),
+                           new_um.narrow(-2, r * rows, rows), rows)
+    else:
+        raise ValueError(f"a mask of {kb} units does not split with the "
+                         f"weight's dim {d} over the model axis")
+    return (DTensor.from_local(new_w, mesh, w.placements, run_check=False),
+            DTensor.from_local(new_um, mesh, umask.placements,
+                               run_check=False))

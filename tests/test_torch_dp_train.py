@@ -17,7 +17,7 @@ reduced StableLM-12B in f32, each on its half of the global batch
   cpu``: only rank 0 prints, and it prints its loss.
 
 Each spawned process runs under its own timeout. The MoE family under a
-DP size above 1 without ``shardmap_moe`` is refused (item 10d) in
+DP size above 1 without ``shardmap_moe`` is refused (item 10e) in
 process; with it, ``tests/test_torch_dp_moe.py`` holds the step.
 """
 import os
@@ -238,20 +238,24 @@ def test_launch_moe_with_two_processes():
 def test_moe_under_data_parallelism_is_refused():
     """Without ``shardmap_moe`` the reference dispatches the global batch
     at once, a redistribution of the tokens across ranks: ROADMAP.md Queue
-    1 item 10d, refused when the step is built and when it is called. With
-    it the step builds. A model axis above 1 is item 10d too."""
+    1 item 10e, refused when the step is built and when it is called. With
+    it the step builds. A model axis above 1 builds the attention
+    families' tensor-parallel step (tests/test_torch_tp.py) and refuses
+    the moe family (item 10e too)."""
     mesh = AbstractMesh((2, 1), ("data", "model"))
     for arch in ("mixtral_8x7b", "moonshot_v1_16b_a3b"):
-        with pytest.raises(NotImplementedError, match="item 10d"):
+        with pytest.raises(NotImplementedError, match="item 10e"):
             make_train_step(C.get_reduced(arch), TrainHParams(), mesh=mesh)
         with spmd.activate(mesh, shardmap_moe=True):
             step = make_train_step(C.get_reduced(arch), TrainHParams(),
                                    mesh=mesh)
-        with pytest.raises(NotImplementedError, match="item 10d"):
+        with pytest.raises(NotImplementedError, match="item 10e"):
             step(None, None, None, {})
     make_train_step(C.get_reduced("mixtral_8x7b"), TrainHParams(),
                     mesh=AbstractMesh((1, 1), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        make_train_step(C.get_reduced(ARCH), TrainHParams(),
+    make_train_step(C.get_reduced(ARCH), TrainHParams(),
+                    mesh=AbstractMesh((16, 16), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="item 10e"):
+        make_train_step(C.get_reduced("mixtral_8x7b"), TrainHParams(),
                         mesh=AbstractMesh((16, 16), ("data", "model")))
     assert np.isfinite(GLOBAL_BATCH)

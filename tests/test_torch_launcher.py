@@ -100,14 +100,14 @@ def test_more_than_one_process_is_refused(monkeypatch):
     """More than one process now trains data-parallel
     (tests/test_torch_dp_train.py), the MoE family too under ``--opt moe``
     (the shard-mapped dispatch); without it the MoE family is refused: one
-    dispatch over the global batch is ROADMAP.md Queue 1 item 10d."""
+    dispatch over the global batch is ROADMAP.md Queue 1 item 10e."""
     from repro_torch.launch import mesh
     monkeypatch.setattr(launcher, "fleet_init",
                         lambda device, backend=None: (0, 2))
     monkeypatch.setattr(mesh, "make_host_mesh",
                         lambda model=1, device=None: mesh.AbstractMesh(
                             (2, model), ("data", "model"), device))
-    with pytest.raises(NotImplementedError, match="item 10d"):
+    with pytest.raises(NotImplementedError, match="item 10e"):
         launcher.launch_train("moonshot_v1_16b_a3b", multi_pod=False,
                               opt="zero1", steps=1, seq_len=8,
                               global_batch=2, ckpt_dir=None,

@@ -125,8 +125,9 @@ def test_constrain_seq_places_a_dtensor_as_the_reference(fake_group,
                                                          multi_pod, b):
     """A replicated DTensor ``[b, 64, 8]`` comes out placed as the
     reference's spec says (DP on B only where it divides); a plain tensor on
-    a model axis of 16 is refused (tensor parallelism, item 10d); a
-    sequence the model axis does not divide passes through."""
+    a model axis of 16 is refused (the caller placed nothing: the
+    parameters are placed by tree_shardings); a sequence the model axis
+    does not divide passes through."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
     shape, names = tuple(mesh.shape), mesh.mesh_dim_names
@@ -137,7 +138,7 @@ def test_constrain_seq_places_a_dtensor_as_the_reference(fake_group,
         want = SH.P(*_ref_spec(shape, names, b))
         assert tuple(spmd.seq_spec(ctx, b)) == tuple(want)
         assert tuple(out.placements) == SH.placements(want, mesh)
-        with pytest.raises(NotImplementedError, match="item 10d"):
+        with pytest.raises(NotImplementedError, match="tree_shardings"):
             spmd.constrain_seq(torch.zeros((b, 64, 8)))
         odd = torch.zeros((b, 60, 8))
         assert spmd.constrain_seq(odd) is odd
