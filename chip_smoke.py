@@ -49,7 +49,10 @@ Phases, each raising on failure:
    ``ref.bf16_out_tolerance``) and, as the library yardstick,
    ``scaled_dot_product_attention``.
    Then ``python -m pytest --noconftest -q tests/test_torch_cuda.py``, the
-   card-side tests (jax-free), in a process of its own; it must pass.
+   card-side tests (jax-free), in a process of its own; it must pass. It
+   starts once phase 19 is done and runs beside phases 20, 24a, 24d and
+   5-7 (whose times, none of them gated, then share the card and the
+   host with it), and is read before phase 8.
 4. serving at full width: the paper network (512-512-512-16, T=50, 80 %
    N:M sparsity, gating on, backend "kernels") serves 1024 gesture streams
    of 4 windows each through ``StreamScheduler`` (1024 slots, chunk 8,
@@ -286,8 +289,9 @@ Phases, each raising on failure:
    launches exact.
 23. the runtime and the launcher, once phase 22 has freed its models. The
    dry-run CLI (``python -m repro_torch.launch.dryrun --arch all --shape
-   all``) and ``launcher --arch qwen2_vl_2b --validate`` start first, in
-   processes of their own (they compute on ``meta``, on the CPU). (a)
+   all``) and ``launcher --arch qwen2_vl_2b --validate`` start before phase
+   2, in processes of their own (they compute on ``meta``, on the CPU, while
+   the phases before 23 use the card), and are read here. (a)
    recovery: Qwen2-VL-2B at full width cut to RECOVERY_LAYERS of its 28
    layers, phase 10's traffic (B 2 x S 4096, flash route, batches from
    ``synthetic_lm_batch`` by step), deterministic algorithms on:
@@ -308,8 +312,9 @@ Phases, each raising on failure:
    allocator, exactly, and what it allocated within the allocator's
    rounding (``allocation_growth``); its peak estimate at phase 10's cell
    beside the peak measured there (not gated). (d) the launcher's CLI on the
-   card: ``--arch stablelm_12b --steps 4 --seq-len 32 --global-batch 4
-   --opt zero1`` prints a loss, ``--validate`` prints ``validate OK``.
+   card, started with phase 23 and run while (a) and (b) use the card:
+   ``--arch stablelm_12b --steps 4 --seq-len 32 --global-batch 4 --opt
+   zero1`` prints a loss, ``--validate`` prints ``validate OK``.
 24. the slot-sharded serving fleet on a ``("slots",)`` mesh of four
    entries of the one card (``make_serving_mesh(devices=[cuda:0] * 4)``:
    the shards run one after another on the card's stream, through the code
@@ -393,7 +398,13 @@ Phases, each raising on failure:
    against f32. (d) (a)'s ZeRO-1 moments placed on the mesh as
    ``DTensor`` s (``DataParallel.placed_opt_state``) and remeshed by
    ``elastic_remesh`` onto one device, a leaf at a time: bit for bit the
-   replicated run's moments.
+   replicated run's moments. (e) the global-batch dispatch: (a)'s step
+   under ``spmd.activate(mesh, flash_attn=True)`` (no ``shardmap_moe``: one
+   capacity from the global token count, slots in global batch order,
+   each rank's experts on its own rows), its all-reduced step-0 gradients
+   within TRAIN_GRAD_REL_L2 a leaf, its loss within DP_LOSS_REL and its
+   ``moe_dropped`` within DP_LOSS_REL of the 1-process step on the whole
+   batch (run in this process first, ``whole_grads.pt``).
 27. tensor parallelism (slice 18), once phase 26 has freed its state: two
    gloo ranks share ``cuda:0`` on ``make_host_mesh(model=2)`` (data 1,
    model 2), ``tp_child``, with the parameters placed as ``DTensor`` s by
@@ -416,6 +427,44 @@ Phases, each raising on failure:
    1-process top-2 gap of TP_GAP_ULPS bf16 ulps; prefill ms, decode ms at
    p50 and the collectives' bytes a token recorded; the flash launches are
    the ``lm_tp_serving`` path, exact (L a rank).
+28. tensor parallelism for the moe, ssm and hybrid families (slice 19),
+   once phase 27 has freed its state: two gloo ranks share ``cuda:0`` on
+   ``make_host_mesh(model=2)`` (``tp_family_child``), the parameters placed
+   as ``DTensor`` s by the rules, deterministic algorithms on, each part
+   at full width with depth cut (TP_FAMILY_PARTS) against its 1-process run
+   in this process (``tp_family_reference``): (a) Moonlight, 1 layer (EP:
+   32 of 64 experts and 8 of 16 heads a rank), phase 10's batch, the gate
+   on, the flash route, the loss in slabs, 1 step, with ``shardmap_moe`` and
+   without it, bit for bit each other; (b) Mamba2, 2 layers, 3 steps,
+   sequence-parallel; (c) Zamba2, 6 layers (its shared block once, 16 of 32
+   heads), 1 step, sequence-parallel. Training gates as 27a's (gradients,
+   losses, params, replicas, placements; a leaf drawn at zero within
+   TP_ZERO_INIT_REL_L2) and ``moe_dropped`` equal on the ranks and within
+   TP_DROPPED_ABS of the 1-process value; serving: the prefill of LM_BATCH x LM_PROMPT prompts and
+   TP_FAMILY_NEW greedy decode steps over caches placed by
+   ``cache_shardings``, gated as 27b. Recorded: step ms, peak, collectives
+   a step and a token, the SSD's ms on a rank's ``P`` block beside the
+   whole. (d) (b)'s TP state after step TP_CKPT_STEP saved (rank 0 writes
+   the unsharded layout), restored into the 1-process template (rank 0)
+   and onto the ranks, bit for bit each way, and the next step from the
+   restored state bit for bit the straight run's. The flash launches are
+   the ``lm_tp_moe`` and ``lm_tp_hybrid`` paths (``lm_tp_ssm`` runs none),
+   exact. Also recorded, as the causes of the two gates that are not phase
+   27's: the leaf drawn at zero's step-0 sign flips against the runs'
+   gradient difference (``zero_init_flips``), and the router's moved
+   choices against their top-k gap (``router_flips``).
+
+The processes of phases 25-28 are started one phase ahead
+(``prestart``): each imports torch and the port and opens its CUDA
+context while the phase before runs, then waits for its entry.
+
+``python3 chip_smoke.py --gate-faults`` runs none of the phases above but
+the build of the flash kernels and phase 28's Mamba2 and Moonlight
+training, clean and with a fault planted in memory (GATE_FAULTS: a skipped
+step, the mixer's ``conv_b`` gradient not summed over the ranks, the MoE
+capacity one rounding step short), and writes each run's phase 28
+readings to ``chiprun_out/gate_faults.json``: the evidence that places
+TP_ZERO_INIT_REL_L2 and TP_DROPPED_ABS.
 
 Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
 ``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
@@ -634,7 +683,8 @@ def device_ms(torch, fn, iters=20):
     own kernels (named once per run) are left out of the sum. A trace of the
     ``iters`` calls must hold ``iters`` times the events of one traced call,
     else it is taken again: a trace that lost events would pass for a
-    faster kernel."""
+    faster kernel. Where the profiler records no device event at all,
+    the time is ``wall_ms``'s (logged)."""
     if not _FLUSH:
         _FLUSH["scratch"] = torch.empty(64 << 20, dtype=torch.uint8,
                                         device="cuda")
@@ -646,7 +696,13 @@ def device_ms(torch, fn, iters=20):
         scratch.zero_()
         fn()
     keep = lambda name: name not in flush_names   # noqa: E731
-    per_call = len(device_kernels(torch, flushed, 1, keep=keep)[0])
+    try:
+        per_call = len(device_kernels(torch, flushed, 1, keep=keep)[0])
+    except RuntimeError as e:
+        # a trace with no device events five times running (seen once on
+        # the H100, in phase 17): CUDA events, L2 warm, launch gaps counted
+        log(f"device_ms: {e}; timed by CUDA events instead")
+        return wall_ms(torch, fn, iters)
     kernels, _ = device_kernels(torch, flushed, iters, keep=keep,
                                 expect=per_call * iters)
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
@@ -756,22 +812,16 @@ def nm_fused_case(torch, name, b):
     return rec
 
 
-def card_tests():
-    """``tests/test_torch_cuda.py`` in a process of its own (``--noconftest``:
-    the repository's conftest imports jax, which the port never needs)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-p",
-         "no:cacheprovider", os.path.join("tests", "test_torch_cuda.py")],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
-        text=True, timeout=600)
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    rec = {"rc": proc.returncode, "summary": tail[0],
-           "seconds": time.perf_counter() - t0}
+def card_tests(tool):
+    """Waits for the run of ``tests/test_torch_cuda.py`` that
+    :func:`start_side_runs` started; it must pass."""
+    rc, text, seconds = finish_tool(tool, 600)
+    tail = text.strip().splitlines()[-1:] or [""]
+    rec = {"rc": rc, "summary": tail[0], "seconds": seconds}
     log(f"card_tests {json.dumps(rec)}")
-    if proc.returncode != 0:
+    if rc != 0:
         raise AssertionError(f"tests/test_torch_cuda.py failed:\n"
-                             f"{proc.stdout[-6000:]}\n{proc.stderr[-2000:]}")
+                             f"{text[-8000:]}")
     return rec
 
 
@@ -3746,7 +3796,7 @@ def narrow_shards(torch, params, task):
 
 # Qwen2-VL-2B at full width cut to 2 of its 28 layers (phase 23a's state),
 # phase 10's batch (B 2 x S 4096), the gate on, the flash route
-DP_LAYERS, DP_STEPS_A, DP_STEPS_B, DP_WORLD_B = 2, 4, 3, 2
+DP_LAYERS, DP_STEPS_A, DP_STEPS_B, DP_WORLD_B = 2, 4, 2, 2
 # 25b against the 1-process step: the step-0 gradients (all-reduced) of
 # every leaf within TRAIN_GRAD_REL_L2, the bound phase 11 holds the card's
 # training gradients to; the losses within DP_LOSS_REL (the two sum one
@@ -3783,18 +3833,19 @@ def dp_batch(torch, pcfg, step, ranks, world):
 
 
 def count_collectives():
-    """Wrap ``dist.all_reduce`` and ``dist.all_gather`` to count their
-    calls (and payload elements) in this process; returns the counts."""
+    """Wrap ``dist.all_reduce``, ``dist.all_gather`` and
+    ``dist.all_to_all_single`` to count their calls (and payload elements
+    and bytes: the input's) in this process; returns the counts."""
     import torch.distributed as dist
-    counts = {"all_reduce": 0, "all_gather": 0, "all_reduce_elems": 0,
-              "all_gather_elems": 0, "all_reduce_bytes": 0,
-              "all_gather_bytes": 0}
-    for name in ("all_reduce", "all_gather"):
+    names = ("all_reduce", "all_gather", "all_to_all_single")
+    counts = {n + suffix: 0 for n in names for suffix in ("", "_elems",
+                                                          "_bytes")}
+    for name in names:
         orig = getattr(dist, name)
 
         def wrapped(*a, _orig=orig, _name=name, **k):
             counts[_name] += 1
-            t = a[1] if _name == "all_gather" else a[0]
+            t = a[0] if _name == "all_reduce" else a[1]
             counts[_name + "_elems"] += t.numel()
             counts[_name + "_bytes"] += t.numel() * t.element_size()
             return _orig(*a, **k)
@@ -3941,25 +3992,93 @@ def free_port():
         return s.getsockname()[1]
 
 
-def spawn_dp(mode, world, workdir, timeout=600, entry="dp_child"):
-    """``world`` processes of :func:`dp_child` (or another ``entry`` of
-    this script that reads the same ``[mode, out_path]`` argv) joined
-    through the scheduler's variables; waits for all (killing any left at
-    the timeout) and returns their records in rank order."""
+# ranks started ahead of their phase by :func:`prestart`, by spawn mode
+_WARM = {}
+
+
+def prestart(mode, world):
+    """Starts the ``world`` processes that ``spawn_dp(mode, world, ...)``
+    will run, while the phase before uses the card: each imports torch and
+    the port and opens its CUDA context (most of a short child's wall),
+    then waits in :func:`warm_child` for ``spawn_dp`` to name its entry.
+    Killed at exit if never used."""
+    import atexit
+    import tempfile
+    d = tempfile.mkdtemp(prefix=f"chip_smoke_ranks_{mode}_")
     env = dict(os.environ, PYTHONPATH=SRC,
                COORDINATOR_ADDRESS=f"localhost:{free_port()}",
                PROCESS_COUNT=str(world))
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(os.path.join(d, f"rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; "
+                 "chip_smoke.warm_child()", os.path.join(d, f"go{r}.json")],
+                env=dict(env, PROCESS_ID=str(r)), cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT))
+    _WARM[mode] = {"world": world, "dir": d, "procs": procs, "logs": logs}
+
+    def stop():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+
+
+def warm_child():
+    """A process from :func:`prestart` (argv ``[go_path]``): the imports
+    and the CUDA context first, then, once ``go_path`` appears, the entry
+    it names with argv ``[mode, out_path]``; exits if its parent ends
+    first."""
+    import torch
+    sys.path.insert(0, SRC)
+    import repro_torch.launch.launcher  # noqa: F401
+    import repro_torch.launch.train  # noqa: F401
+    torch.zeros(1, device="cuda")
+    go, parent = sys.argv[1], os.getppid()
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(3)
+        time.sleep(0.05)
+    with open(go) as f:
+        job = json.load(f)
+    sys.argv = [sys.argv[0], job["mode"], job["out"]]
+    globals()[job["entry"]]()
+
+
+def spawn_dp(mode, world, workdir, timeout=600, entry="dp_child"):
+    """``world`` processes of :func:`dp_child` (or another ``entry`` of
+    this script that reads the same ``[mode, out_path]`` argv) joined
+    through the scheduler's variables, the ones :func:`prestart` started
+    for ``mode`` where it did; waits for all (killing any left at the
+    timeout) and returns their records in rank order."""
     outs = [os.path.join(workdir, f"dp_{mode}_{r}.json") for r in range(world)]
-    code = f"import chip_smoke; chip_smoke.{entry}()"
+    warm = _WARM.pop(mode, None)
     procs = []
     t0 = time.time()
     try:
-        for r in range(world):
-            with open(outs[r] + ".log", "w") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-c", code, mode, outs[r]],
-                    env=dict(env, PROCESS_ID=str(r)), cwd=ROOT, stdout=f,
-                    stderr=subprocess.STDOUT))
+        if warm is not None and warm["world"] == world:
+            procs, logs = warm["procs"], warm["logs"]
+            for r in range(world):
+                go = os.path.join(warm["dir"], f"go{r}.json")
+                with open(go + ".tmp", "w") as f:
+                    json.dump({"entry": entry, "mode": mode, "out": outs[r]},
+                              f)
+                os.replace(go + ".tmp", go)
+        else:
+            env = dict(os.environ, PYTHONPATH=SRC,
+                       COORDINATOR_ADDRESS=f"localhost:{free_port()}",
+                       PROCESS_COUNT=str(world))
+            code = f"import chip_smoke; chip_smoke.{entry}()"
+            logs = [o + ".log" for o in outs]
+            for r in range(world):
+                with open(logs[r], "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-c", code, mode, outs[r]],
+                        env=dict(env, PROCESS_ID=str(r)), cwd=ROOT, stdout=f,
+                        stderr=subprocess.STDOUT))
         for p in procs:
             try:
                 p.wait(timeout=max(1.0, timeout - (time.time() - t0)))
@@ -3972,7 +4091,7 @@ def spawn_dp(mode, world, workdir, timeout=600, entry="dp_child"):
                 p.wait()
     texts = []
     for r in range(len(procs)):
-        with open(outs[r] + ".log") as f:
+        with open(logs[r]) as f:
             texts.append(f.read())
     bad = [(r, p.returncode, t[-4000:]) for r, (p, t) in
            enumerate(zip(procs, texts)) if p.returncode != 0]
@@ -4176,7 +4295,7 @@ def dp_phase(torch):
 # embedding and head dominate; 2 layers until phase 27 needed the time),
 # phase 10's batch (B 2 x S 4096, one row a rank), the gate on, the flash
 # route, the loss in phase 21's slabs
-DP_MOE_LAYERS, DP_MOE_STEPS, DP_MOE_WORLD = 1, 2, 2
+DP_MOE_LAYERS, DP_MOE_STEPS, DP_MOE_WORLD = 1, 1, 2
 # 26b: one MoE layer on a (data 1, model 2) mesh against the 1-process
 # layer. The ranks' partial combines are each rounded to bf16 and their sum
 # rounded again (the 1-process layer rounds one sum over k once), and the
@@ -4252,6 +4371,11 @@ def moe_dp_reference(torch, workdir):
         del mean, halves
         batch = dp_batch(torch, pcfg, 0, list(range(DP_MOE_WORLD)),
                          DP_MOE_WORLD)
+        # 26e's yardstick: the whole batch's step-0 gradients, for the ranks
+        _, (_, aux), g = step.loss_and_grads(state[0], batch)
+        torch.save({"/".join(k): v.cpu() for k, v in flat(g).items()
+                    if v is not None}, os.path.join(workdir, "whole_grads.pt"))
+        del g, aux
         torch.cuda.synchronize()
         (_, _, _, m), ms = event_ms(torch, lambda: step(*state, batch))
         rec.update(whole_batch_loss=float(m["loss"]),
@@ -4496,10 +4620,48 @@ def moe_dp_child():
     t0 = time.perf_counter()
     rec["c"] = moe_compressed_check(torch, mesh, rank, workdir, counts)
     rec["c"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e): the global-batch dispatch (no shardmap_moe) against the
+    # 1-process step on the whole batch
+    t0 = time.perf_counter()
+    rec["e"] = moe_global_check(torch, mesh, cfg, hp, batch0, workdir, counts)
+    rec["e"]["wall_s"] = time.perf_counter() - t0
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     with open(out, "w") as f:
         json.dump(rec, f)
     dist.destroy_process_group()
+
+
+def moe_global_check(torch, mesh, cfg, hp, batch, workdir, counts):
+    """26e in a rank: the DP step's loss and gradients with one dispatch
+    over the global batch (``spmd.activate`` without ``shardmap_moe``),
+    the gradients all-reduced, against the 1-process step on the whole
+    batch (``whole_grads.pt``, written by the parent): each leaf's relative
+    L2, the loss and ``moe_dropped``; the collectives of the step."""
+    from repro_torch.launch import spmd
+    from repro_torch.launch.train import init_train_state, make_train_step
+    with spmd.activate(mesh, flash_attn=True):
+        step = make_train_step(cfg, hp, mesh=mesh, loss_chunk=MOE_LOSS_CHUNK)
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, hp, "cuda", mesh=mesh)
+        before = dict(counts)
+        loss, (_, aux), g = step.loss_and_grads(state[0], batch)
+        g = step.dp.mean_grads(g)
+        red = step.dp.mean_stats({"loss": loss,
+                                  "moe_dropped": aux["moe_dropped"]})
+        moved = {k: counts[k] - before[k] for k in counts}
+    want = torch.load(os.path.join(workdir, "whole_grads.pt"))
+    rel = {k: rel_l2(v.float(), want["/".join(k)].to(v.device).float())
+           for k, v in flat(g).items() if v is not None}
+    del g, state, step, want
+    return {"loss": float(red["loss"]),
+            "moe_dropped": float(red["moe_dropped"]),
+            "rank_moe_dropped": float(aux["moe_dropped"]),
+            "grad_rel_l2_max": max(rel.values()),
+            "grad_rel_l2": {"/".join(k): v for k, v in rel.items()},
+            "collectives": moved}
 
 
 def host_compressed_mean(torch, ins, kind, frac):
@@ -4611,7 +4773,23 @@ def moe_dp_phase(torch):
         log(f"moe_dp_remesh {json.dumps(d)}")
         if any(x["differing"] or x["leaves"] == 0 for x in d):
             raise AssertionError(f"26d: {d}")
-        rec = {"a": a, "b": b, "c": c, "d": d, "ranks": ranks}
+
+        e = {"ranks": [{k: v for k, v in r["e"].items() if k != "grad_rel_l2"}
+                       for r in ranks],
+             "whole_batch_loss": ref["whole_batch_loss"],
+             "whole_batch_moe_dropped": ref["whole_batch_moe_dropped"],
+             "tolerance": {"grad_rel_l2": TRAIN_GRAD_REL_L2,
+                           "loss_rel": DP_LOSS_REL}}
+        log(f"moe_dp_global {json.dumps(e)}")
+        if any(x["grad_rel_l2_max"] > TRAIN_GRAD_REL_L2
+               or abs(x["loss"] - ref["whole_batch_loss"])
+               > DP_LOSS_REL * abs(ref["whole_batch_loss"])
+               or abs(x["moe_dropped"] - ref["whole_batch_moe_dropped"])
+               > DP_LOSS_REL
+               or x["rank_moe_dropped"] != x["moe_dropped"]
+               for x in e["ranks"]):
+            raise AssertionError(f"26e: {e}")
+        rec = {"a": a, "b": b, "c": c, "d": d, "e": e, "ranks": ranks}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
@@ -4699,7 +4877,7 @@ def tp_child():
         return {"/".join(k): (v.to_local().cpu(), spmd.model_dim(v))
                 for k, v in flat(tree).items() if v is not None}
 
-    # (a) the step, 3 steps, ZeRO-1 off
+    # (a) the step, DP_STEPS_B steps, ZeRO-1 off
     cfg, hp, pcfg = dp_setup(torch)
     batches = [dp_batch(torch, pcfg, i, list(range(DP_WORLD_B)), DP_WORLD_B)
                for i in range(DP_STEPS_B)]
@@ -4827,9 +5005,10 @@ def tp_phase(torch):
                   for kind in (".grads.pt", ".params.pt")}
         got_g, got_p = (whole_blocks(loaded[k]) for k in (".grads.pt",
                                                            ".params.pt"))
-        grad_rel = {"/".join(k): rel_l2(got_g["/".join(k)].float(), g.float())
+        # on the card, which the ranks have left free
+        grad_rel = {"/".join(k): rel_l2(got_g["/".join(k)].cuda(), g.cuda())
                     for k, g in grads.items()}
-        param_rel = {"/".join(k): rel_l2(got_p["/".join(k)].float(), p.float())
+        param_rel = {"/".join(k): rel_l2(got_p["/".join(k)].cuda(), p.cuda())
                      for k, p in ref_params.items() if p.is_floating_point()}
         L = DP_LAYERS
         want_a = {n: 0 for n in ranks[0]["a"]["launches"]}
@@ -4919,6 +5098,717 @@ def tp_phase(torch):
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"lm_tp_phase_s {rec['phase_s']}")
     return rec, launches_a, launches_b
+
+
+# ---------------------------------------------------------------------------
+# phase 28: tensor parallelism for the moe, ssm and hybrid families on
+# (data 1, model 2), and checkpoints of a tensor-parallel state (slice 19)
+# ---------------------------------------------------------------------------
+
+# part: (arch, layers, train steps, seq_shard, loss chunk). Full width,
+# depth cut to fit the phase's time: Moonlight one of 48 layers (EP: 32 of
+# 64 experts and 8 of 16 heads a rank), Mamba2 two of 64 (40 of 80 heads'
+# P halves a rank), Zamba2 six of 38, so that the shared block runs once
+# (16 of 32 heads a rank). Phase 10's batch (B 2 x S 4096), the gate on,
+# the flash route; each rank on the whole batch. The bounds are phase
+# 27's: the ranks sum each row-parallel product from two bf16 partials.
+TP_FAMILY_PARTS = {"moe": (MOE_ARCH, 1, 1, False, MOE_LOSS_CHUNK),
+                   "ssm": (SSM_ARCH, 2, 3, True, None),
+                   "hybrid": (HYBRID_ARCH, 6, 1, True, None)}
+TP_FAMILY_NEW = 8       # greedy decode steps after each 4 x 2048 prefill
+# moe_dropped: the same on both ranks, and within TP_DROPPED_ABS of the
+# 1-process value. Not equal: the ranks' stream differs from the
+# 1-process stream by the partial sums' rounding, and the router then
+# orders two experts otherwise where they nearly tie (``router_flips``,
+# a ``--gate-faults`` run on the H100: 178 of 49,152 choices move,
+# each at a top-k gap at most 1.76x its probabilities' largest difference
+# between the runs; over all tokens the medians are 2.2e-3 and 3.9e-4), and
+# the moves that cross the capacity net 6 choices, 1.22e-4. A capacity one
+# rounding step (8) short reads 2.32e-3 in the same run. The limit sits
+# between the two, a factor of ~4.5 from each.
+TP_DROPPED_ABS = 2 ** -11
+# A leaf drawn at zero (the mixer's conv_b) holds only the steps' updates,
+# so its DP_PARAM_REL_L2 reads its update's difference, which no initial
+# value dilutes (runs on the H100). AdamW's first update is
+# lr x sign(g): on Zamba2 (1 step) 22 of 25,344 conv_b elements take the
+# other sign, each with |g| below the two runs' gradient difference, and
+# carry 98.6 % of the 4.95 %. On Mamba2 (3 steps) 25 of 10,752 flip alike
+# and carry 17.6 % of the 3.55 %; the rest is the later steps' m / sqrt(v),
+# which differs by a median 3.38 % over every leaf's update
+# (``--gate-faults``: ``update_rel_l2``). Every other leaf keeps
+# DP_PARAM_REL_L2; a leaf drawn at zero is held to TP_ZERO_INIT_REL_L2 of
+# its norm, between those readings and the same run's planted faults:
+# Mamba2's step 1 skipped 61.0 %, conv_b's gradient not summed over the
+# ranks 71.6 %.
+TP_ZERO_INIT_REL_L2 = 2 ** -3
+TP_CKPT_STEP = 1        # 28d: the ssm run saved after this step, resumed
+
+
+# ``--gate-faults``: phase 28's ssm and moe training clean and with a fault
+# planted in memory (:func:`planted_fault`), read by phase 28's gates, so
+# each limit above can be set between a correct run's reading and a faulty
+# one's on the same call
+GATE_FAULTS = (("ssm", None), ("ssm", "skip_step"), ("ssm", "conv_b_unsummed"),
+               ("moe", None), ("moe", "capacity_minus_8"))
+
+
+class RouterProbs:
+    """Keeps the router's probabilities ``[N, E]`` (f32, on the host) of
+    the first MoE dispatch inside the block, by wrapping
+    ``models.moe._top_k_ids``; its results pass through unchanged."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.probs = moe, moe._top_k_ids, None
+
+        def top_k(probs, k):
+            if self.probs is None:
+                self.probs = probs.detach().float().cpu()
+            return self.real(probs, k)
+        moe._top_k_ids = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top_k_ids = self.real
+        return False
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """A deliberate fault in this process's port, undone on exit (for
+    ``--gate-faults`` only): ``conv_b_unsummed`` keeps only this rank's
+    partial gradient of the mixer's ``conv_b`` (its gather's backward a
+    slice instead of the reduce-scatter), ``capacity_minus_8`` dispatches
+    the MoE with a capacity one rounding step short; ``skip_step`` and
+    ``None`` patch nothing (:func:`tp_family_train` drops the step)."""
+    from repro_torch.launch import spmd
+    from repro_torch.models import moe
+    real = (spmd.TensorParallel.enter_cols, moe.capacity)
+
+    def enter_cols(self, x):
+        if x.dim() == 1 and self.size > 1:          # conv_b: 1-D a layer
+            return spmd._GatherSliceGrad.apply(x, 0, self)
+        return real[0](self, x)
+    if fault == "conv_b_unsummed":
+        spmd.TensorParallel.enter_cols = enter_cols
+    elif fault == "capacity_minus_8":
+        moe.capacity = lambda n, cfg: real[1](n, cfg) - 8
+    try:
+        yield
+    finally:
+        spmd.TensorParallel.enter_cols, moe.capacity = real
+
+
+def zero_init_flips(torch, g_ref, g_tp, p_ref, p_tp):
+    """Why a leaf drawn at zero moves more than the others: the elements
+    whose step-0 update (AdamW's first step is lr·sign(g)) has the other
+    sign in the TP run, their |g| against the two runs' gradient difference
+    (the ranks' partial sums rounding otherwise), and the share of the
+    params' squared difference that the elements whose sign differs after
+    the steps carry."""
+    g_ref, g_tp, p_ref, p_tp = (t.float().flatten()
+                                for t in (g_ref, g_tp, p_ref, p_tp))
+    diff = (g_tp - g_ref).abs()
+    flip = torch.sign(g_tp) != torch.sign(g_ref)
+    ratio = g_ref.abs()[flip] / diff[flip].clamp_min(1e-30)
+    pflip = torch.sign(p_tp) != torch.sign(p_ref)
+    err = (p_tp - p_ref).square()
+    return {"n": g_ref.numel(), "step0_sign_flips": int(flip.sum()),
+            "flips_with_abs_g_below_diff": int((ratio <= 1).sum()),
+            "max_abs_g_over_diff_at_flips": float(ratio.max())
+            if ratio.numel() else 0.0,
+            "median_abs_g": float(g_ref.abs().median()),
+            "median_abs_diff": float(diff.median()),
+            "param_sign_flips": int(pflip.sum()),
+            "param_sq_err_share_of_flips": float(err[pflip].sum()
+                                                 / err.sum().clamp_min(1e-30))}
+
+
+def router_flips(torch, p_ref, p_tp, k):
+    """Why ``moe_dropped`` differs: the tokens whose top-``k`` experts
+    differ between the 1-process and the TP router (f32 probabilities of
+    the same step-0 tokens), the choices that moved, and each moved
+    token's gap between its ``k``-th and ``k+1``-th probability in the
+    1-process run against the largest difference of its probabilities
+    between the two runs."""
+    from repro_torch.core.dsst import _top_k_ids
+    ids_ref = _top_k_ids(p_ref, k).sort(-1).values
+    ids_tp = _top_k_ids(p_tp, k).sort(-1).values
+    moved = (ids_ref != ids_tp).any(-1)
+    srt = p_ref.sort(-1, descending=True).values
+    gap = srt[:, k - 1] - srt[:, k]
+    noise = (p_tp - p_ref).abs().amax(-1)
+    ratio = gap[moved] / noise[moved].clamp_min(1e-30)
+    return {"tokens": p_ref.shape[0], "choices": p_ref.shape[0] * k,
+            "tokens_moved": int(moved.sum()),
+            "choices_moved": int(sum(len(set(a.tolist()) - set(b.tolist()))
+                                     for a, b in zip(ids_tp[moved],
+                                                     ids_ref[moved]))),
+            "max_gap_over_diff_at_moved": float(ratio.max())
+            if ratio.numel() else 0.0,
+            "median_gap": float(gap.median()),
+            "median_max_diff": float(noise.median())}
+
+
+def tp_family_cfg(part):
+    """One part's config and the attention layers its forward runs (the
+    flash kernels' launches a pass)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers, _, _, _ = TP_FAMILY_PARTS[part]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    n_attn = {"moe": layers, "ssm": 0,
+              "hybrid": layers // (cfg.hybrid_attn_every or layers + 1)}
+    return cfg, n_attn[cfg.family]
+
+
+def tp_family_setup(torch, part):
+    """(config, hparams, the steps' batches on the card) of one part."""
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.launch.train import TrainHParams
+    from repro_torch.optim import AdamWConfig
+    steps = TP_FAMILY_PARTS[part][2]
+    cfg, _ = tp_family_cfg(part)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+    pcfg = PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                          global_batch=TRAIN_B)
+    return cfg, hp, [dp_batch(torch, pcfg, i, [0], 1) for i in range(steps)]
+
+
+def tp_family_reference(torch, part, keep_init=False):
+    """One part's yardsticks in this process, from the seed the ranks draw,
+    deterministic algorithms on: the 1-process step-0 gradients and
+    ``moe_dropped``, the router's probabilities, the losses and the params
+    after the steps (on the host), and the greedy trace of the same seed's
+    params (tokens, each step's logits). ``keep_init``: the initial params
+    too, where a leaf is drawn at zero (``--gate-faults``)."""
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import transformer as T
+    cfg, hp, batches = tp_family_setup(torch, part)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, hp, "cuda")
+        zero_init = ["/".join(k) for k, v in flat(state[0]).items()
+                     if v.is_floating_point() and not v.any()]
+        init = {"/".join(k): v.cpu() for k, v in flat(state[0]).items()
+                if v.is_floating_point()} if zero_init and keep_init else None
+        step = make_train_step(cfg, hp, attn="flash",
+                               loss_chunk=TP_FAMILY_PARTS[part][4])
+        with RouterProbs() as router:
+            _, (_, aux), g0 = step.loss_and_grads(state[0], batches[0])
+        grads = {"/".join(k): v.cpu() for k, v in flat(g0).items()
+                 if v is not None}
+        dropped = float(aux["moe_dropped"])
+        del g0, aux
+        losses = []
+        for b in batches:
+            p, o, s, m = step(*state, b)
+            state = (p, o, s)
+            losses.append(float(m["loss"]))
+        params = {"/".join(k): v.cpu() for k, v in flat(state[0]).items()}
+        del state, step, p, o, s, m
+        prompt = lm_prompts(torch, cfg, LM_BATCH, LM_PROMPT, 28)
+        sp = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+        toks, logits = greedy_trace(torch, cfg, sp, prompt, TP_FAMILY_NEW,
+                                    "flash")
+        del sp
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"grads": grads, "losses": losses, "params": params,
+            "zero_init": zero_init, "init": init, "moe_dropped": dropped,
+            "router_probs": router.probs,
+            "tokens": toks.cpu(),
+            "logits": [lg.cpu() for lg in logits]}
+
+
+def local_digests(torch, tree):
+    """``{leaf key: digest of this rank's block}`` of a train state (the
+    checkpoint's leaf keys; host ints as they are)."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    return {k: tensor_digest(torch, v.to_local() if hasattr(v, "to_local")
+                             else v) if isinstance(v, torch.Tensor) else v
+            for k, v in _flatten(tree)}
+
+
+def tp_family_train(torch, part, mesh, counts, out, shardmap=False,
+                    fault=None):
+    """One part's tensor-parallel training in a rank (phase 28 in the
+    module docstring): the step-0 gradients (blocks saved beside ``out``
+    unless ``shardmap``; digests) and the router's probabilities, then the
+    steps; for ``ssm``, 28d. ``fault`` (``--gate-faults`` only): the run
+    under :func:`planted_fault`, with no 28d; ``skip_step`` drops step 1's
+    update."""
+    import gc
+    from repro_torch.launch import spmd
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.optim.optimizer import tree_leaves
+    cfg, hp, batches = tp_family_setup(torch, part)
+    _, _, steps, seq, chunk = TP_FAMILY_PARTS[part]
+    tag = part + ("_shardmap" if shardmap else "") + (
+        f"_{fault}" if fault else "")
+    t0 = time.perf_counter()
+    r = {}
+    with spmd.activate(mesh, flash_attn=True, seq_shard=seq,
+                       shardmap_moe=shardmap, loss_chunk=chunk or 0):
+        step = make_train_step(cfg, hp, mesh=mesh)
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, hp, "cuda", mesh=mesh)
+        with RouterProbs() as router:
+            _, (_, aux), g0 = step.loss_and_grads(state[0], batches[0])
+        g0 = step.dp.mean_grads(g0)
+        if router.probs is not None and not shardmap:
+            torch.save(router.probs, f"{out}.{tag}.router.pt")
+        r["moe_dropped"] = float(aux["moe_dropped"])
+        r["grad_placements_equal"] = all(
+            tuple(g.placements) == tuple(p.placements) for g, p in
+            zip(tree_leaves(g0), tree_leaves(state[0])) if g is not None)
+        r["grad_digests"] = {"/".join(k): tensor_digest(torch, v.to_local())
+                             for k, v in flat(g0).items() if v is not None}
+        if not shardmap:
+            torch.save({"/".join(k): (v.to_local().cpu(), spmd.model_dim(v))
+                        for k, v in flat(g0).items() if v is not None},
+                       f"{out}.{tag}.grads.pt")
+        del g0, aux
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = reset_counters()
+        moved = {k: 0 for k in counts}
+        losses, ms = [], []
+        for i, b in enumerate(batches):
+            if fault == "skip_step" and i == 1:
+                continue            # the step updates its state in place
+            before = dict(counts)
+            (p, o, s, m), t = event_ms(torch, lambda: step(*state, b))
+            state = (p, o, s)
+            losses.append(float(m["loss"]))
+            ms.append(t)
+            for k in counts:
+                moved[k] += counts[k] - before[k]
+            if (part == "ssm" and not shardmap and not fault
+                    and i == TP_CKPT_STEP):
+                r["d"] = tp_checkpoint(torch, cfg, hp, state, mesh,
+                                       os.path.dirname(out))
+                r["d"]["resume_from"] = (r["d"]["resume_from"],
+                                         batches[i + 1])
+        r.update(losses=losses, step_ms=ms,
+                 launches={n: c.launches for n, c in counters.items()},
+                 collectives_per_step={k: v / steps for k, v in moved.items()},
+                 max_memory_allocated=torch.cuda.max_memory_allocated(),
+                 param_digests=local_digests(torch, state[0]),
+                 replicated_digests={
+                     "/".join(k): tensor_digest(torch, v.to_local())
+                     for k, v in flat(state[0]).items()
+                     if spmd.model_dim(v) is None})
+        if "d" in r:
+            # 28d: the step after the checkpoint, from the restored state
+            restored, b = r["d"].pop("resume_from")
+            p, o, s, m = step(*restored, b)
+            r["d"]["resumed_equal"] = local_digests(torch, p) \
+                == r["param_digests"]
+            r["d"]["resumed_loss"] = float(m["loss"])
+            del restored, p, o, s, m
+        if not shardmap:
+            torch.save({"/".join(k): (v.to_local().cpu(), spmd.model_dim(v))
+                        for k, v in flat(state[0]).items()},
+                       f"{out}.{tag}.params.pt")
+    r["wall_s"] = time.perf_counter() - t0
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def tp_checkpoint(torch, cfg, hp, state, mesh, workdir):
+    """28d in a rank: the TP state saved (every rank gathers, rank 0
+    writes), restored into the 1-process template (rank 0) against the
+    gathered leaves' digests, and into the placed template against this
+    rank's blocks. Returns the record and, under ``resume_from``, the
+    state restored onto the ranks."""
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import placed
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.launch.train import init_train_state
+    d = os.path.join(workdir, "tp_ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(d, TP_CKPT_STEP, state)
+    save_s = time.perf_counter() - t0
+    whole = {k: tensor_digest(torch, placed.full_tensor(v) if hasattr(
+        v, "to_local") else v) for k, v in _flatten(state)
+        if isinstance(v, torch.Tensor)}
+    rec = {"save_s": save_s, "bytes": dir_bytes(d), "leaves": len(whole)}
+    if dist.get_rank() == 0:
+        tpl = init_train_state(torch.Generator(device="cuda").manual_seed(1),
+                               cfg, hp, "cuda")
+        t0 = time.perf_counter()
+        _, one, _ = ckpt.restore(d, tpl)
+        rec["restore_one_s"] = time.perf_counter() - t0
+        got = {k: tensor_digest(torch, v) for k, v in _flatten(one)
+               if isinstance(v, torch.Tensor)}
+        rec["one_process_equal"] = got == whole
+        del tpl, one
+    tpl = init_train_state(torch.Generator(device="cuda").manual_seed(1), cfg,
+                           hp, "cuda", mesh=mesh)
+    t0 = time.perf_counter()
+    _, back, _ = ckpt.restore(d, tpl)
+    rec["restore_tp_s"] = time.perf_counter() - t0
+    rec["tp_equal"] = local_digests(torch, back) == local_digests(torch, state)
+    rec["resume_from"] = back
+    dist.barrier()      # the next step's ms is its own, not rank 0's wait
+    return rec
+
+
+def tp_family_serve(torch, part, mesh, counts, out):
+    """One part's tensor-parallel serving in a rank: the prefill of
+    LM_BATCH x LM_PROMPT prompts and TP_FAMILY_NEW greedy decode steps over
+    caches placed by ``cache_shardings``; the last prefill logits (blocks)
+    saved beside ``out``."""
+    import gc
+    import statistics
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import spmd
+    from repro_torch.launch.train import place_params
+    from repro_torch.models import transformer as T
+    cfg, _, _ = tp_family_setup(torch, part)
+    t0 = time.perf_counter()
+    params = place_params(T.init_params(torch.Generator(device="cuda")
+                                        .manual_seed(0), cfg, device="cuda"),
+                          cfg, mesh)
+    prompt = lm_prompts(torch, cfg, LM_BATCH, LM_PROMPT, 28)
+    with torch.no_grad():
+        counters = reset_counters()
+        before = dict(counts)
+        (logits, cache), t_pre = event_ms(torch, lambda: T.prefill(
+            params, cfg, prompt, LM_PROMPT + TP_FAMILY_NEW, attn="flash"))
+        pre_moved = {k: counts[k] - before[k] for k in counts}
+        launches = {n: c.launches for n, c in counters.items()}
+        tp = spmd.tensor_parallel(logits)
+        torch.save({"logits": logits.to_local().float().cpu()},
+                   f"{out}.{part}.prefill.pt")
+        toks, dec_ms = [], []
+        before = dict(counts)
+        for _ in range(TP_FAMILY_NEW):
+            tok = spmd.vocab_argmax(logits.to_local(), tp)
+            toks.append(tok)
+            (logits, cache), t = event_ms(torch, lambda: T.decode_step(
+                params, cache, tok, cfg))
+            dec_ms.append(t)
+        dec_moved = {k: (counts[k] - before[k]) / TP_FAMILY_NEW
+                     for k in counts}
+    leaves = {k: v for k, v in cache.items() if k != "pos"}
+    meta = {k: torch.empty(v.shape, device="meta") for k, v in leaves.items()}
+    want = SH.cache_shardings(meta, cfg, mesh)
+    rec = {"prefill_ms": t_pre, "decode_ms": dec_ms,
+           "decode_ms_p50": statistics.median(dec_ms),
+           "tokens": torch.stack(toks, 1).tolist(), "launches": launches,
+           "prefill_collectives": pre_moved,
+           "decode_collectives_per_step": dec_moved,
+           "decode_bytes_per_token": (dec_moved["all_reduce_bytes"]
+                                      + dec_moved["all_gather_bytes"]
+                                      + dec_moved["all_to_all_single_bytes"])
+           / LM_BATCH,
+           "cache_placed": all(tuple(v.placements) == SH.placements(
+               want[k].spec, mesh) for k, v in leaves.items()),
+           "cache_model_dims": {k: spmd.model_dim(v)
+                                for k, v in leaves.items()},
+           "wall_s": time.perf_counter() - t0}
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_ssd_ms(torch, cfg):
+    """The SSD (``mamba2._ssd``, f32) at one rank's share of the training
+    shape, this rank's ``P`` block of every head, beside the whole ``P``:
+    device ms (CUDA events, the mean of 3 after one warm-up)."""
+    from repro_torch.models.mamba2 import _ssd
+    b, s, h, pd, n = TRAIN_B, TRAIN_S, cfg.ssm_heads, cfg.ssm_head_dim, \
+        cfg.ssm_state
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, p in (("p_block", pd // TP_WORLD), ("whole", pd)):
+        xdt = torch.randn((b, s, h, p), generator=g, device="cuda")
+        da = -torch.rand((b, s, h), generator=g, device="cuda") * 0.1
+        bm, cm = (torch.randn((b, s, n), generator=g, device="cuda")
+                  for _ in range(2))
+        with torch.no_grad():
+            _ssd(xdt, da, bm, cm, cfg.ssm_chunk)
+            ms = [event_ms(torch, lambda: _ssd(xdt, da, bm, cm,
+                                               cfg.ssm_chunk))[1]
+                  for _ in range(3)]
+        out[name] = {"shape": [b, s, h, p, n], "ms": sum(ms) / 3}
+        del xdt, da, bm, cm
+    return out
+
+
+def tp_family_child():
+    """One of two gloo ranks of phase 28 on ``cuda:0`` (``python -c`` from
+    the repo root): argv ``[mode, out_path]``; every part on
+    ``make_host_mesh(model=2)``, one after another, deterministic
+    algorithms on. Writes its record as JSON and its blocks beside it."""
+    import faulthandler
+    import torch
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    faulthandler.enable()
+    from repro_torch.launch.launcher import fleet_init
+    from repro_torch.launch.mesh import make_host_mesh
+    mode, out = sys.argv[1], sys.argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = fleet_init("cuda", backend="gloo")
+    counts = count_collectives()
+    mesh = make_host_mesh(model=TP_WORLD, device="cuda")
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "model_rank": mesh.get_local_rank("model")}
+    torch.use_deterministic_algorithms(True)
+    for part, fault in GATE_FAULTS if mode == "faults" else ():
+        with planted_fault(fault):
+            rec[f"{part}_{fault}"] = tp_family_train(torch, part, mesh, counts,
+                                                     out, fault=fault)
+    for part in TP_FAMILY_PARTS if mode != "faults" else ():
+        rec[part] = tp_family_train(torch, part, mesh, counts, out)
+        if part == "moe":
+            rec["moe_shardmap"] = tp_family_train(torch, part, mesh, counts,
+                                                  out, shardmap=True)
+        if part == "ssm":
+            rec[part]["ssd"] = tp_ssd_ms(torch, tp_family_cfg(part)[0])
+        rec[part]["serve"] = tp_family_serve(torch, part, mesh, counts, out)
+    torch.use_deterministic_algorithms(False)
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def tp_train_reading(torch, part, ref, paths, order, rs, tag):
+    """Phase 28's training gates on one part's run (``rs``: the ranks'
+    records; the blocks saved under ``tag``) against its 1-process
+    reference. Returns (reading, whether a gate failed, the launches
+    wanted a rank)."""
+    import statistics
+    arch, layers, steps, seq, _ = TP_FAMILY_PARTS[part]
+    got_g, got_p = (whole_blocks([torch.load(f"{paths[r]}.{tag}.{k}")
+                                  for r in order])
+                    for k in ("grads.pt", "params.pt"))
+    # on the card, which the ranks have left free
+    grad_rel = {k: rel_l2(got_g[k].cuda(), g.cuda())
+                for k, g in ref["grads"].items()}
+    param_rel = {k: rel_l2(got_p[k].cuda(), p.cuda())
+                 for k, p in ref["params"].items() if p.is_floating_point()}
+    flips = {k: zero_init_flips(torch, ref["grads"][k], got_g[k],
+                                ref["params"][k], got_p[k])
+             for k in ref["zero_init"] if k in ref["grads"]}
+    # every leaf's update (the steps' change) against the 1-process one's:
+    # a leaf drawn at zero holds nothing else
+    upd = {k: rel_l2(got_p[k].float() - x.float(),
+                     ref["params"][k].float() - x.float())
+           for k, x in (ref["init"] or {}).items()
+           if not torch.equal(ref["params"][k], x)}
+    del got_g, got_p
+    losses = rs[0]["losses"]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(losses, ref["losses"])]
+    n_attn = tp_family_cfg(part)[1]
+    want = {n: 0 for n in rs[0]["launches"]}
+    want.update({"flash_fwd": 2 * n_attn * steps,
+                 "flash_bwd_dkv": n_attn * steps,
+                 "flash_bwd_dq": n_attn * steps})
+    a = {"arch": arch, "layers": layers, "batch": TRAIN_B,
+         "seq": TRAIN_S, "steps": steps, "seq_shard": seq,
+         "losses": losses, "reference_losses": ref["losses"],
+         "loss_rel": loss_rel,
+         "grad_rel_l2_max": max(grad_rel.values()),
+         "param_rel_l2_max": max(v for k, v in param_rel.items()
+                                 if k not in ref["zero_init"]),
+         "zero_init_rel_l2": {k: param_rel[k] for k in ref["zero_init"]},
+         "zero_init_flips": flips,
+
+         "worst": {n: sorted(t.items(), key=lambda kv: -kv[1])[:4]
+                   for n, t in (("grads", grad_rel), ("params", param_rel))},
+         "moe_dropped": [x["moe_dropped"] for x in rs],
+         "reference_moe_dropped": ref["moe_dropped"],
+         "ranks_equal": rs[0]["replicated_digests"]
+         == rs[1]["replicated_digests"],
+         "replicated_leaves": len(rs[0]["replicated_digests"]),
+         "grad_placements_equal": [x["grad_placements_equal"] for x in rs],
+         "step_ms": [x["step_ms"] for x in rs],
+         "peak_bytes": [x["max_memory_allocated"] for x in rs],
+         "collectives_per_step": [x["collectives_per_step"] for x in rs],
+         "launches": [x["launches"] for x in rs],
+         "wall_s": [x["wall_s"] for x in rs],
+         "reference_wall_s": ref["wall_s"]}
+    if upd:
+        a["update_rel_l2"] = {"max": max(upd.values()),
+                              "median": statistics.median(upd.values()),
+                              "worst": sorted(upd.items(),
+                                              key=lambda kv: -kv[1])[:4]}
+    if ref["router_probs"] is not None:
+        from repro_torch.configs import get_config
+        a["router_flips"] = router_flips(
+            torch, ref["router_probs"],
+            torch.load(f"{paths[order[0]]}.{tag}.router.pt"),
+            get_config(arch).moe_top_k)
+    bad = (a["grad_rel_l2_max"] > TRAIN_GRAD_REL_L2
+           or max(loss_rel) > DP_LOSS_REL
+           or a["param_rel_l2_max"] > DP_PARAM_REL_L2
+           or any(v > TP_ZERO_INIT_REL_L2
+                  for v in a["zero_init_rel_l2"].values())
+           or not a["ranks_equal"] or not a["replicated_leaves"]
+           or not all(a["grad_placements_equal"])
+           or len(set(a["moe_dropped"])) != 1
+           or abs(a["moe_dropped"][0] - ref["moe_dropped"]) > TP_DROPPED_ABS
+           or any(x["launches"] != want for x in rs))
+    return a, bad, want
+
+
+def gate_faults(torch):
+    """``--gate-faults``: the 1-process references of phase 28's ssm and
+    moe parts, then two gloo ranks running each of GATE_FAULTS; logs
+    phase 28's training reading of each (gates read, none raised) and
+    writes them to ``chiprun_out/gate_faults.json``."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(fa_kernel.build), pool.submit(fa_kernel.build_bwd)]:
+            f.result()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gate_faults_")
+    out = {}
+    try:
+        refs = {part: tp_family_reference(torch, part, keep_init=True)
+                for part in dict(GATE_FAULTS)}
+        for ref in refs.values():
+            ref["wall_s"] = None
+        ranks, wall = spawn_dp("faults", TP_WORLD, workdir,
+                               entry="tp_family_child")
+        paths = [os.path.join(workdir, f"dp_faults_{r}.json")
+                 for r in range(TP_WORLD)]
+        order = sorted(range(TP_WORLD), key=lambda r: ranks[r]["model_rank"])
+        for part, fault in GATE_FAULTS:
+            tag = part + (f"_{fault}" if fault else "")
+            a, bad, _ = tp_train_reading(
+                torch, part, refs[part], paths, order,
+                [r[f"{part}_{fault}"] for r in ranks], tag)
+            keep = ("loss_rel", "grad_rel_l2_max", "param_rel_l2_max",
+                    "zero_init_rel_l2", "zero_init_flips", "update_rel_l2",
+                    "moe_dropped",
+                    "reference_moe_dropped", "router_flips")
+            out[tag] = dict({k: a[k] for k in keep if k in a},
+                            gates_failed=bool(bad))
+            log(f"gate_fault {tag} {json.dumps(out[tag])}")
+        out["ranks_wall_s"] = wall
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "gate_faults.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def tp_family_phase(torch):
+    """Phase 28 (module docstring). Returns (record, launches by path:
+    ``lm_tp_moe``, ``lm_tp_ssm``, ``lm_tp_hybrid``)."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_family_")
+    try:
+        refs = {}
+        for part in TP_FAMILY_PARTS:
+            t0 = time.perf_counter()
+            refs[part] = tp_family_reference(torch, part)
+            refs[part]["wall_s"] = time.perf_counter() - t0
+            free_before(torch, f"phase 28's {part} reference")
+        ranks, wall = spawn_dp("fam", TP_WORLD, workdir,
+                               entry="tp_family_child")
+        paths = [os.path.join(workdir, f"dp_fam_{r}.json")
+                 for r in range(TP_WORLD)]
+        order = sorted(range(TP_WORLD), key=lambda r: ranks[r]["model_rank"])
+        rec, launches = {"wall_s": wall}, {}
+        for part, (arch, layers, steps, seq, _) in TP_FAMILY_PARTS.items():
+            ref = refs[part]
+            rs = [r[part] for r in ranks]
+            a, bad, want = tp_train_reading(torch, part, ref, paths, order,
+                                            rs, part)
+            n_attn = tp_family_cfg(part)[1]
+            if part == "moe":
+                sm = [r["moe_shardmap"] for r in ranks]
+                a["shardmap_equal"] = [
+                    x["grad_digests"] == y["grad_digests"]
+                    and x["param_digests"] == y["param_digests"]
+                    and x["losses"] == y["losses"]
+                    and x["moe_dropped"] == y["moe_dropped"]
+                    for x, y in zip(rs, sm)]
+                a["shardmap_step_ms"] = [x["step_ms"] for x in sm]
+                bad = bad or not all(a["shardmap_equal"]) or any(
+                    x["launches"] != want for x in sm)
+            log(f"lm_tp_{part}_training {json.dumps(a)}")
+            if part == "ssm":
+                d = [x["d"] for x in rs]
+                log(f"lm_tp_checkpoint {json.dumps(d)}")
+            if bad or any(r["backend"] != "gloo" for r in ranks):
+                raise AssertionError(f"28 {part} training: {a}; launches "
+                                     f"want {want} a rank")
+            if part == "ssm":
+                if (not d[0].get("one_process_equal")      # rank 0's check
+                        or not all(x["tp_equal"] and x["resumed_equal"]
+                                   for x in d)):
+                    raise AssertionError(f"28d: {d}")
+                rec["checkpoint"] = d
+
+            sv = [x["serve"] for x in rs]
+            pre = torch.cat([torch.load(f"{paths[r]}.{part}.prefill.pt")
+                             ["logits"] for r in order], dim=-1)
+            b_rel = rel_l2(pre, ref["logits"][0].float())
+            rows, ok = [], b_rel <= TP_LOGIT_REL_L2 and \
+                sv[0]["tokens"] == sv[1]["tokens"]
+            for i in range(LM_BATCH):
+                row, fine = first_divergence(
+                    sv[0]["tokens"][i], ref["tokens"][i, :TP_FAMILY_NEW]
+                    .tolist(), lambda j: ref["logits"][j][i], None)
+                if row["first_divergence"] is not None:
+                    row["band"] *= TP_GAP_ULPS / PARITY_GAP_ULPS
+                    fine = row["top2_gap"] <= row["band"]
+                rows.append(row)
+                ok &= fine
+            want_b = {n: 0 for n in sv[0]["launches"]}
+            want_b["flash_fwd"] = n_attn
+            b = {"arch": arch, "layers": layers, "batch": LM_BATCH,
+                 "prompt": LM_PROMPT, "new_tokens": TP_FAMILY_NEW,
+                 "prefill_logits_rel_l2": b_rel, "bound": TP_LOGIT_REL_L2,
+                 "rows": rows, "cache_placed": [x["cache_placed"] for x in sv],
+                 "cache_model_dims": sv[0]["cache_model_dims"],
+                 **{k: [x[k] for x in sv] for k in (
+                     "prefill_ms", "decode_ms_p50", "decode_bytes_per_token",
+                     "decode_collectives_per_step", "prefill_collectives",
+                     "launches", "wall_s")}}
+            log(f"lm_tp_{part}_serving {json.dumps(b)}")
+            if (not ok or not all(b["cache_placed"])
+                    or any(x["launches"] != want_b for x in sv)):
+                raise AssertionError(f"28 {part} serving: {b}; launches "
+                                     f"want {want_b} a rank")
+            rec[part] = {"a": a, "b": b}
+            launches[f"lm_tp_{part}"] = {
+                n: sum(x["launches"][n] + x["serve"]["launches"][n]
+                       + (r["moe_shardmap"]["launches"][n]
+                          if part == "moe" else 0)
+                       for x, r in zip(rs, ranks)) for n in want}
+        rec["ssd"] = [r["ssm"]["ssd"] for r in ranks]
+        log(f"lm_tp_ssd {json.dumps(rec['ssd'])}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm_tp_family_phase_s {rec['phase_s']} ranks_s {rec['wall_s']} "
+        f"references_s {[refs[p]['wall_s'] for p in refs]}")
+    return rec, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5207,43 +6097,67 @@ def dryrun_check(torch, tool, workdir, lm_training, timeout):
     return rec
 
 
-def launcher_check(torch, validate_tool, timeout):
-    """Phase 23d (module docstring): the launcher's CLI on the card."""
-    t0 = time.perf_counter()
-    train = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.launcher", "--arch",
-         "stablelm_12b", "--steps", "4", "--seq-len", "32", "--global-batch",
-         "4", "--opt", "zero1"], capture_output=True, text=True,
-        env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT, timeout=timeout)
-    train_s = time.perf_counter() - t0
+def launcher_check(torch, train_tool, validate_tool, timeout):
+    """Phase 23d (module docstring): the launcher's CLI on the card (started
+    with phase 23, run while (a) and (b) use the card)."""
+    rc_t, text_t, train_s = finish_tool(train_tool, timeout)
     rc, text, validate_s = finish_tool(validate_tool, timeout)
-    rec = {"train": {"rc": train.returncode, "wall_s": train_s,
-                     "stdout": train.stdout[-2000:]},
+    rec = {"train": {"rc": rc_t, "wall_s": train_s,
+                     "stdout": text_t[-2000:]},
            "validate": {"rc": rc, "wall_s": validate_s,
                         "stdout": text[-2000:]}}
     log(f"runtime_launcher {json.dumps(rec)}")
-    if (train.returncode != 0 or "loss" not in train.stdout
-            or "device=cuda" not in train.stdout
+    if (rc_t != 0 or "loss" not in text_t or "device=cuda" not in text_t
             or rc != 0 or "validate OK" not in text):
-        raise AssertionError(f"launcher: {rec}\n{train.stderr[-4000:]}")
+        raise AssertionError(f"launcher: {rec}\n{text_t[-4000:]}")
     return rec
 
 
-def runtime_phase(torch, lm_training):
-    """Phase 23: recovery, compression, the dry run and the launcher. The
-    dry run and ``--validate`` (CPU only) run in processes of their own
-    while (a) and (b) use the card."""
+def start_side_runs():
+    """Runs started early so that they go on while phases 20 to 7 use the
+    card: phase 23's CPU-only tools (the dry run, ``--validate``) and phase
+    3's card tests (``--noconftest``: the repository's conftest imports
+    jax, which the port never needs). Returns (workdir, dry run,
+    validate, card tests); all are killed, and the workdir removed, at
+    exit wherever the script stops."""
+    import atexit
     import shutil
     import tempfile
     workdir = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    dry = start_tool(["repro_torch.launch.dryrun", "--arch", "all",
+                      "--shape", "all", "--out",
+                      os.path.join(workdir, "dryrun"), "--force"],
+                     workdir, "dryrun")
+    val = start_tool(["repro_torch.launch.launcher", "--arch", TRAIN_ARCH,
+                      "--validate"], workdir, "validate")
+    card = start_tool(["pytest", "--noconftest", "-q", "-p",
+                       "no:cacheprovider",
+                       os.path.join("tests", "test_torch_cuda.py")],
+                      workdir, "card_tests")
+
+    def stop():
+        for proc, _, _ in (dry, val, card):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    atexit.register(stop)
+    return workdir, dry, val, card
+
+
+def runtime_phase(torch, lm_training, tools):
+    """Phase 23: recovery, compression, the dry run and the launcher. The
+    dry run and ``--validate`` (CPU only, ``tools`` from
+    :func:`start_side_runs`) have run in processes of their own while the
+    phases before used the card."""
+    import shutil
+    workdir, dry, val, _ = tools
     t0 = time.perf_counter()
+    train = start_tool(["repro_torch.launch.launcher", "--arch",
+                        "stablelm_12b", "--steps", "4", "--seq-len", "32",
+                        "--global-batch", "4", "--opt", "zero1"], workdir,
+                       "launcher_train")
     try:
-        dry = start_tool(["repro_torch.launch.dryrun", "--arch", "all",
-                          "--shape", "all", "--out",
-                          os.path.join(workdir, "dryrun"), "--force"],
-                         workdir, "dryrun")
-        val = start_tool(["repro_torch.launch.launcher", "--arch", TRAIN_ARCH,
-                          "--validate"], workdir, "validate")
         try:
             rec = {}
             rec["recovery"], launches, state, step, batch = recovery(
@@ -5254,9 +6168,9 @@ def runtime_phase(torch, lm_training):
             gc.collect()
             torch.cuda.empty_cache()
             rec["dryrun"] = dryrun_check(torch, dry, workdir, lm_training, 600)
-            rec["launcher"] = launcher_check(torch, val, 600)
+            rec["launcher"] = launcher_check(torch, train, val, 600)
         finally:
-            for proc, _, _ in (dry, val):
+            for proc, _, _ in (dry, val, train):
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -5324,6 +6238,9 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
+    if sys.argv[1:] == ["--gate-faults"]:
+        gate_faults(torch)
+        return 0
 
     # 2. build: one nvcc per CUDA source, started together, and Triton's
     # compile of the LIF kernel meanwhile
@@ -5419,7 +6336,15 @@ def main() -> int:
         # phase 27's local heads on (data 1, model 2): Qwen2-VL's 6 of 12
         # query heads over 1 of 2 KV heads, Phi-3's 20 of 40 over 5 of 10
         ("tp_train", bf16, TRAIN_B, TRAIN_S, 6, 1, 128, None),
-        ("tp_prefill", bf16, LM_BATCH, LM_PROMPT, 20, 5, 128, None))]
+        ("tp_prefill", bf16, LM_BATCH, LM_PROMPT, 20, 5, 128, None),
+        # phase 28's local heads: Moonlight's 8 of 16 (dh 128), Zamba2's
+        # shared block's 16 of 32 (dh 64, its window), training and prefill
+        ("tp_moonlight_train", bf16, TRAIN_B, TRAIN_S, 8, 8, 128, None),
+        ("tp_moonlight_prefill", bf16, LM_BATCH, LM_PROMPT, 8, 8, 128, None),
+        ("tp_zamba2_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 64,
+         hybrid_window),
+        ("tp_zamba2_prefill", bf16, LM_BATCH, LM_PROMPT, 16, 16, 64,
+         hybrid_window))]
     bwd_recs = [flash_bwd_case(torch, *case) for case in (
         ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
         ("f32", torch.float32, 2, 256, 8, 2, 64, None),
@@ -5430,14 +6355,16 @@ def main() -> int:
         ("dh64_ragged", bf16, 2, 1000, 16, 4, 64, None),
         ("moonlight_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 128, None),
         ("zamba2_train", bf16, TRAIN_B, TRAIN_S, 32, 32, 64, hybrid_window),
-        ("tp_train", bf16, TRAIN_B, TRAIN_S, 6, 1, 128, None))]
+        ("tp_train", bf16, TRAIN_B, TRAIN_S, 6, 1, 128, None),
+        ("tp_moonlight_train", bf16, TRAIN_B, TRAIN_S, 8, 8, 128, None),
+        ("tp_zamba2_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 64,
+         hybrid_window))]
     record["parity"] = {"nm_spmm": nm_recs, "nm_spmm_fused": fused_recs,
                         "lif": lif_recs,
                         "wu_outer": wu_recs, "wu_outer_slots": slot_recs,
                         "flash_fwd": fa_recs,
                         "flash_bwd_dkv": [r["dkv"] for r in bwd_recs],
                         "flash_bwd_dq": [r["dq"] for r in bwd_recs]}
-    record["card_tests"] = card_tests()
 
     # 4. serving at full width
     cfg = paper_config("kernels")
@@ -5450,6 +6377,10 @@ def main() -> int:
     # 19. the serving runtime on phase 4's fleet, held against phase 4's run
     record["runtime"], runtime_launches = runtime(torch, params, task,
                                                   serve_digest)
+
+    # phase 3's card tests and phase 23's CPU-only tools run while phases
+    # 20 to 7 use the card (none of their times is gated)
+    side_runs = start_side_runs()
 
     # 20. the static checks on the card, on phase 4's params and task
     record["analysis"], analysis_launches = analysis(torch, params, task)
@@ -5470,6 +6401,7 @@ def main() -> int:
 
     # 7. training path parity
     record["train_parity"] = train_parity(torch, task)
+    record["card_tests"] = card_tests(side_runs[3])
 
     # 8. LM serving at full width, after freeing the SNN phases' tensors
     del params, task
@@ -5618,26 +6550,37 @@ def main() -> int:
     # recovery at full width (2 layers), compression of its gradients, the
     # dry run against phase 10's allocation, the launcher's CLI
     free_before(torch, "phase 23's training state")
+    prestart("a", 1)
+    prestart("b", DP_WORLD_B)
     record["runtime_launcher"], recovery_launches = runtime_phase(
-        torch, record["lm_training"])
+        torch, record["lm_training"], side_runs)
 
     # 25. data-parallel LM training across processes: one NCCL rank against
     # make_train_step, two gloo ranks on the card against the 1-process
     # step, the launcher's dry run on a fake 512-rank group
     free_before(torch, "phase 25's processes")
+    prestart("moe", DP_MOE_WORLD)
     record["lm_dp_training"], dp_launches = dp_phase(torch)
 
     # 26. the MoE family data-parallel: the shard-mapped step (two gloo
     # ranks on the card against the 1-process halves), expert parallelism
     # at full width, the compressed DP mean, elastic_remesh of ZeRO-1
     free_before(torch, "phase 26's reference state")
+    prestart("tp", TP_WORLD)
     record["lm_dp_moe_training"], moe_dp_launches = moe_dp_phase(torch)
 
     # 27. tensor parallelism on (data 1, model 2): two gloo ranks on the
     # card train Qwen2-VL-2B (2 layers) against 25b's 1-process step and
     # serve Phi-3-medium-14B (2 layers) against the 1-process run
     free_before(torch, "phase 27's reference state")
+    prestart("fam", TP_WORLD)
     record["lm_tp"], tp_train_launches, tp_serve_launches = tp_phase(torch)
+
+    # 28. tensor parallelism for the moe, ssm and hybrid families on (data
+    # 1, model 2): Moonlight, Mamba2 and Zamba2 at full width against their
+    # 1-process runs, and a checkpoint of the TP state
+    free_before(torch, "phase 28's reference state")
+    record["lm_tp_families"], fam_launches = tp_family_phase(torch)
 
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
@@ -5661,7 +6604,9 @@ def main() -> int:
                       "lm_dp_training": dp_launches[name],
                       "lm_dp_moe_training": moe_dp_launches[name],
                       "lm_tp_training": tp_train_launches[name],
-                      "lm_tp_serving": tp_serve_launches[name]}
+                      "lm_tp_serving": tp_serve_launches[name],
+                      **{path: fam[name] for path, fam in
+                         fam_launches.items()}}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

@@ -27,6 +27,17 @@ the host once, in :func:`save`. :func:`restore` puts every leaf into the
 template's dtype and device (an int template leaf gives back a host int).
 The manifest's ``treedef`` is a description of the port's own tree for a
 reader's eye; nothing reads it back.
+
+A tensor-parallel state (``DTensor`` leaves, ``launch/spmd``) is written
+in the unsharded layout that a 1-process checkpoint has: :func:`save`
+gathers one such leaf at a time whole by eager ``all_gather`` over its
+mesh dims (every rank calls it, in the tree's order); rank 0 moves it to
+the host at once and the others drop it, rank 0 writes, and the ranks meet
+at a barrier.
+:func:`restore` into a ``DTensor`` template keeps each rank's block of the
+stored whole tensor by the template's placements (``placed.place_like``), so
+a checkpoint from a tensor-parallel run restores in one process and a
+1-process checkpoint restores under tensor parallelism.
 """
 from __future__ import annotations
 
@@ -39,6 +50,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..placed import full_tensor, place_like
 
 _STEP_RE = re.compile(r"^step_(\d{9})$")
 
@@ -107,19 +120,45 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _is_placed(leaf) -> bool:
+    return hasattr(leaf, "device_mesh") and hasattr(leaf, "to_local")
+
+
 def save(base: str, step: int, tree: Any, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
     """Write ``tree`` as step ``step`` under ``base`` (atomic), then keep
-    the newest ``keep`` steps. Returns the step's directory."""
+    the newest ``keep`` steps. Returns the step's directory. A tree with
+    ``DTensor`` leaves is a collective (module docstring): every rank calls
+    it, and rank 0 writes."""
+    leaves = _flatten(tree)
+    if any(_is_placed(v) for _, v in leaves):
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
+        host = []
+        for k, v in leaves:             # one whole leaf on the card at a time
+            if _is_placed(v):
+                v = full_tensor(v)
+            host.append((k, _to_numpy(v) if writer else None))
+            del v
+        final = _step_dir(base, step)
+        if writer:
+            _write(base, step, host, _describe(tree), extra, keep)
+        dist.barrier()
+        return final
+    return _write(base, step, leaves, _describe(tree), extra, keep)
+
+
+def _write(base: str, step: int, leaves, treedef: str,
+           extra: Optional[Dict], keep: int) -> str:
     os.makedirs(base, exist_ok=True)
     final = _step_dir(base, step)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = {k: _to_numpy(v) for k, v in _flatten(tree)}
+    flat = {k: _to_numpy(v) for k, v in leaves}
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
-    manifest = {"step": step, "treedef": _describe(tree),
+    manifest = {"step": step, "treedef": treedef,
                 "keys": sorted(flat), "extra": extra or {},
                 "complete": True}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -209,8 +248,11 @@ def _from_numpy(arr: np.ndarray, leaf, device=None):
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"stored shape {tuple(t.shape)} != template "
                              f"{tuple(leaf.shape)}")
-        return t.to(device=leaf.device if device is None else device,
-                    dtype=leaf.dtype)
+        t = t.to(device=leaf.device if device is None else device,
+                 dtype=leaf.dtype)
+        if _is_placed(leaf):
+            return place_like(t, leaf)
+        return t
     if isinstance(leaf, (bool, np.bool_)):
         return bool(arr)
     if isinstance(leaf, (int, np.integer)):
@@ -239,7 +281,8 @@ def restore(base: str, template: Any, step: Optional[int] = None,
     """Restore into the structure of ``template``: ``(step, tree, extra)``,
     every leaf in the template leaf's dtype and on its device (or on
     ``device`` when given: a template on the ``meta`` device then costs no
-    memory)."""
+    memory); a ``DTensor`` leaf as this rank's block of the stored whole
+    tensor, placed as the template leaf is."""
     step = _resolve(base, step)
     d = _step_dir(base, step)
     with open(os.path.join(d, "manifest.json")) as f:

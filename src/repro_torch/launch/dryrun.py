@@ -35,10 +35,9 @@ tensors (shapes and dtypes, no data, no memory), which needs no card:
   for each mesh of ``--mesh`` (16 × 16, 2 × 16 × 16) as
   ``argument_bytes_per_device_by_mesh``, on an ``AbstractMesh``.
 * collectives: none counted yet. The step runs unsharded on ``meta``
-  here; the attention families' tensor-parallel step (``launch/spmd``,
-  slice 18) runs over real ranks, and counting its collectives on the
-  fake 256- and 512-rank meshes, with every family's step running
-  tensor-parallel, is ``ROADMAP.md`` Queue 1 item 10e.
+  here; every family's tensor-parallel step (``launch/spmd``) runs over
+  real ranks, and counting its collectives on the fake 256- and 512-rank
+  meshes is ``ROADMAP.md`` Queue 1 item 10e.
 
 The step has no host reads inside (``launch/train``), so every cell runs
 on ``meta``; an op that needed data would fail here.

@@ -19,14 +19,16 @@ every process) and the reduced config, and trains data-parallel on it.
 Each process takes the rows of its DP index,
 ``synthetic_lm_batch(pcfg, step, dp_rank, dp_size)`` (the ranks of one
 model group share them); only rank 0 prints and saves. A production mesh
-has a model axis of 16: the attention families (dense, vlm, audio) train
-on it tensor-parallel, their parameters placed as ``DTensor`` s by the
-rules (``launch/train.place_params``); the moe, ssm and hybrid families
-there, and checkpoints of a tensor-parallel state, are refused
-(``ROADMAP.md`` Queue 1 item 10e); ``--validate`` runs for all. The MoE
-family at more than one process trains under ``--opt moe`` (the
-shard-mapped dispatch: each process dispatches its own tokens); without
-it, it is refused (one dispatch over the global batch, item 10e).
+has a model axis of 16: every family trains on it tensor-parallel, its
+parameters placed as ``DTensor`` s by the rules
+(``launch/train.place_params``), and a checkpoint of that state is written
+whole by rank 0 after every rank gathered its blocks
+(``checkpoint.save``); a resume restores each rank's blocks. The MoE
+family at more than one process trains under ``--opt moe`` with the
+shard-mapped dispatch (each process dispatches its own tokens), and
+without it with one dispatch over the global batch (the reference's
+``pjit`` step). With ``--ckpt-dir`` it saves after every step ``s``
+with ``s % CKPT_EVERY == CKPT_EVERY - 1``, as the reference does.
 
 ``--validate`` runs ``dryrun.lower_cell`` on the **full** config with the
 production mesh: with no process group it builds one of fake ranks (the
@@ -47,6 +49,7 @@ from typing import Optional
 import torch
 
 BACKENDS = ("nccl", "gloo")
+CKPT_EVERY = 50         # the reference's cadence
 
 
 def fleet_init(device="cuda", backend: Optional[str] = None
@@ -150,16 +153,16 @@ def launch_train(arch: str, *, multi_pod: bool, opt: str, steps: int,
             torch.Generator(device=dev).manual_seed(0), cfg, hp, dev,
             mesh=mesh)
         layout = dp.zero1_layout(params)
-        if ckpt_dir and axis_sizes(mesh).get("model", 1) > 1:
-            raise NotImplementedError(
-                "checkpoints of a tensor-parallel state (DTensor leaves) "
-                f"({spmd.ITEM_10E})")
+        placed = axis_sizes(mesh).get("model", 1) > 1
         rows, n_rows = spmd.dp_rank(mesh), dp_size(mesh)
         start = 0
         if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
             # a checkpoint holds whole moments; under ZeRO-1 each rank
-            # restores them into a meta template and keeps its blocks
-            tpl = adamw_init(_meta_like(params)) if dp.zero1 else opt_state
+            # restores them into a meta template and keeps its blocks (a
+            # placed state's own moments are the template: each rank keeps
+            # its blocks by their placements)
+            tpl = adamw_init(_meta_like(params)) if dp.zero1 and not placed \
+                else opt_state
             start, (params, opt_state, sparse_state), _ = ckpt.restore(
                 ckpt_dir, (params, tpl, sparse_state), device=dev)
             opt_state = dp.local_opt_state(opt_state, layout)
@@ -171,9 +174,9 @@ def launch_train(arch: str, *, multi_pod: bool, opt: str, steps: int,
                 params, opt_state, sparse_state, batch)
             if pid == 0 and step % 10 == 0:
                 print(f"  step {step} loss {float(m['loss']):.4f}")
-            if ckpt_dir and step % 50 == 49:
+            if ckpt_dir and step % CKPT_EVERY == CKPT_EVERY - 1:
                 whole = dp.full_opt_state(opt_state, layout)
-                if pid == 0:
+                if pid == 0 or placed:      # a placed state: a collective
                     ckpt.save(ckpt_dir, step, (params, whole, sparse_state))
                 del whole
     return 0

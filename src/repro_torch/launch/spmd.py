@@ -26,7 +26,7 @@ constraint places nothing and returns its input. The tensor-parallel
 forward does not call it: its stream is a local block whose
 sequence-parallel boundaries are :class:`TensorParallel`'s collectives.
 
-Tensor parallelism (the attention families at a model axis above 1): with
+Tensor parallelism (every family at a model axis above 1): with
 parameters placed as ``DTensor`` s by ``launch.sharding.tree_shardings``,
 ``models/transformer`` runs each rank's shard of the model as
 ``local_map`` runs a function, through :class:`TensorParallel` (the
@@ -34,26 +34,30 @@ Megatron collectives: :meth:`TensorParallel.enter` and
 :meth:`TensorParallel.leave`, under ``seq_shard`` the sequence-parallel
 pair); the residual stream keeps one layout through the forward (whole,
 or this rank's block of the sequence), and the logits come back
-vocab-parallel. The moe, ssm and hybrid families at a model axis above 1
-are ``ROADMAP.md`` Queue 1 item 10e (:func:`check_tp_family`).
+vocab-parallel. The Mamba2 mixer (``models/mamba2``) adds a gather of
+column blocks (:meth:`TensorParallel.enter_cols`), an ``all_to_all``
+between two layouts of ``d_inner`` (:meth:`TensorParallel.all_to_all`) and
+a sum over the model axis whose consumers are partial on every rank
+(:meth:`TensorParallel.psum`, the gated norm's sum of squares); the MoE
+layer (``models/moe``) runs its experts on this rank's block.
 
-The shard-mapped MoE (``models/moe``) runs its body on each rank as
+The MoE layer over a mesh (``models/moe``) runs its body on each rank as
 ``shard_map`` runs it on each device, and reads the mesh through
 :func:`dp_groups` / :func:`dp_rank` (the DP axes), :func:`model_group` /
 :func:`model_rank` / :func:`model_size` (the model axis). Its collectives
 carry the gradients as JAX transposes them under ``shard_map``:
 
-* :func:`psum_model` — the sum over ``model`` of partial results; its
+* :func:`sum_over` — the sum over ``model`` of partial results; its
   backward is the identity, since the cotangent of a result replicated
   over ``model`` is already whole on every rank
   (``torch.distributed.nn.functional.all_reduce`` would all-reduce it
   again, and every weight gradient would come out ``model`` times too
   large);
-* :func:`grad_psum_model` — the identity on a value replicated over
+* :func:`grad_sum_over` — the identity on a value replicated over
   ``model`` that enters a partial computation; its backward sums the
   partial cotangents over ``model`` (how ``shard_map`` transposes an
   input that its ``in_specs`` replicate);
-* :func:`pmean_dp` — the mean over the DP axes; its backward is the
+* :func:`mean_over` — the mean over the DP axes; its backward is the
   identity, because each rank's loss is its own and the DP step averages
   the ranks' gradients (``launch/train.DataParallel.mean_grads``), which
   then equal the gradient of the reference's mean.
@@ -67,6 +71,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..placed import block as _block, gather_blocks as _gather, place
 from .mesh import AbstractMesh, axis_sizes, dp_axes as mesh_dp_axes
 
 
@@ -158,8 +163,8 @@ def constrain_seq(h: torch.Tensor) -> torch.Tensor:
 def dp_groups(mesh) -> List[Any]:
     """The process groups of the mesh's DP axes above 1, ``data`` first,
     then ``pod`` (a collective over one rank changes nothing); none on an
-    :class:`AbstractMesh`."""
-    if isinstance(mesh, AbstractMesh):
+    :class:`AbstractMesh` or with no mesh."""
+    if mesh is None or isinstance(mesh, AbstractMesh):
         return []
     sizes = axis_sizes(mesh)
     return [mesh.get_group(a) for a in reversed(mesh_dp_axes(mesh))
@@ -227,57 +232,34 @@ class _IdentityReduceGrad(torch.autograd.Function):
         return _all_reduce(g, ctx.groups), None
 
 
-def psum_model(x: torch.Tensor, ctx: SpmdCtx) -> torch.Tensor:
-    """``jax.lax.psum(x, tp)`` under ``shard_map``: the sum over the model
-    axis, the cotangent passed through unchanged."""
-    return _ReduceIdentityGrad.apply(x, [model_group(ctx.mesh, ctx.tp_axis)],
-                                     1)
-
-
-def grad_psum_model(x: torch.Tensor, ctx: SpmdCtx) -> torch.Tensor:
-    """``x`` (replicated over the model axis) as it enters a computation
-    whose cotangents are partial on each model rank: its gradient is their
-    sum over the axis."""
-    return _IdentityReduceGrad.apply(x, [model_group(ctx.mesh, ctx.tp_axis)])
-
-
-def pmean_dp(x: torch.Tensor, ctx: SpmdCtx) -> torch.Tensor:
-    """``jax.lax.pmean(x, dp)``: the mean over the DP axes, the gradient
-    this rank's own (module docstring)."""
-    return _ReduceIdentityGrad.apply(x, dp_groups(ctx.mesh), dp_size(ctx))
-
-
-# ---------------------------------------------------------------------------
-# tensor parallelism over placed parameters (the attention families)
-# ---------------------------------------------------------------------------
-
-TP_FAMILIES = ("dense", "vlm", "audio")
-ITEM_10E = "ROADMAP.md Queue 1 item 10e"
-
-
-def check_tp_family(family: str, size: int) -> None:
-    """The moe, ssm and hybrid families run at a model axis of 1 only."""
-    if size > 1 and family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"the {family} family at a model axis of {size}: tensor "
-            f"parallelism runs the attention families {TP_FAMILIES} only "
-            f"({ITEM_10E})")
-
-
-def _gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
-    """The ranks' blocks of ``x`` along ``dim``, in rank order (eager
-    ``all_gather``, which gloo runs on CUDA tensors)."""
+def gather_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of ``x`` over ``group`` along ``dim``, in rank order
+    (eager ``all_gather``, no gradient)."""
     import torch.distributed as dist
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    return _gather(x, dim, group, dist.get_world_size(group))
 
 
-def _block(x: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
-    w = x.shape[dim] // size
-    return x.narrow(dim, rank * w, w)
+def sum_over(x: torch.Tensor, groups: Sequence[Any]) -> torch.Tensor:
+    """The sum over ``groups``, the cotangent passed through
+    (the module docstring)."""
+    return _ReduceIdentityGrad.apply(x, list(groups), 1)
 
+
+def mean_over(x: torch.Tensor, groups: Sequence[Any], n: int) -> torch.Tensor:
+    """The mean over ``groups`` (``n`` ranks in all), the gradient this
+    rank's own (the module docstring)."""
+    return _ReduceIdentityGrad.apply(x, list(groups), n) if groups else x
+
+
+def grad_sum_over(x: torch.Tensor, groups: Sequence[Any]) -> torch.Tensor:
+    """The identity, the partial cotangents summed over ``groups``
+    (the module docstring)."""
+    return _IdentityReduceGrad.apply(x, list(groups))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over placed parameters
+# ---------------------------------------------------------------------------
 
 class _GatherSliceGrad(torch.autograd.Function):
     """Forward: the blocks gathered along ``dim``; backward: this rank's
@@ -341,6 +323,49 @@ class _SliceGatherGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _gather(g, ctx.dim, ctx.tp.group, ctx.tp.size), None, None
+
+
+def _all_to_all(x: torch.Tensor, split: int, cat: int, group,
+                size: int) -> torch.Tensor:
+    """``x``'s ``size`` blocks along ``split`` sent one to each rank, and
+    the blocks received concatenated along ``cat`` in rank order (one eager
+    ``all_to_all_single``)."""
+    import torch.distributed as dist
+    send = torch.stack(x.chunk(size, split)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=cat)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Forward: blocks along ``split`` exchanged and concatenated along
+    ``cat``; backward: the inverse exchange (``cat`` and ``split``
+    swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, split, cat, tp):
+        ctx.split, ctx.cat, ctx.tp = split, cat, tp
+        return _all_to_all(x, split, cat, tp.group, tp.size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.cat, ctx.split, ctx.tp.group,
+                           ctx.tp.size), None, None, None
+
+
+class _SumSumGrad(torch.autograd.Function):
+    """Forward: the sum over ``groups``; backward: the sum of the
+    cotangents over ``groups`` (``psum`` of a device-varying value, whose
+    consumer on every rank is partial)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups), None
 
 
 @dataclasses.dataclass(eq=False)
@@ -422,6 +447,20 @@ class TensorParallel:
         return x if self.size == 1 else \
             _IdentityReduceGrad.apply(x, [self.group])
 
+    def all_to_all(self, x: torch.Tensor, split: int, cat: int
+                   ) -> torch.Tensor:
+        """``x``'s blocks along ``split``, one to each rank, received
+        along ``cat`` (the Mamba2 mixer's ``P`` blocks of every head <->
+        whole heads of this rank's block); the gradient goes back the
+        same way."""
+        return x if self.size == 1 else _AllToAll.apply(x, split, cat, self)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model axis of partial values (each rank's share
+        of a sum of squares), whose every rank's consumer is partial: the
+        cotangents summed too."""
+        return x if self.size == 1 else _SumSumGrad.apply(x, [self.group])
+
     # -- collectives without autograd (statistics, serving) ----------------
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return x if self.size == 1 else _gather(x, dim, self.group, self.size)
@@ -470,6 +509,55 @@ def use_tp(tp: Optional[TensorParallel]):
         yield tp
     finally:
         _tp_state.tp = prev
+
+
+@contextlib.contextmanager
+def use_dp(mesh):
+    """The data-parallel step's mesh, for the model body that it runs (an
+    MoE layer dispatches over its DP axes: :func:`dispatch_mesh`)."""
+    prev = getattr(_tp_state, "dp", None)
+    _tp_state.dp = mesh
+    try:
+        yield mesh
+    finally:
+        _tp_state.dp = prev
+
+
+def dispatch_mesh():
+    """The ``DeviceMesh`` whose DP axes an MoE layer dispatches the global
+    batch over: the placed parameters' mesh, else the data-parallel step's
+    (:func:`use_dp`), else the active context's; None with none of them,
+    or on an :class:`AbstractMesh` (no process group)."""
+    tp = active_tp()
+    mesh = tp.mesh if tp is not None else getattr(_tp_state, "dp", None)
+    if mesh is None and current() is not None:
+        mesh = current().mesh
+    return mesh if hasattr(mesh, "get_group") else None
+
+
+@dataclasses.dataclass(frozen=True)
+class Scope:
+    """The thread-local SPMD state of a running model body (the context,
+    the tensor-parallel state, the DP step's mesh), carried into a
+    recomputed block: under remat the backward may run it on another
+    thread."""
+    ctx: Optional[SpmdCtx]
+    tp: Optional[TensorParallel]
+    dp: Any
+
+
+def scope() -> Scope:
+    return Scope(current(), active_tp(), getattr(_tp_state, "dp", None))
+
+
+@contextlib.contextmanager
+def entered(sc: Scope):
+    prev = scope()
+    _state.ctx, _tp_state.tp, _tp_state.dp = sc.ctx, sc.tp, sc.dp
+    try:
+        yield sc
+    finally:
+        _state.ctx, _tp_state.tp, _tp_state.dp = prev.ctx, prev.tp, prev.dp
 
 
 def _first_dtensor(tree):
@@ -537,20 +625,8 @@ def place_local(x: torch.Tensor, sharding) -> Any:
     ``launch.sharding.NamedSharding`` on a ``DeviceMesh`` with no
     communication: each rank keeps its own block (``DTensor.from_local``);
     dims that a spec splits must divide."""
-    from torch.distributed.tensor import DTensor, Shard
     from .sharding import placements
-    mesh = sharding.mesh
-    pls = placements(sharding.spec, mesh)
-    local = x
-    for i, pl in enumerate(pls):
-        if isinstance(pl, Shard):
-            n = mesh.size(i)
-            if local.shape[pl.dim] % n:
-                raise ValueError(f"dim {pl.dim} of {tuple(x.shape)} does not "
-                                 f"split {n} ways")
-            local = _block(local, pl.dim, mesh.get_local_rank(i), n)
-    return DTensor.from_local(local.clone(memory_format=torch.contiguous_format),
-                              mesh, pls, run_check=False)
+    return place(x, sharding.mesh, placements(sharding.spec, sharding.mesh))
 
 
 def vocab_argmax(local: torch.Tensor, tp: TensorParallel) -> torch.Tensor:

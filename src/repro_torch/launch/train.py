@@ -37,25 +37,27 @@ batch, then
   for bit the replicated update (``init_train_state(mesh=)`` allocates
   the blocks). A leaf with no dividing dim stays replicated.
 
-The MoE family at a DP size above 1 trains under an SPMD context with
-``shardmap_moe``: each rank dispatches its own tokens, with the capacity
-of its tokens, and ``moe_aux``, ``moe_dropped`` and ``moe_load`` are the
-DP means (``models/moe._moe_apply_shardmap``), the reference's
-shard-mapped step. Each rank's loss keeps its own aux term's gradient, so
-the mean of the ranks' gradients is the gradient of the reference's
-DP-mean aux loss; no collective in the loss is differentiated twice.
+The MoE family at a DP size above 1 dispatches over the mesh
+(``models/moe._moe_layer``; the step runs its body under
+``spmd.use_dp(mesh)``): under an SPMD context with ``shardmap_moe`` each
+rank dispatches its own tokens, with the capacity of its tokens, and
+``moe_aux``, ``moe_dropped`` and ``moe_load`` are the DP means, the
+reference's shard-mapped step; without it one dispatch covers the global
+batch (the reference's ``pjit`` step): every rank gathers the ranks'
+expert choices, the capacity is the global token count's and the slots
+are assigned in global batch order, and each rank runs the experts on its
+own tokens' rows. Each rank's loss keeps its own aux term's gradient, so
+the mean of the ranks' gradients is the gradient of the reference's aux
+loss; no collective in the loss is differentiated twice.
 
 On a 1 × 1 ``AbstractMesh`` (no process group) the step issues no
-collective and is ``make_train_step``'s. The MoE family at a DP size above
-1 without ``shardmap_moe`` is refused: the reference then dispatches the
-global batch at once, which in eager torch is a redistribution of the
-tokens across ranks (``ROADMAP.md`` Queue 1 item 10e).
+collective and is ``make_train_step``'s.
 
-Tensor parallelism: on a mesh whose model axis is above 1 the attention
-families (dense, vlm, audio) train with their parameters placed as
-``DTensor`` s by the rules (``init_train_state(mesh=)``,
-:func:`place_params`); the model runs each rank's shard
-(``launch/spmd.TensorParallel``), the loss is the vocab-parallel cross
+Tensor parallelism: on a mesh whose model axis is above 1 every family
+trains with its parameters placed as ``DTensor`` s by the rules
+(``init_train_state(mesh=)``, :func:`place_params`); the model runs each
+rank's shard (``launch/spmd.TensorParallel``: the Mamba2 mixer and the
+MoE experts on their blocks too), the loss is the vocab-parallel cross
 entropy, and
 
 * ``_grads`` returns every gradient as a ``DTensor`` in its parameter's
@@ -66,10 +68,9 @@ entropy, and
 * the moments are ``DTensor`` s of their parameters' placements and local
   shapes; ZeRO-1 splits a leaf's local block along the dim
   ``opt_state_shardings`` names, bit for bit the replicated update;
-* the clip reads every block's squares once (``optim.global_norm``).
-
-The moe, ssm and hybrid families at a model axis above 1 are refused
-(item 10e).
+* the clip reads every block's squares once (``optim.global_norm``);
+* the masked experts' and projections' DSST event scores each matrix
+  from its local block (``optim/sparse``).
 
 ``run_training`` is the single-host loop. With ``ckpt_dir`` it resumes
 from the newest valid checkpoint there (the caller replays the data
@@ -176,26 +177,13 @@ class DataParallel:
     there are no groups, and nothing is communicated."""
 
     def __init__(self, mesh, cfg: ModelConfig, hp: "TrainHParams"):
-        spmd.check_tp_family(cfg.family, axis_sizes(mesh).get("model", 1))
         self.mesh, self.cfg = mesh, cfg
         self.axes, self.size = dp_axes(mesh), dp_size(mesh)
-        self.check_dispatch()
         self.groups = spmd.dp_groups(mesh)
         self.rank = spmd.dp_rank(mesh)
-        self.zero1 = hp.zero1 and self.size > 1
-
-    def check_dispatch(self) -> None:
-        """The MoE family at a DP size above 1 needs the active SPMD
-        context's ``shardmap_moe`` (module docstring)."""
-        ctx = spmd.current()
-        if self.cfg.family == "moe" and self.size > 1 and \
-                not (ctx is not None and ctx.shardmap_moe):
-            raise NotImplementedError(
-                f"the moe family at a DP size of {self.size} without "
-                "shardmap_moe: one dispatch over the global batch, a "
-                "redistribution of the tokens across ranks "
-                f"({spmd.ITEM_10E}); under spmd.activate(mesh, "
-                "shardmap_moe=True) each rank dispatches its own tokens")
+        # the moments split only over process groups (none on an
+        # AbstractMesh, where every rank's state is whole)
+        self.zero1 = hp.zero1 and self.size > 1 and bool(self.groups)
 
     def zero1_layout(self, params) -> Any:
         """``(dim, rank, DP size)`` for each leaf whose moments ZeRO-1
@@ -286,9 +274,11 @@ class DataParallel:
 
     def full_opt_state(self, opt_state: AdamWState, layout) -> AdamWState:
         """ZeRO-1 moments gathered whole (every rank calls it; for a
-        checkpoint)."""
+        checkpoint). A ``DTensor`` moment (the TP step) stays placed:
+        ``checkpoint.save`` gathers it over every mesh dim."""
         def one(m, z):
-            return m if z is None else self.gather_blocks(m, z[0])
+            return m if z is None or hasattr(m, "to_local") \
+                else self.gather_blocks(m, z[0])
         return AdamWState(opt_state.step, tree_map(one, opt_state.m, layout),
                           tree_map(one, opt_state.v, layout))
 
@@ -309,9 +299,11 @@ class DataParallel:
                           tree_map(one, opt_state.v, layout))
 
     def local_opt_state(self, opt_state: AdamWState, layout) -> AdamWState:
-        """Whole moments -> this rank's ZeRO-1 blocks (copies)."""
+        """Whole moments -> this rank's ZeRO-1 blocks (copies); a
+        ``DTensor`` moment is placed already (``checkpoint.restore`` into
+        a placed template keeps this rank's block)."""
         def one(m, z):
-            if z is None:
+            if z is None or hasattr(m, "to_local"):
                 return m
             d, i, n = z
             w = m.shape[d] // n
@@ -359,6 +351,12 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
         return loss, (ce, aux)
 
     def grad_step(params, batch):
+        if dp is not None:
+            with spmd.use_dp(dp.mesh):
+                return _grad_step(params, batch)
+        return _grad_step(params, batch)
+
+    def _grad_step(params, batch):
         if hp.microbatch <= 1:
             return _grads(params, loss_fn, batch)
         # gradient accumulation: running-mean f32 grads over batch slices
@@ -385,8 +383,6 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
                                      for v in batch.values()):
             raise ValueError(f"batch does not split into {hp.microbatch} "
                              f"microbatches")
-        if dp is not None:
-            dp.check_dispatch()
         loss, (ce, aux), grads = grad_step(params, batch)
         zero1 = None
         if dp is not None:
@@ -461,8 +457,7 @@ def place_params(params, cfg: ModelConfig, mesh):
     LM rules (``launch.sharding.tree_shardings``), each rank keeping its
     own block: no communication."""
     from .sharding import tree_shardings
-    from .spmd import check_tp_family, place_local
-    check_tp_family(cfg.family, axis_sizes(mesh).get("model", 1))
+    from .spmd import place_local
     return tree_map(place_local, params, tree_shardings(params, cfg, mesh))
 
 

@@ -13,6 +13,22 @@ over the same parameters.
   sequence through ``mamba2_decode`` leaves.
 * ``mamba2_init_cache`` / ``mamba2_decode`` — the per-token recurrence.
 
+Under tensor parallelism (``launch.spmd.TensorParallel``, parameters placed
+by ``launch.sharding``'s rules) each rank holds a contiguous column block
+of ``in_proj`` (which cuts across ``z | x | B | C | dt``), a channel block
+of ``conv_w`` / ``conv_b`` over ``x | B | C``, a head block of ``norm_g``
+and of ``out_proj``'s rows, and a cache whose SSM state is split on ``P``
+and whose conv window on its channels. The mixer then runs the SSD on this
+rank's ``P`` block of every head, which is the cache's placement (each
+``p`` is independent given ``dt``, ``B`` and ``C``): the projection's
+blocks are gathered whole, the conv runs on the channels that block
+needs (from the conv weights gathered), and one ``all_to_all`` takes the
+result to the head block that ``norm_g`` and ``out_proj`` hold; the gated
+norm's sum of squares is summed over the ranks. ``a_log``, ``d_skip`` and
+``dt_bias`` replicate, and their gradients, partial on each rank, are
+summed. A decode step runs the conv on the cache's own channel block and
+gathers its output; the SSM state never moves.
+
 Within a chunk the recurrence is expanded into an attention-like quadratic
 form; across chunks the small ``[B, H, P, N]`` state is carried by a loop
 over the chunks. The reference's three- and four-operand einsums are
@@ -30,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SparsityConfig
+from ..launch import spmd
 from .layers import _randn, linear_apply, linear_init, rmsnorm
 
 
@@ -132,6 +149,9 @@ def _ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
 
 
 def _mamba2(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool):
+    tp = spmd.active_tp()
+    if tp is not None and tp.size > 1:
+        return _mamba2_tp(p, x, cfg, want_cache, tp)
     b, s, _ = x.shape
     di, ns, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     q = cfg.ssm_chunk
@@ -161,6 +181,117 @@ def _mamba2(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool):
     w1 = cfg.ssm_conv - 1
     tail = F.pad(xbc_in[:, max(0, s - w1):], (0, 0, max(0, w1 - s), 0))
     return out, state, tail
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (module docstring)
+# ---------------------------------------------------------------------------
+
+def _sp(cfg: ModelConfig) -> Optional[SparsityConfig]:
+    sp = cfg.sparsity
+    return sp if (sp and "mlp" in sp.targets) else None
+
+
+def _p_block(t: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The ``x | B | C`` channels (``t``'s last dim) that this rank's SSD
+    reads: its ``P`` block of every head's ``x``, then all of ``B`` and
+    ``C``; slices, so the backward adds no index scatter."""
+    di, h, pd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    pl = pd // tp.size
+    xs = t[..., :di].unflatten(-1, (h, pd))[..., tp.rank * pl:
+                                             (tp.rank + 1) * pl]
+    return torch.cat([xs.flatten(-2), t[..., di:]], dim=-1)
+
+
+def _replicated_ssm(p, tp):
+    """``a_log``, ``d_skip``, ``dt_bias``: replicated, read on this rank's
+    ``P`` block only, so their gradients are summed over the model axis."""
+    return {k: tp.grad_sum(p[k]) for k in ("a_log", "d_skip", "dt_bias")}
+
+
+def _gated_norm(g, y, z, eps: float, tp):
+    """``rmsnorm(g, y * silu(z))`` over the whole ``d_inner`` from this
+    rank's head block: the sum of squares summed over the model axis."""
+    x = y * F.silu(z)
+    if tp is None or tp.size == 1:
+        return rmsnorm(g, x, eps)
+    x32 = x.float()
+    ms = tp.psum((x32 * x32).sum(-1, keepdim=True)) / (x32.shape[-1] * tp.size)
+    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * g
+
+
+def _heads_out(p, y, z, x_dtype, cfg: ModelConfig, tp, lead):
+    """``y [*lead, H, P/tp]`` (this rank's ``P`` block of every head) ->
+    its head block (one ``all_to_all``), gated, normed and through this
+    rank's rows of ``out_proj``: the partial output."""
+    # cast first (elementwise, so the same values), then exchanged
+    y = tp.all_to_all(y.to(x_dtype), len(lead), len(lead) + 1)
+    y = y.reshape(*lead, -1)                                 # [*lead, H/tp·P]
+    y = _gated_norm(p["norm_g"], y, z, cfg.norm_eps, tp)
+    return linear_apply(p["out_proj"], y, _sp(cfg))
+
+
+def _mamba2_tp(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool, tp):
+    """``_mamba2`` on this rank's blocks; ``x`` the replicated input. The
+    output is partial (the caller sums it over the model axis); the cache
+    is this rank's ``P`` block of the state and channel block of the conv
+    window."""
+    b, s, _ = x.shape
+    di, ns, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    pl, q, dl = cfg.ssm_head_dim // tp.size, cfg.ssm_chunk, di // tp.size
+    zxbcdt = tp.enter_cols(linear_apply(p["in_proj"], x, _sp(cfg)))
+    z = zxbcdt[..., tp.rank * dl:(tp.rank + 1) * dl]
+    xbc_in = zxbcdt[..., di: 2 * di + 2 * ns]
+    xbc = _causal_conv(_p_block(xbc_in, cfg, tp),
+                       _p_block(tp.enter_cols(p["conv_w"]), cfg, tp),
+                       _p_block(tp.enter_cols(p["conv_b"]), cfg, tp))
+    xs = xbc[..., :h * pl].reshape(b, s, h, pl)
+    bm, cm = xbc[..., h * pl: h * pl + ns].float(), xbc[..., h * pl + ns:].float()
+    rp = _replicated_ssm(p, tp)
+    dt, da = _dt_da(rp, zxbcdt[..., 2 * di + 2 * ns:])
+    xdt = xs.float() * dt[..., None]
+    pad = -s % q
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        da, bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (da, bm, cm))
+    y, state = _ssd(xdt, da, bm, cm, q)
+    y = y[:, :s] + rp["d_skip"].float()[:, None] * xs.float()
+    out = _heads_out(p, y, z, x.dtype, cfg, tp, (b, s))
+    if not want_cache:
+        return out
+    cw = p["conv_w"].shape[-1]               # this rank's conv channels
+    w1 = cfg.ssm_conv - 1
+    mine = xbc_in[..., tp.rank * cw:(tp.rank + 1) * cw]
+    tail = F.pad(mine[:, max(0, s - w1):], (0, 0, max(0, w1 - s), 0))
+    return out, state, tail
+
+
+def _decode_tp(p, x: torch.Tensor, cache, cfg: ModelConfig, tp):
+    """``mamba2_decode`` on this rank's blocks: the conv over the cache's
+    channel block, its output gathered; the state's ``P`` block updated in
+    place. Returns the partial ``[B, 1, D]``."""
+    b = x.shape[0]
+    di, ns, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    pl, dl = cfg.ssm_head_dim // tp.size, di // tp.size
+    zxbcdt = tp.all_gather(linear_apply(p["in_proj"], x[:, 0, :], _sp(cfg)),
+                           -1)
+    z = zxbcdt[..., tp.rank * dl:(tp.rank + 1) * dl]
+    cw = p["conv_w"].shape[-1]
+    xbc = zxbcdt[..., di + tp.rank * cw: di + (tp.rank + 1) * cw]
+    window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
+    conv_out = F.silu((window * p["conv_w"]).sum(dim=1) + p["conv_b"])
+    cache["conv"].copy_(window[:, 1:])
+    sel = _p_block(tp.all_gather(conv_out, -1), cfg, tp)
+    xs = sel[..., :h * pl].reshape(b, h, pl)
+    bm, cm = sel[..., h * pl: h * pl + ns].float(), sel[..., h * pl + ns:].float()
+    dt, da = _dt_da(p, zxbcdt[..., 2 * di + 2 * ns:])
+    xdt = xs.float() * dt[..., None]
+    ssm = cache["ssm"]
+    ssm.mul_(torch.exp(da)[:, :, None, None]).add_(
+        xdt[..., None] * bm[:, None, None, :])
+    y = (ssm @ cm[:, None, :, None])[..., 0]
+    y = y + p["d_skip"].float()[:, None] * xs.float()
+    return _heads_out(p, y, z, x.dtype, cfg, tp, (b,))[:, None, :]
 
 
 def mamba2_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -205,6 +336,9 @@ def mamba2_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"mamba2_decode takes one token, got {s}")
+    tp = spmd.active_tp()
+    if tp is not None and tp.size > 1:
+        return _decode_tp(p, x, cache, cfg, tp), cache
     di, ns, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
     z, xbc, dt = _split_proj(p, x[:, 0, :], cfg)

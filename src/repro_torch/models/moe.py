@@ -29,13 +29,29 @@ global deterministic mode: two calls of a step give the same gradients bit
 for bit. ``moe_aux`` carries its gradient through ``probs.mean(0)`` (the
 integer load is constant), as in the reference; ``moe_dropped`` has none.
 
-Under an SPMD context with ``shardmap_moe`` on a mesh of more than one
-device, each rank runs the reference's ``shard_map`` body on its own
-tokens (:func:`_moe_apply_shardmap`): its capacity from its own tokens,
-the experts split over the model axis, EP (``cfg.moe_shard_experts``,
-Moonlight: each rank runs ``E / tp`` experts) or TP inside the experts
-(Mixtral: ``w1``, ``w3`` split on F, ``w2`` on F's rows), the combine
-summed over ``model``. On one device it is this path.
+Over a mesh (:func:`_moe_layer`), the experts split over the model axis,
+EP (``cfg.moe_shard_experts``, Moonlight: each rank runs ``E / tp``
+experts) or TP inside the experts (Mixtral: ``w1``, ``w3`` split on F,
+``w2`` on F's rows), and the combine summed over ``model``:
+
+* under an SPMD context with ``shardmap_moe`` on a mesh of more than one
+  device, each rank runs the reference's ``shard_map`` body on its own
+  tokens, with the capacity of its own tokens (dense experts only, as the
+  reference's ``in_specs``);
+* otherwise (the reference's ``pjit`` semantics) one dispatch over the
+  global batch: every rank gathers the DP ranks' expert choices, so the
+  capacity is the global token count's and the slots are assigned in
+  global batch order, and ``moe_aux``, ``moe_dropped`` and ``moe_load``
+  are the global batch's; each rank runs the experts on a buffer of its
+  own tokens' rows only (:func:`_own_runs`: ``1 / DP`` of the global
+  buffer; the FFN acts row by row, so the outputs are the same), in any
+  expert form.
+
+At a DP size of 1 the two are one function, bit for bit. On parameters
+placed as ``DTensor`` s (``launch.spmd.TensorParallel``) the expert leaves
+arrive as this rank's blocks; under sequence parallelism the layer takes
+the whole sequence and hands back this rank's block. On one device, or
+with no mesh, it is the plain path.
 """
 from __future__ import annotations
 
@@ -49,7 +65,7 @@ from ..configs.base import ModelConfig, SparsityConfig
 from ..core.dsst import _top_k_ids
 from ..core.sparsity import NMSpec
 from ..launch import spmd
-from ..launch.mesh import AbstractMesh
+from ..launch.mesh import AbstractMesh, dp_size as mesh_dp_size
 from .layers import _randn, _rows_from_umask, unit_masks
 
 
@@ -94,15 +110,27 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def _expert_apply(pm, x: torch.Tensor) -> torch.Tensor:
-    """x [E, C, K] @ w [E, K', O] for any storage form."""
+def _expert_apply(pm, x: torch.Tensor, k_in: int = 0) -> torch.Tensor:
+    """x [E, C, K] @ w [E, K', O] for any storage form. ``k_in``: the
+    whole input width, where ``w`` may be a row-parallel block under
+    tensor parallelism (``w2`` split on F): a compact block gathers the
+    input's column blocks and reads its own kept rows, a masked one its
+    own units of the mask (as ``layers.linear_apply``)."""
     if "rows" in pm:
-        return torch.bmm(x.index_select(-1, pm["rows"]), pm["w"])
+        rows, w = pm["rows"], pm["w"]
+        if rows.shape[-1] != w.shape[-2]:            # a row-parallel block
+            tp = spmd.active_tp()
+            x = tp.enter_cols(x)
+            rows = rows.narrow(-1, tp.rank * w.shape[-2], w.shape[-2])
+        return torch.bmm(x.index_select(-1, rows), w)
     if "umask" in pm:
         # straight-through, as layers.linear_apply: forward sees w·mask
         w = pm["w"]
-        rows = w.shape[-2] // pm["umask"].shape[-2]
+        rows = (k_in or w.shape[-2]) // pm["umask"].shape[-2]
         maskf = pm["umask"].repeat_interleave(rows, dim=-2).to(w.dtype)
+        if maskf.shape[-2] != w.shape[-2]:           # a row-parallel block
+            maskf = maskf.narrow(-2, spmd.active_tp().rank * w.shape[-2],
+                                 w.shape[-2])
         return torch.bmm(x, w - (w * (1.0 - maskf)).detach())
     return torch.bmm(x, pm["w"])
 
@@ -113,10 +141,19 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def _dispatch(flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
-              c: int):
+              c: int, mesh=None):
     """Route flat ``[N, D]`` tokens: ``(slot [N·K], gate [N, K], aux)``.
     ``slot`` is ``expert·C + rank`` for a kept choice and ``E·C`` (the
-    trash row) for a dropped one."""
+    trash row) for a dropped one.
+
+    ``mesh`` with DP axes above 1: these are this rank's tokens within the
+    global batch (the DP ranks' tokens in DP-rank order). Every rank
+    gathers the ranks' expert choices (eager ``all_gather`` of ``[N·K]``
+    ints) and ranks them in global order, so the slots and drops of its
+    own choices are the one-device dispatch's; ``moe_load`` and
+    ``moe_dropped`` are the global batch's, and ``moe_aux`` takes the
+    router's mean over the DP ranks (``spmd.mean_over``: the gradient
+    this rank's own)."""
     n = flat.shape[0]
     e, k = cfg.moe_experts, cfg.moe_top_k
     logits = flat @ router_w.to(flat.dtype)                     # [N, E]
@@ -125,24 +162,55 @@ def _dispatch(flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
     gate = torch.gather(probs, -1, eids)
     gate = (gate / gate.sum(-1, keepdim=True)).to(flat.dtype)
 
-    # rank of each (token, choice) within its expert, in token order
-    flat_e = eids.reshape(-1)                                   # [N·K]
+    # rank of each (token, choice) within its expert, in (global) token order
+    mine = eids.reshape(-1)                                     # [N·K]
+    groups = spmd.dp_groups(mesh) if mesh is not None else []
+    flat_e = mine
+    for g in groups:                       # data, then pod: DP-rank order
+        flat_e = spmd.gather_group(flat_e, 0, g)
+    nk = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
     # integer counts, exact in any order (bincount would read its max back
     # to the host on the card, once per layer)
     counts = torch.zeros(e, dtype=torch.int64, device=flat.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
-    rank_sorted = torch.arange(n * k, device=flat.device) - starts[flat_e[order]]
-    rank = torch.empty_like(rank_sorted)
-    rank[order] = rank_sorted
-    slot = torch.where(rank < c, flat_e * c + rank, e * c)
+    rank_sorted = torch.arange(nk, device=flat.device) - starts[flat_e[order]]
+    rank_all = torch.empty_like(rank_sorted)
+    rank_all[order] = rank_sorted
+    rank = rank_all
+    me = probs.mean(0)
+    if groups:
+        r0 = spmd.dp_rank(mesh) * n * k
+        rank = rank_all[r0:r0 + n * k]
+        me = spmd.mean_over(me, groups, nk // (n * k))
+    slot = torch.where(rank < c, mine * c + rank, e * c)
 
-    load = counts.float() / (n * k)
-    aux = {"moe_aux": e * (probs.mean(0) * load).sum(),
-           "moe_dropped": (rank >= c).sum() / (n * k),
+    load = counts.float() / nk
+    aux = {"moe_aux": e * (me * load).sum(),
+           "moe_dropped": (rank_all >= c).sum() / nk,
            "moe_load": load}
     return slot, gate, aux
+
+
+def _own_runs(slot: torch.Tensor, e: int, c: int) -> Tuple[torch.Tensor, int]:
+    """The global batch's slots of this rank's choices (:func:`_dispatch`
+    given a mesh) -> ``(slot, C_buf)`` in a buffer of just this rank's
+    rows. The slots are assigned in global order, DP-rank major, so this
+    rank's kept choices of an expert hold one run of that expert's ``c``
+    slots; the buffer keeps each run from its start, ``C_buf`` rows an
+    expert (the longest run rounded up to 8: one read of the device's
+    counts a layer), and the experts run on ``1 / DP`` of the global
+    buffer's rows."""
+    nk = slot.shape[0]
+    kept = slot < e * c
+    ex = torch.where(kept, slot // c, e)                # e: a dropped choice
+    run = torch.zeros(e + 1, dtype=torch.int64, device=slot.device
+                      ).scatter_add_(0, ex, kept.long())
+    c_buf = max(8, -(-int(run[:e].max()) // 8) * 8)
+    srt = torch.sort(slot).values               # kept slots are distinct
+    head = srt[(torch.cumsum(run, 0) - run).clamp(max=nk - 1)]
+    return torch.where(kept, ex * c_buf + slot - head[ex], e * c_buf), c_buf
 
 
 def _expert_ffn(p, ebuf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -155,7 +223,7 @@ def _expert_ffn(p, ebuf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.act)
-    return _expert_apply(p["w2"], h)                            # [E, C, D]
+    return _expert_apply(p["w2"], h, cfg.d_ff)                  # [E, C, D]
 
 
 class _SlotGather(torch.autograd.Function):
@@ -216,55 +284,61 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
     """x [B, S, D] -> (out [B, S, D], aux): ``moe_aux`` (the load-balance
     loss), ``moe_dropped`` (share of choices past capacity) and
     ``moe_load`` [E] (share of choices per expert), f32. The capacity is
-    that of the call's ``B·S`` tokens; the expert form is read off the
+    that of the call's ``B·S`` tokens (over a mesh, of the global batch's
+    or of this rank's: module docstring); the expert form is read off the
     params (the reference's ``sp`` argument goes unused there too)."""
     ctx = spmd.current()
     compact_experts = any("rows" in p[w] for w in ("w1", "w2") if w in p)
-    if ctx is not None and ctx.shardmap_moe and not compact_experts \
-            and ctx.mesh_size() > 1:
-        return _moe_apply_shardmap(p, x, cfg, ctx)
-    b, s, d = x.shape
-    n, e, k = b * s, cfg.moe_experts, cfg.moe_top_k
-    c = capacity(n, cfg)
-    flat = x.reshape(n, d)
-    slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
-    token, row = _slot_maps(slot, e * c, k)
-    # the buffer gathers its tokens; a token's gradient gathers its k slots
-    buf = _SlotGather.apply(flat, token, slot, k)
-    eout = _expert_ffn(p, buf.view(e, c, d), cfg)
-    return _combine(flat, eout, slot, row, gate).reshape(b, s, d), aux
+    shard_mapped = ctx is not None and ctx.shardmap_moe and \
+        not compact_experts and ctx.mesh_size() > 1
+    if shard_mapped and isinstance(ctx.mesh, AbstractMesh):
+        raise ValueError(f"an abstract mesh of {ctx.mesh.shape} has no "
+                         "process group to run the MoE shard map on")
+    tp = spmd.active_tp()
+    mesh = ctx.mesh if shard_mapped and tp is None else spmd.dispatch_mesh()
+    return _moe_layer(p, x, cfg, mesh, tp, shard_mapped)
 
 
-def _local_experts(p, cfg: ModelConfig, tp_n: int, m: int):
-    """This model rank's block of each expert matrix, as ``shard_map``'s
-    ``in_specs`` slice the replicated leaves: EP splits the expert axis,
-    TP inside experts ``w1`` / ``w3`` on F (their last dim) and ``w2`` on
-    F's rows. The reference's specs name ``w`` alone: masked experts are
-    refused, as there (compact ones take the unsharded path)."""
+def _local_experts(p, cfg: ModelConfig, tp_n: int, m: int,
+                   dense_only: bool = True):
+    """This model rank's block of each expert matrix: EP splits the expert
+    axis, TP inside experts ``w1`` / ``w3`` on F (their last dim) and
+    ``w2`` on F's rows. A leaf placed by the rules arrives as that block
+    already; a whole one is cut as ``shard_map``'s ``in_specs`` slice the
+    replicated leaves (dense experts: the reference's specs name ``w``
+    alone, so the shard map refuses masked ones, as there)."""
     out = {}
     for name in ("w1", "w2", "w3"):
         if name not in p:
             continue
-        if set(p[name]) != {"w"}:
+        if dense_only and set(p[name]) != {"w"}:
             raise ValueError(
                 f"the shard-mapped MoE takes dense experts; {name} holds "
                 f"{sorted(p[name])} (the reference's in_specs name w alone)")
         w = p[name]["w"]
         dim = 0 if cfg.moe_shard_experts else (1 if name == "w2" else 2)
+        whole = cfg.moe_experts if cfg.moe_shard_experts else (
+            cfg.d_ff if name != "w2" or "rows" not in p[name]
+            else p[name]["rows"].shape[-1])
+        if tp_n == 1 or w.shape[dim] != whole:
+            out[name] = p[name]          # one rank, or placed: its block
+            continue
         if w.shape[dim] % tp_n:
             raise ValueError(f"{name}'s dim {dim} ({w.shape[dim]}) does not "
                              f"split over a model axis of {tp_n}")
         blk = w.shape[dim] // tp_n
-        out[name] = {"w": w.narrow(dim, m * blk, blk)}
+        out[name] = dict(p[name], w=w.narrow(dim, m * blk, blk))
     return out
 
 
-def _moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, ctx
-                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference's ``_moe_apply_shardmap`` body on this rank. ``x`` is
-    the rank's own block of the batch along the DP axes (as the DP step's
-    batch is), replicated over ``model``; the expert leaves are whole and
-    this rank takes its block (:func:`_local_experts`).
+def _moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp,
+               shard_mapped: bool
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The MoE layer on this rank of ``mesh`` (module docstring; with no
+    mesh, or one with no DP group and no model axis in use, the one-device
+    layer). ``x`` is the rank's own block of the batch along the DP axes
+    (as the DP step's batch is), replicated over ``model`` (under sequence
+    parallelism its sequence block, gathered whole here).
 
     * EP: every rank scatters its tokens into the full ``[E, C, D]``
       buffer, runs its ``E / tp`` experts, writes them into a zero
@@ -272,52 +346,66 @@ def _moe_apply_shardmap(p, x: torch.Tensor, cfg: ModelConfig, ctx
     * TP inside experts: every rank runs its F-slice of every expert and
       the combine is summed over ``model``.
 
-    ``C`` is the capacity of this rank's tokens. Where the DP size is
-    above 1, ``moe_aux``, ``moe_dropped`` and ``moe_load`` are the means
-    over the DP axes (the reference's rule: there the global batch is the
-    DP size times this block, which the DP axes divide).
+    With ``shard_mapped``, ``C`` is the capacity of this rank's tokens and,
+    where the DP size is above 1, ``moe_aux``, ``moe_dropped`` and
+    ``moe_load`` are the means over the DP axes (the reference's rule);
+    otherwise the dispatch is the global batch's (:func:`_dispatch` given
+    the mesh; at a DP size of 1 both are the one-device dispatch).
 
     Gradients, as JAX transposes the ``shard_map``: the sum over
-    ``model`` passes its cotangent through (``spmd.psum_model``), and the
-    tokens entering the buffer and the gates entering the combine sum their
-    partial cotangents over ``model`` (``spmd.grad_psum_model``), so the
-    input and router gradients are whole on every model rank and each
-    rank's expert block carries its own. ``moe_aux`` carries this rank's
-    gradient (``spmd.pmean_dp``): the DP step's mean of the ranks'
-    gradients is the gradient of the reference's DP mean. On a model axis
-    of 1 no collective runs on the tokens and the body is
-    :func:`moe_apply`'s on this rank's tokens, bit for bit."""
-    if isinstance(ctx.mesh, AbstractMesh):
-        raise ValueError(f"an abstract mesh of {ctx.mesh.shape} has no "
-                         "process group to run the MoE shard map on")
+    ``model`` passes its cotangent through (``TensorParallel.leave``, or
+    ``spmd.sum_over`` on whole leaves), and the tokens entering the
+    buffer and the gates entering the combine sum their partial cotangents
+    over ``model`` (``spmd.grad_sum_over``), so the input and router
+    gradients are whole on every model rank and each rank's expert block
+    carries its own. ``moe_aux`` carries this rank's gradient
+    (``spmd.mean_over``): the DP step's mean of the ranks' gradients is the
+    gradient of the reference's. On a model axis of 1 no collective runs
+    on the tokens and the body is :func:`moe_apply`'s on this rank's
+    tokens, bit for bit."""
+    tp_n = spmd.model_size(mesh) if (shard_mapped or tp is not None) else 1
+    m = spmd.model_rank(mesh) if tp_n > 1 else 0
+    if tp is not None and tp.seq:
+        x = tp.gather(x, 1)                  # the whole sequence
     b, s, d = x.shape
     n, e, k = b * s, cfg.moe_experts, cfg.moe_top_k
-    tp_n = spmd.model_size(ctx.mesh, ctx.tp_axis)
-    m = spmd.model_rank(ctx.mesh, ctx.tp_axis)
-    c = capacity(n, cfg)
     flat = x.reshape(n, d)
-    slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
+    dp_n = mesh_dp_size(mesh) if spmd.dp_groups(mesh) else 1
+    if shard_mapped or dp_n == 1:
+        c = capacity(n, cfg)
+        slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
+        if dp_n > 1:
+            # one collective for the three: moe_aux's gradient is this rank's
+            flat_aux = spmd.mean_over(torch.cat([
+                aux["moe_aux"].reshape(1),
+                aux["moe_dropped"].reshape(1).float(), aux["moe_load"]]),
+                spmd.dp_groups(mesh), dp_n)
+            aux = {"moe_aux": flat_aux[0], "moe_dropped": flat_aux[1],
+                   "moe_load": flat_aux[2:]}
+    else:
+        c = capacity(n * dp_n, cfg)
+        slot, gate, aux = _dispatch(flat, p["router"], cfg, c, mesh)
+        slot, c = _own_runs(slot, e, c)
     tokens = flat
     if tp_n > 1:
-        tokens, gate = spmd.grad_psum_model(flat, ctx), \
-            spmd.grad_psum_model(gate, ctx)
+        group = [spmd.model_group(mesh)]
+        tokens, gate = spmd.grad_sum_over(flat, group), \
+            spmd.grad_sum_over(gate, group)
     token, row = _slot_maps(slot, e * c, k)
+    # the buffer gathers its tokens; a token's gradient gathers its k slots
     buf = _SlotGather.apply(tokens, token, slot, k).view(e, c, d)
-    wl = _local_experts(p, cfg, tp_n, m)
+    wl = _local_experts(p, cfg, tp_n, m, shard_mapped)
     if cfg.moe_shard_experts and tp_n > 1:
         el = e // tp_n
+        if el * tp_n != e:
+            raise ValueError(f"{e} experts do not split over a model axis "
+                             f"of {tp_n}")
         eout = _expert_ffn(wl, buf.narrow(0, m * el, el), cfg)
         eout = F.pad(eout, (0, 0, 0, 0, m * el, e - (m + 1) * el))
     else:
         eout = _expert_ffn(wl, buf, cfg)
-    out = _combine(flat, eout, slot, row, gate)
+    out = _combine(flat, eout, slot, row, gate).reshape(b, s, d)
     if tp_n > 1:
-        out = spmd.psum_model(out, ctx)
-    if spmd.dp_size(ctx) > 1:
-        # one collective for the three: moe_aux's gradient is this rank's
-        flat_aux = spmd.pmean_dp(torch.cat([
-            aux["moe_aux"].reshape(1), aux["moe_dropped"].reshape(1).float(),
-            aux["moe_load"]]), ctx)
-        aux = {"moe_aux": flat_aux[0], "moe_dropped": flat_aux[1],
-               "moe_load": flat_aux[2:]}
-    return out.reshape(b, s, d), aux
+        out = tp.leave(out) if tp is not None else \
+            spmd.sum_over(out, [spmd.model_group(mesh)])
+    return out, aux

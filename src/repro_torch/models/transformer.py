@@ -226,8 +226,8 @@ def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
     (or MoE); or, for ssm and hybrid, the Mamba2 mixer followed by the
     shared block where ``shared`` is given (its K/V returned)."""
     if cfg.family in SSM_FAMILIES:
-        h = h + M.mamba2_forward(lp["mixer"],
-                                 L.rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg)
+        h = h + _leave(M.mamba2_forward(
+            lp["mixer"], _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps)), cfg))
         if shared is None:
             return h, None, None
         h, kv = _shared_apply(shared, h, angles, cfg, attn_fn)
@@ -242,20 +242,32 @@ def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
 def _shared_apply(shared, h, angles, cfg: ModelConfig, attn_fn):
     """The hybrid's shared attention + MLP block over a whole sequence:
     (h_out, (k, v))."""
-    a, kv = attn_fn(shared["attn"], L.rmsnorm(shared["norm1"], h, cfg.norm_eps),
+    a, kv = attn_fn(shared["attn"],
+                    _enter(L.rmsnorm(shared["norm1"], h, cfg.norm_eps)),
                     angles, cfg)
-    h = h + a
+    h = h + _leave(a)
     return h + _ffn(shared, h, cfg)[0], kv
 
 
-def _shared_decode(shared, h, angles, ck, cv, pos: int, cfg: ModelConfig):
+def _shared_decode(shared, h, angles, ck, cv, pos: int, cfg: ModelConfig,
+                   split=None):
     """The shared block for one token against its slot's ring cache
-    ``ck``/``cv`` [B, C, KV, dh], written in place at ``pos % C``."""
-    a, _, _ = L.attn_decode(shared["attn"],
-                            L.rmsnorm(shared["norm1"], h, cfg.norm_eps),
-                            angles, ck, cv, pos, cfg)
+    ``ck``/``cv`` [B, C, KV, dh], written in place at ``pos % C`` (under
+    tensor parallelism this rank's blocks of it, ``split`` as
+    ``layers.attn_decode_tp`` takes it)."""
+    hn = L.rmsnorm(shared["norm1"], h, cfg.norm_eps)
+    if spmd.active_tp() is not None:
+        a = _leave(L.attn_decode_tp(shared["attn"], _enter(hn), angles, ck, cv,
+                                    split, pos, cfg))
+    else:
+        a = L.attn_decode(shared["attn"], hn, angles, ck, cv, pos, cfg)[0]
     h = h + a
     return h + _ffn(shared, h, cfg)[0]
+
+
+def _local(x):
+    """A placed cache's block on this rank (the tensor itself otherwise)."""
+    return x.to_local() if hasattr(x, "to_local") else x
 
 
 def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -299,7 +311,6 @@ def _enter_tp(params, cfg: ModelConfig, seq_len: int):
     tp = spmd.tensor_parallel(params, seq_len)
     if tp is None:
         return None, params
-    spmd.check_tp_family(cfg.family, tp.size)
     if tp.size > 1:
         _check_tp_split(params, cfg, tp)
     local = spmd.local_tree(params)
@@ -322,22 +333,32 @@ def _grad_summed_norms(tree, tp):
 
 _TP_SPLIT = {("embed", "tok"): 1, ("embed", "frontend_proj"): 1,
              ("lm_head",): 1}
-_TP_SPLIT.update({("layers", *node, "w"): dim for node, dim in (
-    (("attn", "wq"), 2), (("attn", "wk"), 2), (("attn", "wv"), 2),
-    (("attn", "wo"), 1), (("mlp", "w1"), 2), (("mlp", "w2"), 1),
-    (("mlp", "w3"), 2))})
+# (path, dim of the unstacked leaf): a "layers" leaf leads with [L]
+_BLOCK_SPLIT = ((("attn", "wq", "w"), 1), (("attn", "wk", "w"), 1),
+                (("attn", "wv", "w"), 1), (("attn", "wo", "w"), 0),
+                (("mlp", "w1", "w"), 1), (("mlp", "w2", "w"), 0),
+                (("mlp", "w3", "w"), 1), (("mixer", "in_proj", "w"), 1),
+                (("mixer", "out_proj", "w"), 0), (("mixer", "conv_w"), 1),
+                (("mixer", "conv_b"), 0), (("mixer", "norm_g"), 0))
+_TP_SPLIT.update({("layers", *node): dim + 1 for node, dim in _BLOCK_SPLIT})
+_TP_SPLIT.update({("shared", *node): dim for node, dim in _BLOCK_SPLIT})
 
 
 def _check_tp_split(params, cfg: ModelConfig, tp) -> None:
-    """Tensor parallelism needs the query heads, the embedding's and the
-    head's columns and every projection split over the model axis as the
-    rules split them at sizes they divide (a demoted, replicated leaf
-    would take partial gradients)."""
+    """Tensor parallelism needs the query heads (and the SSD heads and
+    their ``P``), the embedding's and the head's columns and every
+    projection split over the model axis as the rules split them at sizes
+    they divide (a demoted, replicated leaf would take partial gradients).
+    The MoE layer checks its experts (``models/moe``)."""
     if cfg.tie_embeddings:
         raise NotImplementedError("tied embeddings under tensor parallelism")
-    if cfg.n_heads % tp.size:
-        raise ValueError(f"{cfg.n_heads} query heads do not split "
-                         f"{tp.size} ways")
+    for what, n in (("query heads", cfg.n_heads),
+                    ("SSD heads", cfg.ssm_heads if cfg.family in SSM_FAMILIES
+                     else 0),
+                    ("SSD head dims", cfg.ssm_head_dim
+                     if cfg.family in SSM_FAMILIES else 0)):
+        if n % tp.size:
+            raise ValueError(f"{n} {what} do not split {tp.size} ways")
     for path, dim in _TP_SPLIT.items():
         node = params
         for k in path:
@@ -402,7 +423,7 @@ def _forward(params, cfg: ModelConfig, tokens, embeds, positions, attn,
         head = layer_view(heads, i) if heads is not None else None
         sh = shared if _shared_slot(cfg, shared, i) is not None else None
         args = (layer_view(params["layers"], i), head, h_in, angles, cfg,
-                attn_fn, sh, tp)
+                attn_fn, sh, spmd.scope())
         h, ll, maux = (checkpoint(_train_block, *args, use_reentrant=False)
                        if remat else _train_block(*args))
         # sequence-parallel layer boundary (launch/spmd); under tensor
@@ -436,12 +457,14 @@ def _forward(params, cfg: ModelConfig, tokens, embeds, positions, attn,
 
 
 def _train_block(lp, head, h, angles, cfg: ModelConfig, attn_fn, shared,
-                 tp=None):
+                 sc):
     """One block (with the hybrid's shared block after it where ``shared``
     is given) and, given a local head, its OSSL loss: (h_out, loss or None,
-    moe aux or None). ``tp`` is passed in, not read from the thread: under
-    remat the backward recomputes the block, maybe on another thread."""
-    with spmd.use_tp(tp):
+    moe aux or None). The SPMD state ``sc`` (``spmd.scope()``) is passed
+    in, not read from the thread: under remat the backward recomputes the
+    block, maybe on another thread."""
+    tp = sc.tp
+    with spmd.entered(sc):
         h, _, maux = _block(lp, h, angles, cfg, attn_fn, shared)
     if head is None:
         return h, None, maux
@@ -560,15 +583,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     the hybrid adds ``shared_k``/``shared_v [L // every, B, C, KV, dh]``,
     one ring per shared-block call. ``C = cache_len(cfg, max_seq)``.
 
-    ``mesh`` (a ``DeviceMesh``; tensor parallelism, the attention
-    families): ``k`` and ``v`` are ``DTensor`` s placed by
-    ``launch.sharding.cache_shardings``, each rank holding its zeroed
-    block; ``batch`` is this rank's rows, its block of the global batch
-    over the DP axes."""
+    ``mesh`` (a ``DeviceMesh``; tensor parallelism): every tensor is a
+    ``DTensor`` placed by ``launch.sharding.cache_shardings``, each rank
+    holding its zeroed block; ``batch`` is this rank's rows, its block of
+    the global batch over the DP axes."""
     _check_family(cfg)
     c, dtype = cache_len(cfg, max_seq), _dtype(cfg)
     if mesh is not None and hasattr(mesh, "get_group"):
-        return _placed_cache(cfg, batch, c, dtype, device, mesh)
+        return _placed_cache(cfg, batch, c, mesh, device)
 
     def kv(n):
         return torch.zeros((n, batch, c, cfg.n_kv_heads, cfg.head_dim),
@@ -583,23 +605,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     return cache
 
 
-def _placed_cache(cfg: ModelConfig, batch: int, c: int, dtype, device, mesh):
+def _placed_cache(cfg: ModelConfig, batch: int, c: int, mesh, device):
+    """``init_cache``'s tree at the global batch on ``meta``, each tensor
+    placed by ``cache_shardings`` as this rank's zeroed block."""
     from torch.distributed.tensor import DTensor
     from ..launch import sharding as SH
     from ..launch.mesh import axis_sizes, dp_size
-    spmd.check_tp_family(cfg.family, axis_sizes(mesh).get("model", 1))
-    shape = (cfg.n_layers, batch * dp_size(mesh), c, cfg.n_kv_heads,
-             cfg.head_dim)
-    meta = {"k": torch.empty(shape, device="meta"),
-            "v": torch.empty(shape, device="meta")}
+    meta = init_cache(cfg, batch * dp_size(mesh), c, device="meta")
     out = {"pos": 0}
-    for name, sh in SH.cache_shardings(meta, cfg, mesh).items():
+    shardings = SH.cache_shardings({k: v for k, v in meta.items()
+                                    if k != "pos"}, cfg, mesh)
+    for name, sh in shardings.items():
+        shape = tuple(meta[name].shape)
         if axis_sizes(mesh)["model"] > 1 and "model" not in sh.spec:
             raise ValueError(f"the rules leave the {name} cache {shape} "
-                             "replicated over the model axis: neither its "
-                             "slots nor its head dim split")
+                             "replicated over the model axis: no dim of it "
+                             "splits")
         local = torch.zeros(SH.shard_shape(sh.spec, shape, mesh),
-                            dtype=dtype, device=device)
+                            dtype=meta[name].dtype, device=device)
         out[name] = DTensor.from_local(local, mesh, SH.placements(sh.spec,
                                                                   mesh),
                                        run_check=False)
@@ -609,12 +632,13 @@ def _placed_cache(cfg: ModelConfig, batch: int, c: int, dtype, device, mesh):
 _CACHE_SPLIT = {2: "slots", 4: "dh"}      # a placed [L, B, C, KV, dh] cache
 
 
-def _tp_write(cache, i: int, k, v, slots, cfg: ModelConfig, tp) -> None:
+def _tp_write(cache, i: int, k, v, slots, cfg: ModelConfig, tp,
+              names=("k", "v")) -> None:
     """Prompt K/V ``[B, n, KV', dh]`` (this rank's heads, or all of them)
-    written at ring ``slots`` (host ints) into this rank's blocks of layer
-    ``i``'s placed caches: the heads gathered whole, each rank keeping its
-    own slots or head-dim block."""
-    for name, x in (("k", k), ("v", v)):
+    written at ring ``slots`` (host ints) into this rank's blocks of entry
+    ``i`` of the placed caches ``names``: the heads gathered whole, each
+    rank keeping its own slots or head-dim block."""
+    for name, x in zip(names, (k, v)):
         if x.shape[2] != cfg.n_kv_heads:
             x = tp.all_gather(x, 2)
         split = _CACHE_SPLIT.get(spmd.model_dim(cache[name]))
@@ -654,9 +678,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
     window, where the reference replays the prompt token by token through
     ``decode_step``; the two compute the same cache.
 
-    ``DTensor`` parameters (tensor parallelism, the attention families):
-    the caches are placed (``init_cache(mesh=)``), ``tokens`` are this
-    rank's rows, and the logits come back vocab-parallel.
+    ``DTensor`` parameters (tensor parallelism): the caches are placed
+    (``init_cache(mesh=)``), each mixer keeps this rank's blocks of its
+    state and conv window, ``tokens`` are this rank's rows, and the logits
+    come back vocab-parallel.
     """
     b, s = tokens.shape
     _check_family(cfg)
@@ -686,13 +711,20 @@ def _prefill(params, cfg: ModelConfig, tokens, max_seq: int, attn, tp):
             ck, cv = (cache["k"][i], cache["v"][i]) if tp is None \
                 else (None, None)
         else:
-            o, cache["ssm"][i], cache["conv"][i] = M.mamba2_prefill(
-                lp["mixer"], L.rmsnorm(lp["norm1"], h, cfg.norm_eps), cfg)
-            h = h + o
+            o, st, tail = M.mamba2_prefill(
+                lp["mixer"], _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps)),
+                cfg)
+            h = h + _leave(o)
+            _local(cache["ssm"])[i] = st
+            _local(cache["conv"])[i] = tail
             slot = _shared_slot(cfg, shared, i)
             if slot is None:
                 continue
             h, (k, v) = _shared_apply(shared, h, angles, cfg, attn_fn)
+            if tp is not None:
+                _tp_write(cache, slot, k[:, s - take:], v[:, s - take:],
+                          ring.tolist(), cfg, tp, ("shared_k", "shared_v"))
+                continue
             ck, cv = cache["shared_k"][slot], cache["shared_v"][slot]
         if tp is not None:
             _tp_write(cache, i, k[:, s - take:], v[:, s - take:],
@@ -715,8 +747,8 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig
     with ``pos`` advanced); nothing is read back from the device. The
     hybrid's shared block after layer ``i`` attends through ring
     ``(i + 1) // every - 1``. ``DTensor`` parameters and placed caches:
-    ``layers.attn_decode_tp`` on this rank's blocks, the logits
-    vocab-parallel."""
+    ``layers.attn_decode_tp`` and the mixer on this rank's blocks, the
+    logits vocab-parallel."""
     _check_family(cfg)
     tp, params = _enter_tp(params, cfg, 1)
     with spmd.use_tp(tp):
@@ -735,12 +767,16 @@ def _decode_step(params, cache, tokens, cfg: ModelConfig, tp):
         lp = layer_view(params["layers"], i)
         hn = L.rmsnorm(lp["norm1"], h, cfg.norm_eps)
         if cfg.family in SSM_FAMILIES:
-            mc = {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}
-            h = h + M.mamba2_decode(lp["mixer"], hn, mc, cfg)[0]
+            mc = {"conv": _local(cache["conv"])[i],
+                  "ssm": _local(cache["ssm"])[i]}
+            h = h + _leave(M.mamba2_decode(lp["mixer"], _enter(hn), mc,
+                                           cfg)[0])
             slot = _shared_slot(cfg, shared, i)
             if slot is not None:
-                h = _shared_decode(shared, h, angles, cache["shared_k"][slot],
-                                   cache["shared_v"][slot], pos, cfg)
+                h = _shared_decode(
+                    shared, h, angles, _local(cache["shared_k"])[slot],
+                    _local(cache["shared_v"])[slot], pos, cfg,
+                    _CACHE_SPLIT.get(spmd.model_dim(cache["shared_k"])))
             continue
         if tp is not None:
             a = L.attn_decode_tp(

@@ -191,9 +191,9 @@ def _survivors(w, umask, new_umask, kb: int):
 def _one_placed(w, umask, gw, event):
     """``lm_dsst_event``'s per-matrix event on ``DTensor`` leaves: the unit
     scores of the whole matrix from this rank's block (summed over the
-    model axis for a column split, gathered for a row split), the event
-    taken on them (the same on every rank), this rank's block of the
-    surviving weights kept."""
+    model axis for a column or expert split, gathered for a row split),
+    the event taken on them (the same on every rank), this rank's block of
+    the surviving weights kept."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     from ..launch.spmd import model_dim
@@ -201,7 +201,7 @@ def _one_placed(w, umask, gw, event):
     d = model_dim(w)
     wl, gl, um = w.to_local(), gw.to_local(), _whole(umask)
     kb, experts = um.shape[-2], w.dim() - um.dim()
-    if d is None or d == w.dim() - 1:
+    if d is None or d != w.dim() - 2:        # columns or experts split
         wsc = _unit_score_shared(wl, kb, experts)
         gsc = _unit_score_shared(gl, kb, experts)
         if d is not None:

@@ -28,6 +28,7 @@ from .. import checkpoint as ckpt
 from ..checkpoint.checkpoint import _children, _flatten, _is_namedtuple
 from ..launch import sharding
 from ..launch.mesh import SlotMesh, make_serving_mesh
+from ..placed import full_tensor
 
 
 # ---------------------------------------------------------------------------
@@ -95,30 +96,8 @@ def _whole(leaf):
     tree's order)."""
     from torch.distributed.tensor import DTensor
     if isinstance(leaf, DTensor):
-        return _gather_dtensor(leaf)
+        return full_tensor(leaf)
     return sharding.gather(leaf)
-
-
-def _gather_dtensor(x) -> torch.Tensor:
-    """A ``DTensor`` whose ``Shard`` placements split their dims evenly,
-    gathered by ``all_gather`` over each sharded mesh dim's group, the
-    innermost mesh dim first (a dim split over two mesh dims is split by
-    the outer one first). ``full_tensor`` would do it by functional
-    collectives, which gloo does not run on CUDA tensors."""
-    import torch.distributed as dist
-    mesh, out = x.device_mesh, x.to_local()
-    for dim in reversed(range(mesh.ndim)):
-        pl = x.placements[dim]
-        if pl.is_replicate():
-            continue
-        n = mesh.size(dim)
-        if not pl.is_shard() or x.shape[pl.dim] % n:
-            raise ValueError(f"{x.placements} on {tuple(x.shape)}: only "
-                             "even Shard and Replicate placements gather")
-        parts = [torch.empty_like(out) for _ in range(n)]
-        dist.all_gather(parts, out.contiguous(), group=mesh.get_group(dim))
-        out = torch.cat(parts, dim=pl.dim)
-    return out
 
 
 def elastic_remesh(tree: Any, target, spec_fn: Callable[[Any], Any]) -> Any:

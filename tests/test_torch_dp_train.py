@@ -17,8 +17,9 @@ reduced StableLM-12B in f32, each on its half of the global batch
   cpu``: only rank 0 prints, and it prints its loss.
 
 Each spawned process runs under its own timeout. The MoE family under a
-DP size above 1 without ``shardmap_moe`` is refused (item 10e) in
-process; with it, ``tests/test_torch_dp_moe.py`` holds the step.
+DP size above 1 trains with ``shardmap_moe`` (``tests/test_torch_dp_moe.py``
+holds the step) and without it, one dispatch over the global batch
+(``tests/test_torch_tp_families.py``).
 """
 import os
 import socket
@@ -236,26 +237,28 @@ def test_launch_moe_with_two_processes():
 
 
 def test_moe_under_data_parallelism_is_refused():
-    """Without ``shardmap_moe`` the reference dispatches the global batch
-    at once, a redistribution of the tokens across ranks: ROADMAP.md Queue
-    1 item 10e, refused when the step is built and when it is called. With
-    it the step builds. A model axis above 1 builds the attention
-    families' tensor-parallel step (tests/test_torch_tp.py) and refuses
-    the moe family (item 10e too)."""
+    """Refused until slice 19: without ``shardmap_moe`` the reference
+    dispatches the global batch at once. The same calls now build and run
+    the step (on an abstract mesh, with no process group, each rank's own
+    batch; over gloo ``tests/test_torch_tp_families.py`` holds the global
+    dispatch), with and without ``shardmap_moe``, and a model axis above 1
+    builds the moe family's tensor-parallel step too."""
     mesh = AbstractMesh((2, 1), ("data", "model"))
     for arch in ("mixtral_8x7b", "moonshot_v1_16b_a3b"):
-        with pytest.raises(NotImplementedError, match="item 10e"):
-            make_train_step(C.get_reduced(arch), TrainHParams(), mesh=mesh)
+        cfg = C.get_reduced(arch)
+        step = make_train_step(cfg, TrainHParams(), mesh=mesh)
         with spmd.activate(mesh, shardmap_moe=True):
-            step = make_train_step(C.get_reduced(arch), TrainHParams(),
-                                   mesh=mesh)
-        with pytest.raises(NotImplementedError, match="item 10e"):
-            step(None, None, None, {})
+            make_train_step(cfg, TrainHParams(), mesh=mesh)
+        state = init_train_state(torch.Generator().manual_seed(0), cfg,
+                                 TrainHParams(), "cpu", mesh=mesh)
+        batch = {k: torch.zeros((2, 8), dtype=torch.long)
+                 for k in ("tokens", "labels")}
+        m = step(*state, batch)[3]
+        assert torch.isfinite(m["loss"]) and float(m["moe_dropped"]) >= 0
     make_train_step(C.get_reduced("mixtral_8x7b"), TrainHParams(),
                     mesh=AbstractMesh((1, 1), ("data", "model")))
     make_train_step(C.get_reduced(ARCH), TrainHParams(),
                     mesh=AbstractMesh((16, 16), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        make_train_step(C.get_reduced("mixtral_8x7b"), TrainHParams(),
-                        mesh=AbstractMesh((16, 16), ("data", "model")))
+    make_train_step(C.get_reduced("mixtral_8x7b"), TrainHParams(),
+                    mesh=AbstractMesh((16, 16), ("data", "model")))
     assert np.isfinite(GLOBAL_BATCH)

@@ -96,19 +96,21 @@ def test_fleet_init_from_the_scheduler_env():
     assert out.stdout.split() == ["(0,", "1)", "gloo"]
 
 
-def test_more_than_one_process_is_refused(monkeypatch):
-    """More than one process now trains data-parallel
-    (tests/test_torch_dp_train.py), the MoE family too under ``--opt moe``
-    (the shard-mapped dispatch); without it the MoE family is refused: one
-    dispatch over the global batch is ROADMAP.md Queue 1 item 10e."""
+def test_more_than_one_process_is_refused(monkeypatch, capsys):
+    """More than one process trains data-parallel
+    (tests/test_torch_dp_train.py), the MoE family too: under ``--opt moe``
+    with the shard-mapped dispatch and, since slice 19, without it, one
+    dispatch over the global batch (it was refused before). The same call
+    now runs (an abstract mesh: no process group, each rank's own rows)."""
     from repro_torch.launch import mesh
     monkeypatch.setattr(launcher, "fleet_init",
                         lambda device, backend=None: (0, 2))
     monkeypatch.setattr(mesh, "make_host_mesh",
                         lambda model=1, device=None: mesh.AbstractMesh(
                             (2, model), ("data", "model"), device))
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        launcher.launch_train("moonshot_v1_16b_a3b", multi_pod=False,
-                              opt="zero1", steps=1, seq_len=8,
-                              global_batch=2, ckpt_dir=None,
-                              validate_only=False, device="cpu")
+    assert launcher.launch_train("moonshot_v1_16b_a3b", multi_pod=False,
+                                 opt="zero1", steps=1, seq_len=8,
+                                 global_batch=2, ckpt_dir=None,
+                                 validate_only=False, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "mesh={'data': 2, 'model': 1}" in out and "step 0 loss" in out

@@ -35,8 +35,9 @@ batch. The tests read what the ranks wrote:
   ``gather``) bit for bit ``DTensor.redistribute``, values and gradients;
   ``flash_attention`` refuses a ``DTensor`` (the model hands it each
   rank's own heads);
-* the moe, ssm and hybrid families at a model axis above 1 refused, naming
-  ``ROADMAP.md`` Queue 1 item 10e.
+* the moe, ssm and hybrid families' steps built at a model axis above 1
+  (``tests/test_torch_tp_families.py`` trains them), and the launcher
+  training the moe family there.
 
 Each spawned process runs under its own timeout.
 """
@@ -613,13 +614,16 @@ def test_flash_attention_refuses_dtensors(request, world):
 @pytest.mark.parametrize("arch", ["mixtral_8x7b", "moonshot_v1_16b_a3b",
                                   "mamba2_2p7b", "zamba2_1p2b"])
 def test_other_families_at_a_model_axis_are_refused(arch):
+    """These families were refused at a model axis above 1 until slice 19;
+    now the same calls build their data- and tensor-parallel steps (they
+    train in ``tests/test_torch_tp_families.py``), and no family check is
+    left to refuse them."""
     cfg = C.get_reduced(arch)
     mesh = AbstractMesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        DataParallel(mesh, cfg, TrainHParams())
-    with pytest.raises(NotImplementedError, match="item 10e"):
-        spmd.check_tp_family(cfg.family, 2)
-    spmd.check_tp_family(cfg.family, 1)
+    dp = DataParallel(mesh, cfg, TrainHParams())
+    assert dp.size == 1 and dp.groups == [] and not dp.zero1
+    assert not hasattr(spmd, "check_tp_family")
+    make_train_step(cfg, TrainHParams(), mesh=mesh)
     make_train_step(cfg, TrainHParams(), mesh=AbstractMesh(
         (1, 1), ("data", "model")))
     assert dataclasses.is_dataclass(cfg)
@@ -652,9 +656,9 @@ finally:
 
 @pytest.mark.parametrize("arch", ["stablelm_12b", "moonshot_v1_16b_a3b"])
 def test_launch_train_on_a_model_axis(arch, tmp_path):
-    """The launcher trains an attention family on a mesh whose model axis
-    is 2 (rank 0 prints its loss), and refuses the moe family there,
-    naming item 10e."""
+    """The launcher trains an attention family and the moe family on a mesh
+    whose model axis is 2 (rank 0 prints its loss; the moe family was
+    refused there until slice 19)."""
     outs = []
     env = {k: v for k, v in os.environ.items() if k not in _FLEET_ENV}
     env.update(PYTHONPATH=os.path.join(_ROOT, "src"),
@@ -673,8 +677,6 @@ def test_launch_train_on_a_model_axis(arch, tmp_path):
                 p.kill()
                 p.wait()
     assert all(p.returncode == 0 for p in procs), outs
-    if arch == "stablelm_12b":
-        assert "mesh={'data': 1, 'model': 2}" in outs[0][0]
-        assert "step 0 loss" in outs[0][0] and "refused" not in outs[0][0]
-    else:
-        assert all("refused:" in o and "item 10e" in o for o, _ in outs)
+    assert "mesh={'data': 1, 'model': 2}" in outs[0][0]
+    assert "step 0 loss" in outs[0][0] and "refused" not in outs[0][0]
+    assert not any("refused" in o for o, _ in outs)
