@@ -183,7 +183,8 @@ Phases, each raising on failure:
    prompt token kept its experts in both layers (at least one), and the 8
    greedy tokens equal up to a first divergence, allowed at phase 9's
    near-tie or at or after the row's first routing flip.
-   (b) the continuous batcher on the 48-layer model: 8 slots, 12 requests
+   (b) the continuous batcher on the model's first BATCH_MOE_LAYERS of its
+   48 layers (cut from all 48 for the run's time): 8 slots, 12 requests
    with seeded prompts of 16-48 tokens and 8 new tokens each: every request
    finishes with 8 tokens in the vocabulary, the 12 go through 8 slots
    (reused), the grid drains, no kernel launches (decode only). Records
@@ -229,8 +230,9 @@ Phases, each raising on failure:
    ingestion, and for the record without it. (c) the default
    ``AutopilotConfig`` from depth 1 with ingestion: it moved or recorded
    its decisions; records the depth timeline, the depths visited and the
-   final overlap EMA. (d) an ``obs.Tracer`` on phase 4's fleet, two
-   untraced and two traced runs interleaved: no span dropped, exactly one
+   final overlap EMA. (d) an ``obs.Tracer`` on phase 4's fleet, an
+   untraced run and a traced one (TRACE_PAIRS pairs, interleaved; cut
+   from two for the run's time): no span dropped, exactly one
    ``sched.step/stage/poll_sources/dispatch/retire/device_wait`` span per
    grid step, the Prometheus scrape parses back; records the tracer's cost
    (traced over untraced wall, beside the reference's 25 % allowance, not
@@ -307,7 +309,12 @@ Phases, each raising on failure:
    ms a tree and ``compressed_bytes`` over the f32 bytes; the embedding's
    gradient and a stacked MLP leaf compressed on the card and on the host,
    payloads equal bit for bit. (c) the dry run: exit 0, every applicable
-   cell ok and none failed; its Qwen2-VL-2B (params, moments, gating state)
+   cell ok and none failed, each with nonzero collectives and a peak a
+   device on both fake production meshes (16 x 16, 2 x 16 x 16: the
+   cell's step tensor-parallel on ``meta``, counted by
+   ``spmd.count_collectives``; the CLI's worker processes); one arch a family's
+   train, prefill and decode cell on 16 x 16 logged (calls and wire bytes
+   by op, the peak a device); its Qwen2-VL-2B (params, moments, gating state)
    bytes equal the bytes phase 10's ``init_train_state`` requested from the
    allocator, exactly, and what it allocated within the allocator's
    rounding (``allocation_growth``); its peak estimate at phase 10's cell
@@ -454,7 +461,32 @@ Phases, each raising on failure:
    gradient difference (``zero_init_flips``), and the router's moved
    choices against their top-k gap (``router_flips``).
 
-The processes of phases 25-28 are started one phase ahead
+29. (a) the head cut, once phase 28 has freed its state:
+   CUT_WORLD gloo ranks share ``cuda:0`` on ``make_host_mesh(model=8)``
+   (``cut_child``): Qwen2-VL-2B at full width cut to CUT_LAYERS layers,
+   its 12 query heads over a model axis of 8 (1.5 heads of ``wq``'s
+   columns a rank, K/V cut inside a head), the gate on, the flash route,
+   ``seq_shard``: one step of CUT_B x CUT_S against the 1-process step in
+   this process (``cut_reference``), under 27a's bounds (gradients,
+   loss, params, replicas, placements) with ``wq`` placed on its columns;
+   then the prefill of CUT_B x CUT_S and CUT_NEW greedy tokens against the
+   1-process greedy trace, under 27b's. The flash launches are the
+   ``lm_cut_training`` and ``lm_cut_serving`` paths (2L / L / L a step and
+   L a prefill, a rank), exact. (b) the seven demos of ``examples/torch``
+   (DEMOS), each a process of its own, run one after another from the
+   start of phase 23 (``start_demos``): each exits 0, prints its reference
+   demo's contract line (``compiled variants 1``, ``OK``, the bitwise
+   resume, falling losses) and a ``kernels`` line in which every kernel of
+   its path launched (``nm_spmm``, ``lif``, ``wu_outer`` for SNN
+   training; the fused ``nm_spmm``, ``lif``, ``wu_outer_slots`` for
+   serving; ``flash_fwd``, and the backward pair where a demo trains).
+   Phase 3 holds each of those kernels against its plain version at the
+   shapes the demos launch it (``demo_*`` cases, held and not timed:
+   DEMO_SLOT_GRIDS, ``demo_flash_shapes``). The demos share the card with
+   phases 23 to 29a, so the times those phases record (none gated) are
+   taken beside another CUDA process.
+
+The processes of phases 25-29a are started one phase ahead
 (``prestart``): each imports torch and the port and opens its CUDA
 context while the phase before runs, then waits for its entry.
 
@@ -516,6 +548,7 @@ MOE_ARCH, MOE_LOOP_TOKENS, MOE_PARITY_LAYERS = "moonshot_v1_16b_a3b", 64, 2
 MOE_HELD_BYTES = 2 << 30       # what may stay allocated before Moonlight's draw
 BATCH_SLOTS, BATCH_REQUESTS, BATCH_NEW, BATCH_MAX_SEQ = 8, 12, 8, 256
 BATCH_PROMPT_MIN, BATCH_PROMPT_MAX = 16, 48
+BATCH_MOE_LAYERS = 24    # phase 16b's depth (of Moonlight's 48)
 # phases 16a and 16b: the router's logits are bf16, so two runs that differ
 # by rounding order two experts otherwise where their logits lie within a
 # few bf16 ulps (exact bf16 ties among 64 experts are common; those keep the
@@ -728,11 +761,18 @@ def timings(torch, prefix, fn):
             f"{prefix}wall_ms": wall_ms(torch, fn)}
 
 
+def untimed(torch, prefix, fn):
+    """In place of :func:`timings` for a case that is held but not timed
+    (the demos' shapes: microseconds a launch, and phase 3 is on the run's
+    critical path)."""
+    return {}
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def nm_case(torch, name, dtype, b, k, o, spec, sparse_x):
+def nm_case(torch, name, dtype, b, k, o, spec, sparse_x, timed=True):
     from repro_torch.core.sparsity import random_unit_mask
     from repro_torch.kernels.nm_spmm import ops, ref
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm_cuda
@@ -759,25 +799,27 @@ def nm_case(torch, name, dtype, b, k, o, spec, sparse_x):
     flops = 2 * b * j * t * bk * bo
     dname = str(dtype).split(".")[-1]
     bound_ms, bound_by = bound(nbytes, flops, dname)
+    tm = timings if timed else untimed
     rec = {"case": name, "dtype": dname, "shape": [b, k, j, t, bk, bo],
            "max_abs_err": err, "tol": tol,
-           **timings(torch, "", lambda: nm_spmm_cuda(x, wc, idx)),
-           **timings(torch, "plain_", lambda: ref.nm_spmm(x, wc, idx)),
-           **timings(torch, "library_", lambda: torch.matmul(x, dense)),
+           **tm(torch, "", lambda: nm_spmm_cuda(x, wc, idx)),
+           **tm(torch, "plain_", lambda: ref.nm_spmm(x, wc, idx)),
+           **tm(torch, "library_", lambda: torch.matmul(x, dense)),
            "bound_ms": bound_ms, "bound_by": bound_by}
     log(f"parity nm_spmm {json.dumps(rec)}")
     return rec
 
 
-def nm_fused_case(torch, name, b):
+def nm_fused_case(torch, name, b, k=512, timed=True):
     """The gather kernel with the per-slot delta fused in, at the serving
-    shape (x ``[b, 512]`` spikes, T 104, f32), against ``ref.nm_spmm_fused``
-    (the base product plus ``nm_spmm_deltas``); rows computed alone must
-    equal the same rows of the batch bit for bit."""
+    shape (x ``[b, k]`` spikes, k -> k at the paper's 4-group sparsity: T
+    104 at 512, f32), against ``ref.nm_spmm_fused`` (the base product plus
+    ``nm_spmm_deltas``); rows computed alone must equal the same rows of
+    the batch bit for bit."""
     from repro_torch.core.sparsity import paper_spec_4groups, random_unit_mask
     from repro_torch.kernels.nm_spmm import ops, ref
     from repro_torch.kernels.nm_spmm.kernel import nm_spmm_fused_cuda
-    k = o = 512
+    o = k
     gen = torch.Generator().manual_seed(6)
     spec = paper_spec_4groups(k, 0.8)
     wc, idx = ops.make_compact(torch.randn((k, o), generator=gen),
@@ -802,10 +844,11 @@ def nm_fused_case(torch, name, b):
     nbytes = (x.numel() + wc.numel() + delta.numel() + y_k.numel()) * 4 \
         + idx.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4 * b * j * t, "float32")
+    tm = timings if timed else untimed
     rec = {"case": name, "dtype": "float32", "shape": [b, k, j, t, 1, 1],
            "max_abs_err": err, "tol": tol, "solo_rows_bitwise": True,
-           **timings(torch, "", lambda: nm_spmm_fused_cuda(x, wc, idx, delta)),
-           **timings(torch, "plain_", lambda: ref.nm_spmm_fused(x, wc, idx, delta)),
+           **tm(torch, "", lambda: nm_spmm_fused_cuda(x, wc, idx, delta)),
+           **tm(torch, "plain_", lambda: ref.nm_spmm_fused(x, wc, idx, delta)),
            "library_ms": None, "plain_call": "ref.nm_spmm + nm_spmm_deltas",
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
     log(f"parity nm_spmm_fused {json.dumps(rec)}")
@@ -825,7 +868,7 @@ def card_tests(tool):
     return rec
 
 
-def lif_case(torch, shape):
+def lif_case(torch, shape, timed=True):
     from repro_torch.kernels.lif import ref
     from repro_torch.kernels.lif.kernel import lif_cuda
     gen = torch.Generator().manual_seed(1)
@@ -841,16 +884,17 @@ def lif_case(torch, shape):
         raise AssertionError(f"lif {shape}: max |kernel - plain| {err} > 1e-5")
     n = v.numel()
     bound_ms, bound_by = bound(6 * n * 4, 7 * n, "float32")
+    tm = timings if timed else untimed
     rec = {"case": "x".join(map(str, shape)), "dtype": "float32",
            "max_abs_err": err, "tol": 1e-5,
-           **timings(torch, "", lambda: lif_cuda(v, tr, cur, **kw)),
-           **timings(torch, "plain_", lambda: ref.lif_step(v, tr, cur, **kw)),
+           **tm(torch, "", lambda: lif_cuda(v, tr, cur, **kw)),
+           **tm(torch, "plain_", lambda: ref.lif_step(v, tr, cur, **kw)),
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     log(f"parity lif {json.dumps(rec)}")
     return rec
 
 
-def wu_case(torch, name, dtype, b, spec):
+def wu_case(torch, name, dtype, b, spec, timed=True):
     from repro_torch.core.sparsity import random_unit_mask
     from repro_torch.kernels.nm_spmm import ops as nm_ops
     from repro_torch.kernels.wu_outer import ref
@@ -898,30 +942,31 @@ def wu_case(torch, name, dtype, b, spec):
     # the fused update also reads wc (and adds): the training path's launch
     f_bound_ms, f_bound_by = bound(nbytes + wc.numel() * es,
                                    flops + 2 * wc.numel(), dname)
-    library = timings(torch, "library_", lambda: torch.matmul(pre.T, mod))
+    tm = timings if timed else untimed
+    library = tm(torch, "library_", lambda: torch.matmul(pre.T, mod))
     fused = {"max_abs_err": err_applied, "tol": tol_applied,
-             **timings(torch, "", lambda: wu_outer_cuda(pre, mod, idx, scale,
-                                                        bk=bk, bo=bo, wc=wc)),
-             **timings(torch, "plain_", lambda: wc + ref.wu_outer(
+             **tm(torch, "", lambda: wu_outer_cuda(pre, mod, idx, scale,
+                                                   bk=bk, bo=bo, wc=wc)),
+             **tm(torch, "plain_", lambda: wc + ref.wu_outer(
                  pre, mod, idx, scale, bk, bo)),
              **library, "bound_ms": f_bound_ms, "bound_by": f_bound_by,
              "plain_call": "wc + ref.wu_outer"}
     rec = {"case": name, "dtype": dname, "shape": [b, k, j, t, bk, bo],
            "max_abs_err": err, "tol": tol, "closed_gate_zero": True,
-           **timings(torch, "", lambda: wu_outer_cuda(pre, mod, idx, scale,
-                                                      bk=bk, bo=bo)),
-           **timings(torch, "plain_", lambda: ref.wu_outer(pre, mod, idx,
-                                                            scale, bk, bo)),
+           **tm(torch, "", lambda: wu_outer_cuda(pre, mod, idx, scale,
+                                                 bk=bk, bo=bo)),
+           **tm(torch, "plain_", lambda: ref.wu_outer(pre, mod, idx,
+                                                       scale, bk, bo)),
            **library, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_call": "torch.matmul(pre.T, mod)", "fused": fused}
     log(f"parity wu_outer {json.dumps(rec)}")
     return rec
 
 
-def wu_slots_case(torch, name, open_frac, s=N_STREAMS):
+def wu_slots_case(torch, name, open_frac, s=N_STREAMS, k=512, timed=True):
     """The per-slot update in place at the serving shape (``s`` slots, K = N
-    = 512, T 104, f32) on one layer of slot-leading deltas ``[S, 2, J, T,
-    1, 1]``, a share ``open_frac`` of the slots open: bit for bit against
+    = ``k`` at the paper's 4-group sparsity: T 104 at 512, f32) on one layer
+    of slot-leading deltas ``[S, 2, J, T, 1, 1]``, a share ``open_frac`` of the slots open: bit for bit against
     the plain ``delta + ref.wu_outer_slots``, closed slots and the other
     layer not written (compared as bits). Bytes and the bound count the open
     slots only: the kernel never touches a closed one."""
@@ -929,7 +974,7 @@ def wu_slots_case(torch, name, open_frac, s=N_STREAMS):
     from repro_torch.kernels.nm_spmm import ops as nm_ops
     from repro_torch.kernels.wu_outer import ref
     from repro_torch.kernels.wu_outer.kernel import wu_outer_slots_cuda
-    k = o = 512
+    o = k
     gen = torch.Generator().manual_seed(5)
     spec = paper_spec_4groups(k, 0.8)
     _, idx = nm_ops.make_compact(torch.zeros((k, o)),
@@ -959,11 +1004,12 @@ def wu_slots_case(torch, name, open_frac, s=N_STREAMS):
     n_open = int(gate.sum())
     nbytes = 4 * (n_open * (2 * j * t + k + o) + j * t + s)
     bound_ms, bound_by = bound(nbytes, 3 * n_open * j * t, "float32")
+    tm = timings if timed else untimed
     rec = {"case": name, "dtype": "float32", "shape": [s, k, j, t, 1, 1],
            "open_slots": n_open, "max_abs_err": err, "tol": 0.0, **checks,
-           **timings(torch, "", lambda: wu_outer_slots_cuda(
+           **tm(torch, "", lambda: wu_outer_slots_cuda(
                view, pre, mod, idx, scale, bk=1, bo=1)),
-           **timings(torch, "plain_", lambda: view + ref.wu_outer_slots(
+           **tm(torch, "plain_", lambda: view + ref.wu_outer_slots(
                pre, mod, idx, scale, 1, 1)),
            "library_ms": None, "plain_call": "delta + ref.wu_outer_slots",
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
@@ -978,7 +1024,7 @@ def causal_pairs(s, window):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_case(torch, name, dtype, b, s, h, kv, dh, window):
+def flash_case(torch, name, dtype, b, s, h, kv, dh, window, timed=True):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops, ref
     from repro_torch.kernels.flash_attn.kernel import flash_fwd_cuda
@@ -1010,6 +1056,7 @@ def flash_case(torch, name, dtype, b, s, h, kv, dh, window):
     flops = 4 * dh * causal_pairs(s, window) * b * h
     dname = str(dtype).split(".")[-1]
     bound_ms, bound_by = bound(nbytes, flops, dname)
+    tm = timings if timed else untimed
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window is None or window >= s:     # a window past S masks nothing
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1022,9 +1069,9 @@ def flash_case(torch, name, dtype, b, s, h, kv, dh, window):
     rec = {"case": name, "dtype": dname, "shape": [b, s, h, kv, dh],
            "window": window, "max_abs_err": err, "tol": tol_rule,
            "err_over_tol": over, "lse_max_abs_err": lse_err,
-           **timings(torch, "", lambda: flash_fwd_cuda(q, k, v, window)),
-           **timings(torch, "plain_", lambda: ref.flash_fwd(*kl, window)),
-           **timings(torch, "library_", lib),
+           **tm(torch, "", lambda: flash_fwd_cuda(q, k, v, window)),
+           **tm(torch, "plain_", lambda: ref.flash_fwd(*kl, window)),
+           **tm(torch, "library_", lib),
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
            "bytes": nbytes}
     log(f"parity flash_fwd {json.dumps(rec)}")
@@ -1041,7 +1088,7 @@ def sdpa_backend(names):
     return "math"
 
 
-def flash_bwd_case(torch, name, dtype, b, s, h, kv, dh, window):
+def flash_bwd_case(torch, name, dtype, b, s, h, kv, dh, window, timed=True):
     """Both backward kernels against the plain f32 ``ref.flash_bwd`` on the
     forward kernel's ``out`` and ``lse``; one record per kernel."""
     import torch.nn.functional as F
@@ -1098,7 +1145,8 @@ def flash_bwd_case(torch, name, dtype, b, s, h, kv, dh, window):
     io = {"dkv": (2 * q.numel() + 4 * k.numel()) * es + 2 * lse.numel() * 4,
           "dq": (3 * q.numel() + 2 * k.numel()) * es + 2 * lse.numel() * 4}
     flops = {"dkv": 4 * 2 * dh * pairs, "dq": 3 * 2 * dh * pairs}
-    plain = timings(torch, "plain_", lambda: ref.flash_bwd(
+    tm = timings if timed else untimed
+    plain = tm(torch, "plain_", lambda: ref.flash_bwd(
         *kl, ol, lse, dol, window))
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     if window is None or window >= s:     # a window past S masks nothing
@@ -1113,8 +1161,9 @@ def flash_bwd_case(torch, name, dtype, b, s, h, kv, dh, window):
 
     def lib():
         torch.autograd.grad(so, (qt, kt, vt), dso, retain_graph=True)
-    library = timings(torch, "library_", lib)
-    backend = sdpa_backend(e.name for e in device_kernels(torch, lib)[0])
+    library = tm(torch, "library_", lib)
+    backend = (sdpa_backend(e.name for e in device_kernels(torch, lib)[0])
+               if timed else "not timed")
     recs = {}
     for which, fn, keys in (
             ("dkv", lambda: flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, window),
@@ -1127,7 +1176,7 @@ def flash_bwd_case(torch, name, dtype, b, s, h, kv, dh, window):
                "max_abs_err": max(errs[k][0] for k in keys),
                "err_over_tol": max(errs[k][1] for k in keys),
                "errs": {k: errs[k] for k in keys}, "tol": tol_rule,
-               **timings(torch, "", fn), **plain, **library,
+               **tm(torch, "", fn), **plain, **library,
                "library_call": f"scaled_dot_product_attention backward "
                                f"(dq, dk and dv; backend {backend})",
                "plain_call": "ref.flash_bwd (dq, dk and dv, f32 products)",
@@ -1149,19 +1198,8 @@ def paper_config(backend):
 
 
 def kernel_counters():
-    from repro_torch.kernels.flash_attn.kernel import (flash_bwd_dkv_cuda,
-                                                       flash_bwd_dq_cuda,
-                                                       flash_fwd_cuda)
-    from repro_torch.kernels.lif.kernel import lif_cuda
-    from repro_torch.kernels.nm_spmm.kernel import (nm_spmm_cuda,
-                                                    nm_spmm_fused_cuda)
-    from repro_torch.kernels.wu_outer.kernel import (wu_outer_cuda,
-                                                     wu_outer_slots_cuda)
-    return {"nm_spmm": nm_spmm_cuda, "nm_spmm_fused": nm_spmm_fused_cuda,
-            "lif": lif_cuda, "wu_outer": wu_outer_cuda,
-            "wu_outer_slots": wu_outer_slots_cuda,
-            "flash_fwd": flash_fwd_cuda, "flash_bwd_dkv": flash_bwd_dkv_cuda,
-            "flash_bwd_dq": flash_bwd_dq_cuda}
+    from repro_torch.kernels import launch_counters
+    return launch_counters()
 
 
 def reset_counters():
@@ -1304,6 +1342,7 @@ def run_fleet(torch, params, task, tag, sids=None, chunk_len=CHUNK_LEN,
 # phase 19e: every 4th stream on a short-chunk tier, the rest on a long one
 RUNTIME_TIERS = (("interactive", 2, N_STREAMS // 4),
                  ("bulk", CHUNK_LEN, N_STREAMS - N_STREAMS // 4))
+TRACE_PAIRS = 1          # 19d's untraced / traced pairs (cut from 2)
 RUNTIME_SPANS = ("sched.step", "sched.stage", "sched.poll_sources",
                  "sched.dispatch", "sched.retire", "sched.device_wait")
 
@@ -1382,7 +1421,7 @@ def runtime(torch, params, task, ref):
 
     # 19d: phase 4's fleet with and without a tracer, interleaved
     walls = {"untraced": [], "traced": []}
-    for i in range(2):
+    for i in range(TRACE_PAIRS):
         rec, digest, _ = run(f"runtime_untraced_{i}", pipeline_depth=1)
         check_same(ref, digest, "19d: untraced run against phase 4")
         walls["untraced"].append(rec["wall_s"])
@@ -3832,25 +3871,22 @@ def dp_batch(torch, pcfg, step, ranks, world):
             .to("cuda", torch.long) for k in parts[0]}
 
 
-def count_collectives():
-    """Wrap ``dist.all_reduce``, ``dist.all_gather`` and
-    ``dist.all_to_all_single`` to count their calls (and payload elements
-    and bytes: the input's) in this process; returns the counts."""
-    import torch.distributed as dist
-    names = ("all_reduce", "all_gather", "all_to_all_single")
-    counts = {n + suffix: 0 for n in names for suffix in ("", "_elems",
-                                                          "_bytes")}
-    for name in names:
-        orig = getattr(dist, name)
+def collective_totals(counts):
+    """What a ``spmd.count_collectives()`` counter has counted so far,
+    flat: ``{op: calls, op + "_elems": elements, op + "_bytes": bytes}``
+    of the tensors handed in, for each op it counts."""
+    out = {}
+    for op, d in counts.per_op.items():
+        out.update({op: d["count"],
+                    op + "_elems": counts.inputs[op]["elems"],
+                    op + "_bytes": counts.inputs[op]["bytes"]})
+    return out
 
-        def wrapped(*a, _orig=orig, _name=name, **k):
-            counts[_name] += 1
-            t = a[0] if _name == "all_reduce" else a[1]
-            counts[_name + "_elems"] += t.numel()
-            counts[_name + "_bytes"] += t.numel() * t.element_size()
-            return _orig(*a, **k)
-        setattr(dist, name, wrapped)
-    return counts
+
+def collectives_since(counts, before):
+    """What the counter counted since ``before`` (its
+    :func:`collective_totals` then), in the same keys."""
+    return {k: v - before[k] for k, v in collective_totals(counts).items()}
 
 
 def event_ms(torch, fn):
@@ -3885,104 +3921,104 @@ def dp_child():
     torch.use_deterministic_algorithms(True)
     backend = "nccl" if mode == "a" else "gloo"
     rank, world = fleet_init("cuda", backend=backend)
-    counts = count_collectives()
-    mesh = make_host_mesh(device="cuda")
-    cfg, hp, pcfg = dp_setup(torch)
-    rec = {"mode": mode, "rank": rank, "world": world,
-           "backend": dist.get_backend(), "mesh": dict(zip(
-               mesh.mesh_dim_names, mesh.shape)),
-           "device": torch.cuda.get_device_name(0)}
+    with spmd.count_collectives() as counts:
+        mesh = make_host_mesh(device="cuda")
+        cfg, hp, pcfg = dp_setup(torch)
+        rec = {"mode": mode, "rank": rank, "world": world,
+               "backend": dist.get_backend(), "mesh": dict(zip(
+                   mesh.mesh_dim_names, mesh.shape)),
+               "device": torch.cuda.get_device_name(0)}
 
-    def fresh(hp_, m):
-        return init_train_state(torch.Generator(device="cuda").manual_seed(0),
-                                cfg, hp_, "cuda", mesh=m)
+        def fresh(hp_, m):
+            return init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                    cfg, hp_, "cuda", mesh=m)
 
-    def run(step_fn, state, n, ranks, world_):
-        losses, ms = [], []
-        for i in range(n):
-            batch = dp_batch(torch, pcfg, i, ranks, world_)
-            torch.cuda.synchronize()
-            (p, o, s, m), t = event_ms(torch, lambda: step_fn(*state, batch))
-            state = (p, o, s)
-            losses.append(float(m["loss"]))
-            ms.append(t)
-        return state, losses, ms
-
-    opts = dict(flash_attn=True, seq_shard=True)
-    if mode == "a":
-        hp1 = dataclasses.replace(hp, zero1=True)
-        plain, plain_losses, plain_ms = run(
-            make_train_step(cfg, hp1, attn="flash"), fresh(hp1, None),
-            DP_STEPS_A, [0], 1)
-        with spmd.activate(mesh, **opts):
-            step = make_train_step(cfg, hp1, mesh=mesh)
-            state = fresh(hp1, mesh)
-            torch.cuda.synchronize()
-            counters = reset_counters()
-            before = dict(counts)
-            state, losses, ms = run(step, state, DP_STEPS_A, [0], 1)
-            launches = {n: c.launches for n, c in counters.items()}
-        rec.update(
-            steps=DP_STEPS_A, zero1=True, losses=losses,
-            plain_losses=plain_losses, dp_ms=ms, plain_ms=plain_ms,
-            dp_median_ms=statistics.median(ms),
-            plain_median_ms=statistics.median(plain_ms),
-            dp_overhead_ms=statistics.median(ms) - statistics.median(plain_ms),
-            launches=launches,
-            collectives={k: counts[k] - before[k] for k in counts},
-            leaves_differing=leaves_equal(torch, state, plain),
-            losses_equal=losses == plain_losses,
-            max_memory_allocated=torch.cuda.max_memory_allocated())
-    else:
-        import hashlib
-        digests, runs = {}, {}
-        launches = None
-        for zero1 in (False, True):
-            key = "on" if zero1 else "off"
-            hpz = dataclasses.replace(hp, zero1=zero1)
-            with spmd.activate(mesh, **opts):
-                step = make_train_step(cfg, hpz, mesh=mesh)
-                state = fresh(hpz, mesh)
-                if not zero1:
-                    # every rank joins the all-reduce; rank 0 keeps it
-                    g0 = step.dp.mean_grads(step.loss_and_grads(
-                        state[0], dp_batch(torch, pcfg, 0, [rank], world))[2])
-                    if rank == 0:
-                        torch.save({"grads": {k: v.cpu() for k, v in
-                                              flat(g0).items()
-                                              if v is not None}},
-                                   out + ".grads.pt")
-                    del g0
+        def run(step_fn, state, n, ranks, world_):
+            losses, ms = [], []
+            for i in range(n):
+                batch = dp_batch(torch, pcfg, i, ranks, world_)
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
+                (p, o, s, m), t = event_ms(torch, lambda: step_fn(*state, batch))
+                state = (p, o, s)
+                losses.append(float(m["loss"]))
+                ms.append(t)
+            return state, losses, ms
+
+        opts = dict(flash_attn=True, seq_shard=True)
+        if mode == "a":
+            hp1 = dataclasses.replace(hp, zero1=True)
+            plain, plain_losses, plain_ms = run(
+                make_train_step(cfg, hp1, attn="flash"), fresh(hp1, None),
+                DP_STEPS_A, [0], 1)
+            with spmd.activate(mesh, **opts):
+                step = make_train_step(cfg, hp1, mesh=mesh)
+                state = fresh(hp1, mesh)
+                torch.cuda.synchronize()
                 counters = reset_counters()
-                before = dict(counts)
-                t0 = time.perf_counter()
-                state, losses, ms = run(step, state, DP_STEPS_B, [rank], world)
-                wall = time.perf_counter() - t0
-                got = {n: c.launches for n, c in counters.items()}
-                launches = got if launches is None else \
-                    {n: launches[n] + got[n] for n in got}
-            params = flat(state[0])
-            digests[key] = hashlib.sha256(b"".join(
-                v.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
-                for v in params.values())).hexdigest()
-            runs[key] = {
-                "losses": losses, "step_ms": ms, "wall_s": wall,
-                "moment_elems": sum(v.numel() for v in flat(state[1].m)
-                                    .values()),
-                "collectives": {k: counts[k] - before[k] for k in counts},
-                "max_memory_allocated": torch.cuda.max_memory_allocated()}
-            if not zero1 and rank == 0:
-                torch.save({"params": {k: v.cpu() for k, v in params.items()}},
-                           out + ".params.pt")
-            del state, params
-        rec.update(steps=DP_STEPS_B, runs=runs, digests=digests,
-                   zero1_equal=digests["off"] == digests["on"],
-                   launches=launches)
-    with open(out, "w") as f:
-        json.dump(rec, f)
-    dist.destroy_process_group()
+                before = collective_totals(counts)
+                state, losses, ms = run(step, state, DP_STEPS_A, [0], 1)
+                launches = {n: c.launches for n, c in counters.items()}
+            rec.update(
+                steps=DP_STEPS_A, zero1=True, losses=losses,
+                plain_losses=plain_losses, dp_ms=ms, plain_ms=plain_ms,
+                dp_median_ms=statistics.median(ms),
+                plain_median_ms=statistics.median(plain_ms),
+                dp_overhead_ms=statistics.median(ms) - statistics.median(plain_ms),
+                launches=launches,
+                collectives=collectives_since(counts, before),
+                leaves_differing=leaves_equal(torch, state, plain),
+                losses_equal=losses == plain_losses,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+        else:
+            import hashlib
+            digests, runs = {}, {}
+            launches = None
+            for zero1 in (False, True):
+                key = "on" if zero1 else "off"
+                hpz = dataclasses.replace(hp, zero1=zero1)
+                with spmd.activate(mesh, **opts):
+                    step = make_train_step(cfg, hpz, mesh=mesh)
+                    state = fresh(hpz, mesh)
+                    if not zero1:
+                        # every rank joins the all-reduce; rank 0 keeps it
+                        g0 = step.dp.mean_grads(step.loss_and_grads(
+                            state[0], dp_batch(torch, pcfg, 0, [rank], world))[2])
+                        if rank == 0:
+                            torch.save({"grads": {k: v.cpu() for k, v in
+                                                  flat(g0).items()
+                                                  if v is not None}},
+                                       out + ".grads.pt")
+                        del g0
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    counters = reset_counters()
+                    before = collective_totals(counts)
+                    t0 = time.perf_counter()
+                    state, losses, ms = run(step, state, DP_STEPS_B, [rank], world)
+                    wall = time.perf_counter() - t0
+                    got = {n: c.launches for n, c in counters.items()}
+                    launches = got if launches is None else \
+                        {n: launches[n] + got[n] for n in got}
+                params = flat(state[0])
+                digests[key] = hashlib.sha256(b"".join(
+                    v.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+                    for v in params.values())).hexdigest()
+                runs[key] = {
+                    "losses": losses, "step_ms": ms, "wall_s": wall,
+                    "moment_elems": sum(v.numel() for v in flat(state[1].m)
+                                        .values()),
+                    "collectives": collectives_since(counts, before),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+                if not zero1 and rank == 0:
+                    torch.save({"params": {k: v.cpu() for k, v in params.items()}},
+                               out + ".params.pt")
+                del state, params
+            rec.update(steps=DP_STEPS_B, runs=runs, digests=digests,
+                       zero1_equal=digests["off"] == digests["on"],
+                       launches=launches)
+        with open(out, "w") as f:
+            json.dump(rec, f)
+        dist.destroy_process_group()
 
 
 def free_port():
@@ -4177,18 +4213,34 @@ def dp_bytes_per_device(multi_pod, global_batch, seq_len):
                if isinstance(x, torch.Tensor))
 
 
-def dp_phase(torch):
-    """Phase 25 (module docstring). Returns (record, launches)."""
+def start_validate25(workdir):
+    """25c's CPU tool (``launcher --validate --multi-pod``), started ahead
+    of phase 25 (it gates no time); killed at exit if still running."""
+    import atexit
+    tool = start_tool(["repro_torch.launch.launcher", "--arch", TRAIN_ARCH,
+                       "--validate", "--multi-pod"], workdir, "validate25",
+                      nice=True)
+
+    def stop():
+        if tool[0].poll() is None:
+            tool[0].kill()
+            tool[0].wait()
+    atexit.register(stop)
+    return tool
+
+
+def dp_phase(torch, validate_tool=None):
+    """Phase 25 (module docstring). Returns (record, launches).
+    ``validate_tool``: 25c's tool where :func:`start_validate25` started it
+    ahead (else it starts here, beside 25a and 25b)."""
     import shutil
     import tempfile
     t_phase = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     rec = {"arch": TRAIN_ARCH, "layers": DP_LAYERS, "batch": TRAIN_B,
            "seq": TRAIN_S}
-    # 25c's CPU tool runs while 25a and 25b use the card
-    validate_tool = start_tool(["repro_torch.launch.launcher", "--arch",
-                                TRAIN_ARCH, "--validate", "--multi-pod"],
-                               workdir, "validate25")
+    # 25c's CPU tool runs while the card is used
+    validate_tool = validate_tool or start_validate25(workdir)
     try:
         # 25a: one rank over NCCL, against make_train_step, bit for bit
         (a,), wall_a = spawn_dp("a", 1, workdir)
@@ -4393,7 +4445,7 @@ def moe_ep_check(torch, mesh_ep, counts):
     """26b in one rank: one Moonlight MoE layer at full width (64 experts,
     top 6, d_ff 1408), x [TRAIN_B, TRAIN_S, 2048] bf16, through
     ``moe_apply`` under ``shardmap_moe`` on the (1, 2) mesh and alone;
-    ``counts``: :func:`count_collectives`'."""
+    ``counts``: the child's ``spmd.count_collectives()`` counter."""
     import statistics
     from repro_torch.configs import get_config
     from repro_torch.launch import spmd
@@ -4418,9 +4470,9 @@ def moe_ep_check(torch, mesh_ep, counts):
     ms_one = statistics.median(event_ms(torch, fwd_bwd)[1] for _ in range(3))
     with spmd.activate(mesh_ep, shardmap_moe=True):
         m = spmd.model_rank(mesh_ep)
-        before = dict(counts)
+        before = collective_totals(counts)
         ep = fwd_bwd()
-        moved = {k: counts[k] - before[k] for k in counts}
+        moved = collectives_since(counts, before)
         ms_ep = statistics.median(event_ms(torch, fwd_bwd)[1]
                                   for _ in range(3))
     el = cfg.moe_experts // spmd.model_size(mesh_ep)
@@ -4481,11 +4533,11 @@ def moe_compressed_check(torch, mesh, rank, workdir, counts):
         ccfg = CompressionConfig(kind=kind, topk_frac=frac)
         ms = []
         for _ in range(2):
-            before = dict(counts)
+            before = collective_totals(counts)
             (mean, _), t = event_ms(torch, lambda: compressed_mean(
                 grads, ccfg, groups))
             ms.append(t)
-            moved = {k: counts[k] - before[k] for k in counts}
+            moved = collectives_since(counts, before)
         fm = flat(mean)
         if rank == 0:
             torch.save({"/".join(k): fm[k].cpu() for k in DP_COMPRESS_GATE},
@@ -4525,113 +4577,113 @@ def moe_dp_child():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank, world = fleet_init("cuda", backend="gloo")
-    counts = count_collectives()
-    mesh = make_host_mesh(device="cuda")
-    cfg, hp, pcfg = moe_dp_setup(torch)
-    with open(os.path.join(workdir, "moe_ref.json")) as f:
-        ref = json.load(f)
-    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
-           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    with spmd.count_collectives() as counts:
+        mesh = make_host_mesh(device="cuda")
+        cfg, hp, pcfg = moe_dp_setup(torch)
+        with open(os.path.join(workdir, "moe_ref.json")) as f:
+            ref = json.load(f)
+        rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
 
-    # (a) and (d): the DP step, ZeRO-1 off then on, deterministic algorithms
-    torch.use_deterministic_algorithms(True)
-    batch0 = dp_batch(torch, pcfg, 0, [rank], world)
-    launches, runs, moments = None, {}, None
-    t_a = time.perf_counter()
-    for zero1 in (False, True):
-        key = "on" if zero1 else "off"
-        hpz = dataclasses.replace(hp, zero1=zero1)
-        run = {}
-        with spmd.activate(mesh, flash_attn=True, shardmap_moe=True):
-            step = make_train_step(cfg, hpz, mesh=mesh,
-                                   loss_chunk=MOE_LOSS_CHUNK)
-            state = init_train_state(torch.Generator(device="cuda")
-                                     .manual_seed(0), cfg, hpz, "cuda",
-                                     mesh=mesh)
+        # (a) and (d): the DP step, ZeRO-1 off then on, deterministic algorithms
+        torch.use_deterministic_algorithms(True)
+        batch0 = dp_batch(torch, pcfg, 0, [rank], world)
+        launches, runs, moments = None, {}, None
+        t_a = time.perf_counter()
+        for zero1 in (False, True):
+            key = "on" if zero1 else "off"
+            hpz = dataclasses.replace(hp, zero1=zero1)
+            run = {}
+            with spmd.activate(mesh, flash_attn=True, shardmap_moe=True):
+                step = make_train_step(cfg, hpz, mesh=mesh,
+                                       loss_chunk=MOE_LOSS_CHUNK)
+                state = init_train_state(torch.Generator(device="cuda")
+                                         .manual_seed(0), cfg, hpz, "cuda",
+                                         mesh=mesh)
+                if not zero1:
+                    loss, (_, aux), g = step.loss_and_grads(state[0], batch0)
+                    run["half_loss"] = float(loss)
+                    g = step.dp.mean_grads(g)
+                    got = tree_digests(torch, g)
+                    run["grads_differing"] = [k for k, d in ref["grad_digests"]
+                                              .items() if got.get(k) != d]
+                    run["grad_leaves"] = len(got)
+                    del g, got
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                counters = reset_counters()
+                before = collective_totals(counts)
+                losses, dropped, ms = [], [], []
+                for i in range(DP_MOE_STEPS):
+                    batch = dp_batch(torch, pcfg, i, [rank], world)
+                    (p, o, s, m), t = event_ms(torch, lambda: step(*state, batch))
+                    state = (p, o, s)
+                    losses.append(float(m["loss"]))
+                    dropped.append(float(m["moe_dropped"]))
+                    ms.append(t)
+                got_l = {n: c.launches for n, c in counters.items()}
+                launches = got_l if launches is None else \
+                    {n: launches[n] + got_l[n] for n in got_l}
+            run.update(losses=losses, moe_dropped=dropped, step_ms=ms,
+                       collectives=collectives_since(counts, before),
+                       max_memory_allocated=torch.cuda.max_memory_allocated(),
+                       moment_elems=sum(v.numel() for v in
+                                        tree_leaves(state[1].m)),
+                       param_digests=tree_digests(torch, state[0]))
             if not zero1:
-                loss, (_, aux), g = step.loss_and_grads(state[0], batch0)
-                run["half_loss"] = float(loss)
-                g = step.dp.mean_grads(g)
-                got = tree_digests(torch, g)
-                run["grads_differing"] = [k for k, d in ref["grad_digests"]
-                                          .items() if got.get(k) != d]
-                run["grad_leaves"] = len(got)
-                del g, got
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            counters = reset_counters()
-            before = dict(counts)
-            losses, dropped, ms = [], [], []
-            for i in range(DP_MOE_STEPS):
-                batch = dp_batch(torch, pcfg, i, [rank], world)
-                (p, o, s, m), t = event_ms(torch, lambda: step(*state, batch))
-                state = (p, o, s)
-                losses.append(float(m["loss"]))
-                dropped.append(float(m["moe_dropped"]))
-                ms.append(t)
-            got_l = {n: c.launches for n, c in counters.items()}
-            launches = got_l if launches is None else \
-                {n: launches[n] + got_l[n] for n in got_l}
-        run.update(losses=losses, moe_dropped=dropped, step_ms=ms,
-                   collectives={k: counts[k] - before[k] for k in counts},
-                   max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   moment_elems=sum(v.numel() for v in
-                                    tree_leaves(state[1].m)),
-                   param_digests=tree_digests(torch, state[0]))
-        if not zero1:
-            moments = tree_digests(torch, {"m": state[1].m, "v": state[1].v})
-        else:
-            # (d): the ZeRO-1 moments placed on the mesh, remeshed a leaf at
-            # a time onto one device, against the replicated run's
-            layout = step.dp.zero1_layout(state[0])
-            placed = step.dp.placed_opt_state(state[1], layout)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            differ = []
-            for k, leaf in flat({"m": placed.m, "v": placed.v}).items():
-                whole = elastic_remesh({"x": leaf}, torch.device("cuda"),
-                                       lambda path: None)["x"]
-                if tensor_digest(torch, whole) != moments["/".join(k)]:
-                    differ.append("/".join(k))
-                del whole
-            torch.cuda.synchronize()
-            rec["d"] = {"leaves": len(moments), "differing": differ,
-                        "wall_s": time.perf_counter() - t0}
-            del placed
-        runs[key] = run
-        del state, step, p, o, s, m
+                moments = tree_digests(torch, {"m": state[1].m, "v": state[1].v})
+            else:
+                # (d): the ZeRO-1 moments placed on the mesh, remeshed a leaf at
+                # a time onto one device, against the replicated run's
+                layout = step.dp.zero1_layout(state[0])
+                placed = step.dp.placed_opt_state(state[1], layout)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                differ = []
+                for k, leaf in flat({"m": placed.m, "v": placed.v}).items():
+                    whole = elastic_remesh({"x": leaf}, torch.device("cuda"),
+                                           lambda path: None)["x"]
+                    if tensor_digest(torch, whole) != moments["/".join(k)]:
+                        differ.append("/".join(k))
+                    del whole
+                torch.cuda.synchronize()
+                rec["d"] = {"leaves": len(moments), "differing": differ,
+                            "wall_s": time.perf_counter() - t0}
+                del placed
+            runs[key] = run
+            del state, step, p, o, s, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(False)
+        rec["a"] = {"runs": runs, "launches": launches,
+                    "zero1_equal": runs["off"]["param_digests"]
+                    == runs["on"]["param_digests"],
+                    "wall_s": time.perf_counter() - t_a}
+
+        # (b): expert parallelism on (data 1, model 2)
+        t0 = time.perf_counter()
+        rec["b"] = moe_ep_check(torch, make_host_mesh(model=DP_MOE_WORLD,
+                                                      device="cuda"), counts)
+        rec["b"]["wall_s"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
-    torch.use_deterministic_algorithms(False)
-    rec["a"] = {"runs": runs, "launches": launches,
-                "zero1_equal": runs["off"]["param_digests"]
-                == runs["on"]["param_digests"],
-                "wall_s": time.perf_counter() - t_a}
 
-    # (b): expert parallelism on (data 1, model 2)
-    t0 = time.perf_counter()
-    rec["b"] = moe_ep_check(torch, make_host_mesh(model=DP_MOE_WORLD,
-                                                  device="cuda"), counts)
-    rec["b"]["wall_s"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
+        # (c): the compressed DP mean
+        t0 = time.perf_counter()
+        rec["c"] = moe_compressed_check(torch, mesh, rank, workdir, counts)
+        rec["c"]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # (c): the compressed DP mean
-    t0 = time.perf_counter()
-    rec["c"] = moe_compressed_check(torch, mesh, rank, workdir, counts)
-    rec["c"]["wall_s"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (e): the global-batch dispatch (no shardmap_moe) against the
-    # 1-process step on the whole batch
-    t0 = time.perf_counter()
-    rec["e"] = moe_global_check(torch, mesh, cfg, hp, batch0, workdir, counts)
-    rec["e"]["wall_s"] = time.perf_counter() - t0
-    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    with open(out, "w") as f:
-        json.dump(rec, f)
-    dist.destroy_process_group()
+        # (e): the global-batch dispatch (no shardmap_moe) against the
+        # 1-process step on the whole batch
+        t0 = time.perf_counter()
+        rec["e"] = moe_global_check(torch, mesh, cfg, hp, batch0, workdir, counts)
+        rec["e"]["wall_s"] = time.perf_counter() - t0
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        with open(out, "w") as f:
+            json.dump(rec, f)
+        dist.destroy_process_group()
 
 
 def moe_global_check(torch, mesh, cfg, hp, batch, workdir, counts):
@@ -4646,12 +4698,12 @@ def moe_global_check(torch, mesh, cfg, hp, batch, workdir, counts):
         step = make_train_step(cfg, hp, mesh=mesh, loss_chunk=MOE_LOSS_CHUNK)
         state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
                                  cfg, hp, "cuda", mesh=mesh)
-        before = dict(counts)
+        before = collective_totals(counts)
         loss, (_, aux), g = step.loss_and_grads(state[0], batch)
         g = step.dp.mean_grads(g)
         red = step.dp.mean_stats({"loss": loss,
                                   "moe_dropped": aux["moe_dropped"]})
-        moved = {k: counts[k] - before[k] for k in counts}
+        moved = collectives_since(counts, before)
     want = torch.load(os.path.join(workdir, "whole_grads.pt"))
     rel = {k: rel_l2(v.float(), want["/".join(k)].to(v.device).float())
            for k, v in flat(g).items() if v is not None}
@@ -4867,107 +4919,109 @@ def tp_child():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank, world = fleet_init("cuda", backend="gloo")
-    counts = count_collectives()
-    mesh = make_host_mesh(model=TP_WORLD, device="cuda")
-    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
-           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-           "model_rank": mesh.get_local_rank("model")}
+    with spmd.count_collectives() as counts:
+        mesh = make_host_mesh(model=TP_WORLD, device="cuda")
+        rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "model_rank": mesh.get_local_rank("model")}
 
-    def blocks(tree):
-        return {"/".join(k): (v.to_local().cpu(), spmd.model_dim(v))
-                for k, v in flat(tree).items() if v is not None}
+        def blocks(tree):
+            return {"/".join(k): (v.to_local().cpu(), spmd.model_dim(v))
+                    for k, v in flat(tree).items() if v is not None}
 
-    # (a) the step, DP_STEPS_B steps, ZeRO-1 off
-    cfg, hp, pcfg = dp_setup(torch)
-    batches = [dp_batch(torch, pcfg, i, list(range(DP_WORLD_B)), DP_WORLD_B)
-               for i in range(DP_STEPS_B)]
-    t_a = time.perf_counter()
-    with spmd.activate(mesh, flash_attn=True, seq_shard=True):
-        step = make_train_step(cfg, hp, mesh=mesh)
-        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
-                                 cfg, hp, "cuda", mesh=mesh)
-        rec["state_bytes"] = sum(
-            v.to_local().numel() * v.to_local().element_size()
-            for v in tree_leaves(state[0]) + tree_leaves(state[1].m)
-            + tree_leaves(state[1].v) if hasattr(v, "to_local"))
-        g0 = step.dp.mean_grads(step.loss_and_grads(state[0], batches[0])[2])
-        rec["grad_placements_equal"] = all(
-            tuple(g.placements) == tuple(p.placements) for g, p in
-            zip(tree_leaves(g0), tree_leaves(state[0])) if g is not None)
-        rec["moment_shapes_equal"] = all(
-            m.to_local().shape == p.to_local().shape for m, p in
-            zip(tree_leaves(state[1].m), tree_leaves(state[0]))
-            if p.is_floating_point())
-        torch.save(blocks(g0), out + ".grads.pt")
-        del g0
+        # (a) the step, DP_STEPS_B steps, ZeRO-1 off
+        cfg, hp, pcfg = dp_setup(torch)
+        batches = [dp_batch(torch, pcfg, i, list(range(DP_WORLD_B)), DP_WORLD_B)
+                   for i in range(DP_STEPS_B)]
+        t_a = time.perf_counter()
+        with spmd.activate(mesh, flash_attn=True, seq_shard=True):
+            step = make_train_step(cfg, hp, mesh=mesh)
+            state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                     cfg, hp, "cuda", mesh=mesh)
+            rec["state_bytes"] = sum(
+                v.to_local().numel() * v.to_local().element_size()
+                for v in tree_leaves(state[0]) + tree_leaves(state[1].m)
+                + tree_leaves(state[1].v) if hasattr(v, "to_local"))
+            g0 = step.dp.mean_grads(step.loss_and_grads(state[0], batches[0])[2])
+            rec["grad_placements_equal"] = all(
+                tuple(g.placements) == tuple(p.placements) for g, p in
+                zip(tree_leaves(g0), tree_leaves(state[0])) if g is not None)
+            rec["moment_shapes_equal"] = all(
+                m.to_local().shape == p.to_local().shape for m, p in
+                zip(tree_leaves(state[1].m), tree_leaves(state[0]))
+                if p.is_floating_point())
+            torch.save(blocks(g0), out + ".grads.pt")
+            del g0
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counters = reset_counters()
+            before = collective_totals(counts)
+            losses, ms = [], []
+            for b in batches:
+                (p, o, s, m), t = event_ms(torch, lambda: step(*state, b))
+                state = (p, o, s)
+                losses.append(float(m["loss"]))
+                ms.append(t)
+            rec["a"] = {"losses": losses, "step_ms": ms,
+                        "launches": {n: c.launches for n, c in counters.items()},
+                        "collectives": {
+                            k: v // DP_STEPS_B for k, v in
+                            collectives_since(counts, before).items()},
+                        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                        "wall_s": time.perf_counter() - t_a}
+        rec["replicated_digests"] = {
+            "/".join(k): tensor_digest(torch, v.to_local())
+            for k, v in flat(state[0]).items() if spmd.model_dim(v) is None}
+        torch.save(blocks(state[0]), out + ".params.pt")
+        del state, step, p, o, s, m, batches
         gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        counters = reset_counters()
-        before = dict(counts)
-        losses, ms = [], []
-        for b in batches:
-            (p, o, s, m), t = event_ms(torch, lambda: step(*state, b))
-            state = (p, o, s)
-            losses.append(float(m["loss"]))
-            ms.append(t)
-        rec["a"] = {"losses": losses, "step_ms": ms,
-                    "launches": {n: c.launches for n, c in counters.items()},
-                    "collectives": {k: (counts[k] - before[k]) // DP_STEPS_B
-                                    for k in counts},
-                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                    "wall_s": time.perf_counter() - t_a}
-    rec["replicated_digests"] = {
-        "/".join(k): tensor_digest(torch, v.to_local())
-        for k, v in flat(state[0]).items() if spmd.model_dim(v) is None}
-    torch.save(blocks(state[0]), out + ".params.pt")
-    del state, step, p, o, s, m, batches
-    gc.collect()
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    # (b) serving: prefill and TP_NEW greedy decode steps
-    t_b = time.perf_counter()
-    cfg_s, prompt = tp_serve_setup(torch)
-    params = place_params(T.init_params(torch.Generator(device="cuda")
-                                        .manual_seed(0), cfg_s,
-                                        device="cuda"), cfg_s, mesh)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()      # (b)'s own peak, not (a)'s
-    with torch.no_grad():
-        counters = reset_counters()
-        before = dict(counts)
-        (logits, cache), t_pre = event_ms(torch, lambda: T.prefill(
-            params, cfg_s, prompt, LM_PROMPT + TP_NEW, attn="flash"))
-        pre_moved = {k: counts[k] - before[k] for k in counts}
-        launches = {n: c.launches for n, c in counters.items()}
-        tp = spmd.tensor_parallel(logits)
-        torch.save({"logits": logits.to_local().float().cpu()},
-                   out + ".prefill.pt")
-        toks, dec_ms = [], []
-        before = dict(counts)
-        for _ in range(TP_NEW):
-            tok = spmd.vocab_argmax(logits.to_local(), tp)
-            toks.append(tok)
-            (logits, cache), t = event_ms(torch, lambda: T.decode_step(
-                params, cache, tok, cfg_s))
-            dec_ms.append(t)
-        dec_moved = {k: (counts[k] - before[k]) / TP_NEW for k in counts}
-    rec["b"] = {"prefill_ms": t_pre, "decode_ms": dec_ms,
-                "decode_ms_p50": statistics.median(dec_ms),
-                "tokens": torch.stack(toks, 1).tolist(),
-                "launches": launches, "prefill_collectives": pre_moved,
-                "decode_collectives_per_step": dec_moved,
-                "decode_bytes_per_token": (dec_moved["all_reduce_bytes"]
-                                           + dec_moved["all_gather_bytes"])
-                / LM_BATCH,
-                "cache_model_dim": spmd.model_dim(cache["k"]),
-                "cache_local_shape": list(cache["k"].to_local().shape),
-                "wall_s": time.perf_counter() - t_b}
-    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    with open(out, "w") as f:
-        json.dump(rec, f)
-    dist.destroy_process_group()
+        # (b) serving: prefill and TP_NEW greedy decode steps
+        t_b = time.perf_counter()
+        cfg_s, prompt = tp_serve_setup(torch)
+        params = place_params(T.init_params(torch.Generator(device="cuda")
+                                            .manual_seed(0), cfg_s,
+                                            device="cuda"), cfg_s, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()      # (b)'s own peak, not (a)'s
+        with torch.no_grad():
+            counters = reset_counters()
+            before = collective_totals(counts)
+            (logits, cache), t_pre = event_ms(torch, lambda: T.prefill(
+                params, cfg_s, prompt, LM_PROMPT + TP_NEW, attn="flash"))
+            pre_moved = collectives_since(counts, before)
+            launches = {n: c.launches for n, c in counters.items()}
+            tp = spmd.tensor_parallel(logits)
+            torch.save({"logits": logits.to_local().float().cpu()},
+                       out + ".prefill.pt")
+            toks, dec_ms = [], []
+            before = collective_totals(counts)
+            for _ in range(TP_NEW):
+                tok = spmd.vocab_argmax(logits.to_local(), tp)
+                toks.append(tok)
+                (logits, cache), t = event_ms(torch, lambda: T.decode_step(
+                    params, cache, tok, cfg_s))
+                dec_ms.append(t)
+            dec_moved = {k: v / TP_NEW for k, v in
+                         collectives_since(counts, before).items()}
+        rec["b"] = {"prefill_ms": t_pre, "decode_ms": dec_ms,
+                    "decode_ms_p50": statistics.median(dec_ms),
+                    "tokens": torch.stack(toks, 1).tolist(),
+                    "launches": launches, "prefill_collectives": pre_moved,
+                    "decode_collectives_per_step": dec_moved,
+                    "decode_bytes_per_token": (dec_moved["all_reduce_bytes"]
+                                               + dec_moved["all_gather_bytes"])
+                    / LM_BATCH,
+                    "cache_model_dim": spmd.model_dim(cache["k"]),
+                    "cache_local_shape": list(cache["k"].to_local().shape),
+                    "wall_s": time.perf_counter() - t_b}
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        with open(out, "w") as f:
+            json.dump(rec, f)
+        dist.destroy_process_group()
 
 
 def whole_blocks(ranks):
@@ -5377,18 +5431,18 @@ def tp_family_train(torch, part, mesh, counts, out, shardmap=False,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         counters = reset_counters()
-        moved = {k: 0 for k in counts}
+        moved = dict.fromkeys(collective_totals(counts), 0)
         losses, ms = [], []
         for i, b in enumerate(batches):
             if fault == "skip_step" and i == 1:
                 continue            # the step updates its state in place
-            before = dict(counts)
+            before = collective_totals(counts)
             (p, o, s, m), t = event_ms(torch, lambda: step(*state, b))
             state = (p, o, s)
             losses.append(float(m["loss"]))
             ms.append(t)
-            for k in counts:
-                moved[k] += counts[k] - before[k]
+            for k, v in collectives_since(counts, before).items():
+                moved[k] += v
             if (part == "ssm" and not shardmap and not fault
                     and i == TP_CKPT_STEP):
                 r["d"] = tp_checkpoint(torch, cfg, hp, state, mesh,
@@ -5483,24 +5537,24 @@ def tp_family_serve(torch, part, mesh, counts, out):
     prompt = lm_prompts(torch, cfg, LM_BATCH, LM_PROMPT, 28)
     with torch.no_grad():
         counters = reset_counters()
-        before = dict(counts)
+        before = collective_totals(counts)
         (logits, cache), t_pre = event_ms(torch, lambda: T.prefill(
             params, cfg, prompt, LM_PROMPT + TP_FAMILY_NEW, attn="flash"))
-        pre_moved = {k: counts[k] - before[k] for k in counts}
+        pre_moved = collectives_since(counts, before)
         launches = {n: c.launches for n, c in counters.items()}
         tp = spmd.tensor_parallel(logits)
         torch.save({"logits": logits.to_local().float().cpu()},
                    f"{out}.{part}.prefill.pt")
         toks, dec_ms = [], []
-        before = dict(counts)
+        before = collective_totals(counts)
         for _ in range(TP_FAMILY_NEW):
             tok = spmd.vocab_argmax(logits.to_local(), tp)
             toks.append(tok)
             (logits, cache), t = event_ms(torch, lambda: T.decode_step(
                 params, cache, tok, cfg))
             dec_ms.append(t)
-        dec_moved = {k: (counts[k] - before[k]) / TP_FAMILY_NEW
-                     for k in counts}
+        dec_moved = {k: v / TP_FAMILY_NEW for k, v in
+                     collectives_since(counts, before).items()}
     leaves = {k: v for k, v in cache.items() if k != "pos"}
     meta = {k: torch.empty(v.shape, device="meta") for k, v in leaves.items()}
     want = SH.cache_shardings(meta, cfg, mesh)
@@ -5558,34 +5612,35 @@ def tp_family_child():
     sys.path.insert(0, SRC)
     import torch.distributed as dist
     faulthandler.enable()
+    from repro_torch.launch import spmd
     from repro_torch.launch.launcher import fleet_init
     from repro_torch.launch.mesh import make_host_mesh
     mode, out = sys.argv[1], sys.argv[2]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank, world = fleet_init("cuda", backend="gloo")
-    counts = count_collectives()
-    mesh = make_host_mesh(model=TP_WORLD, device="cuda")
-    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
-           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-           "model_rank": mesh.get_local_rank("model")}
-    torch.use_deterministic_algorithms(True)
-    for part, fault in GATE_FAULTS if mode == "faults" else ():
-        with planted_fault(fault):
-            rec[f"{part}_{fault}"] = tp_family_train(torch, part, mesh, counts,
-                                                     out, fault=fault)
-    for part in TP_FAMILY_PARTS if mode != "faults" else ():
-        rec[part] = tp_family_train(torch, part, mesh, counts, out)
-        if part == "moe":
-            rec["moe_shardmap"] = tp_family_train(torch, part, mesh, counts,
-                                                  out, shardmap=True)
-        if part == "ssm":
-            rec[part]["ssd"] = tp_ssd_ms(torch, tp_family_cfg(part)[0])
-        rec[part]["serve"] = tp_family_serve(torch, part, mesh, counts, out)
-    torch.use_deterministic_algorithms(False)
-    with open(out, "w") as f:
-        json.dump(rec, f)
-    dist.destroy_process_group()
+    with spmd.count_collectives() as counts:
+        mesh = make_host_mesh(model=TP_WORLD, device="cuda")
+        rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "model_rank": mesh.get_local_rank("model")}
+        torch.use_deterministic_algorithms(True)
+        for part, fault in GATE_FAULTS if mode == "faults" else ():
+            with planted_fault(fault):
+                rec[f"{part}_{fault}"] = tp_family_train(torch, part, mesh, counts,
+                                                         out, fault=fault)
+        for part in TP_FAMILY_PARTS if mode != "faults" else ():
+            rec[part] = tp_family_train(torch, part, mesh, counts, out)
+            if part == "moe":
+                rec["moe_shardmap"] = tp_family_train(torch, part, mesh, counts,
+                                                      out, shardmap=True)
+            if part == "ssm":
+                rec[part]["ssd"] = tp_ssd_ms(torch, tp_family_cfg(part)[0])
+            rec[part]["serve"] = tp_family_serve(torch, part, mesh, counts, out)
+        torch.use_deterministic_algorithms(False)
+        with open(out, "w") as f:
+            json.dump(rec, f)
+        dist.destroy_process_group()
 
 
 def tp_train_reading(torch, part, ref, paths, order, rs, tag):
@@ -5812,6 +5867,368 @@ def tp_family_phase(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 29: the head cut on the card, and the port's demos
+# ---------------------------------------------------------------------------
+
+# 29a: Qwen2-VL-2B at full width cut to CUT_LAYERS of its 28 layers on
+# (data 1, model CUT_WORLD): 8 is the smallest model axis that cuts its
+# heads (12 % 8 != 0; its 1536 query columns split 192 a rank, 1.5 heads;
+# its 256 K/V columns 32 a rank, inside a head). One training step (B
+# CUT_B x S CUT_S: the traffic cut, not the width) against the 1-process
+# step, then a prefill of CUT_B x CUT_S and CUT_NEW greedy tokens against
+# the 1-process greedy trace, under phase 27's bounds unchanged.
+CUT_WORLD, CUT_LAYERS, CUT_B, CUT_S, CUT_NEW = 8, 2, 1, 2048, 4
+
+
+def cut_setup(torch):
+    """What 29a's ranks and its reference share: (config, hparams, the
+    training batch, the prompt)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.data.pipeline import PipelineConfig
+    from repro_torch.launch.train import TrainHParams
+    from repro_torch.optim import AdamWConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=CUT_LAYERS)
+    hp = TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100),
+                      gating=GatingConfig())
+    pcfg = PipelineConfig(vocab=cfg.vocab, seq_len=CUT_S, global_batch=CUT_B)
+    return (cfg, hp, dp_batch(torch, pcfg, 0, [0], 1),
+            lm_prompts(torch, cfg, CUT_B, CUT_S, 29))
+
+
+def cut_reference(torch):
+    """29a's yardsticks in this process, deterministic algorithms on: the
+    1-process step-0 gradients, the loss and the params after one step
+    (host), and the greedy trace of the same seed's params."""
+    from repro_torch.launch.train import init_train_state, make_train_step
+    from repro_torch.models import transformer as T
+    cfg, hp, batch, prompt = cut_setup(torch)
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                 cfg, hp, "cuda")
+        step = make_train_step(cfg, hp, attn="flash")
+        g0 = step.loss_and_grads(state[0], batch)[2]
+        grads = {"/".join(k): v.cpu() for k, v in flat(g0).items()
+                 if v is not None}
+        del g0
+        p, o, s, m = step(*state, batch)
+        loss = float(m["loss"])
+        params = {"/".join(k): v.cpu() for k, v in flat(p).items()}
+        del state, step, p, o, s, m
+        sp = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+        toks, logits = greedy_trace(torch, cfg, sp, prompt, CUT_NEW, "flash")
+        del sp
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return grads, loss, params, toks.cpu(), [lg.cpu() for lg in logits]
+
+
+def cut_child():
+    """One of CUT_WORLD gloo ranks of phase 29a on ``cuda:0`` (``python -c``
+    from the repo root): argv ``[mode, out_path]``. One training step and
+    the prefill and greedy decode of 2-layer Qwen2-VL-2B with its heads cut
+    over the model axis; writes its record as JSON and its local blocks
+    (step-0 gradients, params after the step, the prefill's logits)."""
+    import faulthandler
+    import torch
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    faulthandler.enable()
+    from repro_torch.launch import spmd
+    from repro_torch.launch.launcher import fleet_init
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import (init_train_state, make_train_step,
+                                          place_params)
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizer import tree_leaves
+    out = sys.argv[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = fleet_init("cuda", backend="gloo")
+    with spmd.count_collectives() as counts:
+        mesh = make_host_mesh(model=CUT_WORLD, device="cuda")
+        cfg, hp, batch, prompt = cut_setup(torch)
+        tp = spmd.TensorParallel(mesh, mesh.get_group("model"),
+                                 mesh.get_local_rank("model"), CUT_WORLD)
+        rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "model_rank": tp.rank, "q_span": list(L.q_span(cfg, tp))}
+
+        def blocks(tree):
+            return {"/".join(k): (v.to_local().cpu(), spmd.model_dim(v))
+                    for k, v in flat(tree).items() if v is not None}
+
+        t_a = time.perf_counter()
+        with spmd.activate(mesh, flash_attn=True, seq_shard=True):
+            step = make_train_step(cfg, hp, mesh=mesh)
+            state = init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                                     cfg, hp, "cuda", mesh=mesh)
+            rec["wq_model_dim"] = spmd.model_dim(state[0]["layers"]["attn"]["wq"]
+                                                 ["w"])
+            g0 = step.loss_and_grads(state[0], batch)[2]
+            rec["grad_placements_equal"] = all(
+                tuple(g.placements) == tuple(p.placements) for g, p in
+                zip(tree_leaves(g0), tree_leaves(state[0])) if g is not None)
+            torch.save(blocks(g0), out + ".grads.pt")
+            del g0
+            counters = reset_counters()
+            before = collective_totals(counts)
+            (p, o, s, m), t = event_ms(torch, lambda: step(*state, batch))
+            rec["a"] = {"loss": float(m["loss"]), "step_ms": t,
+                        "launches": {n: c.launches for n, c in counters.items()},
+                        "collectives": collectives_since(counts, before),
+                        "wall_s": time.perf_counter() - t_a}
+        rec["replicated_digests"] = {
+            "/".join(k): tensor_digest(torch, v.to_local())
+            for k, v in flat(p).items() if spmd.model_dim(v) is None}
+        torch.save(blocks(p), out + ".params.pt")
+        del state, step, p, o, s, m
+
+        t_b = time.perf_counter()
+        params = place_params(T.init_params(torch.Generator(device="cuda")
+                                            .manual_seed(0), cfg, device="cuda"),
+                              cfg, mesh)
+        with torch.no_grad():
+            counters = reset_counters()
+            (logits, cache), t_pre = event_ms(torch, lambda: T.prefill(
+                params, cfg, prompt, CUT_S + CUT_NEW, attn="flash"))
+            launches = {n: c.launches for n, c in counters.items()}
+            torch.save({"logits": logits.to_local().float().cpu()},
+                       out + ".prefill.pt")
+            tpl = spmd.tensor_parallel(logits)
+            toks, dec_ms = [spmd.vocab_argmax(logits.to_local(), tpl)], []
+            for _ in range(1, CUT_NEW):
+                (logits, cache), t = event_ms(torch, lambda: T.decode_step(
+                    params, cache, toks[-1], cfg))
+                dec_ms.append(t)
+                toks.append(spmd.vocab_argmax(logits.to_local(), tpl))
+        rec["b"] = {"prefill_ms": t_pre, "decode_ms": dec_ms,
+                    "tokens": torch.stack(toks, 1).tolist(), "launches": launches,
+                    "cache_model_dim": spmd.model_dim(cache["k"]),
+                    "wall_s": time.perf_counter() - t_b}
+        rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        with open(out, "w") as f:
+            json.dump(rec, f)
+        dist.destroy_process_group()
+
+
+def cut_phase(torch):
+    """Phase 29a (module docstring). Returns (record, training launches,
+    serving launches), each summed over the ranks."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cut_")
+    try:
+        grads, ref_loss, ref_params, ref_toks, ref_logits = \
+            cut_reference(torch)
+        free_before(torch, "phase 29a's processes")
+        ranks, wall = spawn_dp("cut", CUT_WORLD, workdir, entry="cut_child")
+        paths = [os.path.join(workdir, f"dp_cut_{r}.json") for r in
+                 range(CUT_WORLD)]
+        order = sorted(range(CUT_WORLD), key=lambda r: ranks[r]["model_rank"])
+        loaded = {kind: [torch.load(paths[r] + kind) for r in order]
+                  for kind in (".grads.pt", ".params.pt")}
+        got_g, got_p = (whole_blocks(loaded[k]) for k in (".grads.pt",
+                                                           ".params.pt"))
+        grad_rel = {k: rel_l2(got_g[k].cuda(), g.cuda())
+                    for k, g in grads.items()}
+        param_rel = {k: rel_l2(got_p[k].cuda(), p.cuda())
+                     for k, p in ref_params.items() if p.is_floating_point()}
+        del got_g, got_p, loaded, grads, ref_params
+        loss = ranks[0]["a"]["loss"]
+        want_a = {n: 0 for n in ranks[0]["a"]["launches"]}
+        want_a.update({"flash_fwd": 2 * CUT_LAYERS,
+                       "flash_bwd_dkv": CUT_LAYERS,
+                       "flash_bwd_dq": CUT_LAYERS})
+        digests = [r["replicated_digests"] for r in ranks]
+        a = {"arch": TRAIN_ARCH, "layers": CUT_LAYERS, "batch": CUT_B,
+             "seq": CUT_S, "mesh": ranks[0]["mesh"], "ranks_wall_s": wall,
+             "rank_walls_s": [r["a"]["wall_s"] for r in ranks],
+             "q_spans": [ranks[r]["q_span"] for r in order],
+             "wq_model_dim": ranks[0]["wq_model_dim"],
+             "loss": loss, "reference_loss": ref_loss,
+             "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+             "grad_rel_l2_max": max(grad_rel.values()),
+             "param_rel_l2_max": max(param_rel.values()),
+             "grad_rel_l2": grad_rel,
+             "ranks_equal": all(d == digests[0] for d in digests),
+             "replicated_leaves": len(digests[0]),
+             "grad_placements_equal": [r["grad_placements_equal"]
+                                       for r in ranks],
+             "step_ms": [r["a"]["step_ms"] for r in ranks],
+             "collectives": ranks[0]["a"]["collectives"],
+             "peak_bytes": [r["max_memory_allocated"] for r in ranks],
+             "launches": [r["a"]["launches"] for r in ranks],
+             "tolerance": {"grad_rel_l2": TRAIN_GRAD_REL_L2,
+                           "loss_rel": DP_LOSS_REL,
+                           "param_rel_l2": DP_PARAM_REL_L2}}
+        log(f"lm_cut_training {json.dumps({k: v for k, v in a.items() if k != 'grad_rel_l2'})}")
+        if (a["grad_rel_l2_max"] > TRAIN_GRAD_REL_L2
+                or a["loss_rel"] > DP_LOSS_REL
+                or a["param_rel_l2_max"] > DP_PARAM_REL_L2
+                or not a["ranks_equal"] or not a["replicated_leaves"]
+                or not all(a["grad_placements_equal"])
+                or a["wq_model_dim"] != 2
+                or any(r["backend"] != "gloo" for r in ranks)
+                or any(r["a"]["launches"] != want_a for r in ranks)):
+            raise AssertionError(f"29a training: {a}; launches want {want_a} "
+                                 "a rank")
+
+        pre = [torch.load(paths[r] + ".prefill.pt")["logits"] for r in order]
+        b_rel = rel_l2(torch.cat(pre, dim=-1), ref_logits[0].float())
+        toks = [r["b"]["tokens"] for r in ranks]
+        ok = b_rel <= TP_LOGIT_REL_L2 and all(t == toks[0] for t in toks)
+        rows = []
+        for i in range(CUT_B):
+            row, fine = first_divergence(toks[0][i], ref_toks[i].tolist(),
+                                         lambda j: ref_logits[j][i], None)
+            if row["first_divergence"] is not None:
+                row["band"] *= TP_GAP_ULPS / PARITY_GAP_ULPS
+                fine = row["top2_gap"] <= row["band"]
+            rows.append(row)
+            ok &= fine
+        want_b = {n: 0 for n in ranks[0]["b"]["launches"]}
+        want_b["flash_fwd"] = CUT_LAYERS
+        b = {"prefill_logits_rel_l2": b_rel, "bound": TP_LOGIT_REL_L2,
+             "rows": rows, "tokens": toks[0],
+             "ranks_tokens_equal": all(t == toks[0] for t in toks),
+             "prefill_ms": [r["b"]["prefill_ms"] for r in ranks],
+             "decode_ms": ranks[0]["b"]["decode_ms"],
+             "cache_model_dim": ranks[0]["b"]["cache_model_dim"],
+             "launches": [r["b"]["launches"] for r in ranks]}
+        log(f"lm_cut_serving {json.dumps(b)}")
+        if not ok or any(r["b"]["launches"] != want_b for r in ranks):
+            raise AssertionError(f"29a serving: {b}; launches want {want_b} "
+                                 "a rank")
+        launches_a = {n: sum(r["a"]["launches"][n] for r in ranks)
+                      for n in want_a}
+        launches_b = {n: sum(r["b"]["launches"][n] for r in ranks)
+                      for n in want_b}
+        rec = {"a": a, "b": b, "wall_s": wall}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"lm_cut_phase_s {rec['phase_s']}")
+    return rec, launches_a, launches_b
+
+
+# 29b: the seven demos of examples/torch on the card, each a process of its
+# own, one after another while phases 23 to 29a run (none of their times is
+# gated). name: (flags, the line that proves the reference demo's
+# contract, the kernels each must have launched)
+SNN_SERVING = ("nm_spmm_fused", "lif", "wu_outer_slots")
+FLASH_TRAIN = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+DEMOS = {
+    "quickstart": (["--steps", "30"], r"^done", FLASH_TRAIN),
+    "train_lm": (["--preset", "cpu-small", "--steps", "30"],
+                 r"^final: loss", FLASH_TRAIN),
+    "serve_decode": ([], r"^first sequence: \[", ("flash_fwd",)),
+    "snn_ossl_demo": (["--full-size", "--samples", "20"],
+                      r"^modeled power", ("nm_spmm", "lif", "wu_outer")),
+    "stream_serving_demo": ([], r"compiled variants 1$", SNN_SERVING),
+    "obs_smoke": ([], r"^OK$", SNN_SERVING),
+    "elastic_recovery_demo": ([], r"^  final states bitwise identical: True$",
+                              FLASH_TRAIN),
+}
+
+
+# the slot grids of the two SNN serving demos: (case, slots, layer width)
+DEMO_SLOT_GRIDS = (("demo_stream_serving", 4, 64), ("demo_obs_smoke", 3, 32))
+DEMO_TRAINING = ("demo_quickstart", "demo_train_lm", "demo_elastic_recovery")
+
+
+def demo_flash_shapes():
+    """The flash kernels' shapes in 29b's LM demos on the card, for phase 3
+    (case, dtype, B, S, H, KV, dh, window): the reduced configs as the
+    demos widen them (``configs.flash_ready``), f32, at the demos' batch and
+    sequence length; ``train_lm --preset cpu-small`` is 4 heads over 2 of
+    64. ``serve_decode``'s Mixtral prefills 16 tokens under its window."""
+    import torch
+    from repro_torch.configs import flash_ready, get_reduced
+
+    def reduced(case, arch, b, s):
+        c = flash_ready(get_reduced(arch))
+        return (case, torch.float32, b, s, c.n_heads, c.n_kv_heads,
+                c.head_dim, c.swa_window)
+    return [reduced("demo_quickstart", "stablelm_12b", 8, 64),
+            ("demo_train_lm", torch.float32, 8, 256, 4, 2, 64, None),
+            reduced("demo_serve_decode", "mixtral_8x7b", 4, 16),
+            reduced("demo_elastic_recovery", "phi3_medium_14b", 4, 32)]
+
+
+def start_demos(workdir):
+    """Phase 29b's demos, one after another in a thread: returns it and
+    the dict it fills (name: exit code, output, wall s). A demo still
+    running at exit is killed."""
+    import atexit
+    import threading
+    out, running = {}, []
+
+    def run():
+        env = dict(os.environ, PYTHONPATH=SRC)
+        for name, (flags, _, _) in DEMOS.items():
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples", "torch",
+                                              name + ".py"), *flags],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                env=env, cwd=workdir, preexec_fn=_niced)
+            running.append(proc)
+            try:
+                text, _ = proc.communicate(timeout=300)
+                rc = proc.returncode
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, rc = proc.communicate()[0], "timeout"
+            out[name] = (rc, text[-8000:], time.perf_counter() - t0)
+
+    def stop():
+        for proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, out
+
+
+def demos_check(demos, timeout=600):
+    """Phase 29b: each demo exited 0, printed its contract line and a
+    ``kernels`` line with every kernel it runs launched on the card; the
+    losses of the training demos fell."""
+    import re
+    thread, out = demos
+    thread.join(timeout)
+    rec, bad = {}, []
+    for name, (_, contract, kernels) in DEMOS.items():
+        rc, text, wall = out.get(name, ("not run", "", 0.0))
+        lines = text.splitlines()
+        kern = [json.loads(l[len("kernels "):]) for l in lines
+                if l.startswith("kernels ")]
+        falls = [float(b) < float(a) for a, b in
+                 re.findall(r"loss ([\d.]+) -> ([\d.]+)", text)]
+        r = {"rc": rc, "wall_s": wall, "kernels": kern[0] if kern else None,
+             "contract": any(re.search(contract, l) for l in lines),
+             "losses_fall": falls, "tail": lines[-6:]}
+        rec[name] = r
+        if (rc != 0 or not r["contract"] or not kern
+                or any(kern[0].get(k, 0) <= 0 for k in kernels)
+                or not all(falls)
+                or (name in ("quickstart", "train_lm") and not falls)):
+            bad.append((name, r, text[-3000:]))
+    log(f"demos {json.dumps({k: {x: v[x] for x in ('rc', 'wall_s', 'kernels', 'contract', 'losses_fall')} for k, v in rec.items()})}")
+    if bad:
+        raise AssertionError(f"29b demos: {bad}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 23: the runtime and the launcher (recovery, compression, dry run, CLI)
 # ---------------------------------------------------------------------------
 
@@ -5823,18 +6240,35 @@ RECOVERY_FAIL_AT = {1: 1, 5: 1}
 # (76 MB on the first run); a second state would be 5.6 GB
 RECOVERY_SLACK = 256 << 20
 COMPRESS_KINDS = (("int8", 0.05), ("topk", 0.05))
+# (c) the dry run: every cell on both fake production meshes (the CLI
+# shares the cells among its workers); one arch a family logged
+DRYRUN_MESHES = ("16x16", "2x16x16")
+# the CPU priority the side runs give up (the dry run, --validate, the
+# demos: none of their times is gated), so that the phases beside them
+# keep the host's cores
+SIDE_NICE = 10
+DRYRUN_FAMILY_CELLS = ("stablelm_12b", "qwen2_vl_2b", "musicgen_large",
+                       "moonshot_v1_16b_a3b", "mamba2_2p7b", "zamba2_1p2b")
 ALLOC_ROUND = 512              # the caching allocator's block granularity
 
 
-def start_tool(args, workdir, name):
+def _niced():
+    """Run in a side process before it starts: its CPU priority lowered
+    by SIDE_NICE, so that it takes what the phases beside it leave."""
+    os.nice(SIDE_NICE)
+
+
+def start_tool(args, workdir, name, nice=False):
     """A ``python -m`` tool of the port in a process of its own (CPU only:
     the dry run and ``--validate`` compute on ``meta``), its output to a
-    file; returns (process, output path, start time)."""
+    file, at a lower CPU priority with ``nice``; returns (process, output
+    path, start time)."""
     env = dict(os.environ, PYTHONPATH=SRC)
     out = os.path.join(workdir, name + ".log")
     f = open(out, "w")
     proc = subprocess.Popen([sys.executable, "-m"] + args, stdout=f,
-                            stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+                            stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                            preexec_fn=_niced if nice else None)
     f.close()
     return proc, out, time.time()
 
@@ -6059,7 +6493,17 @@ def dryrun_check(torch, tool, workdir, lm_training, timeout):
                                      r["memory"]["peak_estimate_bytes"],
                                  "flops_per_device": r["flops_per_device"],
                                  "flash_flops": r["flash_flops"],
-                                 "lower_s": r["lower_s"]})
+                                 "lower_s": r["lower_s"],
+                                 "tp_lower_s": r.get("tp_lower_s_by_mesh"),
+                                 "collectives": {
+                                     m: {op: [d["count"], d["payload_bytes"],
+                                              d["wire_bytes"]]
+                                         for op, d in c["per_op"].items()}
+                                     for m, c in r.get(
+                                         "collectives_by_mesh", {}).items()},
+                                 "peak_bytes_per_device": r["memory"].get(
+                                     "peak_estimate_bytes_per_device_by_mesh",
+                                     {})})
     with open(os.path.join(outdir, f"{TRAIN_ARCH}__train_4k__1.json")) as f:
         parts = json.load(f)["memory"]["argument_bytes_by_part"]
     state_bytes = parts["params"] + parts["opt_state"] + parts["sparse_state"]
@@ -6082,7 +6526,26 @@ def dryrun_check(torch, tool, workdir, lm_training, timeout):
                             "lower_s": phase10["lower_s"],
                             "measured_max_memory_allocated":
                                 lm_training["max_memory_allocated"]}}
-    log(f"runtime_dryrun {json.dumps(rec)}")
+    # each family's train, prefill and decode cell on 16 x 16: calls and
+    # wire bytes a device by op, the peak a device
+    shown = {f"{arch}__{kind}": {
+        "calls_wire": {op: v[::2] for op, v in
+                       cells[f"{arch}__{kind}__1"]["collectives"]
+                       .get("16x16", {}).items()},
+        "peak_bytes_per_device": cells[f"{arch}__{kind}__1"][
+            "peak_bytes_per_device"].get("16x16")}
+        for arch in DRYRUN_FAMILY_CELLS
+        for kind in ("train_4k", "prefill_32k", "decode_32k")}
+    log(f"runtime_dryrun_collectives_16x16 {json.dumps(shown)}")
+    rec["family_cells_16x16"] = shown
+    log(f"runtime_dryrun {json.dumps({k: v for k, v in rec.items() if k not in ('cells', 'family_cells_16x16')})}")
+    unmeshed = [c for c, v in cells.items() if "skipped" not in v and (
+        set(v["collectives"]) != set(DRYRUN_MESHES)
+        or set(v["peak_bytes_per_device"]) != set(DRYRUN_MESHES)
+        or any(sum(x[0] for x in ops.values()) <= 0 or
+               sum(x[2] for x in ops.values()) <= 0
+               for ops in v["collectives"].values())
+        or any(b <= 0 for b in v["peak_bytes_per_device"].values()))]
     from repro_torch.configs import ARCH_IDS, shape_applicable
     want_skip = sum(not shape_applicable(get_config(a), s)[0]
                     for a in ARCH_IDS for s in SHAPES.values())
@@ -6091,9 +6554,12 @@ def dryrun_check(torch, tool, workdir, lm_training, timeout):
             f"done: ok={len(ARCH_IDS) * len(SHAPES) - want_skip} "
             f"skip={want_skip} fail=0")
             or len(cells) != len(ARCH_IDS) * len(SHAPES) or skipped != want_skip
+            or unmeshed
             or alloc["requested_bytes"] != state_bytes
             or not 0 <= alloc["bytes"] - state_bytes <= alloc["rounding_bound"]):
-        raise AssertionError(f"dry run: {rec}\n{text[-4000:]}")
+        raise AssertionError(f"dry run: {rec}; cells without collectives "
+                             f"or a peak on both meshes: {unmeshed}\n"
+                             f"{text[-4000:]}")
     return rec
 
 
@@ -6125,11 +6591,11 @@ def start_side_runs():
     import tempfile
     workdir = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
     dry = start_tool(["repro_torch.launch.dryrun", "--arch", "all",
-                      "--shape", "all", "--out",
+                      "--shape", "all", "--mesh", "both", "--out",
                       os.path.join(workdir, "dryrun"), "--force"],
-                     workdir, "dryrun")
+                     workdir, "dryrun", nice=True)
     val = start_tool(["repro_torch.launch.launcher", "--arch", TRAIN_ARCH,
-                      "--validate"], workdir, "validate")
+                      "--validate"], workdir, "validate", nice=True)
     card = start_tool(["pytest", "--noconftest", "-q", "-p",
                        "no:cacheprovider",
                        os.path.join("tests", "test_torch_cuda.py")],
@@ -6308,6 +6774,23 @@ def main() -> int:
                  for name, frac, s in (("all_open", 1.0, N_STREAMS),
                                        ("open40", 0.4, N_STREAMS),
                                        ("interactive", 1.0, N_STREAMS // 4))]
+    # 29b's SNN demos, at the shapes they launch (held, not timed):
+    # snn_ossl_demo --full-size trains at B 16 and evaluates at B 64 on
+    # 512 -> 512 layers; stream_serving_demo serves 4 slots of 64 -> 64
+    # layers (T 12), obs_smoke 3 slots of 32 -> 32 (T 8)
+    for name, b in (("demo_snn_ossl_train", TRAIN_BATCH),
+                    ("demo_snn_ossl_eval", EVAL_BATCH)):
+        nm_recs.append(nm_case(torch, name, torch.float32, b, 512, 512,
+                               paper, True, timed=False))
+        wu_recs.append(wu_case(torch, name, torch.float32, b, paper,
+                               timed=False))
+    for name, s_, k_ in DEMO_SLOT_GRIDS:
+        fused_recs.append(nm_fused_case(torch, name, s_, k=k_, timed=False))
+        slot_recs.append(wu_slots_case(torch, name, 1.0, s_, k=k_,
+                                       timed=False))
+    lif_recs += [lif_case(torch, shape, timed=False) for shape in (
+        (TRAIN_BATCH, 512), (EVAL_BATCH, 512),
+        *((s_, k_) for _, s_, k_ in DEMO_SLOT_GRIDS))]
     bf16 = torch.bfloat16
     from repro_torch.configs import get_config
     hybrid_window = get_config(HYBRID_ARCH).swa_window
@@ -6344,7 +6827,12 @@ def main() -> int:
         ("tp_zamba2_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 64,
          hybrid_window),
         ("tp_zamba2_prefill", bf16, LM_BATCH, LM_PROMPT, 16, 16, 64,
-         hybrid_window))]
+         hybrid_window),
+        # phase 29a's head cut: each rank's span of Qwen2-VL's heads, 2
+        # query heads over 1 KV head, at its training and prefill shape
+        ("tp_cut", bf16, CUT_B, CUT_S, 2, 1, 128, None))]
+    fa_recs += [flash_case(torch, *case, timed=False)
+                for case in demo_flash_shapes()]
     bwd_recs = [flash_bwd_case(torch, *case) for case in (
         ("train", bf16, TRAIN_B, TRAIN_S, 12, 2, 128, None),
         ("f32", torch.float32, 2, 256, 8, 2, 64, None),
@@ -6358,7 +6846,10 @@ def main() -> int:
         ("tp_train", bf16, TRAIN_B, TRAIN_S, 6, 1, 128, None),
         ("tp_moonlight_train", bf16, TRAIN_B, TRAIN_S, 8, 8, 128, None),
         ("tp_zamba2_train", bf16, TRAIN_B, TRAIN_S, 16, 16, 64,
-         hybrid_window))]
+         hybrid_window),
+        ("tp_cut", bf16, CUT_B, CUT_S, 2, 1, 128, None))]
+    bwd_recs += [flash_bwd_case(torch, *case, timed=False)
+                 for case in demo_flash_shapes() if case[0] in DEMO_TRAINING]
     record["parity"] = {"nm_spmm": nm_recs, "nm_spmm_fused": fused_recs,
                         "lif": lif_recs,
                         "wu_outer": wu_recs, "wu_outer_slots": slot_recs,
@@ -6474,15 +6965,19 @@ def main() -> int:
                                                    tag="moe_serving")
     record["moe_routing"] = moe_route_checks(torch, moe_cfg, moe_params)
 
-    # 16. MoE parity (2 layers), then the continuous batcher (48 layers)
+    # 16. MoE parity (2 layers), then the continuous batcher
+    # (BATCH_MOE_LAYERS layers)
+    import dataclasses
     record["moe_parity"] = moe_parity(torch, moe_cfg, moe_params)
     record["moe_batcher"], batcher_launches = lm_batcher(
-        torch, moe_cfg, moe_params, "moe_batcher")
+        torch, dataclasses.replace(moe_cfg, n_layers=BATCH_MOE_LAYERS),
+        dict(moe_params, layers=first_layers(moe_params["layers"],
+                                             BATCH_MOE_LAYERS)),
+        "moe_batcher")
     del moe_params
 
     # 21. MoE training at full width (4 layers), once Moonlight's serving
     # weights are freed; then its parity checks (2 layers)
-    import dataclasses
     t_train = time.perf_counter()
     free_before(torch, MOE_ARCH)
     record["moe_training"], moe_train_launches = lm_train(
@@ -6552,6 +7047,12 @@ def main() -> int:
     free_before(torch, "phase 23's training state")
     prestart("a", 1)
     prestart("b", DP_WORLD_B)
+    # 29b's demos run one after another from here on, and 25c's CPU tool
+    # (no time is gated)
+    import tempfile
+    demo_dir = tempfile.mkdtemp(prefix="chip_smoke_demos_")
+    demos = start_demos(demo_dir)
+    validate25 = start_validate25(demo_dir)
     record["runtime_launcher"], recovery_launches = runtime_phase(
         torch, record["lm_training"], side_runs)
 
@@ -6560,7 +7061,7 @@ def main() -> int:
     # step, the launcher's dry run on a fake 512-rank group
     free_before(torch, "phase 25's processes")
     prestart("moe", DP_MOE_WORLD)
-    record["lm_dp_training"], dp_launches = dp_phase(torch)
+    record["lm_dp_training"], dp_launches = dp_phase(torch, validate25)
 
     # 26. the MoE family data-parallel: the shard-mapped step (two gloo
     # ranks on the card against the 1-process halves), expert parallelism
@@ -6580,7 +7081,19 @@ def main() -> int:
     # 1, model 2): Moonlight, Mamba2 and Zamba2 at full width against their
     # 1-process runs, and a checkpoint of the TP state
     free_before(torch, "phase 28's reference state")
+    prestart("cut", CUT_WORLD)
     record["lm_tp_families"], fam_launches = tp_family_phase(torch)
+
+    # 29. (a) the head cut: eight gloo ranks on the card train and serve
+    # Qwen2-VL-2B (2 layers) with its 12 heads over a model axis of 8,
+    # against the 1-process runs; (b) the port's seven demos, each a process
+    free_before(torch, "phase 29's reference state")
+    record["lm_cut"], cut_train_launches, cut_serve_launches = \
+        cut_phase(torch)
+    try:
+        record["demos"] = demos_check(demos)
+    finally:
+        shutil.rmtree(demo_dir, ignore_errors=True)
 
     by_path = {name: {"serving": serve_launches[name],
                       "runtime": runtime_launches[name],
@@ -6606,7 +7119,11 @@ def main() -> int:
                       "lm_tp_training": tp_train_launches[name],
                       "lm_tp_serving": tp_serve_launches[name],
                       **{path: fam[name] for path, fam in
-                         fam_launches.items()}}
+                         fam_launches.items()},
+                      "lm_cut_training": cut_train_launches[name],
+                      "lm_cut_serving": cut_serve_launches[name],
+                      **{"demo_" + demo: r["kernels"][name] for demo, r in
+                         record["demos"].items()}}
                for name in kernel_counters()}
 
     def row(name, route, source, replaces, rec):

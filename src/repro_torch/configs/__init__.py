@@ -74,3 +74,21 @@ def get_reduced(name: str) -> ModelConfig:
 
 def all_configs() -> Dict[str, ModelConfig]:
     return {a: get_config(a) for a in ARCH_IDS}
+
+
+def flash_ready(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with a head width that the flash kernels have an instance
+    for (``kernels/flash_attn/kernel.HEAD_DIMS``): a reduced config's
+    16-wide heads widen to the smallest (M-RoPE's sections scaled with
+    them), so that it takes the flash route on the card; a config whose
+    heads have an instance, or that has no attention, is returned as it
+    is."""
+    from ..kernels.flash_attn.kernel import HEAD_DIMS
+    if cfg.family == "ssm" or cfg.head_dim in HEAD_DIMS:
+        return cfg
+    dh = min(d for d in HEAD_DIMS if d >= cfg.head_dim)
+    kw = {"d_head": dh}
+    if cfg.rope_mode == "mrope":
+        kw["mrope_sections"] = tuple(s * dh // cfg.head_dim
+                                     for s in cfg.mrope_sections)
+    return dataclasses.replace(cfg, **kw)

@@ -29,27 +29,52 @@ tensors (shapes and dtypes, no data, no memory), which needs no card:
   (``launch.sharding``: ``tree_shardings`` for the params,
   ``opt_state_shardings`` for the moments with ``zero1`` and
   ``tree_shardings`` without, ``batch_shardings``, ``cache_shardings``;
-  the gating state replicates), summed. ``temp_bytes`` and the peak
-  estimate stay the one-device, unsharded step's (``temp_scope`` says
-  so): the step runs unsharded on ``meta``. The CLI records this figure
-  for each mesh of ``--mesh`` (16 × 16, 2 × 16 × 16) as
-  ``argument_bytes_per_device_by_mesh``, on an ``AbstractMesh``.
-* collectives: none counted yet. The step runs unsharded on ``meta``
-  here; every family's tensor-parallel step (``launch/spmd``) runs over
-  real ranks, and counting its collectives on the fake 256- and 512-rank
-  meshes is ``ROADMAP.md`` Queue 1 item 10e.
+  the gating state replicates), summed.
+* collectives and per-device memory (with a ``DeviceMesh``): the cell's
+  step runs a second time, tensor-parallel on ``meta`` as rank 0 of the
+  mesh runs it (:func:`tensor_parallel_cell`) over a fake process group
+  of the mesh's size (``mesh.init_fake_group``: every collective is a
+  no-op that returns at once): the parameters placed by the rules
+  (``train.place_params``), their moments, the batch's and the tokens'
+  blocks, the cache placed (``init_cache(mesh=)``), the train step
+  data- and tensor-parallel, ``forward`` for prefill, the serve step for
+  decode. ``spmd.count_collectives`` counts what it issues:
+  ``collectives.per_op[op] = {count, payload_bytes, wire_bytes}``,
+  ``collective_payload_bytes`` and ``collective_wire_bytes_per_device``,
+  by the reference's ring model over the group each call names
+  (``spmd.CollectiveCounter``). Every rank of the SPMD step issues the
+  same calls, so rank 0's are a device's. The same run's
+  :class:`LiveBytes` gives ``memory.temp_bytes_per_device`` and
+  ``peak_estimate_bytes_per_device`` (its argument bytes plus those):
+  the per-device counterpart of the reference's ``memory_analysis()``.
+  ``temp_bytes`` and ``peak_estimate_bytes`` stay the one-device,
+  unsharded step's (``temp_scope`` says which is which).
 
-The step has no host reads inside (``launch/train``), so every cell runs
-on ``meta``; an op that needed data would fail here.
+The CLI records, for each mesh of ``--mesh`` (16 × 16, 2 × 16 × 16),
+``argument_bytes_per_device_by_mesh``, ``collectives_by_mesh`` and
+``peak_estimate_bytes_per_device_by_mesh`` (and ``temp_bytes_..``); the
+reference's top-level keys hold the first mesh's (``collectives_mesh``).
+One process holds one default group, so each mesh's fake group is built,
+serves every cell, and is destroyed before the next. The cells are shared
+among up to MAX_WORKERS processes (no more than the host's cores or the
+cells), whose tallies are summed; a process that ends without its tally
+counts as a failed cell. A failed cell writes its ``.err`` and counts as
+``fail``.
+
+Neither step has a host read inside (``launch/train``; the MoE dispatch
+over the global batch takes its static bound on ``meta``,
+``models/moe._own_runs``), so every cell runs on ``meta``; an op that
+needed data would fail here.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
-        --shape all --out build/dryrun [--sparsity] [--force]
+        --shape all --mesh both --out build/dryrun [--sparsity] [--force]
 
-Not ported: ``parse_collectives`` (it parses XLA HLO) and the reference's
-probe compiles (``cost_analysis`` counts a loop body once; eager counting
-sees every layer).
+Not ported, by design: ``parse_collectives`` (it parses XLA HLO; here the
+eager calls are counted as they are issued) and the reference's probe
+compiles (``cost_analysis`` counts a loop body once; eager counting sees
+every layer).
 """
 from __future__ import annotations
 
@@ -75,6 +100,7 @@ from ..kernels.flash_attn.ops import flash_attention
 from ..models import transformer as T
 from ..optim import SparseTrainState, adamw_init
 from . import sharding as SH
+from . import spmd
 from .mesh import AbstractMesh
 from .serve import make_serve_step
 from .train import TrainHParams, make_train_step
@@ -105,6 +131,7 @@ class LiveBytes(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         for t in tree_flatten(out)[0]:
             if isinstance(t, torch.Tensor):
+                t = getattr(t, "_local_tensor", t)  # a DTensor: its block
                 st = t.untyped_storage()
                 if st not in self._seen:
                     self._seen[st] = None
@@ -253,40 +280,113 @@ def argument_bytes_per_device(cfg: ModelConfig, parts: Dict[str, Any],
                if isinstance(x, torch.Tensor))
 
 
-def lower_cell(cfg: ModelConfig, shape: ShapeConfig, *,
-               hp: Optional[TrainHParams] = None, attn: str = "flash",
-               loss_chunk: Optional[int] = None, mesh=None) -> Dict[str, Any]:
-    """Run the cell's step once on ``meta`` and return the reference's
-    record keys that have a meaning on one device (module docstring); with
-    ``mesh`` (an LM mesh of any kind) also the per-device argument bytes
-    under its placements."""
-    hp = hp or TrainHParams()
-    rec: Dict[str, Any] = {"arch": cfg.name, "shape": shape.name,
-                           "mesh": MESH_NAME, "n_devices": 1, "kind": shape.kind,
-                           "n_layers": cfg.n_layers, "attn": attn,
-                           "loss_chunk": loss_chunk}
-    parts = cell_arguments(cfg, shape, hp)
-    args = [x for p in parts.values() for x in tensors(p)]
-    if shape.kind == "train":
-        step = make_train_step(cfg, hp, attn=attn, loss_chunk=loss_chunk)
+def _block(x: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's block of a ``meta`` tensor under ``sharding``."""
+    return torch.empty(SH.shard_shape(sharding.spec, tuple(x.shape),
+                                      sharding.mesh), dtype=x.dtype,
+                       device=META)
 
-        def run():
-            return step(parts["params"], parts["opt_state"],
-                        parts["sparse_state"], parts["batch"])
-    elif shape.kind == "prefill":
+
+def placed_arguments(cfg: ModelConfig, shape: ShapeConfig, hp: TrainHParams,
+                     mesh) -> Dict[str, Any]:
+    """The cell's step arguments on ``meta`` placed by the rules on a
+    ``DeviceMesh``, as each rank holds them: the params ``DTensor`` s
+    (``train.place_params``), the moments of their placements (ZeRO-1's
+    blocks with ``hp.zero1``), the batch's and the tokens' blocks
+    (``batch_shardings``), the cache placed (``init_cache(mesh=)``:
+    ``cache_shardings``)."""
+    from .train import DataParallel, place_params
+    parts = cell_arguments(cfg, shape, hp)
+    out = {"params": place_params(parts["params"], cfg, mesh)}
+    if shape.kind == "train":
+        dp = DataParallel(mesh, cfg, hp)
+        out["opt_state"] = adamw_init(out["params"],
+                                      dp.zero1_layout(out["params"]))
+        out["sparse_state"] = parts["sparse_state"]
+    if "batch" in parts:
+        sh = SH.batch_shardings(parts["batch"], mesh)
+        out["batch"] = {k: _block(v, sh[k]) for k, v in parts["batch"].items()}
+        return out
+    tokens = _block(parts["tokens"], SH.batch_shardings(parts["tokens"], mesh))
+    out["tokens"] = tokens
+    out["cache"] = T.init_cache(cfg, tokens.shape[0], shape.seq_len,
+                                device=META, mesh=mesh)
+    return out
+
+
+def _locals(tree):
+    """The tensors of a placed tree, each ``DTensor`` as its local block."""
+    return [getattr(x, "_local_tensor", x) for x in tensors(tree)]
+
+
+def cell_step(cfg: ModelConfig, shape: ShapeConfig, hp: TrainHParams,
+              attn: str, loss_chunk: Optional[int], parts: Dict[str, Any],
+              mesh=None):
+    """The cell's step on ``parts`` as a thunk: the train step, ``forward``
+    for prefill, the serve step for decode (the data-parallel step over
+    ``mesh`` where one is given)."""
+    if shape.kind == "train":
+        step = make_train_step(cfg, hp, attn=attn, loss_chunk=loss_chunk,
+                               mesh=mesh)
+        return lambda: step(parts["params"], parts["opt_state"],
+                            parts["sparse_state"], parts["batch"])
+    if shape.kind == "prefill":
         def run():
             with torch.no_grad():
                 return T.forward(parts["params"], cfg,
                                  tokens=parts["batch"].get("tokens"),
                                  embeds=parts["batch"].get("embeds"),
                                  attn=attn)[0]
-    else:
-        serve = make_serve_step(cfg)
+        return run
+    serve = make_serve_step(cfg)
 
-        def run():
-            with torch.no_grad():
-                return serve(parts["params"], parts["cache"], parts["tokens"])
-    live = LiveBytes(args)
+    def run():
+        with torch.no_grad():
+            return serve(parts["params"], parts["cache"], parts["tokens"])
+    return run
+
+
+def tensor_parallel_cell(cfg: ModelConfig, shape: ShapeConfig,
+                         hp: TrainHParams, attn: str,
+                         loss_chunk: Optional[int], mesh,
+                         spmd_opts: Optional[Dict[str, Any]] = None
+                         ) -> Dict[str, Any]:
+    """The cell's step run tensor-parallel on ``meta`` as one rank of
+    ``mesh`` (a ``DeviceMesh``: a fake process group of its size serves)
+    runs it, under ``spmd.activate(mesh, **spmd_opts)``: its collectives
+    (``spmd.count_collectives``), the most bytes its own tensors hold at
+    once (``LiveBytes``) and its wall."""
+    parts = placed_arguments(cfg, shape, hp, mesh)
+    run = cell_step(cfg, shape, hp, attn, loss_chunk, parts, mesh=mesh)
+    live = LiveBytes(_locals(parts))
+    t0 = time.perf_counter()
+    with spmd.activate(mesh, **(spmd_opts or {})), \
+            spmd.count_collectives() as counter, live:
+        out = run()
+    del out
+    return {"lower_s": time.perf_counter() - t0, "temp_bytes": live.peak,
+            "collectives": counter.record()}
+
+
+def lower_cell(cfg: ModelConfig, shape: ShapeConfig, *,
+               hp: Optional[TrainHParams] = None, attn: str = "flash",
+               loss_chunk: Optional[int] = None, mesh=None,
+               spmd_opts: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Run the cell's step once on ``meta`` and return the reference's
+    record keys that have a meaning on one device (module docstring). With
+    ``mesh`` (an LM mesh of any kind) also the per-device argument bytes
+    under its placements; with a ``DeviceMesh`` (a real or fake process
+    group) the step also runs tensor-parallel on ``meta`` as one of its
+    ranks (:func:`tensor_parallel_cell`, under ``spmd_opts``): the
+    collectives, the per-device temp bytes and peak estimate."""
+    hp = hp or TrainHParams()
+    rec: Dict[str, Any] = {"arch": cfg.name, "shape": shape.name,
+                           "mesh": MESH_NAME, "n_devices": 1, "kind": shape.kind,
+                           "n_layers": cfg.n_layers, "attn": attn,
+                           "loss_chunk": loss_chunk}
+    parts = cell_arguments(cfg, shape, hp)
+    run = cell_step(cfg, shape, hp, attn, loss_chunk, parts)
+    live = LiveBytes(tensors(parts))
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as fc, live:
         out = run()
@@ -298,18 +398,29 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, *,
                      "argument_bytes_by_part": by_part,
                      "temp_bytes": live.peak,
                      "peak_estimate_bytes": arg_bytes + live.peak}
+    rec["flops_per_device"] = float(fc.get_total_flops())
+    rec["flash_flops"] = float(flash_flops(cfg, shape, hp))
+    coll = {"per_op": {}, "payload_bytes": 0.0, "wire_bytes_per_device": 0.0}
     if mesh is not None:
         rec["mesh"] = "x".join(str(n) for n in mesh.shape)
         rec["n_devices"] = mesh.size()
-        rec["memory"]["argument_bytes_per_device"] = \
+        mem = rec["memory"]
+        mem["argument_bytes_per_device"] = \
             argument_bytes_per_device(cfg, parts, hp, mesh)
-        rec["memory"]["temp_scope"] = "one device, unsharded step"
-    rec["flops_per_device"] = float(fc.get_total_flops())
-    rec["flash_flops"] = float(flash_flops(cfg, shape, hp))
-    rec["collective_wire_bytes_per_device"] = 0.0
-    rec["collective_payload_bytes"] = 0.0
-    rec["collectives"] = {"per_op": {}, "payload_bytes": 0.0,
-                          "wire_bytes_per_device": 0.0}
+        if hasattr(mesh, "get_group"):
+            tp = tensor_parallel_cell(cfg, shape, hp, attn, loss_chunk, mesh,
+                                      spmd_opts)
+            rec["tp_lower_s"] = tp["lower_s"]
+            coll = tp["collectives"]
+            mem["temp_bytes_per_device"] = tp["temp_bytes"]
+            mem["peak_estimate_bytes_per_device"] = \
+                mem["argument_bytes_per_device"] + tp["temp_bytes"]
+        mem["temp_scope"] = "one device, unsharded step" + (
+            "; *_per_device: one rank's tensor-parallel step on meta"
+            if hasattr(mesh, "get_group") else "")
+    rec["collective_wire_bytes_per_device"] = coll["wire_bytes_per_device"]
+    rec["collective_payload_bytes"] = coll["payload_bytes"]
+    rec["collectives"] = coll
     return rec
 
 
@@ -340,13 +451,77 @@ def parse_opt(opt: str):
     return opts, hp_kw
 
 
+MESH_CHOICES = {"single": ["16x16"], "multi": ["2x16x16"],
+                "both": ["16x16", "2x16x16"]}
+
+
+def _fake_mesh(name: str):
+    """A fake process group of the production mesh ``name``'s size in this
+    process (one default group a process: the caller destroys it) and the
+    mesh over it."""
+    from .mesh import init_fake_group, make_production_mesh
+    shape, _ = PRODUCTION_MESHES[name]
+    init_fake_group(math.prod(shape))
+    return make_production_mesh(multi_pod=len(shape) == 3, device="cpu")
+
+
+# the processes that share the CLI's cells: the 40 cells on both meshes
+# take ~110 s with 3 on the 8 cores of an H100 host beside other work
+MAX_WORKERS = 3
+
+
+def _run_jobs(argv, jobs: int) -> int:
+    """``main`` over ``jobs`` processes, each its share of the cells
+    (``--part i/jobs``); their output passed through, the tallies summed.
+    A process that printed no tally (it crashed outside a cell's ``try``)
+    or that exited with another code than 0 or 1 counts as one failed
+    cell."""
+    import subprocess
+    import sys
+    import tempfile
+    env = dict(os.environ)
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    tally = [0, 0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [os.path.join(tmp, f"part{i}.log") for i in range(jobs)]
+        procs = []
+        for i, path in enumerate(logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                     "--part", f"{i}/{jobs}"],
+                    stdout=f, text=True, env=env))
+        for i, (proc, path) in enumerate(zip(procs, logs)):
+            proc.wait()
+            tallied = False
+            with open(path) as f:
+                for line in f.read().splitlines():
+                    if line.startswith("done: "):
+                        tallied = True
+                        for j, kv in enumerate(line[6:].split()):
+                            tally[j] += int(kv.split("=")[1])
+                    else:
+                        print(line)
+            if not tallied or proc.returncode not in (0, 1):
+                tally[2] += 1
+                print(f"[FAIL]   part {i}/{jobs} exited {proc.returncode}"
+                      + ("" if tallied else " without its tally"))
+    print(f"done: ok={tally[0]} skip={tally[1]} fail={tally[2]}")
+    return 1 if tally[2] else 0
+
+
 def main(argv=None) -> int:
+    import sys
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"],
-                    help="the production meshes whose per-device argument "
-                         "bytes each cell records")
+    ap.add_argument("--mesh", default="both", choices=list(MESH_CHOICES),
+                    help="the production meshes each cell also runs on, "
+                         "tensor-parallel on meta over a fake process group "
+                         "of their size")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--sparsity", action="store_true",
@@ -354,60 +529,124 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", default="backprop", choices=["backprop", "local"])
     ap.add_argument("--tag", default="")
     ap.add_argument("--opt", default="",
-                    help="comma list: seq, moe (recorded), losschunk[:N] "
-                         "(chunked CE), zero1, mb:N")
+                    help="comma list: seq (sequence-parallel boundaries on "
+                         "the meshes), moe (shard-mapped dispatch), "
+                         "losschunk[:N] (chunked CE), zero1, mb:N")
+    # a worker's share of the cells (set by _run_jobs)
+    ap.add_argument("--part", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    archs = C.ARCH_IDS if args.arch == "all" else [C.normalize(args.arch)]
+    shapes = list(C.SHAPES) if args.shape == "all" else [args.shape]
+    cells = [(a, s) for a in archs for s in shapes]
+    if args.part is None:
+        workers = min(MAX_WORKERS, os.cpu_count() or 1, len(cells))
+        if workers > 1:
+            return _run_jobs(sys.argv[1:] if argv is None else list(argv),
+                             workers)
+    part, n_parts = map(int, (args.part or "0/1").split("/"))
     opts, hp_kw = parse_opt(args.opt)
 
     os.makedirs(args.out, exist_ok=True)
-    archs = C.ARCH_IDS if args.arch == "all" else [C.normalize(args.arch)]
-    shapes = list(C.SHAPES) if args.shape == "all" else [args.shape]
-    meshes = {name: AbstractMesh(*PRODUCTION_MESHES[name]) for name in
-              {"single": ["16x16"], "multi": ["2x16x16"],
-               "both": ["16x16", "2x16x16"]}[args.mesh]}
+    mesh_names = MESH_CHOICES[args.mesh]
+    meshes = {name: AbstractMesh(*PRODUCTION_MESHES[name])
+              for name in mesh_names}
 
     n_ok = n_skip = n_fail = 0
-    for arch in archs:
+    todo = []                 # (cell id, path, cfg, shape, hp, record)
+    for arch, shape_name in cells[part::n_parts]:
         cfg = C.get_config(arch)
         if args.sparsity:
             cfg = cfg.with_sparsity(SparsityConfig(n=2, m=8, block=128,
                                                    targets=("mlp",), mode="compact"))
         hp = TrainHParams(mode=args.mode, **hp_kw)
-        for shape_name in shapes:
-            shape = C.SHAPES[shape_name]
-            ok, why = C.shape_applicable(cfg, shape)
-            cid = cell_id(arch, shape_name, MESH_NAME, args.tag)
-            path = os.path.join(args.out, cid + ".json")
-            if os.path.exists(path) and not args.force:
-                print(f"[cached] {cid}")
-                n_ok += 1
-                continue
-            if not ok:
-                with open(path, "w") as f:
-                    json.dump({"arch": cfg.name, "shape": shape_name,
-                               "mesh": MESH_NAME, "skipped": why}, f, indent=1)
-                print(f"[skip]   {cid}: {why}")
-                n_skip += 1
-                continue
-            try:
-                rec = lower_cell(cfg, shape, hp=hp,
-                                 loss_chunk=opts["loss_chunk"] or None)
-                rec["opts"] = dict(opts, mesh_requested=args.mesh)
-                parts = cell_arguments(cfg, shape, hp)
-                rec["memory"]["argument_bytes_per_device_by_mesh"] = {
-                    name: argument_bytes_per_device(cfg, parts, hp, m)
-                    for name, m in meshes.items()}
-                with open(path, "w") as f:
-                    json.dump(rec, f, indent=1)
-                print(f"[ok]     {cid}: lower {rec['lower_s']:.1f}s "
-                      f"flops/dev {rec['flops_per_device']:.3e} peak/dev "
-                      f"{rec['memory']['peak_estimate_bytes'] / 1e9:.2f} GB")
-                n_ok += 1
-            except Exception as e:  # a failed cell is a bug in the port
-                n_fail += 1
-                with open(path + ".err", "w") as f:
-                    f.write(traceback.format_exc())
-                print(f"[FAIL]   {cid}: {type(e).__name__}: {e}")
+        shape = C.SHAPES[shape_name]
+        ok, why = C.shape_applicable(cfg, shape)
+        cid = cell_id(arch, shape_name, MESH_NAME, args.tag)
+        path = os.path.join(args.out, cid + ".json")
+        if os.path.exists(path) and not args.force:
+            print(f"[cached] {cid}")
+            n_ok += 1
+            continue
+        if not ok:
+            with open(path, "w") as f:
+                json.dump({"arch": cfg.name, "shape": shape_name,
+                           "mesh": MESH_NAME, "skipped": why}, f, indent=1)
+            print(f"[skip]   {cid}: {why}")
+            n_skip += 1
+            continue
+        try:
+            rec = lower_cell(cfg, shape, hp=hp,
+                             loss_chunk=opts["loss_chunk"] or None)
+            rec["opts"] = dict(opts, mesh_requested=args.mesh)
+            parts = cell_arguments(cfg, shape, hp)
+            rec["memory"]["argument_bytes_per_device_by_mesh"] = {
+                name: argument_bytes_per_device(cfg, parts, hp, m)
+                for name, m in meshes.items()}
+            todo.append((cid, path, cfg, shape, hp, rec))
+        except Exception as e:  # a failed cell is a bug in the port
+            n_fail += 1
+            with open(path + ".err", "w") as f:
+                f.write(traceback.format_exc())
+            print(f"[FAIL]   {cid}: {type(e).__name__}: {e}")
+
+    # each mesh's tensor-parallel steps over a fake group of its size (one
+    # default group a process: built, used by every cell, destroyed)
+    import torch.distributed as dist
+    failed = set()
+    for name in mesh_names:
+        if not todo:
+            break
+        mesh = _fake_mesh(name)
+        try:
+            for cid, path, cfg, shape, hp, rec in todo:
+                if cid in failed:
+                    continue
+                try:
+                    # sequence-parallel boundaries only where activations
+                    # are saved for a backward (the reference's choice)
+                    tp = tensor_parallel_cell(
+                        cfg, shape, hp, "flash", opts["loss_chunk"] or None,
+                        mesh, {"seq_shard": opts["seq_shard"]
+                               and shape.kind == "train",
+                               "shardmap_moe": opts["shardmap_moe"]})
+                except Exception as e:
+                    failed.add(cid)
+                    n_fail += 1
+                    with open(path + ".err", "w") as f:
+                        f.write(f"mesh {name}\n" + traceback.format_exc())
+                    print(f"[FAIL]   {cid} on {name}: {type(e).__name__}: {e}")
+                    continue
+                mem = rec["memory"]
+                rec.setdefault("collectives_by_mesh", {})[name] = \
+                    tp["collectives"]
+                mem.setdefault("temp_bytes_per_device_by_mesh", {})[name] = \
+                    tp["temp_bytes"]
+                mem.setdefault("peak_estimate_bytes_per_device_by_mesh", {})[
+                    name] = mem["argument_bytes_per_device_by_mesh"][name] \
+                    + tp["temp_bytes"]
+                rec.setdefault("tp_lower_s_by_mesh", {})[name] = \
+                    tp["lower_s"]
+        finally:
+            dist.destroy_process_group()
+    for cid, path, cfg, shape, hp, rec in todo:
+        if cid in failed:
+            continue
+        first = mesh_names[0]           # the reference's keys: this mesh's
+        coll = rec["collectives_by_mesh"][first]
+        rec.update(collectives=coll, collectives_mesh=first,
+                   collective_payload_bytes=coll["payload_bytes"],
+                   collective_wire_bytes_per_device=coll[
+                       "wire_bytes_per_device"])
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        peak = rec["memory"]["peak_estimate_bytes_per_device_by_mesh"]
+        print(f"[ok]     {cid}: lower {rec['lower_s']:.1f}s "
+              f"flops/dev {rec['flops_per_device']:.3e} peak/dev "
+              f"{rec['memory']['peak_estimate_bytes'] / 1e9:.2f} GB; "
+              + "; ".join(f"{m}: coll wire/dev {c['wire_bytes_per_device']:.3e}B"
+                          f" peak/dev {peak[m] / 1e9:.2f} GB"
+                          for m, c in rec["collectives_by_mesh"].items()))
+        n_ok += 1
     print(f"done: ok={n_ok} skip={n_skip} fail={n_fail}")
     return 1 if n_fail else 0
 

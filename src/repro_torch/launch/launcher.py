@@ -133,14 +133,24 @@ def launch_train(arch: str, *, multi_pod: bool, opt: str, steps: int,
     if validate_only:
         from .dryrun import lower_cell
         shape = ShapeConfig("validate", seq_len, global_batch, "train")
-        rec = lower_cell(cfg, shape, hp=hp, mesh=mesh, **step_kw)
+        rec = lower_cell(cfg, shape, hp=hp, mesh=mesh, spmd_opts=_ctx_opts(
+            shown), **step_kw)
         if pid == 0:
             mem = rec["memory"]
+            per_op = ", ".join(f"{op} {d['count']} calls {d['wire_bytes']:.4e} B"
+                               for op, d in rec["collectives"]["per_op"].items())
             print(f"[launcher] validate OK: lower {rec['lower_s']:.1f}s, "
                   f"argument bytes/dev {mem['argument_bytes_per_device']} on "
                   f"{rec['mesh']}, peak/dev "
                   f"{mem['peak_estimate_bytes'] / 1e9:.1f} GB (one device, "
                   f"unsharded)")
+            if "peak_estimate_bytes_per_device" in mem:
+                print(f"[launcher] tensor-parallel on {rec['mesh']}: "
+                      f"collective wire bytes/dev "
+                      f"{rec['collective_wire_bytes_per_device']:.4e} "
+                      f"({per_op}), peak/dev "
+                      f"{mem['peak_estimate_bytes_per_device'] / 1e9:.1f} GB "
+                      f"(lower {rec['tp_lower_s']:.1f}s)")
         return 0
 
     dev = torch.device(device)

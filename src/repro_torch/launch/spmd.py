@@ -34,9 +34,14 @@ Megatron collectives: :meth:`TensorParallel.enter` and
 :meth:`TensorParallel.leave`, under ``seq_shard`` the sequence-parallel
 pair); the residual stream keeps one layout through the forward (whole,
 or this rank's block of the sequence), and the logits come back
-vocab-parallel. The Mamba2 mixer (``models/mamba2``) adds a gather of
-column blocks (:meth:`TensorParallel.enter_cols`), an ``all_to_all``
-between two layouts of ``d_inner`` (:meth:`TensorParallel.all_to_all`) and
+vocab-parallel (or, where the rules put the head's rows on the model axis,
+summed whole: :meth:`TensorParallel.all_sum`). Where the model axis cuts
+inside a query head, ``wq``'s column blocks are gathered whole
+(:meth:`TensorParallel.enter_cols`) and each rank runs the heads its rows
+of ``wo`` touch (``models/layers.head_cut``). The Mamba2 mixer
+(``models/mamba2``) adds a gather of column blocks
+(:meth:`TensorParallel.enter_cols`), an ``all_to_all`` between two
+layouts of ``d_inner`` (:meth:`TensorParallel.all_to_all`) and
 a sum over the model axis whose consumers are partial on every rank
 (:meth:`TensorParallel.psum`, the gated norm's sum of squares); the MoE
 layer (``models/moe``) runs its experts on this rank's block.
@@ -379,10 +384,18 @@ class TensorParallel:
     function: the parameters enter as their local blocks
     (:func:`local_tree`), and the Megatron collectives stand where the
     reference's placements would put them: :meth:`enter` before a
-    column-parallel product, :meth:`leave` after a row-parallel one. All
-    are eager ``all_reduce`` / ``all_gather`` calls over the model group,
-    which gloo runs on CUDA tensors; ``reduce_scatter`` is an
-    ``all_reduce`` and a slice."""
+    column-parallel product, :meth:`leave` after a row-parallel one,
+    :meth:`enter_cols` where a column block cuts inside a head (``wq``
+    under a head cut, K/V, the Mamba2 mixer's ``in_proj``: the blocks
+    gathered whole), :meth:`all_sum` after the head's row-parallel
+    product, :meth:`gather` / :meth:`split` of the stream under SP,
+    :meth:`all_to_all` and :meth:`psum` in the mixer, and
+    :meth:`all_gather` / :meth:`all_reduce` without autograd (the
+    vocab-parallel loss and argmax, decode). All are eager
+    ``all_reduce``, ``all_gather`` or ``all_to_all_single`` calls over the
+    model group, which gloo runs on CUDA tensors; ``reduce_scatter`` is
+    an ``all_reduce`` and a slice (:func:`count_collectives` counts them
+    as what they issue)."""
     mesh: Any
     group: Any
     rank: int
@@ -415,6 +428,13 @@ class TensorParallel:
         if self.seq:
             return _GatherReduceScatterGrad.apply(x, 1, self)
         return _IdentityReduceGrad.apply(x, [self.group])
+
+    def all_sum(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial sums summed whole on every rank (an ``all_reduce``),
+        the cotangent, whole on every rank, passed through (a row-parallel
+        head's logits)."""
+        return y if self.size == 1 else \
+            _ReduceIdentityGrad.apply(y, [self.group], 1)
 
     def leave(self, y: torch.Tensor) -> torch.Tensor:
         """A row-parallel product's partial sum back into the stream:
@@ -655,3 +675,157 @@ def local_block(x: torch.Tensor, like) -> torch.Tensor:
         return x
     n = axis_sizes(like.device_mesh)["model"]
     return _block(x, d, like.device_mesh.get_local_rank("model"), n)
+
+
+# ---------------------------------------------------------------------------
+# counting the collectives a step issues
+# ---------------------------------------------------------------------------
+
+# the collectives the port issues (``torch.distributed`` eager calls; a
+# barrier moves no bytes: ``checkpoint.save`` of a placed tree waits in one)
+COUNTED = ("all_reduce", "all_gather", "all_to_all_single", "barrier")
+# every other collective, refused while a counter is active: in
+# ``torch.distributed`` and in its functional API (DTensor's redistribute)
+_REFUSED = ("all_gather_coalesced", "all_gather_into_tensor",
+            "all_gather_object", "all_gather_single", "all_reduce_coalesced",
+            "all_to_all", "batch_isend_irecv", "broadcast",
+            "broadcast_object_list", "gather", "gather_object", "irecv",
+            "isend", "monitored_barrier", "recv", "recv_object_list",
+            "reduce", "reduce_scatter", "reduce_scatter_single",
+            "reduce_scatter_tensor", "scatter", "scatter_object_list", "send",
+            "send_object_list")
+_REFUSED_FUNCTIONAL = (
+    "all_gather_into_tensor_coalesced", "all_gather_single",
+    "all_gather_single_autograd", "all_gather_tensor",
+    "all_gather_tensor_autograd", "all_gather_tensor_inplace", "all_reduce",
+    "all_reduce_coalesced", "all_reduce_inplace", "all_to_all_inplace",
+    "all_to_all_single", "all_to_all_single_autograd", "broadcast",
+    "permute_tensor", "reduce_scatter_tensor",
+    "reduce_scatter_tensor_autograd", "reduce_scatter_tensor_coalesced",
+    "reduce_scatter_tensor_inplace")
+
+
+class CollectiveCounter:
+    """The collectives counted by :func:`count_collectives`, by op
+    (:data:`COUNTED`): calls,
+    ``payload_bytes`` (the result buffer, as the reference's HLO parse
+    reads it: the all-reduced tensor, the ``G`` gathered blocks, the
+    received tensor) and ``wire_bytes``, one device's bytes on the wire by
+    the reference's ring model (``repro.launch.dryrun.parse_collectives``)
+    over the ``G`` ranks of the group that the call names: all-gather
+    ``(G − 1)/G`` · result, all-reduce ``2(G − 1)/G`` · payload,
+    all-to-all ``(G − 1)/G`` · payload. ``inputs[op]``: the elements and
+    bytes of the tensors handed in (the gathered block, the sent tensor);
+    ``calls``: ``(op, payload bytes, G)`` of each call, in order. A
+    ``barrier`` counts its calls and moves no bytes."""
+
+    def __init__(self):
+        self.per_op = {op: {"count": 0, "payload_bytes": 0.0,
+                            "wire_bytes": 0.0} for op in COUNTED}
+        self.inputs = {op: {"elems": 0, "bytes": 0} for op in COUNTED}
+        self.calls: List[Tuple[str, int, int]] = []
+
+    def add(self, op: str, x: torch.Tensor, payload: int, g: int) -> None:
+        wire = {"all_reduce": 2.0 * (g - 1) / g}.get(op, (g - 1) / g)
+        d = self.per_op[op]
+        d["count"] += 1
+        d["payload_bytes"] += payload
+        d["wire_bytes"] += wire * payload
+        self.inputs[op]["elems"] += x.numel()
+        self.inputs[op]["bytes"] += x.numel() * x.element_size()
+        self.calls.append((op, payload, g))
+
+    def record(self) -> dict:
+        """The reference's ``collectives`` keys: ``per_op`` (ops called at
+        least once), ``payload_bytes``, ``wire_bytes_per_device``."""
+        per_op = {op: dict(d) for op, d in self.per_op.items() if d["count"]}
+        return {"per_op": per_op,
+                "payload_bytes": sum(d["payload_bytes"]
+                                     for d in per_op.values()),
+                "wire_bytes_per_device": sum(d["wire_bytes"]
+                                             for d in per_op.values())}
+
+
+_counters: List[CollectiveCounter] = []
+_saved: List[Tuple[Any, str, Any]] = []
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _counted(name: str, orig):
+    import inspect
+    import torch.distributed as dist
+    sig = inspect.signature(orig)
+
+    def call(*a, **k):
+        args = sig.bind(*a, **k).arguments
+        g = dist.get_world_size(args.get("group"))
+        if name == "all_reduce":
+            x = args["tensor"]
+            payload = _nbytes(x)
+        elif name == "all_gather":
+            x = args["tensor"]
+            payload = sum(_nbytes(p) for p in args["tensor_list"])
+        elif name == "all_to_all_single":
+            x = args["input"]
+            payload = _nbytes(args["output"])
+        else:                                       # barrier
+            x, payload = torch.empty(0), 0
+        for c in _counters:
+            c.add(name, x, payload, g)
+        return orig(*a, **k)
+    return call
+
+
+def _refused(name: str):
+    def call(*a, **k):
+        raise RuntimeError(f"collective {name} issued while collectives are "
+                           "counted (spmd.count_collectives counts "
+                           f"{', '.join(COUNTED)} only)")
+    return call
+
+
+def _patch() -> None:
+    import torch.distributed as dist
+    import torch.distributed.distributed_c10d as c10d
+    import torch.distributed._functional_collectives as funcol
+    for mod in (dist, c10d):
+        for name in COUNTED:
+            _saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, _counted(name, getattr(mod, name)))
+        for name in _REFUSED:
+            if hasattr(mod, name):
+                _saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, _refused(name))
+    for name in _REFUSED_FUNCTIONAL:
+        if hasattr(funcol, name):
+            _saved.append((funcol, name, getattr(funcol, name)))
+            setattr(funcol, name, _refused("functional " + name))
+
+
+def _unpatch() -> None:
+    while _saved:
+        mod, name, orig = _saved.pop()
+        setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count every collective that this process issues inside (the eager
+    ``torch.distributed`` calls of :data:`COUNTED`, whichever module of
+    the port issues them) into a :class:`CollectiveCounter`; any other
+    collective of ``torch.distributed`` or its functional API raises
+    ``RuntimeError`` instead of slipping past uncounted. Counters nest:
+    each active one counts every call."""
+    counter = CollectiveCounter()
+    if not _counters:
+        _patch()
+    _counters.append(counter)
+    try:
+        yield counter
+    finally:
+        _counters.remove(counter)
+        if not _counters:
+            _unpatch()

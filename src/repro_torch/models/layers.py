@@ -236,26 +236,84 @@ def _kv_heads(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y.reshape(b, s, -1, cfg.head_dim)
 
 
-def _qkv(p, x, angles, cfg: ModelConfig, sp):
-    """q ``[B, S, H', dh]`` (H' = H, or this rank's block of heads) and the
-    K/V heads (``_kv_heads``), rotated."""
-    b, s, _ = x.shape
-    q = linear_apply(p["wq"], x, sp).reshape(b, s, -1, cfg.head_dim)
+def head_cut(cfg: ModelConfig):
+    """The active ``TensorParallel`` where its model axis cuts inside a
+    query head (the rules split ``wq``'s ``H · dh`` columns, and the axis
+    does not divide ``H``), else None."""
+    tp = spmd.active_tp()
+    return tp if tp is not None and tp.size > 1 and cfg.n_heads % tp.size \
+        else None
+
+
+def q_span(cfg: ModelConfig, tp) -> Tuple[int, int, int, int]:
+    """``(h0, h1, first, width)`` under a head cut: this rank's block of
+    ``wq``'s columns (and of ``wo``'s rows) is ``width`` columns from
+    column ``first`` of heads ``[h0, h1)``, the whole heads that it
+    touches."""
+    dh = cfg.head_dim
+    width = cfg.n_heads * dh // tp.size
+    c0 = tp.rank * width
+    h0, h1 = c0 // dh, -(-(c0 + width) // dh)
+    return h0, h1, c0 - h0 * dh, width
+
+
+def _kv(p, x, angles, cfg: ModelConfig, sp):
+    """The K/V heads (``_kv_heads``), K rotated."""
     k = _kv_heads(linear_apply(p["wk"], x, sp), cfg)
     v = _kv_heads(linear_apply(p["wv"], x, sp), cfg)
+    return (k if angles is None else apply_rotary(k, angles)), v
+
+
+def _qkv(p, x, angles, cfg: ModelConfig, sp):
+    """q ``[B, S, H', dh]`` (H' = H, this rank's block of heads, or under a
+    head cut the heads ``[h0, h1)`` of :func:`q_span`: the column blocks
+    gathered whole, the partial cotangents summed) and the K/V heads
+    (``_kv_heads``), rotated."""
+    b, s, _ = x.shape
+    q = linear_apply(p["wq"], x, sp)
+    cut = head_cut(cfg)
+    if cut is not None:
+        h0, h1, _, _ = q_span(cfg, cut)
+        q = cut.enter_cols(q)[..., h0 * cfg.head_dim:h1 * cfg.head_dim]
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k, v = _kv(p, x, angles, cfg, sp)
     if angles is not None:
-        q, k = apply_rotary(q, angles), apply_rotary(k, angles)
+        q = apply_rotary(q, angles)
     return q, k, v
 
 
 def _group_kv(q, k, v, cfg: ModelConfig):
     """The K/V heads that ``q``'s heads read: all of them, or under tensor
     parallelism, where K/V were gathered whole, the block of this rank's
-    query heads (GQA groups stay whole: ``TensorParallel.local_kv_heads``)."""
+    query heads (GQA groups stay whole: ``TensorParallel.local_kv_heads``);
+    under a head cut, the KV heads of heads ``[h0, h1)``: one group's
+    head, whole groups, or one KV head a query head where the span cuts a
+    group."""
     if q.shape[2] == cfg.n_heads or k.shape[2] != cfg.n_kv_heads:
         return k, v
-    first, n = spmd.active_tp().local_kv_heads(cfg.n_heads, cfg.n_kv_heads)
-    return k[:, :, first:first + n], v[:, :, first:first + n]
+    cut = head_cut(cfg)
+    if cut is None:
+        first, n = spmd.active_tp().local_kv_heads(cfg.n_heads,
+                                                   cfg.n_kv_heads)
+        return k[:, :, first:first + n], v[:, :, first:first + n]
+    h0, h1, _, _ = q_span(cfg, cut)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if h0 // g == (h1 - 1) // g:
+        return k[:, :, h0 // g:h0 // g + 1], v[:, :, h0 // g:h0 // g + 1]
+    if h0 % g == 0 and h1 % g == 0:
+        return k[:, :, h0 // g:h1 // g], v[:, :, h0 // g:h1 // g]
+    idx = torch.arange(h0, h1, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _own_cols(out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Attention's output ``[B, S, H' · dh]`` -> the columns of this rank's
+    rows of ``wo`` (all of it but under a head cut)."""
+    cut = head_cut(cfg)
+    if cut is None:
+        return out
+    _, _, first, width = q_span(cfg, cut)
+    return out[..., first:first + width]
 
 
 def attn_full(p, x, angles, cfg: ModelConfig, sp=None):
@@ -267,7 +325,7 @@ def attn_full(p, x, angles, cfg: ModelConfig, sp=None):
     scores = scores + causal_mask(s, cfg.swa_window, scores.dtype, x.device)
     probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
     out = _gqa_out(probs, va).reshape(b, s, -1)
-    return linear_apply(p["wo"], out, sp), (k, v)
+    return linear_apply(p["wo"], _own_cols(out, cfg), sp), (k, v)
 
 
 def attn_full_chunked(p, x, angles, cfg: ModelConfig, sp=None,
@@ -291,7 +349,7 @@ def attn_full_chunked(p, x, angles, cfg: ModelConfig, sp=None,
         probs = torch.softmax(scores.float(), -1).to(x.dtype)
         outs.append(_gqa_out(probs, va))                        # [B,qc,H,dh]
     out = torch.cat(outs, dim=1).reshape(b, s, -1)
-    return linear_apply(p["wo"], out, sp), (k, v)
+    return linear_apply(p["wo"], _own_cols(out, cfg), sp), (k, v)
 
 
 def attn_full_flash(p, x, angles, cfg: ModelConfig, sp=None):
@@ -303,7 +361,7 @@ def attn_full_flash(p, x, angles, cfg: ModelConfig, sp=None):
     q, k, v = _qkv(p, x, angles, cfg, sp)
     ka, va = _group_kv(q, k, v, cfg)
     out = flash_attention(q, ka, va, cfg.swa_window).reshape(b, s, -1)
-    return linear_apply(p["wo"], out, sp), (k, v)
+    return linear_apply(p["wo"], _own_cols(out, cfg), sp), (k, v)
 
 
 def attn_decode(p, x, angles, cache_k, cache_v, pos: int, cfg: ModelConfig,
@@ -346,7 +404,8 @@ def attn_decode_tp(p, x, angles, cache_k, cache_v, split: str, pos: int,
     model axis) or ``"dh"`` (the head dim). Every rank
     writes the new token's K/V for all heads into its block (gathered over
     the heads: ``2·B·KV·dh`` elements a layer), so each rank reads all the
-    query heads (gathered, ``B·H·dh``):
+    query heads (this rank's columns of ``wq`` gathered, ``B·H·dh``; whole
+    heads or, under a head cut, blocks inside them):
 
     * ``"slots"``: flash-decoding: each rank's softmax over its own slots,
       its row max, its sum of ``exp`` and its unnormalised output in f32,
@@ -355,16 +414,20 @@ def attn_decode_tp(p, x, angles, cache_k, cache_v, split: str, pos: int,
     * ``"dh"``: the scores' partial dot products summed (``B·H·C`` f32),
       the output's head-dim blocks gathered;
 
-    then this rank's query heads go through its rows of ``wo``: the
-    caller sums the partial result over the model axis. Returns the
+    then this rank's columns of the output go through its rows of ``wo``:
+    the caller sums the partial result over the model axis. Returns the
     partial ``[B, 1, D]``."""
     tp = spmd.active_tp()
     b = x.shape[0]
-    hl, dh = cfg.n_heads // tp.size, cfg.head_dim
-    q, k, v = _qkv(p, x, angles, cfg, sp)
+    dh = cfg.head_dim
+    width = cfg.n_heads * dh // tp.size
+    qa = tp.all_gather(linear_apply(p["wq"], x, sp), -1).reshape(
+        b, 1, cfg.n_heads, dh)                        # [B, 1, H, dh]
+    if angles is not None:
+        qa = apply_rotary(qa, angles)
+    k, v = _kv(p, x, angles, cfg, sp)
     kw = k if k.shape[2] == cfg.n_kv_heads else tp.all_gather(k, 2)
     vw = v if v.shape[2] == cfg.n_kv_heads else tp.all_gather(v, 2)
-    qa = tp.all_gather(q, 2)                          # [B, 1, H, dh]
     if split == "slots":
         cl = cache_k.shape[1]
         c, r0 = cl * tp.size, tp.rank * cl
@@ -399,7 +462,7 @@ def attn_decode_tp(p, x, angles, cache_k, cache_v, split: str, pos: int,
         probs = torch.softmax(torch.where(valid, scores, float("-inf")),
                               dim=-1).to(x.dtype)
         out = tp.all_gather(_gqa_out(probs, cache_v), 3)    # [B,1,H,dh]
-    out = out[:, :, tp.rank * hl:(tp.rank + 1) * hl].reshape(b, 1, -1)
+    out = out.reshape(b, 1, -1)[..., tp.rank * width:(tp.rank + 1) * width]
     return linear_apply(p["wo"], out, sp)
 
 

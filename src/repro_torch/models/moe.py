@@ -201,13 +201,20 @@ def _own_runs(slot: torch.Tensor, e: int, c: int) -> Tuple[torch.Tensor, int]:
     slots; the buffer keeps each run from its start, ``C_buf`` rows an
     expert (the longest run rounded up to 8: one read of the device's
     counts a layer), and the experts run on ``1 / DP`` of the global
-    buffer's rows."""
+    buffer's rows.
+
+    On ``meta`` (the dry run) there is no count to read: ``C_buf`` is its
+    static bound, ``c`` rounded up to 8, and the experts' flops and temp
+    bytes are counted at that bound. The expert ids that the dispatch
+    gathers, and with them its collectives, do not depend on ``C_buf``; on
+    real tensors the result is the one above, bit for bit."""
     nk = slot.shape[0]
     kept = slot < e * c
     ex = torch.where(kept, slot // c, e)                # e: a dropped choice
     run = torch.zeros(e + 1, dtype=torch.int64, device=slot.device
                       ).scatter_add_(0, ex, kept.long())
-    c_buf = max(8, -(-int(run[:e].max()) // 8) * 8)
+    longest = c if slot.device.type == "meta" else int(run[:e].max())
+    c_buf = max(8, -(-longest // 8) * 8)
     srt = torch.sort(slot).values               # kept slots are distinct
     head = srt[(torch.cumsum(run, 0) - run).clamp(max=nk - 1)]
     return torch.where(kept, ex * c_buf + slot - head[ex], e * c_buf), c_buf

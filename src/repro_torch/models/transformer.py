@@ -282,12 +282,28 @@ def _head(params, cfg: ModelConfig, h):
 def _logits(params, cfg: ModelConfig, h):
     """``h @ head``; under tensor parallelism (``h`` the replicated stream
     or its sequence block) this rank's vocab columns, as a ``DTensor``
-    sharded on the vocab dim (vocab-parallel: never gathered)."""
+    sharded on the vocab dim (vocab-parallel: never gathered); where the
+    rules put the head's rows (``d_model``) on the model axis (the axis
+    does not divide the vocabulary), a row-parallel product summed over
+    the axis: the whole ``[.., V]`` on every rank, a replicated
+    ``DTensor``."""
     tp = spmd.active_tp()
     if tp is None:
         return h @ _head_matrix(params, cfg)
+    head = params["lm_head"]
+    if head.shape[0] != h.shape[-1]:
+        if tp.seq:
+            h = tp.gather(h, 1)
+        return tp.wrap(_row_logits(h, head, tp))
     from torch.distributed.tensor import Shard
-    return tp.wrap(_enter(h) @ params["lm_head"], Shard(h.dim() - 1))
+    return tp.wrap(_enter(h) @ head, Shard(h.dim() - 1))
+
+
+def _row_logits(h, head, tp):
+    """The logits from the replicated stream and this rank's rows of the
+    head: its ``d_model`` block times them, summed over the model axis
+    (the cotangent, whole on every rank, passed through)."""
+    return tp.all_sum(tp.split(h, -1) @ head)
 
 
 def _embed(params, cfg: ModelConfig, tokens=None, embeds=None):
@@ -331,8 +347,8 @@ def _grad_summed_norms(tree, tp):
     return out
 
 
-_TP_SPLIT = {("embed", "tok"): 1, ("embed", "frontend_proj"): 1,
-             ("lm_head",): 1}
+_TP_SPLIT = {("embed", "tok"): (1,), ("embed", "frontend_proj"): (1,),
+             ("lm_head",): (1, 0)}
 # (path, dim of the unstacked leaf): a "layers" leaf leads with [L]
 _BLOCK_SPLIT = ((("attn", "wq", "w"), 1), (("attn", "wk", "w"), 1),
                 (("attn", "wv", "w"), 1), (("attn", "wo", "w"), 0),
@@ -340,36 +356,39 @@ _BLOCK_SPLIT = ((("attn", "wq", "w"), 1), (("attn", "wk", "w"), 1),
                 (("mlp", "w3", "w"), 1), (("mixer", "in_proj", "w"), 1),
                 (("mixer", "out_proj", "w"), 0), (("mixer", "conv_w"), 1),
                 (("mixer", "conv_b"), 0), (("mixer", "norm_g"), 0))
-_TP_SPLIT.update({("layers", *node): dim + 1 for node, dim in _BLOCK_SPLIT})
-_TP_SPLIT.update({("shared", *node): dim for node, dim in _BLOCK_SPLIT})
+_TP_SPLIT.update({("layers", *node): (dim + 1,) for node, dim in _BLOCK_SPLIT})
+_TP_SPLIT.update({("shared", *node): (dim,) for node, dim in _BLOCK_SPLIT})
 
 
 def _check_tp_split(params, cfg: ModelConfig, tp) -> None:
-    """Tensor parallelism needs the query heads (and the SSD heads and
-    their ``P``), the embedding's and the head's columns and every
-    projection split over the model axis as the rules split them at sizes
-    they divide (a demoted, replicated leaf would take partial gradients).
-    The MoE layer checks its experts (``models/moe``)."""
+    """Tensor parallelism needs the SSD heads and their ``P``, the
+    embedding's columns and every projection split over the model axis as
+    the rules split them at sizes they divide (a demoted, replicated leaf
+    would take partial gradients); the head's columns, or its rows where
+    the axis does not divide the vocabulary (the rules' second choice).
+    The query heads need not split: where the axis cuts inside a head,
+    each rank gathers ``wq``'s column blocks and runs the heads its rows
+    of ``wo`` touch (``layers.head_cut``). The MoE layer checks its
+    experts (``models/moe``)."""
     if cfg.tie_embeddings:
         raise NotImplementedError("tied embeddings under tensor parallelism")
-    for what, n in (("query heads", cfg.n_heads),
-                    ("SSD heads", cfg.ssm_heads if cfg.family in SSM_FAMILIES
-                     else 0),
-                    ("SSD head dims", cfg.ssm_head_dim
-                     if cfg.family in SSM_FAMILIES else 0)):
-        if n % tp.size:
-            raise ValueError(f"{n} {what} do not split {tp.size} ways")
-    for path, dim in _TP_SPLIT.items():
+    if cfg.family in SSM_FAMILIES:
+        for what, n in (("SSD heads", cfg.ssm_heads),
+                        ("SSD head dims", cfg.ssm_head_dim)):
+            if n % tp.size:
+                raise ValueError(f"{n} {what} do not split {tp.size} ways")
+    for path, dims in _TP_SPLIT.items():
         node = params
         for k in path:
             node = node.get(k) if isinstance(node, dict) else None
         if isinstance(node, list):
-            node, dim = node[0], dim - 1
-        if node is not None and spmd.model_dim(node) != dim:
-            raise ValueError(f"{'/'.join(path)} is not split on dim {dim} "
-                             f"over the model axis of {tp.size} (the rules "
-                             "demoted it): place the parameters on a mesh "
-                             "whose model axis divides it")
+            node, dims = node[0], tuple(d - 1 for d in dims)
+        if node is not None and spmd.model_dim(node) not in dims:
+            raise ValueError(f"{'/'.join(path)} is not split on dim "
+                             f"{' or '.join(map(str, dims))} over the model "
+                             f"axis of {tp.size} (the rules demoted it): "
+                             "place the parameters on a mesh whose model "
+                             "axis divides it")
 
 
 # ---------------------------------------------------------------------------
@@ -542,22 +561,32 @@ def _chunk_ce_tp(h, head, t, tp):
     return _VocabParallelCE.apply(tp.grad_sum(h) @ head, t, tp).sum()
 
 
+def _chunk_ce_rows(h, head, t, tp):
+    """A chunk's cross entropy from the replicated stream and this rank's
+    rows of the head (``_row_logits``: the logits whole on every rank)."""
+    return _token_ce(_row_logits(h, head, tp), t).sum()
+
+
 def lm_loss_chunked(h: torch.Tensor, head: torch.Tensor,
                     targets: torch.Tensor, chunk: int) -> torch.Tensor:
     """Cross entropy over sequence chunks: each chunk's ``[B, chunk, V]``
     logits are recomputed in the backward (``checkpoint``), so the full
     ``[B, S, V]`` (and its f32 copies) never exists. ``S`` must be a
-    multiple of ``chunk`` (as the reference's reshape requires)."""
+    multiple of ``chunk`` (as the reference's reshape requires). A head
+    placed on the model axis: vocab-parallel over its columns, or a
+    row-parallel product over its rows."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
     fn, extra = _chunk_ce, ()
     tp = spmd.tensor_parallel(head)
-    if tp is not None:          # the replicated stream, this rank's columns
-        vocab = head.shape[-1]
+    if tp is not None:          # the replicated stream, this rank's block
+        vocab, d = head.shape[-1], head.shape[0]
         h, head = h.to_local(), head.to_local()
-        if head.shape[-1] != vocab:
+        if head.shape[0] != d:
+            fn, extra = _chunk_ce_rows, (tp,)
+        elif head.shape[-1] != vocab:
             fn, extra = _chunk_ce_tp, (tp,)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, s, chunk):
@@ -701,8 +730,8 @@ def _prefill(params, cfg: ModelConfig, tokens, max_seq: int, attn, tp):
     attn_fn = _attn_fn(cfg, s, attn)
     c = cache_len(cfg, max_seq)
     take = min(s, c)
-    ring = torch.tensor([(s - take + i) % c for i in range(take)],
-                        device=h.device)
+    slots = [(s - take + i) % c for i in range(take)]     # host ints
+    ring = torch.tensor(slots, device=h.device)
     shared = params.get("shared")
     for i in range(cfg.n_layers):
         lp = layer_view(params["layers"], i)
@@ -723,12 +752,12 @@ def _prefill(params, cfg: ModelConfig, tokens, max_seq: int, attn, tp):
             h, (k, v) = _shared_apply(shared, h, angles, cfg, attn_fn)
             if tp is not None:
                 _tp_write(cache, slot, k[:, s - take:], v[:, s - take:],
-                          ring.tolist(), cfg, tp, ("shared_k", "shared_v"))
+                          slots, cfg, tp, ("shared_k", "shared_v"))
                 continue
             ck, cv = cache["shared_k"][slot], cache["shared_v"][slot]
         if tp is not None:
-            _tp_write(cache, i, k[:, s - take:], v[:, s - take:],
-                      ring.tolist(), cfg, tp)
+            _tp_write(cache, i, k[:, s - take:], v[:, s - take:], slots,
+                      cfg, tp)
             continue
         ck[:, ring] = k[:, s - take:]
         cv[:, ring] = v[:, s - take:]

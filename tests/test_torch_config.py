@@ -97,22 +97,31 @@ def test_backend_names():
 
 
 def test_importing_every_port_module_pulls_in_no_jax_and_no_repro():
+    """Every module of the package, and every demo of ``examples/torch``
+    (imported by path: its ``main`` does not run)."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import glob, importlib, importlib.util, pkgutil, sys\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        f"demos = sorted(glob.glob({str(ROOT / 'examples' / 'torch')!r}"
+        " + '/*.py'))\n"
+        "for path in demos:\n"
+        "    spec = importlib.util.spec_from_file_location('demo', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'repro' or k.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(len(names), len(demos))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 75      # every module was imported
+    n_modules, n_demos = map(int, out.stdout.split())
+    assert n_modules >= 75      # every module was imported
+    assert n_demos == 7         # the reference's seven demos, on the port
 
 
 @pytest.mark.parametrize("module", ["serving.ingest", "serving.autopilot",
@@ -151,7 +160,9 @@ def test_ingest_worker_module_uses_no_torch():
 
 def test_no_source_file_imports_repro_or_jax():
     offenders = []
-    for path in sorted(PORT.rglob("*.py")):
+    demos = sorted((ROOT / "examples" / "torch").glob("*.py"))
+    assert len(demos) == 7
+    for path in sorted(PORT.rglob("*.py")) + demos:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

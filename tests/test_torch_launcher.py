@@ -25,12 +25,18 @@ def _run(args, extra_env=None, code=None, timeout=560):
 
 def test_validate_gate_full_config():
     """--validate runs the dry run of the full-scale arch on meta tensors
-    (no devices needed, where the reference lowers for its 512-device mesh)."""
+    (no devices needed, where the reference lowers for its 512-device mesh):
+    the unsharded step, then the tensor-parallel step as one rank of the
+    fake 2 x 16 x 16 group runs it, its collectives and peak a device."""
     out = _run(["--arch", "qwen2_vl_2b", "--validate", "--multi-pod",
                 "--device", "cpu"])
     assert out.returncode == 0, out.stdout + out.stderr
     assert "validate OK" in out.stdout and "one device, unsharded" in out.stdout
     assert "qwen2-vl-2b " in out.stdout          # the full config, not reduced
+    tp = [l for l in out.stdout.splitlines()
+          if "tensor-parallel on 2x16x16: collective wire bytes/dev" in l]
+    assert len(tp) == 1 and "all_reduce" in tp[0] and "all_gather" in tp[0]
+    assert "peak/dev" in tp[0]
 
 
 def test_local_smoke_train():
