@@ -3,7 +3,9 @@
 ``make_serve_step`` is the one-token step; ``generate`` the local loop
 (greedy, or temperature sampling with one generator per position).
 Greedy tokens equal the reference's for the same weights and prompt;
-sampled ones come from torch's own random bits.
+sampled ones come from torch's own random bits. Under an active tracer
+(``obs.trace.use``) ``generate`` records ``serve.generate`` (``rows``,
+``seq``) over ``serve.prefill``, each with its device time.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import transformer as T
+from ..obs.trace import active
 from . import spmd
 
 
@@ -49,8 +52,15 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int,
     picks the same tokens: greedy by ``spmd.vocab_argmax`` over its vocab
     block, sampling from the ``[B, V]`` logits gathered."""
     b, s = prompt.shape
-    max_seq = max_seq or (s + n_new)
-    last_logits, cache = T.prefill(params, cfg, prompt, max_seq, attn=attn)
+    with active().span("serve.generate", rows=b, seq=s):
+        return _generate(params, cfg, prompt, n_new, max_seq or (s + n_new),
+                         temperature, generator, attn)
+
+
+def _generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int,
+              max_seq: int, temperature: float,
+              generator: Optional[torch.Generator], attn: str
+              ) -> torch.Tensor:
     step = make_serve_step(cfg)
     gens = (sample_key_chain(generator, n_new, prompt.device)
             if temperature > 0.0 else None)
@@ -70,7 +80,10 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int,
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gens[i])[:, 0].to(prompt.dtype)
 
-    toks = [pick(last_logits, 0)]
+    with active().span("serve.prefill"):
+        last_logits, cache = T.prefill(params, cfg, prompt, max_seq,
+                                       attn=attn)
+        toks = [pick(last_logits, 0)]
     for i in range(1, n_new):
         logits, cache = step(params, cache, toks[-1])
         toks.append(pick(logits, i))

@@ -20,6 +20,15 @@ the loss whole. The step counter is a host int, so the schedule and the
 DSST decision are made on the host; nothing is read back from the card
 inside a step.
 
+Tracing: under an active tracer (``obs.trace.use``) the step records
+``train.step`` (attribute ``tokens``) and in it ``train.forward``,
+``train.backward``, ``train.grads_stack``, ``train.gates`` (``open``: the
+step's gate fraction, a device scalar; ``layers``) and ``train.adamw``,
+each with its device time. The blocks' spans (``models/transformer``)
+sit under ``train.forward``; remat's recompute sits under
+``train.backward``, or is a root on autograd's own thread (the card's
+backward).
+
 Data parallelism: ``make_train_step(..., mesh=)`` on an LM mesh
 (``launch.mesh.make_host_mesh``) runs the same body on the rank's own
 batch, then
@@ -89,6 +98,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.gating import GatingConfig
 from ..models import transformer as T
+from ..obs.trace import active
 from ..optim import (AdamWConfig, SparseTrainState, adamw_init, adamw_update,
                      gated_scale_tree, lm_dsst_event)
 from ..optim.optimizer import AdamWState, tree_leaves, tree_map, trainable
@@ -133,8 +143,11 @@ def _grads(params, loss_fn, batch):
         return [req(p[i]) for i in range(p.shape[0])] if stacked else req(p)
     tracked = {k: tree_map(lambda p, st=k in STACKED: track(p, st), v)
                for k, v in params.items()}
-    loss, (ce, aux) = loss_fn(tracked, batch)
-    gs = torch.autograd.grad(loss, xs, allow_unused=True, materialize_grads=True)
+    with active().span("train.forward"):
+        loss, (ce, aux) = loss_fn(tracked, batch)
+    with active().span("train.backward"):
+        gs = torch.autograd.grad(loss, xs, allow_unused=True,
+                                 materialize_grads=True)
     by_id = {id(x): g for x, g in zip(xs, gs)}
 
     def grad_of(x, p):
@@ -144,7 +157,9 @@ def _grads(params, loss_fn, batch):
                 return _placed_like(torch.stack([v.to_local() for v in g]), p)
             return torch.stack(g)
         return by_id.get(id(x))
-    grads = {k: tree_map(grad_of, v, params[k]) for k, v in tracked.items()}
+    with active().span("train.grads_stack"):
+        grads = {k: tree_map(grad_of, v, params[k])
+                 for k, v in tracked.items()}
     return loss.detach(), (ce.detach(), _detach(aux)), grads
 
 
@@ -379,6 +394,10 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
     layout: Dict[str, Any] = {}
 
     def train_step(params, opt_state, sparse_state: SparseTrainState, batch):
+        with active().span("train.step", tokens=batch["labels"].numel()):
+            return _train_step(params, opt_state, sparse_state, batch)
+
+    def _train_step(params, opt_state, sparse_state: SparseTrainState, batch):
         if hp.microbatch > 1 and any(v.shape[0] % hp.microbatch
                                      for v in batch.values()):
             raise ValueError(f"batch does not split into {hp.microbatch} "
@@ -401,18 +420,21 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
                 zero1 = layout["params"]
 
         # activity-dependent gated updates (ElfCore WU gating at LM scale)
-        if hp.gating is not None:
-            gates, sparse_state = compute_gates(
-                sparse_state, aux["ia"], aux["pooled"], hp.gating)
-            scale = gated_scale_tree(params, gates, cfg.sparsity)
-            gate_frac = gates.mean()
-        else:
-            scale = gated_scale_tree(params, None, cfg.sparsity) if masked \
-                else None
-            gate_frac = torch.ones((), device=loss.device)
+        with active().span("train.gates", layers=cfg.n_layers) as sp:
+            if hp.gating is not None:
+                gates, sparse_state = compute_gates(
+                    sparse_state, aux["ia"], aux["pooled"], hp.gating)
+                scale = gated_scale_tree(params, gates, cfg.sparsity)
+                gate_frac = gates.mean()
+            else:
+                scale = gated_scale_tree(params, None, cfg.sparsity) \
+                    if masked else None
+                gate_frac = torch.ones((), device=loss.device)
+            sp.set(open=gate_frac)
 
-        params, opt_state, om = adamw_update(grads, params, opt_state, hp.opt,
-                                             scale, zero1=zero1)
+        with active().span("train.adamw"):
+            params, opt_state, om = adamw_update(grads, params, opt_state,
+                                                 hp.opt, scale, zero1=zero1)
         if zero1 is not None:
             dp.gather_params(params, zero1)
         metrics = {"loss": loss, "ce": ce, "gate_frac": gate_frac,

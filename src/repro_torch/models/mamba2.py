@@ -37,6 +37,10 @@ per head, and so on), so the contraction order, and with it the rounding,
 does not depend on whether ``opt_einsum`` is installed. ``dt``, ``da``,
 the chunk math and the SSM state are f32; the conv window and the outputs
 take the config's dtype, as in the reference.
+
+Tracing (``obs.trace``): the whole-sequence mixer records ``ssm.conv``
+around the causal conv and ``ssm.ssd`` from the f32 ``B`` / ``C`` and
+``dt`` through the ``d_skip`` add: what a fused SSD would replace.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SparsityConfig
 from ..launch import spmd
+from ..obs.trace import active
 from .layers import _randn, linear_apply, linear_init, rmsnorm
 
 
@@ -157,19 +162,21 @@ def _mamba2(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool):
     q = cfg.ssm_chunk
 
     z, xbc_in, dt = _split_proj(p, x, cfg)
-    xbc = _causal_conv(xbc_in, p["conv_w"], p["conv_b"])
+    with active().span("ssm.conv"):
+        xbc = _causal_conv(xbc_in, p["conv_w"], p["conv_b"])
     xs = xbc[..., :di].reshape(b, s, h, pd)
-    bm, cm = xbc[..., di: di + ns].float(), xbc[..., di + ns:].float()
-    dt, da = _dt_da(p, dt)
-    xdt = xs.float() * dt[..., None]
-    pad = -s % q
-    if pad:
-        # padded positions carry da = 0 and xdt = 0: the state passes them
-        # unchanged, and their rows of y are dropped
-        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
-        da, bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (da, bm, cm))
-    y, state = _ssd(xdt, da, bm, cm, q)
-    y = y[:, :s] + p["d_skip"].float()[:, None] * xs.float()
+    with active().span("ssm.ssd"):
+        bm, cm = xbc[..., di: di + ns].float(), xbc[..., di + ns:].float()
+        dt, da = _dt_da(p, dt)
+        xdt = xs.float() * dt[..., None]
+        pad = -s % q
+        if pad:
+            # padded positions carry da = 0 and xdt = 0: the state passes
+            # them unchanged, and their rows of y are dropped
+            xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+            da, bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (da, bm, cm))
+        y, state = _ssd(xdt, da, bm, cm, q)
+        y = y[:, :s] + p["d_skip"].float()[:, None] * xs.float()
     y = y.reshape(b, s, di).to(x.dtype)
 
     y = rmsnorm(p["norm_g"], y * F.silu(z), cfg.norm_eps)
@@ -242,20 +249,23 @@ def _mamba2_tp(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool, tp):
     zxbcdt = tp.enter_cols(linear_apply(p["in_proj"], x, _sp(cfg)))
     z = zxbcdt[..., tp.rank * dl:(tp.rank + 1) * dl]
     xbc_in = zxbcdt[..., di: 2 * di + 2 * ns]
-    xbc = _causal_conv(_p_block(xbc_in, cfg, tp),
-                       _p_block(tp.enter_cols(p["conv_w"]), cfg, tp),
-                       _p_block(tp.enter_cols(p["conv_b"]), cfg, tp))
+    with active().span("ssm.conv"):
+        xbc = _causal_conv(_p_block(xbc_in, cfg, tp),
+                           _p_block(tp.enter_cols(p["conv_w"]), cfg, tp),
+                           _p_block(tp.enter_cols(p["conv_b"]), cfg, tp))
     xs = xbc[..., :h * pl].reshape(b, s, h, pl)
-    bm, cm = xbc[..., h * pl: h * pl + ns].float(), xbc[..., h * pl + ns:].float()
-    rp = _replicated_ssm(p, tp)
-    dt, da = _dt_da(rp, zxbcdt[..., 2 * di + 2 * ns:])
-    xdt = xs.float() * dt[..., None]
-    pad = -s % q
-    if pad:
-        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
-        da, bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (da, bm, cm))
-    y, state = _ssd(xdt, da, bm, cm, q)
-    y = y[:, :s] + rp["d_skip"].float()[:, None] * xs.float()
+    with active().span("ssm.ssd"):
+        bm = xbc[..., h * pl: h * pl + ns].float()
+        cm = xbc[..., h * pl + ns:].float()
+        rp = _replicated_ssm(p, tp)
+        dt, da = _dt_da(rp, zxbcdt[..., 2 * di + 2 * ns:])
+        xdt = xs.float() * dt[..., None]
+        pad = -s % q
+        if pad:
+            xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+            da, bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (da, bm, cm))
+        y, state = _ssd(xdt, da, bm, cm, q)
+        y = y[:, :s] + rp["d_skip"].float()[:, None] * xs.float()
     out = _heads_out(p, y, z, x.dtype, cfg, tp, (b, s))
     if not want_cache:
         return out

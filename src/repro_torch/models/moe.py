@@ -52,6 +52,12 @@ placed as ``DTensor`` s (``launch.spmd.TensorParallel``) the expert leaves
 arrive as this rank's blocks; under sequence parallelism the layer takes
 the whole sequence and hands back this rank's block. On one device, or
 with no mesh, it is the plain path.
+
+Tracing (``obs.trace``): the layer records ``moe.route`` (routing, the
+slot maps and the buffer's gather; attributes ``choices`` = N·K and
+``slots`` = E·C, host ints, and ``dropped``, the ``moe_dropped`` device
+scalar, so ``choices · (1 - dropped) / slots`` is the buffer's useful
+share), ``moe.experts`` and ``moe.combine``.
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from ..core.dsst import _top_k_ids
 from ..core.sparsity import NMSpec
 from ..launch import spmd
 from ..launch.mesh import AbstractMesh, dp_size as mesh_dp_size
+from ..obs.trace import active
 from .layers import _randn, _rows_from_umask, unit_masks
 
 
@@ -378,40 +385,46 @@ def _moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp,
     n, e, k = b * s, cfg.moe_experts, cfg.moe_top_k
     flat = x.reshape(n, d)
     dp_n = mesh_dp_size(mesh) if spmd.dp_groups(mesh) else 1
-    if shard_mapped or dp_n == 1:
-        c = capacity(n, cfg)
-        slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
-        if dp_n > 1:
-            # one collective for the three: moe_aux's gradient is this rank's
-            flat_aux = spmd.mean_over(torch.cat([
-                aux["moe_aux"].reshape(1),
-                aux["moe_dropped"].reshape(1).float(), aux["moe_load"]]),
-                spmd.dp_groups(mesh), dp_n)
-            aux = {"moe_aux": flat_aux[0], "moe_dropped": flat_aux[1],
-                   "moe_load": flat_aux[2:]}
-    else:
-        c = capacity(n * dp_n, cfg)
-        slot, gate, aux = _dispatch(flat, p["router"], cfg, c, mesh)
-        slot, c = _own_runs(slot, e, c)
-    tokens = flat
-    if tp_n > 1:
-        group = [spmd.model_group(mesh)]
-        tokens, gate = spmd.grad_sum_over(flat, group), \
-            spmd.grad_sum_over(gate, group)
-    token, row = _slot_maps(slot, e * c, k)
-    # the buffer gathers its tokens; a token's gradient gathers its k slots
-    buf = _SlotGather.apply(tokens, token, slot, k).view(e, c, d)
+    with active().span("moe.route") as sp:
+        if shard_mapped or dp_n == 1:
+            c = capacity(n, cfg)
+            slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
+            if dp_n > 1:
+                # one collective for the three: moe_aux's gradient is this
+                # rank's
+                flat_aux = spmd.mean_over(torch.cat([
+                    aux["moe_aux"].reshape(1),
+                    aux["moe_dropped"].reshape(1).float(), aux["moe_load"]]),
+                    spmd.dp_groups(mesh), dp_n)
+                aux = {"moe_aux": flat_aux[0], "moe_dropped": flat_aux[1],
+                       "moe_load": flat_aux[2:]}
+        else:
+            c = capacity(n * dp_n, cfg)
+            slot, gate, aux = _dispatch(flat, p["router"], cfg, c, mesh)
+            slot, c = _own_runs(slot, e, c)
+        sp.set(choices=n * k, slots=e * c, dropped=aux["moe_dropped"])
+        tokens = flat
+        if tp_n > 1:
+            group = [spmd.model_group(mesh)]
+            tokens, gate = spmd.grad_sum_over(flat, group), \
+                spmd.grad_sum_over(gate, group)
+        token, row = _slot_maps(slot, e * c, k)
+        # the buffer gathers its tokens; a token's gradient gathers its k
+        # slots
+        buf = _SlotGather.apply(tokens, token, slot, k).view(e, c, d)
     wl = _local_experts(p, cfg, tp_n, m, shard_mapped)
-    if cfg.moe_shard_experts and tp_n > 1:
-        el = e // tp_n
-        if el * tp_n != e:
-            raise ValueError(f"{e} experts do not split over a model axis "
-                             f"of {tp_n}")
-        eout = _expert_ffn(wl, buf.narrow(0, m * el, el), cfg)
-        eout = F.pad(eout, (0, 0, 0, 0, m * el, e - (m + 1) * el))
-    else:
-        eout = _expert_ffn(wl, buf, cfg)
-    out = _combine(flat, eout, slot, row, gate).reshape(b, s, d)
+    with active().span("moe.experts"):
+        if cfg.moe_shard_experts and tp_n > 1:
+            el = e // tp_n
+            if el * tp_n != e:
+                raise ValueError(f"{e} experts do not split over a model "
+                                 f"axis of {tp_n}")
+            eout = _expert_ffn(wl, buf.narrow(0, m * el, el), cfg)
+            eout = F.pad(eout, (0, 0, 0, 0, m * el, e - (m + 1) * el))
+        else:
+            eout = _expert_ffn(wl, buf, cfg)
+    with active().span("moe.combine"):
+        out = _combine(flat, eout, slot, row, gate).reshape(b, s, d)
     if tp_n > 1:
         out = tp.leave(out) if tp is not None else \
             spmd.sum_over(out, [spmd.model_group(mesh)])

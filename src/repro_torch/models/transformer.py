@@ -46,6 +46,13 @@ that keeps each layer's final SSM state and conv window; the reference
 replays the prompt token by token through ``decode_step``, which computes
 the same function (chunked ≡ recurrent is the reference's own invariant).
 
+Tracing: under an active tracer (``obs.trace.use``) each attention call of
+a block or of the shared block records an ``attn`` span, the MoE layer
+``moe.route`` / ``moe.experts`` / ``moe.combine`` (``models/moe``) and the
+Mamba2 mixer ``ssm.conv`` / ``ssm.ssd`` (``models/mamba2``), each with its
+device time; the caller's span (``train.forward``, ``serve.prefill``) is
+their parent, and remat's recompute records them again in the backward.
+
 Not here: the reference's ``probe`` mode (XLA cost accounting: it has no
 counterpart in eager torch).
 """
@@ -61,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core import ossl as ossl_lib
 from ..launch import spmd
+from ..obs.trace import active
 from . import layers as L
 from . import mamba2 as M
 from . import moe as MOE
@@ -232,8 +240,9 @@ def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
             return h, None, None
         h, kv = _shared_apply(shared, h, angles, cfg, attn_fn)
         return h, kv, None
-    a, kv = attn_fn(lp["attn"], _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps)),
-                    angles, cfg, cfg.sparsity)
+    hn = _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps))
+    with active().span("attn"):
+        a, kv = attn_fn(lp["attn"], hn, angles, cfg, cfg.sparsity)
     h = h + _leave(a)
     f, aux = _ffn(lp, h, cfg)
     return h + f, kv, aux
@@ -242,9 +251,9 @@ def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
 def _shared_apply(shared, h, angles, cfg: ModelConfig, attn_fn):
     """The hybrid's shared attention + MLP block over a whole sequence:
     (h_out, (k, v))."""
-    a, kv = attn_fn(shared["attn"],
-                    _enter(L.rmsnorm(shared["norm1"], h, cfg.norm_eps)),
-                    angles, cfg)
+    hn = _enter(L.rmsnorm(shared["norm1"], h, cfg.norm_eps))
+    with active().span("attn"):
+        a, kv = attn_fn(shared["attn"], hn, angles, cfg)
     h = h + _leave(a)
     return h + _ffn(shared, h, cfg)[0], kv
 

@@ -15,8 +15,10 @@ Three read-only views over the same in-process state:
   https://ui.perfetto.dev to see stage/dispatch/retire lanes per thread,
   pipelined steps overlapping, and topology epochs as long blocks.
 
-All three are pure functions of already-recorded host state: exporting
-never touches the card, so it is safe at any point of a serving run.
+All three are pure functions of already-recorded state: exporting never
+synchronises the card, so it is safe at any point of a serving run (a span
+with device time is read once the card has passed its end event:
+``Tracer.spans``).
 """
 from __future__ import annotations
 
@@ -88,12 +90,17 @@ def parse_prometheus_text(text: str) -> dict:
 
 # -- JSONL -------------------------------------------------------------------
 
+def _device(s: Span) -> dict:
+    return {} if s.device_s is None else {"device_s": s.device_s}
+
+
 def span_records(spans: Iterable[Span]) -> List[dict]:
-    """Spans as flat JSON-able dicts (the JSONL form of the trace)."""
+    """Spans as flat JSON-able dicts (the JSONL form of the trace), with
+    ``device_s`` where the span has a device time."""
     return [{
         "kind": "span", "name": s.name, "span_id": s.span_id,
         "parent_id": s.parent_id, "t0_s": s.t0_s, "dur_s": s.dur_s,
-        "thread": s.thread, **dict(s.attrs),
+        "thread": s.thread, **_device(s), **dict(s.attrs),
     } for s in spans]
 
 
@@ -132,7 +139,8 @@ def chrome_trace(spans_or_tracer: Union[Tracer, Iterable[Span]],
     """Spans as a Chrome ``trace_event`` document (complete ``"X"`` events).
 
     Timestamps are microseconds relative to the earliest span, one trace
-    row (tid) per recording thread, span attributes under ``args`` —
+    row (tid) per recording thread, span attributes (and ``device_s``
+    where set) under ``args`` —
     open the JSON at ``chrome://tracing`` / ui.perfetto.dev.
     """
     spans = (spans_or_tracer.spans()
@@ -145,7 +153,7 @@ def chrome_trace(spans_or_tracer: Union[Tracer, Iterable[Span]],
         events.append({
             "name": s.name, "ph": "X", "pid": pid, "tid": tid,
             "ts": (s.t0_s - t_base) * 1e6, "dur": s.dur_s * 1e6,
-            "args": {**dict(s.attrs), "span_id": s.span_id,
+            "args": {**dict(s.attrs), **_device(s), "span_id": s.span_id,
                      "parent_id": s.parent_id},
         })
     meta = [{"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,

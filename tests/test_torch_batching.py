@@ -227,13 +227,3 @@ def test_tracer_threads_keep_their_own_parents():
     for s in spans:
         if s.name == "inner":
             assert outers[s.parent_id].thread == s.thread
-
-
-def test_annotate_enters_a_profiler_range():
-    from torch.profiler import ProfilerActivity, profile
-    tr = Tracer(annotate=True)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with tr.span("batch.decode_step", grid_step=1):
-            torch.ones(4).sum()
-    assert any(e.name == "batch.decode_step" for e in prof.events())
-    assert [s.name for s in tr.spans()] == ["batch.decode_step"]

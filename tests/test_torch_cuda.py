@@ -1313,3 +1313,138 @@ def test_dp_moe_two_gloo_ranks_on_card(cuda, tmp_path):
             "ep_equal": True, "compressed_int8": True,
             "compressed_topk": True}, r
     assert recs[0]["params"] == recs[1]["params"]
+
+
+# ----------------------------------------------------------------- tracing
+
+@pytest.mark.cuda
+def test_tracer_device_time_nests_on_card(cuda):
+    """A span's device time lies between its two events on the stream:
+    positive, nested spans summing to at most their parent (each reading
+    within the events' 0.5 µs resolution)."""
+    from repro_torch.obs import Tracer, active, use
+    tr = Tracer(device_time=True)
+    a = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    with use(tr):
+        with active().span("outer"):
+            for name in ("one", "two"):
+                with active().span(name):
+                    for _ in range(4):
+                        a = (a @ a).tanh_()
+    torch.cuda.synchronize()
+    got = {s.name: s for s in tr.spans()}
+    assert got["one"].device_s > 0 and got["two"].device_s > 0
+    assert got["one"].device_s + got["two"].device_s \
+        <= got["outer"].device_s + 1e-6
+
+
+@pytest.mark.cuda
+def test_tracer_never_synchronises_on_card(cuda):
+    """Opening spans and setting a tensor attribute under
+    ``set_sync_debug_mode("error")``: no synchronise. Reading a span whose
+    end the card has not reached raises; after a synchronise it reads."""
+    from repro_torch.obs import Tracer, active, use
+    tr = Tracer(device_time=True)
+    x = torch.randn(256, 256, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with use(tr):
+            with active().span("outer", rows=256) as sp:
+                y = x @ x
+                sp.set(total=y.sum())
+                with active().span("inner"):
+                    y = y.relu()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    got = {s.name: s for s in tr.spans()}
+    assert got["outer"].attr("total") == pytest.approx(
+        float((x @ x).sum()), rel=1e-4, abs=1e-2)
+    assert got["outer"].attr("rows") == 256
+    late = Tracer(device_time=True)
+    with late.span("sleep"):
+        torch.cuda._sleep(500_000_000)          # about 0.25 s of cycles
+    with pytest.raises(RuntimeError):
+        late.spans()
+    torch.cuda.synchronize()
+    assert late.spans()[0].device_s > 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b", "zamba2_1p2b"])
+def test_traced_lm_paths_match_untraced_on_card(cuda, arch):
+    """Two gated train steps with remat and a ``generate`` of a reduced
+    MoE and hybrid config on the card, with and without an active tracer
+    that keeps device time: the same bits, as many synchronises (counted
+    by ``set_sync_debug_mode("warn")``); the step's parts fit inside it,
+    and remat's recompute runs on autograd's own thread, as roots."""
+    import contextlib
+    import dataclasses
+    import threading
+    import warnings
+    from repro_torch import configs as C
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import generate
+    from repro_torch.obs import Tracer, use
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.optimizer import tree_leaves
+    cfg = dataclasses.replace(C.get_reduced(arch), remat=True)
+    hp = train.TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=100),
+                            gating=GatingConfig())
+    rng = np.random.default_rng(3)
+    batches = [{k: torch.tensor(rng.integers(0, cfg.vocab, (2, 16)),
+                                device=cuda) for k in ("tokens", "labels")}
+               for _ in range(2)]
+
+    def run(tracer):
+        state = train.init_train_state(
+            torch.Generator(device=cuda).manual_seed(0), cfg, hp,
+            device=cuda)
+        step = train.make_train_step(cfg, hp, attn="plain")
+        torch.cuda.synchronize()
+        ms = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with (use(tracer) if tracer else contextlib.nullcontext()):
+                    for b in batches:
+                        *state, m = step(*state, b)
+                        ms.append(m)
+                    tok = generate(state[0], cfg, batches[0]["tokens"][:, :11],
+                                   3, attn="plain")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        leaves = (tree_leaves(state[0]) + tree_leaves(state[1].m)
+                  + tree_leaves(state[1].v) + [m["loss"] for m in ms])
+        return leaves, tok, sum("synchroniz" in str(w.message)
+                                for w in caught)
+
+    tr = Tracer(capacity=1 << 16, device_time=True)
+    on, off = run(tr), run(None)
+    assert torch.equal(on[1], off[1]) and on[2] == off[2]
+    assert len(on[0]) == len(off[0])
+    for a, b in zip(on[0], off[0]):
+        assert torch.equal(a, b)
+    spans = tr.spans()
+    assert tr.n_dropped == 0
+    by_id = {s.span_id: s for s in spans}
+    for step in tr.spans("train.step"):
+        parts = [s for s in spans if s.parent_id == step.span_id]
+        assert {s.name for s in parts} >= {"train.forward", "train.backward",
+                                           "train.grads_stack", "train.gates",
+                                           "train.adamw"}
+        assert 0 < sum(s.device_s for s in parts) <= step.device_s + 1e-5
+    block = {"moe.route", "ssm.ssd"}
+    roots = [s for s in spans if s.name in block and s.parent_id is None]
+    assert roots and all(s.thread != threading.current_thread().name
+                         for s in roots)
+    fwd = [s for s in spans if s.name in block and s.parent_id is not None
+           and by_id[s.parent_id].name == "train.forward"]
+    assert len(fwd) == len(roots) == 2 * cfg.n_layers
+    assert all(s.device_s > 0 for s in fwd + roots)
