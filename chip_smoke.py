@@ -9,8 +9,9 @@ Phases, each raising on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build: compile the hand-written kernels from the sources in the
-   checkout (``nm_spmm``, ``wu_outer``, ``flash_attn`` and ``flash_bwd``:
-   CUDA C++, one ``nvcc`` each, started together; ``lif``: Triton). Prints
+   checkout (``nm_spmm``, ``wu_outer``, ``adamw``, ``flash_attn`` and
+   ``flash_bwd``: CUDA C++, one ``nvcc`` each, started together; ``lif``:
+   Triton). Prints
    each kernel instance's registers and spills from ``ptxas -v`` (with the
    dynamic shared memory of the nine bf16 ``wgmma`` instances, which must
    not spill).
@@ -27,7 +28,10 @@ Phases, each raising on failure:
    512, T 104, f32; and 1000 slots; and 256, phase 19e's interactive tier,
    as ``lif`` and ``wu_outer_slots`` too), against ``ref.nm_spmm_fused``, with
    rows computed alone equal bit for bit to the same rows of the batch.
-   ``wu_outer`` also writes exact zeros for a closed gate (``scale = 0``),
+   The fused AdamW (no TPU kernel) on phase 21's Moonlight tree, two steps
+   bit for bit the plain update given its clip; its norm timed beside
+   ``torch._foreach_norm``, its update beside ``torch._fused_adamw_``. ``wu_outer`` also writes exact zeros for a
+   closed gate (``scale = 0``),
    and runs with the add into the compact weights fused in (the training
    path's launch; a closed gate returns ``wc`` bit for bit), timed fused and
    unfused beside ``torch.matmul(pre.T, mod)``. ``wu_outer_slots`` updates
@@ -498,8 +502,9 @@ capacity one rounding step short), and writes each run's phase 28
 readings to ``chiprun_out/gate_faults.json``: the evidence that places
 TP_ZERO_INIT_REL_L2 and TP_DROPPED_ABS.
 
-Prints the kernels line (JSON; eight rows: the six TPU kernels' ports,
-``nm_spmm_fused`` and ``wu_outer_slots``; the ``wu_outer`` row is its fused
+Prints the kernels line (JSON; ten rows: the six TPU kernels' ports,
+``nm_spmm_fused``, ``wu_outer_slots`` and the fused AdamW's two,
+``adamw_norm`` and ``adamw_update``; the ``wu_outer`` row is its fused
 launch, the training path's), the card line, and last
 ``{"ok": true, "device": {...}}``; the full record goes to
 ``chiprun_out/chip_smoke.json``. Exits non-zero, printing no result, when
@@ -868,6 +873,146 @@ def card_tests(tool):
     return rec
 
 
+def adamw_case(torch):
+    """The fused AdamW (``kernels/adamw``) on phase 21's tree: Moonlight's
+    4 layers at full width, 2.95 B trainable elements, bf16 parameters and
+    gradients, f32 moments, a per-layer gate with one layer closed. Two
+    steps of ``adamw_update`` on the card (the norm's launch and the
+    update's, each step) against the plain update (``ref.update``) leaf by
+    leaf with the kernel path's clip: ``p``, ``m`` and ``v`` bit for bit;
+    the norm within 1e-6 of the f64 sum. Timed over the whole tree: the
+    whole ``adamw_update`` against the plain path (``ref.sq_sums``, the
+    clip, ``ref.update``); under ``norm`` and ``update`` each kernel alone
+    against its plain part and its library yardstick,
+    ``torch._foreach_norm`` (a norm a leaf, not summed) and
+    ``torch._fused_adamw_`` (no clip, no gate); the port calls neither."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.adamw import kernel as ak, ref as aref
+    from repro_torch.launch.train import TrainHParams, init_train_state
+    from repro_torch.optim import adamw_update, gated_scale_tree
+    from repro_torch.optim.optimizer import (AdamWConfig, cosine_schedule,
+                                             tree_leaves, tree_map, trainable)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    params, state, _ = init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg,
+        TrainHParams(opt=opt), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grads = tree_map(lambda p: (1e-3 * torch.randn(
+        p.shape, device="cuda", generator=gen)).to(p.dtype)
+        if trainable(p) else None, params)
+    gate = torch.tensor([1.0, 0.0, 1.0, 1.0], device="cuda")[:cfg.n_layers]
+    scale = gated_scale_tree(params, gate, cfg.sparsity)
+    start = tree_map(lambda p: p.clone() if trainable(p) else p, params)
+    n = sum(p.numel() for p in tree_leaves(params) if trainable(p))
+    names = ("adamw_norm", "adamw_update")
+    before = launch_counts(), ak.adamw_update_cuda.elems
+    clips, norms = [], []
+    for _ in range(2):
+        params, state, om = adamw_update(grads, params, state, opt, scale)
+        norms.append(om["grad_norm"])
+        clips.append(torch.clamp(opt.grad_clip / (om["grad_norm"] + 1e-9),
+                                 max=1.0))
+    counted = {k: launch_counts()[k] - before[0][k] for k in names}
+    counted["elems"] = ak.adamw_update_cuda.elems - before[1]
+    if counted != {**adamw_launches(2), "elems": 2 * n}:
+        raise AssertionError(f"adamw: counted {counted}, want "
+                             f"{adamw_launches(2)} over {2 * n} elements")
+    leaves = [x for x in zip(tree_leaves(grads), tree_leaves(params),
+                             tree_leaves(start), tree_leaves(state.m),
+                             tree_leaves(state.v), tree_leaves(scale))
+              if trainable(x[1])]
+    f64 = sum(float(g.double().square().sum()) for g, *_ in leaves) ** 0.5
+    norm_rel = abs(float(norms[0]) - f64) / f64
+    if not (norm_rel <= 1e-6 and torch.equal(norms[0], norms[1])):
+        raise AssertionError(f"adamw: norm {[float(x) for x in norms]}, f64 "
+                             f"{f64}")
+    differ = []
+    for i, (g, p, p0, m, v, s) in enumerate(leaves):
+        pp, mm, vv = p0.clone(), torch.zeros_like(m), torch.zeros_like(v)
+        for step, clip in enumerate(clips):
+            t = np.float32(step + 1)
+            aref.update(g, pp, mm, vv, s, clip, opt, cosine_schedule(opt, step),
+                        float(np.float32(1) - np.float32(opt.b1) ** t),
+                        float(np.float32(1) - np.float32(opt.b2) ** t))
+        if not (torch.equal(pp, p) and torch.equal(mm, m)
+                and torch.equal(vv, v)):
+            differ.append((i, tuple(p.shape)))
+        del pp, mm, vv
+    if differ:
+        raise AssertionError(f"adamw: kernel and plain update differ at "
+                             f"leaves {differ}")
+    leaves = [(g, p, m, v, s) for g, p, _, m, v, s in leaves]
+    del start
+    t = np.float32(3)
+    lr, bc1, bc2 = (cosine_schedule(opt, 2),
+                    float(np.float32(1) - np.float32(opt.b1) ** t),
+                    float(np.float32(1) - np.float32(opt.b2) ** t))
+
+    gs, flat = [x[0] for x in leaves], [False] * len(leaves)
+    clip = clips[-1]
+
+    def plain_norm():
+        return aref.sq_sums(gs, flat)[0]
+
+    def plain_update(clip):
+        for leaf in leaves:
+            aref.update(*leaf, clip, opt, lr, bc1, bc2)
+
+    def plain():
+        clip = torch.clamp(opt.grad_clip / (torch.sqrt(plain_norm()) + 1e-9),
+                           max=1.0)
+        plain_update(clip)
+    # the library's fused AdamW takes one dtype for p, g, m and v: f32
+    # copies of p and g (4 bytes an element more than the port moves)
+    lists = [[x[1].float() for x in leaves], [x[0].float() for x in leaves],
+             [x[2] for x in leaves], [x[3] for x in leaves]]
+    steps = [torch.ones((), device="cuda") for _ in leaves]
+
+    def library():
+        torch._fused_adamw_(*lists, [], steps, lr=lr, beta1=opt.b1,
+                            beta2=opt.b2, weight_decay=opt.weight_decay,
+                            eps=opt.eps, amsgrad=False, maximize=False)
+    # norm: g read; update: g and p read, p written, m and v read and written
+    norm_bytes = sum(g.numel() * g.element_size() for g in gs)
+    update_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
+                                    + 16) for g, p, *_ in leaves)
+    nbytes = norm_bytes + update_bytes
+    bound_ms, bound_by = bound(nbytes, 0, "float32")
+    parts = {}
+    for part, nb, fn, plain_fn, lib_fn, plain_call, lib_call, err in (
+            ("norm", norm_bytes, lambda: ak.adamw_norm_cuda(gs, flat),
+             plain_norm, lambda: torch._foreach_norm(gs),
+             "ref.sq_sums", "torch._foreach_norm (a norm a leaf)",
+             abs(float(norms[0]) - f64)),
+            ("update", update_bytes,
+             lambda: ak.adamw_update_cuda(leaves, clip, opt, lr, bc1, bc2),
+             lambda: plain_update(clip), library, "ref.update a leaf",
+             "torch._fused_adamw_ (f32 p, g, m and v)", 0.0)):
+        b_ms, b_by = bound(nb, 0, "float32")
+        parts[part] = {"case": "moonlight_l4", "max_abs_err": err,
+                       **timings(torch, "", fn),
+                       **timings(torch, "plain_", plain_fn),
+                       **timings(torch, "library_", lib_fn),
+                       "plain_call": plain_call, "library_call": lib_call,
+                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+    rec = {"case": "moonlight_l4", "dtype": "bfloat16", "elems": n,
+           "leaves": len(leaves), "launches_per_update": 2,
+           "max_abs_err": 0.0, "bitwise": True, "norm_rel_f64": norm_rel,
+           **timings(torch, "", lambda: adamw_update(grads, params, state,
+                                                      opt, scale)),
+           **timings(torch, "plain_", plain),
+           "plain_call": "ref.sq_sums, the clip, ref.update a leaf",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           **parts}
+    log(f"parity adamw {json.dumps(rec)}")
+    del params, state, grads, leaves, lists, gs
+    torch.cuda.empty_cache()
+    return rec
+
+
 def lif_case(torch, shape, timed=True):
     from repro_torch.kernels.lif import ref
     from repro_torch.kernels.lif.kernel import lif_cuda
@@ -1212,6 +1357,17 @@ def reset_counters():
 NO_ATTN = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
+def adamw_launches(steps):
+    """The fused AdamW's launches over ``steps`` optimizer steps of one
+    process: a step launches the norm once and the update once."""
+    return {"adamw_norm": steps, "adamw_update": steps}
+
+
+NO_ADAMW = adamw_launches(0)
+# what the fused AdamW serves in the JAX package: jnp, fused by XLA
+ADAMW_JNP = "src/repro/optim/optimizer.py:62"
+
+
 def fleet_digest(done):
     """Per stream, what the bit-for-bit gates compare: the timesteps fed,
     the window logits' bytes and a SHA-256 of the final deltas' bytes (the
@@ -1301,7 +1457,8 @@ def run_fleet(torch, params, task, tag, sids=None, chunk_len=CHUNK_LEN,
     # slots' deltas), every nm_spmm launch carries the slots' deltas, and the
     # SNN has no attention
     want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
-            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN}
+            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN,
+            **NO_ADAMW}
     if len(done) != len(sids):
         raise AssertionError(f"{tag}: {len(done)} of {len(sids)} streams "
                              "retired")
@@ -1861,12 +2018,12 @@ def train(torch, task):
 
     want = (TRAIN_SAMPLES + 1) * cfg.t_steps * cfg.n_layers
     for name, n in launches.items():
-        if n != (0 if name in NO_ATTN or name in ("nm_spmm_fused",
-                                                   "wu_outer_slots") else want):
+        if n != (0 if name in NO_ATTN or name in NO_ADAMW
+                 or name in ("nm_spmm_fused", "wu_outer_slots") else want):
             raise AssertionError(f"{name} launched {n} times in training, want "
                                  f"{want} (= {TRAIN_SAMPLES} + 1 samples x "
                                  f"{cfg.t_steps} x {cfg.n_layers}; flash and "
-                                 f"the per-slot deltas 0)")
+                                 f"the per-slot deltas and AdamW 0)")
     if [i for i, _, _ in epochs] != [39, 79]:
         raise AssertionError(f"DSST epochs after samples {[e[0] for e in epochs]}")
     epoch_recs = []
@@ -1981,7 +2138,8 @@ def lm_serve(torch, cfg, params, tag="lm_serving"):
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
-            "wu_outer_slots": 0, **NO_ATTN, "flash_fwd": attn_calls(cfg)}
+            "wu_outer_slots": 0, **NO_ATTN, "flash_fwd": attn_calls(cfg),
+            **NO_ADAMW}
     if launches != want:
         raise AssertionError(f"LM serving launched {launches}, want {want} "
                              f"(one prefill of {attn_calls(cfg)} attention "
@@ -2203,7 +2361,8 @@ def lm_train(torch, cfg=None, hp=None, tag="lm_training", loss_chunk=None,
     L, calls = cfg.n_layers, attn_calls(cfg)
     want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
             "wu_outer_slots": 0, "flash_fwd": (2 if cfg.remat else 1) * calls,
-            "flash_bwd_dkv": calls, "flash_bwd_dq": calls}
+            "flash_bwd_dkv": calls, "flash_bwd_dq": calls,
+            **adamw_launches(1)}
     batches = [{k: torch.from_numpy(v).to("cuda", torch.long)
                 for k, v in next(pipe)[1].items()} for _ in range(TRAIN_STEPS)]
     ce_before = eval_ce(torch, cfg, params, batches, loss_chunk) \
@@ -2545,7 +2704,8 @@ def live_topology(torch, params, task):
     steps = sched.grid.stats["steps"]
     per_step = steps * CHUNK_LEN * cfg.n_layers
     want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
-            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN}
+            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN,
+            **NO_ADAMW}
     if len(done) != N_STREAMS:
         raise AssertionError(f"{len(done)} of {N_STREAMS} streams retired")
     short = [s.sid for s in done if len(s.predictions) != N_WINDOWS]
@@ -2666,11 +2826,13 @@ def topology_parity(torch, params, task):
     sd, vd, dd, ld = drive(False)
     per_step = sd.grid.stats["steps"] * C * cfg.n_layers
     want_dense = {"nm_spmm": per_step, "nm_spmm_fused": 0, "lif": per_step,
-                  "wu_outer": 0, "wu_outer_slots": 0, **NO_ATTN}
+                  "wu_outer": 0, "wu_outer_slots": 0, **NO_ATTN,
+                  **NO_ADAMW}
     per_step_c = sc.grid.stats["steps"] * C * cfg.n_layers
     want_compact = {"nm_spmm": per_step_c, "nm_spmm_fused": per_step_c,
                     "lif": per_step_c, "wu_outer": 0,
-                    "wu_outer_slots": per_step_c, **NO_ATTN}
+                    "wu_outer_slots": per_step_c, **NO_ATTN,
+                    **NO_ADAMW}
     mask = sc.params["hidden"]["mask"]
     idx = topology.stacked_kept_ids(mask, cfg)
     logit_err = max(float(np.abs(a.logits - b.logits).max())
@@ -2847,7 +3009,8 @@ def lm_resume(torch, workdir):
     steps = 2 * RESUME_STEPS        # straight, then interrupted + resumed
     want = {"nm_spmm": 0, "nm_spmm_fused": 0, "lif": 0, "wu_outer": 0,
             "wu_outer_slots": 0, "flash_fwd": 2 * L * steps,
-            "flash_bwd_dkv": L * steps, "flash_bwd_dq": L * steps}
+            "flash_bwd_dkv": L * steps, "flash_bwd_dq": L * steps,
+            **adamw_launches(steps)}
     differ = leaves_equal(torch, (straight[0], straight[1].m, straight[1].v),
                           (resumed[0], resumed[1].m, resumed[1].v))
     rec = {"arch": TRAIN_ARCH, "layers": L, "batch": TRAIN_B, "seq": RESUME_S,
@@ -3674,7 +3837,8 @@ def sharded_topology(torch, params, task, fleet, workdir):
     launches = {name: c.launches for name, c in counters.items()}
     per_step = sched.grid.stats["steps"] * CHUNK_LEN * cfg.n_layers * SHARDS
     want = {"nm_spmm": per_step, "nm_spmm_fused": per_step, "lif": per_step,
-            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN}
+            "wu_outer": 0, "wu_outer_slots": per_step, **NO_ATTN,
+            **NO_ADAMW}
     if launches != want:
         raise AssertionError(f"24b launched {launches}, want {want}")
 
@@ -4248,7 +4412,8 @@ def dp_phase(torch, validate_tool=None):
         flash_want = {"flash_fwd": 2 * L, "flash_bwd_dkv": L,
                       "flash_bwd_dq": L}
         want_a = {n: 0 for n in a["launches"]}
-        want_a.update({k: v * DP_STEPS_A for k, v in flash_want.items()})
+        want_a.update({k: v * DP_STEPS_A for k, v in flash_want.items()},
+                      **adamw_launches(DP_STEPS_A))
         a["wall_s"] = wall_a
         rec["a"] = a
         log(f"lm_dp_nccl {json.dumps(a)}")
@@ -4277,7 +4442,8 @@ def dp_phase(torch, validate_tool=None):
         losses_b = b[0]["runs"]["off"]["losses"]
         loss_rel = [abs(x - y) / abs(y) for x, y in zip(losses_b, ref_losses)]
         want_b = {n: 0 for n in b[0]["launches"]}
-        want_b.update({k: 2 * v * DP_STEPS_B for k, v in flash_want.items()})
+        want_b.update({k: 2 * v * DP_STEPS_B for k, v in flash_want.items()},
+                      **adamw_launches(2 * DP_STEPS_B))
         launches = {n: a["launches"][n] + sum(r["launches"][n] for r in b)
                     for n in a["launches"]}
         rec["b"] = {
@@ -4748,7 +4914,7 @@ def moe_dp_phase(torch):
         steps = 2 * DP_MOE_STEPS                  # ZeRO-1 off and on
         want = {n: 0 for n in ranks[0]["a"]["launches"]}
         want.update({"flash_fwd": 2 * L * steps, "flash_bwd_dkv": L * steps,
-                     "flash_bwd_dq": L * steps})
+                     "flash_bwd_dq": L * steps, **adamw_launches(steps)})
         launches = {n: sum(r["a"]["launches"][n] for r in ranks)
                     for n in want}
         a_runs = [r["a"]["runs"] for r in ranks]
@@ -5068,7 +5234,8 @@ def tp_phase(torch):
         want_a = {n: 0 for n in ranks[0]["a"]["launches"]}
         want_a.update({"flash_fwd": 2 * L * DP_STEPS_B,
                        "flash_bwd_dkv": L * DP_STEPS_B,
-                       "flash_bwd_dq": L * DP_STEPS_B})
+                       "flash_bwd_dq": L * DP_STEPS_B,
+                       **adamw_launches(DP_STEPS_B)})
         losses = ranks[0]["a"]["losses"]
         loss_rel = [abs(x - y) / abs(y) for x, y in zip(losses, ref_losses)]
         a = {"arch": TRAIN_ARCH, "layers": L, "batch": TRAIN_B, "seq": TRAIN_S,
@@ -5674,7 +5841,7 @@ def tp_train_reading(torch, part, ref, paths, order, rs, tag):
     want = {n: 0 for n in rs[0]["launches"]}
     want.update({"flash_fwd": 2 * n_attn * steps,
                  "flash_bwd_dkv": n_attn * steps,
-                 "flash_bwd_dq": n_attn * steps})
+                 "flash_bwd_dq": n_attn * steps, **adamw_launches(steps)})
     a = {"arch": arch, "layers": layers, "batch": TRAIN_B,
          "seq": TRAIN_S, "steps": steps, "seq_shard": seq,
          "losses": losses, "reference_losses": ref["losses"],
@@ -6044,7 +6211,7 @@ def cut_phase(torch):
         want_a = {n: 0 for n in ranks[0]["a"]["launches"]}
         want_a.update({"flash_fwd": 2 * CUT_LAYERS,
                        "flash_bwd_dkv": CUT_LAYERS,
-                       "flash_bwd_dq": CUT_LAYERS})
+                       "flash_bwd_dq": CUT_LAYERS, **adamw_launches(1)})
         digests = [r["replicated_digests"] for r in ranks]
         a = {"arch": TRAIN_ARCH, "layers": CUT_LAYERS, "batch": CUT_B,
              "seq": CUT_S, "mesh": ranks[0]["mesh"], "ranks_wall_s": wall,
@@ -6123,17 +6290,18 @@ def cut_phase(torch):
 # contract, the kernels each must have launched)
 SNN_SERVING = ("nm_spmm_fused", "lif", "wu_outer_slots")
 FLASH_TRAIN = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+LM_TRAIN = FLASH_TRAIN + tuple(NO_ADAMW)
 DEMOS = {
-    "quickstart": (["--steps", "30"], r"^done", FLASH_TRAIN),
+    "quickstart": (["--steps", "30"], r"^done", LM_TRAIN),
     "train_lm": (["--preset", "cpu-small", "--steps", "30"],
-                 r"^final: loss", FLASH_TRAIN),
+                 r"^final: loss", LM_TRAIN),
     "serve_decode": ([], r"^first sequence: \[", ("flash_fwd",)),
     "snn_ossl_demo": (["--full-size", "--samples", "20"],
                       r"^modeled power", ("nm_spmm", "lif", "wu_outer")),
     "stream_serving_demo": ([], r"compiled variants 1$", SNN_SERVING),
     "obs_smoke": ([], r"^OK$", SNN_SERVING),
     "elastic_recovery_demo": ([], r"^  final states bitwise identical: True$",
-                              FLASH_TRAIN),
+                              LM_TRAIN),
 }
 
 
@@ -6380,7 +6548,8 @@ def recovery(torch, workdir):
     want = {n: 0 for n in launches}
     want.update(flash_fwd=2 * L * (runs + replays),
                 flash_bwd_dkv=L * (runs + replays),
-                flash_bwd_dq=L * (runs + replays))
+                flash_bwd_dq=L * (runs + replays),
+                **adamw_launches(runs + replays))
     restores_ok = all(
         r["allocated_before"] <= held0 + state_bytes + RECOVERY_SLACK
         and r["max_memory_allocated"] <= held0 + 2 * state_bytes + RECOVERY_SLACK
@@ -6688,6 +6857,7 @@ def main() -> int:
     from repro_torch.core.sparsity import NMSpec, paper_spec_4groups
     from repro_torch.data.events import make_task
     from repro_torch.kernels import _build
+    from repro_torch.kernels.adamw import kernel as adamw_kernel
     from repro_torch.kernels.flash_attn import kernel as fa_kernel
     from repro_torch.kernels.lif.kernel import lif_cuda
     from repro_torch.kernels.nm_spmm import kernel as nm_kernel
@@ -6723,12 +6893,13 @@ def main() -> int:
     with ThreadPoolExecutor(4) as pool:
         builds = {"nm_spmm": pool.submit(timed, nm_kernel.build),
                   "wu_outer": pool.submit(timed, wu_kernel.build),
+                  "adamw": pool.submit(timed, adamw_kernel.build),
                   "flash_attn": pool.submit(timed, fa_kernel.build),
                   "flash_bwd": pool.submit(timed, fa_kernel.build_bwd)}
         record["build_s"] = {"lif": timed(build_lif)}
         record["build_s"].update({k: f.result() for k, f in builds.items()})
     record["ptxas"] = {}
-    for name in ("nm_spmm", "wu_outer", "flash_attn", "flash_bwd"):
+    for name in ("nm_spmm", "wu_outer", "adamw", "flash_attn", "flash_bwd"):
         text = _build.load_library.ptxas_log.get(name, "")
         record["ptxas"][name] = ptxas_instances(text)
         for line in text.splitlines():
@@ -6855,7 +7026,10 @@ def main() -> int:
                         "wu_outer": wu_recs, "wu_outer_slots": slot_recs,
                         "flash_fwd": fa_recs,
                         "flash_bwd_dkv": [r["dkv"] for r in bwd_recs],
-                        "flash_bwd_dq": [r["dq"] for r in bwd_recs]}
+                        "flash_bwd_dq": [r["dq"] for r in bwd_recs],
+                        # no TPU kernel: the fused AdamW (PERF.md's row 7)
+                        "adamw": [adamw_case(torch)]}
+    adamw_rec = record["parity"]["adamw"][0]
 
     # 4. serving at full width
     cfg = paper_config("kernels")
@@ -7153,7 +7327,12 @@ def main() -> int:
         row("flash_bwd_dkv", "cuda", "src/repro_torch/kernels/flash_attn/flash_bwd.cu",
             "src/repro/kernels/flash_attn/kernel.py:161", bwd_recs[0]["dkv"]),
         row("flash_bwd_dq", "cuda", "src/repro_torch/kernels/flash_attn/flash_bwd.cu",
-            "src/repro/kernels/flash_attn/kernel.py:180", bwd_recs[0]["dq"])]}
+            "src/repro/kernels/flash_attn/kernel.py:180", bwd_recs[0]["dq"]),
+        # no Pallas kernel: they serve the jnp AdamW (XLA fuses it)
+        row("adamw_norm", "cuda", "src/repro_torch/kernels/adamw/adamw.cu",
+            ADAMW_JNP, adamw_rec["norm"]),
+        row("adamw_update", "cuda", "src/repro_torch/kernels/adamw/adamw.cu",
+            ADAMW_JNP, adamw_rec["update"])]}
     record.update(kernels)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels, one package per reference Pallas kernel.
+"""Hand-written Hopper kernels, one package per reference Pallas kernel,
+and ``adamw/`` (the fused AdamW of LM training; no Pallas kernel).
 
 Each ``kernels/<name>/`` holds ``ref.py`` (the plain torch version: the CPU
 path and the test oracle), ``ops.py`` (the wrapper: plain version for CPU
@@ -13,6 +14,7 @@ def launch_counters() -> dict:
     ``launches`` where it launches its kernel on the card, and nowhere
     else (``nm_spmm_fused`` counts on ``nm_spmm`` too). Importing the
     wrappers builds nothing."""
+    from .adamw.kernel import adamw_norm_cuda, adamw_update_cuda
     from .flash_attn.kernel import (flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
                                     flash_fwd_cuda)
     from .lif.kernel import lif_cuda
@@ -22,7 +24,8 @@ def launch_counters() -> dict:
             "lif": lif_cuda, "wu_outer": wu_outer_cuda,
             "wu_outer_slots": wu_outer_slots_cuda,
             "flash_fwd": flash_fwd_cuda, "flash_bwd_dkv": flash_bwd_dkv_cuda,
-            "flash_bwd_dq": flash_bwd_dq_cuda}
+            "flash_bwd_dq": flash_bwd_dq_cuda,
+            "adamw_norm": adamw_norm_cuda, "adamw_update": adamw_update_cuda}
 
 
 def launch_counts() -> dict:

@@ -23,11 +23,12 @@ inside a step.
 Tracing: under an active tracer (``obs.trace.use``) the step records
 ``train.step`` (attribute ``tokens``) and in it ``train.forward``,
 ``train.backward``, ``train.grads_stack``, ``train.gates`` (``open``: the
-step's gate fraction, a device scalar; ``layers``) and ``train.adamw``,
-each with its device time. The blocks' spans (``models/transformer``)
-sit under ``train.forward``; remat's recompute sits under
-``train.backward``, or is a root on autograd's own thread (the card's
-backward).
+step's gate fraction, a device scalar; ``layers``) and ``train.adamw``
+(``launches``: the fused AdamW's kernel launches, ``elems``: the elements
+it updated; 0 on the CPU), each with its device time. The blocks' spans
+(``models/transformer``) sit under ``train.forward``; remat's recompute
+sits under ``train.backward``, or is a root on autograd's own thread (the
+card's backward).
 
 Data parallelism: ``make_train_step(..., mesh=)`` on an LM mesh
 (``launch.mesh.make_host_mesh``) runs the same body on the rank's own
@@ -97,6 +98,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.gating import GatingConfig
+from ..kernels import launch_counters
 from ..models import transformer as T
 from ..obs.trace import active
 from ..optim import (AdamWConfig, SparseTrainState, adamw_init, adamw_update,
@@ -176,6 +178,15 @@ def _local(x):
 
 def _detach(tree):
     return {k: v.detach() for k, v in tree.items()}
+
+
+def _adamw_counts() -> dict:
+    """The fused AdamW's launches (its two kernels' in
+    ``kernels.launch_counters()``) and the elements it updated, in this
+    process so far."""
+    c = launch_counters()
+    return {"launches": c["adamw_norm"].launches + c["adamw_update"].launches,
+            "elems": c["adamw_update"].elems}
 
 
 # ---------------------------------------------------------------------------
@@ -432,9 +443,11 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
                 gate_frac = torch.ones((), device=loss.device)
             sp.set(open=gate_frac)
 
-        with active().span("train.adamw"):
+        with active().span("train.adamw") as sp:
+            before = _adamw_counts()
             params, opt_state, om = adamw_update(grads, params, opt_state,
                                                  hp.opt, scale, zero1=zero1)
+            sp.set(**{k: n - before[k] for k, n in _adamw_counts().items()})
         if zero1 is not None:
             dp.gather_params(params, zero1)
         metrics = {"loss": loss, "ce": ce, "gate_frac": gate_frac,

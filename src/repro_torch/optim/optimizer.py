@@ -12,6 +12,12 @@ nothing is read back from the card. The reference returns new params and
 moments; ``adamw_update`` writes params, ``m`` and ``v`` in place (it saves
 a second copy of the f32 moments, 14 GB at Qwen2-VL-2B) and returns them.
 
+The two passes run through ``kernels/adamw``: on CPU tensors the plain
+torch update (``ref.py``, a leaf above ``ADAMW_SLAB`` elements a slab at a
+time); on the card two fused launches for the whole tree, the norm's and
+the update's, the update bit for bit the plain one given the same clip
+(the norm sums in another order, the same on every run).
+
 Parameters placed as ``DTensor`` s (tensor parallelism, ``launch/spmd``):
 each moment is a ``DTensor`` in its parameter's placements (ZeRO-1's block
 also split over the DP axes), the update runs on the local blocks in
@@ -25,6 +31,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..kernels.adamw import ops as adamw_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +50,6 @@ class AdamWConfig:
 
 def trainable(leaf: torch.Tensor) -> bool:
     return leaf.is_floating_point()
-
-
-# leaves above this many elements are updated a leading slice at a time
-ADAMW_SLAB = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -120,19 +124,16 @@ def global_norm(tree) -> torch.Tensor:
     once, as a plain leaf."""
     import torch.distributed as dist
     from ..launch.spmd import model_dim
-    sq, split, group = [], [], None
+    blocks, split, group = [], [], None
     for l in tree_leaves(tree):
         if l is None or not trainable(l):
             continue
-        s = _local(l).float().square().sum()
-        if model_dim(l) is not None:
-            split.append(s)
+        blocks.append(_local(l))
+        split.append(model_dim(l) is not None)
+        if split[-1]:
             group = l.device_mesh.get_group("model")
-        else:
-            sq.append(s)
-    total = torch.stack(sq).sum() if sq else None
-    if split:
-        part = torch.stack(split).sum()
+    total, part = adamw_ops.sq_sums(blocks, split)
+    if part is not None:
         dist.all_reduce(part, group=group)
         total = part if total is None else total + part
     return torch.sqrt(total)
@@ -158,8 +159,11 @@ def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
     t = np.float32(state.step + 1)
     bc1 = float(np.float32(1) - np.float32(cfg.b1) ** t)
     bc2 = float(np.float32(1) - np.float32(cfg.b2) ** t)
+    leaves = []
 
-    def upd(g, p, m, v, s, z=None):
+    def view(g, p, m, v, s, z=None):
+        """The leaf's ``(g, p, m, v, scale)`` as updated here: a
+        ``DTensor``'s local block, a ZeRO-1 block."""
         if not trainable(p):
             return
         if hasattr(p, "to_local"):          # a DTensor: its local block
@@ -172,31 +176,13 @@ def adamw_update(grads, params, state: AdamWState, cfg: AdamWConfig,
             if s is not None:
                 s = torch.broadcast_to(s, p.shape).narrow(d, i * w, w)
             g, p = g.narrow(d, i * w, w), p.narrow(d, i * w, w)
-        if p.numel() > ADAMW_SLAB and p.dim() > 1:
-            # slabs of the leading axis of at most ADAMW_SLAB elements (a
-            # single row is split again): the update is elementwise, so the
-            # result is the same bit for bit, and its f32 temporaries stay
-            # a slab large (Mamba2-2.7B's stacked in_proj would take 6.9 GB
-            # each)
-            s = None if s is None else torch.broadcast_to(s, p.shape)
-            rows = ADAMW_SLAB // (p.numel() // p.shape[0])
-            for i in range(0, p.shape[0], max(rows, 1)):
-                ix = slice(i, i + rows) if rows > 1 else i
-                upd(g[ix], p[ix], m[ix], v[ix], None if s is None else s[ix])
-            return
-        g = g.float() * clip
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        step_ = lr * (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        step_ = step_ + lr * cfg.weight_decay * p.float()
-        if s is not None:
-            step_ = step_ * s
-        p.copy_((p.float() - step_).to(p.dtype))
+        leaves.append((g, p, m, v, s))
 
     scale = update_scale if update_scale is not None \
         else tree_map(lambda _: None, params)
     zero1 = zero1 if zero1 is not None else tree_map(lambda _: None, params)
     with torch.no_grad():
-        tree_map(upd, grads, params, state.m, state.v, scale, zero1)
+        tree_map(view, grads, params, state.m, state.v, scale, zero1)
+        adamw_ops.update(leaves, clip, cfg, lr, bc1, bc2)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(state.step + 1, state.m, state.v), metrics

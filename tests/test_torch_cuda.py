@@ -1448,3 +1448,170 @@ def test_traced_lm_paths_match_untraced_on_card(cuda, arch):
            and by_id[s.parent_id].name == "train.forward"]
     assert len(fwd) == len(roots) == 2 * cfg.n_layers
     assert all(s.device_s > 0 for s in fwd + roots)
+
+
+# ------------------------------------------------------------------ adamw
+
+# (p dtype, g dtype, leaf shape, scale, ZeRO-1 dim)
+ADAMW_CASES = {
+    "f32": (torch.float32, torch.float32, (3, 40, 72), None, None),
+    "bf16": (torch.bfloat16, torch.bfloat16, (3, 40, 72), None, None),
+    "p_bf16_g_f32": (torch.bfloat16, torch.float32, (3, 40, 72), None, None),
+    "p_f32_g_bf16": (torch.float32, torch.bfloat16, (3, 40, 72), None, None),
+    "scalar_scale": (torch.bfloat16, torch.bfloat16, (3, 40, 72), "one", None),
+    "layer_gate": (torch.bfloat16, torch.bfloat16, (4, 64, 96), "layer", None),
+    "expert_mask": (torch.bfloat16, torch.bfloat16, (4, 8, 64, 48), "mask",
+                    None),
+    "closed_gate": (torch.bfloat16, torch.bfloat16, (4, 64, 96), "closed",
+                    None),
+    "zero1_dim1": (torch.bfloat16, torch.bfloat16, (4, 8, 64, 48), "mask", 1),
+    "zero1_last": (torch.float32, torch.bfloat16, (4, 64, 96), "layer", 2),
+    "odd": (torch.float32, torch.bfloat16, (3, 5, 7), "layer", None),
+    "large": (torch.bfloat16, torch.bfloat16, (2, 16384, 16400), "layer", None),
+}
+
+
+def _adamw_scale(kind, shape, cuda):
+    gate = torch.tensor([1.0, 0.0, 1.0, 1.0] * 2, device=cuda)[:shape[0]]
+    lgate = gate.reshape((-1,) + (1,) * (len(shape) - 1))
+    if kind == "one":
+        return torch.ones((), device=cuda)
+    if kind == "layer":
+        return lgate
+    if kind == "closed":
+        return torch.zeros_like(lgate)
+    if kind == "mask":              # an expert leaf's N:M mask, per layer
+        mask = torch.rand((shape[0], 1, shape[2], 1), device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(2))
+        return (mask < 0.5).float() * lgate
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ADAMW_CASES))
+def test_adamw_update_kernel_bitwise_the_plain_update_on_card(cuda, case):
+    """Three steps of the fused update against ``kernels/adamw/ref.py`` on
+    the card, given the same clip: ``p``, ``m`` and ``v`` bit for bit, for
+    f32 and bf16 parameters and gradients, no scale, a 0-d one, a per-layer
+    gate, an expert leaf's per-layer N:M mask ``[L, 1, K, 1]``, a closed
+    gate, ZeRO-1 blocks narrowed on dim 1 and on the last dim (the rest of
+    the parameter untouched), a shape off the vector path, and a leaf of
+    2.15 GB of ``m`` (64-bit offsets; the plain path in slabs)."""
+    from repro_torch.kernels.adamw import kernel as ak, ref as aref
+    from repro_torch.optim.optimizer import AdamWConfig, cosine_schedule
+    pd, gd, shape, kind, zdim = ADAMW_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2)
+    s = _adamw_scale(kind, shape, cuda)
+    w = None if zdim is None else shape[zdim] // 2
+
+    def view(x):
+        return x if zdim is None else x.narrow(zdim, w, w)
+    sv = s if zdim is None else torch.broadcast_to(s, shape).narrow(zdim, w, w)
+    p = torch.randn(shape, device=cuda, generator=gen).to(pd)
+    m = torch.randn(view(p).shape, device=cuda, generator=gen) * 0.01
+    v = torch.rand(view(p).shape, device=cuda, generator=gen) * 1e-4
+    kp, km, kv = p.clone(), m.clone(), v.clone()
+    for step in range(1 if case == "large" else 3):
+        g = (3 * torch.randn(shape, device=cuda, generator=gen)).to(gd)
+        clip = torch.tensor(0.7, device=cuda)
+        t = np.float32(step + 1)
+        hyper = (cosine_schedule(cfg, step),
+                 float(np.float32(1) - np.float32(cfg.b1) ** t),
+                 float(np.float32(1) - np.float32(cfg.b2) ** t))
+        aref.update(view(g), view(p), m, v, sv, clip, cfg, *hyper)
+        ak.adamw_update_cuda([(view(g), view(kp), km, kv, sv)], clip, cfg,
+                             *hyper)
+        del g
+    torch.cuda.synchronize()
+    assert torch.equal(kp, p), case
+    assert torch.equal(km, m) and torch.equal(kv, v), case
+
+
+@pytest.mark.cuda
+def test_adamw_norm_kernel_within_1e6_of_f64_and_repeatable_on_card(cuda):
+    """The sums of squares of bf16 and f32 blocks (one narrowed, rows of
+    runs; one off the vector path; one of a single element; one above a
+    chunk), the model-split ones apart: within 1e-6 relative of the f64
+    sums, and the same bits on a second run."""
+    from repro_torch.kernels.adamw import kernel as ak, ops as aops
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    blocks = [torch.randn((3, 5, 7), device=cuda, generator=gen),
+              torch.randn((200_003,), device=cuda, generator=gen).bfloat16(),
+              4 * torch.randn((4, 64, 2048), device=cuda,
+                              generator=gen).bfloat16(),
+              torch.randn((1,), device=cuda, generator=gen),
+              torch.randn((4, 8, 64, 48), device=cuda,
+                          generator=gen).narrow(1, 2, 4),
+              torch.randn((163840, 64), device=cuda, generator=gen).bfloat16()]
+    split = [False, True, False, True, True, False]
+    out = ak.adamw_norm_cuda(blocks, split)
+    again = ak.adamw_norm_cuda(blocks, split)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    for k, want_split in enumerate((False, True)):
+        want = sum(float(b.double().square().sum())
+                   for b, sp in zip(blocks, split) if sp == want_split)
+        assert abs(float(out[k]) - want) <= 1e-6 * want, (k, float(out[k]), want)
+    rep, part = aops.sq_sums(blocks[:1], [False])
+    assert part is None and float(rep) == pytest.approx(
+        float(blocks[0].double().square().sum()), rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_adamw_span_counts_two_launches_over_every_element_on_card(cuda):
+    """A gated train step of a reduced MoE config on the card: its
+    ``train.adamw`` span counts the fused AdamW's two launches (the norm,
+    the update) and every trainable element of the tree."""
+    import dataclasses
+    from repro_torch import configs as C
+    from repro_torch.core.gating import GatingConfig
+    from repro_torch.launch import train
+    from repro_torch.obs import Tracer, use
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.optimizer import tree_leaves, trainable
+    cfg = dataclasses.replace(C.get_reduced("moonshot_v1_16b_a3b"), remat=True)
+    hp = train.TrainHParams(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                            total_steps=100),
+                            gating=GatingConfig())
+    rng = np.random.default_rng(3)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab, (2, 16)), device=cuda)
+             for k in ("tokens", "labels")}
+    state = train.init_train_state(torch.Generator(device=cuda).manual_seed(0),
+                                   cfg, hp, device=cuda)
+    n = sum(x.numel() for x in tree_leaves(state[0]) if trainable(x))
+    step = train.make_train_step(cfg, hp, attn="plain")
+    tr = Tracer(capacity=1 << 12)
+    with use(tr):
+        for _ in range(2):
+            *state, _m = step(*state, batch)
+    torch.cuda.synchronize()
+    spans = tr.spans("train.adamw")
+    assert [(s.attr("launches"), s.attr("elems")) for s in spans] == \
+        [(2, n)] * 2
+
+
+@pytest.mark.cuda
+def test_adamw_kernel_raises_on_what_it_does_not_take_on_card(cuda):
+    from repro_torch.kernels.adamw import kernel as ak
+    from repro_torch.optim.optimizer import AdamWConfig
+    cfg, clip = AdamWConfig(), torch.tensor(1.0, device=cuda)
+
+    def leaf(**kw):
+        t = {k: torch.zeros((4, 8), device=cuda) for k in "gpmv"}
+        t.update(kw)
+        return (t["g"], t["p"], t["m"], t["v"], None)
+    for bad, err in ((leaf(p=torch.zeros((4, 8), device=cuda,
+                                         dtype=torch.float16)), TypeError),
+                     (leaf(g=torch.zeros((4, 8), device=cuda,
+                                         dtype=torch.float64)), TypeError),
+                     (leaf(m=torch.zeros((4, 8), device=cuda,
+                                         dtype=torch.bfloat16)), TypeError),
+                     (leaf(v=torch.zeros((4, 8))), ValueError)):
+        with pytest.raises(err):
+            ak.adamw_update_cuda([bad], clip, cfg, 1e-3, 0.1, 0.05)
+    with pytest.raises(TypeError):
+        ak.adamw_norm_cuda([torch.zeros(8, device=cuda, dtype=torch.int32)],
+                           [False])
+    with pytest.raises(TypeError):
+        ak.adamw_update_cuda([leaf()], clip.double(), cfg, 1e-3, 0.1, 0.05)

@@ -229,6 +229,9 @@ def test_each_step_records_its_spans_once(traced):
     gates = tr.spans("train.gates")
     assert [g.attr("layers") for g in gates] == [cfg.n_layers] * 2
     assert all(0.0 <= g.attr("open") <= 1.0 for g in gates)
+    # the fused AdamW's counters: nothing launched on the CPU
+    assert [(a.attr("launches"), a.attr("elems"))
+            for a in tr.spans("train.adamw")] == [(0, 0)] * 2
     gen = tr.spans("serve.generate")
     assert [(g.attr("rows"), g.attr("seq")) for g in gen] == [(2, 11)]
     assert names["serve.prefill"] == 1

@@ -34,6 +34,7 @@ from repro_torch import convert
 from repro_torch.configs.base import SparsityConfig
 from repro_torch.core import gating, ossl
 from repro_torch.data import pipeline as pipe
+from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.launch import train
 from repro_torch.models import transformer as T
 from repro_torch.optim import optimizer as opt, sparse
@@ -191,8 +192,8 @@ def test_adamw_slab_update_equals_whole_leaf_bitwise(monkeypatch, gated, slab):
         scale = {"w": mask * _t(np.array([1.0, 0.0, 1.0], np.float32)).reshape(3, 1, 1, 1),
                  "b": torch.ones(()), "s": torch.ones(())}
     out = []
-    for size in (opt.ADAMW_SLAB, slab):
-        monkeypatch.setattr(opt, "ADAMW_SLAB", size)
+    for size in (adamw_ref.ADAMW_SLAB, slab):
+        monkeypatch.setattr(adamw_ref, "ADAMW_SLAB", size)
         pp = {k: v.clone() for k, v in p.items()}
         st = opt.adamw_init(pp)
         for _ in range(2):
