@@ -564,6 +564,8 @@ BATCH_MOE_LAYERS = 24    # phase 16b's depth (of Moonlight's 48)
 # flips' gaps by up to the logits' spread (hundreds of ulps).
 ROUTER_GAP_ULPS = 16
 SSM_ARCH, HYBRID_ARCH = "mamba2_2p7b", "zamba2_1p2b"
+# phase 17c: Nemotron-3-Nano (the mixed family), one of four pipeline stages
+MIXED_ARCH, MIXED_STAGE_LAYERS = "nemotron3_nano_30b_a3b", 13
 SSM_PARITY_LAYERS, HYBRID_PARITY_LAYERS = 2, 12   # Zamba2: 2 shared calls
 # phase 18a: the chunked prefill and the replay round at other places (the
 # conv's bf16 sum of products against an f32-accumulated one, bf16
@@ -1169,7 +1171,12 @@ def causal_pairs(s, window):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_case(torch, name, dtype, b, s, h, kv, dh, window, timed=True):
+def flash_case(torch, name, dtype, b, s, h, kv, dh, window, timed=True,
+               plain_rows=None):
+    """``flash_fwd`` against its plain version at one shape, timed beside
+    it and the library's. ``plain_rows``: the plain version runs that many
+    of the ``B·H`` rows at a time and is not timed (a long prompt's ``[B·H,
+    S, S]`` f32 scores would not fit whole)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops, ref
     from repro_torch.kernels.flash_attn.kernel import flash_fwd_cuda
@@ -1179,7 +1186,13 @@ def flash_case(torch, name, dtype, b, s, h, kv, dh, window, timed=True):
             for _ in range(2))
     out, lse = flash_fwd_cuda(q, k, v, window)
     kl = ops._to_kernel_layout(q, k, v)
-    o_r, lse_r = ref.flash_fwd(*kl, window)
+    if plain_rows is None:
+        o_r, lse_r = ref.flash_fwd(*kl, window)
+    else:
+        parts = [ref.flash_fwd(*(x[n:n + plain_rows] for x in kl), window)
+                 for n in range(0, b * h, plain_rows)]
+        o_r, lse_r = (torch.cat(part) for part in zip(*parts))
+        del parts
     o_r = ops._from_kernel_layout(o_r, b, s, h, dh)
     torch.cuda.synchronize()
     err, lse_err = max_err(out, o_r), max_err(lse, lse_r)
@@ -1215,7 +1228,8 @@ def flash_case(torch, name, dtype, b, s, h, kv, dh, window, timed=True):
            "window": window, "max_abs_err": err, "tol": tol_rule,
            "err_over_tol": over, "lse_max_abs_err": lse_err,
            **tm(torch, "", lambda: flash_fwd_cuda(q, k, v, window)),
-           **tm(torch, "plain_", lambda: ref.flash_fwd(*kl, window)),
+           **(tm(torch, "plain_", lambda: ref.flash_fwd(*kl, window))
+              if plain_rows is None else {"plain_rows": plain_rows}),
            **tm(torch, "library_", lib),
            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
            "bytes": nbytes}
@@ -2103,10 +2117,12 @@ def train_parity(torch, task):
     return rec
 
 
-def lm_model(torch, arch):
+def lm_model(torch, arch, cut=None):
+    """The config (``cut(config)`` where ``cut`` is given) and its weights
+    drawn on the card, and the seconds that took."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cut is None else cut(get_config(arch))
     t0 = time.perf_counter()
     params = T.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                            device="cuda")
@@ -2204,12 +2220,25 @@ def lm_serve(torch, cfg, params, tag="lm_serving"):
 
 def attn_calls(cfg):
     """``flash_fwd`` launches in one prefill: one per attention layer (the
-    hybrid's shared-block calls; none for ssm)."""
+    hybrid's shared-block calls; none for ssm; the mixed family's ``*``
+    layers)."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.family == "mixed":
+        return cfg.layer_pattern.count("*")
     return cfg.n_layers
+
+
+def mixed_stage(cfg):
+    """The mixed family's first pipeline stage: its first
+    ``MIXED_STAGE_LAYERS`` layers at full width (``nemotron3.prefill.long``'s
+    cut: ``MEMEM*EMEMEM*``, 6 Mamba2, 5 MoE, 2 attention)."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, n_layers=MIXED_STAGE_LAYERS,
+        layer_pattern=cfg.layer_pattern[:MIXED_STAGE_LAYERS])
 
 
 def leaves(tree):
@@ -7002,6 +7031,14 @@ def main() -> int:
         # phase 29a's head cut: each rank's span of Qwen2-VL's heads, 2
         # query heads over 1 KV head, at its training and prefill shape
         ("tp_cut", bf16, CUT_B, CUT_S, 2, 1, 128, None))]
+    # Nemotron-3-Nano's attention layers (GQA 16:1: 32 query heads over 2
+    # KV heads of 128, no window) at the nemotron3.prefill.long cell's
+    # longest and shortest batches, 2 x 32768 and 16 x 4096; the plain
+    # version a slice of rows at a time
+    fa_recs += [flash_case(torch, name, bf16, b, s_, 32, 2, 128, None,
+                           plain_rows=rows)
+                for name, b, s_, rows in (("nemotron_prefill_32k", 2, 32768, 1),
+                                          ("nemotron_prefill_4k", 16, 4096, 32))]
     fa_recs += [flash_case(torch, *case, timed=False)
                 for case in demo_flash_shapes()]
     bwd_recs = [flash_bwd_case(torch, *case) for case in (
@@ -7190,6 +7227,15 @@ def main() -> int:
                                             HYBRID_PARITY_LAYERS)),
         tag="hybrid_parity")
     del hy_params
+    # 17c. the mixed family at full width: Nemotron-3-Nano's first pipeline
+    # stage (13 of 52 layers), generate with 2 flash_fwd launches a prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx_cfg, mx_params, record["mixed_init_s"] = lm_model(torch, MIXED_ARCH,
+                                                         mixed_stage)
+    record["mixed_serving"], mixed_launches = lm_serve(
+        torch, mx_cfg, mx_params, tag="mixed_serving")
+    del mx_params
     record["ssm_hybrid_phases_s"] = time.perf_counter() - t_ssm
     log(f"ssm_hybrid_phases_s {record['ssm_hybrid_phases_s']}")
 
@@ -7282,6 +7328,7 @@ def main() -> int:
                       "ssm_serving": ssm_launches[name],
                       "ssm_batcher": ssm_batcher_launches[name],
                       "hybrid_serving": hybrid_launches[name],
+                      "mixed_serving": mixed_launches[name],
                       "moe_training": moe_train_launches[name],
                       "ssm_training": ssm_train_launches[name],
                       "hybrid_training": hybrid_train_launches[name],

@@ -2,7 +2,9 @@
 paper's own SNN).
 
 ``get_config(name)`` returns the exact published full-scale config;
-``get_reduced(name)`` returns a same-family CPU-smoke shrink.
+``get_reduced(name)`` returns a same-family CPU-smoke shrink. A config of
+the port's own (``nemotron3_nano_30b_a3b``, the ``mixed`` family) is found
+by name but stays out of ``ARCH_IDS``, which mirrors the JAX registry.
 """
 from __future__ import annotations
 
@@ -55,10 +57,15 @@ def make_reduced(cfg: ModelConfig) -> ModelConfig:
         kw["mrope_sections"] = (2, 3, 3)
     if cfg.swa_window:
         kw["swa_window"] = 8
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "mixed"):
         kw.update(moe_experts=4, moe_top_k=min(2, cfg.moe_top_k))
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "mixed"):
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    if cfg.family == "mixed":
+        kw.update(n_layers=5, layer_pattern="MEM*E",
+                  ssm_groups=min(2, cfg.ssm_groups),
+                  ssm_n_heads=4 if cfg.ssm_n_heads else 0,
+                  moe_shared_ff=64 if cfg.moe_shared_ff else 0)
     if cfg.family == "hybrid":
         kw.update(hybrid_attn_every=2)
     if cfg.frontend:

@@ -3,14 +3,18 @@
 One ``ModelConfig`` describes any member of the assigned pool (dense / MoE /
 SSM / hybrid / VLM / audio LM families) plus the paper's add-ons (block-N:M
 sparsity via ``SparsityConfig``, OSSL local-update mode, gated optimizer
-updates). ``src/repro_torch/configs/<arch>.py`` files hold the exact published
+updates). The fields after ``tie_embeddings`` are the port's own (the JAX
+package's schema has none of them): the ``mixed`` family's layer pattern,
+Mamba2's groups of B and C and a head count apart from ``ssm_expand``, and
+sigmoid routing with a shared expert; at their defaults every other family
+computes what it computes without them. ``src/repro_torch/configs/<arch>.py`` files hold the exact published
 numbers; ``configs.make_reduced`` shrinks any config to a CPU-smoke size of the same
 family.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +40,7 @@ class SparsityConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio | mixed
     n_layers: int
     d_model: int
     n_heads: int
@@ -72,6 +76,13 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: bool = True
     tie_embeddings: bool = False
+    # --- the port's own fields ---
+    layer_pattern: str = ""        # mixed: a layer's kind, M Mamba2 | E MoE | * attention
+    ssm_groups: int = 1            # groups of B and C; head h reads group h // (H / G)
+    ssm_n_heads: int = 0           # 0: d_inner // ssm_head_dim, d_inner = ssm_expand·d_model
+    moe_scoring: str = "softmax"   # softmax | sigmoid (choice by score + bias)
+    moe_route_scale: float = 1.0   # the renormalised gates' scale
+    moe_shared_ff: int = 0         # a shared expert of this width (0: none)
 
     # ------------------------------------------------------------------
     @property
@@ -80,11 +91,18 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.ssm_n_heads:
+            return self.ssm_n_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
-        return self.d_inner // self.ssm_head_dim
+        return self.ssm_n_heads or self.d_inner // self.ssm_head_dim
+
+    def kind_counts(self) -> Dict[str, int]:
+        """Layers of each kind in ``layer_pattern`` (the mixed family):
+        ``M`` Mamba2, ``E`` MoE, ``*`` attention."""
+        return {k: self.layer_pattern.count(k) for k in "ME*"}
 
     @property
     def is_attention_free(self) -> bool:
@@ -99,9 +117,34 @@ class ModelConfig:
         return dataclasses.replace(self, sparsity=sp)
 
     # ------------------------------------------------------------------
+    def _attn_params(self) -> int:
+        d, dh = self.d_model, self.head_dim
+        return d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
+            + self.n_heads * dh * d                # qkvo
+
+    def _expert_params(self) -> int:
+        """The routed experts of one MoE layer."""
+        ff = 3 if self.act == "swiglu" else 2
+        return self.moe_experts * ff * self.d_model * self.d_ff
+
+    def _moe_params(self) -> int:
+        """Router (and its bias under sigmoid scoring), routed experts and
+        the shared expert of one MoE layer."""
+        d, e = self.d_model, self.moe_experts
+        ff = 3 if self.act == "swiglu" else 2
+        n = d * e + self._expert_params() + ff * d * self.moe_shared_ff
+        return n + (e if self.moe_scoring == "sigmoid" else 0)
+
+    def _mamba_params(self) -> int:
+        d, di, h = self.d_model, self.d_inner, self.ssm_heads
+        gn = self.ssm_groups * self.ssm_state
+        # in_proj -> (z, x, B, C, dt), conv, A/D/dt_bias, norm, out_proj
+        return (d * (2 * di + 2 * gn + h) + self.ssm_conv * (di + 2 * gn)
+                + 3 * h + di + di * d)
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head)."""
-        d, dh = self.d_model, self.head_dim
+        d = self.d_model
         n = 0
         n += self.vocab * d                      # embed
         if not self.tie_embeddings:
@@ -110,43 +153,35 @@ class ModelConfig:
             n += self.frontend_dim * d
         per_layer = 0
         if self.family in ("dense", "vlm", "audio", "moe"):
-            per_layer += d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
-                + self.n_heads * dh * d          # qkvo
+            per_layer += self._attn_params()
             per_layer += 2 * d                   # norms
             if self.family == "moe":
-                e = self.moe_experts
-                per_layer += d * e               # router
-                ff = 3 if self.act == "swiglu" else 2
-                per_layer += e * ff * d * self.d_ff
+                per_layer += self._moe_params()
             else:
                 ff = 3 if self.act == "swiglu" else 2
                 per_layer += ff * d * self.d_ff
         elif self.family in ("ssm", "hybrid"):
-            di, ns = self.d_inner, self.ssm_state
-            # in_proj -> (z, x, B, C, dt), conv, A/D/dt_bias, norm, out_proj
-            per_layer += d * (2 * di + 2 * ns + self.ssm_heads)
-            per_layer += self.ssm_conv * (di + 2 * ns)
-            per_layer += 3 * self.ssm_heads + di   # A, D, dt_bias, gated-norm
-            per_layer += di * d
+            per_layer += self._mamba_params()
             per_layer += d                        # norm
+        elif self.family == "mixed":
+            c = self.kind_counts()
+            per_layer += d                        # norm
+            n += (c["M"] * self._mamba_params() + c["E"] * self._moe_params()
+                  + c["*"] * self._attn_params())
         total = n + self.n_layers * per_layer
         if self.family == "hybrid" and self.hybrid_attn_every:
-            dh_ = self.head_dim
-            shared = (self.d_model * self.n_heads * dh_
-                      + 2 * self.d_model * self.n_kv_heads * dh_
-                      + self.n_heads * dh_ * self.d_model
-                      + 3 * self.d_model * self.d_ff + 2 * self.d_model)
-            total += shared
+            total += self._attn_params() + 3 * d * self.d_ff + 2 * d
         return int(total)
 
     def active_param_count(self) -> int:
         """Active params per token (MoE: only routed experts) — for 6·N_active·D."""
-        if self.family != "moe":
+        if self.family not in ("moe", "mixed"):
             return self.param_count()
         full = self.param_count()
         e, k = self.moe_experts, self.moe_top_k
-        ff = 3 if self.act == "swiglu" else 2
-        expert_p = self.n_layers * e * ff * self.d_model * self.d_ff
+        n_moe = self.n_layers if self.family == "moe" \
+            else self.kind_counts()["E"]
+        expert_p = n_moe * self._expert_params()
         return int(full - expert_p + expert_p * k / e)
 
 

@@ -2,18 +2,21 @@
 
 Both packages then compute on the same numbers: torch and JAX draw
 different values from one seed, so parity tests make their inputs once
-(the reference's ``init_params``, numpy events) and convert them here.
+(the reference's ``init_params``, numpy events) and convert them here,
+and its LM configs (``model_config``).
 SNN floating leaves become float32 at this boundary (numpy defaults to
 float64), integer counters int32, masks bool; LM leaves take the config's
 dtype, with compact row ids as int64 index tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig, SparsityConfig
 from .core.dsst import DSSTAccumulator
 from .core.engine import LayerState
 from .core.gating import GatingState
@@ -106,6 +109,18 @@ def _tree_from_numpy(tree: Any, leaf) -> Any:
     if isinstance(tree, Mapping):
         return {k: _tree_from_numpy(v, leaf) for k, v in tree.items()}
     return leaf(np.asarray(tree))
+
+
+def model_config(cfg: Any) -> ModelConfig:
+    """The port's ``ModelConfig`` of the reference's LM config ``cfg``: the
+    same fields (its ``sparsity`` as the port's ``SparsityConfig``), the
+    port's own fields at their defaults."""
+    def fields(x):
+        return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    kw = fields(cfg)
+    if kw.get("sparsity") is not None:
+        kw["sparsity"] = SparsityConfig(**fields(kw["sparsity"]))
+    return ModelConfig(**kw)
 
 
 def lm_params_from_numpy(np_params: Mapping[str, Any], cfg: Any,

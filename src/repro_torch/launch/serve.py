@@ -5,7 +5,8 @@
 Greedy tokens equal the reference's for the same weights and prompt;
 sampled ones come from torch's own random bits. Under an active tracer
 (``obs.trace.use``) ``generate`` records ``serve.generate`` (``rows``,
-``seq``) over ``serve.prefill``, each with its device time.
+``seq``) over ``serve.prefill`` (for the mixed family with ``kinds``, its
+layers of each kind), each with its device time.
 """
 from __future__ import annotations
 
@@ -80,7 +81,8 @@ def _generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_new: int,
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=gens[i])[:, 0].to(prompt.dtype)
 
-    with active().span("serve.prefill"):
+    kinds = {"kinds": cfg.kind_counts()} if cfg.family == "mixed" else {}
+    with active().span("serve.prefill", **kinds):
         last_logits, cache = T.prefill(params, cfg, prompt, max_seq,
                                        attn=attn)
         toks = [pick(last_logits, 0)]

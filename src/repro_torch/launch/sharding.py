@@ -139,6 +139,7 @@ def spec_slot_dim(spec: PartitionSpec, mesh=None):
 def _rules(cfg: ModelConfig) -> Sequence[Tuple[str, Any]]:
     """(path regex, right-aligned partition tuple, or a list of them to
     try in order). First match wins."""
+    _has_rules(cfg)
     if cfg.moe_shard_experts:      # EP: experts on model
         moe_mat = ("model", None, None)
     else:                          # TP inside experts
@@ -176,6 +177,12 @@ def _rules(cfg: ModelConfig) -> Sequence[Tuple[str, Any]]:
         (r"(norm1|norm2|final_norm|norm_g)$", (None,)),
     ]
     return r
+
+
+def _has_rules(cfg: ModelConfig) -> None:
+    if cfg.family == "mixed":
+        raise NotImplementedError("the mixed family has no sharding rules: "
+                                  "it serves on one device")
 
 
 def _path_str(path) -> str:
@@ -319,6 +326,7 @@ def cache_shardings(cache: Any, cfg: ModelConfig, mesh) -> Any:
     """KV and SSM caches ``[L, B, ...]``: B on the DP axes; KV caches put
     the sequence dim on "model" (else ``dh``), the SSM state its head dim
     ``P``, the conv window its channels."""
+    _has_rules(cfg)
     tp = axis_sizes(mesh)["model"]
 
     def one(path, leaf):

@@ -353,6 +353,9 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams, attn=None,
     ``mesh``: the data-parallel step over that LM mesh (module docstring),
     ``step.dp`` its :class:`DataParallel`; ``batch`` is then the rank's own
     part of the global batch."""
+    if cfg.family == "mixed":
+        raise NotImplementedError("the mixed family serves only: the port "
+                                  "has no training step for it")
     local = hp.mode == "local"
     if hp.mode not in ("backprop", "local"):
         raise ValueError(f"mode must be 'backprop' or 'local', got {hp.mode!r}")

@@ -29,6 +29,13 @@ norm's sum of squares is summed over the ranks. ``a_log``, ``d_skip`` and
 summed. A decode step runs the conv on the cache's own channel block and
 gathers its output; the SSM state never moves.
 
+Groups (``cfg.ssm_groups`` = G, Nemotron-H's ``n_groups``): the projection
+gives G blocks of B and of C, each ``N`` wide, and head ``h`` reads group
+``h // (H / G)``; ``C·Bᵀ`` is computed once a group and read by each head
+of its group, and the gated norm runs over each group's ``d_inner / G``
+channels. With one group B and C stay ``[.., N]`` and every product and
+its order are as above. Tensor parallelism takes one group only.
+
 Within a chunk the recurrence is expanded into an attention-like quadratic
 form; across chunks the small ``[B, H, P, N]`` state is carried by a loop
 over the chunks. The reference's three- and four-operand einsums are
@@ -40,7 +47,9 @@ take the config's dtype, as in the reference.
 
 Tracing (``obs.trace``): the whole-sequence mixer records ``ssm.conv``
 around the causal conv and ``ssm.ssd`` from the f32 ``B`` / ``C`` and
-``dt`` through the ``d_skip`` add: what a fused SSD would replace.
+``dt`` through the ``d_skip`` add: what a fused SSD would replace; its
+host-int attributes ``groups`` and ``state`` tell one configuration's SSD
+from another's.
 """
 from __future__ import annotations
 
@@ -61,32 +70,62 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig, dtype,
     """The mixer's params, drawn from ``gen`` on its device (``in_proj``,
     ``conv_w``, ``out_proj``, in that order); the other leaves are the
     reference's constants, computed in f32 and cast to ``dtype``."""
-    d, di, ns, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    conv_dim = di + 2 * ns
+    d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    gn = cfg.ssm_groups * cfg.ssm_state
+    conv_dim = di + 2 * gn
     sp_mlp = sp if (sp and "mlp" in sp.targets) else None
     dev = gen.device
-
-    def const(v: torch.Tensor) -> torch.Tensor:
-        return v.to(dev, dtype).expand(*lead, -1).clone()
+    consts = ssm_constants(cfg, dtype, dev, lead)
     return {
         # z, xBC, dt: the fused input projection (the dominant matmul)
-        "in_proj": linear_init(gen, d, 2 * di + 2 * ns + h, dtype, sp_mlp,
+        "in_proj": linear_init(gen, d, 2 * di + 2 * gn + h, dtype, sp_mlp,
                                lead=lead),
         "conv_w": _randn(gen, (*lead, cfg.ssm_conv, conv_dim), dtype) * 0.2,
         "conv_b": torch.zeros((*lead, conv_dim), dtype=dtype, device=dev),
-        "a_log": const(torch.log(torch.linspace(1.0, 16.0, h))),
+        "a_log": consts["a_log"],
         "d_skip": torch.ones((*lead, h), dtype=dtype, device=dev),
-        "dt_bias": const(torch.log(torch.expm1(torch.full((h,), 0.01)))),
+        "dt_bias": consts["dt_bias"],
         "norm_g": torch.ones((*lead, di), dtype=dtype, device=dev),
         "out_proj": linear_init(gen, di, d, dtype, sp_mlp, lead=lead),
     }
 
 
+def ssm_constants(cfg: ModelConfig, dtype, device,
+                  lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """The reference's ``a_log`` (decay rates 1..16) and ``dt_bias``
+    (``softplus(dt_bias)`` = 0.01), ``[*lead, H]``, computed in f32 and
+    cast to ``dtype``."""
+    h = cfg.ssm_heads
+
+    def const(v: torch.Tensor) -> torch.Tensor:
+        return v.to(device, dtype).expand(*lead, -1).clone()
+    return {"a_log": const(torch.log(torch.linspace(1.0, 16.0, h))),
+            "dt_bias": const(torch.log(torch.expm1(torch.full((h,), 0.01))))}
+
+
 def _split_proj(p, x, cfg: ModelConfig):
-    di, ns = cfg.d_inner, cfg.ssm_state
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
     zxbcdt = linear_apply(p["in_proj"], x)
-    return (zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * ns],
-            zxbcdt[..., 2 * di + 2 * ns:])
+    return (zxbcdt[..., :di], zxbcdt[..., di: 2 * di + 2 * gn],
+            zxbcdt[..., 2 * di + 2 * gn:])
+
+
+def _bc(xbc: torch.Tensor, cfg: ModelConfig):
+    """B and C in f32 from the conv's output ``[.., d_inner + 2·G·N]``:
+    ``[.., N]`` each for one group, ``[.., G, N]`` for G."""
+    di, g, ns = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    bm, cm = xbc[..., di: di + g * ns].float(), xbc[..., di + g * ns:].float()
+    if g > 1:
+        bm, cm = bm.unflatten(-1, (g, ns)), cm.unflatten(-1, (g, ns))
+    return bm, cm
+
+
+def _per_head(t: torch.Tensor, h: int) -> torch.Tensor:
+    """A decode step's B or C, ``[B, N]`` (one group) or ``[B, G, N]``, as
+    ``[B, 1 or H, N]``: each head its group's row."""
+    if t.dim() == 2:
+        return t[:, None]
+    return t.repeat_interleave(h // t.shape[1], dim=1)
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -111,14 +150,23 @@ def _dt_da(p, dt: torch.Tensor):
 def _ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
          cm: torch.Tensor, q: int):
     """The chunked SSD in f32. xdt [B, S, H, P], da [B, S, H], bm and cm
-    [B, S, N], with S a multiple of the chunk ``q``. Returns y [B, S, H, P]
-    (the skip term not added) and the state after the last position
-    [B, H, P, N]."""
+    [B, S, N] (one group) or [B, S, G, N] (head h reads group h // (H /
+    G)), with S a multiple of the chunk ``q``. Returns y [B, S, H, P] (the
+    skip term not added) and the state after the last position [B, H, P,
+    N].
+
+    The heads are viewed as ``[G, H / G]`` (``[1, H]`` for one group), and
+    B and C as ``[G, 1]``: each product is the one-group SSD's batched
+    matmul, its operands broadcast over a group's heads."""
     b, s, h, pd = xdt.shape
+    g = bm.shape[2] if bm.dim() == 4 else 1
     nc, n = s // q, bm.shape[-1]
+
+    def grouped(t):                       # [B, NC, H, ...] -> [B, NC, G, H/G, ...]
+        return t.unflatten(2, (g, h // g))
     x_c = xdt.reshape(b, nc, q, h, pd).permute(0, 1, 3, 2, 4)       # [B,NC,H,Q,P]
-    b_c = bm.reshape(b, nc, 1, q, n)
-    c_c = cm.reshape(b, nc, 1, q, n)
+    b_c = bm.reshape(b, nc, q, g, n).transpose(2, 3)[:, :, :, None]  # [B,NC,G,1,Q,N]
+    c_c = cm.reshape(b, nc, q, g, n).transpose(2, 3)[:, :, :, None]
     cs = da.reshape(b, nc, q, h).transpose(2, 3).cumsum(-1)          # [B,NC,H,Q]
 
     # within a chunk: y_i = sum_{j <= i} (C_i·B_j) exp(cs_i - cs_j) xdt_j.
@@ -126,20 +174,23 @@ def _ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
     # could overflow (and its gradient, 0 · inf, would be NaN)
     tri = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
     seg = cs[..., :, None] - cs[..., None, :]
-    cb = c_c @ b_c.transpose(-1, -2)
+    cb = c_c @ b_c.transpose(-1, -2)                                  # [B,NC,G,1,Q,Q]
     if torch.is_grad_enabled():
         # out of place: exp saves its output for the backward
-        y = (seg.masked_fill(~tri, float("-inf")).exp() * cb) @ x_c
+        y = (grouped(seg.masked_fill(~tri, float("-inf")).exp()) * cb) \
+            @ grouped(x_c)
     else:
         # one [B, NC, H, Q, Q] tensor, updated in place (671 MB at
         # Mamba2-2.7B's prefill); the same arithmetic as above
         seg.masked_fill_(~tri, float("-inf")).exp_()
-        y = seg.mul_(cb) @ x_c                                        # [B,NC,H,Q,P]
+        y = grouped(seg).mul_(cb) @ grouped(x_c)                      # [B,NC,G,H/G,Q,P]
+    y = y.flatten(2, 3)                                               # [B,NC,H,Q,P]
     del seg, cb
 
     # each chunk's end state from its own inputs, and its total decay
     decay_to_end = torch.exp(cs[..., -1:] - cs)                       # [B,NC,H,Q]
-    local = (x_c * decay_to_end[..., None]).transpose(-1, -2) @ b_c   # [B,NC,H,P,N]
+    local = (grouped(x_c * decay_to_end[..., None]).transpose(-1, -2)
+             @ b_c).flatten(2, 3)                                     # [B,NC,H,P,N]
     chunk_decay = torch.exp(cs[..., -1])                              # [B,NC,H]
 
     # across chunks: the state entering each chunk
@@ -149,7 +200,8 @@ def _ssd(xdt: torch.Tensor, da: torch.Tensor, bm: torch.Tensor,
         entering.append(state)
         state = chunk_decay[:, c, :, None, None] * state + local[:, c]
     s_prev = torch.stack(entering, 1)                                 # [B,NC,H,P,N]
-    y = y + (c_c @ s_prev.transpose(-1, -2)) * torch.exp(cs)[..., None]
+    y_off = (c_c @ grouped(s_prev).transpose(-1, -2)).flatten(2, 3)
+    y = y + y_off * torch.exp(cs)[..., None]
     return y.permute(0, 1, 3, 2, 4).reshape(b, s, h, pd), state
 
 
@@ -158,15 +210,15 @@ def _mamba2(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool):
     if tp is not None and tp.size > 1:
         return _mamba2_tp(p, x, cfg, want_cache, tp)
     b, s, _ = x.shape
-    di, ns, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, h, pd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     q = cfg.ssm_chunk
 
     z, xbc_in, dt = _split_proj(p, x, cfg)
     with active().span("ssm.conv"):
         xbc = _causal_conv(xbc_in, p["conv_w"], p["conv_b"])
     xs = xbc[..., :di].reshape(b, s, h, pd)
-    with active().span("ssm.ssd"):
-        bm, cm = xbc[..., di: di + ns].float(), xbc[..., di + ns:].float()
+    with active().span("ssm.ssd", groups=cfg.ssm_groups, state=cfg.ssm_state):
+        bm, cm = _bc(xbc, cfg)
         dt, da = _dt_da(p, dt)
         xdt = xs.float() * dt[..., None]
         pad = -s % q
@@ -174,12 +226,13 @@ def _mamba2(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool):
             # padded positions carry da = 0 and xdt = 0: the state passes
             # them unchanged, and their rows of y are dropped
             xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
-            da, bm, cm = (F.pad(t, (0, 0, 0, pad)) for t in (da, bm, cm))
+            da = F.pad(da, (0, 0, 0, pad))
+            bm, cm = (_pad_time(t, pad) for t in (bm, cm))
         y, state = _ssd(xdt, da, bm, cm, q)
         y = y[:, :s] + p["d_skip"].float()[:, None] * xs.float()
     y = y.reshape(b, s, di).to(x.dtype)
 
-    y = rmsnorm(p["norm_g"], y * F.silu(z), cfg.norm_eps)
+    y = _gated_norm(p["norm_g"], y, z, cfg.norm_eps, None, cfg.ssm_groups)
     out = linear_apply(p["out_proj"], y)
     if not want_cache:
         return out
@@ -188,6 +241,11 @@ def _mamba2(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool):
     w1 = cfg.ssm_conv - 1
     tail = F.pad(xbc_in[:, max(0, s - w1):], (0, 0, max(0, w1 - s), 0))
     return out, state, tail
+
+
+def _pad_time(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` [B, S, ...] with ``pad`` zero positions after the last."""
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
 
 
 # ---------------------------------------------------------------------------
@@ -216,10 +274,15 @@ def _replicated_ssm(p, tp):
     return {k: tp.grad_sum(p[k]) for k in ("a_log", "d_skip", "dt_bias")}
 
 
-def _gated_norm(g, y, z, eps: float, tp):
-    """``rmsnorm(g, y * silu(z))`` over the whole ``d_inner`` from this
-    rank's head block: the sum of squares summed over the model axis."""
+def _gated_norm(g, y, z, eps: float, tp, groups: int = 1):
+    """``rmsnorm(g, y * silu(z))`` over the whole ``d_inner``, or over each
+    group's ``d_inner / groups`` channels; under tensor parallelism (one
+    group) from this rank's head block: the sum of squares summed over
+    the model axis."""
     x = y * F.silu(z)
+    if groups > 1:
+        return rmsnorm(g.unflatten(-1, (groups, -1)),
+                       x.unflatten(-1, (groups, -1)), eps).flatten(-2)
     if tp is None or tp.size == 1:
         return rmsnorm(g, x, eps)
     x32 = x.float()
@@ -238,11 +301,19 @@ def _heads_out(p, y, z, x_dtype, cfg: ModelConfig, tp, lead):
     return linear_apply(p["out_proj"], y, _sp(cfg))
 
 
+def _one_group(cfg: ModelConfig) -> None:
+    if cfg.ssm_groups != 1:
+        raise NotImplementedError(
+            f"tensor parallelism of a Mamba2 mixer with {cfg.ssm_groups} "
+            "groups of B and C: the port splits one group only")
+
+
 def _mamba2_tp(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool, tp):
     """``_mamba2`` on this rank's blocks; ``x`` the replicated input. The
     output is partial (the caller sums it over the model axis); the cache
     is this rank's ``P`` block of the state and channel block of the conv
     window."""
+    _one_group(cfg)
     b, s, _ = x.shape
     di, ns, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     pl, q, dl = cfg.ssm_head_dim // tp.size, cfg.ssm_chunk, di // tp.size
@@ -254,7 +325,7 @@ def _mamba2_tp(p, x: torch.Tensor, cfg: ModelConfig, want_cache: bool, tp):
                            _p_block(tp.enter_cols(p["conv_w"]), cfg, tp),
                            _p_block(tp.enter_cols(p["conv_b"]), cfg, tp))
     xs = xbc[..., :h * pl].reshape(b, s, h, pl)
-    with active().span("ssm.ssd"):
+    with active().span("ssm.ssd", groups=cfg.ssm_groups, state=cfg.ssm_state):
         bm = xbc[..., h * pl: h * pl + ns].float()
         cm = xbc[..., h * pl + ns:].float()
         rp = _replicated_ssm(p, tp)
@@ -280,6 +351,7 @@ def _decode_tp(p, x: torch.Tensor, cache, cfg: ModelConfig, tp):
     """``mamba2_decode`` on this rank's blocks: the conv over the cache's
     channel block, its output gathered; the state's ``P`` block updated in
     place. Returns the partial ``[B, 1, D]``."""
+    _one_group(cfg)
     b = x.shape[0]
     di, ns, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     pl, dl = cfg.ssm_head_dim // tp.size, di // tp.size
@@ -327,9 +399,9 @@ def mamba2_prefill(p, x: torch.Tensor, cfg: ModelConfig):
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype, device="cuda",
                       lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
-    """``conv [*lead, B, W-1, C]`` in ``dtype``, ``ssm [*lead, B, H, P, N]``
-    in f32, zero."""
-    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    """``conv [*lead, B, W-1, C]`` in ``dtype`` (``C = d_inner + 2·G·N``),
+    ``ssm [*lead, B, H, P, N]`` in f32, zero."""
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     return {
         "conv": torch.zeros((*lead, batch, cfg.ssm_conv - 1, conv_dim),
                             dtype=dtype, device=device),
@@ -349,7 +421,7 @@ def mamba2_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     tp = spmd.active_tp()
     if tp is not None and tp.size > 1:
         return _decode_tp(p, x, cache, cfg, tp), cache
-    di, ns, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    di, h, pd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
 
     z, xbc, dt = _split_proj(p, x[:, 0, :], cfg)
     # conv over the rolling window
@@ -358,15 +430,15 @@ def mamba2_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     cache["conv"].copy_(window[:, 1:])
 
     xs = conv_out[..., :di].reshape(b, h, pd)
-    bm, cm = conv_out[..., di: di + ns].float(), conv_out[..., di + ns:].float()
+    bm, cm = (_per_head(t, h) for t in _bc(conv_out, cfg))             # [B, 1|H, N]
     dt, da = _dt_da(p, dt)                                             # [B, H]
     xdt = xs.float() * dt[..., None]                                   # [B, H, P]
     ssm = cache["ssm"]
     ssm.mul_(torch.exp(da)[:, :, None, None]).add_(
-        xdt[..., None] * bm[:, None, None, :])
-    y = (ssm @ cm[:, None, :, None])[..., 0]                           # [B, H, P]
+        xdt[..., None] * bm[:, :, None, :])
+    y = (ssm @ cm[..., None])[..., 0]                                  # [B, H, P]
     y = y + p["d_skip"].float()[:, None] * xs.float()
     y = y.reshape(b, di).to(x.dtype)
 
-    y = rmsnorm(p["norm_g"], y * F.silu(z), cfg.norm_eps)
+    y = _gated_norm(p["norm_g"], y, z, cfg.norm_eps, None, cfg.ssm_groups)
     return linear_apply(p["out_proj"], y)[:, None, :], cache

@@ -1,5 +1,15 @@
 """Mixture-of-Experts layer (``repro.models.moe``): the Mixtral and
-Moonlight families.
+Moonlight families, and Nemotron-H's MoE layers.
+
+Routing (``cfg.moe_scoring``): ``"softmax"``, the reference's, takes the
+top k of the softmax of the router's logits and renormalises their
+probabilities to sum to 1. ``"sigmoid"`` (Nemotron-H, DeepSeek-V3's
+``noaux_tc`` with one group) scores each expert ``σ(x·W)`` in f32, chooses
+the top k of ``score + bias`` (the ``[E]`` leaf ``bias`` steers the choice
+only) and gates them by their scores, renormalised and times
+``cfg.moe_route_scale``. A shared expert (``cfg.moe_shared_ff`` > 0, the
+leaf ``shared``: an MLP of ``models/layers`` of that width) sees every
+token and is added to the routed output.
 
 Token-choice top-k routing with capacity-bounded scatter dispatch: each
 (token, choice) is ranked within its expert by a stable sort and scattered
@@ -57,7 +67,8 @@ Tracing (``obs.trace``): the layer records ``moe.route`` (routing, the
 slot maps and the buffer's gather; attributes ``choices`` = N·K and
 ``slots`` = E·C, host ints, and ``dropped``, the ``moe_dropped`` device
 scalar, so ``choices · (1 - dropped) / slots`` is the buffer's useful
-share), ``moe.experts`` and ``moe.combine``.
+share), ``moe.experts``, ``moe.combine`` and, with a shared expert,
+``moe.shared``. The shared expert runs on one device only (no mesh).
 """
 from __future__ import annotations
 
@@ -73,7 +84,7 @@ from ..core.sparsity import NMSpec
 from ..launch import spmd
 from ..launch.mesh import AbstractMesh, dp_size as mesh_dp_size
 from ..obs.trace import active
-from .layers import _randn, _rows_from_umask, unit_masks
+from .layers import _randn, _rows_from_umask, mlp_apply, mlp_init, unit_masks
 
 
 def _randn_scaled(gen: torch.Generator, shape, dtype, scale: float):
@@ -105,7 +116,9 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype,
              sp: Optional[SparsityConfig] = None, lead: Tuple[int, ...] = ()):
     """Router ``[*lead, D, E]`` and expert matrices ``w1``, ``w2`` (and
     ``w3`` for swiglu), drawn from ``gen`` on its device; ``lead`` stacks
-    layers as ``layers.linear_init`` does."""
+    layers as ``layers.linear_init`` does. Sigmoid scoring adds the
+    selection bias ``[*lead, E]`` (zero), a shared expert its dense MLP
+    ``shared`` (drawn last)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
     sp_e = sp if (sp and "expert" in sp.targets) else None
     p: Dict[str, object] = {
@@ -114,6 +127,11 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype,
     p["w2"] = _expert_mat(gen, e, f, d, dtype, sp_e, lead)
     if cfg.act == "swiglu":
         p["w3"] = _expert_mat(gen, e, d, f, dtype, sp_e, lead)
+    if cfg.moe_scoring == "sigmoid":
+        p["bias"] = torch.zeros((*lead, e), dtype=dtype, device=gen.device)
+    if cfg.moe_shared_ff:
+        p["shared"] = mlp_init(gen, cfg, dtype, d_ff=cfg.moe_shared_ff,
+                               lead=lead)
     return p
 
 
@@ -147,11 +165,34 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
+def _route(flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
+           bias: Optional[torch.Tensor]):
+    """``(eids [N, K], gate [N, K] in flat's dtype, probs [N, E] f32)``:
+    the chosen experts, their gates, and each token's shares of the
+    experts that ``moe_aux`` averages (module docstring)."""
+    k = cfg.moe_top_k
+    if cfg.moe_scoring == "softmax":
+        logits = flat @ router_w.to(flat.dtype)                 # [N, E]
+        probs = torch.softmax(logits.float(), dim=-1)
+        eids = _top_k_ids(probs, k)                             # [N, K]
+        gate = torch.gather(probs, -1, eids)
+        return eids, (gate / gate.sum(-1, keepdim=True)).to(flat.dtype), probs
+    if cfg.moe_scoring != "sigmoid":
+        raise ValueError(f"moe_scoring must be 'softmax' or 'sigmoid', got "
+                         f"{cfg.moe_scoring!r}")
+    scores = torch.sigmoid(flat.float() @ router_w.float())     # [N, E]
+    eids = _top_k_ids(scores if bias is None else scores + bias.float(), k)
+    gate = torch.gather(scores, -1, eids)
+    gate = gate / gate.sum(-1, keepdim=True) * cfg.moe_route_scale
+    return eids, gate.to(flat.dtype), scores / scores.sum(-1, keepdim=True)
+
+
 def _dispatch(flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
-              c: int, mesh=None):
+              c: int, mesh=None, bias: Optional[torch.Tensor] = None):
     """Route flat ``[N, D]`` tokens: ``(slot [N·K], gate [N, K], aux)``.
     ``slot`` is ``expert·C + rank`` for a kept choice and ``E·C`` (the
-    trash row) for a dropped one.
+    trash row) for a dropped one; ``bias`` is sigmoid scoring's selection
+    bias.
 
     ``mesh`` with DP axes above 1: these are this rank's tokens within the
     global batch (the DP ranks' tokens in DP-rank order). Every rank
@@ -163,11 +204,7 @@ def _dispatch(flat: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
     this rank's own)."""
     n = flat.shape[0]
     e, k = cfg.moe_experts, cfg.moe_top_k
-    logits = flat @ router_w.to(flat.dtype)                     # [N, E]
-    probs = torch.softmax(logits.float(), dim=-1)
-    eids = _top_k_ids(probs, k)                                 # [N, K]
-    gate = torch.gather(probs, -1, eids)
-    gate = (gate / gate.sum(-1, keepdim=True)).to(flat.dtype)
+    eids, gate, probs = _route(flat, router_w, cfg, bias)
 
     # rank of each (token, choice) within its expert, in (global) token order
     mine = eids.reshape(-1)                                     # [N·K]
@@ -388,7 +425,8 @@ def _moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp,
     with active().span("moe.route") as sp:
         if shard_mapped or dp_n == 1:
             c = capacity(n, cfg)
-            slot, gate, aux = _dispatch(flat, p["router"], cfg, c)
+            slot, gate, aux = _dispatch(flat, p["router"], cfg, c,
+                                        bias=p.get("bias"))
             if dp_n > 1:
                 # one collective for the three: moe_aux's gradient is this
                 # rank's
@@ -400,7 +438,8 @@ def _moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp,
                        "moe_load": flat_aux[2:]}
         else:
             c = capacity(n * dp_n, cfg)
-            slot, gate, aux = _dispatch(flat, p["router"], cfg, c, mesh)
+            slot, gate, aux = _dispatch(flat, p["router"], cfg, c, mesh,
+                                        p.get("bias"))
             slot, c = _own_runs(slot, e, c)
         sp.set(choices=n * k, slots=e * c, dropped=aux["moe_dropped"])
         tokens = flat
@@ -425,6 +464,11 @@ def _moe_layer(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp,
             eout = _expert_ffn(wl, buf, cfg)
     with active().span("moe.combine"):
         out = _combine(flat, eout, slot, row, gate).reshape(b, s, d)
+    if "shared" in p:
+        if tp_n > 1 or dp_n > 1:
+            raise NotImplementedError("a shared expert over a mesh")
+        with active().span("moe.shared"):
+            out = out + mlp_apply(p["shared"], x, cfg)
     if tp_n > 1:
         out = tp.leave(out) if tp is not None else \
             spmd.sum_over(out, [spmd.model_group(mesh)])

@@ -6,6 +6,21 @@ serve and train. The hybrid's shared block is one set of params: under
 remat each checkpointed block that calls it recomputes it, and its
 gradient is the sum over its calls.
 
+The port's own family ``mixed`` (Nemotron-H) serves only (no training,
+no sharding rules): a stack of single-mixer layers ``h + mixer(norm(h))``
+whose kinds follow ``cfg.layer_pattern``, ``M`` a Mamba2 mixer, ``E`` a
+MoE layer, ``*`` attention (without rope where ``rope_mode`` is
+``"none"``). Its tree stacks each kind's leaves over that kind's layers:
+``layers.norm`` ``[L, D]``, ``mamba.*`` ``[n_M, ...]``, ``moe.*`` ``[n_E,
+...]``, ``attn.*`` ``[n_A, ...]``; a Mamba2 layer's ``a_log`` and
+``dt_bias`` are kept per layer, ``[L, H]`` under ``layers`` (the layout
+``portbench``'s weight loader gives per-layer leaves), their rows of other
+kinds holding the init's constants and never read. A layer is
+viewed as a block of the other families is (``_mixed_layer``), so one
+layer loop runs them all. The decode cache holds the conv window and SSM
+state of the ``M`` layers and the KV caches of the ``*`` layers, each
+kind's at its row in that kind's stack; an ``E`` layer keeps nothing.
+
 * ``init_params``   — stacked per-layer params (``[L, ...]`` leaves, the
   reference's tree; ``shared`` for the hybrid), drawn from a
   ``torch.Generator`` on its device; with ``local_heads`` the OSSL
@@ -60,7 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -75,6 +90,8 @@ from . import moe as MOE
 
 ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 SSM_FAMILIES = ("ssm", "hybrid")
+MIXED = "mixed"
+KINDS = {"M": "mamba", "E": "moe", "*": "attn"}
 CHUNKED_ATTN_THRESHOLD = 2048
 
 
@@ -83,8 +100,55 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ATTN_FAMILIES + SSM_FAMILIES:
+    if cfg.family not in ATTN_FAMILIES + SSM_FAMILIES + (MIXED,):
         raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family == MIXED and (len(cfg.layer_pattern) != cfg.n_layers
+                                or set(cfg.layer_pattern) - set(KINDS)):
+        raise ValueError(f"layer_pattern {cfg.layer_pattern!r} is not "
+                         f"{cfg.n_layers} layers of M, E and *")
+
+
+def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    """The mixed family's layers: (kind, index in that kind's stack)."""
+    seen = dict.fromkeys(KINDS, 0)
+    out = []
+    for c in cfg.layer_pattern:
+        out.append((c, seen[c]))
+        seen[c] += 1
+    return out
+
+
+# a mixed layer's view: (its norm's name, its mixer's name) as a block of
+# another family names them
+_VIEW = {"M": ("norm1", "mixer"), "*": ("norm1", "attn"), "E": ("norm2", "moe")}
+
+
+def _mixed_layer(params, i: int, kind: str, j: int):
+    """Layer ``i`` of the mixed family, the ``j``-th of its kind, as the
+    view of a block of another family: an ``M`` layer an ssm layer's
+    ``{"norm1", "mixer"}`` (with its rows of ``layers.a_log`` /
+    ``layers.dt_bias``), a ``*`` layer a block's attention half ``{"norm1",
+    "attn"}``, an ``E`` layer its MoE half ``{"norm2", "moe"}``."""
+    lp = params["layers"]
+    p = layer_view(params[KINDS[kind]], j)
+    if kind == "M":
+        p = dict(p, a_log=lp["a_log"][i], dt_bias=lp["dt_bias"][i])
+    norm, mixer = _VIEW[kind]
+    return {norm: lp["norm"][i], mixer: p}
+
+
+def _layer(params, cfg: ModelConfig, i: int):
+    if cfg.family == MIXED:
+        return _mixed_layer(params, i, *layer_kinds(cfg)[i])
+    return layer_view(params["layers"], i)
+
+
+def _cache_rows(cfg: ModelConfig) -> List[int]:
+    """Each layer's row in the decode cache of its kind: layer ``i``'s own
+    row, or in the mixed family its index among the layers of its kind."""
+    if cfg.family == MIXED:
+        return [j for _, j in layer_kinds(cfg)]
+    return list(range(cfg.n_layers))
 
 
 def _shared_slot(cfg: ModelConfig, shared, i: int):
@@ -123,6 +187,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda",
     _check_family(cfg)
     dtype, dev = _dtype(cfg), gen.device
     lead = (cfg.n_layers,)
+    if cfg.family == MIXED:
+        return _to(_mixed_init(gen, cfg, dtype), device)
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg, dtype),
         "layers": {"norm1": L.rmsnorm_init(cfg.d_model, dtype, dev, lead)},
@@ -155,6 +221,30 @@ def init_params_shaped(cfg: ModelConfig, local_heads: bool = False
     and dtype, with no memory and no draw (the dry run's params)."""
     return init_params(L.MetaGenerator(), cfg, device="meta",
                        local_heads=local_heads)
+
+
+def _mixed_init(gen: torch.Generator, cfg: ModelConfig, dtype):
+    """The mixed family's tree (module docstring), drawn embedding, Mamba2
+    stack, MoE stack, attention stack, head."""
+    dev, c = gen.device, cfg.kind_counts()
+    params: Dict[str, Any] = {
+        "embed": L.embed_init(gen, cfg, dtype),
+        "layers": {"norm": L.rmsnorm_init(cfg.d_model, dtype, dev,
+                                          (cfg.n_layers,)),
+                   **M.ssm_constants(cfg, dtype, dev, (cfg.n_layers,))},
+        "final_norm": L.rmsnorm_init(cfg.d_model, dtype, dev)}
+    if c["M"]:
+        mix = M.mamba2_init(gen, cfg, dtype, cfg.sparsity, (c["M"],))
+        params["mamba"] = {k: v for k, v in mix.items()
+                           if k not in ("a_log", "dt_bias")}
+    if c["E"]:
+        params["moe"] = MOE.moe_init(gen, cfg, dtype, cfg.sparsity, (c["E"],))
+    if c["*"]:
+        params["attn"] = L.attn_init(gen, cfg, dtype, cfg.sparsity, (c["*"],))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._randn(gen, (cfg.d_model, cfg.vocab), dtype) \
+            * (cfg.d_model ** -0.5)
+    return params
 
 
 def _shared_block_init(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -211,7 +301,7 @@ def _ffn(lp, h, cfg: ModelConfig):
     (out, moe aux or None). The hybrid's shared block takes it too (its MLP
     is dense, so the sparsity config changes nothing there)."""
     hn = L.rmsnorm(lp["norm2"], h, cfg.norm_eps)
-    if cfg.family == "moe":
+    if "moe" in lp:
         return MOE.moe_apply(lp["moe"], hn, cfg)
     return _leave(L.mlp_apply(lp["mlp"], _enter(hn), cfg, cfg.sparsity)), None
 
@@ -232,20 +322,26 @@ def _leave(y):
 def _block(lp, h, angles, cfg: ModelConfig, attn_fn, shared=None):
     """One block: (h_out, (k, v) or None, moe aux or None). Attention + MLP
     (or MoE); or, for ssm and hybrid, the Mamba2 mixer followed by the
-    shared block where ``shared`` is given (its K/V returned)."""
-    if cfg.family in SSM_FAMILIES:
+    shared block where ``shared`` is given (its K/V returned). A mixed
+    family's layer is one of these three mixers (``_mixed_layer``): the
+    halves its view holds run."""
+    if "mixer" in lp:
         h = h + _leave(M.mamba2_forward(
             lp["mixer"], _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps)), cfg))
         if shared is None:
             return h, None, None
         h, kv = _shared_apply(shared, h, angles, cfg, attn_fn)
         return h, kv, None
-    hn = _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps))
-    with active().span("attn"):
-        a, kv = attn_fn(lp["attn"], hn, angles, cfg, cfg.sparsity)
-    h = h + _leave(a)
-    f, aux = _ffn(lp, h, cfg)
-    return h + f, kv, aux
+    kv = aux = None
+    if "attn" in lp:
+        hn = _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps))
+        with active().span("attn"):
+            a, kv = attn_fn(lp["attn"], hn, angles, cfg, cfg.sparsity)
+        h = h + _leave(a)
+    if "norm2" in lp:
+        f, aux = _ffn(lp, h, cfg)
+        h = h + f
+    return h, kv, aux
 
 
 def _shared_apply(shared, h, angles, cfg: ModelConfig, attn_fn):
@@ -450,7 +546,7 @@ def _forward(params, cfg: ModelConfig, tokens, embeds, positions, attn,
         h_in = h.detach() if local_mode else h
         head = layer_view(heads, i) if heads is not None else None
         sh = shared if _shared_slot(cfg, shared, i) is not None else None
-        args = (layer_view(params["layers"], i), head, h_in, angles, cfg,
+        args = (_layer(params, cfg, i), head, h_in, angles, cfg,
                 attn_fn, sh, spmd.scope())
         h, ll, maux = (checkpoint(_train_block, *args, use_reentrant=False)
                        if remat else _train_block(*args))
@@ -619,7 +715,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     ``{"pos": 0, "k", "v": [L, B, C, KV, dh]}``. ssm and hybrid: ``conv [L,
     B, W-1, C]`` in the config's dtype and ``ssm [L, B, H, P, N]`` in f32;
     the hybrid adds ``shared_k``/``shared_v [L // every, B, C, KV, dh]``,
-    one ring per shared-block call. ``C = cache_len(cfg, max_seq)``.
+    one ring per shared-block call. mixed: ``conv`` and ``ssm`` ``[n_M,
+    ...]`` and ``k``, ``v`` ``[n_A, ...]``, present where the pattern has
+    such layers. ``C = cache_len(cfg, max_seq)``.
 
     ``mesh`` (a ``DeviceMesh``; tensor parallelism): every tensor is a
     ``DTensor`` placed by ``launch.sharding.cache_shardings``, each rank
@@ -635,6 +733,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                            dtype=dtype, device=device)
     if cfg.family in ATTN_FAMILIES:
         return {"pos": 0, "k": kv(cfg.n_layers), "v": kv(cfg.n_layers)}
+    if cfg.family == MIXED:
+        n = cfg.kind_counts()
+        cache = {"pos": 0}
+        if n["M"]:
+            cache.update(M.mamba2_init_cache(cfg, batch, dtype, device,
+                                             lead=(n["M"],)))
+        if n["*"]:
+            cache["k"], cache["v"] = kv(n["*"]), kv(n["*"])
+        return cache
     cache = {"pos": 0, **M.mamba2_init_cache(cfg, batch, dtype, device,
                                              lead=(cfg.n_layers,))}
     if cfg.family == "hybrid" and cfg.hybrid_attn_every:
@@ -742,19 +849,22 @@ def _prefill(params, cfg: ModelConfig, tokens, max_seq: int, attn, tp):
     slots = [(s - take + i) % c for i in range(take)]     # host ints
     ring = torch.tensor(slots, device=h.device)
     shared = params.get("shared")
-    for i in range(cfg.n_layers):
-        lp = layer_view(params["layers"], i)
-        if cfg.family in ATTN_FAMILIES:
-            h, (k, v), _ = _block(lp, h, angles, cfg, attn_fn)
-            ck, cv = (cache["k"][i], cache["v"][i]) if tp is None \
+    for i, r in enumerate(_cache_rows(cfg)):
+        lp = _layer(params, cfg, i)
+        if "mixer" not in lp:
+            h, kv, _ = _block(lp, h, angles, cfg, attn_fn)
+            if kv is None:                  # a mixed family's MoE layer
+                continue
+            k, v = kv
+            ck, cv = (cache["k"][r], cache["v"][r]) if tp is None \
                 else (None, None)
         else:
             o, st, tail = M.mamba2_prefill(
                 lp["mixer"], _enter(L.rmsnorm(lp["norm1"], h, cfg.norm_eps)),
                 cfg)
             h = h + _leave(o)
-            _local(cache["ssm"])[i] = st
-            _local(cache["conv"])[i] = tail
+            _local(cache["ssm"])[r] = st
+            _local(cache["conv"])[r] = tail
             slot = _shared_slot(cfg, shared, i)
             if slot is None:
                 continue
@@ -765,7 +875,7 @@ def _prefill(params, cfg: ModelConfig, tokens, max_seq: int, attn, tp):
                 continue
             ck, cv = cache["shared_k"][slot], cache["shared_v"][slot]
         if tp is not None:
-            _tp_write(cache, i, k[:, s - take:], v[:, s - take:], slots,
+            _tp_write(cache, r, k[:, s - take:], v[:, s - take:], slots,
                       cfg, tp)
             continue
         ck[:, ring] = k[:, s - take:]
@@ -801,12 +911,12 @@ def _decode_step(params, cache, tokens, cfg: ModelConfig, tp):
     angles = _angles_for(cfg, torch.stack([p1] * 3)
                          if cfg.rope_mode == "mrope" else p1, b, 1, h.device)
     shared = params.get("shared")
-    for i in range(cfg.n_layers):
-        lp = layer_view(params["layers"], i)
-        hn = L.rmsnorm(lp["norm1"], h, cfg.norm_eps)
-        if cfg.family in SSM_FAMILIES:
-            mc = {"conv": _local(cache["conv"])[i],
-                  "ssm": _local(cache["ssm"])[i]}
+    for i, r in enumerate(_cache_rows(cfg)):
+        lp = _layer(params, cfg, i)
+        if "mixer" in lp:
+            hn = L.rmsnorm(lp["norm1"], h, cfg.norm_eps)
+            mc = {"conv": _local(cache["conv"])[r],
+                  "ssm": _local(cache["ssm"])[r]}
             h = h + _leave(M.mamba2_decode(lp["mixer"], _enter(hn), mc,
                                            cfg)[0])
             slot = _shared_slot(cfg, shared, i)
@@ -816,17 +926,20 @@ def _decode_step(params, cache, tokens, cfg: ModelConfig, tp):
                     _local(cache["shared_v"])[slot], pos, cfg,
                     _CACHE_SPLIT.get(spmd.model_dim(cache["shared_k"])))
             continue
-        if tp is not None:
-            a = L.attn_decode_tp(
-                lp["attn"], _enter(hn), angles, cache["k"].to_local()[i],
-                cache["v"].to_local()[i],
-                _CACHE_SPLIT.get(spmd.model_dim(cache["k"])), pos, cfg,
-                cfg.sparsity)
-            h = h + _leave(a)
-        else:
-            a, _, _ = L.attn_decode(lp["attn"], hn, angles, cache["k"][i],
-                                    cache["v"][i], pos, cfg, cfg.sparsity)
-            h = h + a
-        h = h + _ffn(lp, h, cfg)[0]
+        if "attn" in lp:
+            hn = L.rmsnorm(lp["norm1"], h, cfg.norm_eps)
+            if tp is not None:
+                a = L.attn_decode_tp(
+                    lp["attn"], _enter(hn), angles, cache["k"].to_local()[r],
+                    cache["v"].to_local()[r],
+                    _CACHE_SPLIT.get(spmd.model_dim(cache["k"])), pos, cfg,
+                    cfg.sparsity)
+                h = h + _leave(a)
+            else:
+                a, _, _ = L.attn_decode(lp["attn"], hn, angles, cache["k"][r],
+                                        cache["v"][r], pos, cfg, cfg.sparsity)
+                h = h + a
+        if "norm2" in lp:
+            h = h + _ffn(lp, h, cfg)[0]
     new_cache = dict(cache, pos=pos + 1)
     return _head(params, cfg, h)[:, 0, :], new_cache

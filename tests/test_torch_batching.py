@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 
 @functools.lru_cache(maxsize=None)
 def _model(arch):
-    cfg = JC.get_reduced(arch)
+    cfg = convert.model_config(JC.get_reduced(arch))
     jp = JT.init_params(jax.random.PRNGKey(0), cfg)
     return cfg, jp, convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp),
                                                  cfg, "cpu")

@@ -1,8 +1,9 @@
 """The PyTorch port's configs and package boundary.
 
 No numeric tolerance here: config field names and defaults must equal the
-JAX reference's exactly, and the port must import neither ``jax`` nor
-anything of ``repro``.
+JAX reference's exactly (``ModelConfig``'s own fields, which the mixed
+family reads, follow the reference's with their defaults pinned), and the
+port must import neither ``jax`` nor anything of ``repro``.
 """
 import ast
 import dataclasses
@@ -55,6 +56,13 @@ def _fields(cls):
     return out
 
 
+# The port's own fields, after the reference's, and their defaults: at these
+# every family the reference has computes as it does there
+PORT_ONLY = {"ModelConfig": [("layer_pattern", ""), ("ssm_groups", 1),
+                             ("ssm_n_heads", 0), ("moe_scoring", "softmax"),
+                             ("moe_route_scale", 1.0), ("moe_shared_ff", 0)]}
+
+
 @pytest.mark.parametrize("ref,port", [(JSNNConfig, SNNConfig),
                                       (JDSSTConfig, DSSTConfig),
                                       (JGatingConfig, GatingConfig),
@@ -70,7 +78,8 @@ def _fields(cls):
                               "OSSLConfig", "AdamWConfig", "PipelineConfig",
                               "TrainHParams"])
 def test_config_fields_and_defaults_match_reference(ref, port):
-    assert _fields(port) == _fields(ref)
+    extra = PORT_ONLY.get(port.__name__, [])
+    assert _fields(port) == _fields(ref) + extra
 
 
 def test_shapes_match_reference():

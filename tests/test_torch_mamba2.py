@@ -56,7 +56,7 @@ def _np_tree(tree):
 
 @functools.lru_cache(maxsize=None)
 def _model(arch, local_heads=False):
-    cfg = JC.get_reduced(arch)
+    cfg = convert.model_config(JC.get_reduced(arch))
     jp = JT.init_params(jax.random.PRNGKey(0), cfg, local_heads=local_heads)
     return cfg, jp, convert.lm_params_from_numpy(_np_tree(jp), cfg, "cpu")
 
@@ -276,7 +276,8 @@ def test_cache_from_numpy_keeps_the_ssm_state_f32():
     """A bf16 hybrid's reference cache through ``lm_cache_from_numpy``:
     ``ssm`` f32, ``conv`` and the shared rings bf16, the port's own cache
     alike."""
-    cfg = dataclasses.replace(JC.get_reduced("zamba2_1p2b"), dtype="bfloat16")
+    cfg = convert.model_config(dataclasses.replace(
+        JC.get_reduced("zamba2_1p2b"), dtype="bfloat16"))
     got = convert.lm_cache_from_numpy(_np_tree(JT.init_cache(cfg, 2, 16)), cfg, "cpu")
     own = T.init_cache(cfg, 2, 16, device="cpu")
     assert {k: v.dtype for k, v in got.items() if k != "pos"} == {

@@ -52,7 +52,7 @@ def _np_tree(tree):
 
 @functools.lru_cache(maxsize=None)
 def _model(arch):
-    cfg = JC.get_reduced(arch)
+    cfg = convert.model_config(JC.get_reduced(arch))
     jp = JT.init_params(jax.random.PRNGKey(0), cfg)
     return cfg, jp, convert.lm_params_from_numpy(_np_tree(jp), cfg, "cpu")
 
@@ -87,7 +87,7 @@ def test_capacity_equals_reference(arch):
 def _dispatch_case(case):
     """(cfg, flat [N, D], router [D, E]) as numpy for one dispatch case."""
     rng = np.random.default_rng({"no_drop": 3, "overflow": 4, "ties": 5}[case])
-    cfg = JC.get_reduced("moonshot_v1_16b_a3b")
+    cfg = convert.model_config(JC.get_reduced("moonshot_v1_16b_a3b"))
     if case == "ties":
         # 8 experts, top 3; columns 1 = 5 and 2 = 3 = 6. Small integers
         # times powers of two keep every logit exact in f32, so the tied
